@@ -1,0 +1,603 @@
+"""Scattered-window variant-query kernel: the match half.
+
+Counterpart of ``sbeacon_tpu/ops/scatter_kernel.py`` (``ScatterDeviceIndex``,
+``_tier_caps``, ``_static_seg_k``, ``_launch_tier``,
+``run_queries_scattered``) with the XLA program
+``_scatter_core`` / ``_scatter_batch`` / ``_scatter_many`` replaced by
+the hand-written CUDA kernel ``csrc/scatter_match.cu``.
+
+The index columns are bit-packed from 16 int32 rows down to 8 (pos,
+rec_end, ref_hash, alt_hash, packed lens, packed flags+repeat_k+record
+chaining, ac, an) and laid out tile-major, ``tiles[t] = packed[:, t*T :
+(t+1)*T]`` with shape ``[n_tiles, 8, T]``, on the device the caller
+names. A query whose capped window is ``cap`` rows wide gathers
+``C = cap//T + 1`` consecutive tiles from ``lo // T``; batches split
+into window-cap tiers so point queries never pay a wide bracket's
+gather. Each (tier, exact) split of a batch is ONE kernel launch over
+all its chunk-padded slots (the JAX package's ``lax.map`` over chunks
+is the grid axis here).
+
+``scatter_match`` is the kernel's wrapper: on a CUDA tensor it launches
+the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
+``scatter_core_reference``, an op-by-op mirror of ``_scatter_core``
+including both of its first-match forms. Every CUDA launch adds one to
+the ``scatter_match`` launch count (``scatter_match_launches``).
+
+Lossless bit-packing, by two guards: row alt_len clamps to 0xFFFF and
+ref_len to 0x1FFF in the packed matrix, ``pack_q8`` host-flags any query
+whose length fields could see the clamp, and any row that was clamped
+carries ROW_CLAMPED, which overflows every query whose window contains
+it. Either way the affected query takes the uncapped host path.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..index.columnar import FLAG, INT32_MAX, VariantIndexShard
+from ..telemetry import launch_count, note_device_stage, record_device_launch
+from . import _build
+from .kernel import (
+    MODE_ANY_BASE,
+    MODE_EXACT,
+    QueryResults,
+    VT_CNV,
+    VT_DEL,
+    VT_DUP,
+    VT_DUP_TANDEM,
+    VT_INS,
+    _PAD_FILLS,
+    encode_queries,
+)
+from .query_pack import (
+    PM_CNV,
+    PM_DUPT,
+    PM_INS,
+    Q_ALT_HASH,
+    Q_END_MAX,
+    Q_END_MIN,
+    Q_HI,
+    Q_LENS,
+    Q_LO,
+    Q_META,
+    Q_REF_HASH,
+    pack_q8,
+    rows_from_masks,
+    stage_symbolic_flags,
+    window_bounds,
+)
+
+# packed hot-matrix rows
+P_POS = 0
+P_REC_END = 1
+P_REF_HASH = 2
+P_ALT_HASH = 3
+P_LENS = 4  # alt_len(16, clamped) | ref_len(13, clamped) << 16
+P_FLAGS = 5  # FLAG/PM bits(0..18) | (repeat_k+1)(7) << 19 | SAME_PREV << 26
+P_AC = 6
+P_AN = 7
+N_PACKED = 8
+
+SAME_PREV = 1 << 26  # row belongs to the same record as the previous row
+# row had ref_len/alt_len clamped in the packed matrix: any query whose
+# candidate window contains one overflows to the exact host matcher
+ROW_CLAMPED = 1 << 27
+
+_ALT_LEN_CLAMP = 0xFFFF
+_REF_LEN_CLAMP = 0x1FFF
+
+# fixed device-batch sizes
+CHUNK = 2048
+CHUNK_SMALL = 64
+
+# longest record (in SAME_PREV-chained rows minus one) the twin's K-shift
+# first-match form handles; longer records take the segmented-scan form
+SEG_K_MAX = 8
+
+#: the CUDA kernel's block size; a tile must be a multiple of it
+THREADS = 128
+#: shared memory the kernel may take without an opt-in attribute
+_SMEM_LIMIT = 48 * 1024
+
+KERNEL = "scatter_match"
+
+
+def __getattr__(name: str):
+    """``scatter_match_launches``: CUDA launches of the scatter match
+    kernel since the last ``telemetry.reset_launch_counts()``."""
+    if name == "scatter_match_launches":
+        return launch_count(KERNEL)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+class ScatterDeviceIndex:
+    """Non-overlapped packed tiles of one shard, on ``device``.
+
+    ``tiles[t]`` covers global rows ``[t*T, (t+1)*T)``. ``MAX_C`` tail
+    padding tiles keep every gather in range. Storage is the packed
+    columns verbatim (32 B/row, about 640 MB at 2e7 rows).
+    """
+
+    MAX_C = 17  # supports caps up to 2048 lanes at T=128
+
+    def __init__(
+        self, shard: VariantIndexShard, device, tile: int = 128
+    ):
+        if tile % THREADS:
+            raise ValueError(f"tile must be a multiple of {THREADS} lanes")
+        self.tile = tile
+        self.device = torch.device(device)
+        n = shard.n_rows
+        c = shard.cols
+        n_tiles = n // tile + 1 + self.MAX_C
+        L = n_tiles * tile
+        packed = np.empty((N_PACKED, L), dtype=np.int32)
+
+        def fill(row, values, pad):
+            packed[row, :n] = values
+            packed[row, n:] = pad
+
+        fill(P_POS, c["pos"], _PAD_FILLS["pos"])
+        fill(P_REC_END, c["rec_end"], _PAD_FILLS["rec_end"])
+        fill(P_REF_HASH, c["ref_hash"], 0)
+        fill(P_ALT_HASH, c["alt_hash"], 0)
+        lens = np.minimum(
+            c["alt_len"].astype(np.int64), _ALT_LEN_CLAMP
+        ) | (
+            np.minimum(c["ref_len"].astype(np.int64), _REF_LEN_CLAMP) << 16
+        )
+        fill(P_LENS, lens.astype(np.int32), 0)
+        flags = stage_symbolic_flags(c["flags"], c["alt_prefix"])
+        k1 = np.clip(c["ref_repeat_k"].astype(np.int64) + 1, 0, 127)
+        flags |= k1 << 19
+        clamped = (c["ref_len"].astype(np.int64) > _REF_LEN_CLAMP) | (
+            c["alt_len"].astype(np.int64) > _ALT_LEN_CLAMP
+        )
+        flags |= np.where(clamped, np.int64(ROW_CLAMPED), 0)
+        rec = c["rec_id"]
+        same = np.zeros(n, dtype=np.int64)
+        if n > 1:
+            same[1:] = (rec[1:] == rec[:-1]).astype(np.int64)
+        flags |= same * SAME_PREV
+        fill(P_FLAGS, flags.astype(np.int32), 0)
+        fill(P_AC, c["ac"], 0)
+        fill(P_AN, c["an"], 0)
+
+        # longest SAME_PREV run = (max rows per record) - 1: the twin's
+        # K-shift first-match form applies when it is small
+        z = np.flatnonzero(
+            np.concatenate(([0], same.astype(np.int8), [0])) == 0
+        )
+        self.seg_k = int(np.diff(z).max()) - 1
+
+        # tile-major layout: tiles[t] = packed[:, t*T : (t+1)*T]
+        host = np.ascontiguousarray(
+            packed.reshape(N_PACKED, n_tiles, tile).transpose(1, 0, 2)
+        )
+        del packed
+        self.tiles = torch.from_numpy(host).to(self.device)  # [n_tiles, 8, T]
+        self.n_rows = n
+        self.n_tiles = n_tiles
+        self.shard = shard
+        self.pos_host = c["pos"]
+        self.offsets_host = shard.chrom_offsets.astype(np.int64)
+
+    def nbytes(self) -> int:
+        return self.tiles.numel() * 4
+
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wraparound (XLA's int32 sum)."""
+    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
+
+
+def _sum32(x: torch.Tensor) -> torch.Tensor:
+    """Row sums [B, N] -> [B, 1] int32, wrapping like an int32 reduce."""
+    return _wrap32(x.sum(dim=1, keepdim=True, dtype=torch.int64))
+
+
+def _shift_lanes(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Lane i of the result is lane i-k of ``x`` (zeros shifted in)."""
+    span = x.shape[1]
+    k = min(k, span)
+    zeros = torch.zeros((x.shape[0], k), dtype=x.dtype, device=x.device)
+    return torch.cat([zeros, x[:, : span - k]], dim=1)
+
+
+def scatter_core_reference(
+    tiles, tile_ids, qarr, *, T, CAP, C=None, exact_only=False, seg_k=None
+):
+    """Plain-PyTorch twin of the scatter match kernel: an op-by-op
+    mirror of ``sbeacon_tpu/ops/scatter_kernel.py::_scatter_core``.
+
+    ``tiles`` int32 [n_tiles, 8, T]; ``tile_ids`` int32 [B]; ``qarr``
+    int32 [B, 8] (``pack_q8`` encoding). Returns (agg int32 [B, 8],
+    masks int32 [B, C*T/16]). ``seg_k`` selects the K-shift first-match
+    form (records of at most seg_k+1 rows); None selects the segmented
+    cumsum/cummax form. Runs on whatever device its inputs lie on."""
+    i32 = torch.int32
+    dev = tiles.device
+    if C is None:
+        C = CAP // T + 1
+    span = C * T
+    n_tiles = tiles.shape[0]
+    # out-of-range tile ids clamp like an XLA gather
+    idx = (
+        tile_ids[:, None] + torch.arange(C, dtype=i32, device=dev)[None, :]
+    ).clamp(0, n_tiles - 1)
+    gat = tiles[idx.long()]  # [B, C, 8, T]
+    win = gat.permute(0, 2, 1, 3).reshape(-1, N_PACKED, span)
+    row = lambda r: win[:, r, :]  # [B, C*T]
+    q = lambda f: qarr[:, f : f + 1]  # [B, 1]
+
+    lo = q(Q_LO)
+    hi = q(Q_HI)
+    gidx = tile_ids[:, None] * T + torch.arange(span, dtype=i32, device=dev)[None, :]
+
+    meta = q(Q_META)
+    ref_wild = meta & 1
+    mode = (meta >> 1) & 3
+    vt = (meta >> 3) & 7
+    ref_len_q = (meta >> 6) & 0x1FFF
+    min_len_q = (meta >> 19) & 0x1FFF
+    lens_q = q(Q_LENS)
+    alt_len_q = lens_q & 0xFFFF
+    max_len_q = (lens_q >> 16) & 0xFFFF
+    max_len_q = max_len_q.masked_fill(max_len_q == 0xFFFF, int(INT32_MAX))
+
+    b2i = lambda cond: cond.to(i32)
+    valid = b2i(gidx >= lo) & b2i(gidx < torch.minimum(hi, lo + CAP))
+
+    rec_end = row(P_REC_END)
+    end_ok = b2i(q(Q_END_MIN) <= rec_end) & b2i(rec_end <= q(Q_END_MAX))
+
+    lens = row(P_LENS)
+    alt_len = lens & 0xFFFF
+    ref_len = (lens >> 16) & 0x1FFF
+
+    ref_ok = b2i(ref_wild != 0) | (
+        b2i(row(P_REF_HASH) == q(Q_REF_HASH)) & b2i(ref_len == ref_len_q)
+    )
+    len_ok = b2i(min_len_q <= alt_len) & b2i(alt_len <= max_len_q)
+
+    flags = row(P_FLAGS)
+    f = lambda bit: b2i((flags & bit) != 0)
+    exact_ok = b2i(row(P_ALT_HASH) == q(Q_ALT_HASH)) & b2i(
+        alt_len == alt_len_q
+    )
+    if exact_only:
+        alt_ok = exact_ok
+    else:
+        sym = f(FLAG.SYMBOLIC)
+        nsym = 1 - sym
+        k = ((flags >> 19) & 0x7F) - 1
+
+        del_ok = (sym & (f(FLAG.DEL_PREFIX) | f(FLAG.CN0))) | (
+            nsym & b2i(alt_len < ref_len)
+        )
+        ins_ok = (sym & f(PM_INS)) | (nsym & b2i(alt_len > ref_len))
+        dup_ok = (
+            sym
+            & (
+                f(FLAG.DUP_PREFIX)
+                | (f(FLAG.CN_PREFIX) & (1 - f(FLAG.CN0)) & (1 - f(FLAG.CN1)))
+            )
+        ) | (nsym & b2i(k >= 2))
+        dupt_ok = (sym & (f(PM_DUPT) | f(FLAG.CN2))) | (nsym & b2i(k == 2))
+        cnv_ok = (
+            sym
+            & (
+                f(PM_CNV)
+                | f(FLAG.CN_PREFIX)
+                | f(FLAG.DEL_PREFIX)
+                | f(FLAG.DUP_PREFIX)
+            )
+        ) | (nsym & (f(FLAG.DOT) | b2i(k >= 1)))
+        other_ok = torch.zeros_like(valid)
+        type_ok = torch.where(
+            vt == VT_DEL,
+            del_ok,
+            torch.where(
+                vt == VT_INS,
+                ins_ok,
+                torch.where(
+                    vt == VT_DUP,
+                    dup_ok,
+                    torch.where(
+                        vt == VT_DUP_TANDEM,
+                        dupt_ok,
+                        torch.where(vt == VT_CNV, cnv_ok, other_ok),
+                    ),
+                ),
+            ),
+        )
+        anyb_ok = f(FLAG.SINGLE_BASE)
+        alt_ok = torch.where(
+            mode == MODE_EXACT,
+            exact_ok,
+            torch.where(mode == MODE_ANY_BASE, anyb_ok, type_ok),
+        )
+
+    m_i = valid & end_ok & ref_ok & len_ok & alt_ok  # [B, C*T] 0/1
+
+    ac = row(P_AC)
+    call_count = _sum32(m_i * ac)
+    n_variants = _sum32(m_i & b2i(ac != 0))
+    n_matched = _sum32(m_i)
+
+    # AN once per record with >= 1 matched row (see the JAX module for
+    # the derivation of both forms)
+    if seg_k is not None:
+        same_prev = f(SAME_PREV)
+        same_before = torch.zeros_like(m_i)
+        chain = same_prev
+        for kk in range(1, seg_k + 1):
+            same_before = same_before | (chain & _shift_lanes(m_i, kk))
+            if kk < seg_k:
+                chain = chain & _shift_lanes(same_prev, kk)
+        first_match = m_i & (1 - same_before)
+    else:
+        seg_begin = (1 - f(SAME_PREV)) | b2i(gidx == lo)
+        cs = torch.cumsum(m_i, dim=1, dtype=i32)
+        before = cs - m_i
+        seg_base = torch.cummax(
+            torch.where(seg_begin != 0, before, -1), dim=1
+        ).values
+        first_match = m_i & b2i(before == seg_base)
+    all_alleles = _sum32(first_match * row(P_AN))
+
+    overflow = b2i((hi - lo) > CAP) | b2i(
+        _sum32(valid & f(ROW_CLAMPED)) > 0
+    )
+    zero = torch.zeros_like(overflow)
+    agg = torch.cat(
+        [
+            b2i(call_count > 0),
+            call_count,
+            n_variants,
+            all_alleles,
+            n_matched,
+            overflow,
+            zero,
+            zero,
+        ],
+        dim=1,
+    )
+    # bit-pack the match mask: [B, C*T] -> [B, C*T/16] words, bit l of
+    # word w = window lane w*16 + l
+    nw = span // 16
+    weights = (1 << torch.arange(16, dtype=i32, device=dev))[None, None, :]
+    masks = (m_i.reshape(-1, nw, 16) * weights).sum(dim=2, dtype=i32)
+    return agg, masks
+
+
+def scatter_match(
+    tiles, tile_ids, qarr, *, T, CAP, C=None, exact_only=False, seg_k=None
+):
+    """The scatter match kernel: (agg, masks, seq) for one tier.
+
+    CUDA tensors launch ``csrc/scatter_match.cu`` on the current stream
+    (asynchronously; the outputs are ready when the stream reaches
+    them) and record the launch, ``seq`` being its launch record. CPU
+    tensors run ``scatter_core_reference`` and ``seq`` is None. Any
+    other device, or inputs the kernel does not take, raise."""
+    if C is None:
+        C = CAP // T + 1
+    if tiles.device.type == "cpu":
+        agg, masks = scatter_core_reference(
+            tiles, tile_ids, qarr, T=T, CAP=CAP, C=C,
+            exact_only=exact_only, seg_k=seg_k,
+        )
+        return agg, masks, None
+    if tiles.device.type != "cuda":
+        raise ValueError(f"scatter_match runs on cuda or cpu, not {tiles.device}")
+    dev = tiles.device
+    span = C * T
+    b = tile_ids.shape[0]
+    for name, x, shape in (
+        ("tiles", tiles, (tiles.shape[0], N_PACKED, T)),
+        ("tile_ids", tile_ids, (b,)),
+        ("qarr", qarr, (b, 8)),
+    ):
+        if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous int32 tensor on {dev}"
+            )
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+    if T % THREADS or C < 1 or 2 * span > _SMEM_LIMIT:
+        raise ValueError(
+            f"unsupported tier T={T} C={C}: T must be a multiple of "
+            f"{THREADS} and 2*C*T at most {_SMEM_LIMIT} bytes"
+        )
+    agg = torch.empty((b, 8), dtype=torch.int32, device=dev)
+    masks = torch.empty((b, span // 16), dtype=torch.int32, device=dev)
+    lib = _build.load(KERNEL)
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        rc = lib.scatter_match_launch(
+            tiles.data_ptr(),
+            tile_ids.data_ptr(),
+            qarr.data_ptr(),
+            agg.data_ptr(),
+            masks.data_ptr(),
+            b,
+            tiles.shape[0],
+            T,
+            C,
+            CAP,
+            int(bool(exact_only)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"scatter_match launch failed: CUDA error {rc}")
+    seq = record_device_launch(
+        KERNEL,
+        slots=b,
+        C=C,
+        cap=CAP,
+        exact_only=bool(exact_only),
+        launch_ms=(time.perf_counter() - t0) * 1e3,
+    )
+    return agg, masks, seq
+
+
+def _tier_caps(sindex: ScatterDeviceIndex, window_cap: int) -> list[int]:
+    """Window-cap tiers: T, 4T, ... up to the engine's window cap
+    (bounded by the MAX_C gather width). Queries run in the smallest
+    tier that fits their candidate window."""
+    T = sindex.tile
+    # the top tier rounds UP to a tile multiple: the gather span is
+    # C*T = cap + T lanes, and a non-multiple cap would leave a window
+    # starting late in its first tile short of gathered lanes. Queries
+    # wider than the caller's window_cap still overflow.
+    top = min(-(-window_cap // T) * T, (sindex.MAX_C - 1) * T)
+    caps = []
+    c = T
+    while c < top:
+        caps.append(c)
+        c *= 4
+    caps.append(top)
+    return caps
+
+
+def _static_seg_k(sindex) -> int | None:
+    """The K-shift static for this index, or None (scan form) when the
+    longest record exceeds the cheap-shift regime."""
+    k = getattr(sindex, "seg_k", None)
+    return k if k is not None and k <= SEG_K_MAX else None
+
+
+def _launch_tier(sindex, tile_ids, q8, *, cap, C=None, exact_only=False):
+    """One launch for one tier: the queries pad to a multiple of the
+    chunk size (CHUNK_SMALL up to 64 queries, else CHUNK) and every
+    chunk rides the same launch. Returns (agg, masks, seq) on the
+    index's device, shaped [padded, ...]. ``C=1`` is the single-tile
+    fast tier."""
+    b = len(tile_ids)
+    nslots = CHUNK_SMALL if b <= CHUNK_SMALL else CHUNK
+    pad = (-b) % nslots
+    if pad:
+        tile_ids = np.concatenate([tile_ids, np.zeros(pad, np.int32)])
+        q8 = np.concatenate([q8, np.zeros((pad, 8), np.int32)])
+    dev = sindex.device
+    agg, masks, seq = scatter_match(
+        sindex.tiles,
+        torch.from_numpy(np.ascontiguousarray(tile_ids)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(q8)).to(dev),
+        T=sindex.tile,
+        CAP=cap,
+        C=C,
+        exact_only=exact_only,
+        seg_k=_static_seg_k(sindex),
+    )
+    note_device_stage(seq, specs_real=b, nslots=nslots)
+    return agg, masks, seq
+
+
+def run_queries_scattered(
+    sindex: ScatterDeviceIndex,
+    queries,
+    *,
+    window_cap: int | None = None,
+    record_cap: int = 1024,
+    with_rows: bool = True,
+) -> QueryResults:
+    """Execute a query batch via the scatter match kernel.
+
+    Aggregates + matched row ids; ``overflow`` marks queries needing
+    the uncapped host path. Queries split across window-cap tiers
+    (``_tier_caps``) and exact vs non-exact alt modes; every split is
+    launched before anything is fetched, and windows wider than the top
+    tier overflow to the host.
+    """
+    enc = encode_queries(queries) if isinstance(queries, list) else queries
+    T = sindex.tile
+    window_cap = window_cap or T
+    b = len(enc["chrom"])
+    if b == 0:
+        z = np.zeros(0, np.int32)
+        return QueryResults(
+            exists=np.zeros(0, bool),
+            call_count=z,
+            n_variants=z,
+            all_alleles_count=z,
+            n_matched=z,
+            overflow=np.zeros(0, bool),
+            rows=np.zeros((0, record_cap), np.int32),
+        )
+    lo, hi = window_bounds(sindex, enc)
+    q8, needs_host = pack_q8(enc, lo, hi)
+    tile_ids_all = (lo // T).astype(np.int32)
+    caps = _tier_caps(sindex, window_cap)
+    width = hi - lo
+    # smallest tier that fits; oversize windows run (and overflow) in
+    # the top tier so their aggregate slots still exist
+    tier_of = np.searchsorted(np.asarray(caps), width, side="left")
+    tier_of = np.minimum(tier_of, len(caps) - 1)
+    # single-tile fast tier (tier -1): a window wholly inside one tile
+    # needs a C=1 gather, half the bytes of the base C=2 tier. Empty
+    # windows (hi <= lo) qualify trivially.
+    single = (np.maximum(hi, lo + 1) - 1) // T <= tile_ids_all
+    tier_of = np.where(single & (tier_of == 0), -1, tier_of)
+
+    agg = np.zeros((b, 8), np.int32)
+    rows = (
+        np.full((b, record_cap), -1, np.int32)
+        if with_rows
+        else np.zeros((b, 0), np.int32)
+    )
+    # each tier further splits exact-mode queries from the rest so the
+    # dominant point-lookup shape runs the exact-only specialisation
+    is_exact = enc["alt_mode"] == MODE_EXACT
+    launched = []
+    for ti, cap in [(-1, T)] + list(enumerate(caps)):
+        in_tier = tier_of == ti
+        for exact in (True, False):
+            sel = np.flatnonzero(in_tier & (is_exact == exact))
+            if not len(sel):
+                continue
+            a_dev, m_dev, seq = _launch_tier(
+                sindex,
+                tile_ids_all[sel],
+                q8[sel],
+                cap=cap,
+                C=1 if ti == -1 else None,
+                exact_only=exact,
+            )
+            launched.append((sel, a_dev, m_dev, seq))
+    if launched:
+        t_fetch = time.perf_counter()
+        fetched = [
+            (a.cpu().numpy(), m.cpu().numpy() if with_rows else None)
+            for _s, a, m, _q in launched
+        ]
+        fetch_ms = (time.perf_counter() - t_fetch) * 1e3
+        for (sel, _ad, _md, seq), (a, masks) in zip(launched, fetched):
+            note_device_stage(seq, fetch_ms=fetch_ms)
+            agg[sel] = a[: len(sel)]
+            if with_rows:
+                base_rows = tile_ids_all[sel].astype(np.int64) * T
+                rows[sel] = rows_from_masks(
+                    masks[: len(sel)], base_rows, record_cap
+                )
+
+    # overflow honours the CALLER's window_cap, not the tile-rounded
+    # top tier
+    overflow = (
+        (agg[:, 5] > 0)
+        | (width > min(window_cap, caps[-1]))
+        | needs_host
+    )
+    return QueryResults(
+        exists=agg[:, 0] > 0,
+        call_count=agg[:, 1],
+        n_variants=agg[:, 2],
+        all_alleles_count=agg[:, 3],
+        n_matched=agg[:, 4],
+        overflow=overflow,
+        rows=rows,
+    )

@@ -1,0 +1,289 @@
+"""Synthetic corpora for tests and the chip smoke run.
+
+Counterpart of ``sbeacon_tpu/testing.py``, trimmed to ``random_records``
+(structured-random VCF records covering every branch of the matcher:
+SNPs, indels, multi-alt records, symbolic alleles, records with and
+without INFO AC/AN, genotype columns) and ``synthetic_shard`` (a
+vectorised, 1000-Genomes-shaped ``VariantIndexShard`` at any scale).
+"""
+
+from __future__ import annotations
+
+import random
+
+from .genomics.vcf import VcfRecord
+
+BASES = "ACGT"
+
+SYMBOLIC_ALTS = [
+    "<DEL>",
+    "<INS>",
+    "<DUP>",
+    "<DUP:TANDEM>",
+    "<CN0>",
+    "<CN1>",
+    "<CN2>",
+    "<CN3>",
+    "<INV>",
+]
+
+
+def _random_seq(rng: random.Random, lo: int, hi: int) -> str:
+    return "".join(rng.choice(BASES) for _ in range(rng.randint(lo, hi)))
+
+
+def random_records(
+    rng: random.Random,
+    chrom: str = "1",
+    n: int = 500,
+    start: int = 1000,
+    spacing: int = 30,
+    n_samples: int = 8,
+    p_multiallelic: float = 0.15,
+    p_symbolic: float = 0.08,
+    p_no_acan: float = 0.2,
+    p_indel: float = 0.2,
+) -> list[VcfRecord]:
+    """Generate sorted synthetic records exercising all matcher branches."""
+    records = []
+    pos = start
+    for _ in range(n):
+        pos += rng.randint(1, spacing)
+        ref = _random_seq(rng, 1, 1) if rng.random() > p_indel else _random_seq(rng, 1, 6)
+        n_alts = 2 if rng.random() < p_multiallelic else 1
+        alts = []
+        for _ in range(n_alts):
+            r = rng.random()
+            if r < p_symbolic:
+                alts.append(rng.choice(SYMBOLIC_ALTS))
+            elif r < p_symbolic + 0.1 and len(ref) <= 3:
+                # duplication-shaped alt: ref repeated k times
+                alts.append(ref * rng.randint(2, 3))
+            else:
+                alt = _random_seq(rng, 1, 6)
+                while alt == ref:
+                    alt = _random_seq(rng, 1, 6)
+                alts.append(alt)
+        # genotypes: diploid calls over alleles 0..n_alts
+        genotypes = []
+        for _ in range(n_samples):
+            a = rng.randint(0, n_alts)
+            b = rng.randint(0, n_alts)
+            sep = rng.choice("|/")
+            genotypes.append(f"{a}{sep}{b}")
+        vt = rng.choice(["SNP", "INDEL", "SV", "N/A"])
+        rec = VcfRecord(
+            chrom=chrom,
+            pos=pos,
+            ref=ref,
+            alts=alts,
+            ac=None,
+            an=None,
+            vt=vt,
+            genotypes=genotypes,
+        )
+        if rng.random() >= p_no_acan:
+            # derive INFO AC/AN through the one shared implementation
+            rec.ac = rec.effective_ac()
+            rec.an = rec.effective_an()
+        records.append(rec)
+    return records
+
+
+def synthetic_shard(
+    n_rows: int,
+    *,
+    seed: int = 0,
+    dataset_id: str = "synth",
+    chroms: list[str] | None = None,
+    p_multiallelic: float = 0.08,
+    p_indel: float = 0.12,
+    p_symbolic: float = 0.01,
+):
+    """Directly-constructed ``VariantIndexShard`` at arbitrary scale.
+
+    Pure vectorised numpy — no VCF text, no per-record Python — so a
+    2e7-row 1000-Genomes-shaped index builds in seconds. This is the
+    query-side scale corpus for benchmarks (the ingest pipeline is
+    proven separately through real VCF text); the column *contents* are
+    semantically valid (sorted positions per chromosome, contiguous
+    multi-alt records sharing pos/AN, correct flags/hashes/prefixes for
+    every allele string, AC drawn from a 1/x allele-frequency spectrum,
+    blobs materialisable), so host-matcher parity and response
+    materialisation work exactly as on ingested data.
+
+    Rows spread uniformly across each chromosome's real GRCh38 length.
+    All rows carry AC_INFO/AN_INFO (INFO-sourced counts, the common
+    case for cohort VCFs) with AN 5008 (the 2504-sample cohort). The JAX
+    package's generator also makes clustered positions and genotype
+    planes; neither is ported yet (planes arrive with the
+    selected-samples slice). At its defaults this function gives the
+    JAX generator's shard.
+    """
+    import numpy as np
+
+    from .index.columnar import (
+        FLAG,
+        N_CHROM_CODES,
+        VariantIndexShard,
+        _alt_flags,
+        _ref_repeat_k,
+        fnv1a32,
+        pack_prefix16,
+    )
+    from .utils.chrom import CHROMOSOME_LENGTHS, chromosome_code
+
+    rng = np.random.default_rng(seed)
+    chroms = chroms or [str(i) for i in range(1, 23)]
+    lengths = np.array([CHROMOSOME_LENGTHS[c] for c in chroms], np.float64)
+    weights = lengths / lengths.sum()
+
+    # records -> rows: multi-allelic records carry 2-3 alts. Generate
+    # one candidate record per requested row (always enough, each
+    # record yields >= 1 row), cut at the record whose rows reach
+    # n_rows.
+    n_rec_est = n_rows + 8
+    n_alts = np.where(
+        rng.random(n_rec_est) < p_multiallelic,
+        rng.integers(2, 4, n_rec_est),
+        1,
+    ).astype(np.int64)
+    total = np.cumsum(n_alts)
+    n_rec = min(int(np.searchsorted(total, n_rows, side="left")) + 1, n_rec_est)
+    n_alts = n_alts[:n_rec]
+    n = int(n_alts.sum())
+
+    # per-record chromosome + position (sorted within chrom)
+    rec_chrom = rng.choice(len(chroms), size=n_rec, p=weights)
+    u = rng.random(n_rec)
+    rec_pos = (u * (lengths[rec_chrom] - 1)).astype(np.int64) + 1
+
+    # sort records by (chromosome CODE, pos) — shard layout is ordered
+    # by code, which need not match the chroms list's order
+    codes = np.array([chromosome_code(c) for c in chroms], np.int32)
+    order = np.lexsort((rec_pos, codes[rec_chrom]))
+    rec_chrom = rec_chrom[order]
+    rec_pos = rec_pos[order]
+    n_alts = n_alts[order]
+    row_rec = np.repeat(np.arange(n_rec, dtype=np.int64), n_alts)
+
+    # allele vocabulary: single bases, short indel strings, symbolic
+    vocab = ["A", "C", "G", "T"]
+    indel_rng = random.Random(seed + 1)
+    for _ in range(60):
+        vocab.append(_random_seq(indel_rng, 2, 24))
+    vocab += ["<DEL>", "<DUP>", "<CN0>", "<CN2>", "<INS>", "."]
+    V = len(vocab)
+    v_bytes = [v.encode() for v in vocab]
+    v_len = np.array([len(v) for v in vocab], np.int64)
+    v_hash = np.array([fnv1a32(v.upper().encode()) for v in vocab], np.int32)
+    v_flags = np.array([_alt_flags(v) for v in vocab], np.int32)
+    v_prefix = np.stack([pack_prefix16(b) for b in v_bytes]).astype(np.uint32)
+
+    kind = rng.random(n)
+    is_sym = kind < p_symbolic
+    is_indel = (~is_sym) & (kind < p_symbolic + p_indel)
+    alt_id = np.where(
+        is_sym,
+        rng.integers(64, 64 + 6, n),
+        np.where(is_indel, rng.integers(4, 64, n), rng.integers(0, 4, n)),
+    )
+    ref_id = np.repeat(
+        np.where(
+            rng.random(n_rec) < p_indel / 2,
+            rng.integers(4, 64, n_rec),
+            rng.integers(0, 4, n_rec),
+        ),
+        n_alts,
+    )
+
+    pos_row = rec_pos[row_rec].astype(np.int32)
+    ref_len = v_len[ref_id].astype(np.int32)
+    alt_len = v_len[alt_id].astype(np.int32)
+
+    # AC from a heavy-tailed spectrum; AN constant per record
+    an_val = 5008
+    ac = np.minimum(
+        (1.0 / np.maximum(rng.random(n), 1e-6)).astype(np.int64), an_val
+    ).astype(np.int32)
+    ac[rng.random(n) < 0.02] = 0  # monomorphic-in-subset rows
+
+    # repeat-k: vocab pair lookup (cached per unique pair id)
+    pair = ref_id * V + alt_id
+    uniq_pair, inv = np.unique(pair, return_inverse=True)
+    k_u = np.array(
+        [
+            _ref_repeat_k(vocab[int(p) // V], vocab[int(p) % V])
+            for p in uniq_pair
+        ],
+        np.int32,
+    )
+    flags = (
+        v_flags[alt_id]
+        | np.int32(FLAG.AC_INFO)
+        | np.int32(FLAG.AN_INFO)
+    )
+
+    cols = {
+        "pos": pos_row,
+        "rec_end": (pos_row.astype(np.int64) + ref_len - 1).astype(np.int32),
+        "ref_len": ref_len,
+        "alt_len": alt_len,
+        "ref_hash": v_hash[ref_id],
+        "alt_hash": v_hash[alt_id],
+        "ref_repeat_k": k_u[inv],
+        "flags": flags,
+        "ac": ac,
+        "an": np.full(n, an_val, np.int32),
+        "rec_id": row_rec.astype(np.int32),
+        "alt_prefix": v_prefix[alt_id],
+    }
+
+    row_code = codes[rec_chrom[row_rec]]
+    chrom_offsets = np.zeros(N_CHROM_CODES + 1, np.int32)
+    for c in range(N_CHROM_CODES + 1):
+        chrom_offsets[c] = np.searchsorted(row_code, c, side="left")
+
+    # blobs: fixed-width vocab matrix -> masked flatten (vectorised)
+    maxw = int(v_len.max())
+    v_mat = np.zeros((V, maxw), np.uint8)
+    for i, b in enumerate(v_bytes):
+        v_mat[i, : len(b)] = np.frombuffer(b, np.uint8)
+    lane = np.arange(maxw)
+
+    def blob_of(ids, lens):
+        mat = v_mat[ids]
+        mask = lane[None, :] < lens[:, None]
+        off = np.zeros(n + 1, np.uint32)
+        np.cumsum(lens, out=off[1:] if n else None)
+        return mat[mask], off
+
+    ref_blob, ref_off = blob_of(ref_id, v_len[ref_id])
+    alt_blob, alt_off = blob_of(alt_id, v_len[alt_id])
+
+    meta = {
+        "dataset_id": dataset_id,
+        "vcf_location": f"synthetic://{dataset_id}",
+        "sample_names": [],
+        "vt_vocab": ["N/A"],
+        "n_rows": n,
+        "n_records": n_rec,
+        "dropped_records": 0,
+        "variant_count": n,
+        "call_count": int(an_val) * n_rec,
+        "sample_count": 0,
+        "chrom_native": {c: c for c in chroms},
+        "format_version": 1,
+        "synthetic": True,
+        "position_model": "uniform",
+    }
+    return VariantIndexShard(
+        meta=meta,
+        cols=cols,
+        chrom_offsets=chrom_offsets,
+        ref_blob=ref_blob.astype(np.uint8),
+        ref_off=ref_off,
+        alt_blob=alt_blob.astype(np.uint8),
+        alt_off=alt_off,
+        vt_codes=np.zeros(n, np.int16),
+    )

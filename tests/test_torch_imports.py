@@ -1,0 +1,123 @@
+"""Boundaries of the PyTorch port.
+
+The port imports neither JAX nor anything of the JAX package (checked
+in a fresh interpreter, since this test process has JAX loaded), its
+entry points run on the GPU unless the caller passes ``device="cpu"``,
+unported engine options are refused, and the kernel wrapper never
+catches around a launch.
+"""
+
+import ast
+import inspect
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+from sbeacon_tpu_torch import ops as t_ops
+from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
+from sbeacon_tpu_torch.engine import VariantEngine
+from sbeacon_tpu_torch.ops import scatter_kernel as tsk
+from sbeacon_tpu_torch.testing import synthetic_shard
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_no_jax_and_no_reference_package():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+        import sbeacon_tpu_torch
+        names = [m.name for m in pkgutil.walk_packages(
+            sbeacon_tpu_torch.__path__, "sbeacon_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(
+            k for k in sys.modules
+            if k == "jax" or k.startswith("jax.") or k == "jaxlib"
+            or k.startswith("jaxlib.")
+            or k == "sbeacon_tpu" or k.startswith("sbeacon_tpu.")
+        )
+        print(len(names), leaked)
+        """
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code],
+        cwd=REPO,
+        capture_output=True,
+        text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    n, leaked = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 15  # every module of the slice was imported
+    assert leaked == "[]"
+
+
+def test_port_sources_name_no_reference_import():
+    """No module of the port imports ``sbeacon_tpu`` or ``jax``, even
+    lazily inside a function."""
+    for path in (REPO / "sbeacon_tpu_torch").rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                roots = [a.name.split(".")[0] for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                roots = [(node.module or "").split(".")[0]]
+            else:
+                continue
+            assert not {"jax", "jaxlib", "sbeacon_tpu"} & set(roots), (
+                path,
+                node.lineno,
+            )
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
+    shard = synthetic_shard(500, seed=1, chroms=["1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VariantEngine()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        t_ops.make_device_index(shard)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        VariantEngine(device="cuda")
+    eng = VariantEngine(device="cpu")
+    try:
+        eng.add_index(shard)
+        assert eng.datasets() == ["synth"]
+    finally:
+        eng.close()
+    assert t_ops.make_device_index(shard, "cpu").tiles.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "option", ["use_mesh", "fused_dispatch", "device_planes", "response_cache"]
+)
+def test_unported_options_are_refused(option):
+    cfg = BeaconConfig(engine=EngineConfig(**{option: True}))
+    with pytest.raises(NotImplementedError, match=option):
+        VariantEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "fn",
+    [tsk.scatter_match, tsk._launch_tier, tsk.run_queries_scattered,
+     t_ops.run_queries_auto],
+)
+def test_kernel_path_never_catches(fn):
+    """The kernel path has no try/except: a CUDA tensor launches the
+    kernel or raises, it never falls back to the twin or the host."""
+    tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+    assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)]
+
+
+def test_run_queries_auto_refuses_foreign_index():
+    with pytest.raises(TypeError):
+        t_ops.run_queries_auto(object(), [])
