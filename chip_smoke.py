@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (sbeacon_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows 20000000] [--requests 384] [--threads 64]
-                          [--seed 0] [--switch-interval-ms MS]
+                          [--seed 0]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
@@ -18,7 +18,8 @@ non-zero, without the final line):
    run_variant_search -> Envelopes, each response checked against the
    host matcher; kernel launch counts are zeroed just before and read
    just after;
-5. timing: each kernel tier with CUDA events, beside its bound and its
+5. timing: each kernel tier with CUDA events, beside its bound (the
+   least bytes and operations the launch's own inputs need) and its
    twin's time.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints
@@ -40,15 +41,21 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM3 bytes/s,
-# and the float32 rate outside the tensor cores, used for the 32-bit
-# integer work of the match kernel
+# H100 SXM peaks at the 700 W limit: HBM3 bytes/s (NVIDIA data sheet),
+# and 32-bit integer operations/s outside the tensor cores (132 SMs x 64
+# int32 lanes per SM (Hopper whitepaper) x the 1.98 GHz boost clock)
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12
-# 32-bit operations per window lane of the match kernel: 8 loads, about
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# 32-bit operations per window lane of the match kernel: 6 loads, about
 # 20 compares/ands for the predicates and the type chain, the sums and
 # the mask packing
 MATCH_OPS_PER_LANE = 40
+# bytes of one memory sector, the least the device reads: 8 lanes of
+# one packed row of a tile
+SECTOR_BYTES = 32
+# packed rows every window lane's predicates read (rec_end, ref_hash,
+# alt_hash, lens, flags, ac); AN is read at first-matched lanes only
+ROWS_PER_LANE = 6
 
 NSLOTS = 2048  # scatter_kernel.CHUNK: the slots of a full batch
 # spin-kernel hold while timed launches are enqueued (about 100 ms at
@@ -382,13 +389,55 @@ def device_ms(fn, items, reps):
     return start.elapsed_time(stop) / (reps * len(items))
 
 
+def needed_bytes(index, ids, q8, masks, C, cap):
+    """(bytes, window lanes) one launch needs at the least: the sectors
+    of the six packed rows the predicates read, over the distinct window
+    lanes of all its slots; the AN sector of each record's first matched
+    lane (the kernel's rule, taken from its masks); the slot inputs read
+    once and the outputs written once. Lanes outside a slot's window
+    need no input."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.ops.query_pack import Q_HI, Q_LO
+
+    T = index.tile
+    span = C * T
+    b = ids.shape[0]
+    dev = ids.device
+    gidx = ids[:, None].long() * T + torch.arange(span, device=dev)[None, :]
+    lo = q8[:, Q_LO : Q_LO + 1].long()
+    hi = q8[:, Q_HI : Q_HI + 1].long()
+    win = (gidx >= lo) & (gidx < torch.minimum(hi, lo + cap))
+    # a sector holds 8 lanes of one row: lane g of every row lies in
+    # sector group g // 8
+    row_groups = torch.unique(gidx[win] // 8).numel()
+
+    bit = torch.arange(16, device=dev, dtype=torch.int32)
+    m = ((masks[:, :, None] >> bit) & 1).reshape(b, span).bool()
+    tile = (ids[:, None] + torch.arange(C, device=dev, dtype=ids.dtype)).clamp(
+        0, index.n_tiles - 1
+    )
+    flags = index.tiles[tile.long(), sk.P_FLAGS, :].reshape(b, span)
+    seg_begin = ((flags & sk.SAME_PREV) == 0) | (gidx == lo)
+    mi = m.long()
+    before = torch.cumsum(mi, dim=1) - mi
+    base = torch.cummax(
+        torch.where(seg_begin, before, torch.full_like(before, -1)), dim=1
+    ).values
+    first = m & (before == base)
+    an_groups = torch.unique(gidx[first] // 8).numel()
+
+    io = b * (4 + 32) + b * (32 + span // 16 * 4)
+    nbytes = (row_groups * ROWS_PER_LANE + an_groups) * SECTOR_BYTES + io
+    return nbytes, int(win.sum())
+
+
 def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
     """(kernel ms, twin ms, bound ms, bound_by, bytes) per launch of one
     tier at NSLOTS slots. The launches cycle over ``n_sets`` distinct
     random query sets so the gathered tiles (>= 8 MB a set) do not stay
     in the 50 MB L2, as for random serving traffic."""
-    import torch
-
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
 
     T = index.tile
@@ -413,17 +462,16 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
         sets[:4], reps=1,
     )
 
-    # bytes the function must move: each distinct tile gathered once
-    # (4 KB at T=128), the slot inputs read once, the outputs written once
-    span = C * T
-    tile_bytes = []
-    for ids, _q in sets:
-        tiles = (ids[:, None] + torch.arange(C, device=device)[None, :]).unique()
-        tile_bytes.append(int(tiles.numel()) * 8 * T * 4)
-    io_bytes = NSLOTS * (4 + 32 + 32 + span // 16 * 4)
-    nbytes = float(np.mean(tile_bytes)) + io_bytes
+    need = []
+    for ids, q8 in sets:
+        _agg, masks, _seq = sk.scatter_match(
+            index.tiles, ids, q8, T=T, CAP=cap, C=C, exact_only=exact
+        )
+        need.append(needed_bytes(index, ids, q8, masks, C, cap))
+    nbytes = float(np.mean([n for n, _l in need]))
+    lanes = float(np.mean([l for _n, l in need]))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = NSLOTS * span * MATCH_OPS_PER_LANE / SCALAR_OPS_PER_S * 1e3
+    ops_ms = lanes * MATCH_OPS_PER_LANE / INT32_OPS_PER_S * 1e3
     bound_ms = max(bytes_ms, ops_ms)
     return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations", nbytes
 
@@ -434,12 +482,6 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--threads", type=int, default=64)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument(
-        "--switch-interval-ms", type=float, default=None,
-        help="interpreter thread switch interval for the run (default: "
-        "Python's own, 5 ms); a diagnostic of the GIL hand-offs on the "
-        "host path",
-    )
     args = ap.parse_args(argv)
 
     import torch
@@ -466,8 +508,6 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.testing import synthetic_shard
 
     rng = random.Random(args.seed)
-    if args.switch_interval_ms is not None:
-        sys.setswitchinterval(args.switch_interval_ms / 1e3)
 
     # 1. environment
     smi = nvidia_smi_line()
@@ -559,7 +599,6 @@ def run(args, device) -> int:
               "launches below the request count (requests coalesced)")
         check(fallbacks > 0, "wide requests took the host path")
         emit("main_path", requests=len(bodies), threads=args.threads,
-             switch_interval_ms=sys.getswitchinterval() * 1e3,
              hits=n_hit, mismatches=mismatches,
              scatter_match_launches=launches,
              launches_per_request=launches / len(bodies),

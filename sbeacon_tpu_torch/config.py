@@ -32,7 +32,6 @@ class EngineConfig:
     record_cap: max matched rows returned per query (host fallback past it).
     microbatch*: the serving micro-batcher (serving.MicroBatcher); with
       wait 0 batches form from requests queuing behind a launch.
-    fetch_pipeline_depth: launched-but-unfetched batches per accumulator.
     timing_window: entries kept per timing ring.
     """
 
@@ -41,7 +40,6 @@ class EngineConfig:
     microbatch: bool = True
     microbatch_max: int = 512
     microbatch_wait_ms: float = 0.0
-    fetch_pipeline_depth: int = 2
     timing_window: int = 65536
     # not ported yet: VariantEngine refuses each of these when on
     use_mesh: bool = False

@@ -426,7 +426,6 @@ class VariantEngine:
                 max_batch=eng.microbatch_max,
                 max_wait_ms=eng.microbatch_wait_ms,
                 default_timeout_s=self.config.resilience.batch_timeout_s,
-                pipeline_depth=eng.fetch_pipeline_depth,
                 timing_window=eng.timing_window,
             )
         else:

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from .kernel import QueryResults, QuerySpec, ReadyQueryResults, encode_queries
+from .kernel import QueryResults, QuerySpec, encode_queries
 from .scatter_kernel import ScatterDeviceIndex, run_queries_scattered
 
 
@@ -37,26 +37,21 @@ def run_queries_auto(
     *,
     window_cap: int = 2048,
     record_cap: int = 1024,
-    async_fetch: bool = False,
-):
-    """Dispatch a query batch to the index's kernel — one call site for
-    the engine and the micro-batcher. ``async_fetch=True`` returns an
-    object with ``.fetch() -> QueryResults`` (the scatter path fetches
-    before returning, behind the same contract)."""
+) -> QueryResults:
+    """Run a query batch on the index's kernel and read the results
+    back — one call site for the engine and the micro-batcher."""
     if not isinstance(index, ScatterDeviceIndex):
         raise TypeError(
             f"no kernel serves {type(index).__name__} in this package yet"
         )
-    res = run_queries_scattered(
+    return run_queries_scattered(
         index, queries, window_cap=window_cap, record_cap=record_cap
     )
-    return ReadyQueryResults(res) if async_fetch else res
 
 
 __all__ = [
     "QueryResults",
     "QuerySpec",
-    "ReadyQueryResults",
     "ScatterDeviceIndex",
     "encode_queries",
     "make_device_index",

@@ -2,10 +2,9 @@
 
 Counterpart of the numpy parts of ``sbeacon_tpu/ops/kernel.py``:
 ``QuerySpec``, ``encode_queries``, the ``MODE_*`` / ``VT_*`` codes,
-``_PAD_FILLS``, ``QueryResults`` and ``ReadyQueryResults``. The XLA
-bisection kernel of that module (``_bisect`` / ``_query_one``, which
-serves fused multi-dataset stacks and the L0 delta tail) is not ported
-yet.
+``_PAD_FILLS`` and ``QueryResults``. The XLA bisection kernel of that
+module (``_bisect`` / ``_query_one``, which serves fused multi-dataset
+stacks and the L0 delta tail) is not ported yet.
 """
 
 from __future__ import annotations
@@ -136,15 +135,3 @@ class QueryResults:
     pc_tok: np.ndarray | None = None
     or_words: np.ndarray | None = None
 
-
-class ReadyQueryResults:
-    """Already-fetched results behind the ``.fetch()`` contract the
-    micro-batcher's launch/fetch split expects."""
-
-    __slots__ = ("_res",)
-
-    def __init__(self, res: QueryResults):
-        self._res = res
-
-    def fetch(self) -> QueryResults:
-        return self._res

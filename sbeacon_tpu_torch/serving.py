@@ -2,7 +2,9 @@
 
 Counterpart of ``sbeacon_tpu/serving.py`` (``MicroBatcher`` with its
 ``_Accumulator`` / ``_LaunchPool``, ``submit`` / ``submit_many``, the
-launch stage ``_execute`` and the fetch stage ``_fetch_batch``). Plan
+launch stage ``_execute``). The JAX package's separate fetch stage
+(``_fetch_batch``) has no counterpart: the scatter path reads its
+results back inside the launch, so ``_execute`` hands them out. Plan
 stages, fault points, request deadlines, priority lanes and cost
 attribution are not ported yet; a submit's wait is bounded by the
 batcher's ``default_timeout_s`` alone.
@@ -49,13 +51,10 @@ class _Pending:
 class _Accumulator:
     """Per-(device-index, caps) accumulation queue."""
 
-    def __init__(self, pipeline_depth: int = 1):
+    def __init__(self):
         self.lock = threading.Lock()
         self.items: list[_Pending] = []
         self.leader_active = False
-        # bounds launched-but-unfetched batches: launch stage acquires,
-        # fetch stage releases
-        self.pipeline = threading.BoundedSemaphore(max(1, pipeline_depth))
 
 
 class _LaunchPool:
@@ -124,7 +123,6 @@ class MicroBatcher:
         max_batch: int = 512,
         max_wait_ms: float = 2.0,
         default_timeout_s: float | None = None,
-        pipeline_depth: int = 2,
         timing_window: int = 65536,
     ):
         self.max_batch = max_batch
@@ -132,20 +130,18 @@ class MicroBatcher:
         # upper bound on any submit's wait for its kernel launch;
         # None = unbounded
         self.default_timeout_s = default_timeout_s
-        self.pipeline_depth = pipeline_depth
         self._stats_lock = threading.Lock()
         # {submissions_per_launch: n_launches}
         self._batch_hist: dict[int, int] = {}
         self._n_submits = 0
         self._n_timeouts = 0
         # per-request decomposition: queue wait (submit -> launch),
-        # exec (launch -> results), and per-launch encode / dispatch /
-        # fetch stages, over bounded rings
+        # exec (launch -> results), and per-launch encode / launch
+        # stages, over bounded rings
         self._wait_ms: deque = deque(maxlen=timing_window)
         self._exec_ms: deque = deque(maxlen=timing_window)
         self._encode_ms: deque = deque(maxlen=timing_window)
         self._launch_ms: deque = deque(maxlen=timing_window)
-        self._fetch_ms: deque = deque(maxlen=timing_window)
         # weak-keyed by the device index so accumulators die with it
         self._accums: "weakref.WeakKeyDictionary[object, dict]" = (
             weakref.WeakKeyDictionary()
@@ -154,8 +150,6 @@ class MicroBatcher:
         # launches run on this pool, not on the leader's thread, so the
         # leader's wait for its batch is bounded like a follower's
         self._launcher = _LaunchPool(16, "kernel-launch")
-        # device-to-host fetches run here, decoupled from launches
-        self._fetcher = _LaunchPool(16, "kernel-fetch")
 
     def _accum(self, dindex, caps: tuple) -> _Accumulator:
         with self._lock:
@@ -165,7 +159,7 @@ class MicroBatcher:
                 self._accums[dindex] = by_caps
             acc = by_caps.get(caps)
             if acc is None:
-                acc = by_caps[caps] = _Accumulator(self.pipeline_depth)
+                acc = by_caps[caps] = _Accumulator()
             return acc
 
     def submit(self, dindex, spec, *, window_cap: int, record_cap: int):
@@ -271,8 +265,7 @@ class MicroBatcher:
                 return
             try:
                 done = self._launcher.submit(
-                    self._run_batch, acc, batch, dindex, window_cap,
-                    record_cap,
+                    self._run_batch, batch, dindex, window_cap, record_cap,
                 )
             except BaseException as e:
                 # launcher closed mid-shutdown: the popped batch never
@@ -293,8 +286,8 @@ class MicroBatcher:
                     return
                 raise self._timeout_error()
             if me is not None:
-                # the leading request rides the first pop: its result
-                # arrives through the fetch stage
+                # the leading request rode the first pop: its result
+                # is in
                 if more:
                     self._handoff_or_release(
                         acc, dindex, window_cap, record_cap
@@ -335,11 +328,11 @@ class MicroBatcher:
             "(wedged device or saturated launcher)"
         )
 
-    def _run_batch(self, acc, batch, dindex, window_cap, record_cap) -> None:
+    def _run_batch(self, batch, dindex, window_cap, record_cap) -> None:
         """Launcher-thread entry: _execute plus a failsafe so no batch
         member is left without a result or an error."""
         try:
-            self._execute(acc, batch, dindex, window_cap, record_cap)
+            self._execute(batch, dindex, window_cap, record_cap)
         except BaseException as e:  # failsafe: deliver the error
             for p in batch:
                 if not p.event.is_set():
@@ -347,22 +340,20 @@ class MicroBatcher:
                     p.event.set()
 
     def close(self) -> None:
-        """Release the launcher + fetcher pools."""
+        """Release the launcher pool."""
         self._launcher.close()
-        self._fetcher.close()
 
     def timing_summary(self) -> dict:
         """Percentiles over the bounded rings: queue_wait_ms (submit ->
         launch), exec_ms (launch -> results), and the per-launch stages
-        encode_ms, launch_ms (kernel dispatch, which on the scatter path
-        includes the device run and the readback) and fetch_ms."""
+        encode_ms and launch_ms (window bounds, tier split, the kernel
+        launches, the device run, the readback and the row unpacking)."""
         with self._stats_lock:
             return {
                 "queue_wait_ms": percentiles(self._wait_ms),
                 "exec_ms": percentiles(self._exec_ms),
                 "encode_ms": percentiles(self._encode_ms),
                 "launch_ms": percentiles(self._launch_ms),
-                "fetch_ms": percentiles(self._fetch_ms),
             }
 
     def occupancy(self) -> dict:
@@ -382,18 +373,16 @@ class MicroBatcher:
                 "timeouts": self._n_timeouts,
             }
 
-    def _execute(self, acc, batch, dindex, window_cap, record_cap):
-        """LAUNCH stage (launcher thread): flatten the batch's specs,
-        encode, and dispatch ONE ``run_queries_auto`` call, then hand
-        the pending results to the fetcher pool. The accumulator's
-        fetch pipeline is acquired before dispatch and released by the
-        fetch stage."""
+    def _execute(self, batch, dindex, window_cap, record_cap):
+        """Launcher thread: flatten the batch's specs, encode, run ONE
+        ``run_queries_auto`` call (the scatter path reads its results
+        back before returning) and hand each submission its
+        row-slice."""
         specs: list = []
         offsets: list[int] = []
         for p in batch:
             offsets.append(len(specs))
             specs.extend(p.specs)
-        acc.pipeline.acquire()
         t_launch = time.perf_counter()
         with self._stats_lock:
             self._batch_hist[len(batch)] = (
@@ -401,68 +390,26 @@ class MicroBatcher:
             )
             for p in batch:
                 self._wait_ms.append((t_launch - p.t_submit) * 1e3)
-        try:
-            enc = encode_queries(specs)
-            t_enc = time.perf_counter()
-            pending = run_queries_auto(
-                dindex,
-                enc,
-                window_cap=window_cap,
-                record_cap=record_cap,
-                async_fetch=True,
-            )
-            t_disp = time.perf_counter()
-        except BaseException as e:
-            acc.pipeline.release()
-            for p in batch:
-                p.error = e
-                p.event.set()
-            return
+        enc = encode_queries(specs)
+        t_enc = time.perf_counter()
+        res = run_queries_auto(
+            dindex, enc, window_cap=window_cap, record_cap=record_cap
+        )
+        t_done = time.perf_counter()
         with self._stats_lock:
             self._encode_ms.append((t_enc - t_launch) * 1e3)
-            self._launch_ms.append((t_disp - t_enc) * 1e3)
-        try:
-            self._fetcher.submit(
-                self._fetch_batch, acc, batch, offsets, pending, t_launch,
-                t_disp,
+            self._launch_ms.append((t_done - t_enc) * 1e3)
+            for _ in batch:
+                self._exec_ms.append((t_done - t_launch) * 1e3)
+        for p, off in zip(batch, offsets):
+            sl = slice(off, off + len(p.specs))
+            p.result = QueryResults(
+                exists=res.exists[sl],
+                call_count=res.call_count[sl],
+                n_variants=res.n_variants[sl],
+                all_alleles_count=res.all_alleles_count[sl],
+                n_matched=res.n_matched[sl],
+                overflow=res.overflow[sl],
+                rows=res.rows[sl],
             )
-        except BaseException as e:
-            # fetcher closed mid-shutdown: fail the batch here
-            acc.pipeline.release()
-            for p in batch:
-                if not p.event.is_set():
-                    p.error = e
-                    p.event.set()
-
-    def _fetch_batch(
-        self, acc, batch, offsets, pending, t_launch, t_disp
-    ) -> None:
-        """FETCH stage (fetcher thread): take the results, hand each
-        submission its row-slice, release the pipeline slot."""
-        try:
-            res = pending.fetch()
-            t_done = time.perf_counter()
-            with self._stats_lock:
-                exec_ms = (t_done - t_launch) * 1e3
-                self._fetch_ms.append((t_done - t_disp) * 1e3)
-                for _ in batch:
-                    self._exec_ms.append(exec_ms)
-            for p, off in zip(batch, offsets):
-                sl = slice(off, off + len(p.specs))
-                p.result = QueryResults(
-                    exists=res.exists[sl],
-                    call_count=res.call_count[sl],
-                    n_variants=res.n_variants[sl],
-                    all_alleles_count=res.all_alleles_count[sl],
-                    n_matched=res.n_matched[sl],
-                    overflow=res.overflow[sl],
-                    rows=res.rows[sl],
-                )
-                p.event.set()
-        except BaseException as e:
-            for p in batch:
-                if not p.event.is_set():
-                    p.error = e
-                    p.event.set()
-        finally:
-            acc.pipeline.release()
+            p.event.set()

@@ -87,3 +87,31 @@ def test_kernel_matches_twin(index, C, cap, width, exact_only):
         )
         assert torch.equal(agg, want_agg)
         assert torch.equal(masks, want_masks)
+
+
+@pytest.mark.cuda
+def test_scattered_batch_on_card_equals_cpu(index):
+    """The whole dispatch on the card (tier split, one launch per
+    split, readback and row unpacking) gives the same QueryResults as
+    the CPU twin path."""
+    rng = random.Random(11)
+    shard = index.shard
+    pos = shard.cols["pos"]
+    specs = []
+    for _ in range(200):
+        i = rng.randrange(shard.n_rows - 2000)
+        kw = dict(chrom="1", start_min=int(pos[i]),
+                  start_max=int(pos[i + rng.choice([0, 50, 400, 1500, 1999])]),
+                  end_min=1, end_max=1 << 30)
+        kw.update(rng.choice([
+            {"alternate_bases": shard.row_alt(i)},
+            {"alternate_bases": "N"},
+            {"variant_type": rng.choice(["DEL", "INS", "DUP", "CNV"])},
+        ]))
+        specs.append(QuerySpec(**kw))
+    cpu = sk.ScatterDeviceIndex(shard, "cpu")
+    got = sk.run_queries_scattered(index, specs, window_cap=2048, record_cap=256)
+    want = sk.run_queries_scattered(cpu, specs, window_cap=2048, record_cap=256)
+    for field in ("exists", "call_count", "n_variants", "all_alleles_count",
+                  "n_matched", "overflow", "rows"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
