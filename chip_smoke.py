@@ -2,25 +2,36 @@
 """Smoke run of the PyTorch port (sbeacon_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--rows 20000000] [--requests 384] [--threads 64]
-                          [--seed 0]
+                          [--cohorts 3] [--cohort-rows 5000000]
+                          [--fused-requests 256] [--seed 0]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
 
 1. environment: the card, its power limit (nvidia-smi), torch and CUDA;
-2. build: compiles every CUDA kernel of the path with nvcc for sm_90a;
-3. kernel vs twin: every kernel, at the main path's shapes, against its
-   plain-PyTorch twin on the same inputs on the card (integers: equal
-   outputs, tolerance 0);
+2. build: compiles every CUDA kernel with nvcc for sm_90a, one nvcc
+   process per source, all at once;
+3. kernel vs twin (scatter_match): at the main path's shapes, against
+   its plain-PyTorch twin on the same inputs on the card (integers:
+   equal outputs, tolerance 0);
 4. main path: a 1000-Genomes-shaped index (2e7 rows across chr1-22, no
-   genotype planes) behind the port's VariantEngine, answering Beacon
-   requests from many threads through parse_request ->
-   run_variant_search -> Envelopes, each response checked against the
-   host matcher; kernel launch counts are zeroed just before and read
-   just after;
-5. timing: each kernel tier with CUDA events, beside its bound (the
-   least bytes and operations the launch's own inputs need) and its
-   twin's time.
+   genotype planes) behind the port's VariantEngine, answering
+   single-dataset Beacon requests from many threads through
+   parse_request -> run_variant_search -> Envelopes, each response
+   checked against the host matcher; kernel launch counts are zeroed
+   just before and read just after;
+5. timing (scatter_match): each kernel tier with CUDA events, beside its
+   bound (the least bytes and operations the launch's own inputs need)
+   and its twin's time;
+6. fused setup: three more cohorts (5e6 rows each) join the engine and
+   the fused stack of all four (3.5e7 rows) is built inline;
+7. kernel vs twin (bisect_query): on that stack and on a small stack of
+   crafted shards, at 8, 64 and 512 queries, every alt mode included;
+8. fused path: requests with no datasetIds (every dataset) from many
+   threads, each of the four responses per request checked against the
+   host matcher; launch counts zeroed just before and read just after;
+9. timing (bisect_query): at the batch sizes phase 8 launched, point and
+   bracket batches, beside the bound and the twin's time.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints
 it, and as the last line ``{"ok": true, "device": {...}}``. The script
@@ -58,6 +69,14 @@ SECTOR_BYTES = 32
 ROWS_PER_LANE = 6
 
 NSLOTS = 2048  # scatter_kernel.CHUNK: the slots of a full batch
+# integer operations per valid window lane of the bisection kernel
+# (about 10 loads, the predicate chain, the sums and the compaction),
+# and per probe of its two searches
+BISECT_OPS_PER_LANE = 30
+BISECT_OPS_PER_PROBE = 4
+# variantType values outside the five the device types: each one is
+# answered on the device by the fused path as a symbolic-prefix match
+OTHER_TYPES = ["CN", "DE", "CN0", "INV", "SNP"]
 # spin-kernel hold while timed launches are enqueued (about 100 ms at
 # the H100's 1.98 GHz boost clock)
 HOLD_CYCLES = 200_000_000
@@ -225,10 +244,11 @@ def compare_kernel(index, device, rng, n_slots, label):
     return worst, report
 
 
-def request_bodies(shard, rng, n, window_cap):
+def request_bodies(shard, rng, n, window_cap, p_other=0.0):
     """Beacon POST bodies in the BASELINE mix: SNV points with exact
     ref/alt picked to hit, start-end brackets spanning the tier caps,
-    typed and any-base queries, and a few wider than window_cap."""
+    typed and any-base queries, and a few wider than window_cap. A
+    share ``p_other`` asks for a variantType outside the five."""
     pos = shard.cols["pos"]
     bodies = []
     for k in range(n):
@@ -237,7 +257,11 @@ def request_bodies(shard, rng, n, window_cap):
         ref = shard.row_ref(i)
         rp = {"assemblyId": "GRCh38", "referenceName": shard.row_chrom(i)}
         r = rng.random()
-        if r < 0.4:
+        if p_other and rng.random() < p_other:
+            w = rng.choice([5_000, 30_000])
+            rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000],
+                      variantType=rng.choice(OTHER_TYPES))
+        elif r < 0.4:
             while not (len(ref) == 1 and shard.row_alt(i) in "ACGT"):
                 i = rng.randrange(shard.n_rows)  # an SNV row
                 ref = shard.row_ref(i)
@@ -307,9 +331,9 @@ def serve(rec, env, datasets, body):
     return (doc, ms) + rec.last.call
 
 
-def expected_envelope(shard, env, body, payload):
-    """The response and envelope the host matcher gives for one
-    request."""
+def expected_envelope(shards, env, body, payload):
+    """The responses (one per shard, in the engine's order) and the
+    envelope the host matcher gives for one request."""
     from sbeacon_tpu_torch.api.requests import parse_request
     from sbeacon_tpu_torch.api.variants import VariantAggregation
     from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
@@ -324,33 +348,58 @@ def expected_envelope(shard, env, body, payload):
         variant_min_length=payload.variant_min_length,
         variant_max_length=payload.variant_max_length,
     )
-    resp = materialize_response(
-        shard, host_match_rows(shard, spec), payload,
-        chrom_label=shard.meta["chrom_native"][payload.reference_name],
-        dataset_id=shard.meta["dataset_id"],
-        vcf_location=shard.meta["vcf_location"],
-    )
+    resps = [
+        materialize_response(
+            shard, host_match_rows(shard, spec), payload,
+            chrom_label=shard.meta["chrom_native"][payload.reference_name],
+            dataset_id=shard.meta["dataset_id"],
+            vcf_location=shard.meta["vcf_location"],
+        )
+        for shard in shards
+    ]
     req = parse_request("POST", None, body)
     agg = VariantAggregation(req.assembly_id or "")
-    agg.add([resp], granularity=req.granularity,
+    agg.add(resps, granularity=req.granularity,
             check_all=req.include_resultset_responses in ("HIT", "ALL"))
     doc = env.by_granularity(
         req.granularity, exists=agg.exists, count=len(agg.variants),
         results=agg.results[req.skip : req.skip + req.limit],
         set_type="genomicVariant", skip=req.skip, limit=req.limit,
     )
-    return resp, doc
+    return resps, doc
 
 
-def run_main_path(engine, env, shard, bodies, threads):
-    """Serve every body from ``threads`` threads; returns ([(envelope,
-    ms, payload, responses)], wall s)."""
+def run_main_path(engine, env, shards, bodies, threads):
+    """Serve every body over the datasets of ``shards`` from
+    ``threads`` threads; returns ([(envelope, ms, payload, responses)],
+    wall s)."""
     rec = RecordingEngine(engine)
-    datasets = [{"id": shard.meta["dataset_id"]}]
+    datasets = [{"id": s.meta["dataset_id"]} for s in shards]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=threads) as pool:
         out = list(pool.map(lambda b: serve(rec, env, datasets, b), bodies))
     return out, time.perf_counter() - t0
+
+
+def check_served(shards, env, bodies, served):
+    """(requests that hit, mismatches): every response of every request
+    against the host matcher's, and its envelope."""
+    from sbeacon_tpu_torch.payloads import VariantSearchResponse
+
+    n_hit = mismatches = 0
+    for body, (doc, _ms, payload, responses) in zip(bodies, served):
+        want_resps, want_doc = expected_envelope(shards, env, body, payload)
+        check(len(responses) == len(shards)
+              and all(isinstance(r, VariantSearchResponse)
+                      for r in responses),
+              "one response per dataset")
+        ok = ([dataclasses.asdict(r) for r in responses]
+              == [dataclasses.asdict(r) for r in want_resps]
+              and json.dumps(doc, sort_keys=True)
+              == json.dumps(want_doc, sort_keys=True))
+        mismatches += not ok
+        n_hit += any(r.exists for r in want_resps)
+    return n_hit, mismatches
 
 
 def percentile(xs, p):
@@ -362,7 +411,8 @@ def device_ms(fn, items, reps):
     """Device ms per call of ``fn`` over ``items``. A spin kernel holds
     the stream while the host enqueues every call, so the events time
     the device's back-to-back execution rather than the host's launch
-    rate; a check fails if the enqueue outlasted the hold."""
+    rate; a check fails if the enqueue outlasted the hold (as it does
+    when the calls enqueue more kernels than a held stream queues)."""
     import torch
 
     for it in items:  # warm-up (allocator, first launch)
@@ -476,11 +526,217 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
     return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations", nbytes
 
 
+def fused_specs(shards, rng, n, kinds=None):
+    """(specs, shard ids) of n queries spread over the stacked shards
+    (some aimed at a chromosome a shard lacks), in every alt mode: exact
+    points that hit, any-base brackets with wildcard or fixed refs, the
+    five device types, types outside them (VT_OTHER), length bounds,
+    windows wider than the kernel's, and dense brackets whose matches
+    exceed record_cap."""
+    from sbeacon_tpu_torch.ops.kernel import QuerySpec
+
+    kinds = kinds or ("exact", "any", "typed", "other", "lengths", "wide",
+                      "dense")
+    specs, sids = [], []
+    for _ in range(n):
+        sid = rng.randrange(len(shards))
+        sh = shards[sid]
+        i = rng.randrange(sh.n_rows)
+        p = int(sh.cols["pos"][i])
+        chrom = sh.row_chrom(i) if rng.random() < 0.9 else rng.choice(
+            ["1", "5", "22"])
+        kind = rng.choice(kinds)
+        w = rng.choice([0, 100, 2_000, 20_000])
+        kw = dict(chrom=chrom, start_min=max(1, p - w), start_max=p + w,
+                  end_min=1, end_max=1 << 30)
+        if kind == "exact":
+            kw.update(chrom=sh.row_chrom(i), start_min=p, start_max=p,
+                      reference_bases=rng.choice([None, "N", sh.row_ref(i)]),
+                      alternate_bases=sh.row_alt(i))
+        elif kind == "any":
+            kw.update(alternate_bases="N",
+                      reference_bases=rng.choice([None, "N", "A", "C"]))
+        elif kind == "typed":
+            kw.update(variant_type=rng.choice(
+                ["DEL", "INS", "DUP", "DUP:TANDEM", "CNV"]))
+        elif kind == "other":
+            kw.update(variant_type=rng.choice(OTHER_TYPES + [None]))
+        elif kind == "lengths":
+            kw.update(alternate_bases=rng.choice(["N", None]),
+                      variant_min_length=rng.randint(0, 3),
+                      variant_max_length=rng.choice([-1, 1, 5]))
+        elif kind == "wide":
+            kw.update(start_min=1, start_max=(1 << 31) - 1,
+                      alternate_bases="N")
+        else:  # dense: a bracket of about 1.7 window_caps of rows
+            span = int(sh.cols["pos"][min(i + 1800, sh.n_rows - 1)]) - p
+            kw.update(start_min=p, start_max=p + max(span, 0),
+                      alternate_bases="N")
+        specs.append(QuerySpec(**kw))
+        sids.append(sid)
+    return specs, sids
+
+
+def bisect_inputs(index, specs, sids):
+    import torch
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    enc = tk.encode_queries(specs, shard_ids=sids)
+    return torch.from_numpy(tk.pack_queries(enc, fused=True)).to(index.device)
+
+
+def compare_bisect(index, shards, rng, label, record_cap):
+    """bisect_query vs its twin at 8, 64 and 512 queries; returns
+    (max_abs_err, report rows)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    W = min(2048, index.window_hint)
+    report, worst = [], 0
+    for b in (8, 64, 512):
+        specs, sids = fused_specs(shards, rng, b)
+        q = bisect_inputs(index, specs, sids)
+        out, _seq = tk.bisect_query(
+            index.columns, index.alt_prefix, index.offsets, q,
+            window_cap=W, record_cap=record_cap, n_iters=index.n_iters,
+        )
+        torch.cuda.synchronize()
+        want = tk.query_batch_reference(
+            index.columns, index.alt_prefix, index.offsets, q,
+            window_cap=W, record_cap=record_cap, n_iters=index.n_iters,
+        )
+        err = int((out.long() - want.long()).abs().max())
+        worst = max(worst, err)
+        equal = torch.equal(out, want)
+        check(equal, f"{label} B={b}: bisect_query != twin")
+        agg = out[:, : tk.N_AGG].cpu().numpy()
+        report.append({
+            "index": label, "queries": b, "window": W,
+            "record_cap": record_cap, "equal": equal,
+            "matched": int(agg[:, 4].sum()),
+            "overflow": int(agg[:, 5].sum()),
+            "over_record_cap": int((agg[:, 4] > min(record_cap, W)).sum()),
+            "empty": int((agg[:, 4] == 0).sum()),
+        })
+    return worst, report
+
+
+def bisect_bound(index, q, out, W, R):
+    """(bound ms, bound_by, bytes) of one bisect_query launch: the least
+    bytes and operations its inputs need. Bytes: the distinct 32-B
+    sectors of the columns each query's predicates read over its valid
+    lanes (rec_end, alt_len and rec_id always; ref hash and length for a
+    fixed ref; alt hash for an exact alt; flags for the other modes,
+    with ref length, repeat count and the 16-byte alt_prefix of
+    symbolic rows for a typed one), AC at matched lanes and AN at
+    first-matched lanes; 2 x n_iters probe sectors per query; the packed
+    queries read once and the outputs written once. All at the HBM
+    rate; operations at the int32 rate."""
+    import torch
+
+    from sbeacon_tpu_torch.index.columnar import FLAG
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    dev = q.device
+    cols = index.columns
+    k = index.offsets.shape[0]
+    sid = q[:, tk.QF_SHARD].long().clamp(0, k - 1)
+    chrom = q[:, tk.QF_CHROM].long()
+    seg_lo = index.offsets[sid, chrom.clamp(0, 26)].long()
+    seg_hi = index.offsets[sid, (chrom + 1).clamp(0, 26)].long()
+    pos = cols[tk.C_POS]
+    lo = tk._bisect_reference(pos, q[:, tk.QF_START_MIN], seg_lo, seg_hi,
+                              index.n_iters, upper=False)
+    hi = tk._bisect_reference(pos, q[:, tk.QF_START_MAX], seg_lo, seg_hi,
+                              index.n_iters, upper=True)
+    nv = (hi - lo).clamp(0, W)
+    lane = torch.arange(W, device=dev)[None, :]
+    valid = lane < nv[:, None]
+    rows = (lo[:, None] + lane)[valid]  # every valid lane's row
+    qi = torch.arange(q.shape[0], device=dev)[:, None].expand(-1, W)[valid]
+    mode = q[qi, tk.QF_ALT_MODE]
+    fixed_ref = q[qi, tk.QF_REF_WILD] == 0
+    sym = (cols[tk.C_FLAGS][rows] & FLAG.SYMBOLIC) != 0
+    typed = (mode != tk.MODE_EXACT) & (mode != tk.MODE_ANY_BASE)
+    need = {
+        tk.C_REC_END: rows, tk.C_ALT_LEN: rows, tk.C_REC_ID: rows,
+        tk.C_REF_HASH: rows[fixed_ref],
+        tk.C_REF_LEN: rows[fixed_ref | typed],
+        tk.C_ALT_HASH: rows[mode == tk.MODE_EXACT],
+        tk.C_FLAGS: rows[mode != tk.MODE_EXACT],
+        tk.C_REPEAT_K: rows[typed & ~sym],
+    }
+    sectors = sum(torch.unique(r // 8).numel() for r in need.values())
+    sectors += torch.unique(rows[typed & sym] // 2).numel()  # alt_prefix
+    # matched and first-matched lanes from the kernel's own row output
+    # (a launch with R = W holds every matched lane)
+    matched = out[:, tk.N_AGG:].long()
+    m = matched >= 0
+    rec = cols[tk.C_REC_ID][matched.clamp(min=0)]
+    prev = torch.cat([torch.full_like(rec[:, :1], -1), rec[:, :-1]], dim=1)
+    first = m & (rec != prev)
+    sectors += torch.unique(matched[m] // 8).numel()  # AC
+    sectors += torch.unique(matched[first] // 8).numel()  # AN
+    b = q.shape[0]
+    probes = 2 * index.n_iters * b
+    io = q.numel() * 4 + b * (R + tk.N_AGG) * 4
+    nbytes = (sectors + probes) * SECTOR_BYTES + io
+    ops = (int(valid.sum()) * BISECT_OPS_PER_LANE
+           + probes * BISECT_OPS_PER_PROBE)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
+    """(kernel ms, twin ms, bound ms, bound_by, bytes) per launch of b
+    queries of one kind ('point': exact SNV points; 'bracket': any-base
+    and typed brackets of 2-200 kb), cycling over n_sets query sets."""
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    W = min(2048, index.window_hint)
+    kinds = ("exact",) if kind == "point" else ("any", "typed")
+    sets = []
+    for _ in range(n_sets):
+        specs, sids = fused_specs(shards, rng, b, kinds)
+        if kind == "bracket":
+            for s in specs:
+                w = rng.choice([2_000, 20_000, 60_000, 200_000])
+                s.start_max = s.start_min + w
+        sets.append(bisect_inputs(index, specs, sids))
+    run = lambda q: tk.bisect_query(
+        index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
+        record_cap=record_cap, n_iters=index.n_iters)
+    ms = device_ms(run, sets, reps=4)
+    # the twin enqueues about 600 small kernels a call, and a held
+    # stream takes about 1000 before a launch blocks: one call per hold
+    twin = lambda q: tk.query_batch_reference(
+        index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
+        record_cap=record_cap, n_iters=index.n_iters)
+    plain_ms = float(np.mean([device_ms(twin, [q], reps=1) for q in sets[:2]]))
+    bounds = []
+    for q in sets:
+        full, _seq = tk.bisect_query(
+            index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
+            record_cap=W, n_iters=index.n_iters)
+        bounds.append(bisect_bound(index, q, full, W, min(record_cap, W)))
+    bound_ms = float(np.mean([x[0] for x in bounds]))
+    nbytes = float(np.mean([x[2] for x in bounds]))
+    by = "bytes" if all(x[1] == "bytes" for x in bounds) else "operations"
+    return ms, plain_ms, bound_ms, by, nbytes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--threads", type=int, default=64)
+    ap.add_argument("--cohorts", type=int, default=3)
+    ap.add_argument("--cohort-rows", type=int, default=5_000_000)
+    ap.add_argument("--fused-requests", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -503,9 +759,9 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.engine import VariantEngine
     from sbeacon_tpu_torch.index.columnar import build_index
     from sbeacon_tpu_torch.ops import _build
+    from sbeacon_tpu_torch.ops import kernel as tk
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
-    from sbeacon_tpu_torch.payloads import VariantSearchResponse
-    from sbeacon_tpu_torch.testing import synthetic_shard
+    from sbeacon_tpu_torch.testing import random_records, synthetic_shard
 
     rng = random.Random(args.seed)
 
@@ -516,21 +772,24 @@ def run(args, device) -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # 2. build every kernel of the path
+    # 2. build every kernel, one nvcc per source, all at once
     t0 = time.perf_counter()
-    lib = _build.load(sk.KERNEL)
-    info = _build.build_log.get(sk.KERNEL, {})
-    emit("build", kernel=sk.KERNEL, seconds=time.perf_counter() - t0,
-         nvcc_seconds=info.get("seconds"), flags=" ".join(_build.NVCC_FLAGS),
-         library=lib._name, ptxas=info.get("ptxas", "")[-1500:])
+    _build.build_all()
+    libs = {name: _build.load(name)._name for name in _build.SIGNATURES}
+    emit("build", kernels=sorted(libs), seconds=time.perf_counter() - t0,
+         flags=" ".join(_build.NVCC_FLAGS), libraries=libs,
+         nvcc_seconds={n: _build.build_log.get(n, {}).get("seconds")
+                       for n in libs},
+         ptxas={n: _build.build_log.get(n, {}).get("ptxas", "")[-1500:]
+                for n in libs})
 
     # the 1000-Genomes-shaped corpus and the engine that serves it
     t0 = time.perf_counter()
     shard = synthetic_shard(args.rows, seed=args.seed, dataset_id="g1k")
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    # defaults (window_cap 2048, record_cap 1024, micro-batcher on),
-    # the leader holding a batch open 2 ms for followers
+    # defaults (window_cap 2048, record_cap 1024, micro-batcher on, fused
+    # dispatch on), the leader holding a batch open 2 ms for followers
     engine = VariantEngine(
         BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
         device=device,
@@ -547,12 +806,12 @@ def run(args, device) -> int:
          microbatch_wait_ms=engine.config.engine.microbatch_wait_ms)
 
     try:
-        # 3. kernel vs twin at the main path's shapes, and on a crafted
-        # shard (12-alt records -> scan form, clamped row, straddlers)
+        # 3. scatter_match vs twin at the main path's shapes, and on a
+        # crafted shard (12-alt records -> scan form, clamped row,
+        # straddlers)
         err_big, rep_big = compare_kernel(index, device, rng, NSLOTS, "g1k")
-        crafted = sk.ScatterDeviceIndex(
-            build_index(crafted_records(), dataset_id="crafted"), device
-        )
+        crafted_shard = build_index(crafted_records(), dataset_id="crafted")
+        crafted = sk.ScatterDeviceIndex(crafted_shard, device)
         check(crafted.seg_k > sk.SEG_K_MAX, "crafted shard lacks long records")
         err_cr, rep_cr = compare_kernel(crafted, device, rng, 256, "crafted")
         max_err = max(err_big, err_cr)
@@ -562,14 +821,15 @@ def run(args, device) -> int:
              crafted_seg_k=crafted.seg_k, report=rep_big + rep_cr)
         del crafted
 
-        # 4. the main path
+        # 4. the single-dataset main path
         env = Envelopes(engine.config.info)
         bodies = request_bodies(
             shard, rng, args.requests, engine.config.engine.window_cap
         )
         fallbacks0 = engine.host_fallbacks
         telemetry.reset_launch_counts()
-        served, wall = run_main_path(engine, env, shard, bodies, args.threads)
+        served, wall = run_main_path(engine, env, [shard], bodies,
+                                     args.threads)
         launches = telemetry.launch_count(sk.KERNEL)
         by_tier: dict = {}
         for r in telemetry.recent_launches():
@@ -580,19 +840,7 @@ def run(args, device) -> int:
         occ = engine.batcher.occupancy()
         stages = engine.stage_timing()
         lat = [ms for _d, ms, _p, _r in served]
-
-        n_hit = mismatches = 0
-        for body, (doc, _ms, payload, responses) in zip(bodies, served):
-            want_resp, want_doc = expected_envelope(shard, env, body, payload)
-            check(len(responses) == 1
-                  and isinstance(responses[0], VariantSearchResponse),
-                  "one response per request")
-            ok = (dataclasses.asdict(responses[0])
-                  == dataclasses.asdict(want_resp)
-                  and json.dumps(doc, sort_keys=True)
-                  == json.dumps(want_doc, sort_keys=True))
-            mismatches += not ok
-            n_hit += bool(want_resp.exists)
+        n_hit, mismatches = check_served([shard], env, bodies, served)
         check(mismatches == 0, f"{mismatches} responses differ from the host matcher")
         check(launches > 0, "the main path launched the scatter match kernel")
         check(launches < len(bodies),
@@ -610,7 +858,7 @@ def run(args, device) -> int:
                          "p99": percentile(lat, 0.99)},
              stage_ms=stages, device=kind, nvidia_smi=smi)
 
-        # 5. kernel timing at the 2e7-row shape, every tier
+        # 5. scatter_match timing at the 2e7-row shape, every tier
         timings = []
         for C, cap, r_lo, r_hi in tiers(index.tile):
             for exact in (True, False):
@@ -635,8 +883,150 @@ def run(args, device) -> int:
     finally:
         engine.close()
 
-    # the main path's most-launched tier stands for the kernel
+    # 6. an engine over the g1k shard and more cohorts (defaults, fused
+    # dispatch on); the fused stack of all of them is built inline,
+    # before any timed request
+    t0 = time.perf_counter()
+    cohorts = [
+        synthetic_shard(args.cohort_rows, seed=args.seed + i,
+                        dataset_id=f"cohort{i}")
+        for i in range(1, args.cohorts + 1)
+    ]
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = VariantEngine(
+        BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+        device=device,
+    )
+    try:
+        for s in [shard] + cohorts:
+            engine.add_index(s)
+        t_index = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        findex = engine.warm_fused()
+        t_fused = time.perf_counter() - t0
+        check(findex is not None and findex.n_shards == len(cohorts) + 1,
+              "the fused stack covers every dataset")
+        served_shards = [s for _d, _v, (s, _i) in engine.indexes_for([])]
+        emit("fused_setup", datasets=[s.meta["dataset_id"] for s in served_shards],
+             stacked_rows=findex.n_rows, padded_rows=findex.n_padded,
+             fused_bytes=findex.nbytes(), n_iters=findex.n_iters,
+             window_hint=findex.window_hint, generate_s=t_gen,
+             pack_upload_s=t_index, fused_build_s=t_fused)
+
+        # 7. bisect_query vs twin: on the stack above, and on a small
+        # stack of the crafted shard (12-alt records), a cohort lacking
+        # chromosome 5 and a shard of other symbolic types
+        err_fused, rep_fused = compare_bisect(
+            findex, served_shards, rng, "fused", 1024
+        )
+        small_shards = [
+            crafted_shard,
+            synthetic_shard(100_000, seed=args.seed + 9, dataset_id="no5",
+                            chroms=["1", "2"]),
+            build_index(random_records(random.Random(args.seed), chrom="5",
+                                       n=2000, n_samples=0, p_symbolic=0.3),
+                        dataset_id="sym"),
+        ]
+        small = tk.FusedDeviceIndex(small_shards, device)
+        err_small, rep_small = compare_bisect(small, small_shards, rng,
+                                              "crafted_stack", 16)
+        del small
+        bisect_err = max(err_fused, err_small)
+        reports = rep_fused + rep_small
+        check(all(sum(r[k] for r in reports) > 0
+                  for k in ("matched", "overflow", "over_record_cap", "empty")),
+              "the cases reach matches, overflow, matches past record_cap "
+              "and empty windows")
+        emit("kernel_vs_twin", kernel=tk.KERNEL, tolerance=0,
+             max_abs_err=bisect_err, cases=len(reports),
+             all_equal=all(r["equal"] for r in reports), report=reports)
+
+        # 8. the fused path: every request asks every dataset
+        bodies = request_bodies(shard, rng, args.fused_requests,
+                                engine.config.engine.window_cap, p_other=0.05)
+        fused0 = engine.fused_searches
+        fallbacks0 = engine.host_fallbacks
+        occ0 = engine.batcher.occupancy()
+        telemetry.reset_launch_counts()
+        served, wall = run_main_path(engine, env, served_shards, bodies,
+                                     args.threads)
+        bisect_launches = telemetry.launch_count(tk.KERNEL)
+        scatter_in_fused = telemetry.launch_count(sk.KERNEL)
+        fused_searches = engine.fused_searches - fused0
+        occ = engine.batcher.occupancy()
+        # queries per batched call of the phase: each call is one launch
+        batch_sizes = [
+            size
+            for size, n in occ["fused_hist"].items()
+            for _ in range(n - occ0["fused_hist"].get(size, 0))
+        ]
+        check(len(batch_sizes) == bisect_launches,
+              "one bisect_query launch per batched call")
+        stages = engine.stage_timing()
+        lat = [ms for _d, ms, _p, _r in served]
+        n_hit, mismatches = check_served(served_shards, env, bodies, served)
+        check(mismatches == 0, f"{mismatches} fused responses differ from "
+              "the host matcher")
+        check(bisect_launches > 0, "the fused path launched bisect_query")
+        check(bisect_launches < len(bodies),
+              "bisect_query launches below the request count (requests "
+              "for different datasets coalesced)")
+        check(fused_searches > 0, "requests rode the fused stack")
+        emit("fused_path", requests=len(bodies), threads=args.threads,
+             datasets=len(served_shards), hits=n_hit, mismatches=mismatches,
+             bisect_query_launches=bisect_launches,
+             scatter_match_launches=scatter_in_fused,
+             launches_per_request=bisect_launches / len(bodies),
+             fused_searches=fused_searches,
+             host_fallbacks=engine.host_fallbacks - fallbacks0,
+             queries_per_launch={
+                 "min": min(batch_sizes), "p50": percentile(batch_sizes, 0.5),
+                 "max": max(batch_sizes)},
+             batched_calls=occ["launches"] - occ0["launches"],
+             wall_s=wall, requests_per_s=len(bodies) / wall,
+             latency_ms={"p50": percentile(lat, 0.5),
+                         "p99": percentile(lat, 0.99)},
+             stage_ms=stages, device=kind, nvidia_smi=smi)
+
+        # 9. bisect_query timing at the batch sizes phase 8 launched
+        sizes = sorted({min(batch_sizes), percentile(batch_sizes, 0.5),
+                        max(batch_sizes)})
+        btimings = []
+        for b in sizes:
+            for what in ("point", "bracket"):
+                ms, plain_ms, bound_ms, bound_by, nbytes = time_bisect(
+                    findex, served_shards, rng, b, what,
+                    engine.config.engine.record_cap,
+                )
+                btimings.append(
+                    {"queries": b, "kind": what, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bound_share": bound_ms / ms,
+                     "bytes": nbytes}
+                )
+        # upper estimate of the card's busy share in the fused path:
+        # every launch at the slowest time measured at or above its size
+        slowest = {b: max(t["ms"] for t in btimings if t["queries"] == b)
+                   for b in sizes}
+        busy_ms = sum(slowest[min((s for s in sizes if s >= b),
+                                  default=sizes[-1])]
+                      for b in batch_sizes)
+        emit("timing", kernel=tk.KERNEL, library_ms=None,
+             fused_path_kernel_ms_upper=busy_ms,
+             fused_path_busy_share_upper=busy_ms / (wall * 1e3),
+             library_note="no single PyTorch call computes this function: "
+                          "torch.searchsorted gives only the window bounds",
+             batches=btimings, device=kind, nvidia_smi=smi)
+    finally:
+        engine.close()
+
+    # the main path's most-launched tier stands for the scatter kernel;
+    # the median fused batch of brackets for the bisection kernel
     top = max(timings, key=lambda t: (t["main_path_launches"], -t["C"]))
+    mid = next(t for t in btimings
+               if t["queries"] == percentile(batch_sizes, 0.5)
+               and t["kind"] == "bracket")
     print(json.dumps({"kernels": [{
         "name": sk.KERNEL,
         "route": "cuda",
@@ -651,6 +1041,19 @@ def run(args, device) -> int:
         "library_ms": None,
         "tier": {"C": top["C"], "exact_only": top["exact_only"],
                  "slots": NSLOTS},
+    }, {
+        "name": tk.KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/bisect_query.cu",
+        "replaces": "sbeacon_tpu/ops/kernel.py:502",
+        "launches": bisect_launches,
+        "max_abs_err": bisect_err,
+        "ms": mid["ms"],
+        "plain_ms": mid["plain_ms"],
+        "bound_ms": mid["bound_ms"],
+        "bound_by": mid["bound_by"],
+        "library_ms": None,
+        "batch": {"queries": mid["queries"], "kind": mid["kind"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,13 @@
 """Typed configuration for the port's query path.
 
 Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
-single-dataset ``/g_variants`` path reads. Defaults stay those of the
-JAX package (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher
-on), except for the features this package has not ported yet:
-``use_mesh``, ``fused_dispatch``, ``device_planes`` and
-``response_cache`` default to off here, and ``VariantEngine`` raises
-``NotImplementedError`` when a caller turns one of them on.
+``/g_variants`` path reads. Defaults stay those of the JAX package
+(``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
+multi-dataset dispatch on up to 64e6 stacked rows), except for the
+features this package has not ported yet: ``use_mesh``,
+``device_planes`` and ``response_cache`` default to off here, and
+``VariantEngine`` raises ``NotImplementedError`` when a caller turns one
+of them on.
 """
 
 from __future__ import annotations
@@ -33,6 +34,11 @@ class EngineConfig:
     microbatch*: the serving micro-batcher (serving.MicroBatcher); with
       wait 0 batches form from requests queuing behind a launch.
     timing_window: entries kept per timing ring.
+    fused_dispatch: stack every warm shard into one FusedDeviceIndex so
+      a k-dataset query costs one launch and queries for different
+      datasets coalesce into one micro-batch; it holds a second device
+      copy of the columns (60 B/row), so it is skipped past
+      fused_max_rows stacked rows.
     """
 
     window_cap: int = 2048
@@ -41,9 +47,10 @@ class EngineConfig:
     microbatch_max: int = 512
     microbatch_wait_ms: float = 0.0
     timing_window: int = 65536
+    fused_dispatch: bool = True
+    fused_max_rows: int = 64_000_000
     # not ported yet: VariantEngine refuses each of these when on
     use_mesh: bool = False
-    fused_dispatch: bool = False
     device_planes: bool = False
     response_cache: bool = False
 

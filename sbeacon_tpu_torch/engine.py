@@ -4,24 +4,32 @@ Counterpart of ``sbeacon_tpu/engine.py``. ``_blob_eq``,
 ``host_match_rows`` and ``materialize_response`` (with their numpy
 helpers) are copies of the JAX package's; ``materialize_response`` reads
 the genotype planes on the host only, since device planes arrive with
-the selected-samples slice. ``VariantEngine`` keeps the single-dataset
-device path: ``search`` -> ``_search`` -> ``_device_rows`` -> the
-micro-batcher -> ``run_queries_auto`` -> the scatter match kernel ->
-``materialize_response``. Queries over several datasets take the
-thread-scatter leg (one per-shard launch each). A query whose window
-exceeds ``window_cap`` or whose matches exceed ``record_cap`` falls
-back to ``host_match_rows``, a vectorised numpy twin of the kernel with
-no caps and byte-exact allele comparison.
+the selected-samples slice. ``VariantEngine`` serves two device legs:
 
-Not ported yet, and refused when switched on: the mesh leg, fused
-multi-dataset stacks, device genotype planes and the response cache;
-the L0 delta tail is absent as well.
+- single dataset: ``search`` -> ``_search`` -> ``_device_rows`` -> the
+  micro-batcher -> ``run_queries_auto`` -> the scatter match kernel ->
+  ``materialize_response``;
+- several datasets (``fused_dispatch``): ``_search`` ->
+  ``_fused_multi_rows`` -> ONE micro-batcher submission against the
+  ``FusedDeviceIndex`` stacked over every shard -> the bisection query
+  kernel; the stack is built off the request path once two or more
+  shards are loaded, and until it is ready each dataset takes its own
+  scatter launch (the thread-scatter leg).
+
+A query whose window exceeds ``window_cap`` or whose matches exceed
+``record_cap`` falls back to ``host_match_rows``, a vectorised numpy
+twin of the kernels with no caps and byte-exact allele comparison.
+
+Not ported yet, and refused when switched on: the mesh leg, device
+genotype planes and the response cache; the L0 delta tail is absent as
+well.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -29,8 +37,13 @@ import numpy as np
 
 from .config import BeaconConfig
 from .index.columnar import FLAG, VariantIndexShard
-from .ops import make_device_index, resolve_device, run_queries_auto
-from .ops.kernel import QuerySpec
+from .ops import (
+    FusedDeviceIndex,
+    make_device_index,
+    resolve_device,
+    run_queries_auto,
+)
+from .ops.kernel import QuerySpec, encode_queries
 from .payloads import VariantQueryPayload, VariantSearchResponse
 from .telemetry import percentiles
 from .utils.chrom import chromosome_code
@@ -392,7 +405,7 @@ def materialize_response(
 
 
 #: EngineConfig switches for features this package has not ported yet
-_UNPORTED = ("use_mesh", "fused_dispatch", "device_planes", "response_cache")
+_UNPORTED = ("use_mesh", "device_planes", "response_cache")
 
 
 class VariantEngine:
@@ -435,6 +448,22 @@ class VariantEngine:
         self._mat_ms: deque = deque(maxlen=eng.timing_window)
         #: queries answered by host_match_rows after a device overflow
         self.host_fallbacks = 0
+        # fused multi-dataset stack (FusedDeviceIndex over every loaded
+        # shard), rebuilt off the request path after each publish:
+        # _fused_state is (findex, key -> shard id, key -> shard), or
+        # None while no stack serves; a build only publishes if no
+        # add_index happened since its inputs were snapshotted
+        self._fused_state = None
+        self._fused_dirty = True
+        self._fused_gen = 0
+        #: the exception of a failed background build: multi-dataset
+        #: requests raise it until the next publish
+        self._fused_error: BaseException | None = None
+        self._fused_builds: "weakref.WeakSet[threading.Thread]" = (
+            weakref.WeakSet()
+        )
+        #: multi-dataset queries answered by one fused launch
+        self.fused_searches = 0
         # persistent per-dataset scatter pool (no per-request threads)
         self._scatter = ThreadPoolExecutor(
             max_workers=32, thread_name_prefix="engine-scatter"
@@ -456,9 +485,16 @@ class VariantEngine:
                 (ds, vcf, triple)
                 for (ds, vcf), triple in sorted(self._indexes.items())
             ]
+            # the fused stack no longer covers this shard snapshot
+            self._fused_dirty = True
+            self._fused_gen += 1
 
     def close(self) -> None:
-        """Release the scatter pool and the batcher's pools."""
+        """Join any fused build in flight (a daemon thread caught inside
+        a torch call at interpreter exit aborts the process), then
+        release the scatter pool and the batcher's pools."""
+        for t in list(self._fused_builds):
+            t.join()
         self._scatter.shutdown(wait=False, cancel_futures=True)
         if self._batcher is not None:
             self._batcher.close()
@@ -488,6 +524,161 @@ class VariantEngine:
             out["materialize_ms"] = percentiles(self._mat_ms)
         return out
 
+    # -- fused multi-dataset stack -----------------------------------------
+
+    def warm_fused(self) -> FusedDeviceIndex | None:
+        """Build the fused stack now, on the caller's thread (the JAX
+        engine's warmup path), and return it; None when fused dispatch
+        is off, fewer than 2 shards are loaded or the stack would exceed
+        ``fused_max_rows``. A failed build raises."""
+        state = self._fused_ready(wait=True)
+        return None if state is None else state[0]
+
+    def _fused_ready(self, wait: bool = False):
+        """(FusedDeviceIndex, key -> shard id, key -> shard) over every
+        loaded shard, cached until the index set changes; None when
+        fused dispatch is off, fewer than 2 shards are loaded, the
+        stacked row count exceeds ``fused_max_rows``, or a rebuild is
+        still in flight (``wait=False``, the request path: the build
+        runs on a background thread, and per-shard dispatch serves
+        until it publishes). ``wait=True`` builds inline. A failed
+        background build is not served around: its exception is raised
+        here until the next publish."""
+        eng = self.config.engine
+        if not eng.fused_dispatch:
+            return None
+        # lock-free fast path: a clean state costs one bool and one
+        # reference read
+        if not wait and not self._fused_dirty:
+            self._raise_fused_error()
+            return self._fused_state
+        with self._lock:
+            if not self._fused_dirty:
+                state = self._fused_state
+                if not wait:
+                    self._raise_fused_error()
+                    return state
+                if state is not None:
+                    return state
+                # wait=True with a build in flight (or a failed or
+                # skipped one): build inline anyway
+            else:
+                # claim the rebuild: snapshot the inputs and mark clean
+                # under the lock, then build off-lock
+                self._fused_dirty = False
+                self._fused_state = None
+                self._fused_error = None
+            gen = self._fused_gen
+            keys = sorted(self._indexes)
+            shards = [self._indexes[k][0] for k in keys]
+        if len(keys) < 2:
+            return None
+        if sum(s.n_rows for s in shards) > eng.fused_max_rows:
+            # the stack duplicates the columns on the device: past the
+            # budget, per-shard dispatch serves
+            return None
+        if wait:
+            return self._build_fused(keys, shards, gen, inline=True)
+        t = threading.Thread(
+            target=self._build_fused,
+            args=(keys, shards, gen),
+            name="fused-build",
+            daemon=True,
+        )
+        self._fused_builds.add(t)
+        t.start()
+        return None
+
+    def _raise_fused_error(self) -> None:
+        err = self._fused_error
+        if err is not None:
+            raise RuntimeError(
+                "the fused multi-dataset index failed to build"
+            ) from err
+
+    def _build_fused(self, keys, shards, gen, *, inline: bool = False):
+        """Build and publish the fused stack. ``gen`` is the publish
+        generation the inputs were snapshotted at: a build that an
+        add_index overtook is dropped, never published over a newer
+        index set. A failure raises when inline; on the background
+        thread it is stored for the next request to raise."""
+        try:
+            findex = FusedDeviceIndex(shards, self.device)
+        except Exception as e:
+            if inline:
+                raise
+            with self._lock:
+                if self._fused_gen == gen:
+                    self._fused_error = e
+            return None
+        # the state carries its own shard snapshot: stacked row ids are
+        # only valid against the exact shard objects it was built from
+        state = (
+            findex,
+            {k: i for i, k in enumerate(keys)},
+            dict(zip(keys, shards)),
+        )
+        with self._lock:
+            if self._fused_gen != gen:
+                return None
+            self._fused_state = state
+            self._fused_error = None
+        return state
+
+    def _fused_multi_rows(self, targets, spec_base, payload):
+        """{key: shard-local row ids | None} for every target of a
+        multi-dataset query that the fused stack covers, computed by
+        ONE stacked-index launch (None marks window/record overflow: the
+        caller host-matches that shard uncapped, the per-shard
+        contract). Returns None, and per-target dispatch serves, when
+        the query needs host-only ref-wildcard semantics, no stack is
+        ready, or fewer than 2 targets are covered."""
+        if payload.selected_samples_only and not self._device_ref_ok(
+            payload, spec_base
+        ):
+            return None
+        # resolve the snapshot ONCE, so shard ids and shard_base come
+        # from one stack
+        fst = self._fused_ready()
+        if fst is None:
+            return None
+        findex, sid_of, shard_of = fst
+        routes = []
+        for ds, vcf, shard, _dindex, _native in targets:
+            sid = sid_of.get((ds, vcf))
+            if sid is not None and shard_of[(ds, vcf)] is shard:
+                routes.append(((ds, vcf), sid))
+        if len(routes) < 2:
+            return None
+        eng = self.config.engine
+        specs = [spec_base] * len(routes)
+        sids = [sid for _k, sid in routes]
+        if self._batcher is not None:
+            res = self._batcher.submit_many(
+                findex,
+                specs,
+                shard_ids=sids,
+                window_cap=eng.window_cap,
+                record_cap=eng.record_cap,
+            )
+        else:
+            res = run_queries_auto(
+                findex,
+                encode_queries(specs, shard_ids=sids),
+                window_cap=eng.window_cap,
+                record_cap=eng.record_cap,
+            )
+        out = {}
+        for i, (key, sid) in enumerate(routes):
+            if res.overflow[i] or res.n_matched[i] > eng.record_cap:
+                out[key] = None
+            else:
+                rows = res.rows[i][res.rows[i] >= 0]
+                out[key] = findex.to_local_rows(rows, sid)
+        with self._mat_lock:
+            self.fused_searches += 1
+        return out
+
     # -- query path ---------------------------------------------------------
 
     def search(self, payload: VariantQueryPayload) -> list[VariantSearchResponse]:
@@ -502,8 +693,14 @@ class VariantEngine:
         *,
         ref_wildcard: bool = False,
     ) -> np.ndarray:
-        """Matched row ids via the device kernel (micro-batched when
-        enabled), host fallback on window/record overflow."""
+        """Matched row ids via the shard's scatter kernel (micro-batched
+        when enabled), host fallback on window/record overflow.
+
+        The JAX engine routes a single-dataset query through the fused
+        stack when the shard's own index is an XLA ``DeviceIndex``
+        (``_fused_route``); this package serves every single shard with
+        a ``ScatterDeviceIndex``, which keeps its own kernel there as in
+        the JAX engine, so that branch has no counterpart."""
         eng = self.config.engine
         if self._batcher is not None:
             # concurrent searches coalesce into one kernel launch
@@ -549,15 +746,38 @@ class VariantEngine:
         if not targets:
             return []
 
+        # cross-shard fused dispatch: ONE stacked-index launch answers
+        # this query for every covered target; uncovered targets take
+        # their own path inside _one_target
+        pre_rows = (
+            self._fused_multi_rows(targets, spec_base, payload)
+            if len(targets) > 1
+            else None
+        )
+
         def _one_target(target):
             ds, vcf, shard, dindex, native = target
             selected_idx = None
             if payload.selected_samples_only:
+                selected_idx = self._selected_idx(shard, payload, ds)
+            if pre_rows is not None and (ds, vcf) in pre_rows:
+                # the fused launch already matched this target; None
+                # marks window/record overflow -> the uncapped host
+                # matcher, exactly like the per-shard contract
+                rows = pre_rows[(ds, vcf)]
+                if rows is None:
+                    with self._mat_lock:
+                        self.host_fallbacks += 1
+                    rows = host_match_rows(
+                        shard,
+                        spec_base,
+                        ref_wildcard=payload.selected_samples_only,
+                    )
+            elif payload.selected_samples_only:
                 # selected-samples leaf: device row matching unless the
                 # ref carries an N wildcard (regex semantics, host
                 # only); counting is sample-restricted in
                 # materialize_response via the genotype bit planes
-                selected_idx = self._selected_idx(shard, payload, ds)
                 if self._device_ref_ok(payload, spec_base):
                     rows = self._device_rows(
                         shard, dindex, spec_base, ref_wildcard=True

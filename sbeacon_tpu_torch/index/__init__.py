@@ -4,6 +4,7 @@ from .columnar import (
     build_index,
     fnv1a32,
     shard_from_reference,
+    stack_shard_columns,
 )
 
 __all__ = [
@@ -12,4 +13,5 @@ __all__ = [
     "build_index",
     "fnv1a32",
     "shard_from_reference",
+    "stack_shard_columns",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``sbeacon_tpu/index/columnar.py``, trimmed to what the
 query path reads: ``FLAG``, the allele hashes and prefixes,
-``VariantIndexShard`` and ``build_index``. Rows are sorted by
+``VariantIndexShard``, ``build_index`` and ``stack_shard_columns`` (the
+fused multi-dataset stack). Rows are sorted by
 (chrom_code, pos); every variable-length predicate of the matcher is
 pre-computed into fixed-width columns (allele hash + length, symbolic
 flag bits, ``ref_repeat_k``, AC per alt, AN per record), and host-only
@@ -375,6 +376,49 @@ def build_index(
             else None
         ),
     )
+
+
+def stack_shard_columns(
+    shards: list[VariantIndexShard],
+) -> tuple[dict[str, np.ndarray], np.ndarray, np.ndarray]:
+    """Stacked-shard device columns for the fused multi-dataset index.
+
+    Every shard's rows stay contiguous and in their original order, and
+    a per-shard segment table lets the fused kernel answer a (shard,
+    query) pair by bisecting inside ``chrom_offsets[shard]`` exactly as
+    the single-shard kernel bisects inside its own offsets.
+
+    Returns ``(cols, chrom_offsets, shard_base)``:
+
+    - ``cols``: every device column (incl. ``alt_prefix``) concatenated
+      in shard order,
+    - ``chrom_offsets``: int32[k, 27], shard i's chromosome segment
+      table rebased to absolute stacked row ids,
+    - ``shard_base``: int64[k+1], shard i's rows live at
+      ``[shard_base[i], shard_base[i+1])``; stacked row ids map back to
+      shard-local ids by subtracting ``shard_base[i]``.
+    """
+    if not shards:
+        raise ValueError("stack_shard_columns needs at least one shard")
+    base = np.zeros(len(shards) + 1, dtype=np.int64)
+    for i, s in enumerate(shards):
+        base[i + 1] = base[i] + s.n_rows
+    if base[-1] > int(INT32_MAX):
+        raise ValueError(
+            f"stacked index exceeds int32 row ids ({int(base[-1])} rows)"
+        )
+    names = list(DEVICE_COLUMNS) + ["alt_prefix"]
+    cols = {
+        name: np.concatenate([s.cols[name] for s in shards])
+        for name in names
+    }
+    chrom_offsets = np.stack(
+        [
+            s.chrom_offsets.astype(np.int64) + base[i]
+            for i, s in enumerate(shards)
+        ]
+    ).astype(np.int32)
+    return cols, chrom_offsets, base
 
 
 def _fill_gt_planes(

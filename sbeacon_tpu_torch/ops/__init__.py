@@ -1,16 +1,25 @@
 """Device indexes and query dispatch.
 
-Counterpart of ``sbeacon_tpu/ops/__init__.py``. Every index this
-package builds is a ``ScatterDeviceIndex`` (the scatter match kernel)
-on an explicit device; the entry points run on the GPU unless the
-caller asks for the CPU.
+Counterpart of ``sbeacon_tpu/ops/__init__.py``. A single shard's serving
+index is a ``ScatterDeviceIndex`` (the scatter match kernel); the fused
+stack of all warm shards is a ``FusedDeviceIndex`` (the bisection query
+kernel), and so is its k=1 form ``DeviceIndex``. Every index lives on
+an explicit device; the entry points run on the GPU unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import QueryResults, QuerySpec, encode_queries
+from .kernel import (
+    DeviceIndex,
+    FusedDeviceIndex,
+    QueryResults,
+    QuerySpec,
+    encode_queries,
+    run_queries,
+)
 from .scatter_kernel import ScatterDeviceIndex, run_queries_scattered
 
 
@@ -39,22 +48,30 @@ def run_queries_auto(
     record_cap: int = 1024,
 ) -> QueryResults:
     """Run a query batch on the index's kernel and read the results
-    back — one call site for the engine and the micro-batcher."""
-    if not isinstance(index, ScatterDeviceIndex):
-        raise TypeError(
-            f"no kernel serves {type(index).__name__} in this package yet"
+    back — one call site for the engine and the micro-batcher: the
+    bisection kernel for a ``FusedDeviceIndex`` / ``DeviceIndex``, the
+    scatter match kernel for a ``ScatterDeviceIndex``."""
+    if isinstance(index, (FusedDeviceIndex, DeviceIndex)):
+        return run_queries(
+            index, queries, window_cap=window_cap, record_cap=record_cap
         )
-    return run_queries_scattered(
-        index, queries, window_cap=window_cap, record_cap=record_cap
-    )
+    if isinstance(index, ScatterDeviceIndex):
+        return run_queries_scattered(
+            index, queries, window_cap=window_cap, record_cap=record_cap
+        )
+    raise TypeError(f"no kernel serves {type(index).__name__} in this package")
 
 
 __all__ = [
+    "DeviceIndex",
+    "FusedDeviceIndex",
     "QueryResults",
     "QuerySpec",
     "ScatterDeviceIndex",
     "encode_queries",
     "make_device_index",
     "resolve_device",
+    "run_queries",
     "run_queries_auto",
+    "run_queries_scattered",
 ]

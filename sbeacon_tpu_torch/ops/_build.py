@@ -18,6 +18,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -30,11 +31,18 @@ NVCC_FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry points per source: name -> (argtypes, restype)
 SIGNATURES = {
     "scatter_match": {
         "scatter_match_launch": (
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+            ctypes.c_int,
+        ),
+    },
+    "bisect_query": {
+        "bisect_query_launch": (
+            [_P, _L, _P, _P, _I, _P, _P, _I, _I, _I, _P],
             ctypes.c_int,
         ),
     },
@@ -108,3 +116,12 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
             _libs[name] = lib
         return lib
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source of ``SIGNATURES`` at once, one ``nvcc``
+    process each; returns name -> library path. Raises the first
+    failure."""
+    with ThreadPoolExecutor(max_workers=len(SIGNATURES)) as pool:
+        futures = {name: pool.submit(build, name) for name in SIGNATURES}
+        return {name: f.result() for name, f in futures.items()}

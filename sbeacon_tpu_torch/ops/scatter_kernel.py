@@ -50,6 +50,7 @@ from .kernel import (
     VT_DUP_TANDEM,
     VT_INS,
     _PAD_FILLS,
+    _wrap32,
     encode_queries,
 )
 from .query_pack import (
@@ -187,11 +188,6 @@ class ScatterDeviceIndex:
 
     def nbytes(self) -> int:
         return self.tiles.numel() * 4
-
-
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """int64 -> int32 with two's-complement wraparound (XLA's int32 sum)."""
-    return ((x + 2**31) % 2**32 - 2**31).to(torch.int32)
 
 
 def _sum32(x: torch.Tensor) -> torch.Tensor:

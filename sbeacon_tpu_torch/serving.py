@@ -3,8 +3,11 @@
 Counterpart of ``sbeacon_tpu/serving.py`` (``MicroBatcher`` with its
 ``_Accumulator`` / ``_LaunchPool``, ``submit`` / ``submit_many``, the
 launch stage ``_execute``). The JAX package's separate fetch stage
-(``_fetch_batch``) has no counterpart: the scatter path reads its
-results back inside the launch, so ``_execute`` hands them out. Plan
+(``_fetch_batch``) has no counterpart: both kernels' dispatch reads its
+results back inside the launch, so ``_execute`` hands them out. A
+submission may target shards of a ``FusedDeviceIndex`` (``shard_id`` /
+``shard_ids``): queries for different datasets then share the fused
+index's accumulator and its launch. Plan
 stages, fault points, request deadlines, priority lanes and cost
 attribution are not ported yet; a submit's wait is bounded by the
 batcher's ``default_timeout_s`` alone.
@@ -43,6 +46,9 @@ class _Pending:
     #: batched QueryResults
     specs: list
     event: threading.Event
+    #: per-spec shard ids of a FusedDeviceIndex submission (None for a
+    #: single-shard index)
+    shard_ids: list | None = None
     result: object = None
     error: BaseException | None = None
     t_submit: float = 0.0
@@ -133,7 +139,11 @@ class MicroBatcher:
         self._stats_lock = threading.Lock()
         # {submissions_per_launch: n_launches}
         self._batch_hist: dict[int, int] = {}
+        # {specs_per_launch: n_launches}: differs from _batch_hist when
+        # multi-dataset submissions (one submission, k specs) ride along
+        self._fused_hist: dict[int, int] = {}
         self._n_submits = 0
+        self._n_specs = 0
         self._n_timeouts = 0
         # per-request decomposition: queue wait (submit -> launch),
         # exec (launch -> results), and per-launch encode / launch
@@ -162,26 +172,49 @@ class MicroBatcher:
                 acc = by_caps[caps] = _Accumulator()
             return acc
 
-    def submit(self, dindex, spec, *, window_cap: int, record_cap: int):
-        """This one query's row of the batched QueryResults."""
+    def submit(
+        self,
+        dindex,
+        spec,
+        *,
+        window_cap: int,
+        record_cap: int,
+        shard_id: int | None = None,
+    ):
+        """This one query's row of the batched QueryResults.
+        ``shard_id`` targets the query at one shard segment of a
+        FusedDeviceIndex."""
         return self.submit_many(
-            dindex, [spec], window_cap=window_cap, record_cap=record_cap
+            dindex,
+            [spec],
+            window_cap=window_cap,
+            record_cap=record_cap,
+            shard_ids=None if shard_id is None else [shard_id],
         )
 
     def submit_many(
-        self, dindex, specs: list, *, window_cap: int, record_cap: int
+        self,
+        dindex,
+        specs: list,
+        *,
+        window_cap: int,
+        record_cap: int,
+        shard_ids: list | None = None,
     ):
-        """One submission of several specs: all ride the same batch and
-        so the same launch; the returned QueryResults carries one row
-        per spec in order."""
+        """One submission of several specs (a k-dataset query against a
+        FusedDeviceIndex, ``shard_ids`` naming each spec's shard): all
+        ride the same batch and so the same launch; the returned
+        QueryResults carries one row per spec in order."""
         acc = self._accum(dindex, (window_cap, record_cap))
         me = _Pending(
             specs=list(specs),
             event=threading.Event(),
+            shard_ids=None if shard_ids is None else list(shard_ids),
             t_submit=time.perf_counter(),
         )
         with self._stats_lock:
             self._n_submits += 1
+            self._n_specs += len(me.specs)
         with acc.lock:
             acc.items.append(me)
             lead = not acc.leader_active
@@ -357,40 +390,50 @@ class MicroBatcher:
             }
 
     def occupancy(self) -> dict:
-        """{'submits', 'launches', 'mean_batch', 'histogram',
-        'timeouts'} cumulative since construction; a launch here is one
-        batched ``run_queries_auto`` call (which may launch the kernel
-        once per tier split)."""
+        """{'submits', 'specs', 'launches', 'mean_batch', 'histogram',
+        'fused_hist', 'timeouts'} cumulative since construction; a
+        launch here is one batched ``run_queries_auto`` call (which may
+        launch the scatter kernel once per tier split)."""
         with self._stats_lock:
             hist = dict(sorted(self._batch_hist.items()))
             launches = sum(hist.values())
             total = sum(k * v for k, v in hist.items())
             return {
                 "submits": self._n_submits,
+                "specs": self._n_specs,
                 "launches": launches,
                 "mean_batch": round(total / launches, 2) if launches else 0.0,
                 "histogram": hist,
+                "fused_hist": dict(sorted(self._fused_hist.items())),
                 "timeouts": self._n_timeouts,
             }
 
     def _execute(self, batch, dindex, window_cap, record_cap):
-        """Launcher thread: flatten the batch's specs, encode, run ONE
-        ``run_queries_auto`` call (the scatter path reads its results
-        back before returning) and hand each submission its
+        """Launcher thread: flatten the batch's specs (and shard ids),
+        encode, run ONE ``run_queries_auto`` call (which reads its
+        results back before returning) and hand each submission its
         row-slice."""
         specs: list = []
         offsets: list[int] = []
         for p in batch:
             offsets.append(len(specs))
             specs.extend(p.specs)
+        # one accumulator per index: a fused index's submissions all
+        # carry shard ids, a single-shard index's none
+        shard_ids = None
+        if batch and batch[0].shard_ids is not None:
+            shard_ids = [s for p in batch for s in p.shard_ids]
         t_launch = time.perf_counter()
         with self._stats_lock:
             self._batch_hist[len(batch)] = (
                 self._batch_hist.get(len(batch), 0) + 1
             )
+            self._fused_hist[len(specs)] = (
+                self._fused_hist.get(len(specs), 0) + 1
+            )
             for p in batch:
                 self._wait_ms.append((t_launch - p.t_submit) * 1e3)
-        enc = encode_queries(specs)
+        enc = encode_queries(specs, shard_ids=shard_ids)
         t_enc = time.perf_counter()
         res = run_queries_auto(
             dindex, enc, window_cap=window_cap, record_cap=record_cap

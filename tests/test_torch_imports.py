@@ -20,6 +20,7 @@ import torch
 from sbeacon_tpu_torch import ops as t_ops
 from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
 from sbeacon_tpu_torch.engine import VariantEngine
+from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
 from sbeacon_tpu_torch.testing import synthetic_shard
 
@@ -98,7 +99,7 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
 
 
 @pytest.mark.parametrize(
-    "option", ["use_mesh", "fused_dispatch", "device_planes", "response_cache"]
+    "option", ["use_mesh", "device_planes", "response_cache"]
 )
 def test_unported_options_are_refused(option):
     cfg = BeaconConfig(engine=EngineConfig(**{option: True}))
@@ -109,7 +110,7 @@ def test_unported_options_are_refused(option):
 @pytest.mark.parametrize(
     "fn",
     [tsk.scatter_match, tsk._launch_tier, tsk.run_queries_scattered,
-     t_ops.run_queries_auto],
+     tk.bisect_query, tk.run_queries, t_ops.run_queries_auto],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the
