@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py [--rows 20000000] [--requests 384] [--threads 64]
                           [--cohorts 3] [--cohort-rows 5000000]
-                          [--fused-requests 256] [--seed 0]
+                          [--fused-requests 256] [--samples 2504]
+                          [--plane-rows 2000000] [--selected-requests 256]
+                          [--seed 0]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
@@ -31,7 +33,29 @@ non-zero, without the final line):
    threads, each of the four responses per request checked against the
    host matcher; launch counts zeroed just before and read just after;
 9. timing (bisect_query): at the batch sizes phase 8 launched, point and
-   bracket batches, beside the bound and the twin's time.
+   bracket batches, beside the bound and the twin's time;
+10. selected setup: dataset A is the 2e7-row shard with a 2504-sample gt
+    plane (6.3 GB), dataset B a 2e6-row shard with all four planes
+    (2.5 GB; 30% of its records count from genotypes); the plane bits
+    come from a seeded generator on the card, copied to the host shard.
+    Both behind an engine with device_planes on; their planes must be
+    on the card;
+11. kernel vs twin (scatter_selected): every tier, exact and not, both
+    twin forms, with and without counts, all-ones, sparse and empty
+    masks, B = 1, 16 and 64, on dataset B and on a crafted shard
+    (ploidy > 2, 12-alt records, 40 samples: a tail word); on dataset A
+    without counts, every tier at B = 1 and at B = 16 on its last 5% of
+    rows (plane offsets past 4 GiB);
+12. kernel vs twin (plane_stats): row sets of 1, 128, 1000 and 20000
+    rows, or_sel none, some and all, with and without counts, on dataset
+    B; 5000-row sets on dataset A's gt plane, one on its last 20000 rows;
+13. selected path: selected-samples, sample-extraction, N-wildcard-ref,
+    wide and plane-free requests over datasets A and B from many
+    threads, each response checked against the host matcher and the
+    host planes; launch counts zeroed just before and read just after;
+14. timing (scatter_selected, plane_stats): at the batch and row-set
+    sizes phase 13 launched, with the L2 flushed before each launch (and
+    back to back), beside the bound and the twin's time.
 
 Then one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints
 it, and as the last line ``{"ok": true, "device": {...}}``. The script
@@ -82,6 +106,12 @@ OTHER_TYPES = ["CN", "DE", "CN0", "INV", "SNP"]
 HOLD_CYCLES = 200_000_000
 GENOME_BP = 2.875e9  # chr1-22, GRCh38
 MICROBATCH_WAIT_MS = 2.0
+# integer operations per plane word a matched row reads (load, and,
+# popcount, add)
+PLANE_OPS_PER_WORD = 4
+PLANE_DENSITY = 0.01  # about 1% of a plane's genotype bits set
+P_DERIVED = 0.3  # dataset B's share of records counted from genotypes
+FLUSH_BYTES = 128 << 20  # a memset of this evicts the H100's 50 MB L2
 
 
 def emit(phase: str, **kw) -> None:
@@ -140,17 +170,18 @@ def crafted_records():
     return recs
 
 
-def tier_specs(shard, rng, n, lo_rows, hi_rows, exact):
-    """n QuerySpecs on random rows of ``shard`` whose windows span
-    lo_rows..hi_rows rows; every spec hits its own row (exact ref/alt
-    when ``exact``, else any-base, a variant type, or a typed alt)."""
+def tier_specs(shard, rng, n, lo_rows, hi_rows, exact, row_lo=0):
+    """n QuerySpecs on random rows (from ``row_lo`` on) of ``shard`` whose
+    windows span lo_rows..hi_rows rows; every spec hits its own row
+    (exact ref/alt when ``exact``, else any-base, a variant type, or a
+    typed alt)."""
     from sbeacon_tpu_torch.ops.kernel import QuerySpec
 
     pos = shard.cols["pos"]
     offs = shard.chrom_offsets
     out = []
     for _ in range(n):
-        i = rng.randrange(shard.n_rows)
+        i = rng.randrange(row_lo, shard.n_rows)
         code = int(np.searchsorted(offs, i, side="right")) - 1
         last = min(i + rng.randint(lo_rows, hi_rows) - 1, int(offs[code + 1]) - 1)
         kw = dict(
@@ -309,8 +340,9 @@ class RecordingEngine:
         return responses
 
 
-def serve(rec, env, datasets, body):
-    """One Beacon request through the port's API path; returns
+def serve(rec, env, datasets, body, samples_by_dataset=None):
+    """One Beacon request through the port's API path (selected samples
+    when ``samples_by_dataset`` names some for every dataset); returns
     (envelope, ms, payload, responses)."""
     from sbeacon_tpu_torch.api.requests import parse_request
     from sbeacon_tpu_torch.api.variants import run_variant_search
@@ -320,7 +352,7 @@ def serve(rec, env, datasets, body):
     s_min, s_max, e_min, e_max = req.coordinates()
     agg = run_variant_search(
         rec, datasets, req, start_min=s_min, start_max=s_max,
-        end_min=e_min, end_max=e_max,
+        end_min=e_min, end_max=e_max, samples_by_dataset=samples_by_dataset,
     )
     doc = env.by_granularity(
         req.granularity, exists=agg.exists, count=len(agg.variants),
@@ -333,7 +365,9 @@ def serve(rec, env, datasets, body):
 
 def expected_envelope(shards, env, body, payload):
     """The responses (one per shard, in the engine's order) and the
-    envelope the host matcher gives for one request."""
+    envelope the host matcher and the host planes give for one request
+    (for selected samples: the N-wildcard ref compare and the selected
+    sample indices)."""
     from sbeacon_tpu_torch.api.requests import parse_request
     from sbeacon_tpu_torch.api.variants import VariantAggregation
     from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
@@ -348,12 +382,23 @@ def expected_envelope(shards, env, body, payload):
         variant_min_length=payload.variant_min_length,
         variant_max_length=payload.variant_max_length,
     )
+    selected = payload.selected_samples_only
+
+    def selected_idx(shard):
+        if not selected:
+            return None
+        idx = {s: k for k, s in enumerate(shard.meta["sample_names"])}
+        names = payload.sample_names.get(shard.meta["dataset_id"], [])
+        return [idx[s] for s in names if s in idx]
+
     resps = [
         materialize_response(
-            shard, host_match_rows(shard, spec), payload,
+            shard, host_match_rows(shard, spec, ref_wildcard=selected),
+            payload,
             chrom_label=shard.meta["chrom_native"][payload.reference_name],
             dataset_id=shard.meta["dataset_id"],
             vcf_location=shard.meta["vcf_location"],
+            selected_idx=selected_idx(shard),
         )
         for shard in shards
     ]
@@ -373,23 +418,33 @@ def run_main_path(engine, env, shards, bodies, threads):
     """Serve every body over the datasets of ``shards`` from
     ``threads`` threads; returns ([(envelope, ms, payload, responses)],
     wall s)."""
-    rec = RecordingEngine(engine)
     datasets = [{"id": s.meta["dataset_id"]} for s in shards]
+    return run_jobs(engine, env, [(datasets, b, None) for b in bodies],
+                    threads)
+
+
+def run_jobs(engine, env, jobs, threads):
+    """Serve every (datasets, body, samples_by_dataset) job from
+    ``threads`` threads; returns ([(envelope, ms, payload, responses)],
+    wall s)."""
+    rec = RecordingEngine(engine)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=threads) as pool:
-        out = list(pool.map(lambda b: serve(rec, env, datasets, b), bodies))
+        out = list(pool.map(lambda j: serve(rec, env, *j), jobs))
     return out, time.perf_counter() - t0
 
 
 def check_served(shards, env, bodies, served):
     """(requests that hit, mismatches): every response of every request
-    against the host matcher's, and its envelope."""
+    against the host matcher's, and its envelope. A request is checked
+    against the shards of the datasets its payload names."""
     from sbeacon_tpu_torch.payloads import VariantSearchResponse
 
     n_hit = mismatches = 0
     for body, (doc, _ms, payload, responses) in zip(bodies, served):
-        want_resps, want_doc = expected_envelope(shards, env, body, payload)
-        check(len(responses) == len(shards)
+        mine = [s for s in shards if s.meta["dataset_id"] in payload.dataset_ids]
+        want_resps, want_doc = expected_envelope(mine, env, body, payload)
+        check(len(responses) == len(mine)
               and all(isinstance(r, VariantSearchResponse)
                       for r in responses),
               "one response per dataset")
@@ -415,16 +470,9 @@ def device_ms(fn, items, reps):
     when the calls enqueue more kernels than a held stream queues)."""
     import torch
 
-    for it in items:  # warm-up (allocator, first launch)
-        fn(it)
-    torch.cuda.synchronize()
+    hold_ms = warm_and_hold(fn, items)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(HOLD_CYCLES)
-    stop.record()
-    torch.cuda.synchronize()
-    hold_ms = start.elapsed_time(stop)
     torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     t0 = time.perf_counter()
@@ -434,18 +482,65 @@ def device_ms(fn, items, reps):
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     stop.record()
     torch.cuda.synchronize()
-    check(enqueue_ms < hold_ms, f"enqueue {enqueue_ms:.1f} ms outlasted the "
-          f"{hold_ms:.1f} ms hold: the timing would be host-bound")
+    check_enqueue(enqueue_ms, hold_ms)
     return start.elapsed_time(stop) / (reps * len(items))
 
 
-def needed_bytes(index, ids, q8, masks, C, cap):
+def warm_and_hold(fn, items):
+    """Calls ``fn`` once on every item (allocator, first launch), then
+    returns the ms one HOLD_CYCLES spin kernel holds the stream."""
+    import torch
+
+    for it in items:
+        fn(it)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(HOLD_CYCLES)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+def check_enqueue(enqueue_ms, hold_ms):
+    check(enqueue_ms < hold_ms, f"enqueue {enqueue_ms:.1f} ms outlasted the "
+          f"{hold_ms:.1f} ms hold: the timing would be host-bound")
+
+
+def cold_device_ms(fn, items, device, reps=1):
+    """Device ms per call of ``fn`` over ``items`` with a cold L2: a
+    FLUSH_BYTES memset before each call evicts what the calls before it
+    read, and an event pair around each call times it alone (its
+    device-side launch included). The spin-kernel hold of ``device_ms``
+    keeps the host's enqueue out of the times."""
+    import torch
+
+    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
+    hold_ms = warm_and_hold(fn, items)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(reps * len(items))]
+    torch.cuda._sleep(HOLD_CYCLES)
+    t0 = time.perf_counter()
+    for (start, stop), it in zip(events, items * reps):
+        flush.zero_()
+        start.record()
+        fn(it)
+        stop.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    check_enqueue(enqueue_ms, hold_ms)
+    return float(np.mean([a.elapsed_time(b) for a, b in events]))
+
+
+def needed_bytes(index, ids, q8, masks, C, cap, io=None):
     """(bytes, window lanes) one launch needs at the least: the sectors
     of the six packed rows the predicates read, over the distinct window
     lanes of all its slots; the AN sector of each record's first matched
     lane (the kernel's rule, taken from its masks); the slot inputs read
-    once and the outputs written once. Lanes outside a slot's window
-    need no input."""
+    once and the outputs written once (``io`` bytes, by default the
+    match kernel's). Lanes outside a slot's window need no input."""
     import torch
 
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
@@ -478,7 +573,8 @@ def needed_bytes(index, ids, q8, masks, C, cap):
     first = m & (before == base)
     an_groups = torch.unique(gidx[first] // 8).numel()
 
-    io = b * (4 + 32) + b * (32 + span // 16 * 4)
+    if io is None:
+        io = b * (4 + 32) + b * (32 + span // 16 * 4)
     nbytes = (row_groups * ROWS_PER_LANE + an_groups) * SECTOR_BYTES + io
     return nbytes, int(win.sum())
 
@@ -729,6 +825,394 @@ def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
     return ms, plain_ms, bound_ms, by, nbytes
 
 
+def attach_planes(shard, n_samples, seed, device, *, counts, dataset_id):
+    """A copy of ``shard`` (columns shared) with ``n_samples`` samples'
+    genotype planes, their bits drawn by a seeded generator on
+    ``device`` (about PLANE_DENSITY set, the tail word masked) and
+    copied to the host shard. With ``counts``: gt2 = gt & random, tok1
+    all ones, tok2 all ones but about 6% (haploid calls), and AC_INFO /
+    AN_INFO cleared on a P_DERIVED share of the records, so those count
+    from the planes."""
+    import torch
+
+    from sbeacon_tpu_torch.index.columnar import FLAG
+
+    n = shard.n_rows
+    w = (n_samples + 31) // 32
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tail = torch.full((w,), -1, dtype=torch.int32, device=device)
+    if n_samples % 32:
+        tail[-1] = (1 << (n_samples % 32)) - 1
+    k_and = max(1, int(round(-np.log2(PLANE_DENSITY))))
+
+    def rand(m):
+        return torch.randint(-(2**31), 2**31, (m, w), dtype=torch.int32,
+                             device=device, generator=gen)
+
+    def plane(make):
+        host = np.empty((n, w), np.uint32)
+        step = 1 << 20
+        for i in range(0, n, step):
+            m = min(step, n - i)
+            host[i : i + m] = (make(m) & tail).cpu().numpy().view(np.uint32)
+        return host
+
+    def gt_bits(m):
+        x = rand(m)
+        for _ in range(k_and - 1):
+            x &= rand(m)
+        return x
+
+    meta = dict(shard.meta, dataset_id=dataset_id,
+                vcf_location=f"synthetic://{dataset_id}",
+                sample_names=[f"S{i}" for i in range(n_samples)],
+                sample_count=n_samples)
+    cols = dict(shard.cols)
+    planes = {"gt_bits": plane(gt_bits)}
+    if counts:
+        ones = lambda m: torch.full((m, w), -1, dtype=torch.int32,
+                                    device=device)
+        planes.update(
+            gt_bits2=plane(lambda m: gt_bits(m) & rand(m)),
+            tok_bits1=plane(ones),
+            tok_bits2=plane(lambda m: ~(rand(m) & rand(m) & rand(m)
+                                        & rand(m))),
+        )
+        derived = np.random.default_rng(seed).random(meta["n_records"])
+        clear = derived[cols["rec_id"]] < P_DERIVED
+        cols["flags"] = np.where(
+            clear, cols["flags"] & ~np.int32(FLAG.AC_INFO | FLAG.AN_INFO),
+            cols["flags"]).astype(np.int32)
+    empty = np.zeros((0, 3), np.int64)
+    return dataclasses.replace(shard, meta=meta, cols=cols, gt_overflow=empty,
+                               tok_overflow=empty, **planes)
+
+
+def crafted_plane_records():
+    """40 samples (two plane words, a tail word), half the records
+    without INFO AC/AN, ploidy > 2 genotypes ("1|1|1|1") and 12-alt
+    records, for the fused kernel's twin comparison."""
+    from sbeacon_tpu_torch.genomics.vcf import VcfRecord
+    from sbeacon_tpu_torch.testing import random_records
+
+    rng = random.Random(7)
+    recs = random_records(rng, chrom="1", n=3000, n_samples=40, spacing=10,
+                          p_symbolic=0.1, p_multiallelic=0.3, p_no_acan=0.5)
+    for rec in recs[::9]:
+        rec.genotypes[rng.randrange(40)] = "1|1|1|1"
+        rec.ac = rec.an = None
+    for i in range(30):
+        recs.append(VcfRecord(
+            chrom="1", pos=recs[-1].pos + 7, ref="AC",
+            alts=[b * k for k in (1, 2, 3) for b in "ACGT"], vt="N/A",
+            ac=None if i % 2 else [(i + j) % 4 for j in range(12)],
+            an=None if i % 2 else 80,
+            genotypes=[f"{rng.randint(0, 12)}/{rng.randint(0, 12)}"
+                       for _ in range(40)],
+        ))
+    return recs
+
+
+def mask_rows(rng, b, w, n_samples):
+    """[b, w] uint32 masks cycling all-ones, sparse (1-500 samples) and
+    empty."""
+    out = np.zeros((b, w), np.uint32)
+    for k in range(b):
+        kind = k % 3
+        if kind == 0:
+            out[k] = 0xFFFFFFFF
+        elif kind == 1:
+            for si in rng.sample(range(n_samples),
+                                 rng.randint(1, min(500, n_samples))):
+                out[k, si // 32] |= np.uint32(1 << (si % 32))
+    return out
+
+
+def plane_args(pidx, with_counts):
+    gt = pidx.gt
+    return (gt, pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (gt,) * 4
+
+
+def compare_selected(index, pidx, rng, label, record_cap, cases, row_lo=0):
+    """scatter_selected vs its twin (both first-match forms) over
+    ``cases`` of (C, cap, rows_lo, rows_hi, exact, with_counts, B), the
+    queries on rows from ``row_lo`` on; returns (max_abs_err, report
+    rows)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    T = index.tile
+    n_samples = len(index.shard.meta["sample_names"])
+    report, worst = [], 0
+    for ci, (C, cap, r_lo, r_hi, exact, with_counts, b) in enumerate(cases):
+        specs = tier_specs(index.shard, rng, b, r_lo, r_hi, exact, row_lo)
+        ids, q8 = kernel_inputs(index, specs, index.device)
+        # every mask kind in each batch; the single slots take them in turn
+        masks = mask_rows(rng, max(b, 3), pidx.n_words, n_samples)
+        masks = masks[ci % 3 : ci % 3 + 1] if b == 1 else masks
+        mask = torch.from_numpy(masks.view(np.int32)).to(index.device)
+        R = min(record_cap, cap)
+        planes = plane_args(pidx, with_counts)
+        got = sk.scatter_selected(
+            index.tiles, *planes, ids, q8, mask, T=T, CAP=cap, C=C,
+            exact_only=exact, R=R, with_counts=with_counts)
+        torch.cuda.synchronize()
+        for form, seg_k in (("shift", index.seg_k), ("scan", None)):
+            want = sk.scatter_selected_reference(
+                index.tiles, *planes, ids, q8, mask, T=T, CAP=cap, C=C,
+                exact_only=exact, R=R, with_counts=with_counts, seg_k=seg_k)
+            err = max(int((g.long() - w.long()).abs().max())
+                      for g, w in zip(got[:5], want))
+            worst = max(worst, err)
+            equal = all(torch.equal(g, w) for g, w in zip(got[:5], want))
+            check(equal, f"{label} C={C} exact={exact} counts={with_counts} "
+                  f"B={b} {form}: scatter_selected != twin")
+            report.append({
+                "index": label, "C": C, "cap": cap, "R": R, "exact_only": exact,
+                "with_counts": with_counts, "slots": b, "form": form,
+                "equal": equal, "matched": int(got[0][:, 4].sum()),
+                "rows": int((got[1] >= 0).sum()),
+                "max_row": int(got[1].max()),
+                "or_bits": int(sum(bin(int(x) & 0xFFFFFFFF).count("1")
+                                   for x in got[4].flatten().tolist())),
+            })
+    return worst, report
+
+
+def row_sets(rng, n_rows, size, n_sets, lo=0):
+    """``n_sets`` ascending row sets of ``size`` rows from ``lo`` on, each
+    drawn from a window of about twice its size (the shape of a
+    matched-row set)."""
+    out = []
+    for _ in range(n_sets):
+        span = min(n_rows - lo, 2 * size)
+        a = rng.randrange(lo, n_rows - span + 1)
+        out.append(np.sort(np.asarray(rng.sample(range(a, a + span), size),
+                                      np.int32)))
+    return out
+
+
+def compare_plane_stats(pidx, rng, label, sizes, sels, counts_opts, lo=0):
+    """plane_stats vs its twin over row sets of ``sizes`` rows from row
+    ``lo`` on, each or_sel kind of ``sels`` and each of ``counts_opts``;
+    returns (max_abs_err, report rows)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+
+    dev = pidx.device
+    report, worst = [], 0
+    n_samples = pidx.n_words * 32
+    masks = mask_rows(rng, 3, pidx.n_words, n_samples)  # ones, sparse, empty
+    for size in sizes:
+        rows_np = row_sets(rng, pidx.n_rows, size, 1, lo)[0]
+        rows = torch.from_numpy(rows_np).to(dev)
+        for sel in sels:
+            or_sel = {"none": np.zeros(size, np.int32),
+                      "all": np.ones(size, np.int32),
+                      "some": (np.arange(size) % 3 == 0).astype(np.int32)}[sel]
+            or_sel = torch.from_numpy(or_sel).to(dev)
+            for with_counts in counts_opts:
+                m = masks[len(report) % 3]
+                mask = torch.from_numpy(m.view(np.int32)).to(dev)
+                kw = dict(with_counts=with_counts, with_or=sel != "none")
+                planes = plane_args(pidx, with_counts)
+                counts, ow, _seq = pk.plane_stats(*planes, rows, or_sel, mask,
+                                                  **kw)
+                torch.cuda.synchronize()
+                want = pk.plane_stats_reference(*planes, rows, or_sel, mask,
+                                                **kw)
+                err = max(int((counts - want[0]).abs().max()),
+                          int((ow.long() - want[1].long()).abs().max()))
+                worst = max(worst, err)
+                equal = torch.equal(counts, want[0]) and torch.equal(ow, want[1])
+                check(equal, f"{label} rows={size} or_sel={sel} "
+                      f"counts={with_counts}: plane_stats != twin")
+                report.append({"index": label, "rows": size,
+                               "max_row": int(rows_np[-1]), "or_sel": sel,
+                               "with_counts": with_counts,
+                               "mask": ("ones", "sparse", "empty")[
+                                   len(report) % 3], "equal": equal,
+                               "popcount": int(counts.sum())})
+    return worst, report
+
+
+def selected_jobs(shards, rng, n, window_cap):
+    """(jobs, classes) for the selected path over datasets A and B: half
+    name one dataset, half name none (both). The mix: 35% selected
+    samples (1-500 per dataset), 30% sample extraction (record, HIT), 10%
+    selected samples with an N in referenceBases, 10% about 4x
+    window_cap rows wide (record), 15% boolean/count."""
+    jobs, classes = [], []
+    by_id = {s.meta["dataset_id"]: s for s in shards}
+    for _ in range(n):
+        named = ([rng.choice(sorted(by_id))] if rng.random() < 0.5
+                 else sorted(by_id))
+        shard = by_id[rng.choice(named)]
+        r = rng.random()
+        cls = ("selected" if r < 0.35 else "extract" if r < 0.65
+               else "n_ref" if r < 0.75 else "wide" if r < 0.85 else "plain")
+        i = rng.randrange(shard.n_rows)
+        p = int(shard.cols["pos"][i])
+        rp = {"assemblyId": "GRCh38", "referenceName": shard.row_chrom(i)}
+        gran = "record"
+        if cls == "wide":
+            # about 4x window_cap rows of the densest dataset named
+            dense = max(by_id[d].n_rows for d in named)
+            w = int(4 * window_cap * GENOME_BP / dense)
+            rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w],
+                      alternateBases="N")
+        elif cls == "n_ref":
+            w = rng.choice([2_000, 20_000])
+            rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000],
+                      referenceBases=rng.choice(["N", "AN", "NA", "NC"]),
+                      alternateBases="N")
+        elif rng.random() < 0.5:
+            while not (len(shard.row_ref(i)) == 1 and shard.row_alt(i) in "ACGT"):
+                i = rng.randrange(shard.n_rows)  # an SNV row
+            p = int(shard.cols["pos"][i])
+            rp.update(referenceName=shard.row_chrom(i), start=[p - 1],
+                      end=[p + 6], referenceBases=shard.row_ref(i),
+                      alternateBases=shard.row_alt(i))
+        else:
+            w = rng.choice([2_000, 20_000, 60_000])
+            rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000],
+                      alternateBases=rng.choice(["N", "A", "C", "G", "T"]))
+        if cls == "plain":
+            gran = rng.choice(["boolean", "count"])
+        elif cls == "selected" and rng.random() < 0.3:
+            gran = "count"
+        samples = None
+        if cls in ("selected", "n_ref") or (cls == "wide" and rng.random() < 0.5):
+            samples = {
+                d: rng.sample(by_id[d].meta["sample_names"], rng.randint(
+                    1, min(500, len(by_id[d].meta["sample_names"]))))
+                for d in named
+            }
+        body = {"meta": {"apiVersion": "2.0"},
+                "query": {"requestedGranularity": gran,
+                          "includeResultsetResponses": "HIT",
+                          "requestParameters": rp}}
+        jobs.append(([{"id": d} for d in named], body, samples))
+        classes.append(cls)
+    return jobs, classes
+
+
+def plane_sector_count(rows, w):
+    """Distinct 32-B sectors of the W-word plane rows ``rows``."""
+    import torch
+
+    rows = torch.as_tensor(rows).long().flatten()
+    rows = rows[rows >= 0]
+    if not rows.numel():
+        return 0
+    first = rows * w * 4 // SECTOR_BYTES
+    last = ((rows + 1) * w * 4 - 1) // SECTOR_BYTES
+    n_max = int((last - first).max()) + 1
+    sec = first[:, None] + torch.arange(n_max, device=rows.device)[None, :]
+    return int(torch.unique(sec[sec <= last[:, None]]).numel())
+
+
+def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
+                  record_cap, n_sets=64):
+    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per launch
+    of ``b`` slots of one (tier, exact) split over ``n_sets`` query sets
+    (selected masks of 1-500 samples with counts, all-ones without).
+    The kernel ms finds the L2 cold, as a serving launch that reads its
+    own query's plane rows does; the warm ms cycles the sets back to
+    back, their few KB each staying in L2. Bound, from 16 of the sets:
+    the match kernel's window sectors, the 32-B sectors of the plane
+    rows each launch's matched rows read (x4 with counts), and its
+    inputs and outputs once."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    T = index.tile
+    span = C * T
+    R = min(record_cap, cap)
+    w = pidx.n_words
+    n_samples = len(index.shard.meta["sample_names"])
+    lo_r, hi_r = next((lo, hi) for c, _cp, lo, hi in tiers(T) if c == C)
+    sets = []
+    for _ in range(n_sets):
+        ids, q8 = kernel_inputs(
+            index, tier_specs(index.shard, rng, b, lo_r, hi_r, exact),
+            index.device)
+        masks = mask_rows(rng, 2, w, n_samples)[1 if with_counts else 0]
+        mask = torch.from_numpy(np.tile(masks, (b, 1)).view(np.int32)).to(
+            index.device)
+        sets.append((ids, q8, mask))
+    planes = plane_args(pidx, with_counts)
+    run = lambda s: sk.scatter_selected(
+        index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
+        with_counts=with_counts)
+    ms = cold_device_ms(run, sets, index.device)
+    warm_ms = device_ms(run, sets, reps=4)
+    twin = lambda s: sk.scatter_selected_reference(
+        index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
+        with_counts=with_counts, seg_k=sk._static_seg_k(index))
+    plain_ms = float(np.mean([device_ms(twin, [s], reps=1) for s in sets[:2]]))
+    k = 4 if with_counts else 1
+    io = b * (4 + 32 + 4 * w) + b * (32 + 12 * R + 4 * w)
+    need = []
+    for ids, q8, mask in sets[:16]:
+        _agg, masks, _seq = sk.scatter_match(index.tiles, ids, q8, T=T,
+                                             CAP=cap, C=C, exact_only=exact)
+        win_bytes, lanes = needed_bytes(index, ids, q8, masks, C, cap, io=io)
+        rows = run((ids, q8, mask))[1]
+        n_rows = int((rows >= 0).sum())
+        nbytes = win_bytes + k * plane_sector_count(rows, w) * SECTOR_BYTES
+        ops = lanes * MATCH_OPS_PER_LANE + n_rows * w * k * PLANE_OPS_PER_WORD
+        need.append((nbytes, ops))
+    nbytes = float(np.mean([x for x, _o in need]))
+    ops = float(np.mean([o for _x, o in need]))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (ms, warm_ms, plain_ms, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
+    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
+    launch over ``size`` rows of ``n_sets`` row sets: the kernel ms with
+    a cold L2, the warm ms cycling the sets back to back. Bound: the
+    distinct 32-B sectors of the rows' W-word plane rows (x4 with
+    counts), the row ids, or_sel and mask read once, counts and OR words
+    written once."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+
+    dev = pidx.device
+    w = pidx.n_words
+    n_samples = w * 32
+    sets = []
+    for rows in row_sets(rng, pidx.n_rows, size, n_sets):
+        m = mask_rows(rng, 2, w, n_samples)[1 if with_counts else 0]
+        sets.append((torch.from_numpy(rows).to(dev),
+                     torch.ones(size, dtype=torch.int32, device=dev),
+                     torch.from_numpy(m.view(np.int32)).to(dev)))
+    planes = plane_args(pidx, with_counts)
+    kw = dict(with_counts=with_counts, with_or=with_or)
+    run = lambda s: pk.plane_stats(*planes, *s, **kw)
+    ms = cold_device_ms(run, sets, dev, reps=4)
+    warm_ms = device_ms(run, sets, reps=4)
+    plain_ms = float(np.mean([
+        device_ms(lambda s: pk.plane_stats_reference(*planes, *s, **kw), [s],
+                  reps=1) for s in sets[:2]]))
+    k = 4 if with_counts else 1
+    io = size * (4 + 4) + 4 * w + size * 16 + 4 * w
+    nbytes = float(np.mean([
+        k * plane_sector_count(s[0], w) * SECTOR_BYTES + io for s in sets]))
+    ops = size * w * k * PLANE_OPS_PER_WORD
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return (ms, warm_ms, plain_ms, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
@@ -737,6 +1221,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cohorts", type=int, default=3)
     ap.add_argument("--cohort-rows", type=int, default=5_000_000)
     ap.add_argument("--fused-requests", type=int, default=256)
+    ap.add_argument("--samples", type=int, default=2504)
+    ap.add_argument("--plane-rows", type=int, default=2_000_000)
+    ap.add_argument("--selected-requests", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -757,9 +1244,10 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.api.envelopes import Envelopes
     from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
     from sbeacon_tpu_torch.engine import VariantEngine
-    from sbeacon_tpu_torch.index.columnar import build_index
+    from sbeacon_tpu_torch.index.columnar import FLAG, build_index
     from sbeacon_tpu_torch.ops import _build
     from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
     from sbeacon_tpu_torch.testing import random_records, synthetic_shard
 
@@ -796,7 +1284,7 @@ def run(args, device) -> int:
     )
     engine.add_index(shard)
     t_index = time.perf_counter() - t0
-    (_ds, _vcf, (_s, index)), = list(engine.indexes_for([]))
+    (_ds, _vcf, (_s, index, _p)), = list(engine.indexes_for([]))
     emit("setup", rows=shard.n_rows, records=shard.meta["n_records"],
          chroms="1-22", genotype_planes=False, generate_s=t_gen,
          pack_upload_s=t_index, index_bytes=index.nbytes(),
@@ -907,7 +1395,7 @@ def run(args, device) -> int:
         t_fused = time.perf_counter() - t0
         check(findex is not None and findex.n_shards == len(cohorts) + 1,
               "the fused stack covers every dataset")
-        served_shards = [s for _d, _v, (s, _i) in engine.indexes_for([])]
+        served_shards = [s for _d, _v, (s, _i, _p) in engine.indexes_for([])]
         emit("fused_setup", datasets=[s.meta["dataset_id"] for s in served_shards],
              stacked_rows=findex.n_rows, padded_rows=findex.n_padded,
              fused_bytes=findex.nbytes(), n_iters=findex.n_iters,
@@ -1021,12 +1509,227 @@ def run(args, device) -> int:
     finally:
         engine.close()
 
+    # 10. datasets A (the main shard with a 2504-sample gt plane) and B
+    # (all four planes, genotype-derived counts) behind an engine with
+    # device planes on (the default), and the fused stack of both
+    del engine, findex, cohorts, served_shards
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shard_a = attach_planes(shard, args.samples, args.seed + 20, device,
+                            counts=False, dataset_id="g1kA")
+    shard_b = attach_planes(
+        synthetic_shard(args.plane_rows, seed=args.seed + 21,
+                        n_samples=args.samples, dataset_id="cohortB"),
+        args.samples, args.seed + 22, device, counts=True,
+        dataset_id="cohortB")
+    t_gen = time.perf_counter() - t0
+    engine = VariantEngine(
+        BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+        device=device,
+    )
+    try:
+        t0 = time.perf_counter()
+        for s in (shard_a, shard_b):
+            engine.add_index(s)
+        torch.cuda.synchronize()
+        t_add = time.perf_counter() - t0
+        served = list(engine.indexes_for([]))
+        sel_shards = [s for _d, _v, (s, _i, _p) in served]
+        planes = {d: p for d, _v, (_s, _i, p) in served}
+        check(all(p is not None and p.gt.device.type == device.type
+                  for p in planes.values()),
+              "both datasets' planes are on the card")
+        check(not planes["g1kA"].has_counts and planes["cohortB"].has_counts,
+              "dataset A uploads gt only, dataset B all four planes")
+        findex = engine.warm_fused()
+        check(findex is not None, "the fused stack covers A and B")
+        emit("selected_setup", datasets={
+            d: {"rows": p.n_rows, "words": p.n_words,
+                "planes": 4 if p.has_counts else 1,
+                "plane_bytes": p.nbytes_hbm()} for d, p in planes.items()},
+             samples=args.samples,
+             plane_bytes_resident=engine.plane_hbm_resident(),
+             budget_gb=engine.config.engine.plane_hbm_budget_gb,
+             derived_row_share=float(np.mean(
+                 (shard_b.cols["flags"] & FLAG.AC_INFO) == 0)),
+             generate_s=t_gen, add_upload_s=t_add,
+             device_memory_gb=torch.cuda.memory_allocated() / 1e9)
+
+        # 11. scatter_selected vs twin: dataset B (2504 samples, counts),
+        # dataset A (gt only; its 6.3 GB plane puts row offsets past
+        # 4 GiB from row 13.6e6 on: every tier at one slot, the serving
+        # path's shape, and at 16 slots on its last 5% of rows) and a
+        # crafted 40-sample shard (tail word, ploidy > 2, 12-alt records)
+        record_cap = engine.config.engine.record_cap
+        (_s, index_a, pidx_a), = [t for d, _v, t in served if d == "g1kA"]
+        (_s, index_b, pidx_b), = [t for d, _v, t in served if d == "cohortB"]
+        cases = [
+            (C, cap, lo_r, hi_r, exact, counts, (1, 16, 64)[k % 3])
+            for k, ((C, cap, lo_r, hi_r), exact, counts) in enumerate(
+                (t, e, c) for t in tiers(index_b.tile) for e in (True, False)
+                for c in (True, False))
+        ]
+        err_b, rep_b = compare_selected(index_b, pidx_b, rng, "cohortB",
+                                        record_cap, cases)
+        err_a, rep_a = 0, []
+        tail_lo = int(0.95 * pidx_a.n_rows)
+        for b, row_lo in ((1, 0), (16, tail_lo)):
+            err, rep = compare_selected(
+                index_a, pidx_a, rng, "g1kA", record_cap,
+                [(C, cap, lo_r, hi_r, exact, False, b)
+                 for C, cap, lo_r, hi_r in tiers(index_a.tile)
+                 for exact in (True, False)], row_lo)
+            err_a, rep_a = max(err_a, err), rep_a + rep
+        check(max(r["max_row"] for r in rep_a) >= tail_lo,
+              "dataset A's cases read rows near the end of its plane")
+        crafted_p = build_index(crafted_plane_records(), dataset_id="craftedP",
+                                sample_names=[f"S{i}" for i in range(40)])
+        c_index = sk.ScatterDeviceIndex(crafted_p, device)
+        c_planes = pk.PlaneDeviceIndex(crafted_p, device)
+        check(c_index.seg_k > sk.SEG_K_MAX and c_planes.has_counts
+              and len(crafted_p.gt_overflow), "the crafted shard's shapes")
+        err_c, rep_c = compare_selected(c_index, c_planes, rng, "crafted",
+                                        record_cap, cases)
+        del c_index, c_planes
+        sel_err = max(err_a, err_b, err_c)
+        reports = rep_a + rep_b + rep_c
+        check(sum(r["rows"] for r in reports) > 0
+              and sum(r["or_bits"] for r in reports) > 0,
+              "the cases matched rows and extracted samples")
+        emit("kernel_vs_twin", kernel=sk.SELECTED_KERNEL, tolerance=0,
+             max_abs_err=sel_err, cases=len(reports),
+             all_equal=all(r["equal"] for r in reports), report=reports)
+
+        # 12. plane_stats vs twin on dataset B's planes, and on dataset
+        # A's gt plane at the row-set size of the serving path's overflow
+        # and N-ref requests, anywhere and on its last 20000 rows
+        ps_err, rep_ps = compare_plane_stats(
+            pidx_b, rng, "cohortB", (1, 128, 1000, 20000),
+            ("none", "some", "all"), (True, False))
+        for lo in (0, pidx_a.n_rows - 20000):
+            err, rep = compare_plane_stats(pidx_a, rng, "g1kA", (5000,),
+                                           ("some", "all"), (False,), lo)
+            ps_err, rep_ps = max(ps_err, err), rep_ps + rep
+        check(max(r["max_row"] for r in rep_ps) >= pidx_a.n_rows - 20000,
+              "plane_stats read rows near the end of dataset A's plane")
+        emit("kernel_vs_twin", kernel=pk.KERNEL, tolerance=0,
+             max_abs_err=ps_err, cases=len(rep_ps),
+             all_equal=all(r["equal"] for r in rep_ps), report=rep_ps)
+
+        # 13. the selected path (its own generator: the request mix does
+        # not move when the phases before it draw more cases)
+        jobs, classes = selected_jobs(
+            sel_shards, random.Random(args.seed + 13), args.selected_requests,
+            engine.config.engine.window_cap)
+        fallbacks0 = engine.host_fallbacks
+        telemetry.reset_launch_counts()
+        served_sel, sel_wall = run_jobs(engine, env, jobs, args.threads)
+        counts = {k: telemetry.launch_count(k) for k in
+                  (sk.SELECTED_KERNEL, pk.KERNEL, sk.KERNEL, tk.KERNEL)}
+        recs = telemetry.recent_launches()
+        sel_recs = [r for r in recs if r["kernel"] == sk.SELECTED_KERNEL]
+        ps_recs = [r for r in recs if r["kernel"] == pk.KERNEL]
+        fallbacks = engine.host_fallbacks - fallbacks0
+        lat = [ms for _d, ms, _p, _r in served_sel]
+        n_hit, mismatches = check_served(
+            sel_shards, env, [b for _d, b, _s in jobs], served_sel)
+        check(mismatches == 0, f"{mismatches} selected-path responses differ "
+              "from the host matcher and host planes")
+        check(counts[sk.SELECTED_KERNEL] > 0,
+              "the selected path launched scatter_selected")
+        check(counts[pk.KERNEL] > 0, "the selected path launched plane_stats")
+        check(all(p is not None for _d, _v, (_s, _i, p)
+                  in engine.indexes_for([])), "the planes stayed on the card")
+        n = len(jobs)
+        emit("selected_path", requests=n, threads=args.threads, hits=n_hit,
+             mismatches=mismatches,
+             classes={c: classes.count(c) for c in sorted(set(classes))},
+             selected_requests=sum(s is not None for _d, _b, s in jobs),
+             launches=counts,
+             launches_per_request={k: v / n for k, v in counts.items()},
+             scatter_selected_by_tier={
+                 f"C{c}_{'counts' if w else 'gt'}": sum(
+                     1 for r in sel_recs if (r["C"], r["with_counts"]) == (c, w))
+                 for c, w in sorted({(r["C"], r["with_counts"])
+                                     for r in sel_recs})},
+             scatter_selected_slots=sorted({r["slots"] for r in sel_recs}),
+             plane_stats_rows={"min": min((r["rows"] for r in ps_recs),
+                                          default=0),
+                               "max": max((r["rows"] for r in ps_recs),
+                                          default=0)},
+             plane_bytes_read={
+                 sk.SELECTED_KERNEL: sum(r.get("plane_bytes", 0)
+                                         for r in sel_recs),
+                 pk.KERNEL: sum(r["plane_bytes"] for r in ps_recs)},
+             host_fallbacks=fallbacks, wall_s=sel_wall,
+             requests_per_s=n / sel_wall,
+             latency_ms={"p50": percentile(lat, 0.5),
+                         "p99": percentile(lat, 0.99)},
+             stage_ms=engine.stage_timing(), device=kind, nvidia_smi=smi)
+
+        # 14. timing at the shapes phase 13 launched: scatter_selected at
+        # its slot counts per (tier, counts) it used, dataset A without
+        # counts and B with; plane_stats at the median row-set size of
+        # each (counts, or) combination it used. "ms" finds the L2 cold
+        # (a memset between launches), "warm_ms" is back to back
+        by_case: dict = {}
+        for r in sel_recs:
+            key = (r["C"], r["cap"], r["slots"], r["exact_only"],
+                   r["with_counts"])
+            by_case[key] = by_case.get(key, 0) + 1
+        stimings = []
+        for (C, cap, b, exact, counts_on), launched in sorted(by_case.items()):
+            idx, pidx = (index_b, pidx_b) if counts_on else (index_a, pidx_a)
+            ms, warm_ms, plain_ms, bound_ms, bound_by, nbytes = time_selected(
+                idx, pidx, rng, C, cap, b, exact, counts_on, record_cap)
+            stimings.append(
+                {"C": C, "cap": cap, "slots": b, "exact_only": exact,
+                 "with_counts": counts_on,
+                 "selected_path_launches": launched, "ms": ms,
+                 "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "bound_share": bound_ms / ms,
+                 "bytes": nbytes})
+        emit("timing", kernel=sk.SELECTED_KERNEL, library_ms=None,
+             library_note="no single PyTorch call computes this function",
+             cases=stimings, device=kind, nvidia_smi=smi)
+        by_combo: dict = {}
+        for r in ps_recs:
+            by_combo.setdefault((r["with_counts"], r["with_or"]), []).append(
+                r["rows"])
+        ptimings = []
+        for (counts_on, with_or), sizes in sorted(by_combo.items()):
+            pidx = pidx_b if counts_on else pidx_a
+            size = int(percentile(sizes, 0.5))
+            ms, warm_ms, plain_ms, bound_ms, bound_by, nbytes = (
+                time_plane_stats(pidx, rng, size, counts_on, with_or))
+            ptimings.append(
+                {"rows": size, "with_counts": counts_on, "with_or": with_or,
+                 "selected_path_launches": len(sizes), "ms": ms,
+                 "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": bound_by, "bound_share": bound_ms / ms,
+                 "bytes": nbytes})
+        # estimate of the card's busy share in the selected path: every
+        # launch of the two plane kernels at its case's timed per-launch
+        # ms (J1 and J3 launches of the phase left out)
+        busy_ms = sum(t["ms"] * t["selected_path_launches"]
+                      for t in stimings + ptimings)
+        emit("timing", kernel=pk.KERNEL, library_ms=None,
+             library_note="no single PyTorch call computes this function",
+             cases=ptimings, selected_path_plane_kernel_ms_est=busy_ms,
+             selected_path_plane_busy_share_est=busy_ms / (sel_wall * 1e3),
+             device=kind, nvidia_smi=smi)
+    finally:
+        engine.close()
+
     # the main path's most-launched tier stands for the scatter kernel;
-    # the median fused batch of brackets for the bisection kernel
+    # the median fused batch of brackets for the bisection kernel; the
+    # selected path's most-launched shape for the two plane kernels
     top = max(timings, key=lambda t: (t["main_path_launches"], -t["C"]))
     mid = next(t for t in btimings
                if t["queries"] == percentile(batch_sizes, 0.5)
                and t["kind"] == "bracket")
+    j2 = max(stimings, key=lambda t: t["selected_path_launches"])
+    j4 = max(ptimings, key=lambda t: t["selected_path_launches"])
     print(json.dumps({"kernels": [{
         "name": sk.KERNEL,
         "route": "cuda",
@@ -1054,6 +1757,33 @@ def run(args, device) -> int:
         "bound_by": mid["bound_by"],
         "library_ms": None,
         "batch": {"queries": mid["queries"], "kind": mid["kind"]},
+    }, {
+        "name": sk.SELECTED_KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/scatter_selected.cu",
+        "replaces": "sbeacon_tpu/ops/scatter_kernel.py:454",
+        "launches": counts[sk.SELECTED_KERNEL],
+        "max_abs_err": sel_err,
+        "ms": j2["ms"],
+        "plain_ms": j2["plain_ms"],
+        "bound_ms": j2["bound_ms"],
+        "bound_by": j2["bound_by"],
+        "library_ms": None,
+        "case": {k: j2[k] for k in ("C", "slots", "exact_only",
+                                    "with_counts")},
+    }, {
+        "name": pk.KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/plane_stats.cu",
+        "replaces": "sbeacon_tpu/ops/plane_kernel.py:164",
+        "launches": counts[pk.KERNEL],
+        "max_abs_err": ps_err,
+        "ms": j4["ms"],
+        "plain_ms": j4["plain_ms"],
+        "bound_ms": j4["bound_ms"],
+        "bound_by": j4["bound_by"],
+        "library_ms": None,
+        "case": {k: j4[k] for k in ("rows", "with_counts", "with_or")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

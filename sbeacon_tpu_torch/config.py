@@ -3,11 +3,11 @@
 Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
 ``/g_variants`` path reads. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
-multi-dataset dispatch on up to 64e6 stacked rows), except for the
-features this package has not ported yet: ``use_mesh``,
-``device_planes`` and ``response_cache`` default to off here, and
-``VariantEngine`` raises ``NotImplementedError`` when a caller turns one
-of them on.
+multi-dataset dispatch on up to 64e6 stacked rows, device genotype
+planes on under an 11 GB budget), except for the features this package
+has not ported yet: ``use_mesh`` and ``response_cache`` default to off
+here, and ``VariantEngine`` raises ``NotImplementedError`` when a caller
+turns one of them on.
 """
 
 from __future__ import annotations
@@ -39,6 +39,13 @@ class EngineConfig:
       datasets coalesce into one micro-batch; it holds a second device
       copy of the columns (60 B/row), so it is skipped past
       fused_max_rows stacked rows.
+    device_planes: upload each shard's genotype bit planes to the device
+      (selected samples and sample-hit extraction read them there);
+      a plane set that would take the device's resident and in-flight
+      planes past plane_hbm_budget_gb stays on the host. (The JAX
+      package's plane_upload_chunk_mb is a constant here,
+      ops.plane_kernel.UPLOAD_CHUNK_BYTES: the upload never holds a
+      plane twice on the device, so no caller needs to turn it off.)
     """
 
     window_cap: int = 2048
@@ -49,9 +56,10 @@ class EngineConfig:
     timing_window: int = 65536
     fused_dispatch: bool = True
     fused_max_rows: int = 64_000_000
+    device_planes: bool = True
+    plane_hbm_budget_gb: float = 11.0
     # not ported yet: VariantEngine refuses each of these when on
     use_mesh: bool = False
-    device_planes: bool = False
     response_cache: bool = False
 
 

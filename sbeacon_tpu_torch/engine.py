@@ -2,9 +2,8 @@
 
 Counterpart of ``sbeacon_tpu/engine.py``. ``_blob_eq``,
 ``host_match_rows`` and ``materialize_response`` (with their numpy
-helpers) are copies of the JAX package's; ``materialize_response`` reads
-the genotype planes on the host only, since device planes arrive with
-the selected-samples slice. ``VariantEngine`` serves two device legs:
+helpers) are copies of the JAX package's. ``VariantEngine`` serves three
+device legs:
 
 - single dataset: ``search`` -> ``_search`` -> ``_device_rows`` -> the
   micro-batcher -> ``run_queries_auto`` -> the scatter match kernel ->
@@ -14,19 +13,28 @@ the selected-samples slice. ``VariantEngine`` serves two device legs:
   ``FusedDeviceIndex`` stacked over every shard -> the bisection query
   kernel; the stack is built off the request path once two or more
   shards are loaded, and until it is ready each dataset takes its own
-  scatter launch (the thread-scatter leg).
+  scatter launch (the thread-scatter leg);
+- requests that read genotype planes (the selected-samples leaf, and
+  sample-hit extraction on record/aggregated granularity) on a shard
+  whose planes are on the device (``device_planes``): ``_one_target`` ->
+  ``_fused_selected`` -> ``run_selected_scattered`` -> the fused
+  match + planes kernel, one launch that hands ``materialize_response``
+  its rows, per-row popcounts and sample-hit words. When that query
+  overflows, or its ref has an N wildcard, its rows come from the split
+  path and ``materialize_response(plane_index=)`` reads the planes with
+  the plane-stats kernel.
 
 A query whose window exceeds ``window_cap`` or whose matches exceed
 ``record_cap`` falls back to ``host_match_rows``, a vectorised numpy
 twin of the kernels with no caps and byte-exact allele comparison.
 
-Not ported yet, and refused when switched on: the mesh leg, device
-genotype planes and the response cache; the L0 delta tail is absent as
-well.
+Not ported yet, and refused when switched on: the mesh leg and the
+response cache; the L0 delta tail is absent as well.
 """
 
 from __future__ import annotations
 
+import logging
 import threading
 import time
 import weakref
@@ -44,6 +52,12 @@ from .ops import (
     run_queries_auto,
 )
 from .ops.kernel import QuerySpec, encode_queries
+from .ops.plane_kernel import (
+    PlaneDeviceIndex,
+    plane_row_stats,
+    sample_mask_words,
+)
+from .ops.scatter_kernel import run_selected_scattered
 from .payloads import VariantQueryPayload, VariantSearchResponse
 from .telemetry import percentiles
 from .utils.chrom import chromosome_code
@@ -186,15 +200,6 @@ def host_match_rows(
     return idx[ok]
 
 
-def sample_mask_words(selected_idx, n_words: int) -> np.ndarray:
-    """uint32[n_words] bit mask for a selected-sample index list (bit
-    s%32 of word s//32), as ``sbeacon_tpu/ops/plane_kernel.py`` builds it."""
-    mask = np.zeros(n_words, dtype=np.uint32)
-    for si in selected_idx:
-        mask[si // 32] |= np.uint32(1 << (si % 32))
-    return mask
-
-
 def _popcounts(words: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
     """Per-row popcount of (words & mask): [k, w] uint32 -> [k] int64."""
     if mask is not None:
@@ -233,6 +238,8 @@ def materialize_response(
     dataset_id: str = "",
     vcf_location: str = "",
     selected_idx: list[int] | None = None,
+    plane_index: PlaneDeviceIndex | None = None,
+    fused=None,
 ) -> VariantSearchResponse:
     """Vectorised row-id materialisation (cumulative-order semantics).
 
@@ -245,6 +252,20 @@ def materialize_response(
     remain a comprehension over matched rows only — they ARE the response
     payload, so their count is already bounded by what the client asked
     to receive.
+
+    ``plane_index`` (a ``PlaneDeviceIndex``) moves the plane reads to the
+    device: per-row masked popcounts and the sample-hit OR run as one or
+    two plane-stats kernel launches over the device planes. The
+    truncation/AN/overflow semantics stay on the host, from the
+    device-returned numbers, and are identical to the host path (the
+    ploidy>2 overflow side tables are host-applied either way).
+
+    ``fused`` short-circuits BOTH plane reads with what the fused
+    match + planes kernel already computed in the match launch: a
+    ``(pc_call, pc_tok, or_words)`` triple, pc_call/pc_tok per-row
+    masked popcounts aligned with ``rows`` and or_words the sample-hit
+    OR over the grp >= k0 subset. It takes precedence over
+    ``plane_index``.
     """
     c = shard.cols
     rows = np.asarray(rows, dtype=np.int64)
@@ -296,14 +317,32 @@ def materialize_response(
         if count_planes
         else np.zeros(0, np.int64)
     )
+    dev_counts = None
+    if (
+        fused is None
+        and plane_index is not None
+        and plane_index.has_counts
+        and (len(gt_rows) or len(tok_grps))
+    ):
+        # ONE device call covers both popcount target sets (matched
+        # rows needing genotype-derived AC, record-first rows needing
+        # token-derived AN)
+        cat = np.concatenate([rows[gt_rows], r0[tok_grps]])
+        dev_counts, _ = plane_row_stats(plane_index, cat, mask)
     if count_planes and len(gt_rows):
         rr = rows[gt_rows]
         extras = _overflow_extras(shard, "gt", rr, sel_mask)
-        rc[gt_rows] = (
-            _popcounts(shard.gt_bits[rr], mask)
-            + _popcounts(shard.gt_bits2[rr], mask)
-            + extras
-        )
+        if fused is not None:
+            rc[gt_rows] = fused[0][gt_rows].astype(np.int64) + extras
+        elif dev_counts is not None:
+            pc = dev_counts[: len(gt_rows)]
+            rc[gt_rows] = pc[:, 0] + pc[:, 1] + extras
+        else:
+            rc[gt_rows] = (
+                _popcounts(shard.gt_bits[rr], mask)
+                + _popcounts(shard.gt_bits2[rr], mask)
+                + extras
+            )
 
     rc_grp = np.add.reduceat(rc, starts)
     cum = np.cumsum(rc_grp)
@@ -315,11 +354,19 @@ def materialize_response(
     if count_planes and len(tok_grps):
         rr = r0[tok_grps]
         extras = _overflow_extras(shard, "tok", rr, sel_mask)
-        an_grp[tok_grps] = (
-            _popcounts(shard.tok_bits1[rr], mask)
-            + _popcounts(shard.tok_bits2[rr], mask)
-            + extras
-        )
+        if fused is not None:
+            an_grp[tok_grps] = (
+                fused[1][starts[tok_grps]].astype(np.int64) + extras
+            )
+        elif dev_counts is not None:
+            tk = dev_counts[len(gt_rows) :]
+            an_grp[tok_grps] = tk[:, 2] + tk[:, 3] + extras
+        else:
+            an_grp[tok_grps] = (
+                _popcounts(shard.tok_bits1[rr], mask)
+                + _popcounts(shard.tok_bits2[rr], mask)
+                + extras
+            )
 
     # cumulative truncation: which records the loop would process
     if not exists:
@@ -369,9 +416,26 @@ def materialize_response(
         and shard.gt_bits is not None
     ):
         srows = rows[grp_of >= k0]
-        agg = np.bitwise_or.reduce(shard.gt_bits[srows], axis=0)
-        if mask is not None:
-            agg = agg & mask
+        if fused is not None:
+            # the fused kernel already OR-reduced the grp >= k0 subset in
+            # the match launch (rc positivity, and so k0 and the subset,
+            # does not depend on the ploidy extras)
+            agg = np.asarray(fused[2], dtype=np.uint32)
+            if mask is not None:
+                agg = agg & mask
+        elif plane_index is not None:
+            # device OR over the exact grp >= k0 subset
+            _cnts, agg = plane_row_stats(
+                plane_index,
+                srows,
+                mask,
+                or_sel=np.ones(len(srows), np.int32),
+                with_counts=False,
+            )
+        else:
+            agg = np.bitwise_or.reduce(shard.gt_bits[srows], axis=0)
+            if mask is not None:
+                agg = agg & mask
         bits = np.unpackbits(
             agg.view(np.uint8), bitorder="little"
         ).astype(bool)
@@ -405,7 +469,7 @@ def materialize_response(
 
 
 #: EngineConfig switches for features this package has not ported yet
-_UNPORTED = ("use_mesh", "device_planes", "response_cache")
+_UNPORTED = ("use_mesh", "response_cache")
 
 
 class VariantEngine:
@@ -426,9 +490,13 @@ class VariantEngine:
                 f"yet: {', '.join(on)}"
             )
         self.device = resolve_device(device)
-        # (dataset_id, vcf_location) -> (shard, ScatterDeviceIndex)
+        # (dataset_id, vcf_location) -> (shard, ScatterDeviceIndex,
+        # PlaneDeviceIndex | None)
         self._indexes: dict[tuple[str, str], tuple] = {}
         self._lock = threading.Lock()
+        # device bytes of plane uploads in flight, by reservation token:
+        # the budget gate counts them with the resident planes
+        self._plane_reserved: dict = {}
         # sorted serving list, rebuilt copy-on-write at every publish so
         # the query path never iterates a dict an ingest is mutating
         self._serve_list: list = []
@@ -472,22 +540,94 @@ class VariantEngine:
     # -- index management ---------------------------------------------------
 
     def add_index(self, shard: VariantIndexShard) -> None:
-        """Build the shard's device index and publish it. A device
-        failure raises: serving never moves to the host on its own."""
+        """Build the shard's device index and its device planes, then
+        publish them. A device failure (index build or plane upload)
+        raises: serving never moves to the host on its own. Only the
+        plane budget keeps a plane set on the host."""
         key = (
             shard.meta.get("dataset_id", ""),
             shard.meta.get("vcf_location", ""),
         )
         dindex = make_device_index(shard, self.device)
+        planes = self._build_planes(key, shard)
         with self._lock:
-            self._indexes[key] = (shard, dindex)
-            self._serve_list = [
-                (ds, vcf, triple)
-                for (ds, vcf), triple in sorted(self._indexes.items())
-            ]
-            # the fused stack no longer covers this shard snapshot
-            self._fused_dirty = True
-            self._fused_gen += 1
+            self._publish_locked(key, (shard, dindex, planes))
+            # the upload's reservation turns into residency in the same
+            # critical section: never counted twice, never nowhere
+            self._plane_reserved.pop(
+                getattr(planes, "_hbm_reservation", None), None
+            )
+
+    def _publish_locked(self, key, triple) -> None:
+        """Publish ``triple`` under ``key`` and rebuild the serving list;
+        the fused stack no longer covers this shard snapshot."""
+        self._indexes[key] = triple
+        self._serve_list = [
+            (ds, vcf, t) for (ds, vcf), t in sorted(self._indexes.items())
+        ]
+        self._fused_dirty = True
+        self._fused_gen += 1
+
+    def _build_planes(self, key, shard) -> PlaneDeviceIndex | None:
+        """Device-resident genotype planes for the selected-samples leaf
+        and sample-hit extraction, gated on the device budget: a plane
+        set that would take the resident planes plus the uploads in
+        flight past ``plane_hbm_budget_gb`` stays on the host (logged)
+        and materialisation reads the host planes. A failed upload
+        releases its reservation and raises.
+
+        The gate is cumulative: the reservation is taken under the lock
+        before the upload, so two concurrent add_index calls cannot both
+        pass it and together exceed the budget. Re-ingestion republishes
+        the key plane-less first, so its old planes stop counting; an
+        in-flight search may still hold them, so the budget is a
+        watermark, not a hard cap, across that window. The upload holds
+        the plane set once on the device (``staged_upload``), so the
+        reservation is its size."""
+        eng = self.config.engine
+        if shard.gt_bits is None or not eng.device_planes:
+            return None
+        budget = eng.plane_hbm_budget_gb * 1e9
+        est = PlaneDeviceIndex.estimate_hbm(shard)
+        token = object()  # unique per upload: same-key races each hold one
+        with self._lock:
+            prior = self._indexes.get(key)
+            if prior is not None and prior[2] is not None:
+                self._publish_locked(key, (prior[0], prior[1], None))
+            used = self._plane_hbm_resident_locked()
+            over = used + est > budget
+            if not over:
+                self._plane_reserved[token] = est
+        if over:
+            logging.getLogger(__name__).info(
+                "genotype planes for %s exceed the device budget "
+                "(%.1f GB resident+reserved); host-resident",
+                key,
+                used / 1e9,
+            )
+            return None
+        try:
+            planes = PlaneDeviceIndex(shard, self.device)
+        except BaseException:
+            with self._lock:
+                self._plane_reserved.pop(token, None)
+            raise
+        planes._hbm_reservation = token
+        return planes
+
+    def _plane_hbm_resident_locked(self) -> int:
+        """Resident per-dataset planes + every reservation, under the
+        publish lock: the one summation the budget gate reads."""
+        return sum(
+            p.nbytes_hbm() for _s, _d, p in self._indexes.values()
+            if p is not None
+        ) + sum(self._plane_reserved.values())
+
+    def plane_hbm_resident(self) -> int:
+        """Device bytes committed to genotype planes (resident plane
+        indexes + uploads in flight)."""
+        with self._lock:
+            return self._plane_hbm_resident_locked()
 
     def close(self) -> None:
         """Join any fused build in flight (a daemon thread caught inside
@@ -508,11 +648,12 @@ class VariantEngine:
         return self._batcher
 
     def indexes_for(self, dataset_ids: list[str]):
-        """Every serving (shard, index) pair for the datasets (all of
-        them for an empty list), in sorted key order."""
-        for ds, vcf, pair in self._serve_list:
+        """Every serving (shard, index, planes) triple for the datasets
+        (all of them for an empty list), in sorted key order; planes is
+        None where the shard's planes are not on the device."""
+        for ds, vcf, triple in self._serve_list:
             if not dataset_ids or ds in dataset_ids:
-                yield ds, vcf, pair
+                yield ds, vcf, triple
 
     def stage_timing(self) -> dict:
         """The batcher's stage quantiles (when it serves) plus host
@@ -632,7 +773,10 @@ class VariantEngine:
         caller host-matches that shard uncapped, the per-shard
         contract). Returns None, and per-target dispatch serves, when
         the query needs host-only ref-wildcard semantics, no stack is
-        ready, or fewer than 2 targets are covered."""
+        ready, or fewer than 2 targets are covered. Targets the fused
+        match + planes kernel will serve whole (``_fused_selected``:
+        the request reads planes and the shard's are on the device) are
+        left out: their stacked match would be thrown away."""
         if payload.selected_samples_only and not self._device_ref_ok(
             payload, spec_base
         ):
@@ -643,8 +787,11 @@ class VariantEngine:
         if fst is None:
             return None
         findex, sid_of, shard_of = fst
+        wants_planes = self._wants_planes(payload)
         routes = []
-        for ds, vcf, shard, _dindex, _native in targets:
+        for ds, vcf, shard, _dindex, planes, _native in targets:
+            if wants_planes and planes is not None:
+                continue  # _fused_selected serves this target whole
             sid = sid_of.get((ds, vcf))
             if sid is not None and shard_of[(ds, vcf)] is shard:
                 routes.append(((ds, vcf), sid))
@@ -737,12 +884,14 @@ class VariantEngine:
             variant_max_length=payload.variant_max_length,
         )
         targets = []
-        for ds, vcf, (shard, dindex) in self.indexes_for(payload.dataset_ids):
+        for ds, vcf, (shard, dindex, planes) in self.indexes_for(
+            payload.dataset_ids
+        ):
             native = shard.meta.get("chrom_native", {}).get(payload.reference_name)
             if native is None:
                 # VCF has no matching chromosome: skipped
                 continue
-            targets.append((ds, vcf, shard, dindex, native))
+            targets.append((ds, vcf, shard, dindex, planes, native))
         if not targets:
             return []
 
@@ -756,11 +905,23 @@ class VariantEngine:
         )
 
         def _one_target(target):
-            ds, vcf, shard, dindex, native = target
+            ds, vcf, shard, dindex, planes, native = target
             selected_idx = None
+            fused = None
+            rows = None
             if payload.selected_samples_only:
                 selected_idx = self._selected_idx(shard, payload, ds)
-            if pre_rows is not None and (ds, vcf) in pre_rows:
+            if planes is not None and self._wants_planes(payload):
+                # the fused match + planes kernel: the whole
+                # selected-samples (or sample-extraction) leaf in ONE
+                # launch. Overflow and N-wildcard refs take the split
+                # path below.
+                got = self._fused_selected(
+                    shard, dindex, planes, spec_base, payload, selected_idx
+                )
+                if got is not None:
+                    rows, fused = got
+            if rows is None and pre_rows is not None and (ds, vcf) in pre_rows:
                 # the fused launch already matched this target; None
                 # marks window/record overflow -> the uncapped host
                 # matcher, exactly like the per-shard contract
@@ -773,7 +934,7 @@ class VariantEngine:
                         spec_base,
                         ref_wildcard=payload.selected_samples_only,
                     )
-            elif payload.selected_samples_only:
+            elif rows is None and payload.selected_samples_only:
                 # selected-samples leaf: device row matching unless the
                 # ref carries an N wildcard (regex semantics, host
                 # only); counting is sample-restricted in
@@ -786,7 +947,7 @@ class VariantEngine:
                     rows = host_match_rows(
                         shard, spec_base, ref_wildcard=True
                     )
-            else:
+            elif rows is None:
                 rows = self._device_rows(shard, dindex, spec_base)
             t_mat = time.perf_counter()
             resp = materialize_response(
@@ -797,6 +958,8 @@ class VariantEngine:
                 dataset_id=ds,
                 vcf_location=vcf,
                 selected_idx=selected_idx,
+                plane_index=planes,
+                fused=fused,
             )
             with self._mat_lock:
                 self._mat_ms.append((time.perf_counter() - t_mat) * 1e3)
@@ -814,6 +977,53 @@ class VariantEngine:
         universe = shard.meta.get("sample_names", [])
         name_to_idx = {s: k for k, s in enumerate(universe)}
         return [name_to_idx[s] for s in wanted if s in name_to_idx]
+
+    @staticmethod
+    def _wants_planes(payload) -> bool:
+        """Queries whose response READS genotype planes: the selected-
+        samples leaf, or sample-hit extraction on record/aggregated
+        granularity with details (materialize's extraction block needs
+        include_details). Every other query never touches the planes and
+        takes the (micro-batched) match-only path."""
+        return payload.selected_samples_only or (
+            payload.include_samples
+            and payload.include_details
+            and payload.requested_granularity in ("record", "aggregated")
+        )
+
+    def _fused_selected(
+        self, shard, dindex, planes, spec_base, payload, selected_idx
+    ):
+        """ONE-launch match + plane reduction via the fused kernel.
+
+        Returns (rows, (pc_call, pc_tok, or_words)) for
+        materialize_response, or None when this query takes the split
+        path: an N-wildcard ref (regex semantics, host only) or window /
+        record overflow (the uncapped host matcher then answers, the
+        match kernel's overflow contract). A failed launch raises: the
+        split path never hides the kernel."""
+        if not self._device_ref_ok(payload, spec_base):
+            return None
+        eng = self.config.engine
+        if selected_idx is not None:
+            mask = sample_mask_words(selected_idx, planes.n_words)
+        else:
+            mask = np.full(planes.n_words, 0xFFFFFFFF, np.uint32)
+        res = run_selected_scattered(
+            dindex,
+            planes,
+            [spec_base],
+            mask[None, :],
+            window_cap=eng.window_cap,
+            record_cap=eng.record_cap,
+            with_counts=selected_idx is not None and planes.has_counts,
+        )
+        if res.overflow[0]:
+            return None
+        keep = res.rows[0] >= 0
+        rows = res.rows[0][keep].astype(np.int64)
+        fused = (res.pc_call[0][keep], res.pc_tok[0][keep], res.or_words[0])
+        return rows, fused
 
     @staticmethod
     def _device_ref_ok(payload, spec_base) -> bool:

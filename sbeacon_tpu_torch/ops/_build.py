@@ -2,10 +2,10 @@
 
 Each source under ``sbeacon_tpu_torch/csrc/`` compiles with ``nvcc`` for
 ``sm_90a`` into its own shared library under ``build/kernels/`` of the
-checkout, named by a hash of the source and the flags so an edited
-source rebuilds. The build happens at first use, never at import: the
-CPU tests import every module. A missing ``nvcc`` or a failed compile
-raises.
+checkout, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags so an edited source or header rebuilds.
+The build happens at first use, never at import: the CPU tests import
+every module. A missing ``nvcc`` or a failed compile raises.
 """
 
 from __future__ import annotations
@@ -46,6 +46,19 @@ SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "scatter_selected": {
+        "scatter_selected_launch": (
+            [_P] * 13 + [_I] * 8 + [_L, _I, _P],
+            ctypes.c_int,
+        ),
+        "scatter_selected_smem": ([_I, _I, _I, _I], ctypes.c_longlong),
+    },
+    "plane_stats": {
+        "plane_stats_launch": (
+            [_P] * 9 + [_I, _I, _L, _I, _I, _P],
+            ctypes.c_int,
+        ),
+    },
 }
 
 _lock = threading.Lock()
@@ -72,8 +85,9 @@ def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
     returns the library path."""
     src = CSRC / f"{name}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():

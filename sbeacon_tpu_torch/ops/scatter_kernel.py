@@ -1,10 +1,14 @@
-"""Scattered-window variant-query kernel: the match half.
+"""Scattered-window variant-query kernels: the match and the fused
+match + genotype planes.
 
 Counterpart of ``sbeacon_tpu/ops/scatter_kernel.py`` (``ScatterDeviceIndex``,
 ``_tier_caps``, ``_static_seg_k``, ``_launch_tier``,
-``run_queries_scattered``) with the XLA program
+``run_queries_scattered``, ``SelectedResults``,
+``run_selected_scattered``) with the XLA programs
 ``_scatter_core`` / ``_scatter_batch`` / ``_scatter_many`` replaced by
-the hand-written CUDA kernel ``csrc/scatter_match.cu``.
+the hand-written CUDA kernel ``csrc/scatter_match.cu`` and
+``_selected_batch`` by ``csrc/scatter_selected.cu`` (both include the
+window match of ``csrc/scatter_core.cuh``).
 
 The index columns are bit-packed from 16 int32 rows down to 8 (pos,
 rec_end, ref_hash, alt_hash, packed lens, packed flags+repeat_k+record
@@ -17,11 +21,15 @@ gather. Each (tier, exact) split of a batch is ONE kernel launch over
 all its chunk-padded slots (the JAX package's ``lax.map`` over chunks
 is the grid axis here).
 
-``scatter_match`` is the kernel's wrapper: on a CUDA tensor it launches
-the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
-``scatter_core_reference``, an op-by-op mirror of ``_scatter_core``
-including both of its first-match forms. Every CUDA launch adds one to
-the ``scatter_match`` launch count (``scatter_match_launches``).
+``scatter_match`` is the match kernel's wrapper: on a CUDA tensor it
+launches the kernel (or raises), on a CPU tensor it runs the
+plain-PyTorch twin ``scatter_core_reference``, an op-by-op mirror of
+``_scatter_core`` including both of its first-match forms. Every CUDA
+launch adds one to the ``scatter_match`` launch count
+(``scatter_match_launches``). ``scatter_selected`` is the fused kernel's
+wrapper, by the same rule, with the twin ``scatter_selected_reference``
+(an op-by-op mirror of ``_selected_batch``) and the launch count
+``scatter_selected_launches``.
 
 Lossless bit-packing, by two guards: row alt_len clamps to 0xFFFF and
 ref_len to 0x1FFF in the packed matrix, ``pack_q8`` host-flags any query
@@ -50,9 +58,11 @@ from .kernel import (
     VT_DUP_TANDEM,
     VT_INS,
     _PAD_FILLS,
+    _SMEM_MAX,
     _wrap32,
     encode_queries,
 )
+from .plane_kernel import or_reduce, popcount32
 from .query_pack import (
     PM_CNV,
     PM_DUPT,
@@ -104,13 +114,17 @@ THREADS = 128
 _SMEM_LIMIT = 48 * 1024
 
 KERNEL = "scatter_match"
+SELECTED_KERNEL = "scatter_selected"
 
 
 def __getattr__(name: str):
-    """``scatter_match_launches``: CUDA launches of the scatter match
-    kernel since the last ``telemetry.reset_launch_counts()``."""
+    """``scatter_match_launches`` / ``scatter_selected_launches``: CUDA
+    launches of each kernel since the last
+    ``telemetry.reset_launch_counts()``."""
     if name == "scatter_match_launches":
         return launch_count(KERNEL)
+    if name == "scatter_selected_launches":
+        return launch_count(SELECTED_KERNEL)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -203,17 +217,14 @@ def _shift_lanes(x: torch.Tensor, k: int) -> torch.Tensor:
     return torch.cat([zeros, x[:, : span - k]], dim=1)
 
 
-def scatter_core_reference(
+def _scatter_core_parts(
     tiles, tile_ids, qarr, *, T, CAP, C=None, exact_only=False, seg_k=None
 ):
-    """Plain-PyTorch twin of the scatter match kernel: an op-by-op
-    mirror of ``sbeacon_tpu/ops/scatter_kernel.py::_scatter_core``.
-
-    ``tiles`` int32 [n_tiles, 8, T]; ``tile_ids`` int32 [B]; ``qarr``
-    int32 [B, 8] (``pack_q8`` encoding). Returns (agg int32 [B, 8],
-    masks int32 [B, C*T/16]). ``seg_k`` selects the K-shift first-match
-    form (records of at most seg_k+1 rows); None selects the segmented
-    cumsum/cummax form. Runs on whatever device its inputs lie on."""
+    """The body of ``scatter_core_reference``, returning what JAX's
+    ``_scatter_core`` returns but its unused ``lo``: ``(agg, masks, m_i,
+    win, gidx)``. m_i/win/gidx let the selected-samples twin reduce the
+    genotype planes over the same gathered window (one source of truth
+    for the predicate stack)."""
     i32 = torch.int32
     dev = tiles.device
     if C is None:
@@ -367,6 +378,24 @@ def scatter_core_reference(
     nw = span // 16
     weights = (1 << torch.arange(16, dtype=i32, device=dev))[None, None, :]
     masks = (m_i.reshape(-1, nw, 16) * weights).sum(dim=2, dtype=i32)
+    return agg, masks, m_i, win, gidx
+
+
+def scatter_core_reference(
+    tiles, tile_ids, qarr, *, T, CAP, C=None, exact_only=False, seg_k=None
+):
+    """Plain-PyTorch twin of the scatter match kernel: an op-by-op
+    mirror of ``sbeacon_tpu/ops/scatter_kernel.py::_scatter_core``.
+
+    ``tiles`` int32 [n_tiles, 8, T]; ``tile_ids`` int32 [B]; ``qarr``
+    int32 [B, 8] (``pack_q8`` encoding). Returns (agg int32 [B, 8],
+    masks int32 [B, C*T/16]). ``seg_k`` selects the K-shift first-match
+    form (records of at most seg_k+1 rows); None selects the segmented
+    cumsum/cummax form. Runs on whatever device its inputs lie on."""
+    agg, masks, _m, _w, _g = _scatter_core_parts(
+        tiles, tile_ids, qarr, T=T, CAP=CAP, C=C, exact_only=exact_only,
+        seg_k=seg_k,
+    )
     return agg, masks
 
 
@@ -596,4 +625,378 @@ def run_queries_scattered(
         n_matched=agg[:, 4],
         overflow=overflow,
         rows=rows,
+    )
+
+
+def scatter_selected_reference(
+    tiles,
+    gt,
+    gt2,
+    tok1,
+    tok2,
+    tile_ids,
+    qarr,
+    mask,
+    *,
+    T,
+    CAP,
+    C=None,
+    exact_only=False,
+    R=64,
+    with_counts=False,
+    seg_k=None,
+):
+    """Plain-PyTorch twin of the fused match + planes kernel: an
+    op-by-op mirror of ``sbeacon_tpu/ops/scatter_kernel.py::
+    _selected_batch``.
+
+    The match of ``scatter_core_reference``; the first R matched lanes
+    by a stable argsort; their plane rows gathered, masked per query
+    (``mask`` int32 [B, W]) and popcounted; the sample-hit OR over the
+    ``or_sel`` rows from the same forward and backward segmented scans,
+    in int32 with wraparound. Returns (agg [B, 8], rows [B, R] global row
+    ids (-1 pad), pc_call [B, R], pc_tok [B, R], or_words [B, W]), all
+    int32. One deliberate difference: the pad lanes of pc_call/pc_tok
+    are 0, where the JAX program writes row 0's popcounts (its pad lanes
+    gather row 0; no caller reads them)."""
+    i32 = torch.int32
+    agg, _masks, m_i, win, gidx = _scatter_core_parts(
+        tiles, tile_ids, qarr, T=T, CAP=CAP, C=C, exact_only=exact_only,
+        seg_k=seg_k,
+    )
+    # top-R matched lanes, ascending (a stable sort keeps lane order)
+    order = torch.argsort(1 - m_i, dim=1, stable=True)[:, :R]
+    matched = torch.gather(m_i, 1, order) != 0  # [B, R]
+    rows = torch.where(matched, torch.gather(gidx.expand_as(m_i), 1, order), -1)
+    take = lambda r: torch.gather(win[:, r, :], 1, order)
+    ac_r = take(P_AC)
+    flags_r = take(P_FLAGS)
+    # record segments within the window: cumsum of the SAME_PREV breaks
+    seg_id = torch.cumsum(
+        1 - ((win[:, P_FLAGS, :] & SAME_PREV) != 0).to(i32), dim=1, dtype=i32
+    )
+    rec_r = torch.gather(seg_id, 1, order)
+
+    safe = rows.long().clamp(0, gt.shape[0] - 1)
+    m = mask[:, None, :]  # [B, 1, W]
+    g = gt[safe] & m  # [B, R, W]
+    pcw = lambda x: popcount32(x).sum(dim=-1).to(i32)
+    pc_gt = pcw(g)
+    if with_counts:
+        pc_call = pc_gt + pcw(gt2[safe] & m)
+        pc_tok = pcw(tok1[safe] & m) + pcw(tok2[safe] & m)
+        rc = torch.where((flags_r & FLAG.AC_INFO) != 0, ac_r, pc_call)
+    else:
+        pc_call = pc_gt
+        pc_tok = torch.zeros_like(pc_gt)
+        rc = ac_r
+    mi = matched.to(i32)
+    rc = rc * mi
+    pc_call = pc_call * mi
+    pc_tok = pc_tok * mi
+
+    # or_sel == (record index >= k0) for matched lanes: the segmented
+    # forward/backward scans of the JAX program
+    rec_eff = torch.where(matched, rec_r, -2)
+    ones = torch.ones_like(matched[:, :1])
+    first = matched & torch.cat([ones, rec_eff[:, 1:] != rec_eff[:, :-1]], 1)
+    c = _wrap32(torch.cumsum(rc.long(), dim=1))
+    before = _wrap32(c.long() - rc.long())
+    base = torch.cummax(torch.where(first, before, -1), dim=1).values
+    fwd_any = _wrap32(c.long() - base.long()) > 0
+    rc_f = torch.flip(rc, [1])
+    rec_f = torch.flip(rec_eff, [1])
+    first_f = torch.flip(matched, [1]) & torch.cat(
+        [ones, rec_f[:, 1:] != rec_f[:, :-1]], 1
+    )
+    c_f = _wrap32(torch.cumsum(rc_f.long(), dim=1))
+    base_f = torch.cummax(
+        torch.where(first_f, _wrap32(c_f.long() - rc_f.long()), -1), dim=1
+    ).values
+    bwd_any = torch.flip(_wrap32(c_f.long() - base_f.long()) > 0, [1])
+    or_sel = matched & ((base > 0) | fwd_any | bwd_any)
+    or_words = or_reduce(
+        torch.where(or_sel[:, :, None], g, torch.zeros_like(g)), 1
+    )  # [B, W]
+    return agg, rows, pc_call, pc_tok, or_words
+
+
+def scatter_selected(
+    tiles,
+    gt,
+    gt2,
+    tok1,
+    tok2,
+    tile_ids,
+    qarr,
+    mask,
+    *,
+    T,
+    CAP,
+    C=None,
+    exact_only=False,
+    R=64,
+    with_counts=False,
+    seg_k=None,
+):
+    """The fused match + planes kernel: (agg, rows, pc_call, pc_tok,
+    or_words, seq) for one tier.
+
+    CUDA tensors launch ``csrc/scatter_selected.cu`` on the current
+    stream (asynchronously) and record the launch, ``seq`` being its
+    launch record. CPU tensors run ``scatter_selected_reference`` and
+    ``seq`` is None. Any other device, or inputs the kernel does not
+    take, raise. Without counts the caller passes ``gt`` for the three
+    count planes."""
+    if C is None:
+        C = CAP // T + 1
+    if tiles.device.type == "cpu":
+        out = scatter_selected_reference(
+            tiles, gt, gt2, tok1, tok2, tile_ids, qarr, mask, T=T, CAP=CAP,
+            C=C, exact_only=exact_only, R=R, with_counts=with_counts,
+            seg_k=seg_k,
+        )
+        return (*out, None)
+    if tiles.device.type != "cuda":
+        raise ValueError(
+            f"scatter_selected runs on cuda or cpu, not {tiles.device}"
+        )
+    dev = tiles.device
+    span = C * T
+    b = tile_ids.shape[0]
+    n_plane, w = gt.shape
+    for name, x, shape in (
+        ("tiles", tiles, (tiles.shape[0], N_PACKED, T)),
+        ("gt", gt, (n_plane, w)),
+        ("gt2", gt2, (n_plane, w)),
+        ("tok1", tok1, (n_plane, w)),
+        ("tok2", tok2, (n_plane, w)),
+        ("tile_ids", tile_ids, (b,)),
+        ("qarr", qarr, (b, 8)),
+        ("mask", mask, (b, w)),
+    ):
+        if x.device != dev or x.dtype != torch.int32 or not x.is_contiguous():
+            raise ValueError(
+                f"{name} must be a contiguous int32 tensor on {dev}"
+            )
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
+    lib = _build.load(SELECTED_KERNEL)
+    smem = lib.scatter_selected_smem(T, C, R, w)
+    if (
+        T % THREADS or C < 1 or not 1 <= R <= span or w < 1
+        or smem > _SMEM_MAX
+    ):
+        raise ValueError(
+            f"unsupported tier T={T} C={C} R={R} W={w}: T must be a "
+            f"multiple of {THREADS}, 1 <= R <= C*T, and the block's "
+            f"{smem} bytes of shared memory at most {_SMEM_MAX}"
+        )
+    agg = torch.empty((b, 8), dtype=torch.int32, device=dev)
+    rows = torch.empty((b, R), dtype=torch.int32, device=dev)
+    pc_call = torch.empty((b, R), dtype=torch.int32, device=dev)
+    pc_tok = torch.empty((b, R), dtype=torch.int32, device=dev)
+    or_words = torch.empty((b, w), dtype=torch.int32, device=dev)
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        rc = lib.scatter_selected_launch(
+            tiles.data_ptr(),
+            gt.data_ptr(),
+            gt2.data_ptr(),
+            tok1.data_ptr(),
+            tok2.data_ptr(),
+            tile_ids.data_ptr(),
+            qarr.data_ptr(),
+            mask.data_ptr(),
+            agg.data_ptr(),
+            rows.data_ptr(),
+            pc_call.data_ptr(),
+            pc_tok.data_ptr(),
+            or_words.data_ptr(),
+            b,
+            tiles.shape[0],
+            T,
+            C,
+            CAP,
+            int(bool(exact_only)),
+            R,
+            w,
+            n_plane,
+            int(bool(with_counts)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"scatter_selected launch failed: CUDA error {rc}")
+    seq = record_device_launch(
+        SELECTED_KERNEL,
+        slots=b,
+        C=C,
+        cap=CAP,
+        R=R,
+        exact_only=bool(exact_only),
+        with_counts=bool(with_counts),
+        launch_ms=(time.perf_counter() - t0) * 1e3,
+    )
+    return agg, rows, pc_call, pc_tok, or_words, seq
+
+
+class SelectedResults:
+    """run_selected_scattered outputs: QueryResults fields + the fused
+    per-row plane reductions (aligned with ``rows``)."""
+
+    __slots__ = (
+        "exists",
+        "call_count",
+        "n_variants",
+        "all_alleles_count",
+        "n_matched",
+        "overflow",
+        "rows",
+        "pc_call",
+        "pc_tok",
+        "or_words",
+    )
+
+    def __init__(self, **kw):
+        for k in self.__slots__:
+            setattr(self, k, kw[k])
+
+
+def run_selected_scattered(
+    sindex: ScatterDeviceIndex,
+    pindex,
+    queries,
+    mask_words: np.ndarray,
+    *,
+    window_cap: int | None = None,
+    record_cap: int = 1024,
+    with_counts: bool | None = None,
+) -> SelectedResults:
+    """Selected-samples query batch in ONE kernel launch per split.
+
+    ``pindex``: an ``ops.plane_kernel.PlaneDeviceIndex`` of the SAME
+    shard as ``sindex``, on its device. ``mask_words``: uint32 [B, W]
+    per-query selected-sample masks (all-ones rows extract the full
+    cohort). Tiers and (tier, exact) splits are the match kernel's; each
+    split launches at its own size (the JAX package pads to 64-slot
+    chunks, whose pad slots it discards, so the outputs are the same),
+    and every split is launched before anything is fetched. A query
+    whose matched-row count exceeds min(record_cap, its tier cap) reports
+    ``overflow`` (its plane outputs would be truncated) and must take
+    the host path, exactly like the match kernel's window overflow."""
+    enc = encode_queries(queries) if isinstance(queries, list) else queries
+    T = sindex.tile
+    window_cap = window_cap or T
+    b = len(enc["chrom"])
+    if with_counts is None:
+        with_counts = bool(pindex.has_counts)
+    W = pindex.n_words
+    mask_words = np.ascontiguousarray(mask_words, dtype=np.uint32)
+    if mask_words.shape != (b, W):
+        raise ValueError(f"mask_words must be [{b}, {W}]")
+    if b == 0:
+        z = np.zeros(0, np.int32)
+        return SelectedResults(
+            exists=np.zeros(0, bool),
+            call_count=z,
+            n_variants=z,
+            all_alleles_count=z,
+            n_matched=z,
+            overflow=np.zeros(0, bool),
+            rows=np.zeros((0, 0), np.int32),
+            pc_call=np.zeros((0, 0), np.int32),
+            pc_tok=np.zeros((0, 0), np.int32),
+            or_words=np.zeros((0, W), np.uint32),
+        )
+    lo, hi = window_bounds(sindex, enc)
+    q8, needs_host = pack_q8(enc, lo, hi)
+    tile_ids_all = (lo // T).astype(np.int32)
+    caps = _tier_caps(sindex, window_cap)
+    width = hi - lo
+    tier_of = np.searchsorted(np.asarray(caps), width, side="left")
+    tier_of = np.minimum(tier_of, len(caps) - 1)
+    single = (np.maximum(hi, lo + 1) - 1) // T <= tile_ids_all
+    tier_of = np.where(single & (tier_of == 0), -1, tier_of)
+
+    R_top = min(record_cap, caps[-1])
+    agg = np.zeros((b, 8), np.int32)
+    rows = np.full((b, R_top), -1, np.int32)
+    pc_call = np.zeros((b, R_top), np.int32)
+    pc_tok = np.zeros((b, R_top), np.int32)
+    or_words = np.zeros((b, W), np.uint32)
+    is_exact = enc["alt_mode"] == MODE_EXACT
+    dev = sindex.device
+    to_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    gt = pindex.gt
+    planes = (
+        (gt, pindex.gt2, pindex.tok1, pindex.tok2)
+        if with_counts
+        else (gt, gt, gt, gt)
+    )
+    launched = []
+    for ti, cap in [(-1, T)] + list(enumerate(caps)):
+        in_tier = tier_of == ti
+        R = min(record_cap, cap)
+        for exact in (True, False):
+            sel = np.flatnonzero(in_tier & (is_exact == exact))
+            if not len(sel):
+                continue
+            out = scatter_selected(
+                sindex.tiles,
+                *planes,
+                to_dev(tile_ids_all[sel]),
+                to_dev(q8[sel]),
+                to_dev(mask_words[sel].view(np.int32)),
+                T=T,
+                CAP=cap,
+                C=1 if ti == -1 else None,
+                exact_only=exact,
+                R=R,
+                with_counts=with_counts,
+                seg_k=_static_seg_k(sindex),
+            )
+            launched.append((sel, R, out))
+    if launched:
+        t_fetch = time.perf_counter()
+        fetched = [
+            [x.cpu().numpy() for x in out[:5]] for _s, _r, out in launched
+        ]
+        fetch_ms = (time.perf_counter() - t_fetch) * 1e3
+        per_row = W * 4 * (4 if with_counts else 1)
+        for (sel, R, out), (a, r, pc, pt, ow) in zip(launched, fetched):
+            agg[sel] = a
+            rows[sel, :R] = r
+            pc_call[sel, :R] = pc
+            pc_tok[sel, :R] = pt
+            or_words[sel] = ow.view(np.uint32)
+            n_read = int((r >= 0).sum())
+            note_device_stage(
+                out[5], fetch_ms=fetch_ms, plane_rows=n_read,
+                plane_bytes=n_read * per_row,
+            )
+
+    # a truncated row set would silently under-reduce the planes: the
+    # per-tier R bound makes truncation part of the overflow contract
+    r_of = np.where(
+        tier_of == -1,
+        min(record_cap, T),
+        np.minimum(record_cap, np.asarray(caps)[np.maximum(tier_of, 0)]),
+    )
+    overflow = (
+        (agg[:, 5] > 0)
+        | (width > min(window_cap, caps[-1]))
+        | needs_host
+        | (agg[:, 4] > r_of)
+    )
+    return SelectedResults(
+        exists=agg[:, 0] > 0,
+        call_count=agg[:, 1],
+        n_variants=agg[:, 2],
+        all_alleles_count=agg[:, 3],
+        n_matched=agg[:, 4],
+        overflow=overflow,
+        rows=rows,
+        pc_call=pc_call,
+        pc_tok=pc_tok,
+        or_words=or_words,
     )

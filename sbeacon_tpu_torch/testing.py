@@ -93,12 +93,15 @@ def random_records(
 def synthetic_shard(
     n_rows: int,
     *,
+    n_samples: int = 0,
     seed: int = 0,
     dataset_id: str = "synth",
     chroms: list[str] | None = None,
     p_multiallelic: float = 0.08,
     p_indel: float = 0.12,
     p_symbolic: float = 0.01,
+    with_gt_planes: bool = False,
+    plane_density: float = 0.01,
 ):
     """Directly-constructed ``VariantIndexShard`` at arbitrary scale.
 
@@ -114,11 +117,13 @@ def synthetic_shard(
 
     Rows spread uniformly across each chromosome's real GRCh38 length.
     All rows carry AC_INFO/AN_INFO (INFO-sourced counts, the common
-    case for cohort VCFs) with AN 5008 (the 2504-sample cohort). The JAX
-    package's generator also makes clustered positions and genotype
-    planes; neither is ported yet (planes arrive with the
-    selected-samples slice). At its defaults this function gives the
-    JAX generator's shard.
+    case for cohort VCFs) with AN ``2 * n_samples`` (5008, the
+    2504-sample cohort, when ``n_samples`` is 0), so genotype planes —
+    generated when ``with_gt_planes`` with about ``plane_density`` bits
+    set — affect only sample extraction, exactly as for bcftools-INFO
+    data. The JAX package's generator also makes clustered positions,
+    which are not ported. At every seed this function gives the JAX
+    generator's shard, planes included.
     """
     import numpy as np
 
@@ -202,7 +207,7 @@ def synthetic_shard(
     alt_len = v_len[alt_id].astype(np.int32)
 
     # AC from a heavy-tailed spectrum; AN constant per record
-    an_val = 5008
+    an_val = 2 * n_samples if n_samples else 5008
     ac = np.minimum(
         (1.0 / np.maximum(rng.random(n), 1e-6)).astype(np.int64), an_val
     ).astype(np.int32)
@@ -261,17 +266,43 @@ def synthetic_shard(
     ref_blob, ref_off = blob_of(ref_id, v_len[ref_id])
     alt_blob, alt_off = blob_of(alt_id, v_len[alt_id])
 
+    planes = {}
+    if n_samples and with_gt_planes:
+        words = (n_samples + 31) // 32
+        # about plane_density bits set: the AND of k random words thins
+        # them by 2^-k
+        k_and = max(1, int(round(-np.log2(max(plane_density, 2**-16)))))
+        g = rng.integers(0, 2**32, (n, words), dtype=np.uint32)
+        for _ in range(k_and - 1):
+            g &= rng.integers(0, 2**32, (n, words), dtype=np.uint32)
+        tail = n_samples % 32
+        if tail:
+            g[:, -1] &= np.uint32((1 << tail) - 1)
+        planes = {
+            "gt_bits": g,
+            "gt_bits2": (
+                g & rng.integers(0, 2**32, (n, words), dtype=np.uint32)
+            ),
+            "tok_bits1": np.full((n, words), 0xFFFFFFFF, np.uint32),
+            "tok_bits2": np.full((n, words), 0xFFFFFFFF, np.uint32),
+            "gt_overflow": np.zeros((0, 3), np.int64),
+            "tok_overflow": np.zeros((0, 3), np.int64),
+        }
+        if tail:
+            planes["tok_bits1"][:, -1] = np.uint32((1 << tail) - 1)
+            planes["tok_bits2"][:, -1] = np.uint32((1 << tail) - 1)
+
     meta = {
         "dataset_id": dataset_id,
         "vcf_location": f"synthetic://{dataset_id}",
-        "sample_names": [],
+        "sample_names": [f"S{i}" for i in range(n_samples)],
         "vt_vocab": ["N/A"],
         "n_rows": n,
         "n_records": n_rec,
         "dropped_records": 0,
         "variant_count": n,
         "call_count": int(an_val) * n_rec,
-        "sample_count": 0,
+        "sample_count": n_samples,
         "chrom_native": {c: c for c in chroms},
         "format_version": 1,
         "synthetic": True,
@@ -286,4 +317,5 @@ def synthetic_shard(
         alt_blob=alt_blob.astype(np.uint8),
         alt_off=alt_off,
         vt_codes=np.zeros(n, np.int16),
+        **planes,
     )

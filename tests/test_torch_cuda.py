@@ -1,5 +1,5 @@
-"""The CUDA kernels (scatter match, bisection query) against their
-plain-PyTorch twins.
+"""The CUDA kernels (scatter match, bisection query, fused match +
+planes, plane stats) against their plain-PyTorch twins.
 
 Runs only where a CUDA device is present (marker ``cuda``); elsewhere
 every test skips. It imports nothing of the JAX package, so it runs on
@@ -16,10 +16,15 @@ import numpy as np
 import pytest
 import torch
 
+from sbeacon_tpu_torch import telemetry
+from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
+from sbeacon_tpu_torch.engine import VariantEngine
 from sbeacon_tpu_torch.genomics.vcf import VcfRecord
 from sbeacon_tpu_torch.index import build_index
 from sbeacon_tpu_torch.ops import kernel as tk
+from sbeacon_tpu_torch.ops import plane_kernel as pk
 from sbeacon_tpu_torch.ops import scatter_kernel as sk
+from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.ops.kernel import QuerySpec, encode_queries
 from sbeacon_tpu_torch.ops.query_pack import pack_q8, window_bounds
 from sbeacon_tpu_torch.testing import random_records
@@ -231,3 +236,179 @@ def test_fused_batch_on_card_equals_cpu(fused):
                   "n_matched", "overflow", "rows"):
         np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
     assert got.overflow.any() and (got.n_matched > 256).any()
+
+
+N_SAMPLES = 40
+
+
+def _plane_shard():
+    """40 samples (two plane words, a tail word), genotype-derived
+    counts on half the records, ploidy > 2 genotypes and 12-alt
+    records."""
+    rng = random.Random(23)
+    recs = random_records(rng, chrom="1", n=1500, n_samples=N_SAMPLES,
+                          spacing=10, p_symbolic=0.1, p_multiallelic=0.3,
+                          p_no_acan=0.5)
+    for rec in recs[::9]:
+        rec.genotypes[rng.randrange(N_SAMPLES)] = "1|1|1|1"
+        rec.ac = rec.an = None
+    for i in range(20):
+        recs.append(VcfRecord(
+            chrom="1", pos=recs[-1].pos + 7, ref="AC",
+            alts=[b * k for k in (1, 2, 3) for b in "ACGT"], vt="N/A",
+            ac=None, an=None,
+            genotypes=[f"{rng.randint(0, 12)}/{rng.randint(0, 12)}"
+                       for _ in range(N_SAMPLES)],
+        ))
+    return build_index(recs, dataset_id="p", vcf_location="p.vcf",
+                       sample_names=[f"S{i}" for i in range(N_SAMPLES)])
+
+
+@pytest.fixture(scope="module")
+def planes(cuda_device):
+    shard = _plane_shard()
+    return (sk.ScatterDeviceIndex(shard, cuda_device),
+            pk.PlaneDeviceIndex(shard, cuda_device), shard)
+
+
+def _masks(n, W, seed):
+    g = np.random.default_rng(seed)
+    m = g.integers(0, 2**32, (n, W), dtype=np.uint32)
+    m &= g.integers(0, 2**32, (n, W), dtype=np.uint32)
+    m[0::3] = 0xFFFFFFFF
+    m[1::3] = 0
+    return m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+@pytest.mark.parametrize("exact_only", [True, False])
+@pytest.mark.parametrize("C,cap,width", [(1, 128, 0), (2, 128, 100),
+                                         (5, 512, 400), (17, 2048, 1500)])
+def test_selected_kernel_matches_twin(planes, C, cap, width, exact_only,
+                                      with_counts):
+    index, pidx, _shard = planes
+    ids, q8 = _inputs(index, 64, width, exact_only, seed=C + 7)
+    mask = torch.from_numpy(_masks(64, pidx.n_words, C).view(np.int32)).to(
+        index.device)
+    R = min(1024, cap)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    got = sk.scatter_selected(
+        index.tiles, pidx.gt, *trip, ids, q8, mask, T=index.tile, CAP=cap,
+        C=C, exact_only=exact_only, R=R, with_counts=with_counts,
+    )
+    torch.cuda.synchronize()
+    assert got[5] is not None
+    assert int(got[0][:, 4].sum()) > 0
+    for seg_k in (index.seg_k, None):
+        want = sk.scatter_selected_reference(
+            index.tiles, pidx.gt, *trip, ids, q8, mask, T=index.tile,
+            CAP=cap, C=C, exact_only=exact_only, R=R,
+            with_counts=with_counts, seg_k=seg_k,
+        )
+        for g, w in zip(got[:5], want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+@pytest.mark.parametrize("sel", ["none", "some", "all"])
+@pytest.mark.parametrize("R", [1, 128, 1000, 20000])
+def test_plane_stats_kernel_matches_twin(planes, R, sel, with_counts):
+    _index, pidx, shard = planes
+    g = np.random.default_rng(R)
+    dev = pidx.device
+    rows = torch.from_numpy(
+        g.integers(0, shard.n_rows, R).astype(np.int32)).to(dev)
+    or_sel = torch.from_numpy({
+        "none": np.zeros(R, np.int32), "all": np.ones(R, np.int32),
+        "some": (g.random(R) < 0.3).astype(np.int32)}[sel]).to(dev)
+    mask = torch.from_numpy(_masks(1, pidx.n_words, R)[0].view(np.int32)).to(dev)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    counts, or_words, seq = pk.plane_stats(
+        pidx.gt, *trip, rows, or_sel, mask, with_counts=with_counts,
+        with_or=sel != "none",
+    )
+    torch.cuda.synchronize()
+    assert seq is not None
+    want = pk.plane_stats_reference(
+        pidx.gt, *trip, rows, or_sel, mask, with_counts=with_counts,
+        with_or=sel != "none",
+    )
+    assert torch.equal(counts, want[0]) and torch.equal(or_words, want[1])
+
+
+@pytest.mark.cuda
+def test_staged_upload_in_chunks(cuda_device):
+    a = np.random.default_rng(1).integers(0, 2**32, (10_001, 79),
+                                          dtype=np.uint32)
+    got = pk.staged_upload(a, cuda_device, chunk_bytes=64 * 1024)
+    assert got.device.type == "cuda" and got.dtype == torch.int32
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32), a)
+
+
+@pytest.mark.cuda
+def test_selected_batch_on_card_equals_cpu(planes):
+    index, pidx, shard = planes
+    rng = random.Random(13)
+    pos = shard.cols["pos"]
+    specs = []
+    for _ in range(150):
+        i = rng.randrange(shard.n_rows - 2000)
+        specs.append(QuerySpec(
+            chrom="1", start_min=int(pos[i]),
+            start_max=int(pos[i + rng.choice([0, 50, 400, 1500, 1999])]),
+            end_min=1, end_max=1 << 30,
+            alternate_bases=rng.choice([shard.row_alt(i), "N", None]),
+        ))
+    masks = _masks(len(specs), pidx.n_words, 5)
+    cpu = (sk.ScatterDeviceIndex(shard, "cpu"), pk.PlaneDeviceIndex(shard, "cpu"))
+    for with_counts in (True, False):
+        got = sk.run_selected_scattered(index, pidx, specs, masks,
+                                        record_cap=256, with_counts=with_counts)
+        want = sk.run_selected_scattered(*cpu, specs, masks, record_cap=256,
+                                         with_counts=with_counts)
+        for f in SELECTED_FIELDS:
+            np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+        assert got.overflow.any() and (~got.overflow).sum() > 20
+
+
+SELECTED_FIELDS = ("exists", "call_count", "n_variants", "all_alleles_count",
+                   "n_matched", "overflow", "rows", "pc_call", "pc_tok",
+                   "or_words")
+
+
+@pytest.mark.cuda
+def test_engine_selected_one_launch_per_request(planes, cuda_device):
+    """Each plane-reading request is one fused kernel launch; its
+    answer equals the CPU engine's."""
+    _index, _pidx, shard = planes
+    engines = [
+        VariantEngine(BeaconConfig(engine=EngineConfig(microbatch=False)),
+                      device=d) for d in (cuda_device, "cpu")
+    ]
+    try:
+        for e in engines:
+            e.add_index(shard)
+        (_d, _v, (_s, _i, p)), = engines[0].indexes_for([])
+        assert p is not None and p.gt.device.type == "cuda"
+        rng = random.Random(3)
+        pos = shard.cols["pos"]
+        for k in range(12):
+            q = int(pos[rng.randrange(shard.n_rows)])
+            doc = dict(dataset_ids=["p"], reference_name="1",
+                       start_min=q - 200, start_max=q + 200, end_min=1,
+                       end_max=1 << 30, alternate_bases="N",
+                       requested_granularity="record", include_datasets="HIT",
+                       include_samples=True)
+            if k % 2:
+                doc.update(sample_names={"p": ["S1", "S7", "S39"]},
+                           selected_samples_only=True)
+            telemetry.reset_launch_counts()
+            got = engines[0].search(VariantQueryPayload(**doc))
+            assert sk.scatter_selected_launches == 1
+            assert sk.scatter_match_launches == 0
+            assert got == engines[1].search(VariantQueryPayload(**doc))
+    finally:
+        for e in engines:
+            e.close()

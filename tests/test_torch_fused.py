@@ -642,27 +642,49 @@ def test_search_matches_jax_engine(shards, microbatch, window_cap,
 
 
 def test_search_selected_samples(shards):
+    """Selected-samples requests on two engines, both against the JAX
+    engine: one with the planes on the device, one whose planes stay on
+    the host (device_planes off, as when the budget gate refuses them)."""
     jeng, teng = _engines(shards, True)
-    rng = random.Random(5)
-    pos = shards[0].cols["pos"]
-    fused0 = teng.fused_searches
-    for _ in range(25):
-        p = int(pos[rng.randrange(len(pos))])
-        doc = dict(
-            dataset_ids=["dsA", "dsB"], reference_name="1",
-            reference_bases=rng.choice(["N", "A", "AN", None]),
-            alternate_bases=rng.choice(["N", None, "G"]),
-            start_min=max(1, p - 400), start_max=p + 400,
-            end_min=0, end_max=10**9,
-            requested_granularity=rng.choice(["count", "record"]),
-            include_datasets="HIT", include_samples=True,
-            sample_names={"dsA": ["a1", "a3"], "dsB": ["b0"]},
-            selected_samples_only=True,
-        )
-        want = jeng.search(JPayload(**doc))
-        got = teng.search(VariantQueryPayload(**doc))
-        assert _asdicts(got) == _asdicts(want), doc
-    assert teng.fused_searches > fused0
+    host_planes = VariantEngine(BeaconConfig(engine=EngineConfig(
+        device_planes=False)), device="cpu")
+    try:
+        for s in shards:
+            host_planes.add_index(shard_from_reference(s))
+        assert host_planes.warm_fused() is not None
+        rng = random.Random(5)
+        pos = shards[0].cols["pos"]
+        fused0 = teng.fused_searches
+        for _ in range(25):
+            p = int(pos[rng.randrange(len(pos))])
+            doc = dict(
+                dataset_ids=["dsA", "dsB"], reference_name="1",
+                reference_bases=rng.choice(["N", "A", "AN", None]),
+                alternate_bases=rng.choice(["N", None, "G"]),
+                start_min=max(1, p - 400), start_max=p + 400,
+                end_min=0, end_max=10**9,
+                requested_granularity=rng.choice(["count", "record"]),
+                include_datasets="HIT", include_samples=True,
+                sample_names={"dsA": ["a1", "a3"], "dsB": ["b0"]},
+                selected_samples_only=True,
+            )
+            want = _asdicts(jeng.search(JPayload(**doc)))
+            for eng in (teng, host_planes):
+                got = eng.search(VariantQueryPayload(**doc))
+                assert _asdicts(got) == want, (eng.config.engine, doc)
+        # device planes: the fused match + planes kernel serves each
+        # target whole and the stack never pre-matches them (the JAX
+        # engine's exclusion)
+        assert all(p is not None for _d, _v, (_s, _i, p)
+                   in teng.indexes_for(["dsA", "dsB"]))
+        assert teng.fused_searches == fused0
+        # host planes: the stack pre-matches the rows (ref_wildcard) and
+        # materialisation reads the host planes
+        assert all(p is None for _d, _v, (_s, _i, p)
+                   in host_planes.indexes_for(["dsA", "dsB"]))
+        assert host_planes.fused_searches > 0
+    finally:
+        host_planes.close()
 
 
 def _bodies():

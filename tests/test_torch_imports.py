@@ -9,6 +9,7 @@ catches around a launch.
 
 import ast
 import inspect
+import json
 import subprocess
 import sys
 import textwrap
@@ -20,8 +21,10 @@ import torch
 from sbeacon_tpu_torch import ops as t_ops
 from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
 from sbeacon_tpu_torch.engine import VariantEngine
+from sbeacon_tpu_torch.ops import plane_kernel as tpk
 from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
+from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.testing import synthetic_shard
 
 REPO = Path(__file__).resolve().parent.parent
@@ -30,7 +33,7 @@ REPO = Path(__file__).resolve().parent.parent
 def test_port_imports_no_jax_and_no_reference_package():
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, json, pkgutil, sys
         import sbeacon_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             sbeacon_tpu_torch.__path__, "sbeacon_tpu_torch.")]
@@ -42,7 +45,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             or k.startswith("jaxlib.")
             or k == "sbeacon_tpu" or k.startswith("sbeacon_tpu.")
         )
-        print(len(names), leaked)
+        print(json.dumps([names, leaked]))
         """
     )
     out = subprocess.run(
@@ -53,9 +56,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    n, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 15  # every module of the slice was imported
-    assert leaked == "[]"
+    names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(names) >= 16  # every module of the slices was imported
+    assert {"sbeacon_tpu_torch.ops.plane_kernel",
+            "sbeacon_tpu_torch.ops.scatter_kernel",
+            "sbeacon_tpu_torch.engine"} <= set(names)
+    assert leaked == []
 
 
 def test_port_sources_name_no_reference_import():
@@ -98,19 +104,47 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
     assert t_ops.make_device_index(shard, "cpu").tiles.device.type == "cpu"
 
 
-@pytest.mark.parametrize(
-    "option", ["use_mesh", "device_planes", "response_cache"]
-)
+@pytest.mark.parametrize("option", ["use_mesh", "response_cache"])
 def test_unported_options_are_refused(option):
     cfg = BeaconConfig(engine=EngineConfig(**{option: True}))
     with pytest.raises(NotImplementedError, match=option):
         VariantEngine(cfg, device="cpu")
 
 
+def test_device_planes_option_builds_and_serves():
+    """``device_planes`` is ported: the engine uploads a shard's planes
+    (to the CPU here) and serves a selected-samples request from them."""
+    shard = synthetic_shard(
+        800, seed=2, chroms=["1"], n_samples=40, with_gt_planes=True,
+        plane_density=0.3,
+    )
+    eng = VariantEngine(
+        BeaconConfig(engine=EngineConfig(device_planes=True)), device="cpu"
+    )
+    try:
+        eng.add_index(shard)
+        (_ds, _vcf, (_s, _i, planes)), = eng.indexes_for([])
+        assert planes is not None and planes.gt.device.type == "cpu"
+        p = int(shard.cols["pos"][100])
+        (resp,) = eng.search(VariantQueryPayload(
+            dataset_ids=["synth"], reference_name="1", start_min=p - 1000,
+            start_max=p + 1000, end_min=0, end_max=1 << 30,
+            alternate_bases="N", requested_granularity="record",
+            include_datasets="HIT", include_samples=True,
+            sample_names={"synth": ["S1", "S5", "S30"]},
+            selected_samples_only=True,
+        ))
+        assert resp.exists and set(resp.sample_names) <= {"S1", "S5", "S30"}
+    finally:
+        eng.close()
+
+
 @pytest.mark.parametrize(
     "fn",
     [tsk.scatter_match, tsk._launch_tier, tsk.run_queries_scattered,
-     tk.bisect_query, tk.run_queries, t_ops.run_queries_auto],
+     tk.bisect_query, tk.run_queries, t_ops.run_queries_auto,
+     tsk.scatter_selected, tsk.run_selected_scattered, tpk.plane_stats,
+     tpk.plane_row_stats, VariantEngine._fused_selected],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the
