@@ -55,11 +55,28 @@ non-zero, without the final line):
     host planes; launch counts zeroed just before and read just after;
 14. timing (scatter_selected, plane_stats): at the batch and row-set
     sizes phase 13 launched, with the L2 flushed before each launch (and
-    back to back), beside the bound and the twin's time.
+    back to back), beside the bound and the twin's time;
+15. distinct setup: the keys of every shard built so far (A, the three
+    cohorts, B) and of three seeded row subsets of A (40-70% of its rows
+    each: the same sites submitted again), about 7e7 keys on the card;
+16. kernel vs twin (distinct_count): crafted key sets (every key equal,
+    one column differing, high-bit patterns, pad rows, 0-1000 keys),
+    partition_keys blocks, and the full key set, at tolerance 0;
+17. distinct path: distinct_count_device over every shard on the card,
+    equal to the count without the subsets and to the host oracle
+    distinct_variant_count on the shards without them; launch counts
+    zeroed just before and read just after;
+18. timing: distinct_count at the full key set (L2 cold and warm) beside
+    its bound, its twin and torch.unique(keys, dim=0); the device time
+    probes on the main-path index (phase 4's query mix, and C=1 exact
+    points, which must agree with phase 5's time within 1.5x) and on
+    phase 14's plane-stats row set.
 
-Then one ``{"kernels": [...]}`` line, the nvidia-smi line as it prints
-it, and as the last line ``{"ok": true, "device": {...}}``. The script
-exits non-zero, printing no result, when no CUDA device is available.
+Then one ``{"kernels": [...]}`` line (the five CUDA kernels), the
+nvidia-smi line as it prints it, and as the last line ``{"ok": true,
+"device": {...}}``. The script exits non-zero, printing no result, when
+no CUDA device is available. Device times come from CUDA events
+(``sbeacon_tpu_torch.ops.timing``).
 """
 
 from __future__ import annotations
@@ -101,17 +118,17 @@ BISECT_OPS_PER_PROBE = 4
 # variantType values outside the five the device types: each one is
 # answered on the device by the fused path as a symbolic-prefix match
 OTHER_TYPES = ["CN", "DE", "CN0", "INV", "SNP"]
-# spin-kernel hold while timed launches are enqueued (about 100 ms at
-# the H100's 1.98 GHz boost clock)
-HOLD_CYCLES = 200_000_000
 GENOME_BP = 2.875e9  # chr1-22, GRCh38
 MICROBATCH_WAIT_MS = 2.0
 # integer operations per plane word a matched row reads (load, and,
 # popcount, add)
 PLANE_OPS_PER_WORD = 4
 PLANE_DENSITY = 0.01  # about 1% of a plane's genotype bits set
+# integer operations per key of the distinct count (three 8-byte loads,
+# the hash, a probe, six compares)
+DISTINCT_OPS_PER_KEY = 40
+RESUBMITTED = 3  # seeded row subsets of dataset A in the distinct path
 P_DERIVED = 0.3  # dataset B's share of records counted from genotypes
-FLUSH_BYTES = 128 << 20  # a memset of this evicts the H100's 50 MB L2
 
 
 def emit(phase: str, **kw) -> None:
@@ -363,17 +380,11 @@ def serve(rec, env, datasets, body, samples_by_dataset=None):
     return (doc, ms) + rec.last.call
 
 
-def expected_envelope(shards, env, body, payload):
-    """The responses (one per shard, in the engine's order) and the
-    envelope the host matcher and the host planes give for one request
-    (for selected samples: the N-wildcard ref compare and the selected
-    sample indices)."""
-    from sbeacon_tpu_torch.api.requests import parse_request
-    from sbeacon_tpu_torch.api.variants import VariantAggregation
-    from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
+def payload_spec(payload):
+    """The QuerySpec of a request's payload."""
     from sbeacon_tpu_torch.ops.kernel import QuerySpec
 
-    spec = QuerySpec(
+    return QuerySpec(
         chrom=payload.reference_name, start_min=payload.start_min,
         start_max=payload.start_max, end_min=payload.end_min,
         end_max=payload.end_max, reference_bases=payload.reference_bases,
@@ -382,6 +393,18 @@ def expected_envelope(shards, env, body, payload):
         variant_min_length=payload.variant_min_length,
         variant_max_length=payload.variant_max_length,
     )
+
+
+def expected_envelope(shards, env, body, payload):
+    """The responses (one per shard, in the engine's order) and the
+    envelope the host matcher and the host planes give for one request
+    (for selected samples: the N-wildcard ref compare and the selected
+    sample indices)."""
+    from sbeacon_tpu_torch.api.requests import parse_request
+    from sbeacon_tpu_torch.api.variants import VariantAggregation
+    from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
+
+    spec = payload_spec(payload)
     selected = payload.selected_samples_only
 
     def selected_idx(shard):
@@ -462,78 +485,6 @@ def percentile(xs, p):
     return xs[min(len(xs) - 1, int(p * len(xs)))]
 
 
-def device_ms(fn, items, reps):
-    """Device ms per call of ``fn`` over ``items``. A spin kernel holds
-    the stream while the host enqueues every call, so the events time
-    the device's back-to-back execution rather than the host's launch
-    rate; a check fails if the enqueue outlasted the hold (as it does
-    when the calls enqueue more kernels than a held stream queues)."""
-    import torch
-
-    hold_ms = warm_and_hold(fn, items)
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(HOLD_CYCLES)
-    start.record()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        for it in items:
-            fn(it)
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    stop.record()
-    torch.cuda.synchronize()
-    check_enqueue(enqueue_ms, hold_ms)
-    return start.elapsed_time(stop) / (reps * len(items))
-
-
-def warm_and_hold(fn, items):
-    """Calls ``fn`` once on every item (allocator, first launch), then
-    returns the ms one HOLD_CYCLES spin kernel holds the stream."""
-    import torch
-
-    for it in items:
-        fn(it)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    torch.cuda._sleep(HOLD_CYCLES)
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop)
-
-
-def check_enqueue(enqueue_ms, hold_ms):
-    check(enqueue_ms < hold_ms, f"enqueue {enqueue_ms:.1f} ms outlasted the "
-          f"{hold_ms:.1f} ms hold: the timing would be host-bound")
-
-
-def cold_device_ms(fn, items, device, reps=1):
-    """Device ms per call of ``fn`` over ``items`` with a cold L2: a
-    FLUSH_BYTES memset before each call evicts what the calls before it
-    read, and an event pair around each call times it alone (its
-    device-side launch included). The spin-kernel hold of ``device_ms``
-    keeps the host's enqueue out of the times."""
-    import torch
-
-    flush = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=device)
-    hold_ms = warm_and_hold(fn, items)
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True))
-              for _ in range(reps * len(items))]
-    torch.cuda._sleep(HOLD_CYCLES)
-    t0 = time.perf_counter()
-    for (start, stop), it in zip(events, items * reps):
-        flush.zero_()
-        start.record()
-        fn(it)
-        stop.record()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    check_enqueue(enqueue_ms, hold_ms)
-    return float(np.mean([a.elapsed_time(b) for a, b in events]))
-
-
 def needed_bytes(index, ids, q8, masks, C, cap, io=None):
     """(bytes, window lanes) one launch needs at the least: the sectors
     of the six packed rows the predicates read, over the distinct window
@@ -585,6 +536,7 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
     random query sets so the gathered tiles (>= 8 MB a set) do not stay
     in the 50 MB L2, as for random serving traffic."""
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.ops import timing
 
     T = index.tile
     sets = [
@@ -594,13 +546,13 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
         )
         for _ in range(n_sets)
     ]
-    ms = device_ms(
+    ms = timing.device_ms(
         lambda s: sk.scatter_match(
             index.tiles, s[0], s[1], T=T, CAP=cap, C=C, exact_only=exact
         ),
         sets, reps=4,
     )
-    plain_ms = device_ms(
+    plain_ms = timing.device_ms(
         lambda s: sk.scatter_core_reference(
             index.tiles, s[0], s[1], T=T, CAP=cap, C=C, exact_only=exact,
             seg_k=sk._static_seg_k(index),
@@ -792,6 +744,7 @@ def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
     queries of one kind ('point': exact SNV points; 'bracket': any-base
     and typed brackets of 2-200 kb), cycling over n_sets query sets."""
     from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import timing
 
     W = min(2048, index.window_hint)
     kinds = ("exact",) if kind == "point" else ("any", "typed")
@@ -806,13 +759,14 @@ def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
     run = lambda q: tk.bisect_query(
         index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
         record_cap=record_cap, n_iters=index.n_iters)
-    ms = device_ms(run, sets, reps=4)
+    ms = timing.device_ms(run, sets, reps=4)
     # the twin enqueues about 600 small kernels a call, and a held
     # stream takes about 1000 before a launch blocks: one call per hold
     twin = lambda q: tk.query_batch_reference(
         index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
         record_cap=record_cap, n_iters=index.n_iters)
-    plain_ms = float(np.mean([device_ms(twin, [q], reps=1) for q in sets[:2]]))
+    plain_ms = float(np.mean([timing.device_ms(twin, [q], reps=1)
+                              for q in sets[:2]]))
     bounds = []
     for q in sets:
         full, _seq = tk.bisect_query(
@@ -1128,6 +1082,7 @@ def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
     import torch
 
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.ops import timing
 
     T = index.tile
     span = C * T
@@ -1148,12 +1103,13 @@ def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
     run = lambda s: sk.scatter_selected(
         index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
         with_counts=with_counts)
-    ms = cold_device_ms(run, sets, index.device)
-    warm_ms = device_ms(run, sets, reps=4)
+    ms = timing.cold_device_ms(run, sets, index.device)
+    warm_ms = timing.device_ms(run, sets, reps=4)
     twin = lambda s: sk.scatter_selected_reference(
         index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
         with_counts=with_counts, seg_k=sk._static_seg_k(index))
-    plain_ms = float(np.mean([device_ms(twin, [s], reps=1) for s in sets[:2]]))
+    plain_ms = float(np.mean([timing.device_ms(twin, [s], reps=1)
+                              for s in sets[:2]]))
     k = 4 if with_counts else 1
     io = b * (4 + 32 + 4 * w) + b * (32 + 12 * R + 4 * w)
     need = []
@@ -1184,6 +1140,7 @@ def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
     import torch
 
     from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import timing
 
     dev = pidx.device
     w = pidx.n_words
@@ -1197,11 +1154,11 @@ def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
     planes = plane_args(pidx, with_counts)
     kw = dict(with_counts=with_counts, with_or=with_or)
     run = lambda s: pk.plane_stats(*planes, *s, **kw)
-    ms = cold_device_ms(run, sets, dev, reps=4)
-    warm_ms = device_ms(run, sets, reps=4)
-    plain_ms = float(np.mean([
-        device_ms(lambda s: pk.plane_stats_reference(*planes, *s, **kw), [s],
-                  reps=1) for s in sets[:2]]))
+    ms = timing.cold_device_ms(run, sets, dev, reps=4)
+    warm_ms = timing.device_ms(run, sets, reps=4)
+    twin = lambda s: pk.plane_stats_reference(*planes, *s, **kw)
+    plain_ms = float(np.mean([timing.device_ms(twin, [s], reps=1)
+                              for s in sets[:2]]))
     k = 4 if with_counts else 1
     io = size * (4 + 4) + 4 * w + size * 16 + 4 * w
     nbytes = float(np.mean([
@@ -1211,6 +1168,95 @@ def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
     ops_ms = ops / INT32_OPS_PER_S * 1e3
     return (ms, warm_ms, plain_ms, max(bytes_ms, ops_ms),
             "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+
+
+def resubmitted(shard, seed, n):
+    """``n`` seeded row subsets of ``shard``, each 40-70% of its rows: the
+    same sites submitted again in further VCFs of the dataset, the
+    duplication the distinct-variant count removes."""
+    from sbeacon_tpu_torch.testing import subset_shard
+
+    g = np.random.default_rng(seed)
+    out = []
+    for k in range(n):
+        rows = np.flatnonzero(g.random(shard.n_rows) < g.uniform(0.4, 0.7))
+        out.append(subset_shard(
+            shard, rows, dataset_id=f"{shard.meta['dataset_id']}_again{k}"))
+    return out
+
+
+def compare_distinct(keys, device):
+    """distinct_count vs its twin on the card: the crafted key sets (every
+    key equal, one column differing, high-bit patterns, pad rows, 0, 1,
+    2 and 1000 keys), ``partition_keys`` blocks of the first 1e6 keys (one
+    padded block, and four), and the full key set ``keys`` (a device
+    tensor); returns (max_abs_err, report rows)."""
+    import torch
+
+    from sbeacon_tpu_torch.parallel import distinct as dc
+    from sbeacon_tpu_torch.testing import distinct_key_cases
+
+    head = keys[:1_000_000].cpu().numpy()
+    cases = [(f"crafted:{k}", v) for k, v in distinct_key_cases().items()]
+    cases += [("partition_keys:1", dc.partition_keys(head, 1)[0])]
+    cases += [(f"partition_keys:4:{i}", b)
+              for i, b in enumerate(dc.partition_keys(head, 4))]
+    report, worst = [], 0
+    for label, k in cases + [("full", keys)]:
+        t = torch.as_tensor(k).to(device)
+        count, _seq = dc.distinct_count(t)
+        torch.cuda.synchronize()
+        got = int(count)
+        want = int(dc.distinct_count_reference(t))
+        worst = max(worst, abs(got - want))
+        check(got == want, f"{label}: distinct_count {got} != twin {want}")
+        report.append({"case": label, "keys": int(t.shape[0]),
+                       "distinct": want, "equal": got == want})
+    return worst, report
+
+
+def event_ms(fn, arg, reps=3):
+    """Mean device ms of ``fn(arg)`` between an event pair, for a call
+    that synchronises inside (a warm call first)."""
+    import torch
+
+    fn(arg)
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        stop.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(stop))
+    return float(np.mean(out))
+
+
+def time_distinct(keys, device):
+    """(kernel ms, warm ms, twin ms, library ms, bound ms, bound_by) of
+    one distinct count over the device tensor ``keys``. The kernel ms
+    finds the L2 cold (the keys alone exceed it); the warm ms is back to
+    back. Library: ``torch.unique(keys, dim=0)``, one PyTorch call that
+    gives the same count (it synchronises inside, so an event pair times
+    each call). Bound: the keys read once and the count written once at
+    the HBM rate; operations (about 40 integer operations a key) at the
+    int32 rate."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import timing
+    from sbeacon_tpu_torch.parallel import distinct as dc
+
+    ms = timing.cold_device_ms(dc.distinct_count, [keys], device, reps=3)
+    warm_ms = timing.device_ms(dc.distinct_count, [keys], reps=3)
+    plain_ms = timing.device_ms(dc.distinct_count_reference, [keys], reps=1)
+    library_ms = event_ms(lambda k: torch.unique(k, dim=0), keys)
+    n = keys.shape[0]
+    bytes_ms = (n * 24 + 8) / HBM_BYTES_PER_S * 1e3
+    ops_ms = n * DISTINCT_OPS_PER_KEY / INT32_OPS_PER_S * 1e3
+    return (ms, warm_ms, plain_ms, library_ms, max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
 
 
 def main(argv=None) -> int:
@@ -1245,10 +1291,13 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
     from sbeacon_tpu_torch.engine import VariantEngine
     from sbeacon_tpu_torch.index.columnar import FLAG, build_index
+    from sbeacon_tpu_torch.ingest.pipeline import distinct_variant_count
     from sbeacon_tpu_torch.ops import _build
     from sbeacon_tpu_torch.ops import kernel as tk
     from sbeacon_tpu_torch.ops import plane_kernel as pk
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.ops.query_pack import window_bounds
+    from sbeacon_tpu_torch.parallel import distinct as dc
     from sbeacon_tpu_torch.testing import random_records, synthetic_shard
 
     rng = random.Random(args.seed)
@@ -1334,6 +1383,9 @@ def run(args, device) -> int:
         check(launches < len(bodies),
               "launches below the request count (requests coalesced)")
         check(fallbacks > 0, "wide requests took the host path")
+        # the phase's query mix, for the device time probe of phase 18
+        main_specs = [payload_spec(p) for _d, _ms, p, _r in served]
+        window_cap = engine.config.engine.window_cap
         emit("main_path", requests=len(bodies), threads=args.threads,
              hits=n_hit, mismatches=mismatches,
              scatter_match_launches=launches,
@@ -1512,7 +1564,7 @@ def run(args, device) -> int:
     # 10. datasets A (the main shard with a 2504-sample gt plane) and B
     # (all four planes, genotype-derived counts) behind an engine with
     # device planes on (the default), and the fused stack of both
-    del engine, findex, cohorts, served_shards
+    del engine, findex, served_shards
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     shard_a = attach_planes(shard, args.samples, args.seed + 20, device,
@@ -1720,6 +1772,108 @@ def run(args, device) -> int:
              device=kind, nvidia_smi=smi)
     finally:
         engine.close()
+    del engine, findex
+    j2 = max(stimings, key=lambda t: t["selected_path_launches"])
+    j4 = max(ptimings, key=lambda t: t["selected_path_launches"])
+
+    # 15. the distinct path's keys: every shard built so far (A, the three
+    # cohorts, B) and RESUBMITTED seeded row subsets of A, the same
+    # sites submitted again in further VCFs of the dataset
+    t0 = time.perf_counter()
+    again = resubmitted(shard, args.seed + 15, RESUBMITTED)
+    t_sub = time.perf_counter() - t0
+    base_shards = [shard] + cohorts + [shard_b]
+    all_shards = base_shards + again
+    keys_np = dc.shard_keys(all_shards)
+    keys = torch.from_numpy(keys_np).to(device)
+    del keys_np
+    emit("distinct_setup", shards={s.meta["dataset_id"]: s.n_rows
+                                   for s in all_shards},
+         keys=int(keys.shape[0]), key_bytes=keys.numel() * 4,
+         table_slots=dc.table_slots(keys.shape[0]),
+         table_bytes=dc.table_slots(keys.shape[0]) * dc.SLOT_BYTES,
+         subset_s=t_sub)
+
+    # 16. distinct_count vs its twin at tolerance 0
+    dc_err, rep_dc = compare_distinct(keys, device)
+    emit("kernel_vs_twin", kernel=dc.KERNEL, tolerance=0, max_abs_err=dc_err,
+         cases=len(rep_dc), all_equal=all(r["equal"] for r in rep_dc),
+         report=rep_dc)
+
+    # 17. the distinct path: the count over every shard on the card. The
+    # subsets add no key, so it equals the count without them, and the
+    # host oracle on the shards without them (its byte-verified groups
+    # are few there)
+    telemetry.reset_launch_counts()
+    t0 = time.perf_counter()
+    value = dc.distinct_count_device(all_shards, device=device)
+    device_s = time.perf_counter() - t0
+    dc_launches = telemetry.launch_count(dc.KERNEL)
+    rec, = [r for r in telemetry.recent_launches() if r["kernel"] == dc.KERNEL]
+    check(dc_launches == 1, "the distinct path launched distinct_count once")
+    base_value = dc.distinct_count_device(base_shards, device=device)
+    check(value == base_value, f"the row subsets added keys: {value} != "
+          f"{base_value} without them")
+    t0 = time.perf_counter()
+    host = distinct_variant_count(base_shards)
+    host_s = time.perf_counter() - t0
+    check(host == value, f"device count {value} != host oracle {host}")
+    emit("distinct_path", keys=int(keys.shape[0]), value=value,
+         parity=value == host, device_s=device_s, host_s=host_s,
+         host_keys=sum(s.n_rows for s in base_shards),
+         host_shards="A, the cohorts and B (the subsets add no key)",
+         distinct_count_launches=dc_launches,
+         breakdown={"shard_keys_s": rec["keys_ms"] / 1e3,
+                    "h2d_s": rec["upload_ms"] / 1e3,
+                    "launch_to_result_ms": rec["count_ms"]},
+         device=kind, nvidia_smi=smi)
+
+    # 18. timing: distinct_count at the full key set (cold, warm, twin,
+    # torch.unique), then the device time probes (J9) on the main-path
+    # index and on phase 14's plane-stats row set
+    dms, dwarm, dplain, dlib, dbound, dby = time_distinct(keys, device)
+    check(torch.unique(keys, dim=0).shape[0] == value,
+          "torch.unique counts the same keys")
+    emit("timing", kernel=dc.KERNEL, keys=int(keys.shape[0]), ms=dms,
+         warm_ms=dwarm, plain_ms=dplain, library_ms=dlib,
+         library_call="torch.unique(keys, dim=0)", bound_ms=dbound,
+         bound_by=dby, bound_share=dbound / dms, device=kind, nvidia_smi=smi)
+    value_keys = int(keys.shape[0])
+    del keys
+    torch.cuda.empty_cache()
+
+    telemetry.reset_launch_counts()
+    mix_s, mix_bytes = sk.device_time_probe(index, main_specs,
+                                            window_cap=window_cap)
+    mix_launches = telemetry.launch_count(sk.KERNEL)
+    # C=1 exact points alone: single-tile windows only
+    points = tier_specs(shard, rng, NSLOTS, 1, 1, True)
+    lo, hi = window_bounds(index, tk.encode_queries(points))
+    single = (np.maximum(hi, lo + 1) - 1) // index.tile <= lo // index.tile
+    points = [q for q, one in zip(points, single) if one]
+    pt_s, pt_bytes = sk.device_time_probe(index, points, window_cap=window_cap)
+    p5 = next(t for t in timings if t["C"] == 1 and t["exact_only"])
+    ratio = pt_s * 1e3 / p5["ms"]
+    check(1 / 1.5 <= ratio <= 1.5, f"the C=1 exact probe ({pt_s * 1e3:.5f} "
+          f"ms) is not within 1.5x of phase 5's ({p5['ms']:.5f} ms)")
+    pidx = pidx_b if j4["with_counts"] else pidx_a
+    n_samples = pidx.n_words * 32
+    plane_s = pk.device_plane_probe(
+        pidx, row_sets(rng, pidx.n_rows, j4["rows"], 1)[0],
+        mask_rows(rng, 2, pidx.n_words, n_samples)[
+            1 if j4["with_counts"] else 0])
+    emit("timing", kernel="device_time_probe",
+         mix={"queries": len(main_specs), "ms_per_batch": mix_s * 1e3,
+              "bytes_gathered": mix_bytes, "launches": mix_launches,
+              "phase5_tiers": [{k: t[k] for k in ("C", "exact_only", "ms")}
+                               for t in timings]},
+         points={"queries": len(points), "ms_per_batch": pt_s * 1e3,
+                 "bytes_gathered": pt_bytes, "phase5_ms": p5["ms"],
+                 "ratio": ratio},
+         plane={"rows": j4["rows"], "with_counts": pidx.has_counts,
+                "ms": plane_s * 1e3, "phase14_ms": j4["ms"],
+                "phase14_warm_ms": j4["warm_ms"]},
+         device=kind, nvidia_smi=smi)
 
     # the main path's most-launched tier stands for the scatter kernel;
     # the median fused batch of brackets for the bisection kernel; the
@@ -1728,8 +1882,6 @@ def run(args, device) -> int:
     mid = next(t for t in btimings
                if t["queries"] == percentile(batch_sizes, 0.5)
                and t["kind"] == "bracket")
-    j2 = max(stimings, key=lambda t: t["selected_path_launches"])
-    j4 = max(ptimings, key=lambda t: t["selected_path_launches"])
     print(json.dumps({"kernels": [{
         "name": sk.KERNEL,
         "route": "cuda",
@@ -1784,6 +1936,19 @@ def run(args, device) -> int:
         "bound_by": j4["bound_by"],
         "library_ms": None,
         "case": {k: j4[k] for k in ("rows", "with_counts", "with_or")},
+    }, {
+        "name": dc.KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/distinct_count.cu",
+        "replaces": "sbeacon_tpu/parallel/distinct.py:126",
+        "launches": dc_launches,
+        "max_abs_err": dc_err,
+        "ms": dms,
+        "plain_ms": dplain,
+        "bound_ms": dbound,
+        "bound_by": dby,
+        "library_ms": dlib,
+        "case": {"keys": value_keys},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -59,6 +59,9 @@ SIGNATURES = {
             ctypes.c_int,
         ),
     },
+    "distinct_count": {
+        "distinct_count_launch": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

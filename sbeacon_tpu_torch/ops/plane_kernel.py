@@ -25,6 +25,8 @@ kernel ``csrc/plane_stats.cu``.
   selected-sample mask and returns per-row popcounts ``[R, 4]`` plus the
   OR of ``gt & mask`` over a caller-chosen row subset: the quantities
   ``engine.materialize_response`` otherwise computes on the host planes.
+- ``device_plane_probe`` times the kernel on a row set (the JAX
+  package's probe, on CUDA events).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 
 from ..index.columnar import FLAG, VariantIndexShard
 from ..telemetry import launch_count, record_device_launch
-from . import _build
+from . import _build, timing
 from .kernel import _SMEM_MAX
 
 KERNEL = "plane_stats"
@@ -332,3 +334,39 @@ def plane_row_stats(
         counts.cpu().numpy().astype(np.int64),
         or_words.cpu().numpy().view(np.uint32),
     )
+
+
+def device_plane_probe(
+    pindex: PlaneDeviceIndex,
+    rows: np.ndarray,
+    selected_mask_words: np.ndarray,
+    *,
+    iters: int = 64,
+) -> float:
+    """Seconds per plane-stats call on the device, at the row set's own
+    size, with the JAX probe's arguments (every row in the OR, counts
+    when the plane set has them): ``iters`` back-to-back launches timed
+    by CUDA events behind a spin-kernel hold on a CUDA index
+    (``ops.timing.device_ms``), the host clock around the twin on a CPU
+    index. The JAX package differences two launch chains instead,
+    because its transport's ``block_until_ready`` returned early."""
+    dev = pindex.device
+    to_dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    rows_d = to_dev(np.asarray(rows).astype(np.int32))
+    sel_d = torch.ones(len(rows), dtype=torch.int32, device=dev)
+    mask = np.asarray(selected_mask_words, dtype=np.uint32)
+    mask_d = to_dev(mask.view(np.int32))
+    gt = pindex.gt
+    with_counts = pindex.has_counts
+    planes = (
+        (gt, pindex.gt2, pindex.tok1, pindex.tok2) if with_counts else (gt,) * 4
+    )
+
+    def launch(_item):
+        return plane_stats(
+            *planes, rows_d, sel_d, mask_d, with_counts=with_counts,
+            with_or=True,
+        )
+
+    per_call = timing.device_ms if dev.type == "cuda" else timing.host_ms
+    return per_call(launch, [None], reps=iters) / 1e3

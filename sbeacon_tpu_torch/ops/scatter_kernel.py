@@ -29,7 +29,8 @@ launch adds one to the ``scatter_match`` launch count
 (``scatter_match_launches``). ``scatter_selected`` is the fused kernel's
 wrapper, by the same rule, with the twin ``scatter_selected_reference``
 (an op-by-op mirror of ``_selected_batch``) and the launch count
-``scatter_selected_launches``.
+``scatter_selected_launches``. ``device_time_probe`` times the match
+kernel on a query mix (the JAX package's probe, on CUDA events).
 
 Lossless bit-packing, by two guards: row alt_len clamps to 0xFFFF and
 ref_len to 0x1FFF in the packed matrix, ``pack_q8`` host-flags any query
@@ -47,7 +48,7 @@ import torch
 
 from ..index.columnar import FLAG, INT32_MAX, VariantIndexShard
 from ..telemetry import launch_count, note_device_stage, record_device_launch
-from . import _build
+from . import _build, timing
 from .kernel import (
     MODE_ANY_BASE,
     MODE_EXACT,
@@ -1000,3 +1001,108 @@ def run_selected_scattered(
         pc_tok=pc_tok,
         or_words=or_words,
     )
+
+
+#: window shifts a device time probe cycles through per tier: their
+#: gathered tiles together exceed the card's 50 MB L2
+PROBE_SHIFTS = 16
+
+
+def _probe_one_tier(
+    sindex, tile_ids, q8, *, cap, C, iters, exact_only=False
+) -> tuple[float, int]:
+    """(seconds per batch, bytes gathered per batch) for ONE tier batch
+    (tile_ids/q8 already nslots-sized): ``iters`` match launches, timed
+    with CUDA events behind a spin-kernel hold on a CUDA index
+    (``ops.timing.device_ms``), with the host clock around the twin on a
+    CPU index.
+
+    The launches cycle through ``PROBE_SHIFTS`` copies of the batch whose
+    windows are moved by whole tiles, spread over the index (each slot
+    keeps its window width, its queries and its tier), so the gathered
+    tiles do not stay in L2, as for random serving traffic. The JAX
+    program's drifting carry moved its tile ids in the same way."""
+    T = sindex.tile
+    nslots = len(tile_ids)
+    dev = sindex.device
+    seg_k = _static_seg_k(sindex)
+    span = sindex.n_tiles - sindex.MAX_C  # tiles a window may start in
+    tile_ids = np.asarray(tile_ids, np.int64)
+    items = []
+    for j in range(PROBE_SHIFTS):
+        moved = (tile_ids + j * (span // PROBE_SHIFTS)) % span
+        q = np.array(q8, np.int64)
+        q[:, Q_LO] += (moved - tile_ids) * T
+        q[:, Q_HI] += (moved - tile_ids) * T
+        items.append((
+            torch.from_numpy(moved.astype(np.int32)).to(dev),
+            torch.from_numpy(q.astype(np.int32)).to(dev),
+        ))
+
+    def launch(item):
+        return scatter_match(
+            sindex.tiles, *item, T=T, CAP=cap, C=C, exact_only=exact_only,
+            seg_k=seg_k,
+        )
+
+    per_call = timing.device_ms if dev.type == "cuda" else timing.host_ms
+    reps = max(1, iters // PROBE_SHIFTS)
+    seconds = per_call(launch, items, reps=reps) / 1e3
+    n_gather_tiles = C if C is not None else cap // T + 1
+    gathered = nslots * N_PACKED * n_gather_tiles * T * 4
+    return seconds, gathered
+
+
+def device_time_probe(
+    sindex: ScatterDeviceIndex,
+    queries,
+    *,
+    window_cap: int | None = None,
+    iters: int = 128,
+) -> tuple[float, int]:
+    """(seconds per batch on the device, bytes gathered per batch) of the
+    match kernel for a query mix.
+
+    Times the SAME tier mix serving runs, as the JAX package's probe
+    does: queries whose window sits in one tile are timed in the C=1
+    tier, the rest in the windowed tier at ``window_cap`` (rounded up to
+    tiles), each split exact against not; every tier is probed as a full
+    batch of its own queries cycled to the batch size, and the figures
+    are share-weighted. Each tier is ``iters`` back-to-back launches
+    timed by CUDA events (``_probe_one_tier``); the JAX package's two-chain
+    differencing existed only because its transport's
+    ``block_until_ready`` returned early."""
+    enc = encode_queries(queries) if isinstance(queries, list) else queries
+    T = sindex.tile
+    # round UP like _tier_caps does for serving, so the probe times the
+    # same gather width serving performs
+    cap = min(-(-(window_cap or T) // T) * T, (sindex.MAX_C - 1) * T)
+    lo, hi = window_bounds(sindex, enc)
+    q8, _nh = pack_q8(enc, lo, hi)
+    tile_ids = (lo // T).astype(np.int32)
+    b = len(tile_ids)
+    nslots = CHUNK_SMALL if b <= CHUNK_SMALL else CHUNK
+    single = (np.maximum(hi, lo + 1) - 1) // T <= tile_ids
+    is_exact = enc["alt_mode"] == MODE_EXACT
+
+    def cycle(sel):
+        reps = -(-nslots // len(sel))
+        idx = np.tile(sel, reps)[:nslots]
+        return tile_ids[idx], q8[idx]
+
+    per = 0.0
+    gathered = 0.0
+    for mask, C, tier_cap in ((single, 1, T), (~single, None, cap)):
+        for exact in (True, False):
+            sel = np.flatnonzero(mask & (is_exact == exact))
+            share = len(sel) / b
+            if share == 0.0:
+                continue
+            t_ids, qs = cycle(sel)
+            p, g = _probe_one_tier(
+                sindex, t_ids, qs, cap=tier_cap, C=C, iters=iters,
+                exact_only=exact,
+            )
+            per += share * p
+            gathered += share * g
+    return per, int(gathered)

@@ -1,0 +1,243 @@
+"""The cross-VCF distinct-variant count on the card (duplicateVariantSearch).
+
+Counterpart of ``sbeacon_tpu/parallel/distinct.py`` (``shard_keys``,
+``partition_keys``, ``distinct_count_device``) with the XLA program
+``_local_distinct`` (lexsort-unique of one key block, psum over the
+mesh) replaced by the hand-written CUDA kernel ``csrc/distinct_count.cu``.
+
+The reference counts distinct variants by fanning bp-ranges to lambdas
+that insert ``pos + ref_alt`` strings into an ``unordered_set``. Here:
+
+1. host: every shard's rows become fixed-width int32 keys
+   (chrom_code, pos, ref_hash, alt_hash, ref_len, alt_len), the 32-bit
+   FNV hashes riding as bit patterns (``shard_keys``);
+2. device: one kernel launch counts the distinct rows among them
+   (``distinct_count``), comparing all six columns.
+
+Keys are hash-exact: a false merge needs two alleles at the same
+position with equal lengths and a double FNV collision.
+``ingest.pipeline.distinct_variant_count`` byte-verifies duplicate
+groups and is the oracle the tests hold this count against.
+
+On one card the keys go up unpadded, at their own size: a CUDA kernel
+compiles no shapes, so JAX's pow2 block padding (which lets it reuse one
+compiled program) would only move padding. ``partition_keys`` is ported
+byte for byte all the same, for a count over several cards; the kernel
+skips its ``_PAD`` rows, so a padded block counts the same. JAX's
+``mesh=`` argument has no counterpart yet.
+
+``distinct_count`` is the kernel's wrapper: on a CUDA tensor it launches
+the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
+``distinct_count_reference``. Every CUDA launch adds one to the
+``distinct_count`` launch count (``distinct_count_launches``).
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..index.columnar import VariantIndexShard
+from ..ops import _build, resolve_device
+from ..telemetry import launch_count, note_device_stage, record_device_launch
+
+KERNEL = "distinct_count"
+#: sentinel key rows (column 0) that the count leaves out
+_PAD = np.iinfo(np.int32).max
+#: the most the kernel's hash table is filled, counting every key row
+MAX_LOAD = 0.7
+#: bytes of one hash-table slot (six key words, a state word, a pad word)
+SLOT_BYTES = 32
+
+
+def __getattr__(name: str):
+    """``distinct_count_launches``: CUDA launches of the distinct-count
+    kernel since the last ``telemetry.reset_launch_counts()``."""
+    if name == "distinct_count_launches":
+        return launch_count(KERNEL)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def shard_keys(shards: list[VariantIndexShard]) -> np.ndarray:
+    """[n, 6] int32 key matrix over all rows of all shards (the same key
+    the host exact counter groups by)."""
+    parts = []
+    for s in shards:
+        n = s.n_rows
+        codes = (
+            np.searchsorted(s.chrom_offsets, np.arange(n), side="right") - 1
+        ).astype(np.int32)
+        parts.append(
+            np.stack(
+                [
+                    codes,
+                    s.cols["pos"].astype(np.int32),
+                    s.cols["ref_hash"].astype(np.uint32).view(np.int32),
+                    s.cols["alt_hash"].astype(np.uint32).view(np.int32),
+                    s.cols["ref_len"].astype(np.int32),
+                    s.cols["alt_len"].astype(np.int32),
+                ],
+                axis=1,
+            )
+        )
+    if not parts:
+        return np.zeros((0, 6), np.int32)
+    return np.concatenate(parts)
+
+
+def partition_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
+    """[n_shards, width, 6] int32 blocks such that EQUAL keys always land
+    in the same block, so no duplicate pair straddles two devices.
+
+    Blocks are key-hash buckets (a multiply-xor row mix, bucket
+    ``(mix >> 33) % n_shards``, stable order within a bucket); the width
+    is the fullest bucket rounded up to a power of two of at least 256,
+    and the rest of each block is ``_PAD`` rows. Byte for byte the JAX
+    package's layout."""
+    n = len(keys)
+    if n == 0 or n_shards <= 1:
+        order = np.arange(n)
+        counts = np.array([n], dtype=np.int64)
+        n_shards = max(n_shards, 1)
+    else:
+        mix = (
+            keys[:, 0].astype(np.uint64) * np.uint64(0x9E3779B97F4A7C15)
+            ^ keys[:, 1].astype(np.uint64) * np.uint64(0xC2B2AE3D27D4EB4F)
+            ^ keys[:, 2].astype(np.uint64) * np.uint64(0x165667B19E3779F9)
+            ^ keys[:, 3].astype(np.uint64) * np.uint64(0x27D4EB2F165667C5)
+            ^ keys[:, 4].astype(np.uint64) * np.uint64(0x85EBCA6B)
+            ^ keys[:, 5].astype(np.uint64) * np.uint64(0xC2B2AE35)
+        )
+        # uint16 bucket ids: numpy radix-sorts <= 16-bit integers
+        bucket = ((mix >> np.uint64(33)) % np.uint64(n_shards)).astype(
+            np.uint16
+        )
+        order = np.argsort(bucket, kind="stable")
+        counts = np.bincount(bucket, minlength=n_shards)
+    width = int(counts.max()) if len(counts) else 0
+    pad_w = 256
+    while pad_w < width:
+        pad_w *= 2
+    out = np.full((n_shards, pad_w, 6), _PAD, dtype=np.int32)
+    start = 0
+    for k in range(n_shards):
+        c = int(counts[k]) if k < len(counts) else 0
+        out[k, :c] = keys[order[start : start + c]]
+        start += c
+    return out
+
+
+def distinct_count_reference(keys: torch.Tensor) -> torch.Tensor:
+    """Plain-PyTorch twin of the distinct-count kernel: the lexsort-unique
+    count of ``sbeacon_tpu/parallel/distinct.py::_local_distinct`` for one
+    block.
+
+    ``keys`` int32 [m, 6]. Returns a 0-dim int64 tensor: the number of
+    distinct rows among the rows whose column 0 is not ``_PAD``. torch
+    has no lexsort: six chained stable sorts, last column first, order
+    the rows lexicographically; then every row that differs from its
+    predecessor starts a new key."""
+    m = keys.shape[0]
+    if m == 0:
+        return torch.zeros((), dtype=torch.int64, device=keys.device)
+    order = torch.arange(m, device=keys.device)
+    for col in range(5, -1, -1):
+        idx = torch.sort(keys[order, col], stable=True).indices
+        order = order[idx]
+    srt = keys[order]
+    real = srt[:, 0] != _PAD
+    diff = (srt[1:] != srt[:-1]).any(dim=1)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=keys.device), diff])
+    return (first & real).sum()
+
+
+def table_slots(n: int) -> int:
+    """Hash-table slots for ``n`` key rows: the least power of two (at
+    least 64) that holds them at load ``MAX_LOAD`` or less."""
+    cap = 64
+    while cap * MAX_LOAD < n:
+        cap *= 2
+    return cap
+
+
+def distinct_count(keys: torch.Tensor):
+    """The distinct-count kernel: (count, seq), ``count`` a 0-dim int64
+    tensor on the keys' device.
+
+    CUDA tensors launch ``csrc/distinct_count.cu`` on the current stream
+    (asynchronously: ``count`` is ready when the stream reaches it) and
+    record the launch, ``seq`` being its launch record. CPU tensors run
+    ``distinct_count_reference`` and ``seq`` is None. Any other device,
+    or inputs the kernel does not take, raise."""
+    if keys.device.type == "cpu":
+        return distinct_count_reference(keys), None
+    if keys.device.type != "cuda":
+        raise ValueError(f"distinct_count runs on cuda or cpu, not {keys.device}")
+    if (
+        keys.dtype != torch.int32
+        or keys.dim() != 2
+        or keys.shape[1] != 6
+        or not keys.is_contiguous()
+        or keys.data_ptr() % 8
+    ):
+        raise ValueError(
+            "keys must be a contiguous, 8-byte aligned int32 [n, 6] tensor"
+        )
+    dev = keys.device
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros((), dtype=torch.int64, device=dev), None
+    cap = table_slots(n)
+    table = torch.empty((cap, SLOT_BYTES // 4), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int64, device=dev)
+    lib = _build.load(KERNEL)
+    t0 = time.perf_counter()
+    with torch.cuda.device(dev):
+        rc = lib.distinct_count_launch(
+            keys.data_ptr(),
+            n,
+            table.data_ptr(),
+            cap,
+            count.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"distinct_count launch failed: CUDA error {rc}")
+    seq = record_device_launch(
+        KERNEL,
+        rows=n,
+        slots=cap,
+        launch_ms=(time.perf_counter() - t0) * 1e3,
+    )
+    return count, seq
+
+
+def distinct_count_device(shards: list[VariantIndexShard], *, device=None) -> int:
+    """Distinct (contig, pos, ref, alt) across shards, counted on the
+    card (default) or, with ``device="cpu"``, by the twin on the CPU.
+
+    The keys are built on the host, copied to the device unpadded, and
+    counted by one kernel launch. The launch record carries the stage
+    times: ``keys_ms`` (host keys), ``upload_ms`` (host to device) and
+    ``count_ms`` (launch to result on the host)."""
+    dev = resolve_device(device)
+    t0 = time.perf_counter()
+    keys = shard_keys(shards)
+    if len(keys) == 0:
+        return 0
+    t1 = time.perf_counter()
+    keys_dev = torch.from_numpy(keys).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    count, seq = distinct_count(keys_dev)
+    total = int(count)
+    note_device_stage(
+        seq,
+        keys_ms=(t1 - t0) * 1e3,
+        upload_ms=(t2 - t1) * 1e3,
+        count_ms=(time.perf_counter() - t2) * 1e3,
+    )
+    return total

@@ -4,7 +4,10 @@ Counterpart of ``sbeacon_tpu/testing.py``, trimmed to ``random_records``
 (structured-random VCF records covering every branch of the matcher:
 SNPs, indels, multi-alt records, symbolic alleles, records with and
 without INFO AC/AN, genotype columns) and ``synthetic_shard`` (a
-vectorised, 1000-Genomes-shaped ``VariantIndexShard`` at any scale).
+vectorised, 1000-Genomes-shaped ``VariantIndexShard`` at any scale),
+plus the port's own ``subset_shard`` (a row subset of a shard, standing
+for a re-submitted VCF) and ``distinct_key_cases`` (crafted key sets for
+the distinct count).
 """
 
 from __future__ import annotations
@@ -319,3 +322,87 @@ def synthetic_shard(
         vt_codes=np.zeros(n, np.int16),
         **planes,
     )
+
+
+def subset_shard(shard, rows, *, dataset_id: str):
+    """A shard of the given rows of ``shard`` (ascending row ids): the
+    same sites submitted again in a further VCF, the duplication the
+    distinct-variant count removes. Columns, chromosome offsets, REF/ALT
+    blobs and variant-type codes are cut by numpy row selection; the
+    genotype planes are left out."""
+    import dataclasses
+
+    import numpy as np
+
+    rows = np.asarray(rows, dtype=np.int64)
+
+    def blob_rows(blob, off):
+        starts = off[rows].astype(np.int64)
+        lens = off[rows + 1].astype(np.int64) - starts
+        new_off = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum(lens, out=new_off[1:])
+        src = np.repeat(starts - new_off[:-1], lens) + np.arange(
+            int(new_off[-1]), dtype=np.int64
+        )
+        return blob[src], new_off.astype(off.dtype)
+
+    ref_blob, ref_off = blob_rows(shard.ref_blob, shard.ref_off)
+    alt_blob, alt_off = blob_rows(shard.alt_blob, shard.alt_off)
+    meta = dict(shard.meta, dataset_id=dataset_id,
+                vcf_location=f"synthetic://{dataset_id}", n_rows=len(rows))
+    return dataclasses.replace(
+        shard,
+        meta=meta,
+        cols={k: v[rows] for k, v in shard.cols.items()},
+        chrom_offsets=np.searchsorted(rows, shard.chrom_offsets).astype(
+            shard.chrom_offsets.dtype
+        ),
+        ref_blob=ref_blob,
+        ref_off=ref_off,
+        alt_blob=alt_blob,
+        alt_off=alt_off,
+        vt_codes=shard.vt_codes[rows],
+        gt_bits=None,
+        gt_bits2=None,
+        tok_bits1=None,
+        tok_bits2=None,
+        gt_overflow=None,
+        tok_overflow=None,
+    )
+
+
+def distinct_key_cases(seed: int = 3) -> dict:
+    """Crafted [n, 6] int32 key sets for the distinct count, by name:
+    every key equal (all threads contend for one slot), keys differing in
+    one column only, high-bit patterns (INT32_MIN, -1 and INT32_MAX in
+    every column, column 0 included but never INT32_MAX there), ``_PAD``
+    rows (column 0 alone marks one), INT32_MAX in the other columns of
+    real rows, and 0, 1, 2 and 1000 keys."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i32 = np.int32
+    lo, hi = np.iinfo(i32).min, np.iinfo(i32).max
+    row = np.array([[3, 7, -5, 9, 1, 1]], i32)
+    one_col = np.tile(row, (6 * 50, 1))
+    for c in range(6):
+        one_col[c * 50 : (c + 1) * 50, c] = np.arange(50) - 25
+    high = rng.choice(np.array([lo, -1, hi, 0, 1], i32), size=(4000, 6))
+    high[:, 0] = rng.choice(np.array([lo, -1, 0, 5], i32), 4000)
+    padded = rng.integers(0, 4, size=(3000, 6)).astype(i32)
+    padded[::3] = hi  # whole pad rows, as partition_keys writes them
+    padded[1::7, 0] = hi
+    pad_other = rng.integers(0, 3, size=(2000, 6)).astype(i32)
+    pad_other[:, 1:][rng.random((2000, 5)) < 0.3] = hi
+    return {
+        "all_equal": np.tile(row, (5000, 1)),
+        "one_column_differs": one_col,
+        "high_bits": high.astype(i32),
+        "padded": padded,
+        "pad_in_other_columns": pad_other,
+        "empty": np.zeros((0, 6), i32),
+        "one": row.copy(),
+        "two": np.concatenate([row, row + 1]),
+        "two_equal": np.concatenate([row, row]),
+        "thousand": rng.integers(-2, 2, size=(1000, 6)).astype(i32),
+    }

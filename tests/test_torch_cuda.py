@@ -1,5 +1,6 @@
 """The CUDA kernels (scatter match, bisection query, fused match +
-planes, plane stats) against their plain-PyTorch twins.
+planes, plane stats, distinct count) against their plain-PyTorch twins,
+and the device time probes on CUDA events.
 
 Runs only where a CUDA device is present (marker ``cuda``); elsewhere
 every test skips. It imports nothing of the JAX package, so it runs on
@@ -27,7 +28,13 @@ from sbeacon_tpu_torch.ops import scatter_kernel as sk
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.ops.kernel import QuerySpec, encode_queries
 from sbeacon_tpu_torch.ops.query_pack import pack_q8, window_bounds
-from sbeacon_tpu_torch.testing import random_records
+from sbeacon_tpu_torch.parallel import distinct as dc
+from sbeacon_tpu_torch.testing import (
+    distinct_key_cases,
+    random_records,
+    subset_shard,
+    synthetic_shard,
+)
 
 
 @pytest.fixture(scope="module")
@@ -412,3 +419,73 @@ def test_engine_selected_one_launch_per_request(planes, cuda_device):
     finally:
         for e in engines:
             e.close()
+
+
+DISTINCT_CASES = distinct_key_cases()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(DISTINCT_CASES))
+def test_distinct_kernel_matches_twin(cuda_device, case):
+    """Every key equal, one column differing, high-bit patterns, pad
+    rows, 0-1000 keys: the hash-set kernel equals the sort twin."""
+    keys = torch.from_numpy(DISTINCT_CASES[case]).to(cuda_device)
+    telemetry.reset_launch_counts()
+    count, seq = dc.distinct_count(keys)
+    torch.cuda.synchronize()
+    assert (seq is not None) == (keys.shape[0] > 0)
+    assert dc.distinct_count_launches == int(keys.shape[0] > 0)
+    assert int(count) == int(dc.distinct_count_reference(keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,distinct", [(3_000_000, 1_000_000),
+                                        (2_000_000, 1_999_000)])
+def test_distinct_kernel_at_size(cuda_device, n, distinct):
+    """Millions of keys with many or few duplicates, unpadded and as a
+    padded partition_keys block."""
+    rng = np.random.default_rng(n)
+    base = rng.integers(-(2**31), 2**31 - 1, size=(distinct, 6),
+                        dtype=np.int64).astype(np.int32)
+    base[:, 0] = rng.integers(0, 25, distinct)
+    keys = base[rng.integers(0, distinct, n)]
+    want = len(np.unique(keys, axis=0))
+    for form in (keys, dc.partition_keys(keys, 1)[0]):
+        t = torch.from_numpy(np.ascontiguousarray(form)).to(cuda_device)
+        count, _seq = dc.distinct_count(t)
+        torch.cuda.synchronize()
+        assert int(count) == int(dc.distinct_count_reference(t)) == want
+
+
+@pytest.mark.cuda
+def test_distinct_device_on_card_equals_cpu(cuda_device):
+    shard = synthetic_shard(300_000, seed=5)
+    rows = np.sort(np.random.default_rng(6).choice(shard.n_rows, 150_000,
+                                                   replace=False))
+    shards = [shard, subset_shard(shard, rows, dataset_id="again")]
+    telemetry.reset_launch_counts()
+    got = dc.distinct_count_device(shards)
+    assert dc.distinct_count_launches == 1
+    assert got == dc.distinct_count_device(shards, device="cpu")
+    assert got == dc.distinct_count_device(shards[:1], device=cuda_device)
+
+
+@pytest.mark.cuda
+def test_probes_time_on_card(index, planes):
+    """The device time probes on CUDA events: positive seconds, their
+    launches counted as the match and plane-stats kernels'."""
+    shard = index.shard
+    pos = shard.cols["pos"]
+    specs = [QuerySpec(chrom="1", start_min=int(pos[i]),
+                       start_max=int(pos[i + (i % 3) * 100]), end_min=1,
+                       end_max=1 << 30, alternate_bases=shard.row_alt(i))
+             for i in range(0, 1500, 15)]
+    telemetry.reset_launch_counts()
+    per, gathered = sk.device_time_probe(index, specs, iters=8)
+    assert 0.0 < per < 1.0 and gathered > 0
+    assert sk.scatter_match_launches > 0
+    _index, pidx, _shard = planes
+    rows = np.arange(0, pidx.n_rows, 5, dtype=np.int32)
+    mask = pk.sample_mask_words(range(0, 40, 3), pidx.n_words)
+    seconds = pk.device_plane_probe(pidx, rows, mask, iters=8)
+    assert 0.0 < seconds < 1.0 and pk.plane_stats_launches > 0

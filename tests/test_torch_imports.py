@@ -24,6 +24,8 @@ from sbeacon_tpu_torch.engine import VariantEngine
 from sbeacon_tpu_torch.ops import plane_kernel as tpk
 from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
+from sbeacon_tpu_torch.ops import timing
+from sbeacon_tpu_torch.parallel import distinct as td
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.testing import synthetic_shard
 
@@ -57,9 +59,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert out.returncode == 0, out.stderr
     names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 16  # every module of the slices was imported
+    assert len(names) >= 21  # every module of the slices was imported
     assert {"sbeacon_tpu_torch.ops.plane_kernel",
             "sbeacon_tpu_torch.ops.scatter_kernel",
+            "sbeacon_tpu_torch.ops.timing",
+            "sbeacon_tpu_torch.parallel.distinct",
+            "sbeacon_tpu_torch.ingest.pipeline",
             "sbeacon_tpu_torch.engine"} <= set(names)
     assert leaked == []
 
@@ -144,7 +149,9 @@ def test_device_planes_option_builds_and_serves():
     [tsk.scatter_match, tsk._launch_tier, tsk.run_queries_scattered,
      tk.bisect_query, tk.run_queries, t_ops.run_queries_auto,
      tsk.scatter_selected, tsk.run_selected_scattered, tpk.plane_stats,
-     tpk.plane_row_stats, VariantEngine._fused_selected],
+     tpk.plane_row_stats, VariantEngine._fused_selected, td.distinct_count,
+     td.distinct_count_device, tsk._probe_one_tier, tsk.device_time_probe,
+     tpk.device_plane_probe, timing.device_ms, timing.cold_device_ms],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the
