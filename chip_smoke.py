@@ -70,9 +70,27 @@ non-zero, without the final line):
     its bound, its twin and torch.unique(keys, dim=0); the device time
     probes on the main-path index (phase 4's query mix, and C=1 exact
     points, which must agree with phase 5's time within 1.5x) and on
-    phase 14's plane-stats row set.
+    phase 14's plane-stats row set;
+19. mesh setup: one-card stacks (parallel.mesh.StackedIndex) of the
+    columns of A and the three cohorts (each padded to A's 2e7 rows), of
+    the gt planes of B and A (A's plane rows past 2^31 words), and of all
+    four planes of B and two re-submitted row subsets of it;
+20. kernel vs twin (stacked_query, stacked_selected): B = 1, 16, 64 and
+    512 in every alt mode, all-ones, sparse and empty masks, counts both
+    ways, crafted stacks with a padding dataset, rows near A's end, and
+    the two-entry mesh [card, card] against the twins' sum;
+21. mesh path: engines whose mesh is patched to list the card twice (the
+    engine takes the mesh leg only at two devices, as the JAX engine
+    does): A and the cohorts answering the fused-path mix, then A and B
+    with their planes answering the selected-path mix, every response
+    checked against the host matcher and host planes; launch counts
+    zeroed just before each run and read just after;
+22. timing (stacked_query, stacked_selected): one query a launch on each
+    mesh entry's block as phase 21 launched, and 64, L2 cold and warm,
+    beside the bound and the twin's time; with counts on phase 19's
+    count-plane stack.
 
-Then one ``{"kernels": [...]}`` line (the five CUDA kernels), the
+Then one ``{"kernels": [...]}`` line (the seven CUDA kernels), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
 "device": {...}}``. The script exits non-zero, printing no result, when
 no CUDA device is available. Device times come from CUDA events
@@ -129,6 +147,10 @@ PLANE_DENSITY = 0.01  # about 1% of a plane's genotype bits set
 DISTINCT_OPS_PER_KEY = 40
 RESUBMITTED = 3  # seeded row subsets of dataset A in the distinct path
 P_DERIVED = 0.3  # dataset B's share of records counted from genotypes
+# the plane budget of the mesh path's selected engine: A's and B's planes
+# (8.85 GB) and the stack's per-device bytes (6.3 GB; twice that on the
+# card, whose two mesh entries are one device)
+MESH_PLANE_BUDGET_GB = 40.0
 
 
 def emit(phase: str, **kw) -> None:
@@ -671,17 +693,30 @@ def compare_bisect(index, shards, rng, label, record_cap):
     return worst, report
 
 
+def bound_of(nbytes, ops):
+    """(bound ms, bound_by): the larger of the bytes at the HBM rate and
+    the operations at the int32 rate."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / INT32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def bisect_bound(index, q, out, W, R):
-    """(bound ms, bound_by, bytes) of one bisect_query launch: the least
-    bytes and operations its inputs need. Bytes: the distinct 32-B
-    sectors of the columns each query's predicates read over its valid
-    lanes (rec_end, alt_len and rec_id always; ref hash and length for a
-    fixed ref; alt hash for an exact alt; flags for the other modes,
-    with ref length, repeat count and the 16-byte alt_prefix of
-    symbolic rows for a typed one), AC at matched lanes and AN at
-    first-matched lanes; 2 x n_iters probe sectors per query; the packed
-    queries read once and the outputs written once. All at the HBM
-    rate; operations at the int32 rate."""
+    """(bound ms, bound_by, bytes) of one bisect_query launch."""
+    nbytes, ops = bisect_need(index, q, out, W, R)
+    return (*bound_of(nbytes, ops), nbytes)
+
+
+def bisect_need(index, q, out, W, R):
+    """(bytes, operations) one bisect_query launch needs at the least.
+    Bytes: the distinct 32-B sectors of the columns each query's
+    predicates read over its valid lanes (rec_end, alt_len and rec_id
+    always; ref hash and length for a fixed ref; alt hash for an exact
+    alt; flags for the other modes, with ref length, repeat count and
+    the 16-byte alt_prefix of symbolic rows for a typed one), AC at
+    matched lanes and AN at first-matched lanes; 2 x n_iters probe
+    sectors per query; the packed queries read once and the outputs
+    written once."""
     import torch
 
     from sbeacon_tpu_torch.index.columnar import FLAG
@@ -733,10 +768,7 @@ def bisect_bound(index, q, out, W, R):
     nbytes = (sectors + probes) * SECTOR_BYTES + io
     ops = (int(valid.sum()) * BISECT_OPS_PER_LANE
            + probes * BISECT_OPS_PER_PROBE)
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return (max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+    return nbytes, ops
 
 
 def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
@@ -1259,6 +1291,268 @@ def time_distinct(keys, device):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
+def with_plane_rows(shard, rows, dataset_id):
+    """A ``subset_shard`` of ``shard`` at ``rows`` that keeps those rows'
+    four genotype planes (the same sites and calls submitted again)."""
+    from sbeacon_tpu_torch.testing import subset_shard
+
+    empty = np.zeros((0, 3), np.int64)
+    return dataclasses.replace(
+        subset_shard(shard, rows, dataset_id=dataset_id),
+        gt_bits=shard.gt_bits[rows], gt_bits2=shard.gt_bits2[rows],
+        tok_bits1=shard.tok_bits1[rows], tok_bits2=shard.tok_bits2[rows],
+        gt_overflow=empty, tok_overflow=empty)
+
+
+def stack_view(blk, lo, hi):
+    """Datasets [lo, hi) of a mesh block as a block of their own (views
+    of its tensors, no copy)."""
+    from sbeacon_tpu_torch.parallel.mesh import StackBlock
+
+    n = blk.n_pad
+    planes = (None if blk.planes is None
+              else tuple(p[lo * n : hi * n] for p in blk.planes))
+    return StackBlock(device=blk.device, columns=blk.columns[lo:hi],
+                      alt_prefix=blk.alt_prefix[lo:hi],
+                      offsets=blk.offsets[lo:hi], planes=planes)
+
+
+def stack_q(specs, device):
+    """A query batch packed for the stacked kernels, on ``device``."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    enc = tk.encode_queries(specs)
+    return torch.from_numpy(tk.pack_queries(enc, fused=False)).to(device)
+
+
+def block_planes(blk, has_counts):
+    return blk.planes if has_counts else (blk.planes[0],) * 4
+
+
+def compare_stacked_query(blk, n_iters, specs, label, window_cap=2048,
+                          record_cap=1024):
+    """stacked_query vs its twin on one block; returns (max_abs_err,
+    report row)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    q = stack_q(specs, blk.device)
+    kw = dict(window_cap=window_cap, record_cap=record_cap, n_iters=n_iters)
+    out, agg, _seq = tm.stacked_query(blk.columns, blk.alt_prefix,
+                                      blk.offsets, q, **kw)
+    torch.cuda.synchronize()
+    want_out, want_agg = tm.local_query_reference(
+        blk.columns, blk.alt_prefix, blk.offsets, q, **kw)
+    err = max(int((out.long() - want_out.long()).abs().max()),
+              int((agg.long() - want_agg.long()).abs().max()))
+    equal = torch.equal(out, want_out) and torch.equal(agg, want_agg)
+    check(equal, f"{label} B={len(specs)}: stacked_query != twin")
+    a = out[:, :, : tk.N_AGG].cpu().numpy()
+    R = out.shape[2] - tk.N_AGG
+    return err, {
+        "stack": label, "datasets": blk.n_datasets, "queries": len(specs),
+        "window": window_cap, "record_cap": record_cap, "equal": equal,
+        "matched": int(a[:, :, 4].sum()), "overflow": int(a[:, :, 5].sum()),
+        "over_record_cap": int((a[:, :, 4] > R).sum()),
+        "empty": int((a[:, :, 4] == 0).sum()),
+        "max_row": int(out[:, :, tk.N_AGG :].max()),
+    }
+
+
+def compare_stacked_selected(blk, n_iters, specs, masks, has_counts, label,
+                             window_cap=2048, record_cap=1024):
+    """stacked_selected vs its twin on one block, ``masks`` uint32
+    [d_local, W]; returns (max_abs_err, report row)."""
+    import torch
+
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    q = stack_q(specs, blk.device)
+    m = torch.from_numpy(np.ascontiguousarray(masks).view(np.int32)).to(
+        blk.device)
+    planes = block_planes(blk, has_counts)
+    kw = dict(window_cap=window_cap, record_cap=record_cap, n_iters=n_iters,
+              has_counts=has_counts)
+    got = tm.stacked_selected(blk.columns, blk.alt_prefix, blk.offsets,
+                              *planes, m, q, **kw)[:-1]
+    torch.cuda.synchronize()
+    want = tm.local_selected_reference(blk.columns, blk.alt_prefix,
+                                       blk.offsets, *planes, m, q, **kw)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    equal = all(torch.equal(g, w) for g, w in zip(got, want))
+    check(equal, f"{label} B={len(specs)} counts={has_counts}: "
+          "stacked_selected != twin")
+    scal, rows = got[0].cpu().numpy(), got[1]
+    d_idx = torch.arange(blk.n_datasets, device=blk.device)[:, None, None]
+    prow = torch.where(rows >= 0, d_idx * blk.n_pad + rows.long(), -1)
+    return err, {
+        "stack": label, "datasets": blk.n_datasets, "queries": len(specs),
+        "with_counts": has_counts, "record_cap": record_cap, "equal": equal,
+        "matched": int(scal[:, :, 3].sum()),
+        "overflow": int(scal[:, :, 2].sum()),
+        "rows": int((rows >= 0).sum()),
+        "max_plane_word": int(prow.max()) * blk.planes[0].shape[1],
+        "or_bits": int(sum(bin(int(x) & 0xFFFFFFFF).count("1")
+                           for x in got[4].flatten().tolist())),
+    }
+
+
+def mesh_vs_twin(blocks, mesh, n_iters, specs, masks=None, has_counts=False):
+    """The mesh entry point over ``blocks`` (kernels, and the per-device
+    sum on the first mesh device) against the twins of each block and
+    the sum of their partials; returns (equal, max_abs_err)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    if masks is None:
+        per, agg = tm.sharded_query(blocks, specs, mesh=mesh, n_iters=n_iters)
+        got = [np.stack([per["exists"], per["call_count"], per["n_variants"],
+                         per["all_alleles_count"], per["n_matched"],
+                         per["overflow"]], -1).astype(np.int32), per["rows"]]
+        got_agg = np.stack([agg[k] for k in (
+            "call_count", "all_alleles_count", "n_variants",
+            "n_datasets_hit", "n_overflow")], 1)
+        twins = [tm.local_query_reference(b.columns, b.alt_prefix, b.offsets,
+                                          stack_q(specs, b.device),
+                                          window_cap=2048, record_cap=1024,
+                                          n_iters=n_iters) for b in blocks]
+        out = torch.cat([t[0] for t in twins]).cpu().numpy()
+        want = [out[:, :, : tk.N_AGG], out[:, :, tk.N_AGG :]]
+    else:
+        per, agg = tm.sharded_selected_query(
+            blocks, specs, masks, mesh=mesh, n_iters=n_iters,
+            has_counts=has_counts)
+        got = [np.stack([per["call_count"], per["all_alleles_count"],
+                         per["overflow"], per["n_matched"]],
+                        -1).astype(np.int32)] + [
+            per[k] for k in ("rows", "pc_call", "pc_tok", "or_words")]
+        got_agg = np.stack([agg[k] for k in (
+            "call_count", "all_alleles_count", "n_overflow")], 1)
+        twins, start = [], 0
+        for b in blocks:
+            m = torch.from_numpy(masks[start : start + b.n_datasets].view(
+                np.int32)).to(b.device)
+            start += b.n_datasets
+            twins.append(tm.local_selected_reference(
+                b.columns, b.alt_prefix, b.offsets,
+                *block_planes(b, has_counts), m, stack_q(specs, b.device),
+                window_cap=2048, record_cap=1024, n_iters=n_iters,
+                has_counts=has_counts))
+        want = [torch.cat([t[i] for t in twins]).cpu().numpy()
+                for i in range(5)]
+    want_agg = sum(t[-1].long().cpu() for t in twins).numpy()
+    pairs = list(zip(got, want)) + [(got_agg, want_agg)]
+    err = max(int(np.abs(g.astype(np.int64) - w.astype(np.int64)).max())
+              for g, w in pairs)
+    return all(np.array_equal(g, w) for g, w in pairs), err
+
+
+def mask_sets(rng, n, d_local, w, n_samples):
+    """n uint32 [d_local, W] mask stacks cycling all-ones, sparse and
+    empty."""
+    return [np.stack([mask_rows(rng, 3, w, n_samples)[k % 3]] * d_local)
+            for k in range(n)]
+
+
+def stacked_need(blk, n_iters, q, W, R):
+    """(bytes, operations) one stacked_query launch of the packed
+    queries ``q`` needs at the least: bisect_need per local dataset
+    (its own columns and matched rows, from a launch that returns every
+    matched row) and the [B, 5] aggregates written once."""
+    import types
+
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    full = tm.stacked_query(blk.columns, blk.alt_prefix, blk.offsets, q,
+                            window_cap=W, record_cap=W, n_iters=n_iters)[0]
+    nbytes = q.shape[0] * tm.N_STACK_AGG * 4
+    ops = 0
+    for d in range(blk.n_datasets):
+        view = types.SimpleNamespace(columns=blk.columns[d],
+                                     offsets=blk.offsets[d : d + 1],
+                                     n_iters=n_iters)
+        nb, op = bisect_need(view, q, full[d], W, R)
+        nbytes += nb
+        ops += op
+    return nbytes, ops
+
+
+def time_stacked_query(blk, n_iters, spec_sets, W, R):
+    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
+    stacked_query launch over the query sets: the kernel ms with the L2
+    flushed before each launch, the warm ms back to back; the twin by an
+    event pair around each call (it enqueues too many small kernels for a
+    held stream)."""
+    from sbeacon_tpu_torch.ops import timing
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    sets = [stack_q(specs, blk.device) for specs in spec_sets]
+    run = lambda q: tm.stacked_query(blk.columns, blk.alt_prefix,
+                                     blk.offsets, q, window_cap=W,
+                                     record_cap=R, n_iters=n_iters)
+    ms = timing.cold_device_ms(run, sets, blk.device)
+    warm_ms = timing.device_ms(run, sets, reps=4)
+    twin = lambda q: tm.local_query_reference(
+        blk.columns, blk.alt_prefix, blk.offsets, q, window_cap=W,
+        record_cap=R, n_iters=n_iters)
+    plain_ms = float(np.mean([event_ms(twin, q) for q in sets[:2]]))
+    need = [stacked_need(blk, n_iters, q, W, R) for q in sets[:16]]
+    nbytes = float(np.mean([x for x, _o in need]))
+    bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
+    return ms, warm_ms, plain_ms, bound_ms, by, nbytes
+
+
+def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap):
+    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
+    stacked_selected launch over ``sets`` of (specs, masks uint32
+    [d_local, W]): L2 cold and warm as time_stacked_query. Bound: the
+    query part's (stacked_need), the 32-B sectors of the plane rows the
+    matched rows read (x4 with counts), the masks read once and the
+    outputs written once."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import timing
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    dev = blk.device
+    packed = [(stack_q(specs, dev),
+               torch.from_numpy(np.ascontiguousarray(m).view(np.int32)).to(dev))
+              for specs, m in sets]
+    planes = block_planes(blk, has_counts)
+    kw = dict(window_cap=W, record_cap=record_cap, n_iters=n_iters,
+              has_counts=has_counts)
+    run = lambda s: tm.stacked_selected(blk.columns, blk.alt_prefix,
+                                        blk.offsets, *planes, s[1], s[0], **kw)
+    ms = timing.cold_device_ms(run, packed, dev)
+    warm_ms = timing.device_ms(run, packed, reps=4)
+    twin = lambda s: tm.local_selected_reference(
+        blk.columns, blk.alt_prefix, blk.offsets, *planes, s[1], s[0], **kw)
+    plain_ms = float(np.mean([event_ms(twin, s) for s in packed[:2]]))
+    w = blk.planes[0].shape[1]
+    k = 4 if has_counts else 1
+    R = min(record_cap, W)
+    need = []
+    for q, m in packed[:16]:
+        nbytes, ops = stacked_need(blk, n_iters, q, W, R)
+        rows = run((q, m))[1]
+        d_idx = torch.arange(blk.n_datasets, device=dev)[:, None, None]
+        prow = (d_idx * blk.n_pad + rows.long())[rows >= 0]
+        b, dl = q.shape[0], blk.n_datasets
+        nbytes += (k * plane_sector_count(prow, w) * SECTOR_BYTES
+                   + dl * w * 4 + dl * b * (16 + 12 * R + 4 * w) + b * 12)
+        ops += int(prow.numel()) * w * k * PLANE_OPS_PER_WORD
+        need.append((nbytes, ops))
+    nbytes = float(np.mean([x for x, _o in need]))
+    bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
+    return ms, warm_ms, plain_ms, bound_ms, by, nbytes
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
@@ -1298,6 +1592,7 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
     from sbeacon_tpu_torch.ops.query_pack import window_bounds
     from sbeacon_tpu_torch.parallel import distinct as dc
+    from sbeacon_tpu_torch.parallel import mesh as tm
     from sbeacon_tpu_torch.testing import random_records, synthetic_shard
 
     rng = random.Random(args.seed)
@@ -1874,6 +2169,352 @@ def run(args, device) -> int:
                 "ms": plane_s * 1e3, "phase14_ms": j4["ms"],
                 "phase14_warm_ms": j4["warm_ms"]},
          device=kind, nvidia_smi=smi)
+    del again, all_shards, base_shards, index, index_a, index_b, pidx_a, pidx_b
+    del pidx
+    torch.cuda.empty_cache()
+
+    # 19. mesh setup: one-card stacks of the dataset-sharded leg. The
+    # columns of A and the three cohorts (each padded to A's rows); the gt
+    # planes of B and A, in that order, so A's plane rows sit past 2^31
+    # words; all four planes of B and two re-submitted row subsets of it.
+    # The host copies go once the card holds the blocks.
+    one = tm.make_mesh(devices=[device])
+    t0 = time.perf_counter()
+    qstack = tm.StackedIndex([shard] + cohorts)
+    (qblk,) = qstack.shard_to_mesh(one)
+    qstack.arrays.clear()
+    t_q = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pstack = tm.StackedIndex([shard_b, shard_a], with_planes=True)
+    (pblk,) = pstack.shard_to_mesh(one)
+    pstack.arrays.clear()
+    t_p = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g = np.random.default_rng(args.seed + 19)
+    b_again = [
+        with_plane_rows(shard_b, np.flatnonzero(
+            g.random(shard_b.n_rows) < g.uniform(0.4, 0.7)),
+            f"cohortB_again{k}")
+        for k in range(2)
+    ]
+    cstack = tm.StackedIndex([shard_b] + b_again, with_planes=True)
+    (cblk,) = cstack.shard_to_mesh(one)
+    cstack.arrays.clear()
+    t_c = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a_first_word = pstack.n_padded * pstack.plane_words
+    check(2 * a_first_word > 2**31 and cstack.has_count_planes
+          and not pstack.has_count_planes, "the stacks' shapes")
+    emit("mesh_setup", cut="none", samples=args.samples, stacks={
+        "columns": {"datasets": qstack.n_datasets, "rows_padded":
+                    qstack.n_padded, "bytes": qblk.columns.numel() * 4
+                    + qblk.alt_prefix.numel() * 4, "seconds": t_q},
+        "planes": {"datasets": pstack.n_datasets, "rows_padded":
+                   pstack.n_padded, "words": pstack.plane_words,
+                   "bytes": pblk.planes[0].numel() * 4,
+                   "a_first_word": a_first_word,
+                   "a_last_word": 2 * a_first_word, "seconds": t_p},
+        "count_planes": {"datasets": cstack.n_datasets,
+                         "rows": [s.n_rows for s in cstack.shards],
+                         "rows_padded": cstack.n_padded,
+                         "bytes": sum(p.numel() * 4 for p in cblk.planes),
+                         "seconds": t_c}},
+         device_memory_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # 20. stacked_query and stacked_selected vs their twins: B = 1, 16,
+    # 64 and 512 over every alt mode and VT_OTHER; all-ones, sparse and
+    # empty masks; counts both ways; crafted stacks (12-alt records,
+    # ploidy > 2, a 40-sample tail word, a padding dataset); queries near
+    # the end of A's rows; and the two-entry mesh [card, card], whose
+    # per-device sum runs on the card
+    tail_lo = int(0.95 * shard.n_rows)
+    qshards = [shard] + cohorts
+    rep_q, err_q = [], 0
+    for b in (1, 16, 64, 512):
+        for caps in ((2048, 1024),) + (((256, 16),) if b == 64 else ()):
+            err, row = compare_stacked_query(
+                qblk, qstack.n_iters, fused_specs(qshards, rng, b)[0],
+                "g1k+cohorts", *caps)
+            err_q, rep_q = max(err_q, err), rep_q + [row]
+    err, row = compare_stacked_query(
+        qblk, qstack.n_iters,
+        tier_specs(shard, rng, 64, 1, 3000, False, tail_lo), "g1k_tail")
+    err_q, rep_q = max(err_q, err), rep_q + [row]
+    small_stack = tm.StackedIndex(small_shards, n_datasets_padded=4)
+    (sblk,) = small_stack.shard_to_mesh(one)
+    for b, caps in ((16, (2048, 1024)), (64, (2048, 16)), (512, (256, 64))):
+        err, row = compare_stacked_query(
+            sblk, small_stack.n_iters, fused_specs(small_shards, rng, b)[0],
+            "crafted", *caps)
+        err_q, rep_q = max(err_q, err), rep_q + [row]
+    mesh2 = tm.Mesh([device, device])
+    equal2, err = mesh_vs_twin([stack_view(qblk, 0, 2), stack_view(qblk, 2, 4)],
+                               mesh2, qstack.n_iters,
+                               fused_specs(qshards, rng, 64)[0])
+    check(equal2, "sharded_query on [card, card] != the twins' sum")
+    err_q = max(err_q, err)
+    check(all(sum(r[k] for r in rep_q) > 0
+              for k in ("matched", "overflow", "over_record_cap", "empty")),
+          "the stacked_query cases reach matches, overflow, matches past "
+          "record_cap and empty windows")
+    check(max(r["max_row"] for r in rep_q) >= tail_lo,
+          "stacked_query read rows near the end of A")
+    emit("kernel_vs_twin", kernel=tm.QUERY_KERNEL, tolerance=0,
+         max_abs_err=err_q, cases=len(rep_q) + 1,
+         all_equal=all(r["equal"] for r in rep_q) and equal2,
+         two_entry_mesh_equal=equal2, report=rep_q)
+
+    rep_s, err_s = [], 0
+    pshards = [shard_b, shard_a]
+    w_p = pstack.plane_words
+    for k, b in enumerate((1, 16, 64, 512)):
+        for m in mask_sets(rng, 3 if b < 512 else 1, 2, w_p, args.samples):
+            err, row = compare_stacked_selected(
+                pblk, pstack.n_iters, fused_specs(pshards, rng, b)[0], m,
+                False, "B+A")
+            err_s, rep_s = max(err_s, err), rep_s + [row]
+    for b in (16, 64):
+        for m in mask_sets(rng, 3, 2, w_p, args.samples):
+            err, row = compare_stacked_selected(
+                pblk, pstack.n_iters,
+                tier_specs(shard_a, rng, b, 1, 3000, False, tail_lo), m,
+                False, "B+A_tail")
+            err_s, rep_s = max(err_s, err), rep_s + [row]
+    for b in (1, 16, 64):
+        for counts_on in (True, False):
+            for m in mask_sets(rng, 3, 3, w_p, args.samples):
+                err, row = compare_stacked_selected(
+                    cblk, cstack.n_iters,
+                    fused_specs(cstack.shards, rng, b)[0], m, counts_on,
+                    "B+subsets", record_cap=1024 if b < 64 else 32)
+                err_s, rep_s = max(err_s, err), rep_s + [row]
+    crafted_again = with_plane_rows(
+        crafted_p, np.arange(0, crafted_p.n_rows, 2), "craftedP_again")
+    crafted_stack = tm.StackedIndex([crafted_p, crafted_again],
+                                    n_datasets_padded=3, with_planes=True)
+    (csblk,) = crafted_stack.shard_to_mesh(one)
+    for b in (16, 64):
+        for counts_on in (True, False):
+            for m in mask_sets(rng, 3, 3, crafted_stack.plane_words, 40):
+                err, row = compare_stacked_selected(
+                    csblk, crafted_stack.n_iters,
+                    fused_specs([crafted_p, crafted_again], rng, b)[0], m,
+                    counts_on, "crafted", record_cap=64)
+                err_s, rep_s = max(err_s, err), rep_s + [row]
+    del csblk, sblk
+    masks2 = mask_sets(rng, 1, 2, w_p, args.samples)[0]
+    masks2[1] = mask_rows(rng, 2, w_p, args.samples)[1]
+    equal2s, err = mesh_vs_twin(
+        [stack_view(pblk, 0, 1), stack_view(pblk, 1, 2)], mesh2,
+        pstack.n_iters, fused_specs(pshards, rng, 64)[0], masks2)
+    check(equal2s, "sharded_selected_query on [card, card] != the twins' sum")
+    err_s = max(err_s, err)
+    check(sum(r["rows"] for r in rep_s) > 0
+          and sum(r["or_bits"] for r in rep_s) > 0
+          and sum(r["overflow"] for r in rep_s) > 0,
+          "the stacked_selected cases matched rows, extracted samples and "
+          "overflowed")
+    check(max(r["max_plane_word"] for r in rep_s) >= 2**31,
+          "stacked_selected read plane rows past 2^31 words")
+    emit("kernel_vs_twin", kernel=tm.SELECTED_KERNEL, tolerance=0,
+         max_abs_err=err_s, cases=len(rep_s) + 1,
+         all_equal=all(r["equal"] for r in rep_s) and equal2s,
+         two_entry_mesh_equal=equal2s, report=rep_s)
+    del qblk, pblk
+    torch.cuda.empty_cache()
+
+    # 21. the mesh path: engines whose mesh lists the card twice (the
+    # engine takes the mesh leg only at two or more devices, as the JAX
+    # engine does); launch counts zeroed just before each run and read
+    # just after
+    real_mesh_devices = tm.mesh_devices
+    tm.mesh_devices = lambda dev: [torch.device(dev)] * 2
+    try:
+        engine = VariantEngine(
+            BeaconConfig(engine=EngineConfig(
+                microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+            device=device,
+        )
+        try:
+            t0 = time.perf_counter()
+            for s in qshards:
+                engine.add_index(s)
+            t_add = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh_q, stack_q1, qblocks = engine.warm_mesh()
+            t_build = time.perf_counter() - t0
+            check(mesh_q.size == 2 and len(qblocks) == 2,
+                  "the mesh lists the card twice")
+            mesh_shards = [s for _d, _v, (s, _i, _p)
+                           in engine.indexes_for([])]
+            bodies = request_bodies(
+                shard, random.Random(args.seed + 21), args.fused_requests,
+                engine.config.engine.window_cap, p_other=0.05)
+            m0 = engine.mesh_searches
+            telemetry.reset_launch_counts()
+            served, mq_wall = run_main_path(engine, env, mesh_shards, bodies,
+                                            args.threads)
+            mq_counts = {k: telemetry.launch_count(k) for k in (
+                tm.QUERY_KERNEL, tm.SELECTED_KERNEL, tk.KERNEL, sk.KERNEL)}
+            mq_searches = engine.mesh_searches - m0
+            lat = [ms for _d, ms, _p, _r in served]
+            n_hit, mismatches = check_served(mesh_shards, env, bodies, served)
+            check(mismatches == 0, f"{mismatches} mesh-path responses differ "
+                  "from the host matcher")
+            check(mq_searches > 0 and mq_counts[tm.QUERY_KERNEL] > 0,
+                  "the mesh path launched stacked_query")
+            emit("mesh_path", requests=len(bodies), threads=args.threads,
+                 datasets=len(mesh_shards), mesh=[str(d) for d in
+                                                  mesh_q.devices],
+                 hits=n_hit, mismatches=mismatches, launches=mq_counts,
+                 launches_per_request={k: v / len(bodies)
+                                       for k, v in mq_counts.items()},
+                 mesh_searches=mq_searches, add_s=t_add,
+                 mesh_build_s=t_build, wall_s=mq_wall,
+                 requests_per_s=len(bodies) / mq_wall,
+                 latency_ms={"p50": percentile(lat, 0.5),
+                             "p99": percentile(lat, 0.99)},
+                 stage_ms=engine.stage_timing(), device=kind, nvidia_smi=smi)
+            mq_specs = [payload_spec(p) for _d, _ms, p, _r in served]
+            mq_n_iters = stack_q1.n_iters
+        finally:
+            engine.close()
+        del engine, stack_q1
+
+        # the second engine: A and B with their planes, the plane budget
+        # raised to admit the stack's (the two mesh entries are one card:
+        # the stack takes twice its per-device bytes there)
+        engine = VariantEngine(
+            BeaconConfig(engine=EngineConfig(
+                microbatch_wait_ms=MICROBATCH_WAIT_MS,
+                plane_hbm_budget_gb=MESH_PLANE_BUDGET_GB)),
+            device=device,
+        )
+        try:
+            t0 = time.perf_counter()
+            for s in (shard_a, shard_b):
+                engine.add_index(s)
+            t_add = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            mesh_s, stack_s, sblocks = engine.warm_mesh()
+            t_build = time.perf_counter() - t0
+            check(stack_s.has_planes, "the selected stack holds the planes")
+            jobs, classes = selected_jobs(
+                sel_shards, random.Random(args.seed + 22),
+                args.selected_requests, engine.config.engine.window_cap)
+            m0 = engine.mesh_searches
+            s0 = engine.mesh_selected_searches
+            telemetry.reset_launch_counts()
+            served_ms, ms_wall = run_jobs(engine, env, jobs, args.threads)
+            ms_counts = {k: telemetry.launch_count(k) for k in (
+                tm.SELECTED_KERNEL, tm.QUERY_KERNEL, sk.SELECTED_KERNEL,
+                pk.KERNEL, sk.KERNEL, tk.KERNEL)}
+            ms_searches = engine.mesh_searches - m0
+            ms_selected = engine.mesh_selected_searches - s0
+            lat = [ms for _d, ms, _p, _r in served_ms]
+            n_hit, mismatches = check_served(
+                sel_shards, env, [b for _d, b, _s in jobs], served_ms)
+            check(mismatches == 0, f"{mismatches} mesh selected-path "
+                  "responses differ from the host matcher and host planes")
+            check(ms_selected > 0 and ms_counts[tm.SELECTED_KERNEL] > 0,
+                  "the selected mix launched stacked_selected")
+            n = len(jobs)
+            emit("mesh_selected_path", requests=n, threads=args.threads,
+                 hits=n_hit, mismatches=mismatches,
+                 classes={c: classes.count(c) for c in sorted(set(classes))},
+                 launches=ms_counts,
+                 launches_per_request={k: v / n for k, v in ms_counts.items()},
+                 mesh_searches=ms_searches,
+                 mesh_selected_searches=ms_selected,
+                 plane_budget=engine._plane_budget_verdict,
+                 stack_plane_bytes=sum(b.planes[0].numel() * 4
+                                       for b in sblocks),
+                 add_upload_s=t_add, mesh_build_s=t_build, wall_s=ms_wall,
+                 requests_per_s=n / ms_wall,
+                 latency_ms={"p50": percentile(lat, 0.5),
+                             "p99": percentile(lat, 0.99)},
+                 stage_ms=engine.stage_timing(), device=kind, nvidia_smi=smi)
+            # the mesh-served selected requests' (query, per-dataset
+            # masks), for phase 22
+            sel_sets = []
+            for _d, _ms, p, _r in served_ms:
+                if p.selected_samples_only and len(p.dataset_ids) == 2:
+                    m = np.zeros((2, stack_s.plane_words), np.uint32)
+                    for i, s in enumerate(stack_s.shards):
+                        names = set(p.sample_names.get(s.meta["dataset_id"],
+                                                       []))
+                        m[i] = pk.sample_mask_words(
+                            [k for k, nm in enumerate(s.meta["sample_names"])
+                             if nm in names], stack_s.plane_words)
+                    sel_sets.append(([payload_spec(p)], m))
+            ms_n_iters = stack_s.n_iters
+            sel_names = [s.meta["dataset_id"] for s in stack_s.shards]
+        finally:
+            engine.close()
+        del engine, stack_s
+    finally:
+        tm.mesh_devices = real_mesh_devices
+
+    # 22. timing at phase 21's batch sizes (one query a launch, on each
+    # mesh entry's block) and at 64 queries, L2 cold ("ms") and warm,
+    # beside the bound and the twin's time; stacked_selected with counts
+    # on the count-plane stack of phase 19
+    window_cap = 2048
+    record_cap = 1024
+    qtimings = []
+    for g, blk in enumerate(qblocks):
+        for b in (1, 64):
+            sets = [mq_specs[(i * b) % len(mq_specs):][:b] or mq_specs[:b]
+                    for i in range(64 if b == 1 else 8)]
+            ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_query(
+                blk, mq_n_iters, sets, window_cap, record_cap)
+            qtimings.append({
+                "block": g, "datasets": blk.n_datasets, "queries": b,
+                "mesh_path_launches": (mq_counts[tm.QUERY_KERNEL] // 2
+                                       if b == 1 else 0),
+                "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": by,
+                "bound_share": bound_ms / ms, "bytes": nbytes})
+    busy_q = sum(t["ms"] * t["mesh_path_launches"] for t in qtimings)
+    emit("timing", kernel=tm.QUERY_KERNEL, library_ms=None,
+         library_note="no single PyTorch call computes this function: "
+                      "torch.searchsorted gives only the window bounds",
+         cases=qtimings, mesh_path_kernel_ms_est=busy_q,
+         mesh_path_busy_share_est=busy_q / (mq_wall * 1e3),
+         device=kind, nvidia_smi=smi)
+    check(len(sel_sets) > 0, "phase 21 served selected requests on the mesh")
+    stimings = []
+    for g, blk in enumerate(sblocks):
+        sets = [(specs, m[g : g + 1]) for specs, m in sel_sets[:64]]
+        ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_selected(
+            blk, ms_n_iters, sets, False, window_cap, record_cap)
+        stimings.append({
+            "block": g, "dataset": sel_names[g], "queries": 1,
+            "with_counts": False,
+            "mesh_path_launches": ms_counts[tm.SELECTED_KERNEL] // 2,
+            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "bytes": nbytes})
+    for b in (1, 64):
+        sets = [(fused_specs(cstack.shards, rng, b, ("exact", "any"))[0], m)
+                for m in mask_sets(rng, 16, 3, cstack.plane_words,
+                                   args.samples)]
+        ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_selected(
+            cblk, cstack.n_iters, sets, True, window_cap, record_cap)
+        stimings.append({
+            "block": "B+subsets", "queries": b, "with_counts": True,
+            "mesh_path_launches": 0, "ms": ms, "warm_ms": warm_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+            "bound_share": bound_ms / ms, "bytes": nbytes})
+    busy_s = sum(t["ms"] * t["mesh_path_launches"] for t in stimings)
+    emit("timing", kernel=tm.SELECTED_KERNEL, library_ms=None,
+         library_note="no single PyTorch call computes this function",
+         cases=stimings, mesh_selected_path_kernel_ms_est=busy_s,
+         mesh_selected_path_busy_share_est=busy_s / (ms_wall * 1e3),
+         device=kind, nvidia_smi=smi)
+    del qblocks, sblocks, cblk
+    j7q = next(t for t in qtimings if t["block"] == 0 and t["queries"] == 1)
+    j7s = next(t for t in stimings if t["block"] == 1)
 
     # the main path's most-launched tier stands for the scatter kernel;
     # the median fused batch of brackets for the bisection kernel; the
@@ -1949,6 +2590,32 @@ def run(args, device) -> int:
         "bound_by": dby,
         "library_ms": dlib,
         "case": {"keys": value_keys},
+    }, {
+        "name": tm.QUERY_KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/stacked_query.cu",
+        "replaces": "sbeacon_tpu/parallel/mesh.py:309",
+        "launches": mq_counts[tm.QUERY_KERNEL],
+        "max_abs_err": err_q,
+        "ms": j7q["ms"],
+        "plain_ms": j7q["plain_ms"],
+        "bound_ms": j7q["bound_ms"],
+        "bound_by": j7q["bound_by"],
+        "library_ms": None,
+        "case": {k: j7q[k] for k in ("datasets", "queries")},
+    }, {
+        "name": tm.SELECTED_KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/stacked_selected.cu",
+        "replaces": "sbeacon_tpu/parallel/mesh.py:460",
+        "launches": ms_counts[tm.SELECTED_KERNEL],
+        "max_abs_err": err_s,
+        "ms": j7s["ms"],
+        "plain_ms": j7s["plain_ms"],
+        "bound_ms": j7s["bound_ms"],
+        "bound_by": j7s["bound_by"],
+        "library_ms": None,
+        "case": {k: j7s[k] for k in ("dataset", "queries", "with_counts")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -4,10 +4,10 @@ Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
 ``/g_variants`` path reads. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
 multi-dataset dispatch on up to 64e6 stacked rows, device genotype
-planes on under an 11 GB budget), except for the features this package
-has not ported yet: ``use_mesh`` and ``response_cache`` default to off
-here, and ``VariantEngine`` raises ``NotImplementedError`` when a caller
-turns one of them on.
+planes on under an 11 GB budget, the dataset-sharded mesh leg on),
+except for the response cache, which this package has not ported yet:
+``response_cache`` defaults to off here, and ``VariantEngine`` raises
+``NotImplementedError`` when a caller turns it on.
 """
 
 from __future__ import annotations
@@ -46,6 +46,10 @@ class EngineConfig:
       package's plane_upload_chunk_mb is a constant here,
       ops.plane_kernel.UPLOAD_CHUNK_BYTES: the upload never holds a
       plane twice on the device, so no caller needs to turn it off.)
+    use_mesh: serve a multi-dataset query through the dataset-sharded
+      stack (parallel.mesh) when the mesh has two or more devices; it
+      holds its own device copy of the columns, and of the planes when
+      they fit plane_hbm_budget_gb beside the resident ones.
     """
 
     window_cap: int = 2048
@@ -58,8 +62,8 @@ class EngineConfig:
     fused_max_rows: int = 64_000_000
     device_planes: bool = True
     plane_hbm_budget_gb: float = 11.0
-    # not ported yet: VariantEngine refuses each of these when on
-    use_mesh: bool = False
+    use_mesh: bool = True
+    # not ported yet: VariantEngine refuses it when on
     response_cache: bool = False
 
 

@@ -2,13 +2,23 @@
 
 Counterpart of ``sbeacon_tpu/engine.py``. ``_blob_eq``,
 ``host_match_rows`` and ``materialize_response`` (with their numpy
-helpers) are copies of the JAX package's. ``VariantEngine`` serves three
+helpers) are copies of the JAX package's. ``VariantEngine`` serves four
 device legs:
 
 - single dataset: ``search`` -> ``_search`` -> ``_device_rows`` -> the
   micro-batcher -> ``run_queries_auto`` -> the scatter match kernel ->
   ``materialize_response``;
-- several datasets (``fused_dispatch``): ``_search`` ->
+- several datasets on a mesh of two or more devices (``use_mesh``,
+  the JAX engine's gate): ``_search`` -> ``_mesh_ready`` (the
+  ``parallel.mesh.StackedIndex`` over every loaded shard, built on the
+  request path and cached until a publish) -> ``_mesh_search`` -> ONE
+  ``sharded_query`` per request, the stacked query kernel on each mesh
+  device; a selected-samples request on a stack with planes takes
+  ``sharded_selected_query``, the stacked selected kernel with its plane
+  reduction, and materialises through ``materialize_response(fused=)``.
+  The mesh lists every visible CUDA device (``parallel.mesh.
+  mesh_devices``), so one card keeps serving through the fused stack;
+- several datasets otherwise (``fused_dispatch``): ``_search`` ->
   ``_fused_multi_rows`` -> ONE micro-batcher submission against the
   ``FusedDeviceIndex`` stacked over every shard -> the bisection query
   kernel; the stack is built off the request path once two or more
@@ -28,8 +38,12 @@ A query whose window exceeds ``window_cap`` or whose matches exceed
 ``record_cap`` falls back to ``host_match_rows``, a vectorised numpy
 twin of the kernels with no caps and byte-exact allele comparison.
 
-Not ported yet, and refused when switched on: the mesh leg and the
-response cache; the L0 delta tail is absent as well.
+A failed mesh build, upload or launch raises on the request, where the
+JAX engine logs it and falls back to thread scatter; a dataset that
+arrived after the stack was built is served by the other legs.
+
+Not ported yet, and refused when switched on: the response cache; the
+L0 delta tail is absent as well.
 """
 
 from __future__ import annotations
@@ -58,6 +72,7 @@ from .ops.plane_kernel import (
     sample_mask_words,
 )
 from .ops.scatter_kernel import run_selected_scattered
+from .parallel import mesh as _mesh
 from .payloads import VariantQueryPayload, VariantSearchResponse
 from .telemetry import percentiles
 from .utils.chrom import chromosome_code
@@ -469,7 +484,7 @@ def materialize_response(
 
 
 #: EngineConfig switches for features this package has not ported yet
-_UNPORTED = ("use_mesh", "response_cache")
+_UNPORTED = ("response_cache",)
 
 
 class VariantEngine:
@@ -532,6 +547,20 @@ class VariantEngine:
         )
         #: multi-dataset queries answered by one fused launch
         self.fused_searches = 0
+        # dataset-sharded mesh stack (parallel.mesh.StackedIndex over
+        # every loaded shard), rebuilt on the request path after a
+        # publish: _mesh_state is (mesh, stacked, blocks, key -> stack
+        # position, key -> shard, key -> planes), or None while no mesh
+        # serves (use_mesh off, fewer than two mesh devices or shards)
+        self._mesh_lock = threading.Lock()
+        self._mesh_state = None
+        self._mesh_dirty = True
+        #: the plane-budget gate's last verdict for the mesh stack
+        self._plane_budget_verdict: dict | None = None
+        #: multi-dataset queries answered by the mesh leg, and those of
+        #: them that ran the stacked selected kernel
+        self.mesh_searches = 0
+        self.mesh_selected_searches = 0
         # persistent per-dataset scatter pool (no per-request threads)
         self._scatter = ThreadPoolExecutor(
             max_workers=32, thread_name_prefix="engine-scatter"
@@ -560,13 +589,14 @@ class VariantEngine:
 
     def _publish_locked(self, key, triple) -> None:
         """Publish ``triple`` under ``key`` and rebuild the serving list;
-        the fused stack no longer covers this shard snapshot."""
+        the fused and mesh stacks no longer cover this shard snapshot."""
         self._indexes[key] = triple
         self._serve_list = [
             (ds, vcf, t) for (ds, vcf), t in sorted(self._indexes.items())
         ]
         self._fused_dirty = True
         self._fused_gen += 1
+        self._mesh_dirty = True
 
     def _build_planes(self, key, shard) -> PlaneDeviceIndex | None:
         """Device-resident genotype planes for the selected-samples leaf
@@ -826,6 +856,192 @@ class VariantEngine:
             self.fused_searches += 1
         return out
 
+    # -- dataset-sharded mesh stack ------------------------------------------
+
+    def warm_mesh(self):
+        """Build the mesh stack now, on the caller's thread (the JAX
+        engine's warmup path), and return (mesh, stacked index, device
+        blocks); None when the mesh leg is off (``use_mesh`` off, fewer
+        than two mesh devices or shards). A failed build raises."""
+        state = self._mesh_ready()
+        return None if state is None else state[:3]
+
+    def _mesh_ready(self):
+        """(mesh, stacked, blocks, key -> stack position, key -> shard,
+        key -> planes) over every loaded shard, built on the calling
+        thread and cached until the index set changes; None when
+        ``use_mesh`` is off or fewer than two mesh devices or shards are
+        there (the JAX engine's gate). A failed build or upload raises,
+        on this request and the next ones until a build succeeds."""
+        if not self.config.engine.use_mesh:
+            return None
+        with self._mesh_lock:
+            with self._lock:
+                if not self._mesh_dirty:
+                    return self._mesh_state
+                self._mesh_state = None
+                self._mesh_dirty = False
+                keys = sorted(self._indexes)
+                shards = [self._indexes[k][0] for k in keys]
+                planes_of = {k: self._indexes[k][2] for k in keys}
+            devices = _mesh.mesh_devices(self.device)
+            if len(devices) < 2 or len(keys) < 2:
+                return None
+            try:
+                state = self._build_mesh(devices, keys, shards, planes_of)
+            except BaseException:
+                with self._lock:
+                    self._mesh_dirty = True
+                raise
+            # a publish during the build left the flag dirty: this
+            # request serves the snapshot, the next one rebuilds
+            self._mesh_state = state
+            return state
+
+    def _build_mesh(self, devices, keys, shards, planes_of):
+        """The mesh state over ``shards``: the stack, with the genotype
+        planes when every shard has them and their per-device bytes fit
+        the plane budget beside the resident planes, uploaded to the
+        mesh."""
+        eng = self.config.engine
+        mesh = _mesh.make_mesh(devices=devices)
+        d_pad = -(-len(shards) // mesh.size) * mesh.size
+        with_planes = all(s.gt_bits is not None for s in shards)
+        if with_planes:
+            per_dev = _mesh.StackedIndex.plane_bytes_per_device(
+                shards, n_datasets_padded=d_pad, n_mesh=mesh.size
+            )
+            with self._lock:
+                resident = self._plane_hbm_resident_locked()
+            verdict = _mesh.plane_budget_verdict(
+                per_dev, resident, eng.plane_hbm_budget_gb * 1e9
+            )
+            self._plane_budget_verdict = verdict
+            with_planes = verdict["fits"]
+        stacked = _mesh.StackedIndex(
+            shards, n_datasets_padded=d_pad, with_planes=with_planes
+        )
+        blocks = stacked.shard_to_mesh(mesh)
+        # the state carries its own shard snapshot: stacked row ids are
+        # only valid against the exact shard objects it was built from
+        return (
+            mesh,
+            stacked,
+            blocks,
+            {k: i for i, k in enumerate(keys)},
+            dict(zip(keys, shards)),
+            planes_of,
+        )
+
+    def _mesh_search(self, state, targets, spec_base, payload):
+        """A multi-dataset query as one ``sharded_query`` (or, for the
+        selected-samples leaf on a stack with planes,
+        ``sharded_selected_query``) over the dataset-sharded stack: one
+        stacked-kernel launch per mesh device. Per-dataset rows (and
+        masked popcounts and sample-hit words) materialise on the host
+        with the scatter path's semantics; window or record_cap
+        overflow, and an N-wildcard ref, take the uncapped host
+        matcher."""
+        mesh, stacked, blocks, index_of, shard_of, planes_of = state
+        eng = self.config.engine
+        device_ref_ok = self._device_ref_ok(payload, spec_base)
+        ref_wild = payload.selected_samples_only
+        selected_mesh = (
+            payload.selected_samples_only
+            and stacked.has_planes
+            and device_ref_ok
+        )
+        sel_idx_of: dict = {}
+        if selected_mesh:
+            W = stacked.plane_words
+            masks = np.zeros((stacked.n_datasets_padded, W), np.uint32)
+            for ds, vcf, *_rest in targets:
+                key = (ds, vcf)
+                sel_idx_of[key] = self._selected_idx(shard_of[key], payload, ds)
+                masks[index_of[key]] = sample_mask_words(sel_idx_of[key], W)
+            per_ds, _agg = _mesh.sharded_selected_query(
+                blocks,
+                [spec_base],
+                masks,
+                mesh=mesh,
+                n_iters=stacked.n_iters,
+                window_cap=eng.window_cap,
+                record_cap=eng.record_cap,
+                has_counts=stacked.has_count_planes,
+            )
+        else:
+            per_ds, _agg = _mesh.sharded_query(
+                blocks,
+                [spec_base],
+                mesh=mesh,
+                n_iters=stacked.n_iters,
+                window_cap=eng.window_cap,
+                record_cap=eng.record_cap,
+            )
+
+        def _one(target):
+            ds, vcf, _shard, _dindex, _planes, native = target
+            # rows from the stack materialise against the shard the
+            # stack was built from
+            shard = shard_of[(ds, vcf)]
+            di = index_of[(ds, vcf)]
+            selected_idx = (
+                sel_idx_of.get(
+                    (ds, vcf), self._selected_idx(shard, payload, ds)
+                )
+                if payload.selected_samples_only
+                else None
+            )
+            overflow = (
+                bool(per_ds["overflow"][di, 0])
+                or int(per_ds["n_matched"][di, 0]) > eng.record_cap
+            )
+            fused = None
+            if not device_ref_ok or overflow:
+                rows = host_match_rows(shard, spec_base, ref_wildcard=ref_wild)
+            else:
+                r = per_ds["rows"][di, 0]
+                keep = r >= 0
+                rows = r[keep].astype(np.int64)
+                # the device outputs are exact for this shard only when
+                # its count-plane availability matches the stack-wide
+                # one (a shard with count planes in a stack without them
+                # was counted full-cohort: the plane index serves it)
+                if selected_mesh and (
+                    stacked.has_count_planes or not shard.has_count_planes
+                ):
+                    # or_words are stack-wide (the widest shard's W):
+                    # truncate to this shard's own width (the tail words
+                    # are zero by the stack's padding and the mask)
+                    w_shard = shard.gt_bits.shape[1]
+                    fused = (
+                        per_ds["pc_call"][di, 0][keep],
+                        per_ds["pc_tok"][di, 0][keep],
+                        np.asarray(per_ds["or_words"][di, 0])
+                        .view(np.uint32)[:w_shard],
+                    )
+            return materialize_response(
+                shard,
+                rows,
+                payload,
+                chrom_label=native,
+                dataset_id=ds,
+                vcf_location=vcf,
+                selected_idx=selected_idx,
+                plane_index=planes_of.get((ds, vcf)),
+                fused=fused,
+            )
+
+        if len(targets) == 1:
+            responses = [_one(targets[0])]
+        else:
+            responses = list(self._scatter.map(_one, targets))
+        with self._mat_lock:
+            self.mesh_searches += 1
+            if selected_mesh:
+                self.mesh_selected_searches += 1
+        return responses
+
     # -- query path ---------------------------------------------------------
 
     def search(self, payload: VariantQueryPayload) -> list[VariantSearchResponse]:
@@ -894,6 +1110,29 @@ class VariantEngine:
             targets.append((ds, vcf, shard, dindex, planes, native))
         if not targets:
             return []
+
+        # the mesh leg serves the targets whose shard is the one its
+        # stack was built from; a dataset that arrived after the build
+        # (a racing publish) takes the legs below
+        mesh_responses = None
+        if len(targets) > 1:
+            state = self._mesh_ready()
+            if state is not None:
+                shard_of = state[4]
+                covered = [
+                    t for t in targets if shard_of.get((t[0], t[1])) is t[2]
+                ]
+                if covered:
+                    got = self._mesh_search(state, covered, spec_base, payload)
+                    mesh_responses = {
+                        (t[0], t[1]): r for t, r in zip(covered, got)
+                    }
+                    targets = [
+                        t for t in targets
+                        if (t[0], t[1]) not in mesh_responses
+                    ]
+                    if not targets:
+                        return list(mesh_responses.values())
 
         # cross-shard fused dispatch: ONE stacked-index launch answers
         # this query for every covered target; uncovered targets take
@@ -966,10 +1205,19 @@ class VariantEngine:
             return resp
 
         if len(targets) == 1:
-            return [_one_target(targets[0])]
-        # per-dataset scatter: overlaps the per-shard device round-trips
-        # instead of serialising them
-        return list(self._scatter.map(_one_target, targets))
+            responses = [_one_target(targets[0])]
+        else:
+            # per-dataset scatter: overlaps the per-shard device
+            # round-trips instead of serialising them
+            responses = list(self._scatter.map(_one_target, targets))
+        if mesh_responses is not None:
+            # mesh-served and other responses in sorted target order
+            by_key = dict(mesh_responses)
+            by_key.update(
+                {(t[0], t[1]): r for t, r in zip(targets, responses)}
+            )
+            responses = [by_key[k] for k in sorted(by_key)]
+        return responses
 
     @staticmethod
     def _selected_idx(shard, payload, ds: str) -> list[int]:

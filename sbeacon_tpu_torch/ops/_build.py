@@ -62,6 +62,19 @@ SIGNATURES = {
     "distinct_count": {
         "distinct_count_launch": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
     },
+    "stacked_query": {
+        "stacked_query_launch": (
+            [_P, _L, _P, _P, _I, _P, _I, _P, _P, _I, _I, _P],
+            ctypes.c_int,
+        ),
+    },
+    "stacked_selected": {
+        "stacked_selected_launch": (
+            [_P, _L] + [_P] * 7 + [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P],
+            ctypes.c_int,
+        ),
+        "stacked_selected_smem": ([_I, _I, _I], ctypes.c_longlong),
+    },
 }
 
 _lock = threading.Lock()

@@ -2,8 +2,9 @@
 
 Counterpart of ``sbeacon_tpu/ops/kernel.py``: ``QuerySpec``,
 ``encode_queries``, the ``MODE_*`` / ``VT_*`` codes, ``_PAD_FILLS``,
-``QueryResults``, the padding helpers (``pad_columns``, ``padded_rows``,
-``window_hint_for``, ``bisect_iters``), ``DeviceIndex``,
+``QueryResults``, the padding helpers (``pad_columns``,
+``pad_shard_columns``, ``padded_rows``, ``window_hint_for``,
+``bisect_iters``), ``DeviceIndex``,
 ``FusedDeviceIndex`` and ``run_queries``. The XLA program ``_bisect`` /
 ``_query_one`` / ``_query_batch`` is replaced by the hand-written CUDA
 kernel ``csrc/bisect_query.cu``; it answers every multi-dataset query
@@ -191,6 +192,16 @@ def pad_columns(
         padded = np.full((n_pad,) + col.shape[1:], fill, dtype=col.dtype)
         padded[:n] = col
         out[name] = padded
+    return out
+
+
+def pad_shard_columns(
+    shard: VariantIndexShard, n_pad: int
+) -> dict[str, np.ndarray]:
+    """Host-side padded column dict of one shard (``chrom_offsets``
+    included), numpy only: the per-dataset rows of the mesh stack."""
+    out = pad_columns(shard.cols, shard.n_rows, n_pad)
+    out["chrom_offsets"] = shard.chrom_offsets.astype(np.int32)
     return out
 
 

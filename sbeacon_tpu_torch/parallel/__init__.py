@@ -1,1 +1,2 @@
-"""Cross-shard computations of the port (so far the distinct count)."""
+"""Cross-shard computations of the port: the distinct count and the
+dataset-sharded mesh stack."""

@@ -1,6 +1,7 @@
 """The CUDA kernels (scatter match, bisection query, fused match +
-planes, plane stats, distinct count) against their plain-PyTorch twins,
-and the device time probes on CUDA events.
+planes, plane stats, distinct count, stacked query, stacked selected)
+against their plain-PyTorch twins, and the device time probes on CUDA
+events.
 
 Runs only where a CUDA device is present (marker ``cuda``); elsewhere
 every test skips. It imports nothing of the JAX package, so it runs on
@@ -29,6 +30,7 @@ from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.ops.kernel import QuerySpec, encode_queries
 from sbeacon_tpu_torch.ops.query_pack import pack_q8, window_bounds
 from sbeacon_tpu_torch.parallel import distinct as dc
+from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.testing import (
     distinct_key_cases,
     random_records,
@@ -489,3 +491,134 @@ def test_probes_time_on_card(index, planes):
     mask = pk.sample_mask_words(range(0, 40, 3), pidx.n_words)
     seconds = pk.device_plane_probe(pidx, rows, mask, iters=8)
     assert 0.0 < seconds < 1.0 and pk.plane_stats_launches > 0
+
+
+def _stack_shards():
+    """The fused shards (no planes) and, for the selected kernel, the
+    40-sample plane shard beside a 70-sample one (three plane words: the
+    stack's W is the widest)."""
+    rng = random.Random(29)
+    wide = random_records(rng, chrom="1", n=1200, n_samples=70, spacing=12,
+                          p_multiallelic=0.3, p_no_acan=0.4)
+    wide = build_index(wide, dataset_id="w", vcf_location="w.vcf",
+                       sample_names=[f"W{i}" for i in range(70)])
+    return _fused_shards(), [_plane_shard(), wide]
+
+
+@pytest.fixture(scope="module")
+def stacks(cuda_device):
+    plain, with_planes = _stack_shards()
+    # a padding dataset in each stack; mesh entries of the same card
+    mesh = tm.make_mesh(devices=[cuda_device] * 2)
+    qs = tm.StackedIndex(plain, n_datasets_padded=4)
+    ps = tm.StackedIndex(with_planes, n_datasets_padded=4, with_planes=True)
+    assert ps.has_count_planes and ps.plane_words == 3
+    return (mesh, qs, qs.shard_to_mesh(mesh), ps, ps.shard_to_mesh(mesh),
+            plain, with_planes)
+
+
+def _stack_q(specs, device):
+    return torch.from_numpy(tk.pack_queries(encode_queries(specs),
+                                            fused=False)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16, 64, 512])
+@pytest.mark.parametrize("window_cap,record_cap", [(2048, 1024), (256, 16)])
+def test_stacked_query_kernel_matches_twin(stacks, b, window_cap, record_cap):
+    _mesh, qs, blocks, *_ = stacks
+    specs, _sids = _fused_specs(_stack_shards()[0], b, seed=7 * b)
+    for blk in blocks:
+        q = _stack_q(specs, blk.device)
+        kw = dict(window_cap=window_cap, record_cap=record_cap,
+                  n_iters=qs.n_iters)
+        out, agg, seq = tm.stacked_query(blk.columns, blk.alt_prefix,
+                                         blk.offsets, q, **kw)
+        torch.cuda.synchronize()
+        assert seq is not None
+        want = tm.local_query_reference(blk.columns, blk.alt_prefix,
+                                        blk.offsets, q, **kw)
+        assert torch.equal(out, want[0]) and torch.equal(agg, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("has_counts", [True, False])
+@pytest.mark.parametrize("record_cap", [1024, 16])
+def test_stacked_selected_kernel_matches_twin(stacks, b, has_counts,
+                                              record_cap):
+    *_, ps, pblocks, _plain, with_planes = stacks
+    specs, _sids = _fused_specs(with_planes, b, seed=11 * b)
+    for g, blk in enumerate(pblocks):
+        q = _stack_q(specs, blk.device)
+        masks = _masks(blk.n_datasets, ps.plane_words, seed=b + g)
+        m = torch.from_numpy(masks.view(np.int32)).to(blk.device)
+        planes = blk.planes if has_counts else (blk.planes[0],) * 4
+        kw = dict(window_cap=2048, record_cap=record_cap,
+                  n_iters=ps.n_iters, has_counts=has_counts)
+        got = tm.stacked_selected(blk.columns, blk.alt_prefix, blk.offsets,
+                                  *planes, m, q, **kw)
+        torch.cuda.synchronize()
+        assert got[-1] is not None
+        want = tm.local_selected_reference(blk.columns, blk.alt_prefix,
+                                           blk.offsets, *planes, m, q, **kw)
+        for a, w in zip(got[:-1], want):
+            assert torch.equal(a, w)
+
+
+@pytest.mark.cuda
+def test_sharded_on_card_equals_cpu(stacks):
+    """Both entry points on the two-entry card mesh (the cross-block sum
+    on the card) give the CPU mesh's results."""
+    mesh, qs, blocks, ps, pblocks, plain, with_planes = stacks
+    cpu_mesh = tm.make_mesh(devices=["cpu"] * 2)
+    specs, _sids = _fused_specs(plain, 200, seed=3)
+    got = tm.sharded_query(blocks, specs, mesh=mesh, n_iters=qs.n_iters)
+    want = tm.sharded_query(qs.shard_to_mesh(cpu_mesh), specs,
+                            mesh=cpu_mesh, n_iters=qs.n_iters)
+    for part_got, part_want in zip(got, want):
+        for k in part_want:
+            np.testing.assert_array_equal(part_got[k], part_want[k], k)
+    specs, _sids = _fused_specs(with_planes, 64, seed=4)
+    masks = _masks(4, ps.plane_words, seed=5)
+    got = tm.sharded_selected_query(pblocks, specs, masks, mesh=mesh,
+                                    n_iters=ps.n_iters, has_counts=True)
+    want = tm.sharded_selected_query(ps.shard_to_mesh(cpu_mesh), specs,
+                                     masks, mesh=cpu_mesh,
+                                     n_iters=ps.n_iters, has_counts=True)
+    for part_got, part_want in zip(got, want):
+        for k in part_want:
+            np.testing.assert_array_equal(part_got[k], part_want[k], k)
+
+
+@pytest.mark.cuda
+def test_engine_mesh_leg_on_card(cuda_device, monkeypatch):
+    """The engine's mesh leg on the card (its mesh patched to two
+    entries of the one card) answers as the CPU engine does, with one
+    stacked launch per mesh entry per request."""
+    _plain, with_planes = _stack_shards()
+    engines = []
+    for dev in (cuda_device, "cpu"):
+        eng = VariantEngine(BeaconConfig(engine=EngineConfig(
+            microbatch=False)), device=dev)
+        monkeypatch.setattr(tm, "mesh_devices",
+                            lambda device: [torch.device(device)] * 2)
+        for s in with_planes:
+            eng.add_index(s)
+        engines.append(eng)
+    try:
+        payload = VariantQueryPayload(
+            dataset_ids=[], reference_name="1", start_min=1,
+            start_max=30_000, end_min=1, end_max=1 << 30,
+            alternate_bases="N", requested_granularity="record",
+            include_datasets="HIT", include_samples=True,
+            selected_samples_only=True,
+            sample_names={"p": ["S1", "S7", "S30"], "w": ["W3", "W69"]})
+        telemetry.reset_launch_counts()
+        got = engines[0].search(payload)
+        assert tm.stacked_selected_launches == 2
+        assert got == engines[1].search(payload)
+        assert engines[0].mesh_selected_searches == 1
+    finally:
+        for eng in engines:
+            eng.close()

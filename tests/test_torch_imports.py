@@ -3,8 +3,8 @@
 The port imports neither JAX nor anything of the JAX package (checked
 in a fresh interpreter, since this test process has JAX loaded), its
 entry points run on the GPU unless the caller passes ``device="cpu"``,
-unported engine options are refused, and the kernel wrapper never
-catches around a launch.
+the unported engine option is refused, and the kernel wrappers never
+catch around a launch.
 """
 
 import ast
@@ -26,6 +26,7 @@ from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
 from sbeacon_tpu_torch.ops import timing
 from sbeacon_tpu_torch.parallel import distinct as td
+from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.testing import synthetic_shard
 
@@ -64,6 +65,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             "sbeacon_tpu_torch.ops.scatter_kernel",
             "sbeacon_tpu_torch.ops.timing",
             "sbeacon_tpu_torch.parallel.distinct",
+            "sbeacon_tpu_torch.parallel.mesh",
             "sbeacon_tpu_torch.ingest.pipeline",
             "sbeacon_tpu_torch.engine"} <= set(names)
     assert leaked == []
@@ -111,7 +113,12 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
 
 @pytest.mark.parametrize("option", ["use_mesh", "response_cache"])
 def test_unported_options_are_refused(option):
+    """Only the response cache is still unported: ``use_mesh`` builds an
+    engine (on by default, as in the JAX package)."""
     cfg = BeaconConfig(engine=EngineConfig(**{option: True}))
+    if option == "use_mesh":
+        VariantEngine(cfg, device="cpu").close()
+        return
     with pytest.raises(NotImplementedError, match=option):
         VariantEngine(cfg, device="cpu")
 
@@ -151,7 +158,9 @@ def test_device_planes_option_builds_and_serves():
      tsk.scatter_selected, tsk.run_selected_scattered, tpk.plane_stats,
      tpk.plane_row_stats, VariantEngine._fused_selected, td.distinct_count,
      td.distinct_count_device, tsk._probe_one_tier, tsk.device_time_probe,
-     tpk.device_plane_probe, timing.device_ms, timing.cold_device_ms],
+     tpk.device_plane_probe, timing.device_ms, timing.cold_device_ms,
+     tm.stacked_query, tm.stacked_selected, tm.sharded_query,
+     tm.sharded_selected_query, VariantEngine._mesh_search],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the
