@@ -1553,6 +1553,228 @@ def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap):
     return ms, warm_ms, plain_ms, bound_ms, by, nbytes
 
 
+class TierFront:
+    """The engine with the pod dispatch tier consulted first, as the JAX
+    package's DistributedEngine consults its MeshDispatchTier for a
+    local engine: the datasets the tier resolves ride its one launch,
+    the rest take the engine's own paths; responses in the engine's
+    (dataset, vcf) order."""
+
+    def __init__(self, engine, tier):
+        self.engine = engine
+        self.tier = tier
+
+    def search(self, payload):
+        ds = list(payload.dataset_ids) or self.engine.datasets()
+        covered = self.tier.resolve(ds, payload)
+        out = self.tier.search(payload, covered) if covered else []
+        rest = [d for d in ds if d not in covered]
+        if rest:
+            out = out + self.engine.search(
+                dataclasses.replace(payload, dataset_ids=rest))
+        return sorted(out, key=lambda r: (r.dataset_id, r.vcf_location))
+
+
+def fused_entry_inputs(mfi, specs, sids, layout, masks=None, counts=None):
+    """[(entry, block, mesh_fused keyword arguments with the packed
+    slots as ``qpack``)] of one batch in ``layout``, laid out by
+    MeshFusedIndex.launch_inputs as run_mesh_queries lays it out
+    (``masks`` uint32 [B, W] and ``counts`` bool [B] arm the planes)."""
+    from sbeacon_tpu_torch.ops import kernel as tk
+
+    entries = mfi.launch_inputs(tk.encode_queries(specs, shard_ids=sids),
+                                layout, sample_masks=masks,
+                                mask_counts=counts)[0]
+    return [(g, blk, dict(kw, qpack=q)) for g, (blk, q, kw)
+            in enumerate(entries)]
+
+
+def run_fused(blk, kw, fn, window_cap, record_cap):
+    """``fn`` (mesh_fused or its twin) on one entry's inputs."""
+    kw = dict(kw)
+    q = kw.pop("qpack")
+    return fn(blk.columns, blk.alt_prefix, blk.offsets, blk.seg_base, q,
+              window_cap=window_cap, record_cap=record_cap, **kw)
+
+
+def compare_mesh_fused(mfi, specs, sids, layout, label, masks=None,
+                       counts=None, window_cap=2048, record_cap=1024):
+    """mesh_fused vs its twin on every entry of one batch; returns
+    (max_abs_err, report row)."""
+    import torch
+
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    err, equal = 0, True
+    stats = dict(matched=0, overflow=0, rows=0, max_row=-1, or_bits=0,
+                 fillers=0, not_owned=0)
+    R = min(record_cap, window_cap)
+    for g, blk, kw in fused_entry_inputs(mfi, specs, sids, layout, masks,
+                                         counts):
+        got, _seq = run_fused(blk, kw, tm.mesh_fused, window_cap, record_cap)
+        torch.cuda.synchronize()
+        want = run_fused(blk, kw, tm.local_fused_reference, window_cap,
+                         record_cap)
+        for k, w in want.items():
+            err = max(err, int((got[k].long() - w.long()).abs().max())
+                      if w.numel() else 0)
+            equal = equal and torch.equal(got[k], w)
+        q = kw["qpack"]
+        sid = q[:, 1].long() - g * mfi.d_local
+        stats["not_owned"] += int(((sid < 0) | (sid >= mfi.d_local)).sum())
+        stats["fillers"] += int((q[:, 0] == 0).sum())
+        agg = got["agg"]
+        stats["matched"] += int(agg[:, 3].sum())
+        stats["overflow"] += int(agg[:, 4].sum())
+        rows = got["rows"] - (0 if layout == tm.LAYOUT_OWNER else 1)
+        stats["rows"] += int((rows >= 0).sum())
+        stats["max_row"] = max(stats["max_row"], int(rows.max())
+                               if rows.numel() else -1)
+        if "or_words" in got:
+            stats["or_bits"] += int(sum(
+                bin(int(x) & 0xFFFFFFFF).count("1")
+                for x in got["or_words"].flatten().tolist()))
+    check(equal, f"{label} B={len(specs)} layout={layout}: mesh_fused != twin")
+    return err, {"index": label, "entries": mfi.n_dev, "queries": len(specs),
+                 "layout": layout, "planes": masks is not None,
+                 "counts": None if counts is None else bool(counts.any()),
+                 "record_cap": record_cap, "equal": equal, **stats}
+
+
+def compare_ring(n, shape, device, seed, misaligned=False):
+    """ring_gather on an n-entry ring of one card vs the twin (the sum),
+    with int32 wraparound; the inputs must stay unchanged. Returns
+    (equal, max_abs_err)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+
+    g = np.random.default_rng(seed)
+    numel = int(np.prod(shape))
+    parts = []
+    for _ in range(n):
+        host = g.integers(-2**31, 2**31, size=numel, dtype=np.int64)
+        t = torch.from_numpy(host.astype(np.int32))
+        if misaligned:  # a 4-byte offset: the kernel's word-at-a-time path
+            base = torch.empty(numel + 1, dtype=torch.int32, device=device)
+            base[1:] = t.to(device)
+            parts.append(base[1:].view(shape))
+        else:
+            parts.append(t.to(device).view(shape))
+    keep = [p.clone() for p in parts]
+    got = tg.ring_gather(parts)
+    torch.cuda.synchronize()
+    want = tg.gather_partials_portable(parts)
+    equal = (all(torch.equal(x, want) for x in got)
+             and all(torch.equal(a, b) for a, b in zip(parts, keep)))
+    err = max(int((x.long() - want.long()).abs().max()) for x in got)
+    return equal, err
+
+
+def mesh_need(mfi, g, blk, q, W, R, with_planes):
+    """(bytes, operations) one mesh_fused launch on entry g of the packed
+    slots ``q`` needs at the least: bisect_need over the owned slots
+    (their columns and matched rows, from a twin search that returns
+    every matched row), the other slots' query rows and outputs once,
+    and with planes the 32-B sectors of the matched rows' plane words
+    (x4 with counts), the masks read and the plane outputs written."""
+    import types
+
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    sid = q[:, tk.QF_SHARD].long() - g * mfi.d_local
+    own = (sid >= 0) & (sid < mfi.d_local)
+    ql = q[own].clone()
+    ql[:, tk.QF_SHARD] = sid[own].to(ql.dtype)
+    b, n_own = q.shape[0], int(own.sum())
+    nbytes = (b - n_own) * (tk.N_QFIELDS + R + tm.N_MESH_AGG) * 4
+    ops = 0
+    full = None
+    if n_own:
+        view = types.SimpleNamespace(columns=blk.columns, offsets=blk.offsets,
+                                     n_iters=mfi.n_iters)
+        full = tk.query_batch_reference(
+            blk.columns, blk.alt_prefix, blk.offsets, ql, window_cap=W,
+            record_cap=W, n_iters=mfi.n_iters)
+        nb, op = bisect_need(view, ql, full, W, R)
+        nbytes, ops = nbytes + nb + n_own * 4, ops + op  # + seg_base
+    if with_planes and full is not None:
+        rows = full[:, tk.N_AGG : tk.N_AGG + R]
+        w = blk.planes[0].shape[1]
+        k = 4 if mfi.has_count_planes else 1
+        nbytes += (k * plane_sector_count(rows, w) * SECTOR_BYTES
+                   + b * (2 * w * 4 + 8 * R + 4))
+        ops += int((rows >= 0).sum()) * w * k * PLANE_OPS_PER_WORD
+    return nbytes, ops
+
+
+def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes):
+    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes, slots) per
+    mesh_fused launch over every entry's launch of ``sets`` of (specs,
+    sids, masks, counts): the kernel ms with the L2 flushed before each
+    launch, the warm ms back to back, the twin by an event pair around
+    each call."""
+    from sbeacon_tpu_torch.ops import timing
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    items = [(blk, kw, g) for specs, sids, m, c in sets
+             for g, blk, kw in fused_entry_inputs(mfi, specs, sids, layout,
+                                                  m, c)]
+    dev = items[0][0].device
+    run = lambda it: run_fused(it[0], it[1], tm.mesh_fused, window_cap,
+                               record_cap)
+    ms = timing.cold_device_ms(run, items, dev)
+    warm_ms = timing.device_ms(run, items, reps=4)
+    twin = lambda it: run_fused(it[0], it[1], tm.local_fused_reference,
+                                window_cap, record_cap)
+    plain_ms = float(np.mean([event_ms(twin, it) for it in items[:2]]))
+    R = min(record_cap, window_cap)
+    need = [mesh_need(mfi, g, blk, kw["qpack"], window_cap, R, with_planes)
+            for blk, kw, g in items[:16]]
+    nbytes = float(np.mean([x for x, _o in need]))
+    bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
+    slots = float(np.mean([kw["qpack"].shape[0] for _b, kw, _g in items]))
+    return ms, warm_ms, plain_ms, bound_ms, by, nbytes, slots
+
+
+def time_ring_step(shape, device, last=False):
+    """(kernel ms, warm ms, twin ms, bound ms, bytes, library ms, library
+    warm ms) of one ring step launch on blocks of ``shape``: acc += src
+    (and next = src unless the last step), 16 bytes a word (12 on the
+    last step) at the HBM rate. The kernel ms with the L2 flushed before
+    each launch, the warm ms back to back; the twin (the sum of two
+    blocks) by an event pair; PyTorch's own elementwise calls for the
+    same step (``acc.add_(src)``, then ``nxt.copy_(src)`` unless the
+    last step) under the kernel's cold and warm regimes."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+    from sbeacon_tpu_torch.ops import timing
+
+    g = np.random.default_rng(26)
+    blocks = [torch.from_numpy(g.integers(-1000, 1000, size=shape,
+                                          dtype=np.int32)).to(device)
+              for _ in range(3)]
+    src, nxt, acc = blocks
+    run = lambda _i: tg.ring_step(src, None if last else nxt, acc)
+    ms = timing.cold_device_ms(run, range(16), device)
+    warm_ms = timing.device_ms(run, range(16), reps=4)
+    plain_ms = event_ms(tg.gather_partials_portable, [src, acc])
+
+    def library(_i):
+        acc.add_(src)
+        if not last:
+            nxt.copy_(src)
+
+    lib_ms = timing.cold_device_ms(library, range(16), device)
+    lib_warm_ms = timing.device_ms(library, range(16), reps=4)
+    nbytes = (12 if last else 16) * src.numel()
+    return (ms, warm_ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes,
+            lib_ms, lib_warm_ms)
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
@@ -1587,6 +1809,7 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.index.columnar import FLAG, build_index
     from sbeacon_tpu_torch.ingest.pipeline import distinct_variant_count
     from sbeacon_tpu_torch.ops import _build
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
     from sbeacon_tpu_torch.ops import kernel as tk
     from sbeacon_tpu_torch.ops import plane_kernel as pk
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
@@ -2516,6 +2739,305 @@ def run(args, device) -> int:
     j7q = next(t for t in qtimings if t["block"] == 0 and t["queries"] == 1)
     j7s = next(t for t in stimings if t["block"] == 1)
 
+    # 23. mesh-fused setup on the two-entry mesh [card, card]: the
+    # MeshFusedIndex of A and the three cohorts (d_local 2, each entry's
+    # block padded to A + one cohort's rows), of A and B with the gt
+    # planes (one shard an entry, about 6.3 GB of plane each), of B and
+    # its two re-submitted subsets with all four planes, and a crafted
+    # one on three entries of the card whose last group is empty
+    fdevs = [device, device]
+    t0 = time.perf_counter()
+    fq = tm.MeshFusedIndex([shard] + cohorts, tm.Mesh(fdevs))
+    t_fq = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp = tm.MeshFusedIndex([shard_a, shard_b], tm.Mesh(fdevs),
+                           with_planes=True)
+    t_fp = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fc = tm.MeshFusedIndex([shard_b] + b_again, tm.Mesh(fdevs),
+                           with_planes=True)
+    t_fc = time.perf_counter() - t0
+    crafted3 = tm.MeshFusedIndex([crafted_p, crafted_again],
+                                 tm.Mesh([device] * 3), with_planes=True)
+    torch.cuda.synchronize()
+    check(fq.d_local == 2 and fp.has_planes and not fp.has_count_planes
+          and fc.has_count_planes and crafted3.n_shards < crafted3.n_dev
+          * crafted3.d_local and crafted3.blocks[2].offsets.abs().sum() == 0,
+          "the mesh-fused indexes' shapes")
+    fp_bytes = fp.blocks[0].planes[0].numel() * 4
+    emit("mesh_fused_setup", cut="none", mesh=[str(d) for d in fdevs],
+         indexes={
+             "columns": {"shards": fq.n_shards, "d_local": fq.d_local,
+                         "rows_padded": fq.n_padded,
+                         "window_hint": fq.window_hint,
+                         "bytes": sum((b.columns.numel()
+                                       + b.alt_prefix.numel()) * 4
+                                      for b in fq.blocks),
+                         "seconds": t_fq},
+             "planes": {"shards": fp.n_shards, "rows_padded": fp.n_padded,
+                        "words": fp.plane_words,
+                        "plane_bytes_per_entry": fp_bytes,
+                        "plane_bytes_device": fp.plane_bytes_device,
+                        "seconds": t_fp},
+             "count_planes": {"shards": fc.n_shards, "d_local": fc.d_local,
+                              "rows_padded": fc.n_padded,
+                              "plane_bytes_per_entry": sum(
+                                  p.numel() * 4 for p in fc.blocks[0].planes),
+                              "seconds": t_fc},
+             "crafted": {"entries": crafted3.n_dev,
+                         "shards": crafted3.n_shards}},
+         device_memory_gb=torch.cuda.memory_allocated() / 1e9)
+
+    # 24. mesh_fused vs its twin on every entry: B = 1, 16, 64 and 512 in
+    # every alt mode and the three layouts; all-ones, sparse and empty
+    # masks; counts both ways; filler slots, an empty trailing group and
+    # rows near A's end. Then ring_gather on 2-, 3- and 4-entry rings of
+    # the card, for the rows-only block and the concatenated block
+    layouts = (tm.LAYOUT_OWNER, tm.LAYOUT_SLICED, tm.LAYOUT_REPLICATED)
+    rep_f, err_f = [], 0
+
+    def fused_case(mfi, shards_of, b, layout, label, planes=False,
+                   counts=None, specs_sids=None, n_samples=None, **caps):
+        nonlocal err_f, rep_f
+        specs, sids = specs_sids or fused_specs(shards_of, rng, b)
+        masks = c = None
+        if planes:
+            masks = mask_rows(rng, len(specs), mfi.plane_words,
+                              n_samples or args.samples)
+            c = np.full(len(specs), bool(counts))
+        err, row = compare_mesh_fused(mfi, specs, sids, layout, label, masks,
+                                      c, **caps)
+        err_f, rep_f = max(err_f, err), rep_f + [row]
+
+    for b in (1, 16, 64, 512):
+        for layout in layouts:
+            fused_case(fq, [shard] + cohorts, b, layout, "g1k+cohorts")
+            fused_case(fp, [shard_a, shard_b], b, layout, "A+B", planes=True)
+    for layout in layouts:
+        fused_case(fq, [shard] + cohorts, 64, layout, "g1k+cohorts",
+                   window_cap=256, record_cap=16)
+        tail = tier_specs(shard, rng, 64, 1, 3000, False, tail_lo)
+        fused_case(fq, None, 64, layout, "g1k_tail",
+                   specs_sids=(tail, [0] * 64))
+        fused_case(fp, None, 16, layout, "A_tail", planes=True,
+                   specs_sids=(tail[:16], [0] * 16))
+        for b in (1, 16, 64):
+            for counts_on in (True, False):
+                fused_case(fc, [shard_b] + b_again, b, layout, "B+subsets",
+                           planes=True,
+                           counts=counts_on,
+                           record_cap=1024 if b < 64 else 32)
+        for b in (16, 64):
+            for counts_on in (True, False):
+                fused_case(crafted3, [crafted_p, crafted_again], b, layout,
+                           "crafted3", planes=True, counts=counts_on,
+                           n_samples=40, record_cap=64)
+    check(all(sum(r[k] for r in rep_f) > 0 for k in (
+        "matched", "overflow", "rows", "or_bits", "fillers", "not_owned")),
+        "the mesh_fused cases matched, overflowed, extracted samples and "
+        "ran filler and foreign slots")
+    check(max(r["max_row"] for r in rep_f if r["index"] == "g1k_tail")
+          >= tail_lo, "mesh_fused read rows near the end of A")
+    emit("kernel_vs_twin", kernel=tm.FUSED_KERNEL, tolerance=0,
+         max_abs_err=err_f, cases=len(rep_f),
+         all_equal=all(r["equal"] for r in rep_f), report=rep_f)
+    rep_r, err_r = [], 0
+    for n in (2, 3, 4):
+        for shape in ((512, 1024), (512, 3 * 1024 + fp.plane_words), (7, 13)):
+            for mis in (False, True):
+                equal, err = compare_ring(n, shape, device, seed=n,
+                                          misaligned=mis)
+                check(equal, f"ring_gather n={n} {shape} != twin")
+                err_r = max(err_r, err)
+                rep_r.append({"entries": n, "shape": list(shape),
+                              "misaligned": mis, "equal": equal})
+    emit("kernel_vs_twin", kernel=tg.KERNEL, tolerance=0, max_abs_err=err_r,
+         cases=len(rep_r), all_equal=all(r["equal"] for r in rep_r),
+         report=rep_r)
+    del fq, fp, fc, crafted3
+    torch.cuda.empty_cache()
+
+    # 25. the mesh-fused path: a MeshDispatchTier over [card, card] behind
+    # each engine's micro-batcher, consulted first for every request (the
+    # datasets it resolves ride its launch, the rest the engine's paths).
+    # A and the cohorts answer the fused-path mix under the default
+    # owner-sharded outputs (J6 alone); A and B with their planes answer
+    # the selected-path mix in LAYOUT_SLICED (the sliced batch combined
+    # over the entries: J6, then P1). Launch counts zeroed just
+    # before each run and read just after
+    from sbeacon_tpu_torch.parallel.dispatch import MeshDispatchTier
+
+    fused_runs = {}
+    tier_index = {}
+    for name, shards_of, layout, over, jobs_of in (
+        ("mesh_fused_path", [shard] + cohorts, tm.LAYOUT_OWNER, {},
+         lambda shards_of: [
+             ([{"id": s.meta["dataset_id"]} for s in shards_of], b, None)
+             for b in request_bodies(shard, random.Random(args.seed + 25),
+                                     args.fused_requests,
+                                     2048, p_other=0.05)]),
+        ("mesh_fused_selected_path", [shard_a, shard_b], tm.LAYOUT_SLICED,
+         dict(plane_hbm_budget_gb=MESH_PLANE_BUDGET_GB),
+         lambda shards_of: selected_jobs(
+             shards_of, random.Random(args.seed + 26),
+             args.selected_requests, 2048)[0]),
+    ):
+        engine = VariantEngine(
+            BeaconConfig(engine=EngineConfig(
+                microbatch_wait_ms=MICROBATCH_WAIT_MS, **over)),
+            device=device,
+        )
+        tier = MeshDispatchTier(engine, devices=fdevs, layout=layout)
+        try:
+            t0 = time.perf_counter()
+            for s_ in shards_of:
+                engine.add_index(s_)
+            engine.warm_fused()
+            t_add = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            check(tier.warmup() > 0, f"{name}: the tier built")
+            t_build = time.perf_counter() - t0
+            served_shards = [s_ for _d, _v, (s_, _i, _p)
+                             in engine.indexes_for([])]
+            jobs = jobs_of(served_shards)
+            front = TierFront(engine, tier)
+            telemetry.reset_launch_counts()
+            served, wall = run_jobs(front, env, jobs, args.threads)
+            counts25 = {k: telemetry.launch_count(k) for k in (
+                tm.FUSED_KERNEL, tg.KERNEL, tk.KERNEL, sk.KERNEL,
+                sk.SELECTED_KERNEL, pk.KERNEL)}
+            shapes = {}
+            for r in telemetry.recent_launches():
+                if r["kernel"] == tm.FUSED_KERNEL:
+                    key = (r["slots"], r["layout"], r["words"] > 0)
+                    shapes[key] = shapes.get(key, 0) + 1
+                elif r["kernel"] == tg.KERNEL:
+                    key = ("ring", r["words"])
+                    shapes[key] = shapes.get(key, 0) + 1
+            lat = [ms for _d, ms, _p, _r in served]
+            n_hit, mismatches = check_served(
+                served_shards, env, [b for _d, b, _s in jobs], served)
+            st = tier.stats()
+            check(mismatches == 0, f"{mismatches} {name} responses differ "
+                  "from the host matcher and host planes")
+            check(st["dispatches"] > 0 and counts25[tm.FUSED_KERNEL] > 0,
+                  f"{name}: the tier served requests through mesh_fused")
+            check(layout == tm.LAYOUT_OWNER or counts25[tg.KERNEL] > 0,
+                  f"{name}: the combined layout launched ring_gather")
+            n = len(jobs)
+            emit(name, requests=n, threads=args.threads, hits=n_hit,
+                 mismatches=mismatches, mesh=[str(d) for d in fdevs],
+                 layout=layout, tier=st,
+                 launches=counts25,
+                 launches_per_request={k: v / n for k, v in counts25.items()},
+                 launch_shapes={str(k): v for k, v in sorted(
+                     shapes.items(), key=lambda kv: -kv[1])},
+                 batcher=engine.batcher.occupancy(), add_s=t_add,
+                 tier_build_s=t_build, wall_s=wall, requests_per_s=n / wall,
+                 latency_ms={"p50": percentile(lat, 0.5),
+                             "p99": percentile(lat, 0.99)},
+                 stage_ms=engine.stage_timing(), device=kind,
+                 nvidia_smi=smi)
+            fused_runs[name] = dict(
+                counts=counts25, shapes=shapes, wall=wall,
+                specs=[(payload_spec(p), [s_.meta["dataset_id"]
+                                          for s_ in served_shards
+                                          if s_.meta["dataset_id"]
+                                          in p.dataset_ids], p)
+                       for _d, _ms, p, _r in served],
+                order=[s_.meta["dataset_id"] for s_ in served_shards],
+                shards={s_.meta["dataset_id"]: s_ for s_ in served_shards})
+            tier_index[name] = tier._state[0]
+        finally:
+            tier.close()
+            engine.close()
+        del engine, tier
+    torch.cuda.empty_cache()
+
+    # 26. timing: mesh_fused at the slot counts phase 25 launched (the
+    # served requests' own queries), L2 cold and warm, beside the bound
+    # and the twin's time; ring_gather per step at phase 24's block
+    # shapes and phase 25's, beside its bound (bytes at the HBM rate)
+    ftimings = []
+    for name, with_planes in (("mesh_fused_path", False),
+                              ("mesh_fused_selected_path", True)):
+        run25, mfi = fused_runs[name], tier_index[name]
+
+        def selected_of(p, d, run25=run25):
+            names = set(p.sample_names.get(d, []))
+            return [k for k, nm in enumerate(
+                run25["shards"][d].meta["sample_names"]) if nm in names]
+        layout = mfi.layout
+        tier_reqs = [(spec, ds, p) for spec, ds, p in run25["specs"]
+                     if len(ds) >= 2 and not (with_planes and any(
+                         c in "Nn" for c in (p.reference_bases or "")))]
+        top = sorted(((v, k) for k, v in run25["shapes"].items()
+                      if k[0] != "ring" and k[2] == with_planes),
+                     reverse=True)
+        for n_launch, (slots, _lay, _pl) in top[:2]:
+            per_req = max(1, -(-len(run25["order"]) // mfi.n_dev))
+            k_req = max(1, slots // per_req)
+            sets = []
+            for i in range(16 if slots <= 8 else 4):
+                reqs = tier_reqs[(i * k_req) % len(tier_reqs):][:k_req]
+                specs, sids, masks, cnt = [], [], [], []
+                for spec, ds, p in reqs:
+                    for d in ds:
+                        specs.append(spec)
+                        sids.append(run25["order"].index(d))
+                        if with_planes:
+                            masks.append(np.full(mfi.plane_words, 0xFFFFFFFF,
+                                                 np.uint32)
+                                         if not p.selected_samples_only else
+                                         pk.sample_mask_words(
+                                             selected_of(p, d),
+                                             mfi.plane_words))
+                            cnt.append(p.selected_samples_only)
+                sets.append((specs, sids,
+                             np.stack(masks) if with_planes else None,
+                             np.array(cnt, np.bool_) if with_planes else None))
+            ms, warm_ms, plain_ms, bound_ms, by, nbytes, s_mean = (
+                time_mesh_fused(mfi, sets, layout, 2048, 1024, with_planes))
+            ftimings.append({
+                "path": name, "planes": with_planes, "layout": layout,
+                "slots": s_mean, "phase25_slots": slots,
+                "phase25_launches": n_launch, "ms": ms, "warm_ms": warm_ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
+                "bound_share": bound_ms / ms, "bytes": nbytes})
+    busy = {name: sum(t["ms"] * t["phase25_launches"] for t in ftimings
+                      if t["path"] == name) for name in fused_runs}
+    emit("timing", kernel=tm.FUSED_KERNEL, library_ms=None,
+         library_note="no single PyTorch call computes this function",
+         cases=ftimings,
+         busy_share_est={k: v / (fused_runs[k]["wall"] * 1e3)
+                         for k, v in busy.items()},
+         device=kind, nvidia_smi=smi)
+    rtimings = []
+    ring25 = sorted((v, k[1]) for k, v in
+                    fused_runs["mesh_fused_selected_path"]["shapes"].items()
+                    if k[0] == "ring")
+    # phase 24's block shapes, and phase 25's most launched one
+    ring_shapes = [(512, 1024), (512, 3 * 1024 + w_p)] + [
+        (1, words) for _n, words in ring25[-1:]]
+    for shape in ring_shapes:
+        for last in (False, True):
+            (ms, warm_ms, plain_ms, bound_ms, nbytes, lib_ms,
+             lib_warm_ms) = time_ring_step(shape, device, last)
+            rtimings.append({"shape": list(shape), "last_step": last,
+                             "ms": ms, "warm_ms": warm_ms,
+                             "plain_ms": plain_ms, "bound_ms": bound_ms,
+                             "bound_by": "bytes", "bound_share": bound_ms / ms,
+                             "bytes": nbytes, "library_ms": lib_ms,
+                             "library_warm_ms": lib_warm_ms})
+    p1 = rtimings[4] if len(rtimings) > 4 else rtimings[2]
+    emit("timing", kernel=tg.KERNEL, library_ms=p1["library_ms"],
+         library_note="one ring step on one card is acc.add_(src), plus "
+                      "nxt.copy_(src) before the last step (two calls "
+                      "there); each case carries its own library_ms",
+         cases=rtimings, device=kind, nvidia_smi=smi)
+    del tier_index
+    j6 = max((t for t in ftimings), key=lambda t: t["phase25_launches"])
+
     # the main path's most-launched tier stands for the scatter kernel;
     # the median fused batch of brackets for the bisection kernel; the
     # selected path's most-launched shape for the two plane kernels
@@ -2616,6 +3138,33 @@ def run(args, device) -> int:
         "bound_by": j7s["bound_by"],
         "library_ms": None,
         "case": {k: j7s[k] for k in ("dataset", "queries", "with_counts")},
+    }, {
+        "name": tm.FUSED_KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/mesh_fused.cu",
+        "replaces": "sbeacon_tpu/parallel/mesh.py:1401",
+        "launches": sum(r["counts"][tm.FUSED_KERNEL]
+                        for r in fused_runs.values()),
+        "max_abs_err": err_f,
+        "ms": j6["ms"],
+        "plain_ms": j6["plain_ms"],
+        "bound_ms": j6["bound_ms"],
+        "bound_by": j6["bound_by"],
+        "library_ms": None,
+        "case": {k: j6[k] for k in ("path", "planes", "layout", "slots")},
+    }, {
+        "name": tg.KERNEL,
+        "route": "cuda",
+        "source": "sbeacon_tpu_torch/csrc/ring_gather.cu",
+        "replaces": "sbeacon_tpu/ops/gather_kernel.py:70",
+        "launches": sum(r["counts"][tg.KERNEL] for r in fused_runs.values()),
+        "max_abs_err": err_r,
+        "ms": p1["ms"],
+        "plain_ms": p1["plain_ms"],
+        "bound_ms": p1["bound_ms"],
+        "bound_by": p1["bound_by"],
+        "library_ms": p1["library_ms"],
+        "case": {"shape": p1["shape"], "last_step": p1["last_step"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

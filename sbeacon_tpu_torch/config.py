@@ -50,6 +50,13 @@ class EngineConfig:
       stack (parallel.mesh) when the mesh has two or more devices; it
       holds its own device copy of the columns, and of the planes when
       they fit plane_hbm_budget_gb beside the resident ones.
+    mesh_min_shards: the smallest per-query target count worth the pod
+      dispatch tier (parallel.dispatch.MeshDispatchTier; below it,
+      per-shard dispatch is already one launch). The JAX package's
+      mesh_dispatch is read by its fleet plane, not ported yet; its
+      mesh_slice / mesh_owner_outputs are the tier's ``layout`` argument
+      here, and the tier stacks the planes whenever every shard has
+      them and they fit (no mesh_planes switch).
     """
 
     window_cap: int = 2048
@@ -63,6 +70,7 @@ class EngineConfig:
     device_planes: bool = True
     plane_hbm_budget_gb: float = 11.0
     use_mesh: bool = True
+    mesh_min_shards: int = 2
     # not ported yet: VariantEngine refuses it when on
     response_cache: bool = False
 

@@ -659,6 +659,64 @@ class VariantEngine:
         with self._lock:
             return self._plane_hbm_resident_locked()
 
+    def register_plane_bytes(self, token, nbytes: int) -> None:
+        """Account an external standing plane allocation (the mesh
+        dispatch tier's group-stacked planes) on the plane budget's
+        reservation ledger, so a later per-dataset upload cannot
+        overcommit the device by the stack's size. ``nbytes <= 0``
+        releases; registering the same token again replaces."""
+        with self._lock:
+            if nbytes > 0:
+                self._plane_reserved[token] = int(nbytes)
+            else:
+                self._plane_reserved.pop(token, None)
+
+    def try_reserve_plane_bytes(self, token, nbytes: int, budget: float) -> bool:
+        """Atomic check-and-reserve for an external plane allocation: the
+        headroom test and the ledger write under one lock hold, as the
+        per-dataset upload gate does. The token's own earlier reservation
+        is left out of the headroom (``nbytes`` replaces it). Returns
+        False, the ledger untouched, when ``nbytes`` does not fit."""
+        with self._lock:
+            prev = self._plane_reserved.get(token, 0)
+            used = self._plane_hbm_resident_locked() - prev
+            if used + nbytes > budget:
+                return False
+            self._plane_reserved[token] = int(nbytes)
+            return True
+
+    def shard_snapshot(self) -> list:
+        """Sorted ``[((dataset_id, vcf_location), shard), ...]`` under
+        the publish lock: the dispatch tier builds its stack from this
+        instead of iterating ``_indexes`` mid-ingest."""
+        with self._lock:
+            return [(k, v[0]) for k, v in sorted(self._indexes.items())]
+
+    def index_snapshot(self) -> list:
+        """Sorted ``[((dataset_id, vcf_location), shard, planes), ...]``
+        under the publish lock: :meth:`shard_snapshot` plus each key's
+        device plane index of the same publish."""
+        with self._lock:
+            return [(k, v[0], v[2]) for k, v in sorted(self._indexes.items())]
+
+    def base_fingerprint(self) -> str:
+        """Identity of the published base shards, the JAX package's
+        base-fingerprint string: ``ds|vcf|variant_count|call_count|
+        n_rows`` per key, sorted, joined by ``&``. The dispatch tier keys
+        its staleness on it."""
+        with self._lock:
+            items = sorted(self._indexes.items())
+        return "&".join(
+            f"{ds}|{vcf}|{s.meta.get('variant_count')}"
+            f"|{s.meta.get('call_count')}|{s.n_rows}"
+            for (ds, vcf), (s, _d, _p) in items
+        )
+
+    def index_fingerprint(self) -> str:
+        """Identity of the whole served data set. This package has no
+        delta tail yet, so it equals :meth:`base_fingerprint`."""
+        return self.base_fingerprint()
+
     def close(self) -> None:
         """Join any fused build in flight (a daemon thread caught inside
         a torch call at interpreter exit aborts the process), then

@@ -46,11 +46,30 @@ def run_queries_auto(
     *,
     window_cap: int = 2048,
     record_cap: int = 1024,
+    sample_masks=None,
+    mask_counts=None,
 ) -> QueryResults:
     """Run a query batch on the index's kernel and read the results
     back — one call site for the engine and the micro-batcher: the
     bisection kernel for a ``FusedDeviceIndex`` / ``DeviceIndex``, the
-    scatter match kernel for a ``ScatterDeviceIndex``."""
+    scatter match kernel for a ``ScatterDeviceIndex``, and the
+    owner-sliced fused query for a mesh-sharded fused index
+    (``parallel.mesh.MeshFusedIndex``, duck-typed on its
+    ``run_mesh_queries`` so ops never imports parallel).
+
+    ``sample_masks`` / ``mask_counts`` arm the mesh tier's plane
+    reduction and are only meaningful for a plane-stacked
+    MeshFusedIndex: passing them for any other index raises."""
+    mesh_run = getattr(index, "run_mesh_queries", None)
+    if mesh_run is not None:
+        kwargs = {}
+        if sample_masks is not None:
+            kwargs.update(sample_masks=sample_masks, mask_counts=mask_counts)
+        return mesh_run(
+            queries, window_cap=window_cap, record_cap=record_cap, **kwargs
+        )
+    if sample_masks is not None:
+        raise ValueError("sample_masks only ride the mesh plane program")
     if isinstance(index, (FusedDeviceIndex, DeviceIndex)):
         return run_queries(
             index, queries, window_cap=window_cap, record_cap=record_cap

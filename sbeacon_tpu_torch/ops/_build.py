@@ -75,6 +75,22 @@ SIGNATURES = {
         ),
         "stacked_selected_smem": ([_I, _I, _I], ctypes.c_longlong),
     },
+    "mesh_fused": {
+        "mesh_fused_launch": (
+            [_P, _L, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I,
+             _P],
+            ctypes.c_int,
+        ),
+        "mesh_fused_planes_launch": (
+            [_P, _L, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I, _P, _P]
+            + [_P] * 9 + [_I] * 4 + [_P],
+            ctypes.c_int,
+        ),
+        "mesh_fused_smem": ([_I] * 4, ctypes.c_longlong),
+    },
+    "ring_gather": {
+        "ring_step_launch": ([_P, _P, _P, _L, _P], ctypes.c_int),
+    },
 }
 
 _lock = threading.Lock()

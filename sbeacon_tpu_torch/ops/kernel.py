@@ -171,11 +171,13 @@ class QueryResults:
     n_matched: np.ndarray  # int32[B]
     overflow: np.ndarray  # bool[B] — window_cap exceeded, host fallback
     rows: np.ndarray  # int32[B, record_cap] global row ids, -1 padded
-    # genotype-plane outputs (not produced by this package yet; kept so
-    # the container matches the JAX package's field for field)
-    pc_call: np.ndarray | None = None
-    pc_tok: np.ndarray | None = None
-    or_words: np.ndarray | None = None
+    # genotype-plane outputs (mesh plane program only; None on every
+    # match-only path): per-row masked popcounts aligned with ``rows``
+    # and the grp>=k0 sample-hit OR, the materialize_response
+    # ``fused=(pc_call, pc_tok, or_words)`` triple, per query
+    pc_call: np.ndarray | None = None  # int32[B, record_cap]
+    pc_tok: np.ndarray | None = None  # int32[B, record_cap]
+    or_words: np.ndarray | None = None  # int32[B, plane_words]
 
 
 def pad_columns(

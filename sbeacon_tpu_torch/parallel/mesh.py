@@ -2,10 +2,12 @@
 
 Counterpart of ``sbeacon_tpu/parallel/mesh.py`` (``make_mesh``,
 ``StackedIndex``, ``plane_budget_verdict``, ``_plane_reduce``,
-``sharded_query``, ``sharded_selected_query``). Its XLA programs
-``_local_query`` and ``_local_selected``, the per-device body of a
-``shard_map`` (a grid of local dataset x query running ``_query_one``,
-the sums over the local datasets and one ``psum``), are replaced by two
+``sharded_query``, ``sharded_selected_query``, ``MeshFusedIndex`` with
+``MeshPendingResults``). Its XLA programs ``_local_query`` and
+``_local_selected``, the per-device body of a ``shard_map`` (a grid of
+local dataset x query running ``_query_one``, the sums over the local
+datasets and one ``psum``), and ``_local_fused_query``, the per-device
+body of the mesh-sharded fused index, are replaced by three
 hand-written CUDA kernels:
 
 - ``csrc/stacked_query.cu`` (wrapper ``stacked_query``, twin
@@ -13,26 +15,34 @@ hand-written CUDA kernels:
 - ``csrc/stacked_selected.cu`` (wrapper ``stacked_selected``, twin
   ``local_selected_reference``), the selected-samples body, whose plane
   reduction ``_plane_reduce`` is the block routine ``csrc/plane_reduce.cuh``
-  (twin ``plane_reduce_reference``).
+  (twin ``plane_reduce_reference``);
+- ``csrc/mesh_fused.cu`` (wrapper ``mesh_fused``, twin
+  ``local_fused_reference``), one mesh entry's part of
+  ``MeshFusedIndex.run_mesh_queries``: ownership, the search over the
+  entry's fused block, the ``seg_base`` rebase and the per-query-mask
+  plane reduction, written in the owner, sliced-combine or replicated
+  layout. The combine layouts then fan in through ``_psum`` and the ring
+  gather ``ops.gather_kernel`` (P1).
 
-Both run the per-query body of the bisection kernel
-(``csrc/bisect_core.cuh``) and fold the cross-dataset sums into the same
-launch with one atomic add per block. A wrapper launches on a CUDA tensor
-(or raises) and runs the twin on a CPU tensor; every CUDA launch adds one
-to its launch count (``stacked_query_launches``,
-``stacked_selected_launches``).
+All three run the per-query body of the bisection kernel
+(``csrc/bisect_core.cuh``); the stacked ones fold the cross-dataset sums
+into the same launch with one atomic add per block. A wrapper launches on
+a CUDA tensor (or raises) and runs the twin on a CPU tensor; every CUDA
+launch adds one to its launch count (``stacked_query_launches``,
+``stacked_selected_launches``, ``mesh_fused_launches``).
 
 The mesh is an ordered tuple of ``torch.device`` s. ``StackedIndex``
 builds the host stack byte for byte as the JAX package does;
 ``shard_to_mesh`` gives mesh device g the datasets ``[g * d_local,
 (g + 1) * d_local)``. ``sharded_query`` / ``sharded_selected_query`` make
 one launch per mesh device over its block, and the ``psum`` is the sum
-of the per-device ``[B]`` partials on the first mesh device. Three
-deliberate differences from the JAX package: ``plane_bytes_per_device``
-counts the card's real ``W * 4`` bytes a row (a CUDA tensor has no
-128-lane padding), the psum is that sum (a collective replaces it with
-the multi-GPU port), and the engine's mesh leg raises where JAX falls
-back to thread scatter.
+of the per-device ``[B]`` partials on the first mesh device. Deliberate
+differences from the JAX package: ``plane_bytes_per_device`` counts the
+card's real ``W * 4`` bytes a row (a CUDA tensor has no 128-lane
+padding), the psum is that sum (a collective replaces it with the
+multi-GPU port), the engine's mesh leg raises where JAX falls back to
+thread scatter, and ``MeshFusedIndex`` pads neither its slices nor its
+replicated batch to a tier (see its docstring).
 """
 
 from __future__ import annotations
@@ -43,8 +53,14 @@ import time
 import numpy as np
 import torch
 
-from ..index.columnar import FLAG, N_CHROM_CODES, VariantIndexShard
+from ..index.columnar import (
+    FLAG,
+    N_CHROM_CODES,
+    VariantIndexShard,
+    stack_shard_columns,
+)
 from ..ops import _build
+from ..ops.gather_kernel import gather_partials_many
 from ..ops.kernel import (
     _SMEM_MAX,
     COLUMNS,
@@ -55,6 +71,8 @@ from ..ops.kernel import (
     N_AGG,
     N_QFIELDS,
     DeviceIndex,
+    QueryResults,
+    _upload_columns,
     _wrap32,
     bisect_iters,
     encode_queries,
@@ -62,9 +80,16 @@ from ..ops.kernel import (
     pad_shard_columns,
     padded_rows,
     query_batch_reference,
+    window_hint_for,
 )
 from ..ops.plane_kernel import or_reduce, popcount32, staged_upload
-from ..telemetry import launch_count, record_device_launch
+from ..telemetry import (
+    add_total,
+    launch_count,
+    note_device_stage,
+    record_device_launch,
+    total,
+)
 
 AXIS = "d"
 QUERY_KERNEL = "stacked_query"
@@ -81,13 +106,27 @@ N_SEL_AGG = 3
 
 
 def __getattr__(name: str):
-    """``stacked_query_launches`` / ``stacked_selected_launches``: CUDA
-    launches of the two stacked kernels since the last
-    ``telemetry.reset_launch_counts()``."""
+    """Counters since the last ``telemetry.reset_launch_counts()``:
+
+    - ``stacked_query_launches`` / ``stacked_selected_launches`` /
+      ``mesh_fused_launches``: CUDA launches of the three mesh kernels;
+    - ``N_LAUNCHES``: calls of ``MeshFusedIndex.run_mesh_queries`` (one
+      mesh program each, whatever the kernel launches under it; a plain
+      total, not a launch count);
+    - ``N_EVALUATED_PAIRS``: evaluated (entry, query-slot) pairs summed
+      over the mesh per launch (the replicated layout evaluates batch x
+      n_dev pairs, the sliced layout about the batch).
+    """
     if name == "stacked_query_launches":
         return launch_count(QUERY_KERNEL)
     if name == "stacked_selected_launches":
         return launch_count(SELECTED_KERNEL)
+    if name == "mesh_fused_launches":
+        return launch_count(FUSED_KERNEL)
+    if name == "N_LAUNCHES":
+        return total(MESH_PROGRAM)
+    if name == "N_EVALUATED_PAIRS":
+        return total("mesh_evaluated_pairs")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -773,3 +812,606 @@ def sharded_selected_query(
         "or_words": or_words,
     }
     return per_ds, aggregates
+
+
+# -- the mesh-sharded fused index and its owner-sliced query (J6) -----------
+
+FUSED_KERNEL = "mesh_fused"
+#: the total counting run_mesh_queries calls (one per mesh program,
+#: whatever the number of kernel launches under it)
+MESH_PROGRAM = "mesh_programs"
+#: aggregate columns of mesh_fused: call_count, n_variants,
+#: all_alleles_count, n_matched, overflow
+N_MESH_AGG = 5
+#: mesh_fused's output layouts (its ``layout`` argument): owner-sharded
+#: outputs, the sliced batch combined over entries, the replicated batch
+LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED = range(3)
+_PLANE_ATTRS = ("gt_bits", "gt_bits2", "tok_bits1", "tok_bits2")
+
+
+def local_fused_reference(
+    columns, alt_prefix, offsets, seg_base, qpack, *, me, d_local, n_dev, C,
+    layout, window_cap, record_cap, n_iters, planes=None, masks=None,
+    use_counts=None, has_counts=False,
+):
+    """Plain-PyTorch twin of the owner-sliced fused query kernel: JAX's
+    ``_local_fused_query`` for mesh entry ``me``.
+
+    ``columns`` int32 [11, n_pad], ``alt_prefix`` int32 [n_pad, 4],
+    ``offsets`` int32 [d_local, 27] (block-absolute rows), ``seg_base``
+    int32 [d_local], ``qpack`` int32 [S, N_QFIELDS] with global shard
+    ids. With ``planes`` ((gt,) or (gt, gt2, tok1, tok2), int32 [n_pad,
+    W]), ``masks`` int32 [S, W] and ``use_counts`` int32 [S] arm the
+    plane reduction. Ownership (``0 <= shard - me * d_local <
+    d_local``) masks every output; rows come back dataset-local
+    (``row - seg_base``). Returns a dict of int32 tensors: ``agg`` [n_out,
+    5] (call_count, n_variants, all_alleles_count, n_matched, overflow),
+    ``rows`` [n_out, R] and with planes ``pc_call``, ``pc_tok`` [n_out, R]
+    and ``or_words`` [n_out, W]. The owner layout returns the raw
+    rebased rows (-1 padded, n_out = S); the combine layouts return rows
+    + 1 (0 for padding and non-owners), in slots ``[me * C, me * C + S)``
+    of zeroed ``n_dev * C`` outputs for ``LAYOUT_SLICED`` and in slots
+    ``[0, S)`` for ``LAYOUT_REPLICATED``."""
+    i32 = torch.int32
+    sid = qpack[:, 1].long() - me * d_local  # QF_SHARD
+    owned = (sid >= 0) & (sid < d_local)
+    sidc = sid.clamp(0, d_local - 1)
+    q = qpack.clone()
+    q[:, 1] = sidc.to(i32)
+    res = query_batch_reference(
+        columns, alt_prefix, offsets, q, window_cap=window_cap,
+        record_cap=record_cap, n_iters=n_iters,
+    )
+    own = owned.to(i32)[:, None]
+    out = {"agg": res[:, 1:N_AGG] * own}  # exists is derived at fetch
+    rows_abs = res[:, N_AGG:]
+    combine = layout != LAYOUT_OWNER
+    rebased = rows_abs - seg_base[sidc][:, None] + int(combine)
+    out["rows"] = torch.where(
+        (rows_abs >= 0) & owned[:, None], rebased, 0 if combine else -1
+    ).to(i32)
+    if planes is not None:
+        n = columns.shape[1]
+        valid = rows_abs >= 0
+        safe = rows_abs.long().clamp(0, n - 1)
+        g = lambda c: columns[c][safe]
+        m = masks[:, None, :]
+        counts = ([p[safe] & m for p in planes[1:4]] if has_counts
+                  else [None] * 3)
+        pr = plane_reduce_reference(
+            g(C_FLAGS), g(C_AC), g(C_AN), g(C_REC_ID), planes[0][safe] & m,
+            *counts, valid, has_counts=has_counts,
+            use_counts=use_counts != 0,
+        )
+        for k in ("pc_call", "pc_tok", "or_words"):
+            out[k] = pr[k] * own
+    if layout == LAYOUT_SLICED:
+        full = {}
+        for k, v in out.items():
+            buf = torch.zeros((n_dev * C,) + tuple(v.shape[1:]), dtype=i32,
+                              device=v.device)
+            buf[me * C : me * C + v.shape[0]] = v
+            full[k] = buf
+        out = full
+    return out
+
+
+def mesh_fused(
+    columns, alt_prefix, offsets, seg_base, qpack, *, me, d_local, n_dev, C,
+    layout, window_cap, record_cap, n_iters, planes=None, masks=None,
+    use_counts=None, has_counts=False,
+):
+    """The owner-sliced fused query kernel over one mesh entry's block:
+    (out, seq), ``out`` laid out as ``local_fused_reference`` returns it.
+
+    CUDA tensors launch ``csrc/mesh_fused.cu`` on the current stream
+    (asynchronously; its match-only entry point without ``planes``) and
+    record the launch, ``seq`` being its launch record. CPU tensors run
+    ``local_fused_reference`` and ``seq`` is None. Any other device, or
+    inputs the kernel does not take, raise. ``n_iters`` is the twin's
+    bisection depth; the kernel's search ends by itself."""
+    kw = dict(me=me, d_local=d_local, n_dev=n_dev, C=C, layout=layout,
+              window_cap=window_cap, record_cap=record_cap, n_iters=n_iters,
+              planes=planes, masks=masks, use_counts=use_counts,
+              has_counts=has_counts)
+    if columns.device.type == "cpu":
+        return local_fused_reference(
+            columns, alt_prefix, offsets, seg_base, qpack, **kw), None
+    if columns.device.type != "cuda":
+        raise ValueError(f"mesh_fused runs on cuda or cpu, not {columns.device}")
+    if layout not in (LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED):
+        raise ValueError(f"unknown layout {layout}")
+    dev = columns.device
+    n_pad = columns.shape[1]
+    s = qpack.shape[0]
+    shapes = [
+        ("columns", columns, (len(COLUMNS), n_pad)),
+        ("alt_prefix", alt_prefix, (n_pad, 4)),
+        ("offsets", offsets, (d_local, N_CHROM_CODES + 1)),
+        ("seg_base", seg_base, (d_local,)),
+        ("qpack", qpack, (s, N_QFIELDS)),
+    ]
+    w = 0
+    if planes is not None:
+        w = planes[0].shape[1]
+        if has_counts and len(planes) < 4:
+            raise ValueError("has_counts needs the block's count planes")
+        planes = tuple(planes) if has_counts else (planes[0],) * 4
+        shapes += [(f"planes[{i}]", p, (n_pad, w)) for i, p in enumerate(planes)]
+        shapes += [("masks", masks, (s, w)), ("use_counts", use_counts, (s,))]
+    _check_inputs(dev, shapes)
+    if layout == LAYOUT_SLICED and (s != C or not 0 <= me < n_dev):
+        raise ValueError(f"sliced layout: {s} slots != C={C} or entry {me} "
+                         f"outside {n_dev}")
+    W, R = _window(window_cap, record_cap)
+    lib = _build.load(FUSED_KERNEL)
+    smem = lib.mesh_fused_smem(W, R, w, int(planes is not None))
+    if (planes is not None and w < 1) or smem > _SMEM_MAX:
+        raise ValueError(
+            f"unsupported shape: window_cap={window_cap}, R={R}, W={w} need "
+            f"{smem} bytes of shared memory, at most {_SMEM_MAX}"
+        )
+    n_out = n_dev * C if layout == LAYOUT_SLICED else s
+    empty = lambda *shape: torch.empty(shape, dtype=torch.int32, device=dev)
+    out = {"agg": empty(n_out, N_MESH_AGG), "rows": empty(n_out, R)}
+    if planes is not None:
+        out.update(pc_call=empty(n_out, R), pc_tok=empty(n_out, R),
+                   or_words=empty(n_out, w))
+    if s == 0:
+        return out, None
+    t0 = time.perf_counter()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (columns.data_ptr(), n_pad, alt_prefix.data_ptr(),
+            offsets.data_ptr(), seg_base.data_ptr(), d_local, me, n_dev,
+            qpack.data_ptr(), s, C, layout, out["agg"].data_ptr(),
+            out["rows"].data_ptr())
+    with torch.cuda.device(dev):
+        if planes is None:
+            rc = lib.mesh_fused_launch(*head, W, R, stream)
+        else:
+            rc = lib.mesh_fused_planes_launch(
+                *head, *(p.data_ptr() for p in planes), masks.data_ptr(),
+                use_counts.data_ptr(), out["pc_call"].data_ptr(),
+                out["pc_tok"].data_ptr(), out["or_words"].data_ptr(), W, R,
+                w, int(bool(has_counts)), stream,
+            )
+    if rc != 0:
+        raise RuntimeError(f"mesh_fused launch failed: CUDA error {rc}")
+    # the JAX package's program families: plane, mesh_sliced (both
+    # sliced layouts), mesh_replicated
+    family = ("plane" if planes is not None
+              else "mesh_replicated" if layout == LAYOUT_REPLICATED
+              else "mesh_sliced")
+    seq = record_device_launch(
+        FUSED_KERNEL, family=family, device=str(dev), slots=s, layout=layout,
+        window=W, record_cap=R, words=w, with_counts=bool(has_counts),
+        launch_ms=(time.perf_counter() - t0) * 1e3,
+    )
+    return out, seq
+
+
+def _to_host(a) -> np.ndarray:
+    return a if isinstance(a, np.ndarray) else a.cpu().numpy()
+
+
+class MeshPendingResults:
+    """The results of one mesh launch, read back by :meth:`fetch`.
+
+    ``out`` is, under owner-sharded outputs (``owner_layout`` = (n_dev,
+    c_slot, counts)), one dict of output tensors per mesh entry, entry g
+    holding its ``c_slot`` slots of which the first ``counts[g]`` carry
+    real queries; otherwise one dict of combined outputs (``agg`` as
+    numpy from the fan-in, the gathered blocks as tensors on the first
+    entry). ``positions`` is the sliced layout's slot map (query j's
+    results live at slot ``positions[j]``), applied as the inverse
+    permute; None means the replicated layout (the first ``b`` slots).
+    The port has no asynchronous fetch: ``run_mesh_queries`` calls
+    :meth:`fetch` itself, as ``run_queries`` reads its results back."""
+
+    __slots__ = ("_out", "_b", "_pos", "_owner", "flight_seq")
+
+    def __init__(self, out, b: int, positions=None, flight_seq=None,
+                 owner_layout=None):
+        self._out = out
+        self._b = b
+        self._pos = positions
+        self._owner = owner_layout
+        self.flight_seq = flight_seq
+
+    def _host_owner_sharded(self):
+        """Each owner's real rows, straight off its own outputs: returns
+        (host leaves, the counts-trimmed blocks concatenated in owner
+        order; ``sel_idx``, query j's row in that compact layout)."""
+        n_dev, c_slot, counts = self._owner
+        assert len(self._out) == n_dev, "one output set per mesh entry"
+        host = {}
+        for k in self._out[0]:
+            parts = []
+            for g, outs in enumerate(self._out):
+                # each entry holds ONLY its own c_slot slots: a full-size
+                # block here would mean the outputs were combined
+                assert outs[k].shape[0] == c_slot, (
+                    f"owner-sharded output {k!r} holds {outs[k].shape[0]} "
+                    f"slots (want {c_slot})"
+                )
+                parts.append(_to_host(outs[k][: int(counts[g])]))
+            host[k] = np.concatenate(parts)
+        starts = np.concatenate(([0], np.cumsum(counts)))[:-1]
+        pos = np.asarray(self._pos)
+        return host, starts[pos // c_slot] + pos % c_slot
+
+    def fetch(self) -> QueryResults:
+        t0 = time.perf_counter()
+        if self._owner is not None:
+            out, sel_idx = self._host_owner_sharded()
+            sel = lambda a: np.ascontiguousarray(a[sel_idx])
+        else:
+            out = {k: _to_host(v) for k, v in self._out.items()}
+            if self._pos is None:
+                sel = lambda a: np.ascontiguousarray(a[: self._b])
+            else:
+                sel = lambda a: np.ascontiguousarray(a[self._pos])
+        nbytes = sum(v.nbytes for v in out.values())
+        note_device_stage(
+            self.flight_seq, fetch_ms=(time.perf_counter() - t0) * 1e3,
+            fetch_bytes=nbytes,
+        )
+        add_total("mesh_fetch_bytes", nbytes)
+        self._out = None  # free the device buffers promptly
+        agg = out["agg"]
+        call_count = sel(agg[:, 0])
+        extra = {k: sel(out[k]) for k in ("pc_call", "pc_tok", "or_words")
+                 if k in out}
+        return QueryResults(
+            exists=call_count > 0,
+            call_count=call_count,
+            n_variants=sel(agg[:, 1]),
+            all_alleles_count=sel(agg[:, 2]),
+            n_matched=sel(agg[:, 3]),
+            overflow=sel(agg[:, 4]) > 0,
+            rows=sel(out["rows"]),
+            **extra,
+        )
+
+
+@dataclasses.dataclass
+class FusedBlock:
+    """One mesh entry's block of the mesh-sharded fused index:
+    ``columns`` int32 [11, n_pad], ``alt_prefix`` int32 [n_pad, 4]
+    (the entry's shards concatenated and padded to the common row
+    count), ``offsets`` int32 [d_local, 27] (block-absolute segment
+    rows), ``seg_base`` int32 [d_local] (each shard's first block row)
+    and, with planes, ``planes`` = (gt,) or (gt, gt2, tok1, tok2), each
+    int32 [n_pad, W]."""
+
+    device: torch.device
+    columns: torch.Tensor
+    alt_prefix: torch.Tensor
+    offsets: torch.Tensor
+    seg_base: torch.Tensor
+    planes: tuple | None = None
+
+
+class MeshFusedIndex:
+    """The fused stacked index (``ops.kernel.FusedDeviceIndex`` layout:
+    contiguous per-shard row spans and a per-shard segment table),
+    sharded over a 1-D mesh.
+
+    Datasets are grouped round-robin-contiguously: mesh entry g owns
+    shards ``[g * d_local, (g + 1) * d_local)`` as ONE fused block
+    (``FusedBlock``), uploaded to that entry's device, so each entry
+    holds only its own block. Empty trailing groups (fewer shards than
+    ``n_dev * d_local``) reuse group 0's column dtypes with zero
+    offsets: every row span there is empty.
+
+    :meth:`run_mesh_queries` answers a batch of (shard, query) pairs
+    with one ``mesh_fused`` launch per entry, in the index's ``layout``.
+    Under the two sliced layouts (``LAYOUT_OWNER``, the default, and
+    ``LAYOUT_SLICED``) the encoded batch is split by owning entry
+    (owner-sorted permute), so each entry evaluates only the queries
+    targeting its shards; ``LAYOUT_REPLICATED`` runs the whole batch on
+    every entry, masked by ownership. A one-entry mesh or an empty batch
+    always takes the replicated layout. Owner-sharded outputs
+    (``LAYOUT_OWNER``) need no combine; otherwise the scalar
+    aggregates fan in through ``_psum`` and the hit rows (with the plane
+    blocks) through the ring gather ``ops.gather_kernel``. Row ids come
+    back dataset-local. Built ``with_planes=True``, the genotype planes
+    stack group-wise with their datasets and plane-reading query shapes
+    ride the same launch with per-query sample masks.
+
+    The serving micro-batcher treats this index like a FusedDeviceIndex:
+    ``submit_many(index, specs, shard_ids=...)`` coalesces concurrent
+    queries for different datasets into one launch
+    (``ops.run_queries_auto`` dispatches on ``run_mesh_queries``).
+
+    Deliberate differences from the JAX package: the slice width
+    ``c_slot`` is the largest per-entry count and the replicated batch is
+    not padded (a CUDA kernel compiles no shapes, and the JAX package's
+    tier ladder is not ported); ``plane_bytes_per_device`` counts the
+    card's real ``W * 4`` bytes a row; uploads are never donated; the
+    layout is the constructor's ``layout`` argument alone (the JAX
+    package's call arguments, config knobs and ``BEACON_MESH_SLICE`` /
+    ``BEACON_MESH_OWNER_OUTPUTS`` are not kept).
+    """
+
+    PAD_UNIT = DeviceIndex.PAD_UNIT
+
+    def __init__(
+        self,
+        shards: list[VariantIndexShard],
+        mesh: Mesh,
+        *,
+        axis: str = AXIS,
+        pad_unit: int | None = None,
+        with_planes: bool = False,
+        layout: int = LAYOUT_OWNER,
+    ):
+        if not shards:
+            raise ValueError("MeshFusedIndex needs at least one shard")
+        self.mesh = mesh
+        self.axis = axis
+        if layout not in (LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED):
+            raise ValueError(f"unknown layout {layout}")
+        #: run_mesh_queries' output layout (a LAYOUT_* constant)
+        self.layout = layout
+        n_dev = mesh.size
+        d = len(shards)
+        d_local = -(-d // n_dev)  # shards per entry, last groups may pad
+        self.n_dev = n_dev
+        self.d_local = d_local
+        self.n_shards = d
+
+        groups = [shards[g * d_local : (g + 1) * d_local] for g in range(n_dev)]
+        stacked = [stack_shard_columns(grp) if grp else None for grp in groups]
+        n_rows = [int(e[2][-1]) if e else 0 for e in stacked]
+        n_pad = padded_rows(max(n_rows), pad_unit or self.PAD_UNIT)
+        proto_cols = stacked[0][0]
+        offsets = np.zeros((n_dev, d_local, N_CHROM_CODES + 1), np.int32)
+        seg_base = np.zeros((n_dev, d_local), np.int32)
+
+        self.plane_words = 0
+        self.has_planes = False
+        self.has_count_planes = False
+        attrs = ()
+        if with_planes and all(s.gt_bits is not None for s in shards):
+            self.plane_words = max(s.gt_bits.shape[1] for s in shards)
+            self.has_planes = True
+            self.has_count_planes = all(s.has_count_planes for s in shards)
+            attrs = _PLANE_ATTRS if self.has_count_planes else _PLANE_ATTRS[:1]
+
+        self.blocks: list[FusedBlock] = []
+        for g, dev in enumerate(mesh.devices):
+            if stacked[g] is None:
+                cols = {k: np.empty((0,) + v.shape[1:], v.dtype)
+                        for k, v in proto_cols.items()}
+            else:
+                cols, offs, base = stacked[g]
+                offsets[g, : offs.shape[0]] = offs
+                seg_base[g, : offs.shape[0]] = base[:-1].astype(np.int32)
+            columns, alt_prefix = _upload_columns(cols, n_rows[g], n_pad, dev)
+            planes = tuple(
+                self._group_plane(groups[g], a, n_pad, dev) for a in attrs
+            ) or None
+            self.blocks.append(FusedBlock(
+                device=torch.device(dev), columns=columns,
+                alt_prefix=alt_prefix,
+                offsets=torch.from_numpy(offsets[g].copy()).to(dev),
+                seg_base=torch.from_numpy(seg_base[g].copy()).to(dev),
+                planes=planes,
+            ))
+        #: host copy of the segment tables, [n_dev, d_local, 27]
+        self.chrom_offsets = offsets
+        #: device bytes the stacked planes take on each entry (0 without
+        #: planes): what the owner registers against the engine's plane
+        #: budget ledger
+        self.plane_bytes_device = (
+            self.plane_bytes_per_device(
+                shards, n_dev=n_dev, pad_unit=pad_unit or self.PAD_UNIT)
+            if self.has_planes else 0
+        )
+        self.n_padded = n_pad
+        self.n_iters = bisect_iters(n_pad)
+        #: the widest (shard, chromosome) segment of every block:
+        #: run_mesh_queries clamps its window_cap to this
+        self.window_hint = window_hint_for(offsets)
+
+    def _group_plane(self, grp, attr, n_pad, dev) -> torch.Tensor:
+        """One plane of a group: its shards' rows concatenated, padded to
+        ``n_pad`` rows and the widest shard's words, on ``dev``."""
+        if not grp:
+            return torch.zeros((n_pad, self.plane_words), dtype=torch.int32,
+                               device=dev)
+        out = np.zeros((n_pad, self.plane_words), np.uint32)
+        r0 = 0
+        for sh in grp:
+            a = getattr(sh, attr)
+            out[r0 : r0 + a.shape[0], : a.shape[1]] = a
+            r0 += a.shape[0]
+        return staged_upload(out, dev)
+
+    @classmethod
+    def plane_bytes_per_device(cls, shards, *, n_dev: int,
+                               pad_unit: int | None = None) -> int:
+        """Device bytes the group-stacked genotype planes take on each
+        mesh entry (group row padding, the widest shard's W, the
+        count-plane multiplicity): the card's real ``W * 4`` bytes a
+        row, where the JAX package counts XLA's 128-lane padding of W.
+        The dispatch tier's budget gate asks this."""
+        if not shards or any(s.gt_bits is None for s in shards):
+            return 0
+        d_local = -(-len(shards) // n_dev)
+        groups = [shards[g * d_local : (g + 1) * d_local] for g in range(n_dev)]
+        rows = max(sum(s.n_rows for s in g) for g in groups)
+        n_pad = padded_rows(rows, pad_unit or cls.PAD_UNIT)
+        W = max(s.gt_bits.shape[1] for s in shards)
+        n_planes = 4 if all(s.has_count_planes for s in shards) else 1
+        return n_pad * W * 4 * n_planes
+
+    def shard_id(self, position: int) -> int:
+        """Global shard id of the ``position``-th shard of the build
+        list: entry ``position // d_local``, local slot ``% d_local``;
+        contiguous by construction, so the identity."""
+        return position
+
+    def _slice_layout(self, enc, masks, use_counts):
+        """Owner-sorted sliced layout: entry g's queries occupy slots
+        ``[g * C, g * C + counts[g])`` of ``[n_dev * C]`` arrays, C being
+        the largest per-entry count. Filler slots carry chrom code 0 (an
+        empty row span in every shard) aimed at their own entry's first
+        local shard, which may lie past ``n_shards`` in an empty trailing
+        group, whose span is empty too. Returns ``(enc, masks,
+        use_counts, positions, counts, c_slot)``: ``positions[j]`` is
+        query j's slot (the inverse permute at fetch) and ``counts[g]``
+        entry g's real query count."""
+        shard = np.asarray(enc["shard"])
+        b = shard.shape[0]
+        owner = shard // self.d_local
+        counts = np.bincount(owner, minlength=self.n_dev)
+        c_slot = int(counts.max())
+        order = np.argsort(owner, kind="stable")
+        starts = np.concatenate(([0], np.cumsum(counts)))[:-1]
+        ranks = np.arange(b, dtype=np.int64) - np.repeat(starts, counts)
+        pos = np.empty(b, dtype=np.int64)
+        pos[order] = owner[order] * c_slot + ranks
+        total = self.n_dev * c_slot
+        out = {}
+        for k, v in enc.items():
+            if k == "shard":
+                arr = np.repeat(
+                    np.arange(self.n_dev, dtype=np.int32)
+                    * np.int32(self.d_local),
+                    c_slot,
+                )
+            else:
+                arr = np.zeros((total,) + v.shape[1:], v.dtype)
+            arr[pos] = v
+            out[k] = arr
+        if masks is not None:
+            m = np.zeros((total, masks.shape[1]), masks.dtype)
+            m[pos] = masks
+            masks = m
+            uc = np.zeros(total, np.bool_)
+            uc[pos] = use_counts
+            use_counts = uc
+        return out, masks, use_counts, pos, counts, c_slot
+
+    def launch_inputs(self, enc, layout, *, sample_masks=None,
+                      mask_counts=None):
+        """The batch laid out for one ``mesh_fused`` launch per entry:
+        returns ``(entries, positions, counts, C)``, ``entries`` being per
+        mesh entry ``(block, packed slots on its device, the keyword
+        arguments of its launch)``. The sliced layouts take the
+        owner-sorted slots ``[g * C, (g + 1) * C)`` of ``_slice_layout``
+        (``positions``, ``counts`` as it returns them); the replicated
+        layout hands every entry the whole batch (C = B, ``positions``
+        and ``counts`` None). ``sample_masks`` (uint32 [B, W]) arm the
+        plane reduction; ``mask_counts`` ([B] bool, default off) is
+        forced off when the stack has no count planes: restricted
+        counting must then come from the host path, never a zero
+        plane."""
+        b = int(enc["chrom"].shape[0])
+        masks = use_counts = None
+        if sample_masks is not None:
+            masks = np.ascontiguousarray(
+                np.asarray(sample_masks, np.uint32)).view(np.int32)
+            use_counts = np.zeros(b, np.bool_)
+            if mask_counts is not None and self.has_count_planes:
+                use_counts = np.asarray(mask_counts, np.bool_)
+        pos = counts = None
+        if layout == LAYOUT_REPLICATED:
+            C = b
+        else:
+            enc, masks, use_counts, pos, counts, C = self._slice_layout(
+                enc, masks, use_counts)
+        qpack = pack_queries(enc, fused=True)
+        entries = []
+        for g, blk in enumerate(self.blocks):
+            sl = (slice(None) if layout == LAYOUT_REPLICATED
+                  else slice(g * C, (g + 1) * C))
+            put = lambda a: torch.from_numpy(np.ascontiguousarray(
+                a[sl]).astype(np.int32, copy=False)).to(blk.device)
+            kw = dict(me=g, d_local=self.d_local, n_dev=self.n_dev, C=C,
+                      layout=layout, n_iters=self.n_iters)
+            if masks is not None:
+                kw.update(planes=blk.planes, masks=put(masks),
+                          use_counts=put(use_counts),
+                          has_counts=self.has_count_planes)
+            entries.append((blk, put(qpack), kw))
+        return entries, pos, counts, C
+
+    def run_mesh_queries(
+        self,
+        queries,
+        *,
+        window_cap: int = 2048,
+        record_cap: int = 1024,
+        sample_masks=None,
+        mask_counts=None,
+    ) -> QueryResults:
+        """One mesh launch (one ``mesh_fused`` launch per entry, then the
+        combine) answering a (shard, query)-pair batch, read back.
+
+        ``queries``: a pre-encoded dict (``encode_queries`` with
+        ``shard_ids``); a bare list is a loud error, as in the JAX
+        package. ``rows`` come back dataset-local. ``sample_masks``
+        (uint32 [B, W], W = ``plane_words``) arm the plane reduction: each
+        query's matched rows reduce under ITS mask on the owning entry,
+        and the results carry ``pc_call`` / ``pc_tok`` / ``or_words``;
+        ``mask_counts`` ([B] bool) switches a query to genotype-derived
+        counting (forced off when the stack has no count planes). The
+        layout is the index's, replicated on a one-entry mesh or for an
+        empty batch."""
+        if isinstance(queries, list):
+            raise ValueError(
+                "MeshFusedIndex batches must carry explicit shard ids "
+                "(encode_queries(..., shard_ids=...)): a bare list "
+                "would silently target shard 0, which can only answer "
+                "for its own row span"
+            )
+        enc = queries
+        if "shard" not in enc:
+            raise ValueError(
+                "MeshFusedIndex batches must carry shard ids "
+                "(encode_queries(..., shard_ids=...))"
+            )
+        with_planes = sample_masks is not None
+        if with_planes and not self.has_planes:
+            raise ValueError(
+                "sample_masks passed but this stack carries no "
+                "genotype planes (built with_planes=False)"
+            )
+        b = int(enc["chrom"].shape[0])
+        window_cap = min(window_cap, self.window_hint)
+        layout = (self.layout if self.n_dev > 1 and b > 0
+                  else LAYOUT_REPLICATED)
+        entries, pos, counts, local_b = self.launch_inputs(
+            enc, layout, sample_masks=sample_masks, mask_counts=mask_counts)
+        owner_layout = ((self.n_dev, local_b, counts)
+                        if layout == LAYOUT_OWNER else None)
+        outs, seqs = [], []
+        for blk, q, kw in entries:
+            out, seq = mesh_fused(
+                blk.columns, blk.alt_prefix, blk.offsets, blk.seg_base, q,
+                window_cap=window_cap, record_cap=record_cap, **kw,
+            )
+            outs.append(out)
+            seqs.append(seq)
+        if layout != LAYOUT_OWNER:
+            # scalar fan-in: exactly one entry owns each query, so the
+            # psum is a select; the hit rows (+1, so padding and
+            # non-owners add 0) and the plane blocks ride ONE ring pass
+            combined = {"agg": _psum([o["agg"] for o in outs])}
+            names = ["rows"] + (["pc_call", "pc_tok", "or_words"]
+                                if with_planes else [])
+            (got,) = gather_partials_many(
+                [tuple(o[k] for k in names) for o in outs])[:1]
+            combined.update(zip(names, got))
+            combined["rows"] = combined["rows"] - 1
+            outs = combined
+        add_total(MESH_PROGRAM)
+        add_total("mesh_evaluated_pairs", local_b * self.n_dev)
+        # the fetch's stage timing lands on the first kernel launch's
+        # record (None on CPU, which records nothing)
+        return MeshPendingResults(
+            outs, b, pos, seqs[0] if seqs else None,
+            owner_layout=owner_layout).fetch()

@@ -5,9 +5,12 @@ Counterpart of ``sbeacon_tpu/serving.py`` (``MicroBatcher`` with its
 launch stage ``_execute``). The JAX package's separate fetch stage
 (``_fetch_batch``) has no counterpart: both kernels' dispatch reads its
 results back inside the launch, so ``_execute`` hands them out. A
-submission may target shards of a ``FusedDeviceIndex`` (``shard_id`` /
-``shard_ids``): queries for different datasets then share the fused
-index's accumulator and its launch. Plan
+submission may target shards of a ``FusedDeviceIndex`` or of a
+mesh-sharded ``MeshFusedIndex`` (``shard_id`` / ``shard_ids``): queries
+for different datasets then share the index's accumulator and its
+launch; mesh plane submissions (``sample_masks``) accumulate apart and
+each waiter gets its rows of ``pc_call``, ``pc_tok`` and ``or_words``
+too. Plan
 stages, fault points, request deadlines, priority lanes and cost
 attribution are not ported yet; a submit's wait is bounded by the
 batcher's ``default_timeout_s`` alone.
@@ -22,12 +25,15 @@ requests that queue behind an in-flight launch.
 
 from __future__ import annotations
 
+import dataclasses
 import queue
 import threading
 import time
 import weakref
 from collections import deque
 from dataclasses import dataclass
+
+import numpy as np
 
 from .ops import run_queries_auto
 from .ops.kernel import QueryResults, encode_queries
@@ -49,6 +55,10 @@ class _Pending:
     #: per-spec shard ids of a FusedDeviceIndex submission (None for a
     #: single-shard index)
     shard_ids: list | None = None
+    #: per-spec sample masks (uint32 [k, W]) and restricted-count
+    #: switches ([k] bool) of a mesh-tier plane submission
+    sample_masks: object = None
+    mask_counts: object = None
     result: object = None
     error: BaseException | None = None
     t_submit: float = 0.0
@@ -200,16 +210,31 @@ class MicroBatcher:
         window_cap: int,
         record_cap: int,
         shard_ids: list | None = None,
+        sample_masks=None,
+        mask_counts=None,
     ):
         """One submission of several specs (a k-dataset query against a
         FusedDeviceIndex, ``shard_ids`` naming each spec's shard): all
         ride the same batch and so the same launch; the returned
-        QueryResults carries one row per spec in order."""
-        acc = self._accum(dindex, (window_cap, record_cap))
+        QueryResults carries one row per spec in order.
+
+        ``sample_masks`` (+ ``mask_counts``) target the mesh tier's plane
+        reduction; masked submissions accumulate apart from match-only
+        ones (the accumulator key carries ``"planes"``), so each shape
+        coalesces with its own kind and a match-only batch never pays
+        the plane reduction."""
+        caps = (
+            (window_cap, record_cap)
+            if sample_masks is None
+            else (window_cap, record_cap, "planes")
+        )
+        acc = self._accum(dindex, caps)
         me = _Pending(
             specs=list(specs),
             event=threading.Event(),
             shard_ids=None if shard_ids is None else list(shard_ids),
+            sample_masks=sample_masks,
+            mask_counts=mask_counts,
             t_submit=time.perf_counter(),
         )
         with self._stats_lock:
@@ -423,6 +448,21 @@ class MicroBatcher:
         shard_ids = None
         if batch and batch[0].shard_ids is not None:
             shard_ids = [s for p in batch for s in p.shard_ids]
+        # plane inputs (mesh tier): the accumulator key keeps masked and
+        # unmasked submissions apart, so presence on the first entry
+        # means presence on all
+        planes = {}
+        if batch and batch[0].sample_masks is not None:
+            planes["sample_masks"] = np.concatenate(
+                [np.asarray(p.sample_masks) for p in batch]
+            )
+            planes["mask_counts"] = np.concatenate([
+                np.asarray(
+                    p.mask_counts if p.mask_counts is not None
+                    else np.zeros(len(p.specs), np.bool_)
+                )
+                for p in batch
+            ])
         t_launch = time.perf_counter()
         with self._stats_lock:
             self._batch_hist[len(batch)] = (
@@ -436,7 +476,8 @@ class MicroBatcher:
         enc = encode_queries(specs, shard_ids=shard_ids)
         t_enc = time.perf_counter()
         res = run_queries_auto(
-            dindex, enc, window_cap=window_cap, record_cap=record_cap
+            dindex, enc, window_cap=window_cap, record_cap=record_cap,
+            **planes,
         )
         t_done = time.perf_counter()
         with self._stats_lock:
@@ -446,13 +487,9 @@ class MicroBatcher:
                 self._exec_ms.append((t_done - t_launch) * 1e3)
         for p, off in zip(batch, offsets):
             sl = slice(off, off + len(p.specs))
-            p.result = QueryResults(
-                exists=res.exists[sl],
-                call_count=res.call_count[sl],
-                n_variants=res.n_variants[sl],
-                all_alleles_count=res.all_alleles_count[sl],
-                n_matched=res.n_matched[sl],
-                overflow=res.overflow[sl],
-                rows=res.rows[sl],
-            )
+            p.result = QueryResults(**{
+                f.name: None if getattr(res, f.name) is None
+                else getattr(res, f.name)[sl]
+                for f in dataclasses.fields(QueryResults)
+            })
             p.event.set()

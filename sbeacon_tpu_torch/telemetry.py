@@ -21,6 +21,9 @@ _counts: dict[str, int] = {}
 _seq = 0
 #: the most recent launch records, newest last (bounded)
 _recent: deque = deque(maxlen=4096)
+#: cumulative per-name totals that are not launch counts (e.g. the mesh
+#: tier's evaluated (entry, query-slot) pairs)
+_totals: dict[str, int] = {}
 
 
 def record_device_launch(kernel: str, **kw) -> int:
@@ -52,10 +55,23 @@ def launch_count(kernel: str) -> int:
         return _counts.get(kernel, 0)
 
 
+def add_total(name: str, n: int = 1) -> None:
+    """Add ``n`` to the cumulative total ``name``."""
+    with _lock:
+        _totals[name] = _totals.get(name, 0) + int(n)
+
+
+def total(name: str) -> int:
+    with _lock:
+        return _totals.get(name, 0)
+
+
 def reset_launch_counts() -> None:
-    """Zero every kernel's count and drop the launch records."""
+    """Zero every kernel's count and every total, and drop the launch
+    records."""
     with _lock:
         _counts.clear()
+        _totals.clear()
         _recent.clear()
 
 

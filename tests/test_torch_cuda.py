@@ -1,7 +1,8 @@
 """The CUDA kernels (scatter match, bisection query, fused match +
-planes, plane stats, distinct count, stacked query, stacked selected)
-against their plain-PyTorch twins, and the device time probes on CUDA
-events.
+planes, plane stats, distinct count, stacked query, stacked selected,
+owner-sliced fused query, ring gather) against their plain-PyTorch
+twins, the mesh launch and the pod tier on the card against the CPU,
+and the device time probes on CUDA events.
 
 Runs only where a CUDA device is present (marker ``cuda``); elsewhere
 every test skips. It imports nothing of the JAX package, so it runs on
@@ -622,3 +623,164 @@ def test_engine_mesh_leg_on_card(cuda_device, monkeypatch):
     finally:
         for eng in engines:
             eng.close()
+
+
+@pytest.fixture(scope="module")
+def fused_meshes(cuda_device):
+    """Mesh-sharded fused indexes on two and three entries of the card:
+    the plain shards, and the plane shards (40 and 70 samples, count
+    planes) whose last group of three entries is empty."""
+    plain, with_planes = _stack_shards()
+    out = {}
+    for n in (2, 3):
+        mesh = tm.make_mesh(devices=[cuda_device] * n)
+        out[("plain", n)] = (tm.MeshFusedIndex(plain, mesh), plain)
+        out[("planes", n)] = (
+            tm.MeshFusedIndex(with_planes, mesh, with_planes=True),
+            with_planes)
+    return out
+
+
+def _fused_inputs(mfi, specs, sids, layout, masks=None, counts=None):
+    """Per entry (block, packed slots, keyword arguments of mesh_fused),
+    laid out as run_mesh_queries lays the batch out."""
+    entries = mfi.launch_inputs(encode_queries(specs, shard_ids=sids), layout,
+                                sample_masks=masks, mask_counts=counts)[0]
+    return [(blk, q, dict(kw, window_cap=2048, record_cap=64))
+            for blk, q, kw in entries]
+
+
+LAYOUTS = (0, 1, 2)  # tm.LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "planes"])
+@pytest.mark.parametrize("n", [2, 3])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b", [1, 16, 64, 512])
+def test_mesh_fused_kernel_matches_twin(fused_meshes, kind, n, layout, b):
+    """Both entry points (match-only, with planes), every layout, against
+    the twin on every entry; counts on for every other query."""
+    mfi, shards = fused_meshes[(kind, n)]
+    specs, sids = _fused_specs(shards, b, seed=13 * b + n)
+    masks = counts = None
+    if kind == "planes":
+        masks = _masks(b, mfi.plane_words, seed=b)
+        counts = np.arange(b) % 2 == 0
+    for blk, q, kw in _fused_inputs(mfi, specs, sids, layout, masks, counts):
+        args = (blk.columns, blk.alt_prefix, blk.offsets, blk.seg_base, q)
+        got, seq = tm.mesh_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert seq is not None
+        want = tm.local_fused_reference(*args, **kw)
+        assert set(got) == set(want)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["plain", "planes"])
+@pytest.mark.parametrize("layout", ["owner", "sliced", "replicated"])
+def test_run_mesh_queries_on_card_equals_cpu(fused_meshes, kind, layout):
+    """The whole mesh launch on three entries of the card (J6 on each,
+    then P1 in the combined layouts) answers as the CPU mesh does, with
+    one mesh_fused launch per entry and n(n-1) ring steps."""
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+
+    mfi, shards = fused_meshes[(kind, 3)]
+    cpu = tm.MeshFusedIndex(shards, tm.make_mesh(devices=["cpu"] * 3),
+                            with_planes=kind == "planes",
+                            layout={"owner": tm.LAYOUT_OWNER,
+                                    "sliced": tm.LAYOUT_SLICED,
+                                    "replicated": tm.LAYOUT_REPLICATED}[layout])
+    mfi.layout = cpu.layout
+    specs, sids = _fused_specs(shards, 48, seed=5)
+    kw = dict(window_cap=2048, record_cap=64)
+    if kind == "planes":
+        kw.update(sample_masks=_masks(48, mfi.plane_words, seed=6),
+                  mask_counts=np.arange(48) % 3 == 0)
+    telemetry.reset_launch_counts()
+    got = mfi.run_mesh_queries(encode_queries(specs, shard_ids=sids), **kw)
+    assert tm.mesh_fused_launches == 3
+    assert tg.ring_gather_launches == (0 if layout == "owner" else 6)
+    want = cpu.run_mesh_queries(encode_queries(specs, shard_ids=sids), **kw)
+    for f in ("exists", "call_count", "n_variants", "all_alleles_count",
+              "n_matched", "overflow", "rows", "pc_call", "pc_tok",
+              "or_words"):
+        a, w = getattr(got, f), getattr(want, f)
+        assert (a is None) == (w is None), f
+        if a is not None:
+            np.testing.assert_array_equal(a, w, f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("shape", [(64, 1024), (64, 3 * 1024 + 79), (7, 13)])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_ring_gather_matches_twin(cuda_device, n, shape, misaligned):
+    """The ring on n entries of the card: every entry ends with the int32
+    sum (wrapping), the inputs unchanged, n(n-1) launches."""
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+
+    g = np.random.default_rng(n)
+    numel = int(np.prod(shape))
+    parts = []
+    for _ in range(n):
+        t = torch.from_numpy(g.integers(-2**31, 2**31, size=numel,
+                                        dtype=np.int64).astype(np.int32))
+        if misaligned:
+            base = torch.empty(numel + 1, dtype=torch.int32,
+                               device=cuda_device)
+            base[1:] = t.to(cuda_device)
+            parts.append(base[1:].view(shape))
+        else:
+            parts.append(t.to(cuda_device).view(shape))
+    keep = [p.clone() for p in parts]
+    telemetry.reset_launch_counts()
+    got = tg.ring_gather(parts)
+    torch.cuda.synchronize()
+    assert tg.ring_gather_launches == n * (n - 1)
+    want = tg.gather_partials_portable([p.cpu() for p in parts])
+    for x in got:
+        assert torch.equal(x.cpu(), want)
+    for a, b in zip(parts, keep):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tier_on_card_equals_cpu(cuda_device):
+    """The pod tier over two entries of the card answers as over two CPU
+    entries, through mesh_fused."""
+    from sbeacon_tpu_torch.parallel.dispatch import MeshDispatchTier
+
+    _plain, with_planes = _stack_shards()
+    answers = []
+    for dev in (cuda_device, torch.device("cpu")):
+        eng = VariantEngine(BeaconConfig(engine=EngineConfig(
+            microbatch_wait_ms=0.0)), device=dev)
+        tier = MeshDispatchTier(eng, devices=[dev] * 2)
+        try:
+            for s in with_planes:
+                eng.add_index(s)
+            assert tier.warmup() == 2
+            telemetry.reset_launch_counts()
+            out = []
+            for sel in (False, True):
+                payload = VariantQueryPayload(
+                    dataset_ids=["p", "w"], reference_name="1", start_min=1,
+                    start_max=30_000, end_min=1, end_max=1 << 30,
+                    alternate_bases="N", requested_granularity="record",
+                    include_datasets="HIT", include_samples=True,
+                    selected_samples_only=sel,
+                    sample_names={"p": ["S1", "S7", "S30"],
+                                  "w": ["W3", "W69"]} if sel else {})
+                ds = tier.resolve(["p", "w"], payload)
+                assert ds == {"p", "w"}
+                out.append(tier.search(payload, ds))
+            if dev.type == "cuda":
+                assert tm.mesh_fused_launches == 4
+            answers.append(out)
+        finally:
+            tier.close()
+            eng.close()
+    assert answers[0] == answers[1]

@@ -21,12 +21,14 @@ import torch
 from sbeacon_tpu_torch import ops as t_ops
 from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
 from sbeacon_tpu_torch.engine import VariantEngine
+from sbeacon_tpu_torch.ops import gather_kernel as tg
 from sbeacon_tpu_torch.ops import plane_kernel as tpk
 from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
 from sbeacon_tpu_torch.ops import timing
 from sbeacon_tpu_torch.parallel import distinct as td
 from sbeacon_tpu_torch.parallel import mesh as tm
+from sbeacon_tpu_torch.parallel.dispatch import MeshDispatchTier
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.testing import synthetic_shard
 
@@ -62,6 +64,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(names) >= 21  # every module of the slices was imported
     assert {"sbeacon_tpu_torch.ops.plane_kernel",
+            "sbeacon_tpu_torch.ops.gather_kernel",
+            "sbeacon_tpu_torch.parallel.dispatch",
             "sbeacon_tpu_torch.ops.scatter_kernel",
             "sbeacon_tpu_torch.ops.timing",
             "sbeacon_tpu_torch.parallel.distinct",
@@ -160,7 +164,10 @@ def test_device_planes_option_builds_and_serves():
      td.distinct_count_device, tsk._probe_one_tier, tsk.device_time_probe,
      tpk.device_plane_probe, timing.device_ms, timing.cold_device_ms,
      tm.stacked_query, tm.stacked_selected, tm.sharded_query,
-     tm.sharded_selected_query, VariantEngine._mesh_search],
+     tm.sharded_selected_query, VariantEngine._mesh_search,
+     tm.mesh_fused, tm.MeshFusedIndex.run_mesh_queries,
+     tm.MeshPendingResults.fetch, tg.ring_step, tg.ring_gather,
+     tg.gather_partials, tg.gather_partials_many, MeshDispatchTier.search],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the
