@@ -61,13 +61,15 @@ non-zero, without the final line):
     each: the same sites submitted again), about 7e7 keys on the card;
 16. kernel vs twin (distinct_count): crafted key sets (every key equal,
     one column differing, high-bit patterns, pad rows, 0-1000 keys),
-    partition_keys blocks, and the full key set, at tolerance 0;
+    partition_keys blocks, and the full key set, at tolerance 0, each
+    with the passes its buckets spilled to;
 17. distinct path: distinct_count_device over every shard on the card,
     equal to the count without the subsets and to the host oracle
     distinct_variant_count on the shards without them; launch counts
     zeroed just before and read just after;
 18. timing: distinct_count at the full key set (L2 cold and warm) beside
-    its bound, its twin and torch.unique(keys, dim=0); the device time
+    its bound, its twin and torch.unique(keys, dim=0), and the device ms
+    of each of its four kernels from a torch.profiler trace; the device time
     probes on the main-path index (phase 4's query mix, and C=1 exact
     points, which must agree with phase 5's time within 1.5x) and on
     phase 14's plane-stats row set;
@@ -1222,7 +1224,8 @@ def compare_distinct(keys, device):
     key equal, one column differing, high-bit patterns, pad rows, 0, 1,
     2 and 1000 keys), ``partition_keys`` blocks of the first 1e6 keys (one
     padded block, and four), and the full key set ``keys`` (a device
-    tensor); returns (max_abs_err, report rows)."""
+    tensor), each with the passes its buckets spilled to; returns
+    (max_abs_err, report rows)."""
     import torch
 
     from sbeacon_tpu_torch.parallel import distinct as dc
@@ -1236,14 +1239,16 @@ def compare_distinct(keys, device):
     report, worst = [], 0
     for label, k in cases + [("full", keys)]:
         t = torch.as_tensor(k).to(device)
-        count, _seq = dc.distinct_count(t)
+        spills = torch.zeros((), dtype=torch.int64, device=device)
+        count, _seq = dc.distinct_count(t, spills=spills)
         torch.cuda.synchronize()
         got = int(count)
         want = int(dc.distinct_count_reference(t))
         worst = max(worst, abs(got - want))
         check(got == want, f"{label}: distinct_count {got} != twin {want}")
         report.append({"case": label, "keys": int(t.shape[0]),
-                       "distinct": want, "equal": got == want})
+                       "distinct": want, "equal": got == want,
+                       "spill_passes": int(spills)})
     return worst, report
 
 
@@ -1264,6 +1269,30 @@ def event_ms(fn, arg, reps=3):
         torch.cuda.synchronize()
         out.append(start.elapsed_time(stop))
     return float(np.mean(out))
+
+
+def kernel_breakdown(fn, arg):
+    """Device ms of each CUDA kernel that one call of ``fn(arg)`` runs
+    (a warm call first), by kernel name, from a ``torch.profiler`` trace
+    of the card; an empty dict when the trace holds no device time."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(arg)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us:
+            name = re.sub(r"\(anonymous namespace\)::", "", ev.key)
+            name = name.split("(")[0].split("::")[-1].strip()
+            out[name] = out.get(name, 0.0) + us / 1e3
+    return out
 
 
 def time_distinct(keys, device):
@@ -2305,11 +2334,14 @@ def run(args, device) -> int:
     keys_np = dc.shard_keys(all_shards)
     keys = torch.from_numpy(keys_np).to(device)
     del keys_np
+    plan = dc.bucket_plan(
+        keys.shape[0], torch.cuda.get_device_properties(device)
+        .multi_processor_count)
     emit("distinct_setup", shards={s.meta["dataset_id"]: s.n_rows
                                    for s in all_shards},
          keys=int(keys.shape[0]), key_bytes=keys.numel() * 4,
-         table_slots=dc.table_slots(keys.shape[0]),
-         table_bytes=dc.table_slots(keys.shape[0]) * dc.SLOT_BYTES,
+         buckets=plan["buckets"], scratch_bytes=plan["scratch_bytes"],
+         hist_blocks=plan["blocks"], table_limit=plan["table_limit"],
          subset_s=t_sub)
 
     # 16. distinct_count vs its twin at tolerance 0
@@ -2355,7 +2387,9 @@ def run(args, device) -> int:
     emit("timing", kernel=dc.KERNEL, keys=int(keys.shape[0]), ms=dms,
          warm_ms=dwarm, plain_ms=dplain, library_ms=dlib,
          library_call="torch.unique(keys, dim=0)", bound_ms=dbound,
-         bound_by=dby, bound_share=dbound / dms, device=kind, nvidia_smi=smi)
+         bound_by=dby, bound_share=dbound / dms,
+         stages_ms=kernel_breakdown(dc.distinct_count, keys),
+         device=kind, nvidia_smi=smi)
     value_keys = int(keys.shape[0])
     del keys
     torch.cuda.empty_cache()

@@ -9,7 +9,8 @@
 // seg_base[d_local], each shard's first block row. One launch answers
 // the entry's query slots.
 //
-// What it computes, per query slot j (one block per output slot):
+// What it computes, per query slot j (one block per output slot, or with
+// planes one cluster of blocks):
 //   1. sid = shard - me * d_local from the slot's global shard id; the
 //      entry owns the slot iff 0 <= sid < d_local; sid is clamped;
 //   2. the per-query body of bisect_core.cuh over segment row
@@ -31,11 +32,42 @@
 //
 // What bounds it on this card: latency, as for bisect_query (a point
 // query's cost is its two dependent searches); with planes, then the
-// bytes of the matched rows' plane words (W words each, x4 with counts),
-// from planes of GBs far above the 50 MB L2. Design: one 256-thread
-// block per slot, the matched rows kept in shared memory from the search
-// to the column gathers and the plane reduction, plane offsets 64-bit
-// (a block's plane passes 4 GiB at 1000-Genomes width).
+// dependent HBM reads of the matched rows' plane words (W words each, x4
+// with counts) from planes of GBs far above the 50 MB L2.
+//
+// Design, match-only: one 256-thread block per slot, the matched rows
+// kept in shared memory from the search to the column gathers.
+//
+// Design, with planes: a cluster of kCluster blocks per output slot,
+// launched with cudaLaunchKernelEx and a cluster dimension (sm_90), so
+// one slot's plane reads run on kCluster SMs:
+//   1. the leader (rank 0) runs the search and the column gathers and
+//      keeps the rows, their columns and n_valid in its shared memory;
+//      cluster.sync;
+//   2. every block copies its contiguous share of the leader's rows
+//      through distributed shared memory and, with counts, reads their
+//      four planes' words (plane_reduce::row_popcounts: kRB rows a warp,
+//      every load of kU chunks issued before any is used), writes the
+//      popcounts to the outputs and to the leader's shared memory, and
+//      keeps its rows' masked gt words in a shared cache as far as they
+//      fit; cluster.sync;
+//   3. the leader computes rc and or_sel (four scans in log depth over
+//      the valid lanes, plane_reduce::or_select); cluster.sync;
+//   4. every block reads its share's or_sel from the leader, ORs those
+//      rows' gt words (from its cache, else from the plane) into a local
+//      accumulator and then into the leader's with remote atomicOr;
+//      cluster.sync; the leader writes or_words.
+// Only the leader's shared memory is read remotely, and it leaves last.
+// What bounds this design: the leader's serial search and scans between
+// the cluster barriers, then one or two rounds of dependent plane loads
+// per block (kWarps * kRB rows in flight on each SM). A slot the entry
+// does not own is decided alike in every block of its cluster: the
+// leader writes its structural zeros and the cluster leaves together,
+// before any barrier. Plane offsets are 64-bit (a block's plane passes
+// 4 GiB at 1000-Genomes width). A launch the card refuses returns its
+// error; there is no one-block fallback.
+
+#include <cooperative_groups.h>
 
 #include "bisect_core.cuh"
 #include "plane_reduce.cuh"
@@ -43,22 +75,50 @@
 namespace {
 
 using namespace bisect;
+namespace cg = cooperative_groups;
 
 constexpr int kMeshAgg = 5;
 constexpr int kOwner = 0;
 constexpr int kSliced = 1;
+// blocks of one slot's cluster (the portable maximum)
+constexpr int kCluster = 8;
+// dynamic shared memory a planes block may take with its gt cache
+constexpr long long kSmemCap = 200 * 1024;
 
 __host__ __device__ constexpr long long align16(long long x) {
   return (x + 15) / 16 * 16;
 }
 
-// Dynamic shared memory of one block: the search window and the R matched
-// rows; with planes also flags, ac, an, rec_id and two scan buffers over
-// the R lanes, the mask and the OR words (2 W) and or_sel (R bytes).
-__host__ __device__ constexpr long long fused_smem(int Wwin, int R, int W,
-                                                   bool planes) {
+// Rows of one cluster block's share of the R lanes.
+__host__ __device__ constexpr int share_rows(int R) {
+  return (R + kCluster - 1) / kCluster;
+}
+
+// Dynamic shared memory of one block before its gt cache: the search
+// window and the R matched rows; with planes also, over the R lanes,
+// flags, ac, an, rec_id, the two popcounts and two scan buffers, the
+// mask and the OR words (2 W), the share's rows and or_sel list, and
+// or_sel (R bytes).
+__host__ __device__ constexpr long long base_smem(int Wwin, int R, int W,
+                                                  bool planes) {
   return align16(window_smem(Wwin)) +
-         (planes ? 28LL * R + 8LL * W + R : 4LL * R);
+         (planes ? align16(36LL * R + 8LL * W + 8LL * share_rows(R) + R)
+                 : 4LL * R);
+}
+
+// Words of the gt cache: the share's rows' masked gt words (with counts
+// only), as far as kSmemCap allows.
+__host__ __device__ constexpr long long cache_words(int Wwin, int R, int W,
+                                                    bool counts) {
+  const long long room = (kSmemCap - base_smem(Wwin, R, W, true)) / 4;
+  const long long want = static_cast<long long>(share_rows(R)) * W;
+  return !counts || room <= 0 ? 0 : (want < room ? want : room);
+}
+
+__host__ __device__ constexpr long long fused_smem(int Wwin, int R, int W,
+                                                   int planes) {
+  return base_smem(Wwin, R, W, planes != 0) +
+         4 * cache_words(Wwin, R, W, planes == 2);
 }
 
 struct Args {
@@ -78,17 +138,14 @@ struct Args {
   uint32_t* or_words;
   int Wwin, R, W;
   bool has_counts;
+  int cache_rows;
 };
 
-template <bool kPlanes>
 __global__ void __launch_bounds__(kThreads) mesh_fused_kernel(Args p) {
   extern __shared__ int32_t smem[];
   int32_t* win = smem;
   int32_t* s_row = smem + align16(window_smem(p.Wwin)) / 4;
   const int R = p.R;
-  const int W = p.W;
-  // one block per output slot o; in the sliced layout only the slots
-  // [me * C, me * C + n_slots) hold this entry's queries
   const size_t o = blockIdx.x;
   const int j = p.layout == kSliced ? static_cast<int>(o) - p.me * p.C
                                     : static_cast<int>(o);
@@ -101,22 +158,11 @@ __global__ void __launch_bounds__(kThreads) mesh_fused_kernel(Args p) {
   const bool combine = p.layout != kOwner;
   int32_t* agg = p.agg + o * kMeshAgg;
   int32_t* rows = p.rows + o * R;
-
   if (!owned) {  // block-uniform: structural zeros, no search
     if (tid < kMeshAgg) agg[tid] = 0;
-    for (int k = tid; k < R; k += kThreads) {
-      rows[k] = combine ? 0 : -1;
-      if (kPlanes) {
-        p.pc_call[o * R + k] = 0;
-        p.pc_tok[o * R + k] = 0;
-      }
-    }
-    if (kPlanes) {
-      for (int w = tid; w < W; w += kThreads) p.or_words[o * W + w] = 0u;
-    }
+    for (int k = tid; k < R; k += kThreads) rows[k] = combine ? 0 : -1;
     return;
   }
-
   const Agg a = query_block(p.cols, p.n_pad, p.alt_prefix,
                             p.offsets + static_cast<size_t>(sidc) * kSegs, qp,
                             p.Wwin, R, s_row, nullptr, win);
@@ -132,55 +178,198 @@ __global__ void __launch_bounds__(kThreads) mesh_fused_kernel(Args p) {
     const int32_t r = s_row[k];
     rows[k] = r >= 0 ? r - base + (combine ? 1 : 0) : (combine ? 0 : -1);
   }
-  if (!kPlanes) return;
+}
 
+__global__ void __launch_bounds__(kThreads) mesh_fused_planes_kernel(Args p) {
+  extern __shared__ int32_t smem[];
+  __shared__ int32_t s_tot[kWarps];
+  __shared__ int s_nvalid, s_nlist;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int R = p.R;
+  const int W = p.W;
+  const int S = share_rows(R);
+  int32_t* win = smem;
+  int32_t* s_row = smem + align16(window_smem(p.Wwin)) / 4;
   int32_t* s_flags = s_row + R;
   int32_t* s_ac = s_flags + R;
   int32_t* s_an = s_ac + R;
   int32_t* s_rec = s_an + R;
-  plane_reduce::Scratch sc;
-  sc.a = s_rec + R;
-  sc.b = sc.a + R;
-  uint32_t* s_mask = reinterpret_cast<uint32_t*>(sc.b + R);
-  sc.acc = s_mask + W;
-  sc.sel = reinterpret_cast<uint8_t*>(sc.acc + W);
-  __shared__ int32_t s_tot[kThreads];
-  sc.tot = s_tot;
+  int32_t* s_pcc = s_rec + R;
+  int32_t* s_pct = s_pcc + R;
+  int32_t* s_a = s_pct + R;
+  int32_t* s_b = s_a + R;
+  uint32_t* s_mask = reinterpret_cast<uint32_t*>(s_b + R);
+  uint32_t* s_acc = s_mask + W;
+  int32_t* s_lrow = reinterpret_cast<int32_t*>(s_acc + W);
+  int32_t* s_list = s_lrow + S;
+  uint8_t* s_sel = reinterpret_cast<uint8_t*>(s_list + S);
+  uint32_t* cache = reinterpret_cast<uint32_t*>(
+      smem + base_smem(p.Wwin, R, W, true) / 4);  // 16-byte aligned
 
-  const int n_valid = min(a.n_matched, R);
+  const int tid = threadIdx.x;
+  const size_t o = blockIdx.x / kCluster;
+  const int j = p.layout == kSliced ? static_cast<int>(o) - p.me * p.C
+                                    : static_cast<int>(o);
+  const bool mine = j >= 0 && j < p.n_slots;
+  const int32_t* qp = p.qpack + static_cast<size_t>(mine ? j : 0) * kQFields;
+  const int sid = qp[QF_SHARD] - p.me * p.d_local;
+  const bool owned = mine && sid >= 0 && sid < p.d_local;
+  const int sidc = min(max(sid, 0), p.d_local - 1);
+  const bool combine = p.layout != kOwner;
+  int32_t* agg = p.agg + o * kMeshAgg;
+  int32_t* rows = p.rows + o * R;
+  int32_t* pc_call = p.pc_call + o * R;
+  int32_t* pc_tok = p.pc_tok + o * R;
+  if (!owned) {  // cluster-uniform: the leader's zeros, no barrier
+    if (rank == 0) {
+      if (tid < kMeshAgg) agg[tid] = 0;
+      for (int k = tid; k < R; k += kThreads) {
+        rows[k] = combine ? 0 : -1;
+        pc_call[k] = 0;
+        pc_tok[k] = 0;
+      }
+      for (int w = tid; w < W; w += kThreads) p.or_words[o * W + w] = 0u;
+    }
+    return;
+  }
   for (int w = tid; w < W; w += kThreads) {
     s_mask[w] = p.masks[static_cast<size_t>(j) * W + w];
+    s_acc[w] = 0u;
   }
-  for (int k = tid; k < n_valid; k += kThreads) {
-    const long long r = s_row[k];
-    s_flags[k] = p.cols[C_FLAGS * p.n_pad + r];
-    s_ac[k] = p.cols[C_AC * p.n_pad + r];
-    s_an[k] = p.cols[C_AN * p.n_pad + r];
-    s_rec[k] = p.cols[C_REC_ID * p.n_pad + r];
+  if (rank == 0) {
+    const Agg a = query_block(p.cols, p.n_pad, p.alt_prefix,
+                              p.offsets + static_cast<size_t>(sidc) * kSegs,
+                              qp, p.Wwin, R, s_row, nullptr, win);
+    if (tid == 0) {
+      agg[0] = a.call_count;
+      agg[1] = a.n_variants;
+      agg[2] = a.all_alleles;
+      agg[3] = a.n_matched;
+      agg[4] = a.overflow ? 1 : 0;
+      s_nvalid = min(a.n_matched, R);
+    }
+    const int32_t base = p.seg_base[sidc];
+    for (int k = tid; k < R; k += kThreads) {
+      const long long r = s_row[k];
+      rows[k] = r >= 0 ? r - base + (combine ? 1 : 0) : (combine ? 0 : -1);
+      if (k < a.n_matched) {
+        s_flags[k] = p.cols[C_FLAGS * p.n_pad + r];
+        s_ac[k] = p.cols[C_AC * p.n_pad + r];
+        s_an[k] = p.cols[C_AN * p.n_pad + r];
+        s_rec[k] = p.cols[C_REC_ID * p.n_pad + r];
+      }
+    }
   }
-  plane_reduce::reduce<kThreads>(
-      p.gt, p.gt2, p.tok1, p.tok2, s_row, s_flags, s_ac, s_an, s_rec,
-      n_valid, R, W, p.has_counts, p.use_counts[j] != 0, s_mask, sc,
-      p.pc_call + o * R, p.pc_tok + o * R, p.or_words + o * W);
+  cluster.sync();  // 1. the leader's rows, columns and n_valid
+
+  const int n_valid = *cluster.map_shared_rank(&s_nvalid, 0);
+  const int32_t* l_row = cluster.map_shared_rank(s_row, 0);
+  int32_t* l_pcc = cluster.map_shared_rank(s_pcc, 0);
+  int32_t* l_pct = cluster.map_shared_rank(s_pct, 0);
+  const uint8_t* l_sel = cluster.map_shared_rank(s_sel, 0);
+  uint32_t* l_acc = cluster.map_shared_rank(s_acc, 0);
+  const int share = (n_valid + kCluster - 1) / kCluster;
+  const int lo = min(rank * share, n_valid);
+  const int n = min(lo + share, n_valid) - lo;
+  for (int i = tid; i < n; i += kThreads) s_lrow[i] = l_row[lo + i];
+  __syncthreads();
+  if (p.has_counts) {
+    plane_reduce::row_popcounts<kThreads>(
+        p.gt, p.gt2, p.tok1, p.tok2, s_lrow, n, W, s_mask, cache,
+        p.cache_rows, [&](int i, uint32_t c, uint32_t t) {
+          const int k = lo + i;
+          pc_call[k] = static_cast<int32_t>(c);
+          pc_tok[k] = static_cast<int32_t>(t);
+          l_pcc[k] = static_cast<int32_t>(c);
+          l_pct[k] = static_cast<int32_t>(t);
+        });
+    cluster.sync();  // 2. the popcounts are in the leader
+  }
+
+  if (rank == 0) {
+    const bool use_counts = p.has_counts && p.use_counts[j] != 0;
+    for (int k = tid; k < R; k += kThreads) {
+      if (k >= n_valid || !p.has_counts) {
+        pc_call[k] = 0;
+        pc_tok[k] = 0;
+      }
+      if (k < n_valid && use_counts && !(s_flags[k] & plane_reduce::F_AC_INFO)) {
+        s_ac[k] = s_pcc[k];
+      }
+    }
+    plane_reduce::or_select<kThreads>(s_ac, s_rec, n_valid, R, s_a, s_b,
+                                      s_sel, s_tot);
+  }
+  cluster.sync();  // 3. or_sel is in the leader
+
+  if (tid == 0) s_nlist = 0;
+  __syncthreads();
+  for (int i = tid; i < n; i += kThreads) {
+    if (l_sel[lo + i]) s_list[atomicAdd(&s_nlist, 1)] = i;
+  }
+  __syncthreads();
+  plane_reduce::or_rows<kThreads>(p.gt, s_lrow, s_list, s_nlist, W, s_mask,
+                                  cache, p.has_counts ? p.cache_rows : 0,
+                                  s_acc);
+  __syncthreads();
+  if (rank != 0) {
+    for (int w = tid; w < W; w += kThreads) {
+      if (s_acc[w]) atomicOr(&l_acc[w], s_acc[w]);
+    }
+  }
+  cluster.sync();  // 4. every block's OR is in the leader
+  if (rank == 0) {
+    for (int w = tid; w < W; w += kThreads) p.or_words[o * W + w] = s_acc[w];
+  }
 }
 
-template <bool kPlanes>
-int launch(const Args& args, int n_dev, void* stream) {
+int launch_match(const Args& args, int n_dev, void* stream) {
   if (args.n_slots <= 0) return static_cast<int>(cudaSuccess);
   const long long n_out = args.layout == kSliced
                               ? static_cast<long long>(n_dev) * args.C
                               : args.n_slots;
   const size_t smem =
-      static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, kPlanes));
+      static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, 0));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        mesh_fused_kernel<kPlanes>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        mesh_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  mesh_fused_kernel<kPlanes>
-      <<<static_cast<unsigned>(n_out), kThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(args);
+  mesh_fused_kernel<<<static_cast<unsigned>(n_out), kThreads, smem,
+                      static_cast<cudaStream_t>(stream)>>>(args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_planes(Args args, int n_dev, void* stream) {
+  if (args.n_slots <= 0) return static_cast<int>(cudaSuccess);
+  const long long n_out = args.layout == kSliced
+                              ? static_cast<long long>(n_dev) * args.C
+                              : args.n_slots;
+  const int planes = args.has_counts ? 2 : 1;
+  const size_t smem =
+      static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, planes));
+  args.cache_rows = static_cast<int>(
+      cache_words(args.Wwin, args.R, args.W, args.has_counts) / args.W);
+  cudaError_t e = cudaFuncSetAttribute(
+      mesh_fused_planes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(n_out * kCluster));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, mesh_fused_planes_kernel, args);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -188,9 +377,10 @@ int launch(const Args& args, int n_dev, void* stream) {
 
 extern "C" {
 
-// Dynamic shared memory one block takes (planes: 0 or 1).
+// Dynamic shared memory one block takes (planes: 0 match-only, 1 with
+// planes and no counts, 2 with counts).
 long long mesh_fused_smem(int Wwin, int R, int W, int planes) {
-  return fused_smem(Wwin, R, W, planes != 0);
+  return fused_smem(Wwin, R, W, planes);
 }
 
 // Match-only launch: one block of 256 threads per output slot on
@@ -224,13 +414,15 @@ int mesh_fused_launch(const void* cols, long long n_pad,
   a.Wwin = Wwin;
   a.R = R;
   a.W = 0;
-  return launch<false>(a, n_dev, stream);
+  return launch_match(a, n_dev, stream);
 }
 
-// The launch with planes: as mesh_fused_launch, plus the block's planes
+// The launch with planes, a cluster of 8 blocks of 256 threads per output
+// slot: as mesh_fused_launch, plus the block's planes
 // gt/gt2/tok1/tok2 [n_pad, W] (gt for all four without counts), masks
 // [n_slots, W], use_counts [n_slots] (0 or 1), and the outputs pc_call,
-// pc_tok [n_out, R] and or_words [n_out, W].
+// pc_tok [n_out, R] and or_words [n_out, W]. Returns the launch's error,
+// a refused cluster launch included.
 int mesh_fused_planes_launch(const void* cols, long long n_pad,
                              const void* alt_prefix, const void* offsets,
                              const void* seg_base, int d_local, int me,
@@ -270,7 +462,7 @@ int mesh_fused_planes_launch(const void* cols, long long n_pad,
   a.R = R;
   a.W = W;
   a.has_counts = has_counts != 0;
-  return launch<true>(a, n_dev, stream);
+  return launch_planes(a, n_dev, stream);
 }
 
 }  // extern "C"

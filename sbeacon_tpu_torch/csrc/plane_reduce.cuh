@@ -1,6 +1,8 @@
-// The masked-plane reduction (sm_90a), a block-level routine for the
-// kernels that match rows and then read their genotype planes:
-// stacked_selected.cu (J7) now, the owner-sliced fused query (J6) later.
+// The masked-plane reduction (sm_90a): block-level routines for the
+// kernels that match rows and then read their genotype planes,
+// stacked_selected.cu (J7, one block per query: reduce()) and the
+// owner-sliced fused query mesh_fused.cu (J6, a cluster per query slot,
+// built from the pieces below).
 //
 // Replaces sbeacon_tpu/parallel/mesh.py::_plane_reduce (mesh.py:347).
 // What it computes, for one query over R lanes whose first n_valid hold
@@ -21,12 +23,22 @@
 //     rc on (materialize_response's grp >= k0), all int32 with wraparound;
 //   - or_words[w] = OR over the or_sel lanes of gt[row][w] & m[w].
 //
-// Design: a warp per matched row reads its W plane words (lanes stride
-// the row, coalesced), __popc and a shuffle sum give the popcounts; the
-// four scans run in shared memory over the R lanes (each thread scans a
-// contiguous chunk, then adds the totals of the chunks before it); a
-// second warp-per-row pass re-reads the or_sel rows' gt words (mostly
-// from L2, just read) into a shared OR accumulator.
+// What bounds it: the latency of the matched rows' plane reads (W words a
+// row, from planes of GBs far above the 50 MB L2), then the scans'
+// dependent steps. Design:
+//   - row_popcounts / or_rows: each warp takes kRB rows at a time and
+//     issues every load of kU 32-word chunks of all of them (clamped
+//     addresses, no branches) before it uses any, so a lane has up to
+//     kRB * kU * 4 plane loads in flight; __popc and a shuffle sum give a
+//     row's popcounts, a shared atomicOr per lane and chunk the OR;
+//   - the scans cover only the valid lanes rounded up to a warp (padding
+//     lanes add rc 0 and are no record edge, so the valid lanes' values
+//     are those of the R-lane scans): each thread scans a contiguous chunk
+//     of at most ceil(R / kThreads) lanes, a warp-shuffle scan combines
+//     the threads' totals within each warp and warp 0 the warps' totals,
+//     in log depth; the four scans of the reference are kept as they are.
+// J6 spreads one query's rows over a cluster of blocks (mesh_fused.cu);
+// J7 runs reduce() in its one block.
 
 #pragma once
 
@@ -37,6 +49,10 @@ namespace plane_reduce {
 
 constexpr int F_AC_INFO = 512;
 constexpr int F_AN_INFO = 1024;
+// rows a warp reads at once, and the 32-word chunks of each it loads
+// before it uses any
+constexpr int kRB = 4;
+constexpr int kU = 4;
 
 // a - b and a + b in int32 with wraparound
 __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
@@ -58,11 +74,16 @@ __device__ __forceinline__ uint32_t warp_sum_u(uint32_t v) {
 
 // Inclusive scan of a[0..n) in shared memory, in place, by a block of
 // kThreads: a running int32 sum with wraparound (kMax false) or a running
-// signed max, from the front (kReverse false) or from the back. Starts
-// and ends with the block synchronised. `tot` holds kThreads words.
+// signed max, from the front (kReverse false) or from the back. Each
+// thread scans a contiguous chunk; the chunks' totals are combined by
+// warp shuffles in log depth. Starts and ends with the block
+// synchronised. `s_warp` holds kThreads / 32 words.
 template <int kThreads, bool kMax, bool kReverse>
-__device__ void block_scan(int32_t* a, int n, int32_t* tot) {
+__device__ void block_scan(int32_t* a, int n, int32_t* s_warp) {
+  constexpr int kWarps = kThreads / 32;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int32_t ident = kMax ? INT32_MIN : 0;
   auto combine = [](int32_t x, int32_t y) {
     return kMax ? (x > y ? x : y) : add32(x, y);
@@ -77,16 +98,180 @@ __device__ void block_scan(int32_t* a, int n, int32_t* tot) {
     acc = combine(acc, a[at(i)]);
     a[at(i)] = acc;
   }
-  tot[tid] = acc;
+  // the chunks before this thread's, within its warp
+  int32_t x = acc;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(0xffffffffu, x, off);
+    if (lane >= off) x = combine(y, x);
+  }
+  int32_t pre = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) pre = ident;
+  if (lane == 31) s_warp[warp] = x;
   __syncthreads();
-  int32_t pre = ident;
-  for (int j = 0; j < tid; ++j) pre = combine(pre, tot[j]);
+  // the warps before this thread's
+  if (warp == 0) {
+    int32_t t = lane < kWarps ? s_warp[lane] : ident;
+#pragma unroll
+    for (int off = 1; off < kWarps; off <<= 1) {
+      const int32_t y = __shfl_up_sync(0xffffffffu, t, off);
+      if (lane >= off) t = combine(y, t);
+    }
+    int32_t ex = __shfl_up_sync(0xffffffffu, t, 1);
+    if (lane == 0) ex = ident;
+    if (lane < kWarps) s_warp[lane] = ex;
+  }
+  __syncthreads();
+  pre = combine(s_warp[warp], pre);
   for (int i = b; i < e; ++i) a[at(i)] = combine(pre, a[at(i)]);
   __syncthreads();
 }
 
+// or_sel of lanes [0, n_valid) into sel[], from rc (s_rc) and the record
+// ids (s_rec): the reference's four scans over the lanes rounded up to a
+// warp (at most R), in the scratch a and b ([R] words each). Called by
+// all kThreads threads; starts and ends with the block synchronised.
+template <int kThreads>
+__device__ void or_select(const int32_t* s_rc, const int32_t* s_rec,
+                          int n_valid, int R, int32_t* a, int32_t* b,
+                          uint8_t* sel, int32_t* s_warp) {
+  const int tid = threadIdx.x;
+  const int n = min((n_valid + 31) & ~31, R);
+  __syncthreads();
+  for (int k = tid; k < n; k += kThreads) a[k] = k < n_valid ? s_rc[k] : 0;
+  block_scan<kThreads, false, false>(a, n, s_warp);  // a = c
+  for (int k = tid; k < n; k += kThreads) {
+    const bool first = k < n_valid && (k == 0 || s_rec[k] != s_rec[k - 1]);
+    b[k] = first ? sub32(a[k], s_rc[k]) : -1;
+  }
+  block_scan<kThreads, true, false>(b, n, s_warp);  // b = base
+  for (int k = tid; k < n; k += kThreads) {
+    sel[k] = (b[k] > 0 || sub32(a[k], b[k]) > 0) ? 1 : 0;
+    a[k] = k < n_valid ? s_rc[k] : 0;
+  }
+  block_scan<kThreads, false, true>(a, n, s_warp);  // a = sum of rc from k
+  for (int k = tid; k < n; k += kThreads) {
+    const bool last =
+        k < n_valid && (k == n_valid - 1 || s_rec[k] != s_rec[k + 1]);
+    b[k] = last ? sub32(a[k], s_rc[k]) : -1;
+  }
+  block_scan<kThreads, true, true>(b, n, s_warp);  // b = base from the back
+  for (int k = tid; k < n; k += kThreads) {
+    const bool bwd = sub32(a[k], b[k]) > 0;
+    sel[k] = (k < n_valid && (sel[k] || bwd)) ? 1 : 0;
+  }
+  __syncthreads();
+}
+
+// Masked popcounts of n rows by the block's warps, kRB rows a warp at a
+// time: row i is plane row rows[i] (W words at a 64-bit word offset).
+// Lane 0 of the row's warp calls sink(i, pc_call, pc_tok). Rows i <
+// cache_rows also leave their masked gt words at cache[i * W].
+template <int kThreads, class Sink>
+__device__ void row_popcounts(const uint32_t* __restrict__ gt,
+                              const uint32_t* __restrict__ gt2,
+                              const uint32_t* __restrict__ tok1,
+                              const uint32_t* __restrict__ tok2,
+                              const int32_t* rows, int n, int W,
+                              const uint32_t* mask, uint32_t* cache,
+                              int cache_rows, Sink sink) {
+  constexpr int kWarps = kThreads / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int i0 = warp * kRB; i0 < n; i0 += kWarps * kRB) {
+    size_t off[kRB];
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) {
+      off[j] = static_cast<size_t>(rows[min(i0 + j, n - 1)]) *
+               static_cast<size_t>(W);
+    }
+    uint32_t pc[kRB], pt[kRB];
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) pc[j] = pt[j] = 0u;
+    for (int w0 = 0; w0 < W; w0 += 32 * kU) {
+      uint32_t g[kU][kRB], g2[kU][kRB], t1[kU][kRB], t2[kU][kRB];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const size_t w = min(w0 + 32 * u + lane, W - 1);
+#pragma unroll
+        for (int j = 0; j < kRB; ++j) {
+          g[u][j] = gt[off[j] + w];
+          g2[u][j] = gt2[off[j] + w];
+          t1[u][j] = tok1[off[j] + w];
+          t2[u][j] = tok2[off[j] + w];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int w = w0 + 32 * u + lane;
+        const uint32_t m = w < W ? mask[w] : 0u;
+#pragma unroll
+        for (int j = 0; j < kRB; ++j) {
+          const uint32_t gm = g[u][j] & m;
+          pc[j] += __popc(gm) + __popc(g2[u][j] & m);
+          pt[j] += __popc(t1[u][j] & m) + __popc(t2[u][j] & m);
+          const int i = i0 + j;
+          if (w < W && i < n && i < cache_rows) {
+            cache[static_cast<size_t>(i) * W + w] = gm;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) {
+      const uint32_t c = warp_sum_u(pc[j]);
+      const uint32_t t = warp_sum_u(pt[j]);
+      if (lane == 0 && i0 + j < n) sink(i0 + j, c, t);
+    }
+  }
+}
+
+// acc[w] |= the OR over the rows list[0..n_list) of their gt words &
+// mask[w], by the block's warps, kRB rows a warp at a time: row i from
+// cache[i * W] when i < cache_rows (already masked), else from plane row
+// rows[i] of gt. acc is shared memory.
+template <int kThreads>
+__device__ void or_rows(const uint32_t* gt, const int32_t* rows,
+                        const int32_t* list, int n_list, int W,
+                        const uint32_t* mask, const uint32_t* cache,
+                        int cache_rows, uint32_t* acc) {
+  constexpr int kWarps = kThreads / 32;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  for (int l0 = warp * kRB; l0 < n_list; l0 += kWarps * kRB) {
+    const uint32_t* src[kRB];
+#pragma unroll
+    for (int j = 0; j < kRB; ++j) {
+      const int i = list[min(l0 + j, n_list - 1)];  // a repeat ORs nothing new
+      src[j] = i < cache_rows
+                   ? cache + static_cast<size_t>(i) * W
+                   : gt + static_cast<size_t>(rows[i]) * static_cast<size_t>(W);
+    }
+    for (int w0 = 0; w0 < W; w0 += 32 * kU) {
+      uint32_t g[kU][kRB];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int w = min(w0 + 32 * u + lane, W - 1);
+#pragma unroll
+        for (int j = 0; j < kRB; ++j) g[u][j] = src[j][w];
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int w = w0 + 32 * u + lane;
+        if (w < W) {
+          uint32_t v = 0u;
+#pragma unroll
+          for (int j = 0; j < kRB; ++j) v |= g[u][j];
+          v &= mask[w];
+          if (v) atomicOr(&acc[w], v);
+        }
+      }
+    }
+  }
+}
+
 // Shared-memory scratch of reduce(): a, b over the R lanes, sel (R
-// bytes), acc over the W words, tot over the block's threads.
+// bytes), acc over the W words, tot over the block's warps.
 struct Scratch {
   int32_t* a;
   int32_t* b;
@@ -100,14 +285,14 @@ struct Sums {
   int32_t call_count, all_alleles;
 };
 
-// Called by all kThreads threads of the block. `gt`..`tok2` point at row
-// 0 of the planes the lanes' rows index, row stride W words (without
-// counts only gt is read). Lane k < n_valid reads plane row s_row[k]; its
-// gathered columns are s_flags, s_ac, s_an and s_rec (shared, [R]).
-// s_ac becomes rc and s_an becomes an_eff, in place. `mask` is the
-// query's W-word sample mask in shared memory. Writes pc_call and pc_tok
-// ([R], zero past n_valid) and or_words ([W]) to global memory. Starts
-// and ends with the block synchronised.
+// The whole reduction in one block, called by all kThreads threads.
+// `gt`..`tok2` point at row 0 of the planes the lanes' rows index, row
+// stride W words (without counts only gt is read). Lane k < n_valid reads
+// plane row s_row[k]; its gathered columns are s_flags, s_ac, s_an and
+// s_rec (shared, [R]). s_ac becomes rc and s_an becomes an_eff, in place.
+// `mask` is the query's W-word sample mask in shared memory. Writes
+// pc_call and pc_tok ([R], zero past n_valid) and or_words ([W]) to
+// global memory. Starts and ends with the block synchronised.
 template <int kThreads>
 __device__ Sums reduce(const uint32_t* __restrict__ gt,
                        const uint32_t* __restrict__ gt2,
@@ -124,36 +309,26 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   __shared__ uint32_t s_part[kWarps][2];
-  auto row_off = [s_row, W](int k) {
-    return static_cast<size_t>(s_row[k]) * static_cast<size_t>(W);
-  };
+  __shared__ int s_nlist;
   __syncthreads();
   for (int w = tid; w < W; w += kThreads) s.acc[w] = 0u;
+  if (tid == 0) s_nlist = 0;
 
-  // 1. per matched row, one warp: masked popcounts, then rc and an_eff
+  // 1. masked popcounts, then rc and an_eff
   if (has_counts) {
-    for (int k = warp; k < n_valid; k += kWarps) {
-      const size_t off = row_off(k);
-      uint32_t p_call = 0, p_tok = 0;
-      for (int w = lane; w < W; w += 32) {
-        const uint32_t m = mask[w];
-        p_call += __popc(gt[off + w] & m) + __popc(gt2[off + w] & m);
-        p_tok += __popc(tok1[off + w] & m) + __popc(tok2[off + w] & m);
-      }
-      p_call = warp_sum_u(p_call);
-      p_tok = warp_sum_u(p_tok);
-      if (lane == 0) {
-        const int flags = s_flags[k];
-        pc_call[k] = static_cast<int32_t>(p_call);
-        pc_tok[k] = static_cast<int32_t>(p_tok);
-        if (use_counts && !(flags & F_AC_INFO)) {
-          s_ac[k] = static_cast<int32_t>(p_call);
-        }
-        if (use_counts && !(flags & F_AN_INFO)) {
-          s_an[k] = static_cast<int32_t>(p_tok);
-        }
-      }
-    }
+    row_popcounts<kThreads>(
+        gt, gt2, tok1, tok2, s_row, n_valid, W, mask, nullptr, 0,
+        [&](int k, uint32_t c, uint32_t t) {
+          const int flags = s_flags[k];
+          pc_call[k] = static_cast<int32_t>(c);
+          pc_tok[k] = static_cast<int32_t>(t);
+          if (use_counts && !(flags & F_AC_INFO)) {
+            s_ac[k] = static_cast<int32_t>(c);
+          }
+          if (use_counts && !(flags & F_AN_INFO)) {
+            s_an[k] = static_cast<int32_t>(t);
+          }
+        });
   } else {
     for (int k = tid; k < n_valid; k += kThreads) {
       pc_call[k] = 0;
@@ -163,15 +338,14 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
   for (int k = n_valid + tid; k < R; k += kThreads) {
     pc_call[k] = 0;
     pc_tok[k] = 0;
-    s_ac[k] = 0;
   }
   __syncthreads();
 
-  // 2. the sums: rc over every lane, an_eff over records' first lanes
+  // 2. the sums: rc over the valid lanes, an_eff over records' first lanes
   uint32_t cc = 0, al = 0;
-  for (int k = tid; k < R; k += kThreads) {
+  for (int k = tid; k < n_valid; k += kThreads) {
     cc += static_cast<uint32_t>(s_ac[k]);
-    if (k < n_valid && (k == 0 || s_rec[k] != s_rec[k - 1])) {
+    if (k == 0 || s_rec[k] != s_rec[k - 1]) {
       al += static_cast<uint32_t>(s_an[k]);
     }
   }
@@ -182,40 +356,15 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
     s_part[warp][1] = al;
   }
 
-  // 3. or_sel from the forward and backward segmented scans
-  for (int k = tid; k < R; k += kThreads) s.a[k] = s_ac[k];
-  block_scan<kThreads, false, false>(s.a, R, s.tot);  // a = c
-  for (int k = tid; k < R; k += kThreads) {
-    const bool first = k < n_valid && (k == 0 || s_rec[k] != s_rec[k - 1]);
-    s.b[k] = first ? sub32(s.a[k], s_ac[k]) : -1;
-  }
-  block_scan<kThreads, true, false>(s.b, R, s.tot);  // b = base
-  for (int k = tid; k < R; k += kThreads) {
-    s.sel[k] = (s.b[k] > 0 || sub32(s.a[k], s.b[k]) > 0) ? 1 : 0;
-    s.a[k] = s_ac[k];
-  }
-  block_scan<kThreads, false, true>(s.a, R, s.tot);  // a = sum of rc from k
-  for (int k = tid; k < R; k += kThreads) {
-    const bool last =
-        k < n_valid && (k == n_valid - 1 || s_rec[k] != s_rec[k + 1]);
-    s.b[k] = last ? sub32(s.a[k], s_ac[k]) : -1;
-  }
-  block_scan<kThreads, true, true>(s.b, R, s.tot);  // b = base from the back
-  for (int k = tid; k < R; k += kThreads) {
-    const bool bwd = sub32(s.a[k], s.b[k]) > 0;
-    s.sel[k] = (k < n_valid && (s.sel[k] || bwd)) ? 1 : 0;
+  // 3. or_sel, then the list of its lanes (in b, free after the scans)
+  or_select<kThreads>(s_ac, s_rec, n_valid, R, s.a, s.b, s.sel, s.tot);
+  for (int k = tid; k < n_valid; k += kThreads) {
+    if (s.sel[k]) s.b[atomicAdd(&s_nlist, 1)] = k;
   }
   __syncthreads();
 
-  // 4. the sample-hit OR over the or_sel rows, one warp per row
-  for (int k = warp; k < n_valid; k += kWarps) {
-    if (!s.sel[k]) continue;
-    const size_t off = row_off(k);
-    for (int w = lane; w < W; w += 32) {
-      const uint32_t g = gt[off + w] & mask[w];
-      if (g) atomicOr(&s.acc[w], g);
-    }
-  }
+  // 4. the sample-hit OR over the or_sel rows
+  or_rows<kThreads>(gt, s_row, s.b, s_nlist, W, mask, nullptr, 0, s.acc);
   __syncthreads();
   for (int w = tid; w < W; w += kThreads) or_words[w] = s.acc[w];
 

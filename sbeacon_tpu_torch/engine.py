@@ -958,9 +958,9 @@ class VariantEngine:
 
     def _build_mesh(self, devices, keys, shards, planes_of):
         """The mesh state over ``shards``: the stack, with the genotype
-        planes when every shard has them and their per-device bytes fit
-        the plane budget beside the resident planes, uploaded to the
-        mesh."""
+        planes when every shard has them and their bytes on the engine's
+        device (one block's per mesh entry there) fit the plane budget
+        beside the resident planes, uploaded to the mesh."""
         eng = self.config.engine
         mesh = _mesh.make_mesh(devices=devices)
         d_pad = -(-len(shards) // mesh.size) * mesh.size
@@ -968,7 +968,7 @@ class VariantEngine:
         if with_planes:
             per_dev = _mesh.StackedIndex.plane_bytes_per_device(
                 shards, n_datasets_padded=d_pad, n_mesh=mesh.size
-            )
+            ) * _mesh.entries_on(mesh, self.device)
             with self._lock:
                 resident = self._plane_hbm_resident_locked()
             verdict = _mesh.plane_budget_verdict(

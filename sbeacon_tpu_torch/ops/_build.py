@@ -60,7 +60,10 @@ SIGNATURES = {
         ),
     },
     "distinct_count": {
-        "distinct_count_launch": ([_P, _L, _P, _L, _P, _P], ctypes.c_int),
+        "distinct_count_launch": (
+            [_P, _L, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+            ctypes.c_int,
+        ),
     },
     "stacked_query": {
         "stacked_query_launch": (

@@ -34,15 +34,6 @@ import torch
 from . import mesh as _mesh
 
 
-def _device_key(dev) -> tuple:
-    """(type, index) with a CUDA device's missing index read as the
-    current device, so ``cuda`` and ``cuda:0`` compare equal."""
-    dev = torch.device(dev)
-    if dev.type == "cuda" and dev.index is None:
-        return ("cuda", torch.cuda.current_device())
-    return (dev.type, dev.index)
-
-
 class MeshDispatchTier:
     """Pod-local single-launch dispatch over a mesh-sharded fused index.
 
@@ -94,8 +85,7 @@ class MeshDispatchTier:
     def _entries_on_engine(self, mesh) -> int:
         """Mesh entries on the engine's own device, the one its plane
         budget covers: each holds its own copy of a block's planes."""
-        own = _device_key(self.engine.device)
-        return sum(_device_key(d) == own for d in mesh.devices)
+        return _mesh.entries_on(mesh, self.engine.device)
 
     def _engine_bytes(self, index) -> int:
         """The stack's plane bytes on the engine's device."""

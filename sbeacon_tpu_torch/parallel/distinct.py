@@ -29,7 +29,8 @@ skips its ``_PAD`` rows, so a padded block counts the same. JAX's
 ``distinct_count`` is the kernel's wrapper: on a CUDA tensor it launches
 the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
 ``distinct_count_reference``. Every CUDA launch adds one to the
-``distinct_count`` launch count (``distinct_count_launches``).
+``distinct_count`` launch count (``distinct_count_launches``);
+``bucket_plan`` is its host-side split of the keys into buckets.
 """
 
 from __future__ import annotations
@@ -46,10 +47,27 @@ from ..telemetry import launch_count, note_device_stage, record_device_launch
 KERNEL = "distinct_count"
 #: sentinel key rows (column 0) that the count leaves out
 _PAD = np.iinfo(np.int32).max
-#: the most the kernel's hash table is filled, counting every key row
-MAX_LOAD = 0.7
-#: bytes of one hash-table slot (six key words, a state word, a pad word)
-SLOT_BYTES = 32
+#: slots of a count block's shared-memory hash set (``csrc/distinct_count.cu``
+#: ``kTableSlots``): a state word and six key words each
+TABLE_SLOTS = 4096
+SET_SLOT_BYTES = 28
+#: distinct keys a bucket's set takes before the rest spill to another
+#: pass (below TABLE_SLOTS, so every probe ends)
+TABLE_LIMIT = 3072
+#: most buckets: a hist block keeps a uint32 per bucket in shared memory
+MAX_LOG2_BUCKETS = 15
+#: key rows per bucket the plan aims at (at most): under TABLE_LIMIT, so
+#: a bucket of distinct keys fits its set
+KEYS_PER_BUCKET = 2048
+#: threads of a hist block
+PASS_THREADS = 1024
+#: shared memory one block may opt into on the H100 (227 KB)
+SMEM_OPT_IN = 227 * 1024
+#: bytes of one bucket-ordered item: the 24-byte key and its 64-bit hash,
+#: a whole 32-byte sector
+ITEM_BYTES = 32
+#: streaming multiprocessors of the H100 SXM: one hist block each
+H100_SMS = 132
 
 
 def __getattr__(name: str):
@@ -153,22 +171,56 @@ def distinct_count_reference(keys: torch.Tensor) -> torch.Tensor:
     return (first & real).sum()
 
 
-def table_slots(n: int) -> int:
-    """Hash-table slots for ``n`` key rows: the least power of two (at
-    least 64) that holds them at load ``MAX_LOAD`` or less."""
-    cap = 64
-    while cap * MAX_LOAD < n:
-        cap *= 2
-    return cap
+def bucket_plan(n: int, sms: int = H100_SMS) -> dict:
+    """How the distinct-count kernel splits ``n`` key rows: the least
+    power-of-two number of buckets (at most ``2**MAX_LOG2_BUCKETS``)
+    whose average holds ``KEYS_PER_BUCKET`` rows or fewer, one hist
+    block per SM (fewer for a small ``n``), the shared memory the hist
+    and the count blocks take, and the device scratch
+    (``scratch_shapes``)."""
+    log2 = 0
+    while log2 < MAX_LOG2_BUCKETS and n > KEYS_PER_BUCKET << log2:
+        log2 += 1
+    blocks = max(1, min(sms, -(-n // PASS_THREADS)))
+    shapes = scratch_shapes(n, log2)
+    return {
+        "log2_buckets": log2,
+        "buckets": 1 << log2,
+        "blocks": blocks,
+        "table_limit": TABLE_LIMIT,
+        "pass_smem": 4 << log2,
+        "set_smem": SET_SLOT_BYTES * TABLE_SLOTS,
+        "scratch_bytes": 4 * sum(int(np.prod(v)) for v in shapes.values()),
+    }
 
 
-def distinct_count(keys: torch.Tensor):
+def scratch_shapes(n: int, log2_buckets: int) -> dict:
+    """The kernel's int32 scratch, by name, in the order of its C entry
+    point: the keys in bucket order as 32-byte items (the key and its
+    64-bit hash), and per bucket its write cursor, start and total."""
+    b = 1 << log2_buckets
+    return {
+        "items": (n, ITEM_BYTES // 4),
+        "cursors": (b,),
+        "starts": (b,),
+        "totals": (b,),
+    }
+
+
+def distinct_count(keys: torch.Tensor, *, log2_buckets: int | None = None,
+                   table_limit: int = TABLE_LIMIT,
+                   spills: torch.Tensor | None = None):
     """The distinct-count kernel: (count, seq), ``count`` a 0-dim int64
     tensor on the keys' device.
 
     CUDA tensors launch ``csrc/distinct_count.cu`` on the current stream
-    (asynchronously: ``count`` is ready when the stream reaches it) and
-    record the launch, ``seq`` being its launch record. CPU tensors run
+    (asynchronously: ``count`` is ready when the stream reaches it; four
+    kernels behind one C entry point, one launch record) with the
+    buckets of ``bucket_plan``, ``seq`` being its launch record.
+    ``log2_buckets`` and ``table_limit`` override the plan (fewer
+    buckets or a smaller set make buckets spill to further passes);
+    ``spills``, a 0-dim int64 tensor on the device, receives the passes
+    past each bucket's first. CPU tensors run
     ``distinct_count_reference`` and ``seq`` is None. Any other device,
     or inputs the kernel does not take, raise."""
     if keys.device.type == "cpu":
@@ -189,29 +241,33 @@ def distinct_count(keys: torch.Tensor):
     n = keys.shape[0]
     if n == 0:
         return torch.zeros((), dtype=torch.int64, device=dev), None
-    cap = table_slots(n)
-    table = torch.empty((cap, SLOT_BYTES // 4), dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int64, device=dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = bucket_plan(n, sms)
+    log2 = plan["log2_buckets"] if log2_buckets is None else int(log2_buckets)
+    scratch = {k: torch.empty(v, dtype=torch.int32, device=dev)
+               for k, v in scratch_shapes(n, log2).items()}
+    out = torch.empty(2, dtype=torch.int64, device=dev)
+    if spills is None:
+        spills = out[1]
+    elif spills.device != dev or spills.dtype != torch.int64:
+        raise ValueError("spills must be an int64 tensor on the keys' device")
     lib = _build.load(KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):
         rc = lib.distinct_count_launch(
-            keys.data_ptr(),
-            n,
-            table.data_ptr(),
-            cap,
-            count.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            keys.data_ptr(), n, *(t.data_ptr() for t in scratch.values()),
+            log2, plan["blocks"], int(table_limit), out.data_ptr(),
+            spills.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"distinct_count launch failed: CUDA error {rc}")
     seq = record_device_launch(
         KERNEL,
         rows=n,
-        slots=cap,
+        buckets=1 << log2,
         launch_ms=(time.perf_counter() - t0) * 1e3,
     )
-    return count, seq
+    return out[0], seq
 
 
 def distinct_count_device(shards: list[VariantIndexShard], *, device=None) -> int:

@@ -340,6 +340,23 @@ class StackedIndex:
         return blocks
 
 
+def _device_key(dev) -> tuple:
+    """(type, index) with a CUDA device's missing index read as the
+    current device, so ``cuda`` and ``cuda:0`` compare equal."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return ("cuda", torch.cuda.current_device())
+    return (dev.type, dev.index)
+
+
+def entries_on(mesh: Mesh, device) -> int:
+    """Mesh entries on ``device``: each holds its own copy of its block
+    (a mesh may list one card more than once), so a plane budget on that
+    device counts the per-entry bytes this many times."""
+    own = _device_key(device)
+    return sum(_device_key(d) == own for d in mesh.devices)
+
+
 def plane_budget_verdict(
     per_device_bytes: int, resident_bytes: int, budget_bytes: float
 ) -> dict:
@@ -905,8 +922,10 @@ def mesh_fused(
     (out, seq), ``out`` laid out as ``local_fused_reference`` returns it.
 
     CUDA tensors launch ``csrc/mesh_fused.cu`` on the current stream
-    (asynchronously; its match-only entry point without ``planes``) and
-    record the launch, ``seq`` being its launch record. CPU tensors run
+    (asynchronously; its match-only entry point without ``planes``, with
+    them a thread-block cluster of 8 blocks per output slot, which a
+    card before Hopper refuses: the launch then raises) and record the
+    launch, ``seq`` being its launch record. CPU tensors run
     ``local_fused_reference`` and ``seq`` is None. Any other device, or
     inputs the kernel does not take, raise. ``n_iters`` is the twin's
     bisection depth; the kernel's search ends by itself."""
@@ -945,7 +964,9 @@ def mesh_fused(
                          f"outside {n_dev}")
     W, R = _window(window_cap, record_cap)
     lib = _build.load(FUSED_KERNEL)
-    smem = lib.mesh_fused_smem(W, R, w, int(planes is not None))
+    # 0 match-only, 1 planes, 2 planes with counts (a gt cache)
+    smem = lib.mesh_fused_smem(
+        W, R, w, 0 if planes is None else 1 + int(bool(has_counts)))
     if (planes is not None and w < 1) or smem > _SMEM_MAX:
         raise ValueError(
             f"unsupported shape: window_cap={window_cap}, R={R}, W={w} need "

@@ -460,6 +460,39 @@ def test_distinct_kernel_at_size(cuda_device, n, distinct):
         assert int(count) == int(dc.distinct_count_reference(t)) == want
 
 
+def _distinct_keys(n, distinct, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(-(2**31), 2**31 - 1, size=(distinct, 6),
+                        dtype=np.int64).astype(np.int32)
+    base[:, 0] = rng.integers(0, 25, distinct)
+    return base[rng.integers(0, distinct, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,plans", [
+    ("all_equal", [(0, 1), (2, 64)]),
+    ("high_bits", [(0, 16), (2, 64)]),
+    ("three_million", [(6, 3072), (8, 256)]),
+])
+def test_distinct_kernel_spills_exactly(cuda_device, case, plans):
+    """Few buckets and a small set make buckets spill to further passes
+    (counted in ``spills``): the count stays exact, one launch record
+    each."""
+    keys = (_distinct_keys(3_000_000, 1_000_000, 3) if case == "three_million"
+            else DISTINCT_CASES[case])
+    t = torch.from_numpy(np.ascontiguousarray(keys)).to(cuda_device)
+    want = int(dc.distinct_count_reference(t))
+    for log2, limit in plans:
+        spills = torch.zeros((), dtype=torch.int64, device=cuda_device)
+        telemetry.reset_launch_counts()
+        count, _seq = dc.distinct_count(t, log2_buckets=log2,
+                                        table_limit=limit, spills=spills)
+        torch.cuda.synchronize()
+        assert dc.distinct_count_launches == 1
+        assert int(count) == want
+        assert (int(spills) > 0) == (case != "all_equal")
+
+
 @pytest.mark.cuda
 def test_distinct_device_on_card_equals_cpu(cuda_device):
     shard = synthetic_shard(300_000, seed=5)
@@ -651,6 +684,89 @@ def _fused_inputs(mfi, specs, sids, layout, masks=None, counts=None):
 
 
 LAYOUTS = (0, 1, 2)  # tm.LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED
+
+
+def _dense_plane_shard(name, seed):
+    """40 samples, some genotype-derived counts, and a run of 1500
+    single-base SNVs: an any-base query over the run matches more than
+    R = 1024 rows."""
+    rng = random.Random(seed)
+    recs = random_records(rng, chrom="1", n=300, n_samples=N_SAMPLES,
+                          spacing=10, p_multiallelic=0.3, p_no_acan=0.5)
+    start = recs[-1].pos + 10
+    for i in range(1500):
+        counted = i % 3 != 0
+        recs.append(VcfRecord(
+            chrom="1", pos=start + i, ref="A", alts=["T"], vt="SNP",
+            ac=[i % 5] if counted else None, an=80 if counted else None,
+            genotypes=[rng.choice(["0|0", "0|1", "1|1"])
+                       for _ in range(N_SAMPLES)]))
+    return build_index(recs, dataset_id=name, vcf_location=f"{name}.vcf",
+                        sample_names=[f"S{i}" for i in range(N_SAMPLES)])
+
+
+@pytest.fixture(scope="module")
+def dense_mesh(cuda_device):
+    shards = [_dense_plane_shard("x", 41), _dense_plane_shard("y", 43)]
+    mfi = tm.MeshFusedIndex(shards, tm.make_mesh(devices=[cuda_device] * 2),
+                            with_planes=True)
+    assert mfi.has_count_planes
+    return mfi, shards
+
+
+def _run_specs(shards):
+    """Any-base queries over each shard's SNV run: all of it (1500
+    matched rows, R = 1024 lanes all valid), and prefixes whose matched
+    rows end inside or across the cluster's shares, then points."""
+    specs, sids = [], []
+    for sid, sh in enumerate(shards):
+        start = int(sh.cols["pos"][-1]) - 1499
+        for width in (1499, 1030, 700, 129, 40, 7, 0):
+            specs.append(QuerySpec(chrom="1", start_min=start,
+                                   start_max=start + width, end_min=1,
+                                   end_max=1 << 30, alternate_bases="N"))
+            sids.append(sid)
+    return specs, sids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 79])
+@pytest.mark.parametrize("has_counts", [True, False])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_mesh_fused_cluster_matches_twin(dense_mesh, W, has_counts, layout):
+    """The cluster launch with planes at R = 1024: slots whose 1024
+    lanes are all valid and slots whose n_valid ends inside one block's
+    share or across several, plane widths 79 (2504 samples) and 1, counts
+    on and off with use_counts mixed per slot, and the other entries'
+    slots of the sliced layout. Random planes and masks of width W stand
+    in for the index's: kernel and twin read the same ones."""
+    mfi, shards = dense_mesh
+    specs, sids = _run_specs(shards)
+    more, more_sids = _fused_specs(shards, 24, seed=W + layout)
+    specs, sids = specs + more, sids + more_sids
+    g = np.random.default_rng(3 * W + has_counts)
+    full = 0
+    for blk, q, kw in _fused_inputs(mfi, specs, sids, layout):
+        dev, n_pad, s = blk.device, blk.columns.shape[1], q.shape[0]
+        rand = lambda *shape: torch.from_numpy(g.integers(
+            -(2**31), 2**31, size=shape, dtype=np.int64).astype(
+                np.int32)).to(dev)
+        kw = dict(kw, record_cap=1024, has_counts=has_counts,
+                  planes=tuple(rand(n_pad, W)
+                               for _ in range(4 if has_counts else 1)),
+                  masks=torch.from_numpy(_masks(s, W, seed=W).view(
+                      np.int32)).to(dev),
+                  use_counts=torch.from_numpy(
+                      (np.arange(s) % 2).astype(np.int32)).to(dev))
+        args = (blk.columns, blk.alt_prefix, blk.offsets, blk.seg_base, q)
+        got, seq = tm.mesh_fused(*args, **kw)
+        torch.cuda.synchronize()
+        assert seq is not None
+        want = tm.local_fused_reference(*args, **kw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        full += int((want["agg"][:, 3] >= 1024).sum())
+    assert full > 0
 
 
 @pytest.mark.cuda

@@ -209,12 +209,140 @@ def test_empty_needs_no_keys():
     assert int(count) == 0 and seq is None
 
 
-@pytest.mark.parametrize("n", [0, 1, 44, 45, 46, 7 * 10 ** 7])
-def test_table_slots_hold_the_load(n):
-    cap = td.table_slots(n)
-    assert cap >= 64 and cap & (cap - 1) == 0
-    assert n <= cap * td.MAX_LOAD
-    assert cap == 64 or n > cap // 2 * td.MAX_LOAD
+@pytest.mark.parametrize("n", [0, 1, 2048, 2049, 10 ** 6, 7 * 10 ** 7,
+                               3 * 10 ** 8])
+def test_bucket_plan_fits_shared_memory(n):
+    """Buckets a power of two, no more than the hist and scatter blocks'
+    shared memory counts, the fewest whose average fits KEYS_PER_BUCKET
+    (itself under the set's limit), every kernel within the opt-in, and
+    scratch of one copy of the keys as 32-byte items and three words a
+    bucket (no table sized on the keys)."""
+    plan = td.bucket_plan(n)
+    b = plan["buckets"]
+    assert b == 1 << plan["log2_buckets"] and b <= 1 << td.MAX_LOG2_BUCKETS
+    assert n <= b * td.KEYS_PER_BUCKET or b == 1 << td.MAX_LOG2_BUCKETS
+    assert b == 1 or n > b // 2 * td.KEYS_PER_BUCKET
+    assert td.KEYS_PER_BUCKET <= plan["table_limit"] < td.TABLE_SLOTS
+    assert plan["pass_smem"] == 4 * b <= td.SMEM_OPT_IN
+    assert plan["set_smem"] <= td.SMEM_OPT_IN
+    assert 1 <= plan["blocks"] <= td.H100_SMS
+    assert n * td.ITEM_BYTES <= plan["scratch_bytes"]
+    assert plan["scratch_bytes"] <= n * td.ITEM_BYTES + (1 << 20)
+
+
+def _mix64(z):
+    z = z ^ (z >> np.uint64(30))
+    z = z * np.uint64(0xBF58476D1CE4E5B9)
+    z = z ^ (z >> np.uint64(27))
+    z = z * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def _key_hash(keys):
+    """The kernel's 64-bit key mix, in numpy."""
+    u = keys.view(np.uint32).astype(np.uint64)
+    pair = lambda a, b: (u[:, a] << np.uint64(32)) | u[:, b]
+    h = _mix64(pair(0, 1) ^ np.uint64(0x9E3779B97F4A7C15))
+    h = _mix64(h ^ pair(2, 3))
+    return _mix64(h ^ pair(4, 5))
+
+
+def _bucketed_count_model(keys, log2_buckets, limit):
+    """The distinct-count kernel's formulation, one thread at a time:
+    real keys to buckets by the top hash bits, then per bucket passes of
+    a set that takes at most ``limit`` keys; a key that finds no room is
+    deferred, the deferred keys the finished set holds are dropped, the
+    rest go round again. Returns (count, passes past each bucket's
+    first)."""
+    real = keys[keys[:, 0] != PAD]
+    with np.errstate(over="ignore"):
+        h = _key_hash(real)
+    bucket = (h >> np.uint64(64 - log2_buckets) if log2_buckets
+              else np.zeros(len(real), np.uint64))
+    count = spills = 0
+    for b in np.unique(bucket):
+        pending = [tuple(k) for k in real[bucket == b]]
+        passes = 0
+        while pending:
+            passes += 1
+            table, deferred = set(), []
+            for k in pending:
+                if k in table:
+                    continue
+                if len(table) >= limit:
+                    deferred.append(k)
+                    continue
+                table.add(k)
+                count += 1
+            pending = [k for k in deferred if k not in table]
+        spills += passes - 1
+    return count, spills
+
+
+def _excl(a, axis=0):
+    return np.cumsum(a, axis=axis) - a
+
+
+def _scatter_model(keys, log2b, blocks):
+    """The kernel's hist, starts and scatter, index for index: per-block
+    bucket counts added into the totals, their exclusive scan as the
+    starts and the cursors, then every key written where its bucket's
+    cursor points (the blocks' keys in turn, as one arrival order the
+    cursors' atomics allow). Returns (the keys in bucket order, bucket
+    starts, bucket totals)."""
+    n = len(keys)
+    B = 1 << log2b
+    with np.errstate(over="ignore"):
+        h = _key_hash(keys)
+    bucket = (h >> np.uint64(64 - log2b)).astype(np.int64) if log2b else \
+        np.zeros(n, np.int64)
+    real = keys[:, 0] != PAD
+    chunk = -(-n // blocks) if n else 0
+    block = np.arange(n) // max(chunk, 1)
+    totals = np.zeros(B, np.int64)
+    for g in range(blocks):
+        np.add.at(totals, bucket[real & (block == g)], 1)
+    starts = _excl(totals)
+    out = np.full((n, 6), PAD, np.int32)
+    cur = starts.copy()
+    for r in np.flatnonzero(real)[::-1]:  # any order of arrival
+        out[cur[bucket[r]]] = keys[r]
+        cur[bucket[r]] += 1
+    assert (cur == starts + totals).all()
+    return out, starts, totals
+
+
+@pytest.mark.parametrize("log2b,blocks", [(0, 1), (3, 2), (9, 3), (12, 5)])
+@pytest.mark.parametrize("case", sorted(CRAFTED))
+def test_scatter_model_orders_every_key(case, log2b, blocks):
+    """The scatter's cursors place every real key exactly once, each
+    bucket's keys in its own contiguous region, and the per-bucket
+    distinct counts add up to the twin's."""
+    keys = CRAFTED[case]
+    final, starts, totals = _scatter_model(keys, log2b, blocks)
+    n_real = int((keys[:, 0] != PAD).sum())
+    assert int(totals.sum()) == n_real
+    assert (final[:n_real, 0] != PAD).all() and (final[n_real:, 0] == PAD).all()
+    with np.errstate(over="ignore"):
+        got_b = (_key_hash(final[:n_real]) >> np.uint64(64 - log2b)).astype(
+            np.int64) if log2b else np.zeros(n_real, np.int64)
+    want_b = np.repeat(np.arange(1 << log2b), totals)
+    np.testing.assert_array_equal(got_b, want_b)
+    distinct = sum(_unique_rows(final[s : s + t]) for s, t in zip(starts, totals))
+    assert distinct == int(td.distinct_count_reference(torch.from_numpy(keys)))
+
+
+@pytest.mark.parametrize("log2_buckets,limit", [(0, 1), (2, 7), (6, 3072)])
+@pytest.mark.parametrize("case", sorted(CRAFTED))
+def test_bucketed_count_model_matches_twin(case, log2_buckets, limit):
+    """The kernel's buckets and spilling sets count exactly, whatever
+    the set's limit: against the twin and the unique rows."""
+    keys = CRAFTED[case]
+    got, spills = _bucketed_count_model(keys, log2_buckets, limit)
+    want = int(td.distinct_count_reference(torch.from_numpy(keys)))
+    assert got == want == _unique_rows(keys)
+    if limit == 1 and want > 1:
+        assert spills > 0
 
 
 def test_entry_point_needs_a_gpu_unless_cpu_is_asked(monkeypatch):

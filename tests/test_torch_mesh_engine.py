@@ -349,8 +349,51 @@ def test_budget_gate_admits_the_stack_planes(engines):
                            sample_names={f"d{d}": ["S2"] for d in range(3)}))
     verdict = teng._plane_budget_verdict
     assert verdict["fits"] is True
-    assert verdict["perDeviceBytes"] == tm.StackedIndex.plane_bytes_per_device(
+    # the eight entries are all the engine's CPU: eight blocks' planes
+    assert verdict["perDeviceBytes"] == 8 * tm.StackedIndex.plane_bytes_per_device(
         teng._mesh_state[1].shards, n_datasets_padded=8, n_mesh=8)
+
+
+@pytest.mark.parametrize("factor,fits", [(1.5, False), (2.5, True)])
+def test_budget_counts_each_entry_on_the_engines_device(monkeypatch, factor,
+                                                        fits):
+    """A mesh that lists the engine's device twice holds both entries'
+    blocks there: a budget between one entry's plane bytes and two
+    refuses the stack's planes, one above two admits them, and the
+    answers equal the JAX engine's either way."""
+    shards = _genotype_derived_shards(n_ds=4)
+    per_dev = tm.StackedIndex.plane_bytes_per_device(
+        [shard_from_reference(s) for s in shards], n_datasets_padded=4,
+        n_mesh=2)
+    monkeypatch.setattr(tm, "mesh_devices", lambda device: [CPU, CPU])
+    teng = VariantEngine(BeaconConfig(engine=EngineConfig(
+        microbatch=False, plane_hbm_budget_gb=factor * per_dev / 1e9)),
+        device="cpu")
+    jeng = JVariantEngine(JBeaconConfig(engine=JEngineConfig(
+        microbatch=False, response_cache=False, use_mesh=True)))
+    try:
+        for s in shards:
+            add(teng, jeng, s)
+        assert teng.plane_hbm_resident() < per_dev // 2
+        doc = _doc(selected_samples_only=True, include_samples=True,
+                   sample_names={f"d{d}": ["S0", "S5"] for d in range(4)})
+        _same(teng, jeng, doc)
+        verdict = teng._plane_budget_verdict
+        assert verdict["perDeviceBytes"] == 2 * per_dev
+        assert verdict["fits"] is fits
+        assert teng._mesh_state[1].has_planes is fits
+        assert teng.mesh_selected_searches == int(fits)
+    finally:
+        teng.close()
+        jeng.close()
+
+
+def test_entries_on_counts_the_devices_copies():
+    """Distinct devices keep one entry's bytes each."""
+    mesh = tm.Mesh([CPU, torch.device("meta"), CPU])
+    assert tm.entries_on(mesh, CPU) == 2
+    assert tm.entries_on(mesh, "meta") == 1
+    assert tm.entries_on(tm.Mesh([torch.device("meta")] * 2), CPU) == 0
 
 
 @pytest.mark.parametrize("kernel,selected", [("stacked_query", False),
