@@ -79,8 +79,9 @@ non-zero, without the final line):
     four planes of B and two re-submitted row subsets of it;
 20. kernel vs twin (stacked_query, stacked_selected): B = 1, 16, 64 and
     512 in every alt mode, all-ones, sparse and empty masks, counts both
-    ways, crafted stacks with a padding dataset, rows near A's end, and
-    the two-entry mesh [card, card] against the twins' sum;
+    ways, crafted stacks with a padding dataset, rows near A's end,
+    blocks of 1, 3 and 4 datasets (stacked_query's clusters), and the
+    two-entry mesh [card, card] against the twins' sum;
 21. mesh path: engines whose mesh is patched to list the card twice (the
     engine takes the mesh leg only at two devices, as the JAX engine
     does): A and the cohorts answering the fused-path mix, then A and B
@@ -90,9 +91,26 @@ non-zero, without the final line):
 22. timing (stacked_query, stacked_selected): one query a launch on each
     mesh entry's block as phase 21 launched, and 64, L2 cold and warm,
     beside the bound and the twin's time; with counts on phase 19's
-    count-plane stack.
+    count-plane stack;
+23. mesh-fused setup: MeshFusedIndexes on [card, card] (A and the
+    cohorts; A and B with gt planes; B and two row subsets with four
+    planes) and a crafted one on three entries with an empty group;
+24. kernel vs twin (mesh_fused, ring_gather): every layout, batch size
+    and plane form on every entry; the ring on 2-4-entry rings of the
+    card, aligned and not, and ring_step alone in and out of place,
+    with and without next, against the twin's sum, inputs unchanged;
+25. mesh-fused paths: a MeshDispatchTier over [card, card] in front of
+    each engine, the fused mix with owner outputs (mesh_fused alone)
+    and the selected mix sliced and combined (mesh_fused, then the
+    ring), every response checked; launch counts zeroed just before
+    each run and read just after;
+26. timing: mesh_fused at phase 25's slot counts, and ring_step in its
+    three forms (with next, last, first out of place) at phase 24's
+    and phase 25's blocks beside acc.add_(src) (+ nxt.copy_(src)) or
+    torch.add(own, src, out=acc), and a whole two-entry ring_gather
+    beside [p0 + p1, p1 + p0], each beside its bound.
 
-Then one ``{"kernels": [...]}`` line (the seven CUDA kernels), the
+Then one ``{"kernels": [...]}`` line (the nine CUDA kernels), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
 "device": {...}}``. The script exits non-zero, printing no result, when
 no CUDA device is available. Device times come from CUDA events
@@ -1767,15 +1785,20 @@ def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes):
     return ms, warm_ms, plain_ms, bound_ms, by, nbytes, slots
 
 
-def time_ring_step(shape, device, last=False):
+RING_STEP_FORMS = ("next", "last", "first")
+
+
+def time_ring_step(shape, device, form):
     """(kernel ms, warm ms, twin ms, bound ms, bytes, library ms, library
-    warm ms) of one ring step launch on blocks of ``shape``: acc += src
-    (and next = src unless the last step), 16 bytes a word (12 on the
-    last step) at the HBM rate. The kernel ms with the L2 flushed before
-    each launch, the warm ms back to back; the twin (the sum of two
-    blocks) by an event pair; PyTorch's own elementwise calls for the
-    same step (``acc.add_(src)``, then ``nxt.copy_(src)`` unless the
-    last step) under the kernel's cold and warm regimes."""
+    warm ms) of one ring step launch on blocks of ``shape`` in one of
+    its three forms: "next" (acc += src, next = src: 16 bytes a word),
+    "last" (acc += src: 12) and "first" (acc = own + src out of place,
+    no next, as every launch of a two-entry ring: 12), at the HBM rate.
+    The kernel ms with the L2 flushed before each launch, the warm ms
+    back to back; the twin (the sum of two blocks) by an event pair;
+    PyTorch's own elementwise calls for the same step (``acc.add_(src)``,
+    then ``nxt.copy_(src)`` for "next"; ``torch.add(own, src, out=acc)``
+    for "first") under the kernel's cold and warm regimes."""
     import torch
 
     from sbeacon_tpu_torch.ops import gather_kernel as tg
@@ -1784,24 +1807,102 @@ def time_ring_step(shape, device, last=False):
     g = np.random.default_rng(26)
     blocks = [torch.from_numpy(g.integers(-1000, 1000, size=shape,
                                           dtype=np.int32)).to(device)
-              for _ in range(3)]
-    src, nxt, acc = blocks
-    run = lambda _i: tg.ring_step(src, None if last else nxt, acc)
+              for _ in range(4)]
+    src, nxt, acc, own = blocks
+    if form == "first":
+        run = lambda _i: tg.ring_step(src, None, acc, own=own)
+    else:
+        run = lambda _i: tg.ring_step(src, nxt if form == "next" else None,
+                                      acc)
     ms = timing.cold_device_ms(run, range(16), device)
     warm_ms = timing.device_ms(run, range(16), reps=4)
     plain_ms = event_ms(tg.gather_partials_portable, [src, acc])
 
     def library(_i):
+        if form == "first":
+            torch.add(own, src, out=acc)
+            return
         acc.add_(src)
-        if not last:
+        if form == "next":
             nxt.copy_(src)
 
     lib_ms = timing.cold_device_ms(library, range(16), device)
     lib_warm_ms = timing.device_ms(library, range(16), reps=4)
-    nbytes = (12 if last else 16) * src.numel()
+    nbytes = (16 if form == "next" else 12) * src.numel()
     return (ms, warm_ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, nbytes,
             lib_ms, lib_warm_ms)
 
+
+def time_ring_pair(shape, device):
+    """A whole ring_gather over two entries of ``shape`` on the card: its
+    launches (from the launch count of one call) and its cold and warm
+    device ms, beside the same sums as two PyTorch calls (``[p0 + p1, p1
+    + p0]``) under the same regimes, and its bound (two out-of-place
+    steps, 12 bytes a word each, at the HBM rate)."""
+    import torch
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+    from sbeacon_tpu_torch.ops import timing
+
+    g = np.random.default_rng(25)
+    parts = [torch.from_numpy(g.integers(-2**31, 2**31, size=shape,
+                                         dtype=np.int64).astype(np.int32))
+             .to(device) for _ in range(2)]
+    telemetry.reset_launch_counts()
+    got = tg.ring_gather(parts)
+    torch.cuda.synchronize()
+    launches = tg.ring_gather_launches
+    want = tg.gather_partials_portable(parts)
+    equal = all(torch.equal(x, want) for x in got)
+    run = lambda _i: tg.ring_gather(parts)
+    library = lambda _i: [parts[0] + parts[1], parts[1] + parts[0]]
+    nbytes = 2 * 12 * parts[0].numel()
+    return {"shape": list(shape), "entries": 2, "launches": launches,
+            "equal": equal,
+            "ms": timing.cold_device_ms(run, range(16), device),
+            "warm_ms": timing.device_ms(run, range(16), reps=4),
+            "library_ms": timing.cold_device_ms(library, range(16), device),
+            "library_warm_ms": timing.device_ms(library, range(16), reps=4),
+            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bytes": nbytes}
+
+
+def compare_ring_steps(shape, device, seed, misaligned=False):
+    """ring_step alone, out of place (own != acc) and in place (own is
+    acc), each with and without next, vs the twin's sum; src and own
+    must stay unchanged and next must equal src. Returns (equal,
+    max_abs_err)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+
+    g = np.random.default_rng(seed)
+    numel = int(np.prod(shape))
+    blocks = []
+    for _ in range(4):
+        t = torch.from_numpy(g.integers(-2**31, 2**31, size=numel,
+                                        dtype=np.int64).astype(np.int32))
+        base = torch.empty(numel + int(misaligned), dtype=torch.int32,
+                           device=device)
+        base[int(misaligned):] = t.to(device)
+        blocks.append(base[int(misaligned):].view(shape))
+    src, own, acc, nxt = blocks
+    src0, own0, acc0 = src.clone(), own.clone(), acc.clone()
+    equal, err = True, 0
+    for in_place in (False, True):
+        for with_next in (False, True):
+            acc.copy_(acc0)
+            nxt.zero_()
+            tg.ring_step(src, nxt if with_next else None, acc,
+                         own=acc if in_place else own)
+            torch.cuda.synchronize()
+            want = tg.gather_partials_portable([acc0 if in_place else own0,
+                                                src0])
+            equal &= (torch.equal(acc, want) and torch.equal(src, src0)
+                      and torch.equal(own, own0)
+                      and (not with_next or torch.equal(nxt, src0)))
+            err = max(err, int((acc.long() - want.long()).abs().max()))
+    return equal, err
 
 
 def main(argv=None) -> int:
@@ -2497,6 +2598,13 @@ def run(args, device) -> int:
         qblk, qstack.n_iters,
         tier_specs(shard, rng, 64, 1, 3000, False, tail_lo), "g1k_tail")
     err_q, rep_q = max(err_q, err), rep_q + [row]
+    # clusters of one and of three blocks (d_local 1 and 3)
+    for lo, hi in ((0, 1), (1, 4)):
+        for b in (1, 64):
+            err, row = compare_stacked_query(
+                stack_view(qblk, lo, hi), qstack.n_iters,
+                fused_specs(qshards, rng, b)[0], f"g1k+cohorts[{lo}:{hi}]")
+            err_q, rep_q = max(err_q, err), rep_q + [row]
     small_stack = tm.StackedIndex(small_shards, n_datasets_padded=4)
     (sblk,) = small_stack.shard_to_mesh(one)
     for b, caps in ((16, (2048, 1024)), (64, (2048, 16)), (512, (256, 64))):
@@ -2885,6 +2993,15 @@ def run(args, device) -> int:
                 err_r = max(err_r, err)
                 rep_r.append({"entries": n, "shape": list(shape),
                               "misaligned": mis, "equal": equal})
+    for shape in ((512, 1024), (1, 12604), (7, 13)):
+        for mis in (False, True):
+            equal, err = compare_ring_steps(shape, device, seed=24,
+                                            misaligned=mis)
+            check(equal, f"ring_step {shape} != twin")
+            err_r = max(err_r, err)
+            rep_r.append({"steps": "in and out of place, with and without "
+                          "next", "shape": list(shape), "misaligned": mis,
+                          "equal": equal})
     emit("kernel_vs_twin", kernel=tg.KERNEL, tolerance=0, max_abs_err=err_r,
          cases=len(rep_r), all_equal=all(r["equal"] for r in rep_r),
          report=rep_r)
@@ -3054,21 +3171,29 @@ def run(args, device) -> int:
     ring_shapes = [(512, 1024), (512, 3 * 1024 + w_p)] + [
         (1, words) for _n, words in ring25[-1:]]
     for shape in ring_shapes:
-        for last in (False, True):
+        for form in RING_STEP_FORMS:
             (ms, warm_ms, plain_ms, bound_ms, nbytes, lib_ms,
-             lib_warm_ms) = time_ring_step(shape, device, last)
-            rtimings.append({"shape": list(shape), "last_step": last,
+             lib_warm_ms) = time_ring_step(shape, device, form)
+            rtimings.append({"shape": list(shape), "form": form,
+                             "last_step": form != "next",
                              "ms": ms, "warm_ms": warm_ms,
                              "plain_ms": plain_ms, "bound_ms": bound_ms,
                              "bound_by": "bytes", "bound_share": bound_ms / ms,
                              "bytes": nbytes, "library_ms": lib_ms,
                              "library_warm_ms": lib_warm_ms})
-    p1 = rtimings[4] if len(rtimings) > 4 else rtimings[2]
+    # every launch of phase 25's two-entry ring is a first step (out of
+    # place, no next) on its most launched block
+    p1 = next(t for t in reversed(rtimings) if t["form"] == "first")
+    pair = time_ring_pair(ring_shapes[-1], device)
+    check(pair["equal"] and pair["launches"] == 2,
+          "ring_gather on two entries: the sum in 2 launches")
     emit("timing", kernel=tg.KERNEL, library_ms=p1["library_ms"],
          library_note="one ring step on one card is acc.add_(src), plus "
                       "nxt.copy_(src) before the last step (two calls "
-                      "there); each case carries its own library_ms",
-         cases=rtimings, device=kind, nvidia_smi=smi)
+                      "there), and torch.add(own, src, out=acc) for the "
+                      "first step out of place; each case carries its own "
+                      "library_ms",
+         cases=rtimings, ring_of_two=pair, device=kind, nvidia_smi=smi)
     del tier_index
     j6 = max((t for t in ftimings), key=lambda t: t["phase25_launches"])
 
@@ -3198,7 +3323,7 @@ def run(args, device) -> int:
         "bound_ms": p1["bound_ms"],
         "bound_by": p1["bound_by"],
         "library_ms": p1["library_ms"],
-        "case": {"shape": p1["shape"], "last_step": p1["last_step"]},
+        "case": {"shape": p1["shape"], "form": p1["form"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -92,7 +92,7 @@ SIGNATURES = {
         "mesh_fused_smem": ([_I] * 4, ctypes.c_longlong),
     },
     "ring_gather": {
-        "ring_step_launch": ([_P, _P, _P, _L, _P], ctypes.c_int),
+        "ring_step_launch": ([_P, _P, _P, _P, _L, _P], ctypes.c_int),
     },
 }
 

@@ -13,10 +13,13 @@ is one int32 tensor per entry. Two implementations behind one call:
 
 - ``ring_gather``: the hand-written CUDA ring (``csrc/ring_gather.cu``):
   n - 1 steps; in each, every entry launches one kernel that reads its
-  left neighbour's current block through a device pointer, adds it
-  into its own accumulator and moves it into its second buffer, and a
-  CUDA event per entry orders each step before the next. Every launch
-  adds one to the ``ring_gather`` launch count;
+  left neighbour's current block through a device pointer, adds it to
+  its own running sum and moves it into a spare buffer, and a CUDA
+  event per entry orders each step before the next. The first step
+  reads the entry's own partial and writes a fresh accumulator, so the
+  inputs are neither copied nor written: a ring of two entries is two
+  launches. ``ring_plan`` names the buffers of every launch. Every
+  launch adds one to the ``ring_gather`` launch count;
 - ``gather_partials_portable``: the plain-PyTorch twin, the int32 sum
   of the blocks (wrapping, like XLA's add).
 
@@ -69,18 +72,51 @@ def _impl_for(parts) -> str:
     raise ValueError(f"partials lie on {sorted(types)}: all cpu or all cuda")
 
 
-def ring_step(src, nxt, acc) -> int:
-    """One entry's launch of one ring step on ``acc``'s device: ``acc +=
-    src`` and ``nxt = src`` (``nxt`` None on the last step). Returns the
-    launch record's sequence number."""
+def ring_plan(n: int) -> list[list[tuple]]:
+    """The buffers of every launch of an n-entry ring, per step and per
+    entry i: ``(src, own, nxt, acc)``, launched as ``acc = own + src``
+    and ``nxt = src``. A buffer is ``("part", i)``, entry i's input
+    partial, ``("acc", i)``, its result, or ``("buf", k, i)``, the k-th
+    of its two spare buffers (the block it holds after a step, read by
+    its right neighbour in the next); ``nxt`` is None on the last step.
+    Step 0 reads the inputs and writes each ``acc`` out of place; the
+    spare buffers alternate, so no step reads a buffer that another
+    entry writes in the same step."""
+    steps = []
+    for s in range(n - 1):
+        last = s == n - 2
+        row = []
+        for i in range(n):
+            left = (i - 1) % n
+            src = ("part", left) if s == 0 else ("buf", (s - 1) % 2, left)
+            own = ("part", i) if s == 0 else ("acc", i)
+            nxt = None if last else ("buf", s % 2, i)
+            row.append((src, own, nxt, ("acc", i)))
+        steps.append(row)
+    return steps
+
+
+def ring_step(src, nxt, acc, own=None) -> int:
+    """One entry's launch of one ring step on ``acc``'s device: ``acc =
+    own + src`` (``acc += src`` when ``own`` is None or ``acc`` itself)
+    and ``nxt = src`` (``nxt`` None on the last step). Every block is a
+    contiguous int32 tensor of one size on the card; ``src`` and ``nxt``
+    overlap no other. Returns the launch record's sequence number."""
+    own = acc if own is None else own
     dev = acc.device
+    blocks = [src, own, acc] + ([] if nxt is None else [nxt])
+    if any(b.device.type != "cuda" or b.dtype != torch.int32
+           or not b.is_contiguous() or b.numel() != acc.numel()
+           for b in blocks):
+        raise ValueError("ring_step takes contiguous int32 CUDA blocks of "
+                         "one size")
     lib = _build.load(KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):
         rc = lib.ring_step_launch(
-            src.data_ptr(), 0 if nxt is None else nxt.data_ptr(),
-            acc.data_ptr(), acc.numel(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            src.data_ptr(), own.data_ptr(),
+            0 if nxt is None else nxt.data_ptr(), acc.data_ptr(),
+            acc.numel(), torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"ring_gather launch failed: CUDA error {rc}")
@@ -93,9 +129,9 @@ def ring_step(src, nxt, acc) -> int:
 def ring_gather(parts) -> list[torch.Tensor]:
     """Every entry's copy of the sum of ``parts`` (one int32 tensor per
     mesh entry, all of one shape): on CUDA tensors the ring of
-    ``ring_step`` launches, on CPU tensors the twin (the same sum for
-    every entry). Any other device, or inputs the kernel does not take,
-    raise. The inputs are not written."""
+    ``ring_step`` launches that ``ring_plan`` lays out, on CPU tensors
+    the twin (the same sum for every entry). Any other device, or inputs
+    the kernel does not take, raise. The inputs are not written."""
     parts = list(parts)
     if _impl_for(parts) == "portable":
         total = gather_partials_portable(parts)
@@ -111,34 +147,33 @@ def ring_gather(parts) -> list[torch.Tensor]:
         return [parts[0]]
     if not parts[0].numel():
         return [p.clone() for p in parts]
-    acc = [p.clone() for p in parts]
-    # B_s, the block each entry holds after step s, alternates between
-    # two buffers; step 0 reads the inputs themselves
-    bufs = ([torch.empty_like(p) for p in parts],
-            [torch.empty_like(p) for p in parts])
-    cur = parts
+    bufs = {("part", i): p for i, p in enumerate(parts)}
+
+    def buf(key):
+        if key not in bufs:  # an accumulator or spare, on its entry
+            bufs[key] = torch.empty_like(parts[key[-1]])
+        return bufs[key]
 
     def mark():
         evs = []
-        for a in acc:
+        for p in parts:
             ev = torch.cuda.Event()
-            ev.record(torch.cuda.current_stream(a.device))
+            ev.record(torch.cuda.current_stream(p.device))
             evs.append(ev)
         return evs
 
     done = mark()  # each entry's inputs are ready
-    for step in range(n - 1):
-        last = step == n - 2
-        nxt = bufs[step % 2]
-        for i in range(n):
+    for row in ring_plan(n):
+        for i, (src, own, nxt, acc) in enumerate(row):
             # the left neighbour wrote the block read here; the right
             # neighbour read, one step before, the buffer written here
-            stream = torch.cuda.current_stream(acc[i].device)
+            stream = torch.cuda.current_stream(parts[i].device)
             stream.wait_event(done[(i - 1) % n])
             stream.wait_event(done[(i + 1) % n])
-            ring_step(cur[(i - 1) % n], None if last else nxt[i], acc[i])
-        done, cur = mark(), nxt
-    return acc
+            ring_step(buf(src), None if nxt is None else buf(nxt), buf(acc),
+                      own=buf(own))
+        done = mark()
+    return [bufs[("acc", i)] for i in range(n)]
 
 
 def gather_partials(parts) -> list[torch.Tensor]:

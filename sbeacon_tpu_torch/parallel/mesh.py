@@ -24,9 +24,12 @@ hand-written CUDA kernels:
   layout. The combine layouts then fan in through ``_psum`` and the ring
   gather ``ops.gather_kernel`` (P1).
 
-All three run the per-query body of the bisection kernel
-(``csrc/bisect_core.cuh``); the stacked ones fold the cross-dataset sums
-into the same launch with one atomic add per block. A wrapper launches on
+All three answer the bisection kernel's per-query semantics
+(``csrc/bisect_core.cuh``), and the stacked ones fold the cross-dataset
+sums into the same launch: ``stacked_query`` through one cluster of
+blocks per query whose leader sums the blocks' partials, with its own
+search and lane loads; ``stacked_selected`` with one atomic add per
+block, on ``query_block``. A wrapper launches on
 a CUDA tensor (or raises) and runs the twin on a CPU tensor; every CUDA
 launch adds one to its launch count (``stacked_query_launches``,
 ``stacked_selected_launches``, ``mesh_fused_launches``).
@@ -461,9 +464,11 @@ def stacked_query(
             f"per window lane in at most {_SMEM_MAX} bytes of shared memory"
         )
     out = torch.empty((dl, b, N_AGG + R), dtype=torch.int32, device=dev)
-    agg = torch.zeros((b, N_STACK_AGG), dtype=torch.int32, device=dev)
     if b == 0 or dl == 0:
-        return out, agg, None
+        return out, torch.zeros((b, N_STACK_AGG), dtype=torch.int32,
+                                device=dev), None
+    # the launch writes every word of agg: no fill before it
+    agg = torch.empty((b, N_STACK_AGG), dtype=torch.int32, device=dev)
     lib = _build.load(QUERY_KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):

@@ -556,23 +556,70 @@ def _stack_q(specs, device):
                                             fused=False)).to(device)
 
 
+@pytest.fixture(scope="module")
+def local_stacks(cuda_device):
+    """One-entry stacks of d_local datasets for the stacked query's
+    clusters (at most 8 blocks, so 9 and 17 loop over datasets): the
+    fused shards over and over, the last dataset a padding one (all-zero
+    segment row) once d_local > 1."""
+    shards = _fused_shards()
+    out = {}
+    for d_local in (1, 3, 8, 9, 17):
+        real = max(1, d_local - 1)
+        stack = tm.StackedIndex([shards[i % len(shards)] for i in range(real)],
+                                n_datasets_padded=d_local)
+        (blk,) = stack.shard_to_mesh(tm.make_mesh(devices=[cuda_device]))
+        assert blk.n_datasets == d_local
+        out[d_local] = (stack, blk)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [1, 16, 64, 512])
+@pytest.mark.parametrize("d_local", [2, 1, 3, 8, 9, 17])
+@pytest.mark.parametrize("b", [0, 1, 16, 64, 512])
 @pytest.mark.parametrize("window_cap,record_cap", [(2048, 1024), (256, 16)])
-def test_stacked_query_kernel_matches_twin(stacks, b, window_cap, record_cap):
-    _mesh, qs, blocks, *_ = stacks
-    specs, _sids = _fused_specs(_stack_shards()[0], b, seed=7 * b)
+def test_stacked_query_kernel_matches_twin(stacks, local_stacks, b,
+                                           window_cap, record_cap, d_local):
+    """Each block of datasets (d_local 2: the two-entry mesh's blocks,
+    each with a padding dataset; else a one-entry stack) equals the twin
+    in out and agg, b = 0 included (an all-zero agg, no launch)."""
+    if d_local == 2:
+        _mesh, qs, blocks, *_ = stacks
+        n_iters = qs.n_iters
+    else:
+        stack, blk = local_stacks[d_local]
+        blocks, n_iters = [blk], stack.n_iters
+    specs, _sids = _fused_specs(_stack_shards()[0], max(b, 1), seed=7 * b)
     for blk in blocks:
-        q = _stack_q(specs, blk.device)
+        q = _stack_q(specs, blk.device)[:b]
         kw = dict(window_cap=window_cap, record_cap=record_cap,
-                  n_iters=qs.n_iters)
+                  n_iters=n_iters)
+        telemetry.reset_launch_counts()
         out, agg, seq = tm.stacked_query(blk.columns, blk.alt_prefix,
                                          blk.offsets, q, **kw)
         torch.cuda.synchronize()
-        assert seq is not None
+        assert (seq is None) == (b == 0)
+        assert tm.stacked_query_launches == (b > 0)
         want = tm.local_query_reference(blk.columns, blk.alt_prefix,
                                         blk.offsets, q, **kw)
         assert torch.equal(out, want[0]) and torch.equal(agg, want[1])
+        assert agg.shape == (b, tm.N_STACK_AGG)
+
+
+@pytest.mark.cuda
+def test_stacked_query_launches_no_fill(local_stacks):
+    """One stacked_query call runs its kernel and no other (agg is not
+    filled before the launch), on a stack of 9 datasets."""
+    stack, blk = local_stacks[9]
+    specs, _sids = _fused_specs(_stack_shards()[0], 64, seed=5)
+    q = _stack_q(specs, blk.device)
+    kw = dict(window_cap=2048, record_cap=1024, n_iters=stack.n_iters)
+    run = lambda: tm.stacked_query(blk.columns, blk.alt_prefix, blk.offsets,
+                                   q, **kw)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "stacked_query_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda
@@ -829,28 +876,50 @@ def test_run_mesh_queries_on_card_equals_cpu(fused_meshes, kind, layout):
             np.testing.assert_array_equal(a, w, f)
 
 
+def _ring_blocks(n, shape, device, seed, misaligned):
+    """n seeded int32 blocks over the whole int32 range (wraparound), on
+    ``device``; misaligned ones start 4 bytes into a buffer (the word
+    kernel)."""
+    g = np.random.default_rng(seed)
+    numel = int(np.prod(shape))
+    out = []
+    for _ in range(n):
+        t = torch.from_numpy(g.integers(-2**31, 2**31, size=numel,
+                                        dtype=np.int64).astype(np.int32))
+        if misaligned:
+            base = torch.empty(numel + 1, dtype=torch.int32, device=device)
+            base[1:] = t.to(device)
+            out.append(base[1:].view(shape))
+        else:
+            out.append(t.to(device).view(shape))
+    return out
+
+
+def _cuda_kernels(fn):
+    """The names of the CUDA kernels one call of ``fn`` runs (a
+    torch.profiler trace of the card), in launch order."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [ev.name for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [2, 3, 4])
 @pytest.mark.parametrize("shape", [(64, 1024), (64, 3 * 1024 + 79), (7, 13)])
 @pytest.mark.parametrize("misaligned", [False, True])
 def test_ring_gather_matches_twin(cuda_device, n, shape, misaligned):
     """The ring on n entries of the card: every entry ends with the int32
-    sum (wrapping), the inputs unchanged, n(n-1) launches."""
+    sum (wrapping), the inputs unchanged, n(n-1) launches and no other
+    kernel (no copy of an input partial). Then single ring steps, out of
+    place (own != acc) and in place (own is acc), each with and without
+    next, against the twin's sum."""
     from sbeacon_tpu_torch.ops import gather_kernel as tg
 
-    g = np.random.default_rng(n)
-    numel = int(np.prod(shape))
-    parts = []
-    for _ in range(n):
-        t = torch.from_numpy(g.integers(-2**31, 2**31, size=numel,
-                                        dtype=np.int64).astype(np.int32))
-        if misaligned:
-            base = torch.empty(numel + 1, dtype=torch.int32,
-                               device=cuda_device)
-            base[1:] = t.to(cuda_device)
-            parts.append(base[1:].view(shape))
-        else:
-            parts.append(t.to(cuda_device).view(shape))
+    parts = _ring_blocks(n, shape, cuda_device, n, misaligned)
     keep = [p.clone() for p in parts]
     telemetry.reset_launch_counts()
     got = tg.ring_gather(parts)
@@ -861,6 +930,30 @@ def test_ring_gather_matches_twin(cuda_device, n, shape, misaligned):
         assert torch.equal(x.cpu(), want)
     for a, b in zip(parts, keep):
         assert torch.equal(a, b)
+    kernels = _cuda_kernels(lambda: tg.ring_gather(parts))
+    assert len(kernels) == n * (n - 1), kernels
+    assert all("ring_step" in k for k in kernels), kernels
+
+    src, own, acc, nxt = _ring_blocks(4, shape, cuda_device, 10 + n,
+                                      misaligned)
+    src0, own0, acc0 = src.clone(), own.clone(), acc.clone()
+    for in_place in (False, True):
+        for with_next in (False, True):
+            a = acc0.clone() if in_place else acc
+            a_before = a.clone()
+            telemetry.reset_launch_counts()
+            tg.ring_step(src, nxt if with_next else None, a,
+                         own=a if in_place else own)
+            torch.cuda.synchronize()
+            assert tg.ring_gather_launches == 1
+            base = a_before if in_place else own0
+            assert torch.equal(
+                a.cpu(), tg.gather_partials_portable([base.cpu(),
+                                                      src0.cpu()]))
+            if with_next:
+                assert torch.equal(nxt, src0)
+            assert torch.equal(src, src0) and torch.equal(own, own0)
+            nxt.zero_()
 
 
 @pytest.mark.cuda
