@@ -5,7 +5,7 @@
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--seed 0]
+                          [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
@@ -110,6 +110,19 @@ non-zero, without the final line):
     torch.add(own, src, out=acc), and a whole two-entry ring_gather
     beside [p0 + p1, p1 + p0], each beside its bound.
 
+Each timing phase also prints a ``profile`` line: the kernels one call
+of the wrapper ran, from a ``torch.profiler`` trace (scatter_match,
+scatter_selected, stacked_query, stacked_selected and ring_step must
+run their one kernel and nothing else). With ``--parent DIR`` (another
+checkout, e.g. the parent commit unpacked from ``git archive``, which
+must lie under this checkout's ``build/``: its kernels build into
+``DIR/build/kernels``), phases
+5, 14 and 22 build that checkout's four kernels (scatter_match,
+scatter_selected, stacked_query, stacked_selected) from its sources and
+time them on the same inputs in turns with this tree's (parent, this,
+this, parent), reported as ``parent_ms`` / ``parent_warm_ms`` and each
+take under ``turns``.
+
 Then one ``{"kernels": [...]}`` line (the nine CUDA kernels), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
 "device": {...}}``. The script exits non-zero, printing no result, when
@@ -122,6 +135,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import random
 import subprocess
 import sys
@@ -171,6 +185,11 @@ P_DERIVED = 0.3  # dataset B's share of records counted from genotypes
 # (8.85 GB) and the stack's per-device bytes (6.3 GB; twice that on the
 # card, whose two mesh entries are one device)
 MESH_PLANE_BUDGET_GB = 40.0
+
+
+# the kernels timed beside the parent's with --parent
+PARENT_TIMED = ("scatter_match", "scatter_selected", "stacked_query",
+                "stacked_selected")
 
 
 def emit(phase: str, **kw) -> None:
@@ -572,11 +591,14 @@ def needed_bytes(index, ids, q8, masks, C, cap, io=None):
     return nbytes, int(win.sum())
 
 
-def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
-    """(kernel ms, twin ms, bound ms, bound_by, bytes) per launch of one
-    tier at NSLOTS slots. The launches cycle over ``n_sets`` distinct
-    random query sets so the gathered tiles (>= 8 MB a set) do not stay
-    in the 50 MB L2, as for random serving traffic."""
+def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16,
+                parent=None):
+    """Timing fields (ms, plain_ms, bound_ms, bound_by, bytes) per launch
+    of one tier at NSLOTS slots. The launches cycle over ``n_sets``
+    distinct random query sets so the gathered tiles (>= 8 MB a set) do
+    not stay in the 50 MB L2, as for random serving traffic. With
+    ``parent`` (``load_parent``) its kernel is timed in turns beside
+    this one (``parent_ms``)."""
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
     from sbeacon_tpu_torch.ops import timing
 
@@ -588,12 +610,14 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
         )
         for _ in range(n_sets)
     ]
-    ms = timing.device_ms(
-        lambda s: sk.scatter_match(
-            index.tiles, s[0], s[1], T=T, CAP=cap, C=C, exact_only=exact
-        ),
-        sets, reps=4,
-    )
+    runs = {"this": sk.scatter_match}
+    if parent is not None:
+        runs = {"parent": parent.sk.scatter_match, **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.device_ms(
+            lambda s: fn(index.tiles, s[0], s[1], T=T, CAP=cap, C=C,
+                         exact_only=exact),
+            sets, reps=4),), runs), ("ms",))
     plain_ms = timing.device_ms(
         lambda s: sk.scatter_core_reference(
             index.tiles, s[0], s[1], T=T, CAP=cap, C=C, exact_only=exact,
@@ -612,8 +636,9 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16):
     lanes = float(np.mean([l for _n, l in need]))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = lanes * MATCH_OPS_PER_LANE / INT32_OPS_PER_S * 1e3
-    bound_ms = max(bytes_ms, ops_ms)
-    return ms, plain_ms, bound_ms, "bytes" if bytes_ms >= ops_ms else "operations", nbytes
+    return {**fields, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
 
 
 def fused_specs(shards, rng, n, kinds=None):
@@ -1121,16 +1146,17 @@ def plane_sector_count(rows, w):
 
 
 def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
-                  record_cap, n_sets=64):
-    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per launch
-    of ``b`` slots of one (tier, exact) split over ``n_sets`` query sets
-    (selected masks of 1-500 samples with counts, all-ones without).
-    The kernel ms finds the L2 cold, as a serving launch that reads its
-    own query's plane rows does; the warm ms cycles the sets back to
-    back, their few KB each staying in L2. Bound, from 16 of the sets:
-    the match kernel's window sectors, the 32-B sectors of the plane
-    rows each launch's matched rows read (x4 with counts), and its
-    inputs and outputs once."""
+                  record_cap, n_sets=64, parent=None):
+    """Timing fields (ms, warm_ms, plain_ms, bound_ms, bound_by, bytes)
+    per launch of ``b`` slots of one (tier, exact) split over ``n_sets``
+    query sets (selected masks of 1-500 samples with counts, all-ones
+    without). The kernel ms finds the L2 cold, as a serving launch that
+    reads its own query's plane rows does; the warm ms cycles the sets
+    back to back, their few KB each staying in L2. With ``parent``, the
+    parent's kernel (``parent_ms``) is timed in turns beside it.
+    Bound, from 16 of the sets: the match kernel's window sectors, the
+    32-B sectors of the plane rows each launch's matched rows read (x4
+    with counts), and its inputs and outputs once."""
     import torch
 
     from sbeacon_tpu_torch.ops import scatter_kernel as sk
@@ -1152,11 +1178,17 @@ def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
             index.device)
         sets.append((ids, q8, mask))
     planes = plane_args(pidx, with_counts)
-    run = lambda s: sk.scatter_selected(
-        index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
-        with_counts=with_counts)
-    ms = timing.cold_device_ms(run, sets, index.device)
-    warm_ms = timing.device_ms(run, sets, reps=4)
+    kw = dict(T=T, CAP=cap, C=C, exact_only=exact, R=R,
+              with_counts=with_counts)
+    run = lambda s: sk.scatter_selected(index.tiles, *planes, *s, **kw)
+    runs = {"this": run}
+    if parent is not None:
+        runs = {"parent": lambda s: parent.sk.scatter_selected(
+            index.tiles, *planes, *s, **kw), **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.cold_device_ms(fn, sets, index.device),
+                    timing.device_ms(fn, sets, reps=4)), runs),
+        ("ms", "warm_ms"))
     twin = lambda s: sk.scatter_selected_reference(
         index.tiles, *planes, *s, T=T, CAP=cap, C=C, exact_only=exact, R=R,
         with_counts=with_counts, seg_k=sk._static_seg_k(index))
@@ -1178,8 +1210,9 @@ def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
     ops = float(np.mean([o for _x, o in need]))
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return (ms, warm_ms, plain_ms, max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+    return {**fields, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
 
 
 def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
@@ -1289,28 +1322,252 @@ def event_ms(fn, arg, reps=3):
     return float(np.mean(out))
 
 
-def kernel_breakdown(fn, arg):
-    """Device ms of each CUDA kernel that one call of ``fn(arg)`` runs
-    (a warm call first), by kernel name, from a ``torch.profiler`` trace
-    of the card; an empty dict when the trace holds no device time."""
-    import re
+def kernel_name(signature):
+    """A kernel's bare name from the signature a profiler trace gives
+    it ("void (anonymous namespace)::k<true>(int const*, ...)" -> "k")."""
+    bare = signature.replace("(anonymous namespace)::", "")
+    return bare.split("(")[0].split("<")[0].split()[-1].split("::")[-1]
 
+
+def profiled_call(fn, arg):
+    """The ``torch.profiler`` trace of the card over one call of
+    ``fn(arg)``, after a warm call. The call sits 50 ms inside each end
+    of the traced window: with the window ending right after the call, a
+    trace now and then (2 of 30 in a row on the H100) held no device
+    event at all; padded, none of 60 did."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn(arg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         fn(arg)
         torch.cuda.synchronize()
+        time.sleep(0.05)
+    return prof
+
+
+def kernel_breakdown(fn, arg):
+    """Device ms of each CUDA kernel that one call of ``fn(arg)`` runs
+    (a warm call first), by kernel name, from a ``torch.profiler`` trace
+    of the card; an empty dict when the trace holds no device time."""
     out = {}
-    for ev in prof.key_averages():
+    for ev in profiled_call(fn, arg).key_averages():
         us = getattr(ev, "device_time_total", 0) or 0
         if us:
-            name = re.sub(r"\(anonymous namespace\)::", "", ev.key)
-            name = name.split("(")[0].split("::")[-1].strip()
+            name = kernel_name(ev.key)
             out[name] = out.get(name, 0.0) + us / 1e3
     return out
+
+
+def kernels_run(fn, arg):
+    """The names of the CUDA kernels one call of ``fn(arg)`` runs (a warm
+    call first), in launch order, from a ``torch.profiler`` trace of the
+    card."""
+    import torch
+
+    return [kernel_name(ev.name) for ev in profiled_call(fn, arg).events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_line(kernel, fn, arg, expect=None, tries=3):
+    """One ``profile`` line: the kernels one wrapper call ran, traced
+    again (at most ``tries`` traces) while a trace holds no device event
+    at all, which shows nothing of the call. With ``expect`` (a kernel
+    function name) a trace that holds events must show that kernel and
+    nothing else; when every trace was empty (``traced`` false) the
+    check falls to the wrapper's launch records: one launch of
+    ``kernel`` for each of the take's two calls (warm and traced)."""
+    from sbeacon_tpu_torch import telemetry
+
+    for n_traces in range(1, tries + 1):
+        before = telemetry.launch_count(kernel)
+        ran = kernels_run(fn, arg)
+        launches = telemetry.launch_count(kernel) - before
+        if ran:
+            break
+    emit("profile", kernel=kernel, ran=ran, traced=bool(ran),
+         traces=n_traces, launches=launches)
+    if expect is None:
+        return
+    if ran:
+        check(ran == [expect], f"one {kernel} call ran {ran}, not one "
+              f"{expect}")
+    else:
+        check(launches == 2, f"{n_traces} traces of {kernel} held no "
+              f"device event, and its two calls recorded {launches} "
+              "launches")
+
+
+def profile_kernels(device):
+    """One ``profile`` line per kernel: the kernels one wrapper call runs
+    on small seeded inputs (three 20000-row shards of 70 samples with all
+    four planes), each call in a ``torch.profiler`` session of its own.
+    Meant for a process of its own (``profiled_kernels``): once a process
+    has run one profiler session, later sessions that follow about a
+    million other kernel launches record no device event."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.parallel import distinct as dc
+    from sbeacon_tpu_torch.parallel import mesh as tm
+    from sbeacon_tpu_torch.testing import synthetic_shard
+
+    rng = random.Random(27)
+    n_samples = 70
+    shards = [attach_planes(
+        synthetic_shard(20_000, seed=27 + i, n_samples=n_samples,
+                        dataset_id=f"p{i}"),
+        n_samples, 27 + i, device, counts=True, dataset_id=f"p{i}")
+        for i in range(3)]
+    s0 = shards[0]
+    index = sk.ScatterDeviceIndex(s0, device)
+    pidx = pk.PlaneDeviceIndex(s0, device)
+    w = pidx.n_words
+    ones = lambda *shape: torch.full(shape, -1, dtype=torch.int32,
+                                     device=device)
+    T = index.tile
+
+    a = kernel_inputs(index, tier_specs(s0, rng, 16, 1, 1, True), device)
+    profile_line(sk.KERNEL, lambda a: sk.scatter_match(
+        index.tiles, *a, T=T, CAP=T, C=1, exact_only=True), a,
+        expect="scatter_match_kernel")
+    fused = tk.FusedDeviceIndex(shards, device)
+    specs, sids = fused_specs(shards, rng, 16)
+    profile_line(tk.KERNEL, lambda q: tk.bisect_query(
+        fused.columns, fused.alt_prefix, fused.offsets, q, window_cap=2048,
+        record_cap=1024, n_iters=fused.n_iters),
+        bisect_inputs(fused, specs, sids))
+    for counts_on in (False, True):
+        a = (*kernel_inputs(index, tier_specs(s0, rng, 1, 1, 1, True),
+                            device), ones(1, w))
+        profile_line(sk.SELECTED_KERNEL, lambda a: sk.scatter_selected(
+            index.tiles, *plane_args(pidx, counts_on), *a, T=T, CAP=T, C=1,
+            exact_only=True, R=T, with_counts=counts_on), a,
+            expect="scatter_selected_kernel")
+    rows = torch.arange(0, 2560, 20, dtype=torch.int32, device=device)
+    profile_line(pk.KERNEL, lambda a: pk.plane_stats(
+        *plane_args(pidx, True), *a, with_counts=True, with_or=True),
+        (rows, ones(rows.numel()).neg(), ones(w)))
+    keys = torch.from_numpy(dc.shard_keys(shards)).to(device)
+    profile_line(dc.KERNEL, dc.distinct_count, keys)
+    one = tm.make_mesh(devices=[device])
+    (qblk,) = tm.StackedIndex(shards).shard_to_mesh(one)
+    pstack = tm.StackedIndex(shards, with_planes=True)
+    (pblk,) = pstack.shard_to_mesh(one)
+    q = stack_q(fused_specs(shards, rng, 64)[0], device)
+    profile_line(tm.QUERY_KERNEL, lambda q: tm.stacked_query(
+        qblk.columns, qblk.alt_prefix, qblk.offsets, q, window_cap=2048,
+        record_cap=1024, n_iters=pstack.n_iters), q,
+        expect="stacked_query_kernel")
+    masks = ones(pblk.n_datasets, pstack.plane_words)
+    for counts_on in (False, True):
+        profile_line(tm.SELECTED_KERNEL, lambda q: tm.stacked_selected(
+            pblk.columns, pblk.alt_prefix, pblk.offsets,
+            *block_planes(pblk, counts_on), masks, q, window_cap=2048,
+            record_cap=1024, n_iters=pstack.n_iters, has_counts=counts_on),
+            q, expect="stacked_selected_kernel")
+    mfi = tm.MeshFusedIndex(shards, tm.Mesh([device, device]),
+                            with_planes=True, layout=tm.LAYOUT_SLICED)
+    specs, sids = fused_specs(shards, rng, 8)
+    (_g, blk, kw), *_rest = fused_entry_inputs(
+        mfi, specs, sids, mfi.layout,
+        np.full((8, mfi.plane_words), 0xFFFFFFFF, np.uint32),
+        np.ones(8, np.bool_))
+    profile_line(tm.FUSED_KERNEL, lambda a: run_fused(
+        a[0], a[1], tm.mesh_fused, 2048, 1024), (blk, kw))
+    blocks = [ones(1, 12604) for _ in range(3)]
+    profile_line(tg.KERNEL, lambda b: tg.ring_step(b[0], None, b[1],
+                                                   own=b[2]),
+                 blocks, expect="ring_step_vec")
+    return 0
+
+
+def profiled_kernels():
+    """Run ``profile_kernels`` in a child process (the card's first
+    profiler sessions there) and relay its lines; raises when the child
+    fails. The child is waited for."""
+    import os
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, torch, chip_smoke; sys.exit("
+         "chip_smoke.profile_kernels(torch.device('cuda', 0)))"],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
+    for l in lines:
+        print(l, flush=True)
+    check(proc.returncode == 0 and len(lines) == 11,
+          f"the profiled kernel calls failed (rc {proc.returncode}): "
+          f"{proc.stderr[-2000:]}")
+
+
+def timed_in_turns(measure, runs):
+    """``measure(run)`` for each run of ``runs`` (name -> callable) in
+    turns: one take when there is one run, else the order A, B, ..., ...,
+    B, A, so a drift of the card over the phase weighs on each run alike.
+    Returns name -> the list of takes."""
+    names = list(runs)
+    order = names if len(names) == 1 else names + names[::-1]
+    takes = {n: [] for n in names}
+    for n in order:
+        takes[n].append(measure(runs[n]))
+    return takes
+
+
+def turn_fields(takes, keys):
+    """Case fields from ``timed_in_turns``: the mean of each key (the
+    entries of a take) for run "this", ``<run>_<key>`` for the others,
+    and the takes themselves when there are several runs."""
+    out = {}
+    for name, ts in takes.items():
+        for i, k in enumerate(keys):
+            v = float(np.mean([t[i] for t in ts]))
+            out[k if name == "this" else f"{name}_{k}"] = v
+    if len(takes) > 1:
+        out["turns"] = {n: [list(t) for t in ts] for n, ts in takes.items()}
+    return out
+
+
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+
+
+def parent_dir_ok(root):
+    """Whether ``root`` lies under this checkout's ignored ``build/``, the
+    one place ``--parent`` may build into."""
+    from pathlib import Path
+
+    return Path(root).resolve().is_relative_to(Path(BUILD_DIR).resolve())
+
+
+def load_parent(root):
+    """The port package of another checkout at ``root`` (the parent
+    commit, for same-call timings), imported as
+    ``parent_sbeacon_tpu_torch`` with its own kernel builds under
+    ``root/build/kernels``: a namespace of its ``scatter_kernel``
+    (``sk``), ``parallel.mesh`` (``tm``) and ``_build``. The package
+    imports only relatively, so the alias holds."""
+    import importlib
+    import importlib.util
+    import types
+    from pathlib import Path
+
+    name = "parent_sbeacon_tpu_torch"
+    pkg = Path(root).resolve() / "sbeacon_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return types.SimpleNamespace(
+        root=str(Path(root).resolve()),
+        sk=importlib.import_module(name + ".ops.scatter_kernel"),
+        tm=importlib.import_module(name + ".parallel.mesh"),
+        build=importlib.import_module(name + ".ops._build"))
 
 
 def time_distinct(keys, device):
@@ -1530,21 +1787,27 @@ def stacked_need(blk, n_iters, q, W, R):
     return nbytes, ops
 
 
-def time_stacked_query(blk, n_iters, spec_sets, W, R):
-    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
-    stacked_query launch over the query sets: the kernel ms with the L2
-    flushed before each launch, the warm ms back to back; the twin by an
+def time_stacked_query(blk, n_iters, spec_sets, W, R, parent=None):
+    """Timing fields (ms, warm_ms, plain_ms, bound_ms, bound_by, bytes)
+    per stacked_query launch over the query sets: the kernel ms with the
+    L2 flushed before each launch, the warm ms back to back, with
+    ``parent`` its kernel in turns beside (``parent_ms``); the twin by an
     event pair around each call (it enqueues too many small kernels for a
     held stream)."""
     from sbeacon_tpu_torch.ops import timing
     from sbeacon_tpu_torch.parallel import mesh as tm
 
     sets = [stack_q(specs, blk.device) for specs in spec_sets]
-    run = lambda q: tm.stacked_query(blk.columns, blk.alt_prefix,
-                                     blk.offsets, q, window_cap=W,
-                                     record_cap=R, n_iters=n_iters)
-    ms = timing.cold_device_ms(run, sets, blk.device)
-    warm_ms = timing.device_ms(run, sets, reps=4)
+    kw = dict(window_cap=W, record_cap=R, n_iters=n_iters)
+    args = (blk.columns, blk.alt_prefix, blk.offsets)
+    runs = {"this": lambda q: tm.stacked_query(*args, q, **kw)}
+    if parent is not None:
+        runs = {"parent": lambda q: parent.tm.stacked_query(*args, q, **kw),
+                **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.cold_device_ms(fn, sets, blk.device),
+                    timing.device_ms(fn, sets, reps=4)), runs),
+        ("ms", "warm_ms"))
     twin = lambda q: tm.local_query_reference(
         blk.columns, blk.alt_prefix, blk.offsets, q, window_cap=W,
         record_cap=R, n_iters=n_iters)
@@ -1552,16 +1815,19 @@ def time_stacked_query(blk, n_iters, spec_sets, W, R):
     need = [stacked_need(blk, n_iters, q, W, R) for q in sets[:16]]
     nbytes = float(np.mean([x for x, _o in need]))
     bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
-    return ms, warm_ms, plain_ms, bound_ms, by, nbytes
+    return {**fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes}
 
 
-def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap):
-    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
-    stacked_selected launch over ``sets`` of (specs, masks uint32
-    [d_local, W]): L2 cold and warm as time_stacked_query. Bound: the
-    query part's (stacked_need), the 32-B sectors of the plane rows the
-    matched rows read (x4 with counts), the masks read once and the
-    outputs written once."""
+def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap,
+                          parent=None):
+    """Timing fields (ms, warm_ms, plain_ms, bound_ms, bound_by, bytes)
+    per stacked_selected launch over ``sets`` of (specs, masks uint32
+    [d_local, W]): L2 cold and warm as time_stacked_query, with the
+    parent's kernel in turns beside. Bound: the query part's
+    (stacked_need), the 32-B sectors of the plane rows the matched rows
+    read (x4 with counts), the masks read once and the outputs written
+    once."""
     import torch
 
     from sbeacon_tpu_torch.ops import timing
@@ -1574,10 +1840,16 @@ def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap):
     planes = block_planes(blk, has_counts)
     kw = dict(window_cap=W, record_cap=record_cap, n_iters=n_iters,
               has_counts=has_counts)
-    run = lambda s: tm.stacked_selected(blk.columns, blk.alt_prefix,
-                                        blk.offsets, *planes, s[1], s[0], **kw)
-    ms = timing.cold_device_ms(run, packed, dev)
-    warm_ms = timing.device_ms(run, packed, reps=4)
+    args = (blk.columns, blk.alt_prefix, blk.offsets, *planes)
+    run = lambda s: tm.stacked_selected(*args, s[1], s[0], **kw)
+    runs = {"this": run}
+    if parent is not None:
+        runs = {"parent": lambda s: parent.tm.stacked_selected(
+            *args, s[1], s[0], **kw), **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.cold_device_ms(fn, packed, dev),
+                    timing.device_ms(fn, packed, reps=4)), runs),
+        ("ms", "warm_ms"))
     twin = lambda s: tm.local_selected_reference(
         blk.columns, blk.alt_prefix, blk.offsets, *planes, s[1], s[0], **kw)
     plain_ms = float(np.mean([event_ms(twin, s) for s in packed[:2]]))
@@ -1597,7 +1869,8 @@ def time_stacked_selected(blk, n_iters, sets, has_counts, W, record_cap):
         need.append((nbytes, ops))
     nbytes = float(np.mean([x for x, _o in need]))
     bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
-    return ms, warm_ms, plain_ms, bound_ms, by, nbytes
+    return {**fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes}
 
 
 class TierFront:
@@ -1917,7 +2190,15 @@ def main(argv=None) -> int:
     ap.add_argument("--plane-rows", type=int, default=2_000_000)
     ap.add_argument("--selected-requests", type=int, default=256)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None,
+                    help="another checkout (e.g. the parent commit): its "
+                         "scatter_match, scatter_selected, stacked_query and "
+                         "stacked_selected kernels are built from its sources "
+                         "and timed in turns beside this tree's; DIR must "
+                         "lie under this checkout's build/")
     args = ap.parse_args(argv)
+    if args.parent and not parent_dir_ok(args.parent):
+        ap.error(f"--parent {args.parent}: not under {BUILD_DIR}")
 
     import torch
 
@@ -1967,6 +2248,15 @@ def run(args, device) -> int:
                        for n in libs},
          ptxas={n: _build.build_log.get(n, {}).get("ptxas", "")[-1500:]
                 for n in libs})
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = load_parent(args.parent)
+        parent.build.build_all()
+        emit("build", parent=parent.root, seconds=time.perf_counter() - t0,
+             ptxas={n: parent.build.build_log.get(n, {}).get("ptxas",
+                                                             "")[-1500:]
+                    for n in PARENT_TIMED})
 
     # the 1000-Genomes-shaped corpus and the engine that serves it
     t0 = time.perf_counter()
@@ -2050,16 +2340,15 @@ def run(args, device) -> int:
         timings = []
         for C, cap, r_lo, r_hi in tiers(index.tile):
             for exact in (True, False):
-                ms, plain_ms, bound_ms, bound_by, nbytes = time_kernel(
-                    index, device, rng, C, cap, r_lo, r_hi, exact
-                )
+                t = time_kernel(index, device, rng, C, cap, r_lo, r_hi,
+                                exact, parent=parent)
                 timings.append(
                     {"C": C, "cap": cap, "exact_only": exact,
-                     "slots": NSLOTS, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "bound_share": bound_ms / ms, "bytes": nbytes,
+                     "slots": NSLOTS, **t,
+                     "bound_share": t["bound_ms"] / t["ms"],
                      "main_path_launches": by_tier.get((C, exact), 0)}
                 )
+
         # upper estimate of the card's busy share in the main path:
         # its launches at the full-batch per-launch time of their tier
         busy_ms = sum(t["ms"] * t["main_path_launches"] for t in timings)
@@ -2380,15 +2669,13 @@ def run(args, device) -> int:
         stimings = []
         for (C, cap, b, exact, counts_on), launched in sorted(by_case.items()):
             idx, pidx = (index_b, pidx_b) if counts_on else (index_a, pidx_a)
-            ms, warm_ms, plain_ms, bound_ms, bound_by, nbytes = time_selected(
-                idx, pidx, rng, C, cap, b, exact, counts_on, record_cap)
+            t = time_selected(idx, pidx, rng, C, cap, b, exact, counts_on,
+                              record_cap, parent=parent)
             stimings.append(
                 {"C": C, "cap": cap, "slots": b, "exact_only": exact,
                  "with_counts": counts_on,
-                 "selected_path_launches": launched, "ms": ms,
-                 "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "bound_share": bound_ms / ms,
-                 "bytes": nbytes})
+                 "selected_path_launches": launched, **t,
+                 "bound_share": t["bound_ms"] / t["ms"]})
         emit("timing", kernel=sk.SELECTED_KERNEL, library_ms=None,
              library_note="no single PyTorch call computes this function",
              cases=stimings, device=kind, nvidia_smi=smi)
@@ -2831,15 +3118,13 @@ def run(args, device) -> int:
         for b in (1, 64):
             sets = [mq_specs[(i * b) % len(mq_specs):][:b] or mq_specs[:b]
                     for i in range(64 if b == 1 else 8)]
-            ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_query(
-                blk, mq_n_iters, sets, window_cap, record_cap)
+            t = time_stacked_query(blk, mq_n_iters, sets, window_cap,
+                                   record_cap, parent=parent)
             qtimings.append({
                 "block": g, "datasets": blk.n_datasets, "queries": b,
                 "mesh_path_launches": (mq_counts[tm.QUERY_KERNEL] // 2
                                        if b == 1 else 0),
-                "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-                "bound_ms": bound_ms, "bound_by": by,
-                "bound_share": bound_ms / ms, "bytes": nbytes})
+                **t, "bound_share": t["bound_ms"] / t["ms"]})
     busy_q = sum(t["ms"] * t["mesh_path_launches"] for t in qtimings)
     emit("timing", kernel=tm.QUERY_KERNEL, library_ms=None,
          library_note="no single PyTorch call computes this function: "
@@ -2851,26 +3136,23 @@ def run(args, device) -> int:
     stimings = []
     for g, blk in enumerate(sblocks):
         sets = [(specs, m[g : g + 1]) for specs, m in sel_sets[:64]]
-        ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_selected(
-            blk, ms_n_iters, sets, False, window_cap, record_cap)
+        t = time_stacked_selected(blk, ms_n_iters, sets, False, window_cap,
+                                  record_cap, parent=parent)
         stimings.append({
             "block": g, "dataset": sel_names[g], "queries": 1,
             "with_counts": False,
             "mesh_path_launches": ms_counts[tm.SELECTED_KERNEL] // 2,
-            "ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": by,
-            "bound_share": bound_ms / ms, "bytes": nbytes})
+            **t, "bound_share": t["bound_ms"] / t["ms"]})
     for b in (1, 64):
         sets = [(fused_specs(cstack.shards, rng, b, ("exact", "any"))[0], m)
                 for m in mask_sets(rng, 16, 3, cstack.plane_words,
                                    args.samples)]
-        ms, warm_ms, plain_ms, bound_ms, by, nbytes = time_stacked_selected(
-            cblk, cstack.n_iters, sets, True, window_cap, record_cap)
+        t = time_stacked_selected(cblk, cstack.n_iters, sets, True,
+                                  window_cap, record_cap, parent=parent)
         stimings.append({
             "block": "B+subsets", "queries": b, "with_counts": True,
-            "mesh_path_launches": 0, "ms": ms, "warm_ms": warm_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-            "bound_share": bound_ms / ms, "bytes": nbytes})
+            "mesh_path_launches": 0, **t,
+            "bound_share": t["bound_ms"] / t["ms"]})
     busy_s = sum(t["ms"] * t["mesh_path_launches"] for t in stimings)
     emit("timing", kernel=tm.SELECTED_KERNEL, library_ms=None,
          library_note="no single PyTorch call computes this function",
@@ -3196,6 +3478,9 @@ def run(args, device) -> int:
          cases=rtimings, ring_of_two=pair, device=kind, nvidia_smi=smi)
     del tier_index
     j6 = max((t for t in ftimings), key=lambda t: t["phase25_launches"])
+
+    # which kernels one call of each wrapper runs
+    profiled_kernels()
 
     # the main path's most-launched tier stands for the scatter kernel;
     # the median fused batch of brackets for the bisection kernel; the

@@ -1,8 +1,8 @@
-// The per-query body of the bisection kernels (sm_90a), shared by
-// bisect_query.cu (J3) and the stacked kernels stacked_query.cu and
-// stacked_selected.cu (J7): one 256-thread block answers one query against
-// one segment table row, the semantics of
-// sbeacon_tpu/ops/kernel.py::_bisect / _query_one.
+// The per-query body of the bisection kernels (sm_90a), run by
+// bisect_query.cu (J3) and mesh_fused.cu (J6), whose constants and
+// semantics the stacked kernels (stacked_core.cuh, J7) share: one
+// 256-thread block answers one query against one segment table row, the
+// semantics of sbeacon_tpu/ops/kernel.py::_bisect / _query_one.
 //
 // What it computes, per query q against columns `cols` (stride n_pad) and
 // one 27-entry segment row `seg`:

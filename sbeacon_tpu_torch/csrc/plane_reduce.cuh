@@ -1,8 +1,9 @@
 // The masked-plane reduction (sm_90a): block-level routines for the
 // kernels that match rows and then read their genotype planes,
-// stacked_selected.cu (J7, one block per query: reduce()) and the
-// owner-sliced fused query mesh_fused.cu (J6, a cluster per query slot,
-// built from the pieces below).
+// stacked_selected.cu (J7, one block per (query, dataset): reduce()),
+// the owner-sliced fused query mesh_fused.cu (J6, a cluster per query
+// slot) and the fused match + planes kernel scatter_selected.cu (J2),
+// both built from the pieces below.
 //
 // Replaces sbeacon_tpu/parallel/mesh.py::_plane_reduce (mesh.py:347).
 // What it computes, for one query over R lanes whose first n_valid hold
@@ -26,19 +27,25 @@
 // What bounds it: the latency of the matched rows' plane reads (W words a
 // row, from planes of GBs far above the 50 MB L2), then the scans'
 // dependent steps. Design:
-//   - row_popcounts / or_rows: each warp takes kRB rows at a time and
-//     issues every load of kU 32-word chunks of all of them (clamped
-//     addresses, no branches) before it uses any, so a lane has up to
-//     kRB * kU * 4 plane loads in flight; __popc and a shuffle sum give a
-//     row's popcounts, a shared atomicOr per lane and chunk the OR;
+//   - row_popcounts / or_rows: each warp takes kRB rows at a time (one,
+//     for a caller whose rows fit its warps) and issues every load of kU
+//     32-word chunks of all of them (clamped addresses, no branches)
+//     before it uses any, so a lane has up to kRB * kU * 4 plane loads in
+//     flight; __popc and a shuffle sum give a row's popcounts, a shared
+//     atomicOr per lane and chunk the OR;
 //   - the scans cover only the valid lanes rounded up to a warp (padding
 //     lanes add rc 0 and are no record edge, so the valid lanes' values
 //     are those of the R-lane scans): each thread scans a contiguous chunk
 //     of at most ceil(R / kThreads) lanes, a warp-shuffle scan combines
 //     the threads' totals within each warp and warp 0 the warps' totals,
-//     in log depth; the four scans of the reference are kept as they are.
+//     in log depth, or (kWarpFast, at most 32 valid lanes) one warp scans
+//     them in shuffles with no block barrier; the four scans of the
+//     reference are kept as they are;
+//   - copy_words_async brings a mask to shared memory by cp.async, and
+//     prefetch_row a plane row into L2, so neither holds up the caller.
 // J6 spreads one query's rows over a cluster of blocks (mesh_fused.cu);
-// J7 runs reduce() in its one block.
+// J7 runs reduce() in one block per (query, dataset); J2 calls the
+// pieces from its own block (scatter_selected.cu).
 
 #pragma once
 
@@ -62,6 +69,39 @@ __device__ __forceinline__ int32_t sub32(int32_t a, int32_t b) {
 __device__ __forceinline__ int32_t add32(int32_t a, int32_t b) {
   return static_cast<int32_t>(static_cast<uint32_t>(a) +
                               static_cast<uint32_t>(b));
+}
+
+// Prefetch into L2 the 128-byte lines of words [off, off + W) of plane
+// p: issued where a row's match is known, so its DRAM latency overlaps
+// the work before row_popcounts reads it.
+__device__ __forceinline__ void prefetch_row(const uint32_t* p, size_t off,
+                                             int W) {
+  const uintptr_t b = reinterpret_cast<uintptr_t>(p + off) & ~uintptr_t(127);
+  const uintptr_t e = reinterpret_cast<uintptr_t>(p + off + W);
+  for (uintptr_t a = b; a < e; a += 128) {
+    asm volatile("prefetch.L2 [%0];" ::"l"(a));
+  }
+}
+
+// dst[0..n) = src[0..n) (dst in shared memory) by the block's threads,
+// without waiting: each thread issues its words' cp.async copies and
+// returns, so the copy's global round trip overlaps what follows. The
+// words are there for the issuing thread after copy_wait(), for the
+// block after a barrier that follows it.
+__device__ __forceinline__ void copy_words_async(uint32_t* dst,
+                                                 const uint32_t* src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + i));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(__cvta_generic_to_global(src + i))
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ uint32_t warp_sum_u(uint32_t v) {
@@ -127,17 +167,63 @@ __device__ void block_scan(int32_t* a, int n, int32_t* s_warp) {
   __syncthreads();
 }
 
+// or_select's four scans for n_valid <= 32 by one warp, lane k holding
+// lane k, in warp shuffles with no block barrier: the warp's lanes past
+// n_valid add rc 0 and base -1, as the padding lanes of the block form
+// do, so the valid lanes' values are the same. Writes sel[0..n_valid).
+__device__ __forceinline__ void warp_or_select(const int32_t* s_rc,
+                                               const int32_t* s_rec,
+                                               int n_valid, uint8_t* sel) {
+  constexpr unsigned kAll = 0xffffffffu;
+  const int k = threadIdx.x & 31;
+  const bool valid = k < n_valid;
+  const int32_t rc = valid ? s_rc[k] : 0;
+  const int32_t rec = valid ? s_rec[k] : -2;
+  const int32_t rec_prev = __shfl_up_sync(kAll, rec, 1);
+  const int32_t rec_next = __shfl_down_sync(kAll, rec, 1);
+  const bool first = valid && (k == 0 || rec != rec_prev);
+  const bool last = valid && (k == n_valid - 1 || rec != rec_next);
+  int32_t c = rc;  // inclusive sum from the front
+  int32_t a = rc;  // inclusive sum from the back
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kAll, c, off);
+    const int32_t z = __shfl_down_sync(kAll, a, off);
+    if (k >= off) c = add32(y, c);
+    if (k + off < 32) a = add32(a, z);
+  }
+  int32_t b = first ? sub32(c, rc) : -1;  // base, a running max
+  int32_t d = last ? sub32(a, rc) : -1;   // base from the back
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int32_t y = __shfl_up_sync(kAll, b, off);
+    const int32_t z = __shfl_down_sync(kAll, d, off);
+    if (k >= off) b = y > b ? y : b;
+    if (k + off < 32) d = z > d ? z : d;
+  }
+  const bool fwd = b > 0 || sub32(c, b) > 0;
+  if (valid) sel[k] = (fwd || sub32(a, d) > 0) ? 1 : 0;
+}
+
 // or_sel of lanes [0, n_valid) into sel[], from rc (s_rc) and the record
 // ids (s_rec): the reference's four scans over the lanes rounded up to a
-// warp (at most R), in the scratch a and b ([R] words each). Called by
-// all kThreads threads; starts and ends with the block synchronised.
-template <int kThreads>
+// warp (at most R), in the scratch a and b ([R] words each). With
+// kWarpFast, a point query's lanes (n_valid <= 32) take warp_or_select
+// instead, two block barriers in place of fourteen (J2 and J7 selected;
+// J6 still takes the block form for every n_valid). Called by all
+// kThreads threads; starts and ends with the block synchronised.
+template <int kThreads, bool kWarpFast = false>
 __device__ void or_select(const int32_t* s_rc, const int32_t* s_rec,
                           int n_valid, int R, int32_t* a, int32_t* b,
                           uint8_t* sel, int32_t* s_warp) {
   const int tid = threadIdx.x;
   const int n = min((n_valid + 31) & ~31, R);
   __syncthreads();
+  if (kWarpFast && n_valid <= 32) {
+    if (tid < 32) warp_or_select(s_rc, s_rec, n_valid, sel);
+    __syncthreads();
+    return;
+  }
   for (int k = tid; k < n; k += kThreads) a[k] = k < n_valid ? s_rc[k] : 0;
   block_scan<kThreads, false, false>(a, n, s_warp);  // a = c
   for (int k = tid; k < n; k += kThreads) {
@@ -163,11 +249,37 @@ __device__ void or_select(const int32_t* s_rc, const int32_t* s_rec,
   __syncthreads();
 }
 
-// Masked popcounts of n rows by the block's warps, kRB rows a warp at a
-// time: row i is plane row rows[i] (W words at a 64-bit word offset).
+// The lanes k < n_valid whose sel[k] is set, ascending, into list[] by
+// warp 0 (a ballot per 32 lanes, no atomics); returns their count in
+// every thread. Called by all threads after or_select (whose closing
+// barrier published sel); ends with the block synchronised.
+__device__ __forceinline__ int sel_list(const uint8_t* sel, int n_valid,
+                                        int32_t* list) {
+  __shared__ int s_count;
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int n = 0;
+    for (int base = 0; base < n_valid; base += 32) {
+      const int k = base + lane;
+      const bool on = k < n_valid && sel[k];
+      const unsigned ball = __ballot_sync(0xffffffffu, on);
+      if (on) list[n + __popc(ball & ((1u << lane) - 1u))] = k;
+      n += __popc(ball);
+    }
+    if (lane == 0) s_count = n;
+  }
+  __syncthreads();
+  return s_count;
+}
+
+// Masked popcounts of n rows by the block's warps, kRows rows a warp at
+// a time: row i is plane row rows[i] (W words at a 64-bit word offset).
 // Lane 0 of the row's warp calls sink(i, pc_call, pc_tok). Rows i <
-// cache_rows also leave their masked gt words at cache[i * W].
-template <int kThreads, class Sink>
+// cache_rows also leave their masked gt words at cache[i * W]. Without
+// kCounts only gt is read: pc_call = popc(gt & mask), pc_tok = 0. A
+// caller with at most one row per warp passes kRows 1, so no lane loads
+// a row twice (the loads of kRB rows with counts outgrow the registers).
+template <int kThreads, bool kCounts = true, int kRows = kRB, class Sink>
 __device__ void row_popcounts(const uint32_t* __restrict__ gt,
                               const uint32_t* __restrict__ gt2,
                               const uint32_t* __restrict__ tok1,
@@ -178,27 +290,29 @@ __device__ void row_popcounts(const uint32_t* __restrict__ gt,
   constexpr int kWarps = kThreads / 32;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  for (int i0 = warp * kRB; i0 < n; i0 += kWarps * kRB) {
-    size_t off[kRB];
+  for (int i0 = warp * kRows; i0 < n; i0 += kWarps * kRows) {
+    size_t off[kRows];
 #pragma unroll
-    for (int j = 0; j < kRB; ++j) {
+    for (int j = 0; j < kRows; ++j) {
       off[j] = static_cast<size_t>(rows[min(i0 + j, n - 1)]) *
                static_cast<size_t>(W);
     }
-    uint32_t pc[kRB], pt[kRB];
+    uint32_t pc[kRows], pt[kRows];
 #pragma unroll
-    for (int j = 0; j < kRB; ++j) pc[j] = pt[j] = 0u;
+    for (int j = 0; j < kRows; ++j) pc[j] = pt[j] = 0u;
     for (int w0 = 0; w0 < W; w0 += 32 * kU) {
-      uint32_t g[kU][kRB], g2[kU][kRB], t1[kU][kRB], t2[kU][kRB];
+      uint32_t g[kU][kRows], g2[kU][kRows], t1[kU][kRows], t2[kU][kRows];
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const size_t w = min(w0 + 32 * u + lane, W - 1);
 #pragma unroll
-        for (int j = 0; j < kRB; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           g[u][j] = gt[off[j] + w];
-          g2[u][j] = gt2[off[j] + w];
-          t1[u][j] = tok1[off[j] + w];
-          t2[u][j] = tok2[off[j] + w];
+          if constexpr (kCounts) {
+            g2[u][j] = gt2[off[j] + w];
+            t1[u][j] = tok1[off[j] + w];
+            t2[u][j] = tok2[off[j] + w];
+          }
         }
       }
 #pragma unroll
@@ -206,10 +320,14 @@ __device__ void row_popcounts(const uint32_t* __restrict__ gt,
         const int w = w0 + 32 * u + lane;
         const uint32_t m = w < W ? mask[w] : 0u;
 #pragma unroll
-        for (int j = 0; j < kRB; ++j) {
+        for (int j = 0; j < kRows; ++j) {
           const uint32_t gm = g[u][j] & m;
-          pc[j] += __popc(gm) + __popc(g2[u][j] & m);
-          pt[j] += __popc(t1[u][j] & m) + __popc(t2[u][j] & m);
+          if constexpr (kCounts) {
+            pc[j] += __popc(gm) + __popc(g2[u][j] & m);
+            pt[j] += __popc(t1[u][j] & m) + __popc(t2[u][j] & m);
+          } else {
+            pc[j] += __popc(gm);
+          }
           const int i = i0 + j;
           if (w < W && i < n && i < cache_rows) {
             cache[static_cast<size_t>(i) * W + w] = gm;
@@ -218,7 +336,7 @@ __device__ void row_popcounts(const uint32_t* __restrict__ gt,
       }
     }
 #pragma unroll
-    for (int j = 0; j < kRB; ++j) {
+    for (int j = 0; j < kRows; ++j) {
       const uint32_t c = warp_sum_u(pc[j]);
       const uint32_t t = warp_sum_u(pt[j]);
       if (lane == 0 && i0 + j < n) sink(i0 + j, c, t);
@@ -309,26 +427,30 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
   const int warp = tid >> 5;
   const int lane = tid & 31;
   __shared__ uint32_t s_part[kWarps][2];
-  __shared__ int s_nlist;
   __syncthreads();
   for (int w = tid; w < W; w += kThreads) s.acc[w] = 0u;
-  if (tid == 0) s_nlist = 0;
 
-  // 1. masked popcounts, then rc and an_eff
+  // 1. masked popcounts (one row a warp when the rows fit the warps, as
+  // a point query's do), then rc and an_eff
   if (has_counts) {
-    row_popcounts<kThreads>(
-        gt, gt2, tok1, tok2, s_row, n_valid, W, mask, nullptr, 0,
-        [&](int k, uint32_t c, uint32_t t) {
-          const int flags = s_flags[k];
-          pc_call[k] = static_cast<int32_t>(c);
-          pc_tok[k] = static_cast<int32_t>(t);
-          if (use_counts && !(flags & F_AC_INFO)) {
-            s_ac[k] = static_cast<int32_t>(c);
-          }
-          if (use_counts && !(flags & F_AN_INFO)) {
-            s_an[k] = static_cast<int32_t>(t);
-          }
-        });
+    auto sink = [&](int k, uint32_t c, uint32_t t) {
+      const int flags = s_flags[k];
+      pc_call[k] = static_cast<int32_t>(c);
+      pc_tok[k] = static_cast<int32_t>(t);
+      if (use_counts && !(flags & F_AC_INFO)) {
+        s_ac[k] = static_cast<int32_t>(c);
+      }
+      if (use_counts && !(flags & F_AN_INFO)) {
+        s_an[k] = static_cast<int32_t>(t);
+      }
+    };
+    if (n_valid <= kWarps) {
+      row_popcounts<kThreads, true, 1>(gt, gt2, tok1, tok2, s_row, n_valid,
+                                       W, mask, nullptr, 0, sink);
+    } else {
+      row_popcounts<kThreads>(gt, gt2, tok1, tok2, s_row, n_valid, W, mask,
+                              nullptr, 0, sink);
+    }
   } else {
     for (int k = tid; k < n_valid; k += kThreads) {
       pc_call[k] = 0;
@@ -357,14 +479,12 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
   }
 
   // 3. or_sel, then the list of its lanes (in b, free after the scans)
-  or_select<kThreads>(s_ac, s_rec, n_valid, R, s.a, s.b, s.sel, s.tot);
-  for (int k = tid; k < n_valid; k += kThreads) {
-    if (s.sel[k]) s.b[atomicAdd(&s_nlist, 1)] = k;
-  }
-  __syncthreads();
+  or_select<kThreads, true>(s_ac, s_rec, n_valid, R, s.a, s.b, s.sel,
+                            s.tot);
+  const int n_list = sel_list(s.sel, n_valid, s.b);
 
   // 4. the sample-hit OR over the or_sel rows
-  or_rows<kThreads>(gt, s_row, s.b, s_nlist, W, mask, nullptr, 0, s.acc);
+  or_rows<kThreads>(gt, s_row, s.b, n_list, W, mask, nullptr, 0, s.acc);
   __syncthreads();
   for (int w = tid; w < W; w += kThreads) or_words[w] = s.acc[w];
 

@@ -23,7 +23,11 @@
 //
 // Each thread owns lanes tid, tid + 128, ...; each packed row of a tile
 // is read as 512 coalesced bytes. The match and SAME_PREV bits of every
-// lane stay in shared memory (1 byte each) for the caller.
+// lane stay in shared memory (1 byte each) for the caller. A caller that
+// needs more of each lane passes a lane hook (NoLaneHook is J1's): the
+// hook sees every lane's columns in the first pass, and a hook with
+// kLoadAN set has AN loaded in that pass and answers the AN pass from
+// what it kept, so the window's tiles are read in one round.
 
 #pragma once
 
@@ -101,16 +105,27 @@ __device__ __forceinline__ int32_t window_at(const int32_t* __restrict__ tiles,
   return tiles[(static_cast<size_t>(tile) * kPacked + r) * T + t];
 }
 
+// The lane hook of J1: keeps nothing; the AN pass reads AN from the
+// tiles. A hook offers lane(l, matched, flags, ac, an), called for every
+// window lane in the first pass (an is 0 unless kLoadAN), and an(l), the
+// AN of a matched lane l, read by the AN pass when kLoadAN is set.
+struct NoLaneHook {
+  static constexpr bool kLoadAN = false;
+  __device__ __forceinline__ void lane(int, bool, int, int, int) const {}
+  __device__ __forceinline__ int an(int) const { return 0; }
+};
+
 // The match of one query slot over its C*T window lanes, by the whole
 // block: fills s_match[l] and s_same[l] (0/1 per lane) and writes the
 // slot's aggregate row agg_q[0..8). Ends with the block synchronised and
 // both arrays visible to every thread.
-template <bool kExactOnly>
+template <bool kExactOnly, class Hook = NoLaneHook>
 __device__ void match_window(const int32_t* __restrict__ tiles,
                              const int32_t* __restrict__ qp, int tile0,
                              int n_tiles, int T, int C, int cap,
                              uint8_t* s_match, uint8_t* s_same,
-                             int32_t* __restrict__ agg_q) {
+                             int32_t* __restrict__ agg_q,
+                             const Hook& hook = Hook()) {
   __shared__ uint32_t s_part[kThreads / 32][kSums];
   const int span = C * T;
   const int tid = threadIdx.x;
@@ -144,6 +159,8 @@ __device__ void match_window(const int32_t* __restrict__ tiles,
     const uint32_t lens = static_cast<uint32_t>(col[P_LENS * T]);
     const int flags = col[P_FLAGS * T];
     const int ac = col[P_AC * T];
+    int an = 0;
+    if constexpr (Hook::kLoadAN) an = col[P_AN * T];
 
     const int gidx = tile0 * T + l;
     const bool valid = gidx >= lo && gidx < win_end;
@@ -194,6 +211,7 @@ __device__ void match_window(const int32_t* __restrict__ tiles,
     const bool m = valid && end_ok && ref_ok && len_ok && alt_ok;
     s_match[l] = m ? 1 : 0;
     s_same[l] = (flags & SAME_PREV) ? 1 : 0;
+    hook.lane(l, m, flags, ac, an);
     if (m) {
       call_count += static_cast<uint32_t>(ac);
       n_variants += ac != 0 ? 1u : 0u;
@@ -215,8 +233,12 @@ __device__ void match_window(const int32_t* __restrict__ tiles,
       }
     }
     if (first) {
-      all_alleles +=
-          static_cast<uint32_t>(window_at(tiles, tile0, n_tiles, T, P_AN, l));
+      if constexpr (Hook::kLoadAN) {
+        all_alleles += static_cast<uint32_t>(hook.an(l));
+      } else {
+        all_alleles += static_cast<uint32_t>(
+            window_at(tiles, tile0, n_tiles, T, P_AN, l));
+      }
     }
   }
 

@@ -26,213 +26,27 @@
 // rows, so its time is a chain of dependent memory round trips (the
 // query row, the segment row, the search's probes, the window's
 // columns) plus the launch; the bytes are a few hundred. The design
-// shortens the chain:
-//   - a cluster of c = min(d_local, 8) blocks answers one query (one
-//     cluster per query, launched with cudaLaunchKernelEx and a cluster
-//     dimension); block `rank` takes datasets rank, rank + c, ...;
-//     each block leaves its five partials in the leader's shared memory
-//     (distributed shared memory, after the cluster barrier that every
-//     block arrives at when it starts), and after one more barrier the
-//     leader writes agg[q] with plain stores: the wrapper allocates agg
-//     without a fill launch and no atomics are needed;
-//   - each bound is found by four warps (threads 0-127 the lower bound,
-//     128-255 the upper) probing 128 rows a step and meeting at a named
-//     barrier per half: 3 dependent steps on a chr1-sized segment of a
-//     2e7-row dataset where warp_bound's 32 probes take 5;
-//   - the segment row is loaded beside the query row (each warp's lanes
-//     load its 27 entries and a shuffle picks the segment's ends), not
-//     after it;
-//   - each valid lane loads every column the query's predicate may need
-//     (chosen by the query's ref and alt modes, AN, rec_id and the alt
-//     prefix included) in one round before any test, where query_block's
-//     short-circuit chain takes up to four.
+// (stacked_core.cuh, which stacked_selected.cu shares) shortens the
+// chain: one cluster of c = min(d_local, 8) blocks per query, block
+// `rank` taking datasets rank, rank + c, ...; the segment row loaded
+// beside the query row; each bound found by 128 probes a step (3 steps
+// on a chr1-sized segment of a 2e7-row dataset, where warp_bound takes
+// 5); every column the query's predicate may need, AN and rec_id
+// included, loaded in one round; the five partials summed in the
+// leader's shared memory, so the wrapper allocates agg without a fill
+// launch and no atomics are needed.
 // What bounds this design: five dependent memory round trips a query
 // (the query and segment rows together, three search steps, the lane
 // loads), the cluster launch and its two barriers; wide windows then
 // add a round of lane loads per 256 lanes.
-// query_block and warp_bound, which bisect_query.cu, mesh_fused.cu and
-// stacked_selected.cu run, are not used here and are left as they are.
 
-#include <cooperative_groups.h>
-
-#include "bisect_core.cuh"
+#include "stacked_core.cuh"
 
 namespace {
 
-using namespace bisect;
-namespace cg = cooperative_groups;
+using namespace stacked;
 
 constexpr int kStackAgg = 5;
-constexpr int kMaxCluster = 8;          // the portable cluster size
-constexpr int kHalf = kThreads / 2;     // threads of one bound's search
-constexpr int kHalfWarps = kHalf / 32;  // warps of one bound's search
-
-__device__ __forceinline__ void half_barrier(int half) {
-  asm volatile("bar.sync %0, %1;" ::"r"(1 + half), "r"(kHalf) : "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-}
-
-// First row in [a, b) whose pos is >= target (kUpper false) or
-// > target (kUpper true); b when there is none: what warp_bound returns,
-// with 128 probes a step. Called by the kHalf threads of one half of the
-// block (`half` 0: threads 0-127, 1: threads 128-255), which meet at
-// named barrier 1 + half once a step; `cnt` is that half's [2][4] count
-// table (double buffered, so one barrier a step suffices). Each step
-// probes rows a, a + step, ... (step = ceil((b - a) / 128)); on a sorted
-// segment the probes that lie before the answer form a prefix of the
-// threads, and its length narrows [a, b] to one step.
-template <bool kUpper>
-__device__ int block_bound(const int32_t* __restrict__ pos, int a, int b,
-                           int target, int half,
-                           int (*cnt)[kHalfWarps]) {
-  const int t = threadIdx.x - half * kHalf;
-  const int w = t >> 5;
-  int parity = 0;
-  while (a < b) {
-    const long long step = (static_cast<long long>(b) - a + kHalf - 1) / kHalf;
-    const long long idx = a + t * step;
-    bool before = false;
-    if (idx < b) {
-      const int p = pos[idx];
-      before = kUpper ? (p <= target) : (p < target);
-    }
-    const int cw = __popc(__ballot_sync(0xffffffffu, before));
-    if ((t & 31) == 0) cnt[parity][w] = cw;
-    half_barrier(half);
-    int c = 0;
-#pragma unroll
-    for (int k = 0; k < kHalfWarps; ++k) c += cnt[parity][k];
-    parity ^= 1;
-    const long long na = c > 0 ? a + (c - 1) * step + 1 : a;
-    const long long nb = a + c * step < b ? a + c * step : b;
-    a = static_cast<int>(na);
-    b = static_cast<int>(nb);
-  }
-  return a;
-}
-
-// A packed query's fields, read once per block.
-struct Query {
-  int chrom, start_min, start_max, end_min, end_max, ref_hash, ref_len,
-      mode, alt_hash, alt_len, vt, min_len, max_len;
-  bool ref_wild;
-  uint32_t vp[4], vm[4];
-};
-
-__device__ Query load_query(const int32_t* __restrict__ qp) {
-  Query q;
-  q.chrom = qp[QF_CHROM];
-  q.start_min = qp[QF_START_MIN];
-  q.start_max = qp[QF_START_MAX];
-  q.end_min = qp[QF_END_MIN];
-  q.end_max = qp[QF_END_MAX];
-  q.ref_wild = qp[QF_REF_WILD] != 0;
-  q.ref_hash = qp[QF_REF_HASH];
-  q.ref_len = qp[QF_REF_LEN];
-  q.mode = qp[QF_ALT_MODE];
-  q.alt_hash = qp[QF_ALT_HASH];
-  q.alt_len = qp[QF_ALT_LEN];
-  q.vt = qp[QF_VT_CODE];
-  q.min_len = qp[QF_MIN_LEN];
-  q.max_len = qp[QF_MAX_LEN];
-#pragma unroll
-  for (int w = 0; w < 4; ++w) {
-    q.vp[w] = static_cast<uint32_t>(qp[QF_VPREFIX + w]);
-    q.vm[w] = static_cast<uint32_t>(qp[QF_VMASK + w]);
-  }
-  return q;
-}
-
-// One window lane's columns, loaded in one round.
-struct Lane {
-  int rec_end, alt_len, flags, ref_hash, ref_len, alt_hash, repeat_k,
-      rec_id, ac, an;
-  int4 ap;
-};
-
-// Every column lane_match may read for query q, with rec_id, AC and AN,
-// in one round of independent loads; a column q's predicate never reads
-// (the ref for a wildcard ref, the alt hash outside exact mode, the
-// repeat count and the alt prefix outside the typed modes) is not
-// loaded and reads 0.
-__device__ __forceinline__ Lane load_lane(
-    const Query& q, const int32_t* __restrict__ cols, long long n_pad,
-    const int32_t* __restrict__ alt_prefix, long long r) {
-  auto col = [cols, n_pad, r](int c) {
-    return cols[static_cast<long long>(c) * n_pad + r];
-  };
-  const bool typed = q.mode != MODE_EXACT && q.mode != MODE_ANY_BASE;
-  Lane v{};
-  v.rec_end = col(C_REC_END);
-  v.alt_len = col(C_ALT_LEN);
-  v.flags = col(C_FLAGS);
-  v.rec_id = col(C_REC_ID);
-  v.ac = col(C_AC);
-  v.an = col(C_AN);
-  if (!q.ref_wild) v.ref_hash = col(C_REF_HASH);
-  if (!q.ref_wild || typed) v.ref_len = col(C_REF_LEN);
-  if (q.mode == MODE_EXACT) v.alt_hash = col(C_ALT_HASH);
-  if (typed) {
-    v.repeat_k = col(C_REPEAT_K);
-    v.ap = reinterpret_cast<const int4*>(alt_prefix)[r];
-  }
-  return v;
-}
-
-// query_block's predicate on a loaded lane.
-__device__ __forceinline__ bool lane_match(const Query& q, const Lane& v) {
-  bool m = q.end_min <= v.rec_end && v.rec_end <= q.end_max &&
-           q.min_len <= v.alt_len && v.alt_len <= q.max_len;
-  if (m && !q.ref_wild) {
-    m = v.ref_hash == q.ref_hash && v.ref_len == q.ref_len;
-  }
-  if (!m) return false;
-  auto f = [&v](int bit) { return (v.flags & bit) != 0; };
-  if (q.mode == MODE_EXACT) {
-    return v.alt_hash == q.alt_hash && v.alt_len == q.alt_len;
-  }
-  if (q.mode == MODE_ANY_BASE) return f(F_SINGLE_BASE);
-  if (f(F_SYMBOLIC)) {
-    const bool pm =
-        ((static_cast<uint32_t>(v.ap.x) ^ q.vp[0]) & q.vm[0]) == 0 &&
-        ((static_cast<uint32_t>(v.ap.y) ^ q.vp[1]) & q.vm[1]) == 0 &&
-        ((static_cast<uint32_t>(v.ap.z) ^ q.vp[2]) & q.vm[2]) == 0 &&
-        ((static_cast<uint32_t>(v.ap.w) ^ q.vp[3]) & q.vm[3]) == 0;
-    switch (q.vt) {
-      case VT_DEL:
-        return pm || f(F_CN0);
-      case VT_DUP:
-        return pm || (f(F_CN_PREFIX) && !f(F_CN0) && !f(F_CN1));
-      case VT_DUP_TANDEM:
-        return pm || f(F_CN2);
-      case VT_CNV:
-        return pm || f(F_CN_PREFIX) || f(F_DEL_PREFIX) || f(F_DUP_PREFIX);
-      default:  // INS, and every other type (VT_OTHER)
-        return pm;
-    }
-  }
-  switch (q.vt) {
-    case VT_DEL:
-      return v.alt_len < v.ref_len;
-    case VT_INS:
-      return v.alt_len > v.ref_len;
-    case VT_DUP:
-      return v.repeat_k >= 2;
-    case VT_DUP_TANDEM:
-      return v.repeat_k == 2;
-    case VT_CNV:
-      return f(F_DOT) || v.repeat_k >= 1;
-    default:
-      return false;
-  }
-}
 
 // One query against one dataset, called by all kThreads threads of the
 // block: query_block's outputs (the aggregate row to `agg`, the first R
@@ -246,8 +60,6 @@ __device__ Agg query_wide(const int32_t* __restrict__ cols, long long n_pad,
                           int32_t* __restrict__ agg, int32_t* win) {
   int32_t* s_rec = win;                                     // [W] rec_id
   uint8_t* s_match = reinterpret_cast<uint8_t*>(win + W);  // [W] matched
-  __shared__ int s_bounds[2];
-  __shared__ int s_cnt[2][2][kHalfWarps];
   __shared__ uint32_t s_wcount[kWarps];
   __shared__ uint32_t s_part[kWarps][3];
 
@@ -256,27 +68,10 @@ __device__ Agg query_wide(const int32_t* __restrict__ cols, long long n_pad,
   const int lane = tid & 31;
 
   // 1. the window: threads 0-127 find lo, 128-255 find hi, inside the
-  // query's segment. Lane k of every warp loads seg[k] (lanes past the
-  // row's end its last entry), with no wait on the query row, and the
-  // segment's two ends come by shuffle
-  {
-    const int half = tid / kHalf;
-    const int chrom = q.chrom;
-    const int32_t seg_k = seg[min(lane, kSegs - 1)];
-    const int seg_lo =
-        __shfl_sync(0xffffffffu, seg_k, min(max(chrom, 0), kSegs - 1));
-    const int seg_hi = __shfl_sync(
-        0xffffffffu, seg_k, chrom < kSegs - 1 ? max(chrom + 1, 0) : kSegs - 1);
-    const int r = half == 0
-                      ? block_bound<false>(cols, seg_lo, seg_hi, q.start_min,
-                                           0, s_cnt[0])
-                      : block_bound<true>(cols, seg_lo, seg_hi, q.start_max,
-                                          1, s_cnt[1]);
-    if (tid % kHalf == 0) s_bounds[half] = r;
-  }
-  __syncthreads();
-  const int lo = s_bounds[0];
-  const int hi = s_bounds[1];
+  // query's segment
+  const int2 bounds = block_window(cols, seg, q);
+  const int lo = bounds.x;
+  const int hi = bounds.y;
   const int n_valid = max(0, min(hi - lo, W));
 
   uint32_t call_count = 0, n_variants = 0, all_alleles = 0;
@@ -366,8 +161,7 @@ __global__ void __launch_bounds__(kThreads) stacked_query_kernel(
     const int32_t* __restrict__ qpack, int n_queries,
     int32_t* __restrict__ out, int32_t* __restrict__ agg, int W, int R) {
   extern __shared__ int32_t smem[];
-  __shared__ uint32_t s_fan[kMaxCluster][kStackAgg];  // the leader's
-  cluster_arrive_relaxed();  // this block has started (waited on below)
+  cluster_arrive_relaxed();  // this block has started (cluster_sum waits)
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -389,21 +183,8 @@ __global__ void __launch_bounds__(kThreads) stacked_query_kernel(
     part[3] += a.call_count > 0 ? 1u : 0u;
     part[4] += a.overflow ? 1u : 0u;
   }
-  // every block of the cluster has started: the leader's shared memory
-  // may be written
-  cluster_wait();
-  if (threadIdx.x == 0) {
-    uint32_t* dst = cluster.map_shared_rank(&s_fan[rank][0], 0);
-#pragma unroll
-    for (int i = 0; i < kStackAgg; ++i) dst[i] = part[i];
-  }
-  cluster.sync();  // every block's partials are in the leader
-  if (rank == 0 && threadIdx.x < kStackAgg) {
-    uint32_t sum = 0;
-    for (int r = 0; r < c; ++r) sum += s_fan[r][threadIdx.x];
-    agg[static_cast<size_t>(q) * kStackAgg + threadIdx.x] =
-        static_cast<int32_t>(sum);
-  }
+  cluster_sum(cluster, c, rank, part,
+              agg + static_cast<size_t>(q) * kStackAgg);
 }
 
 }  // namespace
@@ -423,34 +204,14 @@ int stacked_query_launch(const void* cols, long long n_pad,
                          int n_datasets, const void* qpack, int n_queries,
                          void* out, void* agg, int W, int R, void* stream) {
   if (n_queries <= 0 || n_datasets <= 0) return static_cast<int>(cudaSuccess);
-  const size_t smem = static_cast<size_t>(window_smem(W));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stacked_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int c = n_datasets < kMaxCluster ? n_datasets : kMaxCluster;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n_queries) * c);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = c;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, stacked_query_kernel, static_cast<const int32_t*>(cols), n_pad,
+  return static_cast<int>(launch_clusters(
+      stacked_query_kernel, n_queries, n_datasets,
+      static_cast<size_t>(window_smem(W)), static_cast<cudaStream_t>(stream),
+      static_cast<const int32_t*>(cols), n_pad,
       static_cast<const int32_t*>(alt_prefix),
       static_cast<const int32_t*>(offsets), n_datasets,
       static_cast<const int32_t*>(qpack), n_queries,
-      static_cast<int32_t*>(out), static_cast<int32_t*>(agg), W, R);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int32_t*>(out), static_cast<int32_t*>(agg), W, R));
 }
 
 }  // extern "C"

@@ -76,7 +76,7 @@ SIGNATURES = {
             [_P, _L] + [_P] * 7 + [_I, _P, _I] + [_P] * 6 + [_I] * 5 + [_P],
             ctypes.c_int,
         ),
-        "stacked_selected_smem": ([_I, _I, _I], ctypes.c_longlong),
+        "stacked_selected_smem": ([_I, _I], ctypes.c_longlong),
     },
     "mesh_fused": {
         "mesh_fused_launch": (

@@ -26,10 +26,9 @@ hand-written CUDA kernels:
 
 All three answer the bisection kernel's per-query semantics
 (``csrc/bisect_core.cuh``), and the stacked ones fold the cross-dataset
-sums into the same launch: ``stacked_query`` through one cluster of
-blocks per query whose leader sums the blocks' partials, with its own
-search and lane loads; ``stacked_selected`` with one atomic add per
-block, on ``query_block``. A wrapper launches on
+sums into the same launch: both through one cluster of blocks per
+query whose leader sums the blocks' partials, with the search and lane
+loads of ``csrc/stacked_core.cuh``. A wrapper launches on
 a CUDA tensor (or raises) and runs the twin on a CPU tensor; every CUDA
 launch adds one to its launch count (``stacked_query_launches``,
 ``stacked_selected_launches``, ``mesh_fused_launches``).
@@ -648,19 +647,21 @@ def stacked_selected(
     ))
     W, R = _window(window_cap, record_cap)
     lib = _build.load(SELECTED_KERNEL)
-    smem = lib.stacked_selected_smem(W, R, w)
+    smem = lib.stacked_selected_smem(R, w)
     if w < 1 or smem > _SMEM_MAX:
         raise ValueError(
-            f"unsupported shape: window_cap={window_cap}, R={R}, W={w} need "
-            f"{smem} bytes of shared memory, at most {_SMEM_MAX}"
+            f"unsupported shape: R={R}, W={w} need {smem} bytes of shared "
+            f"memory, at most {_SMEM_MAX}"
         )
+    # the launch writes every word of agg: no fill before it
     out = dict(
         scal=torch.empty((dl, b, N_SEL_SCAL), dtype=torch.int32, device=dev),
         rows=torch.empty((dl, b, R), dtype=torch.int32, device=dev),
         pc_call=torch.empty((dl, b, R), dtype=torch.int32, device=dev),
         pc_tok=torch.empty((dl, b, R), dtype=torch.int32, device=dev),
         or_words=torch.empty((dl, b, w), dtype=torch.int32, device=dev),
-        agg=torch.zeros((b, N_SEL_AGG), dtype=torch.int32, device=dev),
+        agg=(torch.empty if b and dl else torch.zeros)(
+            (b, N_SEL_AGG), dtype=torch.int32, device=dev),
     )
     seq = None
     if b and dl:

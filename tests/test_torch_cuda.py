@@ -2,7 +2,9 @@
 planes, plane stats, distinct count, stacked query, stacked selected,
 owner-sliced fused query, ring gather) against their plain-PyTorch
 twins, the mesh launch and the pod tier on the card against the CPU,
-and the device time probes on CUDA events.
+and the device time probes on CUDA events. Where a wrapper's outputs
+must all be written by its launch, its buffers come pre-filled with
+0xDEADBEEF; a ``torch.profiler`` trace shows which kernels a call ran.
 
 Runs only where a CUDA device is present (marker ``cuda``); elsewhere
 every test skips. It imports nothing of the JAX package, so it runs on
@@ -14,6 +16,7 @@ Outputs are integers: kernel and twin must be equal (tolerance 0).
 """
 
 import random
+import time
 
 import numpy as np
 import pytest
@@ -320,6 +323,113 @@ def test_selected_kernel_matches_twin(planes, C, cap, width, exact_only,
             assert torch.equal(g, w)
 
 
+def _tail_inputs(index, n, seed, first_row, width):
+    """(tile_ids, q8) of n queries whose windows start on random rows from
+    ``first_row`` on (the planes fixture's 12-alt records close the
+    shard) and reach up to ``width`` rows on: any single base, DEL or
+    INS, so a 12-alt record matches four lanes in a row."""
+    rng = random.Random(seed)
+    shard = index.shard
+    pos = shard.cols["pos"]
+    specs = []
+    for _ in range(n):
+        i = rng.randrange(first_row, shard.n_rows - 1)
+        j = min(i + rng.randint(0, width), shard.n_rows - 1)
+        kw = dict(chrom="1", start_min=int(pos[i]), start_max=int(pos[j]),
+                  end_min=1, end_max=1 << 30)
+        kw.update(rng.choice([{"alternate_bases": "N"},
+                              {"variant_type": "DEL"},
+                              {"variant_type": "INS"}]))
+        specs.append(QuerySpec(**kw))
+    enc = encode_queries(specs)
+    lo, hi = window_bounds(index, enc)
+    q8, _ = pack_q8(enc, lo, hi)
+    dev = index.device
+    return (torch.from_numpy((lo // index.tile).astype(np.int32)).to(dev),
+            torch.from_numpy(q8).to(dev))
+
+
+def _deadbeef_empty(monkeypatch):
+    """torch.empty hands out buffers filled with 0xDEADBEEF, so a kernel
+    output that is read before it is written shows."""
+    empty = torch.empty
+
+    def filled(*a, **kw):
+        out = empty(*a, **kw)
+        if out.dtype == torch.int32:
+            out.fill_(-0x21524111)  # 0xDEADBEEF
+        return out
+
+    monkeypatch.setattr(torch, "empty", filled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+@pytest.mark.parametrize("R", [1, 31, 32, 33, 128, 1024])
+def test_selected_kernel_record_caps(planes, R, with_counts, monkeypatch):
+    """R across the warp edges of or_select's scans, on the 40-sample
+    shard (two plane words, the second a tail word) near its 12-alt
+    records, the outputs pre-filled with 0xDEADBEEF: equal to the twin,
+    and for R > 32 some 12-alt record's matched lanes straddle slots 31
+    and 32 (a warp boundary of the scans)."""
+    index, pidx, shard = planes
+    C = 1 if R <= 128 else 17
+    cap = index.tile if C == 1 else (C - 1) * index.tile
+    ids, q8 = _tail_inputs(index, 256, R, shard.n_rows - 400,
+                           127 if C == 1 else 1500)
+    mask = torch.from_numpy(_masks(256, pidx.n_words, R).view(np.int32)).to(
+        index.device)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    kw = dict(T=index.tile, CAP=cap, C=C, R=R, with_counts=with_counts)
+    _deadbeef_empty(monkeypatch)
+    got = sk.scatter_selected(index.tiles, pidx.gt, *trip, ids, q8, mask, **kw)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    want = sk.scatter_selected_reference(index.tiles, pidx.gt, *trip, ids, q8,
+                                         mask, **kw)
+    for g, w in zip(got[:5], want):
+        assert torch.equal(g, w)
+    rows = got[1].cpu().numpy()
+    rec = shard.cols["rec_id"]
+    size = np.bincount(rec)
+    spans = sum(1 for r in rows for k in range(31, R - 1, 32)
+                if r[k] >= 0 and r[k + 1] >= 0 and rec[r[k]] == rec[r[k + 1]]
+                and size[rec[r[k]]] == 12)
+    assert (spans > 0) == (R > 32)
+    assert int((rows >= 0).sum()) > 0 and (got[4] != 0).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_selected_kernel_plane_rows_past_2_31_words(cuda_device, with_counts):
+    """Plane rows past 2^31 words: 16384-word rows (the mask and OR words
+    in shared memory, no gt cache) over 133120 rows, 8.7 GB a plane,
+    queried on its last rows."""
+    shard = synthetic_shard(133_120, seed=5, dataset_id="wide", chroms=["1"])
+    index = sk.ScatterDeviceIndex(shard, cuda_device)
+    w = 16384
+    assert shard.n_rows * w > 2**31
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    planes = [torch.randint(-(2**31), 2**31, (shard.n_rows, w),
+                            dtype=torch.int32, device=cuda_device,
+                            generator=g)
+              for _ in range(4 if with_counts else 1)]
+    ids, q8 = _tail_inputs(index, 8, 3, shard.n_rows - 1500, 100)
+    assert int(ids.min()) * index.tile * w > 2**31
+    mask = torch.from_numpy(_masks(8, w, 2).view(np.int32)).to(cuda_device)
+    trip = planes[1:] if with_counts else planes * 3
+    kw = dict(T=index.tile, CAP=index.tile, C=2, R=index.tile,
+              with_counts=with_counts)
+    got = sk.scatter_selected(index.tiles, planes[0], *trip, ids, q8, mask,
+                              **kw)
+    torch.cuda.synchronize()
+    want = sk.scatter_selected_reference(index.tiles, planes[0], *trip, ids,
+                                         q8, mask, **kw)
+    for a, b in zip(got[:5], want):
+        assert torch.equal(a, b)
+    assert int((got[1] >= 0).sum()) > 0
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_counts", [True, False])
 @pytest.mark.parametrize("sel", ["none", "some", "all"])
@@ -607,22 +717,6 @@ def test_stacked_query_kernel_matches_twin(stacks, local_stacks, b,
 
 
 @pytest.mark.cuda
-def test_stacked_query_launches_no_fill(local_stacks):
-    """One stacked_query call runs its kernel and no other (agg is not
-    filled before the launch), on a stack of 9 datasets."""
-    stack, blk = local_stacks[9]
-    specs, _sids = _fused_specs(_stack_shards()[0], 64, seed=5)
-    q = _stack_q(specs, blk.device)
-    kw = dict(window_cap=2048, record_cap=1024, n_iters=stack.n_iters)
-    run = lambda: tm.stacked_query(blk.columns, blk.alt_prefix, blk.offsets,
-                                   q, **kw)
-    run()
-    torch.cuda.synchronize()
-    kernels = _cuda_kernels(run)
-    assert len(kernels) == 1 and "stacked_query_kernel" in kernels[0], kernels
-
-
-@pytest.mark.cuda
 @pytest.mark.parametrize("b", [1, 16, 64])
 @pytest.mark.parametrize("has_counts", [True, False])
 @pytest.mark.parametrize("record_cap", [1024, 16])
@@ -645,6 +739,54 @@ def test_stacked_selected_kernel_matches_twin(stacks, b, has_counts,
                                            blk.offsets, *planes, m, q, **kw)
         for a, w in zip(got[:-1], want):
             assert torch.equal(a, w)
+
+
+@pytest.fixture(scope="module")
+def local_plane_stacks(cuda_device):
+    """One-entry plane stacks of d_local datasets for the stacked selected
+    kernel's clusters (at most 8 blocks, so 9 and 17 loop over datasets):
+    the 40- and 70-sample plane shards in turn, all four planes, the last
+    dataset a padding one once d_local > 1."""
+    shards = _stack_shards()[1]
+    out = {}
+    for d_local in (1, 2, 3, 8, 9, 17):
+        real = max(1, d_local - 1)
+        stack = tm.StackedIndex([shards[i % 2] for i in range(real)],
+                                n_datasets_padded=d_local, with_planes=True)
+        (blk,) = stack.shard_to_mesh(tm.make_mesh(devices=[cuda_device]))
+        assert blk.n_datasets == d_local and stack.has_count_planes
+        out[d_local] = (stack, blk, shards)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_local", [1, 2, 3, 8, 9, 17])
+@pytest.mark.parametrize("b", [1, 16, 64])
+@pytest.mark.parametrize("has_counts", [True, False])
+def test_stacked_selected_clusters_match_twin(local_plane_stacks, d_local, b,
+                                              has_counts, monkeypatch):
+    """One cluster of min(d_local, 8) blocks per query: every output and
+    agg equal to the twin's, the outputs pre-filled with 0xDEADBEEF (so
+    nothing is read before the launch writes it)."""
+    stack, blk, shards = local_plane_stacks[d_local]
+    specs, _sids = _fused_specs(shards, b, seed=13 * b + d_local)
+    q = _stack_q(specs, blk.device)
+    masks = _masks(blk.n_datasets, stack.plane_words, seed=b + d_local)
+    m = torch.from_numpy(masks.view(np.int32)).to(blk.device)
+    planes = blk.planes if has_counts else (blk.planes[0],) * 4
+    kw = dict(window_cap=2048, record_cap=64, n_iters=stack.n_iters,
+              has_counts=has_counts)
+    args = (blk.columns, blk.alt_prefix, blk.offsets, *planes, m, q)
+    _deadbeef_empty(monkeypatch)
+    telemetry.reset_launch_counts()
+    got = tm.stacked_selected(*args, **kw)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert got[-1] is not None and tm.stacked_selected_launches == 1
+    want = tm.local_selected_reference(*args, **kw)
+    for a, w in zip(got[:-1], want):
+        assert torch.equal(a, w)
+    assert b == 1 or int((got[1] >= 0).sum()) > 0
 
 
 @pytest.mark.cuda
@@ -897,12 +1039,16 @@ def _ring_blocks(n, shape, device, seed, misaligned):
 
 def _cuda_kernels(fn):
     """The names of the CUDA kernels one call of ``fn`` runs (a
-    torch.profiler trace of the card), in launch order."""
+    torch.profiler trace of the card), in launch order. The call sits
+    50 ms inside each end of the traced window: a window that ends right
+    after the call now and then holds no device event at all."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
+        time.sleep(0.05)
     return [ev.name for ev in prof.events()
             if ev.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -954,6 +1100,69 @@ def test_ring_gather_matches_twin(cuda_device, n, shape, misaligned):
                 assert torch.equal(nxt, src0)
             assert torch.equal(src, src0) and torch.equal(own, own0)
             nxt.zero_()
+
+
+# The tests that read a torch.profiler trace sit together here, after the
+# ring gather's: once a process has run one profiler session, a later
+# session that follows about a million other kernel launches records no
+# device event, and the tests above launch that many.
+
+
+@pytest.mark.cuda
+def test_stacked_query_launches_no_fill(local_stacks):
+    """One stacked_query call runs its kernel and no other (agg is not
+    filled before the launch), on a stack of 9 datasets."""
+    stack, blk = local_stacks[9]
+    specs, _sids = _fused_specs(_stack_shards()[0], 64, seed=5)
+    q = _stack_q(specs, blk.device)
+    kw = dict(window_cap=2048, record_cap=1024, n_iters=stack.n_iters)
+    run = lambda: tm.stacked_query(blk.columns, blk.alt_prefix, blk.offsets,
+                                   q, **kw)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "stacked_query_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_selected_kernel_launches_one_kernel(planes, with_counts):
+    """One scatter_selected call runs its kernel and no other."""
+    index, pidx, _shard = planes
+    ids, q8 = _inputs(index, 16, 100, False, seed=3)
+    mask = torch.from_numpy(_masks(16, pidx.n_words, 3).view(np.int32)).to(
+        index.device)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    run = lambda: sk.scatter_selected(
+        index.tiles, pidx.gt, *trip, ids, q8, mask, T=index.tile, CAP=128,
+        C=2, R=128, with_counts=with_counts)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "scatter_selected_kernel" in kernels[0], (
+        kernels)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_counts", [True, False])
+def test_stacked_selected_launches_no_fill(local_plane_stacks, has_counts):
+    """One stacked_selected call runs its kernel and no other (agg is not
+    filled before the launch), on a stack of 9 datasets."""
+    stack, blk, shards = local_plane_stacks[9]
+    specs, _sids = _fused_specs(shards, 64, seed=5)
+    q = _stack_q(specs, blk.device)
+    m = torch.from_numpy(_masks(9, stack.plane_words, 1).view(np.int32)).to(
+        blk.device)
+    planes = blk.planes if has_counts else (blk.planes[0],) * 4
+    run = lambda: tm.stacked_selected(
+        blk.columns, blk.alt_prefix, blk.offsets, *planes, m, q,
+        window_cap=2048, record_cap=1024, n_iters=stack.n_iters,
+        has_counts=has_counts)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "stacked_selected_kernel" in kernels[0], (
+        kernels)
 
 
 @pytest.mark.cuda

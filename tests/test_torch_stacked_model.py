@@ -1,6 +1,7 @@
-"""The stacked query kernel's search and fan-in (``csrc/stacked_query.cu``,
-J7 query), as the card runs them, held against ``warp_bound``, numpy,
-JAX and the twin.
+"""The stacked kernels' search and fan-in (``csrc/stacked_core.cuh``,
+shared by J7 query ``csrc/stacked_query.cu`` and J7 selected
+``csrc/stacked_selected.cu``), as the card runs them, held against
+``warp_bound``, numpy, JAX and the twins.
 
 - The search: each bound is found by four warps probing 128 rows a
   step (``block_bound``), where ``warp_bound`` (``csrc/bisect_core.cuh``)
@@ -15,7 +16,9 @@ JAX and the twin.
   the blocks' partials. A numpy model of it (uint32 sums, as on the
   card) must equal the twin's ``agg`` (``local_query_reference``) and
   JAX's int32 sums for d_local 1-17, with wraparound and negative
-  ``call_count`` (not a hit).
+  ``call_count`` (not a hit); the same fan-in of J7 selected's three
+  partials (call_count, all_alleles, overflow) must equal
+  ``local_selected_reference``'s ``agg`` and JAX's int32 sums.
 
 The kernel itself is held against the twin on the card
 (tests/test_torch_cuda.py, chip_smoke.py). Every value is an integer:
@@ -39,7 +42,7 @@ from sbeacon_tpu_torch.testing import random_records
 
 INT32_MAX = 2**31 - 1
 N_SEGS = 27  # a segment table row: chromosome codes 0-25 and the end
-MAX_CLUSTER = 8  # stacked_query.cu kMaxCluster
+MAX_CLUSTER = 8  # stacked_core.cuh kMaxCluster
 C_AC = 8  # rows of the stacked column tensor (ops.kernel.C_AC)
 SETTINGS = settings(max_examples=300, deadline=None, database=None,
                     derandomize=True)
@@ -177,29 +180,38 @@ def test_block_bound_takes_three_steps_on_chr1():
     assert max(steps[128]) == 3 and max(steps[32]) == 5
 
 
-def _cluster_agg(per):
-    """The kernel's fan-in of per-dataset rows ``per`` int32 [d_local, B,
-    6] (exists, call_count, n_variants, all_alleles, n_matched,
-    overflow): c = min(d_local, 8) blocks, block r summing datasets r,
-    r + c, ... in uint32, the leader summing the blocks in rank order.
-    Returns agg int32 [B, 5] and each dataset's block."""
-    d_local, b = per.shape[:2]
+def _cluster_sum(parts):
+    """``stacked_core.cuh``'s cluster_sum of per-dataset partials
+    ``parts`` int32 [d_local, B, k]: c = min(d_local, 8) blocks, block r
+    summing datasets r, r + c, ... in uint32, the leader summing the
+    blocks in rank order. Returns the sums int32 [B, k] and each
+    dataset's block."""
+    d_local, b, k = parts.shape
     c = min(d_local, MAX_CLUSTER)
-    u = per.astype(np.int64).astype(np.uint32)
-    fan = np.zeros((c, b, 5), dtype=np.uint32)
+    u = parts.astype(np.int64).astype(np.uint32)
+    fan = np.zeros((c, b, k), dtype=np.uint32)
     owner = {}
     for r in range(c):
         for d in range(r, d_local, c):
             owner[d] = r
-            fan[r, :, 0] += u[d, :, 1]
-            fan[r, :, 1] += u[d, :, 3]
-            fan[r, :, 2] += u[d, :, 2]
-            fan[r, :, 3] += (per[d, :, 1] > 0).astype(np.uint32)
-            fan[r, :, 4] += u[d, :, 5]
-    total = np.zeros((b, 5), dtype=np.uint32)
+            fan[r] += u[d]
+    total = np.zeros((b, k), dtype=np.uint32)
     for r in range(c):
         total += fan[r]
     return total.view(np.int32), owner
+
+
+def _cluster_agg(per):
+    """The stacked query kernel's fan-in of per-dataset rows ``per`` int32
+    [d_local, B, 6] (exists, call_count, n_variants, all_alleles,
+    n_matched, overflow): each block's five partials (call_count,
+    all_alleles, n_variants, call_count > 0, overflow) through
+    ``_cluster_sum``. Returns agg int32 [B, 5] and each dataset's
+    block."""
+    parts = np.stack([per[:, :, 1], per[:, :, 3], per[:, :, 2],
+                      (per[:, :, 1] > 0).astype(np.int32), per[:, :, 5]],
+                     axis=2)
+    return _cluster_sum(parts)
 
 
 def _crafted_rows(d_local, b, R, seed):
@@ -283,3 +295,66 @@ def test_cluster_fan_in_model_on_a_stack(shards, d_local):
     got, _owner = _cluster_agg(out[:, :, : tk.N_AGG].numpy())
     assert np.array_equal(got, agg.numpy())
     assert (out[:, :, 1] < 0).any()  # sums past the int32 range wrapped
+
+
+def _crafted_selected(d_local, b, R, seed):
+    """Per-dataset outputs of the stacked selected kernel's two stages:
+    the query rows (n_matched and overflow; no matched row, so no plane
+    row is read) and the plane reduction's call_count and all_alleles
+    near both ends of the int32 range (the sums wrap)."""
+    rng = np.random.default_rng(seed)
+    big = lambda: (rng.choice([-1, 1], size=(d_local, b))
+                   * rng.integers(2**31 - 2**20, 2**31, size=(d_local, b)))
+    per = np.zeros((d_local, b, tk.N_AGG + R), dtype=np.int64)
+    per[:, :, 4] = rng.integers(0, 2 * R, size=(d_local, b))
+    per[:, :, 5] = rng.integers(0, 2, size=(d_local, b))
+    per[:, :, tk.N_AGG :] = -1
+    sums = np.stack([big(), np.where(rng.random((d_local, b)) < 0.5, big(),
+                                     rng.integers(-5, 6, (d_local, b)))],
+                    axis=2)
+    return per.astype(np.int32), sums.astype(np.int32)
+
+
+@pytest.mark.parametrize("d_local", range(1, 18))
+def test_selected_fan_in_model_matches_twin_and_jax(d_local, monkeypatch):
+    """J7 selected's fan-in: each block's three partials (call_count,
+    all_alleles, overflow | n_matched > record_cap) through the cluster
+    model equal the twin's agg (its per-dataset query and plane
+    reduction patched to crafted outputs) and JAX's int32 sums over
+    datasets; every dataset lies in exactly one block."""
+    b, R, w, record_cap = 6, 4, 2, 3
+    per, sums = _crafted_selected(d_local, b, R, seed=100 + d_local)
+    monkeypatch.setattr(tm, "_dataset_query",
+                        lambda *a, **kw: torch.from_numpy(per[a[4]]))
+    calls = iter(range(d_local))
+
+    def plane_reduce(*a, **kw):
+        d = next(calls)
+        z = torch.zeros((b, R), dtype=torch.int32)
+        return {"call_count": torch.from_numpy(sums[d, :, 0]),
+                "all_alleles_count": torch.from_numpy(sums[d, :, 1]),
+                "or_words": torch.zeros((b, w), dtype=torch.int32),
+                "pc_call": z, "pc_tok": z}
+
+    monkeypatch.setattr(tm, "plane_reduce_reference", plane_reduce)
+    z = torch.zeros
+    gt = z((d_local * 8, w), dtype=torch.int32)
+    scal, *_rest, agg = tm.local_selected_reference(
+        z((d_local, 11, 8), dtype=torch.int32),
+        z((d_local, 8, 4), dtype=torch.int32),
+        z((d_local, N_SEGS), dtype=torch.int32), gt, gt, gt, gt,
+        z((d_local, w), dtype=torch.int32),
+        z((b, tk.N_QFIELDS), dtype=torch.int32),
+        window_cap=R, record_cap=record_cap, n_iters=4, has_counts=False)
+    overflow = ((per[:, :, 5] != 0)
+                | (per[:, :, 4] > record_cap)).astype(np.int32)
+    parts = np.concatenate([sums, overflow[:, :, None]], axis=2)
+    assert np.array_equal(scal.numpy()[:, :, :3], parts)
+    got, owner = _cluster_sum(parts)
+    assert sorted(owner) == list(range(d_local))
+    assert np.array_equal(got, agg.numpy())
+    want = np.stack([np.asarray(jnp.sum(jnp.asarray(parts[:, :, k]), axis=0))
+                     for k in range(3)], axis=1)
+    assert np.array_equal(got, want)
+    if d_local > 1:  # sums past the int32 range wrapped
+        assert (got[:, :2] != parts[:, :, :2].astype(np.int64).sum(0)).any()
