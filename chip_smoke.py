@@ -13,18 +13,22 @@ non-zero, without the final line):
 1. environment: the card, its power limit (nvidia-smi), torch and CUDA;
 2. build: compiles every CUDA kernel with nvcc for sm_90a, one nvcc
    process per source, all at once;
-3. kernel vs twin (scatter_match): at the main path's shapes, against
-   its plain-PyTorch twin on the same inputs on the card (integers:
-   equal outputs, tolerance 0);
+3. kernel vs twin (scatter_match): at a full batch of every tier and at
+   the main path's launch shape (1, 6 or 15 queries padded to 64 slots,
+   on 0xDEADBEEF-filled outputs), against its plain-PyTorch twin on the
+   same inputs on the card (integers: equal outputs, tolerance 0);
 4. main path: a 1000-Genomes-shaped index (2e7 rows across chr1-22, no
    genotype planes) behind the port's VariantEngine, answering
    single-dataset Beacon requests from many threads through
    parse_request -> run_variant_search -> Envelopes, each response
    checked against the host matcher; kernel launch counts are zeroed
    just before and read just after;
-5. timing (scatter_match): each kernel tier with CUDA events, beside its
-   bound (the least bytes and operations the launch's own inputs need)
-   and its twin's time;
+5. timing (scatter_match): each kernel tier with CUDA events at a full
+   batch and at the main path's launch shape (the tier's mean real
+   queries in phase 4 padded to 64 slots, L2 cold), beside its bound
+   (the least bytes and operations the launch's own inputs need) and its
+   twin's time; the main path's card time is each tier's launches times
+   its cold time at that shape;
 6. fused setup: three more cohorts (5e6 rows each) join the engine and
    the fused stack of all four (3.5e7 rows) is built inline;
 7. kernel vs twin (bisect_query): on that stack and on a small stack of
@@ -96,7 +100,9 @@ non-zero, without the final line):
     cohorts; A and B with gt planes; B and two row subsets with four
     planes) and a crafted one on three entries with an empty group;
 24. kernel vs twin (mesh_fused, ring_gather): every layout, batch size
-    and plane form on every entry; the ring on 2-4-entry rings of the
+    and plane form on every entry (on 0xDEADBEEF-filled outputs), the
+    match-only cluster at 1-14 slots on entries of d_local 2 and 10; the
+    ring on 2-4-entry rings of the
     card, aligned and not, and ring_step alone in and out of place,
     with and without next, against the twin's sum, inputs unchanged;
 25. mesh-fused paths: a MeshDispatchTier over [card, card] in front of
@@ -104,7 +110,8 @@ non-zero, without the final line):
     and the selected mix sliced and combined (mesh_fused, then the
     ring), every response checked; launch counts zeroed just before
     each run and read just after;
-26. timing: mesh_fused at phase 25's slot counts, and ring_step in its
+26. timing: mesh_fused at phase 25's slot counts (match-only every one,
+    with planes the two most launched), and ring_step in its
     three forms (with next, last, first out of place) at phase 24's
     and phase 25's blocks beside acc.add_(src) (+ nxt.copy_(src)) or
     torch.add(own, src, out=acc), and a whole two-entry ring_gather
@@ -112,16 +119,17 @@ non-zero, without the final line):
 
 Each timing phase also prints a ``profile`` line: the kernels one call
 of the wrapper ran, from a ``torch.profiler`` trace (scatter_match,
-scatter_selected, stacked_query, stacked_selected and ring_step must
-run their one kernel and nothing else). With ``--parent DIR`` (another
+scatter_selected, stacked_query, stacked_selected, match-only
+mesh_fused and ring_step must run their one kernel and nothing else).
+With ``--parent DIR`` (another
 checkout, e.g. the parent commit unpacked from ``git archive``, which
 must lie under this checkout's ``build/``: its kernels build into
 ``DIR/build/kernels``), phases
-5, 14 and 22 build that checkout's four kernels (scatter_match,
-scatter_selected, stacked_query, stacked_selected) from its sources and
-time them on the same inputs in turns with this tree's (parent, this,
-this, parent), reported as ``parent_ms`` / ``parent_warm_ms`` and each
-take under ``turns``.
+5, 14, 22 and 26 build that checkout's five kernels (scatter_match,
+scatter_selected, stacked_query, stacked_selected, mesh_fused) from its
+sources and time them on the same inputs in turns with this tree's
+(parent, this, this, parent), reported as ``parent_ms`` /
+``parent_warm_ms`` and each take under ``turns``.
 
 Then one ``{"kernels": [...]}`` line (the nine CUDA kernels), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
@@ -189,7 +197,7 @@ MESH_PLANE_BUDGET_GB = 40.0
 
 # the kernels timed beside the parent's with --parent
 PARENT_TIMED = ("scatter_match", "scatter_selected", "stacked_query",
-                "stacked_selected")
+                "stacked_selected", "mesh_fused")
 
 
 def emit(phase: str, **kw) -> None:
@@ -303,6 +311,46 @@ def kernel_inputs(index, specs, device):
     )
 
 
+def padded_inputs(index, specs, device):
+    """(tile_ids, q8) device tensors of specs padded as _launch_tier pads
+    a batch of at most CHUNK_SMALL queries: to CHUNK_SMALL slots, q8 all
+    zeros and tile 0 in the pad slots."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    ids, q8 = (x.cpu().numpy() for x in kernel_inputs(index, specs, "cpu"))
+    pad = sk.CHUNK_SMALL - len(specs)
+    ids = np.concatenate([ids, np.zeros(pad, np.int32)])
+    q8 = np.concatenate([q8, np.zeros((pad, 8), np.int32)])
+    return torch.from_numpy(ids).to(device), torch.from_numpy(q8).to(device)
+
+
+class DeadbeefOutputs:
+    """Within the block, int32 buffers from torch.empty come filled with
+    0xDEADBEEF, so a kernel output word the launch leaves unwritten
+    shows."""
+
+    def __enter__(self):
+        import torch
+
+        self.empty = empty = torch.empty
+
+        def filled(*a, **kw):
+            out = empty(*a, **kw)
+            if out.dtype == torch.int32:
+                out.fill_(-0x21524111)
+            return out
+
+        torch.empty = filled
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.empty = self.empty
+
+
 def tiers(T):
     """(C, cap, rows_lo, rows_hi) of every specialisation the serving
     path launches at the default window_cap: the single-tile tier and
@@ -350,6 +398,31 @@ def compare_kernel(index, device, rng, n_slots, label):
                      "form": form, "slots": n_slots, "matched_lanes": hits,
                      "equal": equal}
                 )
+            # the main path's launch: a few queries padded to 64 slots,
+            # on 0xDEADBEEF-filled outputs
+            for n_real in (1, 6, 15):
+                specs = tier_specs(index.shard, rng, n_real, r_lo, r_hi, exact)
+                ids, q8 = padded_inputs(index, specs, device)
+                with DeadbeefOutputs():
+                    agg, masks, _seq = sk.scatter_match(
+                        index.tiles, ids, q8, T=T, CAP=cap, C=C,
+                        exact_only=exact)
+                    torch.cuda.synchronize()
+                want_agg, want_masks = sk.scatter_core_reference(
+                    index.tiles, ids, q8, T=T, CAP=cap, C=C,
+                    exact_only=exact, seg_k=None)
+                err = max(int((agg - want_agg).abs().max()),
+                          int((masks - want_masks).abs().max()))
+                worst = max(worst, err)
+                equal = torch.equal(agg, want_agg) and torch.equal(
+                    masks, want_masks)
+                check(equal, f"{label} C={C} exact={exact} {n_real} of "
+                      f"{sk.CHUNK_SMALL} slots: kernel != twin")
+                report.append(
+                    {"index": label, "C": C, "cap": cap, "exact_only": exact,
+                     "form": "scan", "slots": sk.CHUNK_SMALL,
+                     "real_slots": n_real,
+                     "matched_lanes": int(agg[:, 4].sum()), "equal": equal})
     return worst, report
 
 
@@ -591,6 +664,28 @@ def needed_bytes(index, ids, q8, masks, C, cap, io=None):
     return nbytes, int(win.sum())
 
 
+def match_bound(index, sets, C, cap, exact):
+    """Bound fields (bound_ms, bound_by, bytes) of one scatter_match
+    launch, the mean over the (tile_ids, q8) ``sets``: the larger of its
+    needed bytes at the HBM rate and its window lanes' operations at the
+    int32 rate."""
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    need = []
+    for ids, q8 in sets:
+        _agg, masks, _seq = sk.scatter_match(
+            index.tiles, ids, q8, T=index.tile, CAP=cap, C=C,
+            exact_only=exact)
+        need.append(needed_bytes(index, ids, q8, masks, C, cap))
+    nbytes = float(np.mean([n for n, _l in need]))
+    lanes = float(np.mean([l for _n, l in need]))
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = lanes * MATCH_OPS_PER_LANE / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes}
+
+
 def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16,
                 parent=None):
     """Timing fields (ms, plain_ms, bound_ms, bound_by, bytes) per launch
@@ -626,19 +721,44 @@ def time_kernel(index, device, rng, C, cap, r_lo, r_hi, exact, n_sets=16,
         sets[:4], reps=1,
     )
 
-    need = []
-    for ids, q8 in sets:
-        _agg, masks, _seq = sk.scatter_match(
-            index.tiles, ids, q8, T=T, CAP=cap, C=C, exact_only=exact
-        )
-        need.append(needed_bytes(index, ids, q8, masks, C, cap))
-    nbytes = float(np.mean([n for n, _l in need]))
-    lanes = float(np.mean([l for _n, l in need]))
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = lanes * MATCH_OPS_PER_LANE / INT32_OPS_PER_S * 1e3
-    return {**fields, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes}
+    return {**fields, "plain_ms": plain_ms,
+            **match_bound(index, sets, C, cap, exact)}
+
+
+def time_kernel_padded(index, device, rng, C, cap, r_lo, r_hi, exact, n_real,
+                       n_sets=16, parent=None):
+    """Timing fields per launch of one tier at the main path's shape:
+    ``n_real`` queries padded to CHUNK_SMALL slots as _launch_tier pads
+    them. ``ms`` with the L2 flushed before each launch (the index far
+    outgrows the L2, and a 64-slot set would stay in it), ``warm_ms``
+    back to back, over ``n_sets`` random query sets; with ``parent``
+    its kernel in turns beside this one (``parent_ms``,
+    ``parent_warm_ms``)."""
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.ops import timing
+
+    T = index.tile
+    sets = [padded_inputs(
+        index, tier_specs(index.shard, rng, n_real, r_lo, r_hi, exact),
+        device) for _ in range(n_sets)]
+    runs = {"this": sk.scatter_match}
+    if parent is not None:
+        runs = {"parent": parent.sk.scatter_match, **runs}
+
+    def measure(fn):
+        call = lambda s: fn(index.tiles, s[0], s[1], T=T, CAP=cap, C=C,
+                            exact_only=exact)
+        return (timing.cold_device_ms(call, sets, device),
+                timing.device_ms(call, sets, reps=4))
+
+    fields = turn_fields(timed_in_turns(measure, runs), ("ms", "warm_ms"))
+    plain_ms = timing.device_ms(
+        lambda s: sk.scatter_core_reference(
+            index.tiles, s[0], s[1], T=T, CAP=cap, C=C, exact_only=exact,
+            seg_k=sk._static_seg_k(index)),
+        sets[:4], reps=1)
+    return {**fields, "plain_ms": plain_ms,
+            **match_bound(index, sets, C, cap, exact)}
 
 
 def fused_specs(shards, rng, n, kinds=None):
@@ -1480,6 +1600,13 @@ def profile_kernels(device):
         np.ones(8, np.bool_))
     profile_line(tm.FUSED_KERNEL, lambda a: run_fused(
         a[0], a[1], tm.mesh_fused, 2048, 1024), (blk, kw))
+    plain = tm.MeshFusedIndex(shards, tm.Mesh([device, device]))
+    specs, sids = fused_specs(shards, rng, 8)
+    (_g, blk, kw), *_rest = fused_entry_inputs(plain, specs, sids,
+                                               tm.LAYOUT_OWNER)
+    profile_line(tm.FUSED_KERNEL, lambda a: run_fused(
+        a[0], a[1], tm.mesh_fused, 2048, 1024), (blk, kw),
+        expect="mesh_fused_kernel")
     blocks = [ones(1, 12604) for _ in range(3)]
     profile_line(tg.KERNEL, lambda b: tg.ring_step(b[0], None, b[1],
                                                    own=b[2]),
@@ -1501,7 +1628,7 @@ def profiled_kernels():
     lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
     for l in lines:
         print(l, flush=True)
-    check(proc.returncode == 0 and len(lines) == 11,
+    check(proc.returncode == 0 and len(lines) == 12,
           f"the profiled kernel calls failed (rc {proc.returncode}): "
           f"{proc.stderr[-2000:]}")
 
@@ -1919,8 +2046,8 @@ def run_fused(blk, kw, fn, window_cap, record_cap):
 
 def compare_mesh_fused(mfi, specs, sids, layout, label, masks=None,
                        counts=None, window_cap=2048, record_cap=1024):
-    """mesh_fused vs its twin on every entry of one batch; returns
-    (max_abs_err, report row)."""
+    """mesh_fused (on 0xDEADBEEF-filled outputs) vs its twin on every
+    entry of one batch; returns (max_abs_err, report row)."""
     import torch
 
     from sbeacon_tpu_torch.parallel import mesh as tm
@@ -1931,8 +2058,10 @@ def compare_mesh_fused(mfi, specs, sids, layout, label, masks=None,
     R = min(record_cap, window_cap)
     for g, blk, kw in fused_entry_inputs(mfi, specs, sids, layout, masks,
                                          counts):
-        got, _seq = run_fused(blk, kw, tm.mesh_fused, window_cap, record_cap)
-        torch.cuda.synchronize()
+        with DeadbeefOutputs():
+            got, _seq = run_fused(blk, kw, tm.mesh_fused, window_cap,
+                                  record_cap)
+            torch.cuda.synchronize()
         want = run_fused(blk, kw, tm.local_fused_reference, window_cap,
                          record_cap)
         for k, w in want.items():
@@ -2029,12 +2158,14 @@ def mesh_need(mfi, g, blk, q, W, R, with_planes):
     return nbytes, ops
 
 
-def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes):
-    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes, slots) per
-    mesh_fused launch over every entry's launch of ``sets`` of (specs,
-    sids, masks, counts): the kernel ms with the L2 flushed before each
-    launch, the warm ms back to back, the twin by an event pair around
-    each call."""
+def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes,
+                    parent=None):
+    """Timing fields (ms, warm_ms, plain_ms, bound_ms, bound_by, bytes,
+    slots) per mesh_fused launch over every entry's launch of ``sets`` of
+    (specs, sids, masks, counts): ``ms`` with the L2 flushed before each
+    launch, ``warm_ms`` back to back, the twin by an event pair around
+    each call. With ``parent`` (``load_parent``) its kernel in turns
+    beside this one (``parent_ms``, ``parent_warm_ms``)."""
     from sbeacon_tpu_torch.ops import timing
     from sbeacon_tpu_torch.parallel import mesh as tm
 
@@ -2042,10 +2173,16 @@ def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes):
              for g, blk, kw in fused_entry_inputs(mfi, specs, sids, layout,
                                                   m, c)]
     dev = items[0][0].device
-    run = lambda it: run_fused(it[0], it[1], tm.mesh_fused, window_cap,
-                               record_cap)
-    ms = timing.cold_device_ms(run, items, dev)
-    warm_ms = timing.device_ms(run, items, reps=4)
+    runs = {"this": tm.mesh_fused}
+    if parent is not None:
+        runs = {"parent": parent.tm.mesh_fused, **runs}
+
+    def measure(fn):
+        run = lambda it: run_fused(it[0], it[1], fn, window_cap, record_cap)
+        return (timing.cold_device_ms(run, items, dev),
+                timing.device_ms(run, items, reps=4))
+
+    fields = turn_fields(timed_in_turns(measure, runs), ("ms", "warm_ms"))
     twin = lambda it: run_fused(it[0], it[1], tm.local_fused_reference,
                                 window_cap, record_cap)
     plain_ms = float(np.mean([event_ms(twin, it) for it in items[:2]]))
@@ -2055,7 +2192,8 @@ def time_mesh_fused(mfi, sets, layout, window_cap, record_cap, with_planes):
     nbytes = float(np.mean([x for x, _o in need]))
     bound_ms, by = bound_of(nbytes, float(np.mean([o for _x, o in need])))
     slots = float(np.mean([kw["qpack"].shape[0] for _b, kw, _g in items]))
-    return ms, warm_ms, plain_ms, bound_ms, by, nbytes, slots
+    return {**fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes, "slots": slots}
 
 
 RING_STEP_FORMS = ("next", "last", "first")
@@ -2192,8 +2330,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit): its "
-                         "scatter_match, scatter_selected, stacked_query and "
-                         "stacked_selected kernels are built from its sources "
+                         "scatter_match, scatter_selected, stacked_query, "
+                         "stacked_selected and mesh_fused kernels are built "
+                         "from its sources "
                          "and timed in turns beside this tree's; DIR must "
                          "lie under this checkout's build/")
     args = ap.parse_args(argv)
@@ -2307,10 +2446,13 @@ def run(args, device) -> int:
                                      args.threads)
         launches = telemetry.launch_count(sk.KERNEL)
         by_tier: dict = {}
+        real_by_tier: dict = {}  # the real queries of each launch
         for r in telemetry.recent_launches():
             if r["kernel"] == sk.KERNEL:
                 key = (r["C"], r["exact_only"])
                 by_tier[key] = by_tier.get(key, 0) + 1
+                real_by_tier.setdefault(key, []).append(
+                    r.get("specs_real", r["slots"]))
         fallbacks = engine.host_fallbacks - fallbacks0
         occ = engine.batcher.occupancy()
         stages = engine.stage_timing()
@@ -2330,31 +2472,50 @@ def run(args, device) -> int:
              launches_per_request=launches / len(bodies),
              launches_by_tier={f"C{c}_{'exact' if e else 'any'}": n
                                for (c, e), n in sorted(by_tier.items())},
+             slots_by_tier={f"C{c}_{'exact' if e else 'any'}": {
+                 "real_mean": float(np.mean(v)), "real_max": int(max(v))}
+                 for (c, e), v in sorted(real_by_tier.items())},
              batcher=occ, host_fallbacks=fallbacks, wall_s=wall,
              requests_per_s=len(bodies) / wall,
              latency_ms={"p50": percentile(lat, 0.5),
                          "p99": percentile(lat, 0.99)},
              stage_ms=stages, device=kind, nvidia_smi=smi)
 
-        # 5. scatter_match timing at the 2e7-row shape, every tier
+        # 5. scatter_match timing at the 2e7-row shape, every tier: a full
+        # batch (NSLOTS slots), and the main path's own launch shape (its
+        # mean real queries of the tier, padded to CHUNK_SMALL slots)
         timings = []
         for C, cap, r_lo, r_hi in tiers(index.tile):
             for exact in (True, False):
                 t = time_kernel(index, device, rng, C, cap, r_lo, r_hi,
                                 exact, parent=parent)
+                n_real = max(1, round(float(np.mean(
+                    real_by_tier.get((C, exact), [6])))))
+                t64 = time_kernel_padded(index, device, rng, C, cap, r_lo,
+                                         r_hi, exact, n_real, parent=parent)
+                n = by_tier.get((C, exact), 0)
                 timings.append(
                     {"C": C, "cap": cap, "exact_only": exact,
                      "slots": NSLOTS, **t,
                      "bound_share": t["bound_ms"] / t["ms"],
-                     "main_path_launches": by_tier.get((C, exact), 0)}
+                     "main_path_launches": n,
+                     "main_path_shape": {
+                         "slots": sk.CHUNK_SMALL, "real_slots": n_real,
+                         **t64, "bound_share": t64["bound_ms"] / t64["ms"],
+                         "launches_x_ms": n * t64["ms"],
+                         **({"parent_launches_x_ms": n * t64["parent_ms"]}
+                            if parent is not None else {})}}
                 )
 
-        # upper estimate of the card's busy share in the main path:
-        # its launches at the full-batch per-launch time of their tier
-        busy_ms = sum(t["ms"] * t["main_path_launches"] for t in timings)
+        # the card's busy time in the main path: each tier's launches at
+        # the cold time of the shape they launched
+        busy_ms = sum(t["main_path_shape"]["launches_x_ms"] for t in timings)
+        parent_busy = ({"main_path_kernel_ms_parent": sum(
+            t["main_path_shape"]["parent_launches_x_ms"] for t in timings)}
+            if parent is not None else {})
         emit("timing", kernel=sk.KERNEL, library_ms=None,
-             main_path_kernel_ms_upper=busy_ms,
-             main_path_busy_share_upper=busy_ms / (wall * 1e3),
+             main_path_kernel_ms=busy_ms, **parent_busy,
+             main_path_busy_share=busy_ms / (wall * 1e3),
              library_note="no single PyTorch call computes this function",
              tiers=timings, device=kind, nvidia_smi=smi)
     finally:
@@ -3256,6 +3417,17 @@ def run(args, device) -> int:
                 fused_case(crafted3, [crafted_p, crafted_again], b, layout,
                            "crafted3", planes=True, counts=counts_on,
                            n_samples=40, record_cap=64)
+    # the match-only cluster launch at the pod tier's slot counts (1-14),
+    # on entries of d_local 2 and 10 (past the 9 datasets whose segment
+    # rows load beside the query row)
+    wide = resubmitted(crafted_shard, args.seed + 24, 20)
+    fw = tm.MeshFusedIndex(wide, tm.Mesh(fdevs))
+    check(fw.d_local == 10, "the wide mesh-fused index has d_local 10")
+    for b in (1, 2, 4, 6, 8, 10, 12, 14):
+        for layout in layouts:
+            fused_case(fq, [shard] + cohorts, b, layout, "g1k+cohorts")
+            fused_case(fw, wide, b, layout, "crafted_x20")
+    del fw, wide
     check(all(sum(r[k] for r in rep_f) > 0 for k in (
         "matched", "overflow", "rows", "or_bits", "fillers", "not_owned")),
         "the mesh_fused cases matched, overflowed, extracted samples and "
@@ -3407,7 +3579,10 @@ def run(args, device) -> int:
         top = sorted(((v, k) for k, v in run25["shapes"].items()
                       if k[0] != "ring" and k[2] == with_planes),
                      reverse=True)
-        for n_launch, (slots, _lay, _pl) in top[:2]:
+        # match-only: every slot count phase 25 launched; with planes its
+        # two most launched
+        for n_launch, (slots, _lay, _pl) in (top[:2] if with_planes
+                                              else top):
             per_req = max(1, -(-len(run25["order"]) // mfi.n_dev))
             k_req = max(1, slots // per_req)
             sets = []
@@ -3429,19 +3604,21 @@ def run(args, device) -> int:
                 sets.append((specs, sids,
                              np.stack(masks) if with_planes else None,
                              np.array(cnt, np.bool_) if with_planes else None))
-            ms, warm_ms, plain_ms, bound_ms, by, nbytes, s_mean = (
-                time_mesh_fused(mfi, sets, layout, 2048, 1024, with_planes))
+            t = time_mesh_fused(mfi, sets, layout, 2048, 1024, with_planes,
+                                parent=parent)
             ftimings.append({
                 "path": name, "planes": with_planes, "layout": layout,
-                "slots": s_mean, "phase25_slots": slots,
-                "phase25_launches": n_launch, "ms": ms, "warm_ms": warm_ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                "bound_share": bound_ms / ms, "bytes": nbytes})
+                "phase25_slots": slots, "phase25_launches": n_launch, **t,
+                "bound_share": t["bound_ms"] / t["ms"]})
     busy = {name: sum(t["ms"] * t["phase25_launches"] for t in ftimings
                       if t["path"] == name) for name in fused_runs}
+    parent_busy = ({"busy_ms_parent": {
+        name: sum(t["parent_ms"] * t["phase25_launches"] for t in ftimings
+                  if t["path"] == name) for name in fused_runs}}
+        if parent is not None else {})
     emit("timing", kernel=tm.FUSED_KERNEL, library_ms=None,
          library_note="no single PyTorch call computes this function",
-         cases=ftimings,
+         cases=ftimings, busy_ms=busy, **parent_busy,
          busy_share_est={k: v / (fused_runs[k]["wall"] * 1e3)
                          for k, v in busy.items()},
          device=kind, nvidia_smi=smi)
@@ -3486,6 +3663,7 @@ def run(args, device) -> int:
     # the median fused batch of brackets for the bisection kernel; the
     # selected path's most-launched shape for the two plane kernels
     top = max(timings, key=lambda t: (t["main_path_launches"], -t["C"]))
+    top64 = top["main_path_shape"]
     mid = next(t for t in btimings
                if t["queries"] == percentile(batch_sizes, 0.5)
                and t["kind"] == "bracket")
@@ -3496,13 +3674,13 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/scatter_kernel.py:217",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": top["ms"],
-        "plain_ms": top["plain_ms"],
-        "bound_ms": top["bound_ms"],
-        "bound_by": top["bound_by"],
+        "ms": top64["ms"],
+        "plain_ms": top64["plain_ms"],
+        "bound_ms": top64["bound_ms"],
+        "bound_by": top64["bound_by"],
         "library_ms": None,
         "tier": {"C": top["C"], "exact_only": top["exact_only"],
-                 "slots": NSLOTS},
+                 "slots": top64["slots"], "real_slots": top64["real_slots"]},
     }, {
         "name": tk.KERNEL,
         "route": "cuda",

@@ -9,11 +9,11 @@
 // seg_base[d_local], each shard's first block row. One launch answers
 // the entry's query slots.
 //
-// What it computes, per query slot j (one block per output slot, or with
-// planes one cluster of blocks):
+// What it computes, per query slot j (one cluster of blocks per output
+// slot):
 //   1. sid = shard - me * d_local from the slot's global shard id; the
-//      entry owns the slot iff 0 <= sid < d_local; sid is clamped;
-//   2. the per-query body of bisect_core.cuh over segment row
+//      entry owns the slot iff 0 <= sid < d_local;
+//   2. the semantics of bisect_core.cuh's query_block over segment row
 //      offsets[sid]: the aggregates and the first R matched block rows;
 //   3. the aggregates {call_count, n_variants, all_alleles, n_matched,
 //      overflow} masked by ownership (a slot the entry does not own
@@ -31,12 +31,54 @@
 // The cross-entry sums (the psum and the ring gather) are the caller's.
 //
 // What bounds it on this card: latency, as for bisect_query (a point
-// query's cost is its two dependent searches); with planes, then the
+// query's cost is its chain of dependent rounds: query row, segment row,
+// search steps, lane loads); with planes, then the
 // dependent HBM reads of the matched rows' plane words (W words each, x4
 // with counts) from planes of GBs far above the 50 MB L2.
 //
-// Design, match-only: one 256-thread block per slot, the matched rows
-// kept in shared memory from the search to the column gathers.
+// Design, match-only: a cluster of c = min(8, ceil(Wwin / 256)) blocks
+// per output slot, launched with cudaLaunchKernelEx (sm_90); block rank
+// r takes window lanes [r L, r L + L), L = 256 for windows up to 2048
+// lanes (every block runs one 256-lane chunk; wider windows give each
+// block ceil(chunks / 8) chunks in order). The chain of dependent
+// rounds a slot runs, from the query row on, is stacked_core.cuh's:
+//   1. the query row (stacked::load_query) and, when the entry's segment
+//      table and seg_base fit the block's threads (d_local * 28 <= 256
+//      words: d_local <= 9), every segment row and seg_base in the same
+//      round, one word a thread, into shared memory, where the slot's row
+//      is picked; a wider entry (d_local > 9) loads its slot's segment
+//      row and seg_base after the query row, one round more;
+//   2. the window [lo, hi) by stacked::block_window (128 probes a step:
+//      3 steps on a chr1-sized segment of a 2e7-row dataset). Every block
+//      of the cluster searches for itself: the same few probes from 8
+//      SMs cost no more time than one, where the leader's search and a
+//      DSMEM broadcast would add a cluster barrier to every block's wait;
+//   3. the block's lanes by stacked::load_lane (every column the query's
+//      modes need, with rec_id, AC and AN, in one round) and
+//      stacked::lane_match; a ballot and a prefix over the block's warps
+//      place each match among the block's matches (rows kept in shared
+//      memory), and its record's first match is decided from the
+//      previous matched lane: within the warp by ballot and shuffle,
+//      else the last matched rec_id of the warps (and chunks) before it
+//      (rec_id is nondecreasing inside a segment, so the previous match
+//      shares the lane's rec_id iff an earlier lane of its record
+//      matched: query_block's rule). The block's first match is
+//      provisionally first;
+//   4. each block's summary (match count, three sums, its first match's
+//      rec_id and AN, its last match's rec_id) goes into every block of
+//      the cluster through distributed shared memory (after the cluster
+//      barrier each block arrives at when it starts), then one
+//      cluster.sync. Every block takes its exclusive prefix over the
+//      ranks (its offset into the first R rows) and writes its rows
+//      rebased, and its share of the padding; the leader sums the ranks'
+//      summaries, taking back the AN of a rank's first match where the
+//      nearest earlier rank with matches ended on the same record, and
+//      writes agg. No block reads another's shared memory, so none has
+//      to wait for the others to leave; no atomics, no fill.
+// A launch of 14 slots (phase 25's largest) is 112 blocks: one wave on
+// 132 SMs. A slot the entry does not own is decided alike by every
+// block of its cluster, which writes its share of the structural zeros
+// and leaves before any cluster barrier.
 //
 // Design, with planes: a cluster of kCluster blocks per output slot,
 // launched with cudaLaunchKernelEx and a cluster dimension (sm_90), so
@@ -51,9 +93,11 @@
 //      popcounts to the outputs and to the leader's shared memory, and
 //      keeps its rows' masked gt words in a shared cache as far as they
 //      fit; cluster.sync;
-//   3. the leader computes rc and or_sel (four scans in log depth over
-//      the valid lanes, plane_reduce::or_select); cluster.sync;
-//   4. every block reads its share's or_sel from the leader, ORs those
+//   3. the leader computes rc and or_sel (plane_reduce::or_select: one
+//      warp's shuffles for at most 32 valid lanes, else four scans in
+//      log depth); cluster.sync;
+//   4. every block lists its share's or_sel lanes from the leader by
+//      ballots (plane_reduce::sel_list, no atomics), ORs those
 //      rows' gt words (from its cache, else from the plane) into a local
 //      accumulator and then into the leader's with remote atomicOr;
 //      cluster.sync; the leader writes or_words.
@@ -67,10 +111,8 @@
 // 4 GiB at 1000-Genomes width). A launch the card refuses returns its
 // error; there is no one-block fallback.
 
-#include <cooperative_groups.h>
-
-#include "bisect_core.cuh"
 #include "plane_reduce.cuh"
+#include "stacked_core.cuh"
 
 namespace {
 
@@ -89,36 +131,50 @@ __host__ __device__ constexpr long long align16(long long x) {
   return (x + 15) / 16 * 16;
 }
 
-// Rows of one cluster block's share of the R lanes.
+// Rows of one cluster block's share of the R lanes (with planes).
 __host__ __device__ constexpr int share_rows(int R) {
   return (R + kCluster - 1) / kCluster;
 }
 
-// Dynamic shared memory of one block before its gt cache: the search
-// window and the R matched rows; with planes also, over the R lanes,
-// flags, ac, an, rec_id, the two popcounts and two scan buffers, the
-// mask and the OR words (2 W), the share's rows and or_sel list, and
-// or_sel (R bytes).
-__host__ __device__ constexpr long long base_smem(int Wwin, int R, int W,
-                                                  bool planes) {
+// Blocks of one match-only slot's cluster, and the window lanes each
+// takes (whole 256-lane chunks).
+__host__ __device__ constexpr int match_blocks(int Wwin) {
+  const int chunks = (Wwin + kThreads - 1) / kThreads;
+  return chunks < kCluster ? chunks : kCluster;
+}
+
+__host__ __device__ constexpr int match_lanes(int Wwin) {
+  const int chunks = (Wwin + kThreads - 1) / kThreads;
+  const int c = match_blocks(Wwin);
+  return (chunks + c - 1) / c * kThreads;
+}
+
+// Dynamic shared memory of one planes block before its gt cache: the
+// search window and, over the R lanes, the matched rows, flags, ac, an,
+// rec_id, the two popcounts and two scan buffers, the mask and the OR
+// words (2 W), the share's rows and or_sel list, and or_sel (R bytes).
+__host__ __device__ constexpr long long planes_smem(int Wwin, int R, int W) {
   return align16(window_smem(Wwin)) +
-         (planes ? align16(36LL * R + 8LL * W + 8LL * share_rows(R) + R)
-                 : 4LL * R);
+         align16(36LL * R + 8LL * W + 8LL * share_rows(R) + R);
 }
 
 // Words of the gt cache: the share's rows' masked gt words (with counts
 // only), as far as kSmemCap allows.
 __host__ __device__ constexpr long long cache_words(int Wwin, int R, int W,
                                                     bool counts) {
-  const long long room = (kSmemCap - base_smem(Wwin, R, W, true)) / 4;
+  const long long room = (kSmemCap - planes_smem(Wwin, R, W)) / 4;
   const long long want = static_cast<long long>(share_rows(R)) * W;
   return !counts || room <= 0 ? 0 : (want < room ? want : room);
 }
 
+// Match-only: the block's matched rows, at most min(its lanes, R).
 __host__ __device__ constexpr long long fused_smem(int Wwin, int R, int W,
                                                    int planes) {
-  return base_smem(Wwin, R, W, planes != 0) +
-         4 * cache_words(Wwin, R, W, planes == 2);
+  if (planes == 0) {
+    const int keep = match_lanes(Wwin);
+    return 4LL * (keep < R ? keep : R);
+  }
+  return planes_smem(Wwin, R, W) + 4 * cache_words(Wwin, R, W, planes == 2);
 }
 
 struct Args {
@@ -141,49 +197,212 @@ struct Args {
   int cache_rows;
 };
 
+// One rank's summary for the cluster (uint32 words): its match count,
+// the three sums (all_alleles counting its first match as first), its
+// first match's rec_id and AN, its last match's rec_id.
+constexpr int kFan = 7;
+enum {
+  FAN_COUNT,
+  FAN_CALLS,
+  FAN_VARIANTS,
+  FAN_ALLELES,
+  FAN_FIRST_REC,
+  FAN_FIRST_AN,
+  FAN_LAST_REC
+};
+
+// A slot the entry does not own: structural zeros, this block's share of
+// them (block rank of c).
+__device__ __forceinline__ void zero_slot(int32_t* agg, int32_t* rows, int R,
+                                          bool combine, int rank, int c) {
+  if (rank == 0 && threadIdx.x < kMeshAgg) agg[threadIdx.x] = 0;
+  for (int k = rank * kThreads + threadIdx.x; k < R; k += c * kThreads) {
+    rows[k] = combine ? 0 : -1;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads) mesh_fused_kernel(Args p) {
-  extern __shared__ int32_t smem[];
-  int32_t* win = smem;
-  int32_t* s_row = smem + align16(window_smem(p.Wwin)) / 4;
+  extern __shared__ int32_t s_row[];       // this block's matched rows
+  __shared__ int32_t s_seg[kThreads];      // segment table + seg_base
+  __shared__ uint32_t s_fan[kCluster][kFan];  // every rank's summary
+  __shared__ uint32_t s_mine[kFan];
+  __shared__ int s_wcount[kWarps];
+  __shared__ int32_t s_wlast[kWarps];
+  __shared__ uint32_t s_part[kWarps][3];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   const int R = p.R;
-  const size_t o = blockIdx.x;
+  const size_t o = blockIdx.x / c;
   const int j = p.layout == kSliced ? static_cast<int>(o) - p.me * p.C
                                     : static_cast<int>(o);
-  const int tid = threadIdx.x;
   const bool mine = j >= 0 && j < p.n_slots;
-  const int32_t* qp = p.qpack + static_cast<size_t>(mine ? j : 0) * kQFields;
-  const int sid = qp[QF_SHARD] - p.me * p.d_local;
-  const bool owned = mine && sid >= 0 && sid < p.d_local;
-  const int sidc = min(max(sid, 0), p.d_local - 1);
   const bool combine = p.layout != kOwner;
   int32_t* agg = p.agg + o * kMeshAgg;
   int32_t* rows = p.rows + o * R;
-  if (!owned) {  // block-uniform: structural zeros, no search
-    if (tid < kMeshAgg) agg[tid] = 0;
-    for (int k = tid; k < R; k += kThreads) rows[k] = combine ? 0 : -1;
+
+  // 1. the query row, and (d_local <= 9) the entry's segment table and
+  // seg_base beside it, one word a thread
+  const int32_t* qp = p.qpack + static_cast<size_t>(mine ? j : 0) * kQFields;
+  const int n_seg = p.d_local * kSegs;
+  const bool table = n_seg + p.d_local <= kThreads;
+  int32_t word = 0;
+  if (table && tid < n_seg + p.d_local) {
+    word = tid < n_seg ? p.offsets[tid] : p.seg_base[tid - n_seg];
+  }
+  const stacked::Query qv = stacked::load_query(qp);
+  const int sid = qp[QF_SHARD] - p.me * p.d_local;
+  if (!(mine && sid >= 0 && sid < p.d_local)) {  // cluster-uniform
+    zero_slot(agg, rows, R, combine, rank, c);
     return;
   }
-  const Agg a = query_block(p.cols, p.n_pad, p.alt_prefix,
-                            p.offsets + static_cast<size_t>(sidc) * kSegs, qp,
-                            p.Wwin, R, s_row, nullptr, win);
-  if (tid == 0) {
-    agg[0] = a.call_count;
-    agg[1] = a.n_variants;
-    agg[2] = a.all_alleles;
-    agg[3] = a.n_matched;
-    agg[4] = a.overflow ? 1 : 0;
+  stacked::cluster_arrive_relaxed();  // this block has started
+  s_seg[tid] = word;
+  __syncthreads();
+  const int32_t* seg = table ? s_seg + sid * kSegs
+                             : p.offsets + static_cast<size_t>(sid) * kSegs;
+  const int32_t base = table ? s_seg[n_seg + sid] : p.seg_base[sid];
+
+  // 2. the window, by every block
+  const int2 bounds = stacked::block_window(p.cols, seg, qv);
+  const int lo = bounds.x;
+  const int hi = bounds.y;
+  const int n_valid = max(0, min(hi - lo, p.Wwin));
+  const int L = match_lanes(p.Wwin);
+  const int l_end = min(rank * L + L, n_valid);
+
+  // 3. this block's lanes, 256 at a time
+  uint32_t call_count = 0, n_variants = 0, all_alleles = 0;
+  int n_kept = 0;         // block-uniform: this block's matches so far
+  int last_rec = 0;       // block-uniform: the rec_id of the last of them
+  for (int l0 = rank * L; l0 < l_end; l0 += kThreads) {
+    const int l = l0 + tid;
+    bool m = false;
+    stacked::Lane v{};
+    if (l < l_end) {
+      v = stacked::load_lane(qv, p.cols, p.n_pad, p.alt_prefix,
+                             static_cast<long long>(lo) + l);
+      m = stacked::lane_match(qv, v);
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, m);
+    const unsigned lower = ball & ((1u << lane) - 1u);
+    const int prev = __shfl_sync(0xffffffffu, v.rec_id,
+                                 lower ? 31 - __clz(lower) : 0);
+    const int wlast = __shfl_sync(0xffffffffu, v.rec_id,
+                                  ball ? 31 - __clz(ball) : 0);
+    if (lane == 0) {
+      s_wcount[warp] = __popc(ball);
+      s_wlast[warp] = wlast;
+    }
+    __syncthreads();
+    int before = 0, total = 0;
+    bool have = n_kept > 0;  // a match before this warp, in this block
+    int carry = last_rec;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int cw = s_wcount[w];
+      if (w < warp && cw) {
+        before += cw;
+        have = true;
+        carry = s_wlast[w];
+      }
+      total += cw;
+    }
+    if (m) {
+      const int k = n_kept + before + __popc(lower);
+      if (k < R) s_row[k] = lo + l;
+      call_count += static_cast<uint32_t>(v.ac);
+      n_variants += v.ac != 0 ? 1u : 0u;
+      bool first;
+      if (lower) {
+        first = prev != v.rec_id;
+      } else if (have) {
+        first = carry != v.rec_id;
+      } else {  // the block's first match
+        first = true;
+        s_mine[FAN_FIRST_REC] = static_cast<uint32_t>(v.rec_id);
+        s_mine[FAN_FIRST_AN] = static_cast<uint32_t>(v.an);
+      }
+      if (first) all_alleles += static_cast<uint32_t>(v.an);
+    }
+    for (int w = kWarps - 1; w >= 0; --w) {
+      if (s_wcount[w]) {
+        last_rec = s_wlast[w];
+        break;
+      }
+    }
+    n_kept += total;
+    __syncthreads();  // s_wcount is rewritten by the next chunk
   }
-  const int32_t base = p.seg_base[sidc];
-  for (int k = tid; k < R; k += kThreads) {
-    const int32_t r = s_row[k];
-    rows[k] = r >= 0 ? r - base + (combine ? 1 : 0) : (combine ? 0 : -1);
+
+  // 4. the summary into every block, then offsets, rows and sums
+  uint32_t sums[3] = {call_count, n_variants, all_alleles};
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    sums[i] = warp_sum(sums[i]);
+    if (lane == 0) s_part[warp][i] = sums[i];
+  }
+  __syncthreads();
+  if (tid < 3) {
+    uint32_t t = 0;
+    for (int w = 0; w < kWarps; ++w) t += s_part[w][tid];
+    s_mine[FAN_CALLS + tid] = t;
+  } else if (tid == 3) {
+    s_mine[FAN_COUNT] = static_cast<uint32_t>(n_kept);
+    s_mine[FAN_LAST_REC] = static_cast<uint32_t>(last_rec);
+  }
+  __syncthreads();
+  stacked::cluster_wait();  // every block has started
+  if (tid < c * kFan) {
+    const int to = tid / kFan;
+    const int k = tid - to * kFan;
+    *cluster.map_shared_rank(&s_fan[rank][k], to) = s_mine[k];
+  }
+  cluster.sync();  // every rank's summary is in every block
+
+  int prefix = 0, total = 0;
+  for (int r = 0; r < c; ++r) {
+    const int n = static_cast<int>(s_fan[r][FAN_COUNT]);
+    prefix += r < rank ? n : 0;
+    total += n;
+  }
+  const int32_t shift = combine ? 1 : 0;
+  for (int k = tid; k < n_kept && prefix + k < R; k += kThreads) {
+    rows[prefix + k] = s_row[k] - base + shift;
+  }
+  for (int k = min(total, R) + rank * kThreads + tid; k < R;
+       k += c * kThreads) {
+    rows[k] = combine ? 0 : -1;
+  }
+  if (rank == 0 && tid == 0) {
+    uint32_t calls = 0, variants = 0, alleles = 0;
+    bool have = false;
+    uint32_t carry = 0;  // the last matched rec_id of the ranks so far
+    for (int r = 0; r < c; ++r) {
+      const uint32_t* f = s_fan[r];
+      calls += f[FAN_CALLS];
+      variants += f[FAN_VARIANTS];
+      alleles += f[FAN_ALLELES];
+      if (f[FAN_COUNT] == 0) continue;
+      if (have && carry == f[FAN_FIRST_REC]) alleles -= f[FAN_FIRST_AN];
+      have = true;
+      carry = f[FAN_LAST_REC];
+    }
+    agg[0] = static_cast<int32_t>(calls);
+    agg[1] = static_cast<int32_t>(variants);
+    agg[2] = static_cast<int32_t>(alleles);
+    agg[3] = total;
+    agg[4] = (hi - lo) > p.Wwin ? 1 : 0;
   }
 }
 
 __global__ void __launch_bounds__(kThreads) mesh_fused_planes_kernel(Args p) {
   extern __shared__ int32_t smem[];
   __shared__ int32_t s_tot[kWarps];
-  __shared__ int s_nvalid, s_nlist;
+  __shared__ int s_nvalid;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int R = p.R;
@@ -205,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) mesh_fused_planes_kernel(Args p) {
   int32_t* s_list = s_lrow + S;
   uint8_t* s_sel = reinterpret_cast<uint8_t*>(s_list + S);
   uint32_t* cache = reinterpret_cast<uint32_t*>(
-      smem + base_smem(p.Wwin, R, W, true) / 4);  // 16-byte aligned
+      smem + planes_smem(p.Wwin, R, W) / 4);  // 16-byte aligned
 
   const int tid = threadIdx.x;
   const size_t o = blockIdx.x / kCluster;
@@ -303,13 +522,8 @@ __global__ void __launch_bounds__(kThreads) mesh_fused_planes_kernel(Args p) {
   }
   cluster.sync();  // 3. or_sel is in the leader
 
-  if (tid == 0) s_nlist = 0;
-  __syncthreads();
-  for (int i = tid; i < n; i += kThreads) {
-    if (l_sel[lo + i]) s_list[atomicAdd(&s_nlist, 1)] = i;
-  }
-  __syncthreads();
-  plane_reduce::or_rows<kThreads>(p.gt, s_lrow, s_list, s_nlist, W, s_mask,
+  const int n_list = plane_reduce::sel_list(l_sel + lo, n, s_list);
+  plane_reduce::or_rows<kThreads>(p.gt, s_lrow, s_list, n_list, W, s_mask,
                                   cache, p.has_counts ? p.cache_rows : 0,
                                   s_acc);
   __syncthreads();
@@ -329,17 +543,10 @@ int launch_match(const Args& args, int n_dev, void* stream) {
   const long long n_out = args.layout == kSliced
                               ? static_cast<long long>(n_dev) * args.C
                               : args.n_slots;
-  const size_t smem =
-      static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mesh_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  mesh_fused_kernel<<<static_cast<unsigned>(n_out), kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(args);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(stacked::launch_clusters(
+      mesh_fused_kernel, static_cast<int>(n_out), match_blocks(args.Wwin),
+      static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, 0)),
+      static_cast<cudaStream_t>(stream), args));
 }
 
 int launch_planes(Args args, int n_dev, void* stream) {
@@ -383,15 +590,16 @@ long long mesh_fused_smem(int Wwin, int R, int W, int planes) {
   return fused_smem(Wwin, R, W, planes);
 }
 
-// Match-only launch: one block of 256 threads per output slot on
-// `stream`. Device pointers to contiguous int32 data: cols [11, n_pad],
-// alt_prefix [n_pad, 4], offsets [d_local, 27], seg_base [d_local],
+// Match-only launch: one cluster of min(8, ceil(Wwin / 256)) blocks of
+// 256 threads per output slot on `stream`. Device pointers to contiguous
+// int32 data: cols [11, n_pad], alt_prefix [n_pad, 4], offsets
+// [d_local, 27], seg_base [d_local],
 // qpack [n_slots, 24] (global shard ids); outputs agg [n_out, 5] and
 // rows [n_out, R], n_out = n_dev * C in the sliced-combine layout (1: the
 // entry's queries go to slots [me * C, me * C + n_slots), zeros to the
 // rest), else n_slots (layouts 0 owner and 2 replicated). The launch
 // writes every output slot. The caller guarantees 1 <= R <= Wwin.
-// Returns cudaGetLastError() after the launch.
+// Returns the launch's error, a refused cluster launch included.
 int mesh_fused_launch(const void* cols, long long n_pad,
                       const void* alt_prefix, const void* offsets,
                       const void* seg_base, int d_local, int me, int n_dev,

@@ -38,9 +38,9 @@
 //     are those of the R-lane scans): each thread scans a contiguous chunk
 //     of at most ceil(R / kThreads) lanes, a warp-shuffle scan combines
 //     the threads' totals within each warp and warp 0 the warps' totals,
-//     in log depth, or (kWarpFast, at most 32 valid lanes) one warp scans
-//     them in shuffles with no block barrier; the four scans of the
-//     reference are kept as they are;
+//     in log depth, or (at most 32 valid lanes) one warp scans them in
+//     shuffles with no block barrier; the four scans of the reference are
+//     kept as they are;
 //   - copy_words_async brings a mask to shared memory by cp.async, and
 //     prefetch_row a plane row into L2, so neither holds up the caller.
 // J6 spreads one query's rows over a cluster of blocks (mesh_fused.cu);
@@ -207,19 +207,18 @@ __device__ __forceinline__ void warp_or_select(const int32_t* s_rc,
 
 // or_sel of lanes [0, n_valid) into sel[], from rc (s_rc) and the record
 // ids (s_rec): the reference's four scans over the lanes rounded up to a
-// warp (at most R), in the scratch a and b ([R] words each). With
-// kWarpFast, a point query's lanes (n_valid <= 32) take warp_or_select
-// instead, two block barriers in place of fourteen (J2 and J7 selected;
-// J6 still takes the block form for every n_valid). Called by all
-// kThreads threads; starts and ends with the block synchronised.
-template <int kThreads, bool kWarpFast = false>
+// warp (at most R), in the scratch a and b ([R] words each); a point
+// query's lanes (n_valid <= 32) take warp_or_select instead, two block
+// barriers in place of fourteen. Called by all kThreads threads; starts
+// and ends with the block synchronised.
+template <int kThreads>
 __device__ void or_select(const int32_t* s_rc, const int32_t* s_rec,
                           int n_valid, int R, int32_t* a, int32_t* b,
                           uint8_t* sel, int32_t* s_warp) {
   const int tid = threadIdx.x;
   const int n = min((n_valid + 31) & ~31, R);
   __syncthreads();
-  if (kWarpFast && n_valid <= 32) {
+  if (n_valid <= 32) {
     if (tid < 32) warp_or_select(s_rc, s_rec, n_valid, sel);
     __syncthreads();
     return;
@@ -479,8 +478,7 @@ __device__ Sums reduce(const uint32_t* __restrict__ gt,
   }
 
   // 3. or_sel, then the list of its lanes (in b, free after the scans)
-  or_select<kThreads, true>(s_ac, s_rec, n_valid, R, s.a, s.b, s.sel,
-                            s.tot);
+  or_select<kThreads>(s_ac, s_rec, n_valid, R, s.a, s.b, s.sel, s.tot);
   const int n_list = sel_list(s.sel, n_valid, s.b);
 
   // 4. the sample-hit OR over the or_sel rows

@@ -1,8 +1,9 @@
-// The window match of the scatter kernels (sm_90a), shared by
-// scatter_match.cu (J1) and scatter_selected.cu (J2): the predicate stack
-// and the aggregate row of sbeacon_tpu/ops/scatter_kernel.py::_scatter_core.
+// The window match of the scatter kernels (sm_90a): the layout constants
+// of sbeacon_tpu/ops/scatter_kernel.py::_scatter_core, shared by
+// scatter_match.cu (J1, which runs its own window body and predicate)
+// and scatter_selected.cu (J2, which runs match_window below).
 //
-// Per query slot q, one 128-thread block (semantics of _scatter_core):
+// Per query slot q (semantics of _scatter_core):
 //   - gather the C consecutive [8, T] tiles starting at tile_ids[q];
 //     lane l of the window is global row tile_ids[q]*T + l;
 //   - per lane: window lo <= gidx < min(hi, lo + CAP), the end bracket,
@@ -16,18 +17,18 @@
 //     when hi - lo > CAP or any valid lane carries ROW_CLAMPED. Sums are
 //     int32 and wrap like XLA's.
 //
-// "First matched lane of its record": a matched lane walks back along
-// its own SAME_PREV chain and is first iff no earlier lane of the chain
-// matched. Lanes before lo never match, so this one rule equals both the
-// K-shift and the segmented-scan forms of the JAX program.
+// "First matched lane of its record": a matched lane is first iff no
+// earlier lane of its own SAME_PREV chain matched. Lanes before lo never
+// match, so this one rule equals both the K-shift and the segmented-scan
+// forms of the JAX program.
 //
-// Each thread owns lanes tid, tid + 128, ...; each packed row of a tile
-// is read as 512 coalesced bytes. The match and SAME_PREV bits of every
-// lane stay in shared memory (1 byte each) for the caller. A caller that
-// needs more of each lane passes a lane hook (NoLaneHook is J1's): the
-// hook sees every lane's columns in the first pass, and a hook with
-// kLoadAN set has AN loaded in that pass and answers the AN pass from
-// what it kept, so the window's tiles are read in one round.
+// match_window (J2's body): one 128-thread block a slot, each thread
+// owning lanes tid, tid + 128, ...; each packed row of a tile is read as
+// 512 coalesced bytes, AN with the other columns. The match and
+// SAME_PREV bits of every lane stay in shared memory (1 byte each) for
+// the caller, and a lane hook sees every lane's columns in the first
+// pass and answers the AN pass from what it kept, so the window's tiles
+// are read in one round.
 
 #pragma once
 
@@ -93,39 +94,18 @@ __device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
   return v;
 }
 
-// Element (row r, lane l) of the window of a query whose first tile is
-// tile0: out-of-range tile ids clamp like an XLA gather (the index's
-// MAX_C padding tiles keep real queries in range).
-__device__ __forceinline__ int32_t window_at(const int32_t* __restrict__ tiles,
-                                             int tile0, int n_tiles, int T,
-                                             int r, int l) {
-  const int c = l / T;
-  const int t = l - c * T;
-  const int tile = min(max(tile0 + c, 0), n_tiles - 1);
-  return tiles[(static_cast<size_t>(tile) * kPacked + r) * T + t];
-}
-
-// The lane hook of J1: keeps nothing; the AN pass reads AN from the
-// tiles. A hook offers lane(l, matched, flags, ac, an), called for every
-// window lane in the first pass (an is 0 unless kLoadAN), and an(l), the
-// AN of a matched lane l, read by the AN pass when kLoadAN is set.
-struct NoLaneHook {
-  static constexpr bool kLoadAN = false;
-  __device__ __forceinline__ void lane(int, bool, int, int, int) const {}
-  __device__ __forceinline__ int an(int) const { return 0; }
-};
-
 // The match of one query slot over its C*T window lanes, by the whole
 // block: fills s_match[l] and s_same[l] (0/1 per lane) and writes the
-// slot's aggregate row agg_q[0..8). Ends with the block synchronised and
-// both arrays visible to every thread.
-template <bool kExactOnly, class Hook = NoLaneHook>
+// slot's aggregate row agg_q[0..8). The hook offers lane(l, matched,
+// flags, ac, an), called for every window lane in the first pass, and
+// an(l), the AN of a matched lane l, read by the AN pass. Ends with the
+// block synchronised and both arrays visible to every thread.
+template <bool kExactOnly, class Hook>
 __device__ void match_window(const int32_t* __restrict__ tiles,
                              const int32_t* __restrict__ qp, int tile0,
                              int n_tiles, int T, int C, int cap,
                              uint8_t* s_match, uint8_t* s_same,
-                             int32_t* __restrict__ agg_q,
-                             const Hook& hook = Hook()) {
+                             int32_t* __restrict__ agg_q, const Hook& hook) {
   __shared__ uint32_t s_part[kThreads / 32][kSums];
   const int span = C * T;
   const int tid = threadIdx.x;
@@ -159,8 +139,7 @@ __device__ void match_window(const int32_t* __restrict__ tiles,
     const uint32_t lens = static_cast<uint32_t>(col[P_LENS * T]);
     const int flags = col[P_FLAGS * T];
     const int ac = col[P_AC * T];
-    int an = 0;
-    if constexpr (Hook::kLoadAN) an = col[P_AN * T];
+    const int an = col[P_AN * T];
 
     const int gidx = tile0 * T + l;
     const bool valid = gidx >= lo && gidx < win_end;
@@ -232,14 +211,7 @@ __device__ void match_window(const int32_t* __restrict__ tiles,
         break;
       }
     }
-    if (first) {
-      if constexpr (Hook::kLoadAN) {
-        all_alleles += static_cast<uint32_t>(hook.an(l));
-      } else {
-        all_alleles += static_cast<uint32_t>(
-            window_at(tiles, tile0, n_tiles, T, P_AN, l));
-      }
-    }
+    if (first) all_alleles += static_cast<uint32_t>(hook.an(l));
   }
 
   uint32_t sums[kSums] = {call_count, n_variants, n_matched, all_alleles,

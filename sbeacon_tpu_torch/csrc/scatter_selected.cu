@@ -94,7 +94,6 @@ __host__ __device__ constexpr long long selected_smem(int T, int C, int R,
 // is then below R too).
 template <bool kCounts>
 struct KeepLanes {
-  static constexpr bool kLoadAN = true;
   int32_t* s_ac;
   int32_t* s_flags;
   int32_t* s_an;
@@ -251,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) scatter_selected_kernel(
 
   // 4. or_sel from the forward and backward segmented scans, then the
   // list of its lanes (in s_b, free after the scans)
-  plane_reduce::or_select<kThreads, true>(s_rc, s_seg, n_fill, R, s_a, s_b,
-                                          s_sel, s_warp);
+  plane_reduce::or_select<kThreads>(s_rc, s_seg, n_fill, R, s_a, s_b,
+                                    s_sel, s_warp);
   const int n_list = plane_reduce::sel_list(s_sel, n_fill, s_b);
 
   // 5. the sample-hit OR over the or_sel rows, from the cache

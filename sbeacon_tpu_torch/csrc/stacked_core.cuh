@@ -23,8 +23,10 @@
 //     every block arrives at when it starts: cluster_arrive_relaxed at
 //     the kernel's entry), and after one more barrier the leader writes
 //     the sums with plain stores: no fill of the output, no atomics.
-// query_block and warp_bound, which bisect_query.cu and mesh_fused.cu run,
-// are left as they are. Every device function here is inlined, as the
+// The match-only kernel of mesh_fused.cu (J6) runs load_query,
+// block_window, load_lane, lane_match and launch_clusters too;
+// query_block and warp_bound, which bisect_query.cu and J6's planes
+// kernel run, are left as they are. Every device function here is inlined, as the
 // same functions were in J7 query's own anonymous namespace: a call left
 // out of line costs that kernel a stack frame and a spill.
 

@@ -39,6 +39,7 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
             ctypes.c_int,
         ),
+        "scatter_match_smem": ([_I, _I], ctypes.c_longlong),
     },
     "bisect_query": {
         "bisect_query_launch": (

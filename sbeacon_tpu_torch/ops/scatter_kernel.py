@@ -109,10 +109,13 @@ CHUNK_SMALL = 64
 # first-match form handles; longer records take the segmented-scan form
 SEG_K_MAX = 8
 
-#: the CUDA kernel's block size; a tile must be a multiple of it
+#: a tile must be a multiple of this many lanes: the fused kernel's
+#: block size, and whole 32-lane groups and 16-byte row copies of the
+#: match kernel
 THREADS = 128
-#: shared memory the kernel may take without an opt-in attribute
-_SMEM_LIMIT = 48 * 1024
+#: shared memory one block of the match kernel may take (the H100's
+#: 227 KB, opted into above 48 KB)
+_SMEM_LIMIT = 227 * 1024
 
 KERNEL = "scatter_match"
 SELECTED_KERNEL = "scatter_selected"
@@ -434,14 +437,18 @@ def scatter_match(
             )
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
-    if T % THREADS or C < 1 or 2 * span > _SMEM_LIMIT:
+    lib = _build.load(KERNEL)
+    smem = lib.scatter_match_smem(C, T)
+    if T % THREADS or C < 1 or smem > _SMEM_LIMIT:
         raise ValueError(
             f"unsupported tier T={T} C={C}: T must be a multiple of "
-            f"{THREADS} and 2*C*T at most {_SMEM_LIMIT} bytes"
+            f"{THREADS} and the block's {smem} bytes of shared memory at "
+            f"most {_SMEM_LIMIT}"
         )
+    if tiles.data_ptr() % 16:
+        raise ValueError("tiles must start on a 16-byte boundary (bulk copies)")
     agg = torch.empty((b, 8), dtype=torch.int32, device=dev)
     masks = torch.empty((b, span // 16), dtype=torch.int32, device=dev)
-    lib = _build.load(KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):
         rc = lib.scatter_match_launch(

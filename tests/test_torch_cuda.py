@@ -110,6 +110,106 @@ def test_kernel_matches_twin(index, C, cap, width, exact_only):
         assert torch.equal(masks, want_masks)
 
 
+def _main_path_slots(index, n_real, width, exact, seed):
+    """(tile_ids, q8) as _launch_tier pads n_real queries: to 64 slots
+    (CHUNK_SMALL) with q8 all zeros and tile 0 in the pad slots; numpy."""
+    ids, q8 = _inputs(index, n_real, width, exact, seed)
+    ids, q8 = ids.cpu().numpy(), q8.cpu().numpy()
+    pad = sk.CHUNK_SMALL - n_real
+    return (np.concatenate([ids, np.zeros(pad, np.int32)]),
+            np.concatenate([q8, np.zeros((pad, 8), np.int32)]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_only", [True, False])
+@pytest.mark.parametrize("C,cap,width", [(1, 128, 0), (2, 128, 100),
+                                         (5, 512, 400), (17, 2048, 1500)])
+@pytest.mark.parametrize("n_real", [1, 6, 15, 64])
+def test_kernel_main_path_shape(index, C, cap, width, exact_only, n_real,
+                                monkeypatch):
+    """The launch the main path makes: _launch_tier with n_real queries
+    padded to 64 slots (the pad slots' windows are empty, so the kernel
+    reads no tile for them), on 0xDEADBEEF-filled outputs: every word is
+    written and equals the twin's."""
+    ids, q8 = _main_path_slots(index, n_real, width, exact_only, 31 + C)
+    t = lambda x: torch.from_numpy(x).to(index.device)
+    wants = [sk.scatter_core_reference(
+        index.tiles, t(ids), t(q8), T=index.tile, CAP=cap, C=C,
+        exact_only=exact_only, seg_k=seg_k) for seg_k in (index.seg_k, None)]
+    _deadbeef_empty(monkeypatch)
+    agg, masks, seq = sk._launch_tier(index, ids, q8, cap=cap, C=C,
+                                      exact_only=exact_only)
+    torch.cuda.synchronize()
+    assert seq is not None and agg.shape[0] == sk.CHUNK_SMALL
+    assert n_real == 1 or int(agg[:, 4].sum()) > 0
+    assert not agg[n_real:].any() and not masks[n_real:].any()
+    for want_agg, want_masks in wants:
+        assert torch.equal(agg, want_agg)
+        assert torch.equal(masks, want_masks)
+
+
+def _long_record_index(device):
+    """A shard of 40-alt records (40 rows each, SAME_PREV chains longer
+    than a 32-lane group) packed back to back across tile boundaries,
+    with single-alt records between some of them."""
+    import itertools
+
+    alts = ["".join(p) for k in (1, 2) for p in itertools.product("ACGT",
+                                                                  repeat=k)]
+    alts = (alts + [a + "A" for a in alts])[:40]
+    recs = []
+    for i in range(60):
+        recs.append(VcfRecord(
+            chrom="1", pos=1000 + 10 * i, ref="G", alts=alts, vt="N/A",
+            ac=[(i + j) % 3 for j in range(40)], an=20 + i, genotypes=[]))
+        if i % 3 == 0:
+            recs.append(VcfRecord(chrom="1", pos=1005 + 10 * i, ref="A",
+                                  alts=["T"], vt="SNP", ac=[1], an=7,
+                                  genotypes=[]))
+    return sk.ScatterDeviceIndex(build_index(recs, dataset_id="long"), device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exact_only", [True, False])
+def test_kernel_c17_records_across_tiles(cuda_device, exact_only):
+    """J1 at C = 17 on records whose SAME_PREV chains cross 32-lane
+    groups and tile boundaries, windows starting at every record and
+    ending anywhere: equal to both twin forms."""
+    index = _long_record_index(cuda_device)
+    shard = index.shard
+    pos = shard.cols["pos"]
+    starts = np.flatnonzero(np.diff(np.concatenate([[-1], pos])) != 0)
+    rng = random.Random(3)
+    specs = []
+    for i in starts:
+        last = min(int(i) + rng.randint(0, 1900), shard.n_rows - 1)
+        kw = dict(chrom="1", start_min=int(pos[i]), start_max=int(pos[last]),
+                  end_min=1, end_max=1 << 30)
+        if exact_only:
+            kw.update(alternate_bases=shard.row_alt(int(i) + rng.randrange(
+                min(40, shard.n_rows - int(i)))))
+        else:
+            kw.update(rng.choice([{"alternate_bases": "N"},
+                                  {"variant_type": "INS"},
+                                  {"variant_type": "DEL"}]))
+        specs.append(QuerySpec(**kw))
+    enc = encode_queries(specs)
+    lo, hi = window_bounds(index, enc)
+    q8, _ = pack_q8(enc, lo, hi)
+    ids = torch.from_numpy((lo // index.tile).astype(np.int32)).to(cuda_device)
+    q8 = torch.from_numpy(q8).to(cuda_device)
+    agg, masks, _seq = sk.scatter_match(index.tiles, ids, q8, T=index.tile,
+                                        CAP=2048, C=17, exact_only=exact_only)
+    torch.cuda.synchronize()
+    assert int(agg[:, 3].sum()) > 0
+    for seg_k in (index.seg_k, None):
+        want_agg, want_masks = sk.scatter_core_reference(
+            index.tiles, ids, q8, T=index.tile, CAP=2048, C=17,
+            exact_only=exact_only, seg_k=seg_k)
+        assert torch.equal(agg, want_agg)
+        assert torch.equal(masks, want_masks)
+
+
 @pytest.mark.cuda
 def test_scattered_batch_on_card_equals_cpu(index):
     """The whole dispatch on the card (tier split, one launch per
@@ -983,6 +1083,47 @@ def test_mesh_fused_kernel_matches_twin(fused_meshes, kind, n, layout, b):
             assert torch.equal(got[k], want[k]), k
 
 
+@pytest.fixture(scope="module")
+def wide_fused_mesh(cuda_device):
+    """A two-entry match-only index of 21 shards: d_local 11, past the
+    9 datasets whose segment rows the kernel loads beside the query row."""
+    base = _fused_shards()
+    shards = []
+    for i in range(21):
+        sh = base[i % 3]
+        keep = np.random.default_rng(i).choice(sh.n_rows, sh.n_rows * 9 // 10,
+                                               replace=False)
+        shards.append(subset_shard(sh, np.sort(keep), dataset_id=f"d{i}"))
+    mfi = tm.MeshFusedIndex(shards, tm.make_mesh(devices=[cuda_device] * 2))
+    assert mfi.d_local == 11
+    return mfi, shards
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["narrow", "wide"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("b", [1, 2, 4, 6, 8, 10, 12, 14])
+def test_mesh_fused_match_clusters_match_twin(fused_meshes, wide_fused_mesh,
+                                              kind, layout, b, monkeypatch):
+    """The match-only cluster launch at the pod tier's slot counts (1-14)
+    in every layout, d_local 1 (segment rows loaded beside the query row)
+    and 11 (loaded after it), on 0xDEADBEEF-filled outputs."""
+    mfi, shards = (fused_meshes[("plain", 3)] if kind == "narrow"
+                   else wide_fused_mesh)
+    specs, sids = _fused_specs(shards, b, seed=7 * b + layout)
+    cases = _fused_inputs(mfi, specs, sids, layout)
+    for blk, q, kw in cases:
+        args = (blk.columns, blk.alt_prefix, blk.offsets, blk.seg_base, q)
+        want = tm.local_fused_reference(*args, **kw)
+        with monkeypatch.context() as mp:
+            _deadbeef_empty(mp)
+            got, seq = tm.mesh_fused(*args, **kw)
+            torch.cuda.synchronize()
+        assert seq is not None
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["plain", "planes"])
 @pytest.mark.parametrize("layout", ["owner", "sliced", "replicated"])
@@ -1122,6 +1263,29 @@ def test_stacked_query_launches_no_fill(local_stacks):
     torch.cuda.synchronize()
     kernels = _cuda_kernels(run)
     assert len(kernels) == 1 and "stacked_query_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+def test_match_kernels_launch_one_kernel(index, fused_meshes):
+    """One scatter_match call and one match-only mesh_fused call each run
+    their kernel and no other."""
+    ids, q8 = (torch.from_numpy(x).to(index.device)
+               for x in _main_path_slots(index, 6, 100, False, seed=2))
+    run = lambda: sk.scatter_match(index.tiles, ids, q8, T=index.tile,
+                                   CAP=128, C=2)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "scatter_match_kernel" in kernels[0], kernels
+    mfi, shards = fused_meshes[("plain", 2)]
+    specs, sids = _fused_specs(shards, 8, seed=9)
+    (blk, q, kw), *_rest = _fused_inputs(mfi, specs, sids, tm.LAYOUT_OWNER)
+    run = lambda: tm.mesh_fused(blk.columns, blk.alt_prefix, blk.offsets,
+                                blk.seg_base, q, **kw)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "mesh_fused_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda
