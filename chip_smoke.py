@@ -32,12 +32,17 @@ non-zero, without the final line):
 6. fused setup: three more cohorts (5e6 rows each) join the engine and
    the fused stack of all four (3.5e7 rows) is built inline;
 7. kernel vs twin (bisect_query): on that stack and on a small stack of
-   crafted shards, at 8, 64 and 512 queries, every alt mode included;
+   crafted shards, at 8, 64 and 512 queries, every alt mode included,
+   and on window-edge stacks of 3 and 11 shards (windows of 1, 255-257,
+   1400, 2048 lanes and past W, records cut by chunk and cluster-rank
+   edges, R below the matches), on 0xDEADBEEF-filled outputs;
 8. fused path: requests with no datasetIds (every dataset) from many
    threads, each of the four responses per request checked against the
    host matcher; launch counts zeroed just before and read just after;
 9. timing (bisect_query): at the batch sizes phase 8 launched, point and
-   bracket batches, beside the bound and the twin's time;
+   bracket batches, cycling 16 query sets (``ms``), with the L2 flushed before each launch (``ms_flushed``) and
+   one set back to back (``warm_ms``), beside the bound and the twin's
+   time;
 10. selected setup: dataset A is the 2e7-row shard with a 2504-sample gt
     plane (6.3 GB), dataset B a 2e6-row shard with all four planes
     (2.5 GB; 30% of its records count from genotypes); the plane bits
@@ -53,6 +58,8 @@ non-zero, without the final line):
 12. kernel vs twin (plane_stats): row sets of 1, 128, 1000 and 20000
     rows, or_sel none, some and all, with and without counts, on dataset
     B; 5000-row sets on dataset A's gt plane, one on its last 20000 rows;
+    the grid's edges on B (0-70001 rows, clamped row ids, three launches
+    in a row), all on 0xDEADBEEF-filled outputs;
 13. selected path: selected-samples, sample-extraction, N-wildcard-ref,
     wide and plane-free requests over datasets A and B from many
     threads, each response checked against the host matcher and the
@@ -119,17 +126,19 @@ non-zero, without the final line):
 
 Each timing phase also prints a ``profile`` line: the kernels one call
 of the wrapper ran, from a ``torch.profiler`` trace (scatter_match,
-scatter_selected, stacked_query, stacked_selected, match-only
-mesh_fused and ring_step must run their one kernel and nothing else).
+bisect_query, scatter_selected, plane_stats,
+stacked_query, stacked_selected, match-only mesh_fused and ring_step
+must run their one kernel and nothing else).
 With ``--parent DIR`` (another
 checkout, e.g. the parent commit unpacked from ``git archive``, which
 must lie under this checkout's ``build/``: its kernels build into
 ``DIR/build/kernels``), phases
-5, 14, 22 and 26 build that checkout's five kernels (scatter_match,
-scatter_selected, stacked_query, stacked_selected, mesh_fused) from its
-sources and time them on the same inputs in turns with this tree's
-(parent, this, this, parent), reported as ``parent_ms`` /
-``parent_warm_ms`` and each take under ``turns``.
+5, 9, 14, 22 and 26 build that checkout's seven kernels (scatter_match,
+bisect_query, scatter_selected, plane_stats, stacked_query,
+stacked_selected, mesh_fused) from its sources and time them on the
+same inputs in turns with this tree's (parent, this, this, parent),
+reported as ``parent_ms`` / ``parent_warm_ms`` and each take under
+``turns``.
 
 Then one ``{"kernels": [...]}`` line (the nine CUDA kernels), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
@@ -196,8 +205,9 @@ MESH_PLANE_BUDGET_GB = 40.0
 
 
 # the kernels timed beside the parent's with --parent
-PARENT_TIMED = ("scatter_match", "scatter_selected", "stacked_query",
-                "stacked_selected", "mesh_fused")
+PARENT_TIMED = ("scatter_match", "bisect_query", "scatter_selected",
+                "plane_stats", "stacked_query", "stacked_selected",
+                "mesh_fused")
 
 
 def emit(phase: str, **kw) -> None:
@@ -821,40 +831,64 @@ def bisect_inputs(index, specs, sids):
     return torch.from_numpy(tk.pack_queries(enc, fused=True)).to(index.device)
 
 
-def compare_bisect(index, shards, rng, label, record_cap):
-    """bisect_query vs its twin at 8, 64 and 512 queries; returns
-    (max_abs_err, report rows)."""
+def compare_bisect(index, shards, rng, label, record_cap, batches=None,
+                   W=None):
+    """bisect_query vs its twin on 0xDEADBEEF-filled outputs, at 8, 64
+    and 512 queries of ``fused_specs`` (or the given (specs, sids)
+    batches) and window cap W (default min(2048, the index's window
+    hint)); returns (max_abs_err, report rows)."""
     import torch
 
     from sbeacon_tpu_torch.ops import kernel as tk
 
-    W = min(2048, index.window_hint)
+    W = W or min(2048, index.window_hint)
+    kw = dict(window_cap=W, record_cap=record_cap, n_iters=index.n_iters)
+    args = (index.columns, index.alt_prefix, index.offsets)
+    batches = batches or [fused_specs(shards, rng, b) for b in (8, 64, 512)]
     report, worst = [], 0
-    for b in (8, 64, 512):
-        specs, sids = fused_specs(shards, rng, b)
+    for specs, sids in batches:
         q = bisect_inputs(index, specs, sids)
-        out, _seq = tk.bisect_query(
-            index.columns, index.alt_prefix, index.offsets, q,
-            window_cap=W, record_cap=record_cap, n_iters=index.n_iters,
-        )
-        torch.cuda.synchronize()
-        want = tk.query_batch_reference(
-            index.columns, index.alt_prefix, index.offsets, q,
-            window_cap=W, record_cap=record_cap, n_iters=index.n_iters,
-        )
+        want = tk.query_batch_reference(*args, q, **kw)
+        agg = want[:, : tk.N_AGG].cpu().numpy()
+        with DeadbeefOutputs():
+            out, _seq = tk.bisect_query(*args, q, **kw)
+            torch.cuda.synchronize()
         err = int((out.long() - want.long()).abs().max())
         worst = max(worst, err)
         equal = torch.equal(out, want)
-        check(equal, f"{label} B={b}: bisect_query != twin")
-        agg = out[:, : tk.N_AGG].cpu().numpy()
+        check(equal, f"{label} B={q.shape[0]} W={W} R={record_cap}: "
+              "bisect_query != twin")
         report.append({
-            "index": label, "queries": b, "window": W,
+            "index": label, "queries": q.shape[0], "window": W,
             "record_cap": record_cap, "equal": equal,
             "matched": int(agg[:, 4].sum()),
             "overflow": int(agg[:, 5].sum()),
             "over_record_cap": int((agg[:, 4] > min(record_cap, W)).sum()),
             "empty": int((agg[:, 4] == 0).sum()),
         })
+    return worst, report
+
+
+def compare_bisect_edges(device):
+    """bisect_query vs its twin on the window-edge stacks of 3 and 11
+    shards (``testing.window_edge_shards``: windows of 1, 255-257, 1400,
+    2048 lanes and past W, records of up to 40 rows cut by chunk and
+    cluster-rank edges, 11 shards past the 9 segment rows loaded beside
+    the query row), at window caps and record caps around those edges;
+    returns (max_abs_err, report rows)."""
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.testing import window_edge_shards, window_edge_specs
+
+    worst, report = 0, []
+    for n in (3, 11):
+        shards = window_edge_shards(n)
+        index = tk.FusedDeviceIndex(shards, device)
+        for W, R in ((2048, 1024), (2048, 1), (700, 257), (257, 255),
+                     (256, 16), (3000, 3000)):
+            err, rep = compare_bisect(
+                index, shards, None, f"edges{n}", R,
+                [window_edge_specs(shards, seed=W + R + n)], W=W)
+            worst, report = max(worst, err), report + rep
     return worst, report
 
 
@@ -936,10 +970,15 @@ def bisect_need(index, q, out, W, R):
     return nbytes, ops
 
 
-def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
-    """(kernel ms, twin ms, bound ms, bound_by, bytes) per launch of b
-    queries of one kind ('point': exact SNV points; 'bracket': any-base
-    and typed brackets of 2-200 kb), cycling over n_sets query sets."""
+def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16,
+                parent=None):
+    """Timing fields per launch of b queries of one kind ('point': exact
+    SNV points; 'bracket': any-base and typed brackets of 2-200 kb) over
+    n_sets query sets, with ``parent`` in turns beside the parent's
+    kernel: ``ms`` cycling the sets back to back (the segment table and
+    the top search levels stay in L2), ``ms_flushed`` with the L2
+    flushed before each launch, ``warm_ms`` one set back to back (its
+    rows in L2); the twin's ms, the bound, bound_by and bytes."""
     from sbeacon_tpu_torch.ops import kernel as tk
     from sbeacon_tpu_torch.ops import timing
 
@@ -953,27 +992,32 @@ def time_bisect(index, shards, rng, b, kind, record_cap, n_sets=16):
                 w = rng.choice([2_000, 20_000, 60_000, 200_000])
                 s.start_max = s.start_min + w
         sets.append(bisect_inputs(index, specs, sids))
-    run = lambda q: tk.bisect_query(
-        index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
-        record_cap=record_cap, n_iters=index.n_iters)
-    ms = timing.device_ms(run, sets, reps=4)
+    args = (index.columns, index.alt_prefix, index.offsets)
+    kw = dict(window_cap=W, record_cap=record_cap, n_iters=index.n_iters)
+    runs = {"this": lambda q: tk.bisect_query(*args, q, **kw)}
+    if parent is not None:
+        runs = {"parent": lambda q: parent.tk.bisect_query(*args, q, **kw),
+                **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.device_ms(fn, sets, reps=4),
+                    timing.cold_device_ms(fn, sets, index.device),
+                    timing.device_ms(fn, sets[:1], reps=16)), runs),
+        ("ms", "ms_flushed", "warm_ms"))
     # the twin enqueues about 600 small kernels a call, and a held
     # stream takes about 1000 before a launch blocks: one call per hold
-    twin = lambda q: tk.query_batch_reference(
-        index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
-        record_cap=record_cap, n_iters=index.n_iters)
+    twin = lambda q: tk.query_batch_reference(*args, q, **kw)
     plain_ms = float(np.mean([timing.device_ms(twin, [q], reps=1)
                               for q in sets[:2]]))
     bounds = []
     for q in sets:
-        full, _seq = tk.bisect_query(
-            index.columns, index.alt_prefix, index.offsets, q, window_cap=W,
-            record_cap=W, n_iters=index.n_iters)
+        full, _seq = tk.bisect_query(*args, q, window_cap=W, record_cap=W,
+                                     n_iters=index.n_iters)
         bounds.append(bisect_bound(index, q, full, W, min(record_cap, W)))
     bound_ms = float(np.mean([x[0] for x in bounds]))
     nbytes = float(np.mean([x[2] for x in bounds]))
     by = "bytes" if all(x[1] == "bytes" for x in bounds) else "operations"
-    return ms, plain_ms, bound_ms, by, nbytes
+    return {**fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes}
 
 
 def attach_planes(shard, n_samples, seed, device, *, counts, dataset_id):
@@ -1169,9 +1213,10 @@ def compare_plane_stats(pidx, rng, label, sizes, sels, counts_opts, lo=0):
                 mask = torch.from_numpy(m.view(np.int32)).to(dev)
                 kw = dict(with_counts=with_counts, with_or=sel != "none")
                 planes = plane_args(pidx, with_counts)
-                counts, ow, _seq = pk.plane_stats(*planes, rows, or_sel, mask,
-                                                  **kw)
-                torch.cuda.synchronize()
+                with DeadbeefOutputs():
+                    counts, ow, _seq = pk.plane_stats(*planes, rows, or_sel,
+                                                      mask, **kw)
+                    torch.cuda.synchronize()
                 want = pk.plane_stats_reference(*planes, rows, or_sel, mask,
                                                 **kw)
                 err = max(int((counts - want[0]).abs().max()),
@@ -1186,6 +1231,58 @@ def compare_plane_stats(pidx, rng, label, sizes, sels, counts_opts, lo=0):
                                "mask": ("ones", "sparse", "empty")[
                                    len(report) % 3], "equal": equal,
                                "popcount": int(counts.sum())})
+    return worst, report
+
+
+def compare_plane_edges(pidx, rng, label):
+    """plane_stats vs its twin at the grid's edges on 0xDEADBEEF-filled
+    outputs: R of 0, 1, below one block's rows, not a multiple of a
+    warp's row group, and past the grid's cap, row ids past both ends of
+    the plane (they clamp), or_sel none, some and all, with and without
+    counts (where the planes have them), each case launched three times
+    in a row (the fold's ticket resets); returns (max_abs_err, report
+    rows)."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+
+    dev = pidx.device
+    report, worst = [], 0
+    masks = mask_rows(rng, 3, pidx.n_words, pidx.n_words * 32)
+    counts_opts = (True, False) if pidx.has_counts else (False,)
+    for size in (0, 1, 5, 7, 9, 63, 65, 2047, 70001):
+        g = np.random.default_rng(size)
+        rows = torch.from_numpy(g.integers(
+            -5, pidx.n_rows + 5, size).astype(np.int32)).to(dev)
+        for sel in ("none", "some", "all"):
+            or_sel = torch.from_numpy({
+                "none": np.zeros(size, np.int32),
+                "all": np.ones(size, np.int32),
+                "some": (g.random(size) < 0.01).astype(np.int32)}[sel]).to(
+                    dev)
+            for with_counts in counts_opts:
+                kw = dict(with_counts=with_counts, with_or=sel != "none")
+                planes = plane_args(pidx, with_counts)
+                for k in range(3):
+                    mask = torch.from_numpy(masks[k].view(np.int32)).to(dev)
+                    with DeadbeefOutputs():
+                        counts, ow, _seq = pk.plane_stats(
+                            *planes, rows, or_sel, mask, **kw)
+                        torch.cuda.synchronize()
+                    want = pk.plane_stats_reference(*planes, rows, or_sel,
+                                                    mask, **kw)
+                    err = max(int((counts - want[0]).abs().max())
+                              if size else 0,
+                              int((ow.long() - want[1].long()).abs().max()))
+                    worst = max(worst, err)
+                    equal = (torch.equal(counts, want[0])
+                             and torch.equal(ow, want[1]))
+                    check(equal, f"{label} edge rows={size} or_sel={sel} "
+                          f"counts={with_counts} take {k}: plane_stats != "
+                          "twin")
+                report.append({"index": label, "rows": size, "or_sel": sel,
+                               "with_counts": with_counts, "takes": 3,
+                               "equal": equal})
     return worst, report
 
 
@@ -1335,13 +1432,15 @@ def time_selected(index, pidx, rng, C, cap, b, exact, with_counts,
             "bytes": nbytes}
 
 
-def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
-    """(kernel ms, warm ms, twin ms, bound ms, bound_by, bytes) per
-    launch over ``size`` rows of ``n_sets`` row sets: the kernel ms with
-    a cold L2, the warm ms cycling the sets back to back. Bound: the
-    distinct 32-B sectors of the rows' W-word plane rows (x4 with
-    counts), the row ids, or_sel and mask read once, counts and OR words
-    written once."""
+def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16,
+                     parent=None):
+    """Timing fields (ms, warm_ms, plain_ms, bound_ms, bound_by, bytes)
+    per launch over ``size`` rows of ``n_sets`` row sets: the kernel ms
+    with a cold L2, the warm ms cycling the sets back to back; with
+    ``parent`` its kernel in turns beside (``parent_ms``,
+    ``parent_warm_ms``). Bound: the distinct 32-B sectors of the rows'
+    W-word plane rows (x4 with counts), the row ids, or_sel and mask
+    read once, counts and OR words written once."""
     import torch
 
     from sbeacon_tpu_torch.ops import plane_kernel as pk
@@ -1358,9 +1457,14 @@ def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
                      torch.from_numpy(m.view(np.int32)).to(dev)))
     planes = plane_args(pidx, with_counts)
     kw = dict(with_counts=with_counts, with_or=with_or)
-    run = lambda s: pk.plane_stats(*planes, *s, **kw)
-    ms = timing.cold_device_ms(run, sets, dev, reps=4)
-    warm_ms = timing.device_ms(run, sets, reps=4)
+    runs = {"this": lambda s: pk.plane_stats(*planes, *s, **kw)}
+    if parent is not None:
+        runs = {"parent": lambda s: parent.pk.plane_stats(*planes, *s, **kw),
+                **runs}
+    fields = turn_fields(timed_in_turns(
+        lambda fn: (timing.cold_device_ms(fn, sets, dev, reps=4),
+                    timing.device_ms(fn, sets, reps=4)), runs),
+        ("ms", "warm_ms"))
     twin = lambda s: pk.plane_stats_reference(*planes, *s, **kw)
     plain_ms = float(np.mean([timing.device_ms(twin, [s], reps=1)
                               for s in sets[:2]]))
@@ -1369,10 +1473,9 @@ def time_plane_stats(pidx, rng, size, with_counts, with_or, n_sets=16):
     nbytes = float(np.mean([
         k * plane_sector_count(s[0], w) * SECTOR_BYTES + io for s in sets]))
     ops = size * w * k * PLANE_OPS_PER_WORD
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / INT32_OPS_PER_S * 1e3
-    return (ms, warm_ms, plain_ms, max(bytes_ms, ops_ms),
-            "bytes" if bytes_ms >= ops_ms else "operations", nbytes)
+    bound_ms, by = bound_of(nbytes, ops)
+    return {**fields, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": by, "bytes": nbytes}
 
 
 def resubmitted(shard, seed, n):
@@ -1561,7 +1664,7 @@ def profile_kernels(device):
     profile_line(tk.KERNEL, lambda q: tk.bisect_query(
         fused.columns, fused.alt_prefix, fused.offsets, q, window_cap=2048,
         record_cap=1024, n_iters=fused.n_iters),
-        bisect_inputs(fused, specs, sids))
+        bisect_inputs(fused, specs, sids), expect="bisect_query_kernel")
     for counts_on in (False, True):
         a = (*kernel_inputs(index, tier_specs(s0, rng, 1, 1, 1, True),
                             device), ones(1, w))
@@ -1569,10 +1672,12 @@ def profile_kernels(device):
             index.tiles, *plane_args(pidx, counts_on), *a, T=T, CAP=T, C=1,
             exact_only=True, R=T, with_counts=counts_on), a,
             expect="scatter_selected_kernel")
-    rows = torch.arange(0, 2560, 20, dtype=torch.int32, device=device)
-    profile_line(pk.KERNEL, lambda a: pk.plane_stats(
-        *plane_args(pidx, True), *a, with_counts=True, with_or=True),
-        (rows, ones(rows.numel()).neg(), ones(w)))
+    rows = torch.arange(0, 7097 * 2, 2, dtype=torch.int32, device=device)
+    for counts_on in (False, True):
+        profile_line(pk.KERNEL, lambda a: pk.plane_stats(
+            *plane_args(pidx, counts_on), *a, with_counts=counts_on,
+            with_or=True), (rows, ones(rows.numel()).neg(), ones(w)),
+            expect="plane_stats_kernel")
     keys = torch.from_numpy(dc.shard_keys(shards)).to(device)
     profile_line(dc.KERNEL, dc.distinct_count, keys)
     one = tm.make_mesh(devices=[device])
@@ -1628,7 +1733,7 @@ def profiled_kernels():
     lines = [l for l in proc.stdout.splitlines() if l.startswith("{")]
     for l in lines:
         print(l, flush=True)
-    check(proc.returncode == 0 and len(lines) == 12,
+    check(proc.returncode == 0 and len(lines) == 13,
           f"the profiled kernel calls failed (rc {proc.returncode}): "
           f"{proc.stderr[-2000:]}")
 
@@ -1676,7 +1781,8 @@ def load_parent(root):
     commit, for same-call timings), imported as
     ``parent_sbeacon_tpu_torch`` with its own kernel builds under
     ``root/build/kernels``: a namespace of its ``scatter_kernel``
-    (``sk``), ``parallel.mesh`` (``tm``) and ``_build``. The package
+    (``sk``), ``kernel`` (``tk``), ``plane_kernel`` (``pk``),
+    ``parallel.mesh`` (``tm``) and ``_build``. The package
     imports only relatively, so the alias holds."""
     import importlib
     import importlib.util
@@ -1693,6 +1799,8 @@ def load_parent(root):
     return types.SimpleNamespace(
         root=str(Path(root).resolve()),
         sk=importlib.import_module(name + ".ops.scatter_kernel"),
+        tk=importlib.import_module(name + ".ops.kernel"),
+        pk=importlib.import_module(name + ".ops.plane_kernel"),
         tm=importlib.import_module(name + ".parallel.mesh"),
         build=importlib.import_module(name + ".ops._build"))
 
@@ -2330,9 +2438,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit): its "
-                         "scatter_match, scatter_selected, stacked_query, "
-                         "stacked_selected and mesh_fused kernels are built "
-                         "from its sources "
+                         "scatter_match, bisect_query, scatter_selected, "
+                         "plane_stats, stacked_query, stacked_selected and "
+                         "mesh_fused kernels are built from its sources "
                          "and timed in turns beside this tree's; DIR must "
                          "lie under this checkout's build/")
     args = ap.parse_args(argv)
@@ -2570,8 +2678,9 @@ def run(args, device) -> int:
         err_small, rep_small = compare_bisect(small, small_shards, rng,
                                               "crafted_stack", 16)
         del small
-        bisect_err = max(err_fused, err_small)
-        reports = rep_fused + rep_small
+        err_edges, rep_edges = compare_bisect_edges(device)
+        bisect_err = max(err_fused, err_small, err_edges)
+        reports = rep_fused + rep_small + rep_edges
         check(all(sum(r[k] for r in reports) > 0
                   for k in ("matched", "overflow", "over_record_cap", "empty")),
               "the cases reach matches, overflow, matches past record_cap "
@@ -2627,25 +2736,24 @@ def run(args, device) -> int:
                          "p99": percentile(lat, 0.99)},
              stage_ms=stages, device=kind, nvidia_smi=smi)
 
-        # 9. bisect_query timing at the batch sizes phase 8 launched
+        # 9. bisect_query timing at the batch sizes phase 8 launched,
+        # beside the parent's kernel
         sizes = sorted({min(batch_sizes), percentile(batch_sizes, 0.5),
                         max(batch_sizes)})
         btimings = []
         for b in sizes:
             for what in ("point", "bracket"):
-                ms, plain_ms, bound_ms, bound_by, nbytes = time_bisect(
-                    findex, served_shards, rng, b, what,
-                    engine.config.engine.record_cap,
-                )
-                btimings.append(
-                    {"queries": b, "kind": what, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by, "bound_share": bound_ms / ms,
-                     "bytes": nbytes}
-                )
+                t = time_bisect(findex, served_shards, rng, b, what,
+                                engine.config.engine.record_cap,
+                                parent=parent)
+                btimings.append({"queries": b, "kind": what, **t,
+                                 "bound_share": t["bound_ms"]
+                                 / t["ms_flushed"]})
         # upper estimate of the card's busy share in the fused path:
-        # every launch at the slowest time measured at or above its size
-        slowest = {b: max(t["ms"] for t in btimings if t["queries"] == b)
+        # every launch at the slowest flushed time measured at or above
+        # its size
+        slowest = {b: max(t["ms_flushed"] for t in btimings
+                          if t["queries"] == b)
                    for b in sizes}
         busy_ms = sum(slowest[min((s for s in sizes if s >= b),
                                   default=sizes[-1])]
@@ -2762,6 +2870,8 @@ def run(args, device) -> int:
             ps_err, rep_ps = max(ps_err, err), rep_ps + rep
         check(max(r["max_row"] for r in rep_ps) >= pidx_a.n_rows - 20000,
               "plane_stats read rows near the end of dataset A's plane")
+        err, rep = compare_plane_edges(pidx_b, rng, "cohortB")
+        ps_err, rep_ps = max(ps_err, err), rep_ps + rep
         emit("kernel_vs_twin", kernel=pk.KERNEL, tolerance=0,
              max_abs_err=ps_err, cases=len(rep_ps),
              all_equal=all(r["equal"] for r in rep_ps), report=rep_ps)
@@ -2848,14 +2958,12 @@ def run(args, device) -> int:
         for (counts_on, with_or), sizes in sorted(by_combo.items()):
             pidx = pidx_b if counts_on else pidx_a
             size = int(percentile(sizes, 0.5))
-            ms, warm_ms, plain_ms, bound_ms, bound_by, nbytes = (
-                time_plane_stats(pidx, rng, size, counts_on, with_or))
+            t = time_plane_stats(pidx, rng, size, counts_on, with_or,
+                                 parent=parent)
             ptimings.append(
                 {"rows": size, "with_counts": counts_on, "with_or": with_or,
-                 "selected_path_launches": len(sizes), "ms": ms,
-                 "warm_ms": warm_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                 "bound_by": bound_by, "bound_share": bound_ms / ms,
-                 "bytes": nbytes})
+                 "selected_path_launches": len(sizes), **t,
+                 "bound_share": t["bound_ms"] / t["ms"]})
         # estimate of the card's busy share in the selected path: every
         # launch of the two plane kernels at its case's timed per-launch
         # ms (J1 and J3 launches of the phase left out)
@@ -3688,7 +3796,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/kernel.py:502",
         "launches": bisect_launches,
         "max_abs_err": bisect_err,
-        "ms": mid["ms"],
+        "ms": mid["ms_flushed"],
         "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"],
         "bound_by": mid["bound_by"],

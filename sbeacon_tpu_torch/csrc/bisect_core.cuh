@@ -1,6 +1,7 @@
-// The per-query body of the bisection kernels (sm_90a), run by
-// bisect_query.cu (J3) and mesh_fused.cu (J6), whose constants and
-// semantics the stacked kernels (stacked_core.cuh, J7) share: one
+// The per-query body of the bisection kernels (sm_90a), run by the
+// leader block of J6's planes kernel (mesh_fused.cu), whose constants
+// and semantics every query kernel shares: J3 (bisect_query.cu) and J6
+// match-only through fused_match.cuh, J7 through stacked_core.cuh. One
 // 256-thread block answers one query against one segment table row, the
 // semantics of sbeacon_tpu/ops/kernel.py::_bisect / _query_one.
 //

@@ -37,48 +37,17 @@
 // with counts) from planes of GBs far above the 50 MB L2.
 //
 // Design, match-only: a cluster of c = min(8, ceil(Wwin / 256)) blocks
-// per output slot, launched with cudaLaunchKernelEx (sm_90); block rank
-// r takes window lanes [r L, r L + L), L = 256 for windows up to 2048
-// lanes (every block runs one 256-lane chunk; wider windows give each
-// block ceil(chunks / 8) chunks in order). The chain of dependent
-// rounds a slot runs, from the query row on, is stacked_core.cuh's:
-//   1. the query row (stacked::load_query) and, when the entry's segment
-//      table and seg_base fit the block's threads (d_local * 28 <= 256
-//      words: d_local <= 9), every segment row and seg_base in the same
-//      round, one word a thread, into shared memory, where the slot's row
-//      is picked; a wider entry (d_local > 9) loads its slot's segment
-//      row and seg_base after the query row, one round more;
-//   2. the window [lo, hi) by stacked::block_window (128 probes a step:
-//      3 steps on a chr1-sized segment of a 2e7-row dataset). Every block
-//      of the cluster searches for itself: the same few probes from 8
-//      SMs cost no more time than one, where the leader's search and a
-//      DSMEM broadcast would add a cluster barrier to every block's wait;
-//   3. the block's lanes by stacked::load_lane (every column the query's
-//      modes need, with rec_id, AC and AN, in one round) and
-//      stacked::lane_match; a ballot and a prefix over the block's warps
-//      place each match among the block's matches (rows kept in shared
-//      memory), and its record's first match is decided from the
-//      previous matched lane: within the warp by ballot and shuffle,
-//      else the last matched rec_id of the warps (and chunks) before it
-//      (rec_id is nondecreasing inside a segment, so the previous match
-//      shares the lane's rec_id iff an earlier lane of its record
-//      matched: query_block's rule). The block's first match is
-//      provisionally first;
-//   4. each block's summary (match count, three sums, its first match's
-//      rec_id and AN, its last match's rec_id) goes into every block of
-//      the cluster through distributed shared memory (after the cluster
-//      barrier each block arrives at when it starts), then one
-//      cluster.sync. Every block takes its exclusive prefix over the
-//      ranks (its offset into the first R rows) and writes its rows
-//      rebased, and its share of the padding; the leader sums the ranks'
-//      summaries, taking back the AN of a rank's first match where the
-//      nearest earlier rank with matches ended on the same record, and
-//      writes agg. No block reads another's shared memory, so none has
-//      to wait for the others to leave; no atomics, no fill.
-// A launch of 14 slots (phase 25's largest) is 112 blocks: one wave on
-// 132 SMs. A slot the entry does not own is decided alike by every
-// block of its cluster, which writes its share of the structural zeros
-// and leaves before any cluster barrier.
+// per output slot, launched with cudaLaunchKernelEx (sm_90), running
+// fused_match.cuh's match_slot, the body J3 (bisect_query.cu) runs too
+// (its header gives the chain of rounds): block rank r takes window
+// lanes [r L, r L + L), L = 256 for windows up to 2048 lanes; a window
+// that fits rank 0's lanes (a point query's) is answered by rank 0 alone
+// with no cluster barrier, a wider one through one exchange of
+// summaries in distributed shared memory. A launch of 14 slots (phase
+// 25's largest) is 112 blocks: one wave on 132 SMs. A slot the entry
+// does not own is decided alike by every block of its cluster, which
+// writes its share of the structural zeros and leaves before any
+// cluster barrier.
 //
 // Design, with planes: a cluster of kCluster blocks per output slot,
 // launched with cudaLaunchKernelEx and a cluster dimension (sm_90), so
@@ -111,18 +80,18 @@
 // 4 GiB at 1000-Genomes width). A launch the card refuses returns its
 // error; there is no one-block fallback.
 
+#include "fused_match.cuh"
 #include "plane_reduce.cuh"
-#include "stacked_core.cuh"
 
 namespace {
 
 using namespace bisect;
+using fused_match::kMeshAgg;
+using fused_match::kOwner;
+using fused_match::kSliced;
 namespace cg = cooperative_groups;
 
-constexpr int kMeshAgg = 5;
-constexpr int kOwner = 0;
-constexpr int kSliced = 1;
-// blocks of one slot's cluster (the portable maximum)
+// blocks of one slot's cluster with planes (the portable maximum)
 constexpr int kCluster = 8;
 // dynamic shared memory a planes block may take with its gt cache
 constexpr long long kSmemCap = 200 * 1024;
@@ -134,19 +103,6 @@ __host__ __device__ constexpr long long align16(long long x) {
 // Rows of one cluster block's share of the R lanes (with planes).
 __host__ __device__ constexpr int share_rows(int R) {
   return (R + kCluster - 1) / kCluster;
-}
-
-// Blocks of one match-only slot's cluster, and the window lanes each
-// takes (whole 256-lane chunks).
-__host__ __device__ constexpr int match_blocks(int Wwin) {
-  const int chunks = (Wwin + kThreads - 1) / kThreads;
-  return chunks < kCluster ? chunks : kCluster;
-}
-
-__host__ __device__ constexpr int match_lanes(int Wwin) {
-  const int chunks = (Wwin + kThreads - 1) / kThreads;
-  const int c = match_blocks(Wwin);
-  return (chunks + c - 1) / c * kThreads;
 }
 
 // Dynamic shared memory of one planes block before its gt cache: the
@@ -167,236 +123,28 @@ __host__ __device__ constexpr long long cache_words(int Wwin, int R, int W,
   return !counts || room <= 0 ? 0 : (want < room ? want : room);
 }
 
-// Match-only: the block's matched rows, at most min(its lanes, R).
+// Match-only: the block's matched rows (fused_match::match_smem).
 __host__ __device__ constexpr long long fused_smem(int Wwin, int R, int W,
                                                    int planes) {
   if (planes == 0) {
-    const int keep = match_lanes(Wwin);
-    return 4LL * (keep < R ? keep : R);
+    return fused_match::match_smem(Wwin, R, fused_match::match_blocks(Wwin));
   }
   return planes_smem(Wwin, R, W) + 4 * cache_words(Wwin, R, W, planes == 2);
 }
 
-struct Args {
-  const int32_t* cols;
-  long long n_pad;
-  const int32_t* alt_prefix;
-  const int32_t* offsets;
-  const int32_t* seg_base;
-  int d_local, me;
-  const int32_t* qpack;
-  int n_slots, C, layout;
-  int32_t* agg;
-  int32_t* rows;
+// The match fields (fused_match::MatchArgs) and the planes'.
+struct Args : fused_match::MatchArgs {
   const uint32_t *gt, *gt2, *tok1, *tok2, *masks;
   const int32_t* use_counts;
   int32_t *pc_call, *pc_tok;
   uint32_t* or_words;
-  int Wwin, R, W;
+  int W;
   bool has_counts;
   int cache_rows;
 };
 
-// One rank's summary for the cluster (uint32 words): its match count,
-// the three sums (all_alleles counting its first match as first), its
-// first match's rec_id and AN, its last match's rec_id.
-constexpr int kFan = 7;
-enum {
-  FAN_COUNT,
-  FAN_CALLS,
-  FAN_VARIANTS,
-  FAN_ALLELES,
-  FAN_FIRST_REC,
-  FAN_FIRST_AN,
-  FAN_LAST_REC
-};
-
-// A slot the entry does not own: structural zeros, this block's share of
-// them (block rank of c).
-__device__ __forceinline__ void zero_slot(int32_t* agg, int32_t* rows, int R,
-                                          bool combine, int rank, int c) {
-  if (rank == 0 && threadIdx.x < kMeshAgg) agg[threadIdx.x] = 0;
-  for (int k = rank * kThreads + threadIdx.x; k < R; k += c * kThreads) {
-    rows[k] = combine ? 0 : -1;
-  }
-}
-
 __global__ void __launch_bounds__(kThreads) mesh_fused_kernel(Args p) {
-  extern __shared__ int32_t s_row[];       // this block's matched rows
-  __shared__ int32_t s_seg[kThreads];      // segment table + seg_base
-  __shared__ uint32_t s_fan[kCluster][kFan];  // every rank's summary
-  __shared__ uint32_t s_mine[kFan];
-  __shared__ int s_wcount[kWarps];
-  __shared__ int32_t s_wlast[kWarps];
-  __shared__ uint32_t s_part[kWarps][3];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int c = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int R = p.R;
-  const size_t o = blockIdx.x / c;
-  const int j = p.layout == kSliced ? static_cast<int>(o) - p.me * p.C
-                                    : static_cast<int>(o);
-  const bool mine = j >= 0 && j < p.n_slots;
-  const bool combine = p.layout != kOwner;
-  int32_t* agg = p.agg + o * kMeshAgg;
-  int32_t* rows = p.rows + o * R;
-
-  // 1. the query row, and (d_local <= 9) the entry's segment table and
-  // seg_base beside it, one word a thread
-  const int32_t* qp = p.qpack + static_cast<size_t>(mine ? j : 0) * kQFields;
-  const int n_seg = p.d_local * kSegs;
-  const bool table = n_seg + p.d_local <= kThreads;
-  int32_t word = 0;
-  if (table && tid < n_seg + p.d_local) {
-    word = tid < n_seg ? p.offsets[tid] : p.seg_base[tid - n_seg];
-  }
-  const stacked::Query qv = stacked::load_query(qp);
-  const int sid = qp[QF_SHARD] - p.me * p.d_local;
-  if (!(mine && sid >= 0 && sid < p.d_local)) {  // cluster-uniform
-    zero_slot(agg, rows, R, combine, rank, c);
-    return;
-  }
-  stacked::cluster_arrive_relaxed();  // this block has started
-  s_seg[tid] = word;
-  __syncthreads();
-  const int32_t* seg = table ? s_seg + sid * kSegs
-                             : p.offsets + static_cast<size_t>(sid) * kSegs;
-  const int32_t base = table ? s_seg[n_seg + sid] : p.seg_base[sid];
-
-  // 2. the window, by every block
-  const int2 bounds = stacked::block_window(p.cols, seg, qv);
-  const int lo = bounds.x;
-  const int hi = bounds.y;
-  const int n_valid = max(0, min(hi - lo, p.Wwin));
-  const int L = match_lanes(p.Wwin);
-  const int l_end = min(rank * L + L, n_valid);
-
-  // 3. this block's lanes, 256 at a time
-  uint32_t call_count = 0, n_variants = 0, all_alleles = 0;
-  int n_kept = 0;         // block-uniform: this block's matches so far
-  int last_rec = 0;       // block-uniform: the rec_id of the last of them
-  for (int l0 = rank * L; l0 < l_end; l0 += kThreads) {
-    const int l = l0 + tid;
-    bool m = false;
-    stacked::Lane v{};
-    if (l < l_end) {
-      v = stacked::load_lane(qv, p.cols, p.n_pad, p.alt_prefix,
-                             static_cast<long long>(lo) + l);
-      m = stacked::lane_match(qv, v);
-    }
-    const unsigned ball = __ballot_sync(0xffffffffu, m);
-    const unsigned lower = ball & ((1u << lane) - 1u);
-    const int prev = __shfl_sync(0xffffffffu, v.rec_id,
-                                 lower ? 31 - __clz(lower) : 0);
-    const int wlast = __shfl_sync(0xffffffffu, v.rec_id,
-                                  ball ? 31 - __clz(ball) : 0);
-    if (lane == 0) {
-      s_wcount[warp] = __popc(ball);
-      s_wlast[warp] = wlast;
-    }
-    __syncthreads();
-    int before = 0, total = 0;
-    bool have = n_kept > 0;  // a match before this warp, in this block
-    int carry = last_rec;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int cw = s_wcount[w];
-      if (w < warp && cw) {
-        before += cw;
-        have = true;
-        carry = s_wlast[w];
-      }
-      total += cw;
-    }
-    if (m) {
-      const int k = n_kept + before + __popc(lower);
-      if (k < R) s_row[k] = lo + l;
-      call_count += static_cast<uint32_t>(v.ac);
-      n_variants += v.ac != 0 ? 1u : 0u;
-      bool first;
-      if (lower) {
-        first = prev != v.rec_id;
-      } else if (have) {
-        first = carry != v.rec_id;
-      } else {  // the block's first match
-        first = true;
-        s_mine[FAN_FIRST_REC] = static_cast<uint32_t>(v.rec_id);
-        s_mine[FAN_FIRST_AN] = static_cast<uint32_t>(v.an);
-      }
-      if (first) all_alleles += static_cast<uint32_t>(v.an);
-    }
-    for (int w = kWarps - 1; w >= 0; --w) {
-      if (s_wcount[w]) {
-        last_rec = s_wlast[w];
-        break;
-      }
-    }
-    n_kept += total;
-    __syncthreads();  // s_wcount is rewritten by the next chunk
-  }
-
-  // 4. the summary into every block, then offsets, rows and sums
-  uint32_t sums[3] = {call_count, n_variants, all_alleles};
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    sums[i] = warp_sum(sums[i]);
-    if (lane == 0) s_part[warp][i] = sums[i];
-  }
-  __syncthreads();
-  if (tid < 3) {
-    uint32_t t = 0;
-    for (int w = 0; w < kWarps; ++w) t += s_part[w][tid];
-    s_mine[FAN_CALLS + tid] = t;
-  } else if (tid == 3) {
-    s_mine[FAN_COUNT] = static_cast<uint32_t>(n_kept);
-    s_mine[FAN_LAST_REC] = static_cast<uint32_t>(last_rec);
-  }
-  __syncthreads();
-  stacked::cluster_wait();  // every block has started
-  if (tid < c * kFan) {
-    const int to = tid / kFan;
-    const int k = tid - to * kFan;
-    *cluster.map_shared_rank(&s_fan[rank][k], to) = s_mine[k];
-  }
-  cluster.sync();  // every rank's summary is in every block
-
-  int prefix = 0, total = 0;
-  for (int r = 0; r < c; ++r) {
-    const int n = static_cast<int>(s_fan[r][FAN_COUNT]);
-    prefix += r < rank ? n : 0;
-    total += n;
-  }
-  const int32_t shift = combine ? 1 : 0;
-  for (int k = tid; k < n_kept && prefix + k < R; k += kThreads) {
-    rows[prefix + k] = s_row[k] - base + shift;
-  }
-  for (int k = min(total, R) + rank * kThreads + tid; k < R;
-       k += c * kThreads) {
-    rows[k] = combine ? 0 : -1;
-  }
-  if (rank == 0 && tid == 0) {
-    uint32_t calls = 0, variants = 0, alleles = 0;
-    bool have = false;
-    uint32_t carry = 0;  // the last matched rec_id of the ranks so far
-    for (int r = 0; r < c; ++r) {
-      const uint32_t* f = s_fan[r];
-      calls += f[FAN_CALLS];
-      variants += f[FAN_VARIANTS];
-      alleles += f[FAN_ALLELES];
-      if (f[FAN_COUNT] == 0) continue;
-      if (have && carry == f[FAN_FIRST_REC]) alleles -= f[FAN_FIRST_AN];
-      have = true;
-      carry = f[FAN_LAST_REC];
-    }
-    agg[0] = static_cast<int32_t>(calls);
-    agg[1] = static_cast<int32_t>(variants);
-    agg[2] = static_cast<int32_t>(alleles);
-    agg[3] = total;
-    agg[4] = (hi - lo) > p.Wwin ? 1 : 0;
-  }
+  fused_match::match_slot<false>(p);
 }
 
 __global__ void __launch_bounds__(kThreads) mesh_fused_planes_kernel(Args p) {
@@ -544,7 +292,8 @@ int launch_match(const Args& args, int n_dev, void* stream) {
                               ? static_cast<long long>(n_dev) * args.C
                               : args.n_slots;
   return static_cast<int>(stacked::launch_clusters(
-      mesh_fused_kernel, static_cast<int>(n_out), match_blocks(args.Wwin),
+      mesh_fused_kernel, static_cast<int>(n_out),
+      fused_match::match_blocks(args.Wwin),
       static_cast<size_t>(fused_smem(args.Wwin, args.R, args.W, 0)),
       static_cast<cudaStream_t>(stream), args));
 }

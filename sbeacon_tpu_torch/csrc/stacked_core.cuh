@@ -23,10 +23,11 @@
 //     every block arrives at when it starts: cluster_arrive_relaxed at
 //     the kernel's entry), and after one more barrier the leader writes
 //     the sums with plain stores: no fill of the output, no atomics.
-// The match-only kernel of mesh_fused.cu (J6) runs load_query,
-// block_window, load_lane, lane_match and launch_clusters too;
-// query_block and warp_bound, which bisect_query.cu and J6's planes
-// kernel run, are left as they are. Every device function here is inlined, as the
+// fused_match.cuh (the body of J3, bisect_query.cu, and of J6's
+// match-only kernel, mesh_fused.cu) runs load_query, block_window,
+// load_lane, lane_match and launch_clusters too; query_block and
+// warp_bound, which only J6's planes kernel runs, are left as they are.
+// Every device function here is inlined, as the
 // same functions were in J7 query's own anonymous namespace: a call left
 // out of line costs that kernel a stack frame and a spill.
 

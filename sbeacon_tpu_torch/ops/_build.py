@@ -46,6 +46,7 @@ SIGNATURES = {
             [_P, _L, _P, _P, _I, _P, _P, _I, _I, _I, _P],
             ctypes.c_int,
         ),
+        "bisect_query_smem": ([_I, _I], ctypes.c_longlong),
     },
     "scatter_selected": {
         "scatter_selected_launch": (
@@ -56,9 +57,10 @@ SIGNATURES = {
     },
     "plane_stats": {
         "plane_stats_launch": (
-            [_P] * 9 + [_I, _I, _L, _I, _I, _P],
+            [_P] * 11 + [_I, _I, _L, _I, _I, _I, _P],
             ctypes.c_int,
         ),
+        "plane_stats_clusters": ([_I, _I, _I], ctypes.c_int),
     },
     "distinct_count": {
         "distinct_count_launch": (

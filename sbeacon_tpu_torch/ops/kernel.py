@@ -607,10 +607,10 @@ def bisect_query(
 
     CUDA tensors launch ``csrc/bisect_query.cu`` on the current stream
     (asynchronously) and record the launch, ``seq`` being its launch
-    record. CPU tensors run ``query_batch_reference`` and ``seq`` is
-    None. Any other device, or inputs the kernel does not take, raise.
-    ``n_iters`` is the twin's bisection depth; the kernel's search ends
-    by itself."""
+    record; a launch the card refuses raises. CPU tensors run
+    ``query_batch_reference`` and ``seq`` is None. Any other device, or
+    inputs the kernel does not take, raise. ``n_iters`` is the twin's
+    bisection depth; the kernel's search ends by itself."""
     if columns.device.type == "cpu":
         out = query_batch_reference(
             columns, alt_prefix, offsets, qpack, window_cap=window_cap,
@@ -634,15 +634,21 @@ def bisect_query(
             raise ValueError(f"{name} shape {tuple(x.shape)} != {shape}")
     W = int(window_cap)
     R = min(int(record_cap), W)
-    if W < 1 or R < 0 or 5 * W > _SMEM_MAX:
+    if W < 1 or R < 0:
+        raise ValueError(f"unsupported window_cap={window_cap}, "
+                         f"record_cap={record_cap}")
+    lib = _build.load(KERNEL)
+    smem = lib.bisect_query_smem(W, R)
+    if smem > _SMEM_MAX:
         raise ValueError(
-            f"unsupported window_cap={window_cap}: the kernel keeps 5 bytes "
-            f"per window lane in at most {_SMEM_MAX} bytes of shared memory"
+            f"unsupported window_cap={window_cap}, record_cap={record_cap}: "
+            f"a block keeps {smem} bytes of matched rows in shared memory, "
+            f"at most {_SMEM_MAX}"
         )
+    # the launch writes every word of out: no fill before it
     out = torch.empty((b, N_AGG + R), dtype=torch.int32, device=dev)
     if b == 0:
         return out, None
-    lib = _build.load(KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):
         rc = lib.bisect_query_launch(

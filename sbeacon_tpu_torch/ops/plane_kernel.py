@@ -31,6 +31,7 @@ kernel ``csrc/plane_stats.cu``.
 
 from __future__ import annotations
 
+import threading
 import time
 
 import numpy as np
@@ -208,6 +209,31 @@ def plane_stats_reference(
     return counts, or_words
 
 
+_fold_lock = threading.Lock()
+#: (device index, stream) -> [scratch, ticket] of the plane-stats launches
+#: on that stream: the blocks' OR words, and the word whose last taker
+#: folds them (zeroed here once; each launch leaves it at 0)
+_folds: dict = {}
+
+
+def _fold_buffers(dev, stream: int, words: int):
+    """(scratch, ticket) for a plane-stats launch on ``stream`` that
+    folds ``words`` words: the stream's buffers, the scratch grown as
+    needed. Launches on one stream run in order, so they may share both;
+    the caller holds the tensors until its launch is enqueued."""
+    key = (dev.index, stream)
+    with _fold_lock:
+        bufs = _folds.get(key)
+        if bufs is None:
+            bufs = _folds[key] = [
+                torch.empty((0,), dtype=torch.int32, device=dev),
+                torch.zeros((1,), dtype=torch.int32, device=dev),
+            ]
+        if bufs[0].numel() < words:
+            bufs[0] = torch.empty((words,), dtype=torch.int32, device=dev)
+        return bufs[0], bufs[1]
+
+
 def plane_stats(
     gt, gt2, tok1, tok2, rows, or_sel, mask, *, with_counts, with_or
 ):
@@ -249,11 +275,18 @@ def plane_stats(
             f"the mask and the OR words in shared memory (at most "
             f"{_SMEM_MAX // 8} words)"
         )
+    # the launch writes every word of both outputs: no fill before it
     counts = torch.empty((r, 4), dtype=torch.int32, device=dev)
-    or_words = torch.zeros((w,), dtype=torch.int32, device=dev)
+    or_words = torch.empty((w,), dtype=torch.int32, device=dev)
     lib = _build.load(KERNEL)
     t0 = time.perf_counter()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        parts = lib.plane_stats_clusters(r, int(bool(with_counts)), n_sm)
+        scratch = ticket = None
+        if with_or and parts > 1:
+            scratch, ticket = _fold_buffers(dev, stream, parts * w)
         rc = lib.plane_stats_launch(
             gt.data_ptr(),
             gt2.data_ptr(),
@@ -264,12 +297,15 @@ def plane_stats(
             mask.data_ptr(),
             counts.data_ptr(),
             or_words.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            None if ticket is None else ticket.data_ptr(),
             r,
             w,
             n_plane,
             int(bool(with_counts)),
             int(bool(with_or)),
-            torch.cuda.current_stream(dev).cuda_stream,
+            n_sm,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"plane_stats launch failed: CUDA error {rc}")

@@ -6,12 +6,14 @@ SNPs, indels, multi-alt records, symbolic alleles, records with and
 without INFO AC/AN, genotype columns) and ``synthetic_shard`` (a
 vectorised, 1000-Genomes-shaped ``VariantIndexShard`` at any scale),
 plus the port's own ``subset_shard`` (a row subset of a shard, standing
-for a re-submitted VCF) and ``distinct_key_cases`` (crafted key sets for
-the distinct count).
+for a re-submitted VCF), ``distinct_key_cases`` (crafted key sets for
+the distinct count) and ``window_edge_shards`` / ``window_edge_specs``
+(window edges of the bisection query).
 """
 
 from __future__ import annotations
 
+import itertools
 import random
 
 from .genomics.vcf import VcfRecord
@@ -406,3 +408,64 @@ def distinct_key_cases(seed: int = 3) -> dict:
         "two_equal": np.concatenate([row, row]),
         "thousand": rng.integers(-2, 2, size=(1000, 6)).astype(i32),
     }
+
+
+def _edge_records(rng, sizes, chrom, start):
+    """Records of the given alt counts at increasing positions (gaps of 2
+    or more, so a window can end on any record), AC and AN near the int32
+    ends now and then."""
+    pool = ["".join(p) for n in (1, 2, 3)
+            for p in itertools.product(BASES, repeat=n)]
+    recs, pos = [], start
+    for k in sizes:
+        pos += rng.choice([2, 2, 3, 6])
+        recs.append(VcfRecord(
+            chrom=chrom, pos=pos, ref="A", alts=pool[:k], vt="N/A",
+            ac=[rng.choice([0, 1, 3, 2**31 - 1, -7]) for _ in range(k)],
+            an=rng.choice([10, 2**31 - 5, 77]), genotypes=[]))
+    return recs
+
+
+def window_edge_shards(n: int, seed: int = 31) -> list:
+    """n shards of chromosome 3 for the bisection query's window edges:
+    even ones of 4000 single-row records (a window of any lane count),
+    odd ones of 400 records of 1, 12 and 40 rows (records cut by every
+    256-lane chunk and cluster-rank edge)."""
+    from .index.columnar import build_index
+
+    rng = random.Random(seed)
+    out = []
+    for d in range(n):
+        sizes = ([1] * 4000 if d % 2 == 0
+                 else [rng.choice([1, 12, 40]) for _ in range(400)])
+        out.append(build_index(_edge_records(rng, sizes, "3", 1000 + 7 * d),
+                               dataset_id=f"e{d}"))
+    return out
+
+
+def window_edge_specs(shards, seed: int):
+    """(specs, shard ids) over ``window_edge_shards``: windows of exactly
+    1, 255, 256, 257, 1400, 2048, 2049, 3000 and 3500 lanes on the
+    single-row shards, six of 1-4000 rows on the others, in any-base,
+    exact, INS and length-bounded modes."""
+    from .ops.kernel import QuerySpec
+
+    rng = random.Random(seed)
+    specs, sids = [], []
+    modes = [dict(alternate_bases="N"), dict(alternate_bases="A"),
+             dict(variant_type="INS"),
+             dict(alternate_bases="N", variant_max_length=2)]
+    for sid, sh in enumerate(shards):
+        pos = sh.cols["pos"]
+        widths = ((1, 255, 256, 257, 1400, 2048, 2049, 3000, 3500)
+                  if sid % 2 == 0
+                  else tuple(rng.choice([1, 3, 255, 300, 1500, 2100, 4000])
+                             for _ in range(6)))
+        for n in widths:
+            a = rng.randrange(0, max(1, len(pos) - n))
+            b = min(a + n - 1, len(pos) - 1)
+            specs.append(QuerySpec(chrom="3", start_min=int(pos[a]),
+                                   start_max=int(pos[b]), end_min=1,
+                                   end_max=1 << 30, **rng.choice(modes)))
+            sids.append(sid)
+    return specs, sids

@@ -40,6 +40,8 @@ from sbeacon_tpu_torch.testing import (
     random_records,
     subset_shard,
     synthetic_shard,
+    window_edge_shards,
+    window_edge_specs,
 )
 
 
@@ -351,6 +353,44 @@ def test_fused_batch_on_card_equals_cpu(fused):
     assert got.overflow.any() and (got.n_matched > 256).any()
 
 
+@pytest.fixture(scope="module")
+def edge_stacks(cuda_device):
+    """Fused stacks of 3 and of 11 edge shards (11: past the 9 segment
+    rows the kernel loads beside the query row)."""
+    return {n: (tk.FusedDeviceIndex(shards, cuda_device), shards)
+            for n, shards in ((n, window_edge_shards(n)) for n in (3, 11))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,R", [(2048, 1024), (2048, 1), (2048, 2048),
+                                 (700, 257), (257, 255), (256, 16),
+                                 (3000, 3000)])
+@pytest.mark.parametrize("n_shards", [3, 11])
+def test_bisect_kernel_window_edges(edge_stacks, n_shards, W, R,
+                                    monkeypatch):
+    """Windows of 1-3000 lanes across the 256-lane chunks and the cluster
+    ranks, overflow, R below the matches, records of up to 40 rows cut
+    at every edge, stacks of 3 and 11 shards, on 0xDEADBEEF-filled
+    outputs: equal to the twin."""
+    index, shards = edge_stacks[n_shards]
+    specs, sids = window_edge_specs(shards, seed=W + R + n_shards)
+    q = torch.from_numpy(tk.pack_queries(
+        encode_queries(specs, shard_ids=sids), fused=True)).to(index.device)
+    kw = dict(window_cap=W, record_cap=R, n_iters=index.n_iters)
+    with monkeypatch.context() as mp:
+        _deadbeef_empty(mp)
+        out, seq = tk.bisect_query(index.columns, index.alt_prefix,
+                                   index.offsets, q, **kw)
+        torch.cuda.synchronize()
+    assert seq is not None
+    want = tk.query_batch_reference(index.columns, index.alt_prefix,
+                                    index.offsets, q, **kw)
+    assert torch.equal(out, want)
+    agg = want[:, :tk.N_AGG]
+    assert int(agg[:, 5].sum()) > 0
+    assert int((agg[:, 4] > R).sum()) > 0 or R == W
+
+
 N_SAMPLES = 40
 
 
@@ -556,6 +596,41 @@ def test_plane_stats_kernel_matches_twin(planes, R, sel, with_counts):
         with_or=sel != "none",
     )
     assert torch.equal(counts, want[0]) and torch.equal(or_words, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+@pytest.mark.parametrize("sel", ["none", "some", "all"])
+@pytest.mark.parametrize("R", [0, 1, 5, 7, 9, 63, 65, 2047, 7097, 70001])
+def test_plane_stats_kernel_grid_edges(planes, R, sel, with_counts,
+                                       monkeypatch):
+    """R of no rows, one row, below one block's rows, not a multiple of a
+    warp's row group, and past the grid's cap (several groups a warp),
+    clamped row ids, or_sel none, some and all, three launches in a row
+    (the fold's ticket resets), on 0xDEADBEEF-filled outputs: equal to
+    the twin."""
+    _index, pidx, shard = planes
+    g = np.random.default_rng(R + 3)
+    dev = pidx.device
+    rows_np = g.integers(-5, shard.n_rows + 5, R).astype(np.int32)
+    rows = torch.from_numpy(rows_np).to(dev)
+    or_sel = torch.from_numpy({
+        "none": np.zeros(R, np.int32), "all": np.ones(R, np.int32),
+        "some": (g.random(R) < 0.01).astype(np.int32)}[sel]).to(dev)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    kw = dict(with_counts=with_counts, with_or=sel != "none")
+    for k in range(3):
+        mask = torch.from_numpy(_masks(3, pidx.n_words, R)[k].view(
+            np.int32)).to(dev)
+        with monkeypatch.context() as mp:
+            _deadbeef_empty(mp)
+            counts, or_words, seq = pk.plane_stats(pidx.gt, *trip, rows,
+                                                   or_sel, mask, **kw)
+            torch.cuda.synchronize()
+        assert seq is not None
+        want = pk.plane_stats_reference(pidx.gt, *trip, rows, or_sel, mask,
+                                        **kw)
+        assert torch.equal(counts, want[0]) and torch.equal(or_words, want[1])
 
 
 @pytest.mark.cuda
@@ -1327,6 +1402,42 @@ def test_stacked_selected_launches_no_fill(local_plane_stacks, has_counts):
     kernels = _cuda_kernels(run)
     assert len(kernels) == 1 and "stacked_selected_kernel" in kernels[0], (
         kernels)
+
+
+@pytest.mark.cuda
+def test_bisect_query_launches_one_kernel(fused):
+    """One bisect_query call runs its kernel and no other (out is not
+    filled before the launch)."""
+    index, _cpu, shards = fused
+    specs, sids = _fused_specs(shards, 64, seed=6)
+    q = torch.from_numpy(tk.pack_queries(
+        encode_queries(specs, shard_ids=sids), fused=True)).to(index.device)
+    run = lambda: tk.bisect_query(index.columns, index.alt_prefix,
+                                  index.offsets, q, window_cap=2048,
+                                  record_cap=1024, n_iters=index.n_iters)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "bisect_query_kernel" in kernels[0], kernels
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_counts", [True, False])
+def test_plane_stats_launches_one_kernel(planes, with_counts):
+    """One plane_stats call with the OR over several blocks runs its
+    kernel and no other: no fill of or_words, the fold inside."""
+    _index, pidx, shard = planes
+    dev = pidx.device
+    rows = torch.arange(0, 7000, dtype=torch.int32, device=dev) % shard.n_rows
+    or_sel = torch.ones(7000, dtype=torch.int32, device=dev)
+    mask = torch.full((pidx.n_words,), -1, dtype=torch.int32, device=dev)
+    trip = (pidx.gt2, pidx.tok1, pidx.tok2) if with_counts else (pidx.gt,) * 3
+    run = lambda: pk.plane_stats(pidx.gt, *trip, rows, or_sel, mask,
+                                 with_counts=with_counts, with_or=True)
+    run()
+    torch.cuda.synchronize()
+    kernels = _cuda_kernels(run)
+    assert len(kernels) == 1 and "plane_stats_kernel" in kernels[0], kernels
 
 
 @pytest.mark.cuda
