@@ -23,12 +23,26 @@ non-zero, without the final line):
    parse_request -> run_variant_search -> Envelopes, each response
    checked against the host matcher; kernel launch counts are zeroed
    just before and read just after;
+4a. hooks cost: the main path's first 128 payloads served one at a
+    time without a request context (every serving hook a no-op) and
+    under one, in turns off, on, on, off; the hooks' calls per request
+    and each no-op hook's cost a call (host clock);
 5. timing (scatter_match): each kernel tier with CUDA events at a full
    batch and at the main path's launch shape (the tier's mean real
    queries in phase 4 padded to 64 slots, L2 cold), beside its bound
    (the least bytes and operations the launch's own inputs need) and its
    twin's time; the main path's card time is each tier's launches times
    its cold time at that shape;
+5a. cache_path: the main shard behind an engine of the JAX default
+   config (the response cache on): 96 bodies of the main mix, each sent
+   4 times, shuffled, from many threads; then one delta of about 4000
+   rows over one body's bracket (``add_delta``) and the 96 bodies once
+   more. Every answer equals the cache-off engine's of phase 4 for the
+   same body (the delta published there too, its answers held against
+   the host matcher and the monolith); a body whose cache scope overlaps
+   the delta misses and one shows its rows, the others hit. Hits,
+   misses, scoped evictions, scatter_match launches per request,
+   requests/s and p50/p99;
 6. fused setup: three more cohorts (5e6 rows each) join the engine and
    the fused stack of all four (3.5e7 rows) is built inline;
 7. kernel vs twin (bisect_query): on that stack and on a small stack of
@@ -43,6 +57,30 @@ non-zero, without the final line):
    bracket batches, cycling 16 query sets (``ms``), with the L2 flushed before each launch (``ms_flushed``) and
    one set back to back (``warm_ms``), beside the bound and the twin's
    time;
+9a. kernel vs twin (bisect_query, L0 form): composites of 1, 4 and 16
+    keys' delta tails (``testing.l0_tail_keys``; 16, 64 and 512 padded
+    shards, the segment table read from global memory), windows of
+    256-4096 lanes, record caps below the matches, queries on pad rows,
+    on 0xDEADBEEF-filled outputs;
+9b. delta setup: the fused path's four datasets behind an engine with
+    the response cache on, each given 40 delta shards of 1000-8000
+    seeded rows across chr1-22 (``add_delta``; every tail past the L0
+    threshold, the composite over all four keys);
+9c. warmup: ``VariantEngine.warmup`` on that engine, its seconds and
+    launches (scatter_match per shard, bisect_query on the fused stack
+    and on the L0 index);
+9d. delta path: the fused path's mix, 40% of it aimed at delta rows,
+    from many threads, while a writer publishes 16 more deltas; every
+    response against the host matcher on its shard, the envelope,
+    read-your-writes on the delta epochs each request saw, and each
+    dataset against ``merge_shards`` of its base and the deltas seen
+    (inside the request's bracket); fused_l0 launches per request,
+    tail shards matched on the host, L0 rebuilds per key;
+9e. kernel vs twin and timing (bisect_query, L0 form): the delta path's
+    composite at its median launch, 16 sets of its own specs on
+    0xDEADBEEF-filled outputs held equal to the twin (overflow and match
+    counts too), then timed L2 cold and warm, beside the bound and the
+    twin;
 10. selected setup: dataset A is the 2e7-row shard with a 2504-sample gt
     plane (6.3 GB), dataset B a 2e6-row shard with all four planes
     (2.5 GB; 30% of its records count from genotypes); the plane bits
@@ -78,6 +116,10 @@ non-zero, without the final line):
     equal to the count without the subsets and to the host oracle
     distinct_variant_count on the shards without them; launch counts
     zeroed just before and read just after;
+17a. distinct path over the two-entry mesh [card, card]: one
+    ``partition_keys`` block and one distinct_count launch per entry,
+    summed on the first, equal to the host oracle; ``shard_keys`` timed
+    beside the earlier per-shard key build (the same bytes);
 18. timing: distinct_count at the full key set (L2 cold and warm) beside
     its bound, its twin and torch.unique(keys, dim=0), and the device ms
     of each of its four kernels from a torch.profiler trace; the device time
@@ -117,6 +159,12 @@ non-zero, without the final line):
     and the selected mix sliced and combined (mesh_fused, then the
     ring), every response checked; launch counts zeroed just before
     each run and read just after;
+25a. the tier's delta leg: after mesh_fused_path's traffic,
+    ``l0_min_shards`` deltas published to each of its datasets and a
+    burst of 64 requests (60% aimed at delta rows) served through the
+    tier: base rows on mesh_fused, the tail on the engine's L0 index
+    (bisect_query, fused_l0); every response against the host matcher
+    on its shard, and every base and delta shard answered;
 26. timing: mesh_fused at phase 25's slot counts (match-only every one,
     with planes the two most launched), and ring_step in its
     three forms (with next, last, first out of place) at phase 24's
@@ -140,7 +188,13 @@ same inputs in turns with this tree's (parent, this, this, parent),
 reported as ``parent_ms`` / ``parent_warm_ms`` and each take under
 ``turns``.
 
-Then one ``{"kernels": [...]}`` line (the nine CUDA kernels), the
+The serving phases of earlier slices (4, 8, 13, 21, 25) run engines
+with the response cache off, so their numbers stay comparable across
+PRs; each line says so (``response_cache``).
+
+Then one ``{"kernels": [...]}`` line (the nine CUDA kernels; bisect_query
+carries its L0 form under ``l0``, distinct_count its mesh run under
+``mesh``), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
 "device": {...}}``. The script exits non-zero, printing no result, when
 no CUDA device is available. Device times come from CUDA events
@@ -189,6 +243,25 @@ BISECT_OPS_PER_PROBE = 4
 OTHER_TYPES = ["CN", "DE", "CN0", "INV", "SNP"]
 GENOME_BP = 2.875e9  # chr1-22, GRCh38
 MICROBATCH_WAIT_MS = 2.0
+#: cache_path: distinct bodies of the main mix, each sent this many
+#: times, and the rows of the delta published over one bracket
+CACHE_BODIES = 96
+CACHE_REPEATS = 4
+DELTA_REGION_ROWS = 4000
+#: delta_path: delta shards a key before the traffic, their row range,
+#: the publishes made while it runs, and the share of its bodies aimed
+#: at delta rows
+DELTA_SHARDS = 40
+DELTA_ROWS = (1000, 8000)
+DELTA_WRITES = 16
+#: requests of the tier's delta leg (phase 25a)
+TIER_DELTA_REQUESTS = 64
+P_DELTA = 0.4
+#: the engines of the serving phases of earlier slices: the response
+#: cache off, so their requests/s and launch counts stay comparable
+#: across PRs (cache_path and delta_path run with it on)
+SERVING_PHASE_CONFIG = {"microbatch_wait_ms": MICROBATCH_WAIT_MS,
+                        "response_cache": False}
 # integer operations per plane word a matched row reads (load, and,
 # popcount, add)
 PLANE_OPS_PER_WORD = 4
@@ -1805,6 +1878,714 @@ def load_parent(root):
         build=importlib.import_module(name + ".ops._build"))
 
 
+# -- the serving hooks' cost (hooks_cost) -------------------------------------
+
+#: the serving hooks the engine and the batcher call on every request
+HOOKS = ("annotate", "plan_stage", "charge_cost", "charge_cost_to", "span",
+         "fault_point", "current_deadline", "current_context",
+         "request_context")
+
+
+def hooks_cost(engine, payloads, kind, smi):
+    """Phase 4a: what the serving hooks cost a request on the host. The
+    payloads are served one at a time, without a request context (as
+    the serving phases run: every hook is a no-op) and under one (the
+    hooks record), in turns off, on, on, off; each hook's calls per
+    request are counted over the payloads, and each no-op hook's cost
+    a call taken with ``timeit`` beside an empty call."""
+    import timeit
+
+    from sbeacon_tpu_torch import engine as engine_mod
+    from sbeacon_tpu_torch import serving as serving_mod
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.harness.faults import fault_point
+    from sbeacon_tpu_torch.plan import plan_stage
+    from sbeacon_tpu_torch.resilience import current_deadline
+    from sbeacon_tpu_torch.utils.trace import span
+
+    def serial(with_ctx):
+        t0 = time.perf_counter()
+        for p in payloads:
+            if with_ctx:
+                ctx = telemetry.RequestContext(route="g_variants")
+                with telemetry.request_context(ctx):
+                    engine.search(p)
+            else:
+                engine.search(p)
+        return (time.perf_counter() - t0) * 1e3 / len(payloads)
+
+    turns = [(arm, serial(arm == "on")) for arm in ("off", "on", "on", "off")]
+    calls = {}
+    saved = []
+    for mod in (engine_mod, serving_mod):
+        for name in HOOKS:
+            fn = getattr(mod, name, None)
+            if fn is None:
+                continue
+
+            def counted(*a, _fn=fn, _name=name, **kw):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **kw)
+
+            saved.append((mod, name, fn))
+            setattr(mod, name, counted)
+    try:
+        serial(False)
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+    def with_span():
+        with span("engine.search"):
+            pass
+
+    n = 200_000
+    each = {
+        "empty_call": lambda: None,
+        "annotate": lambda: telemetry.annotate(response_cache="miss"),
+        "plan_stage": lambda: plan_stage("cache", decision="miss"),
+        "charge_cost": lambda: telemetry.charge_cost(host_rows=1),
+        "span": with_span,
+        "fault_point": lambda: fault_point("kernel.launch"),
+        "current_deadline": current_deadline,
+        "current_context": telemetry.current_context,
+    }
+    ns = {k: timeit.timeit(f, number=n) / n * 1e9 for k, f in each.items()}
+    per_req = {k: v / len(payloads) for k, v in sorted(calls.items())}
+    off = [ms for arm, ms in turns if arm == "off"]
+    on = [ms for arm, ms in turns if arm == "on"]
+    emit("hooks_cost", engine="main_path's", requests=len(payloads),
+         response_cache=engine.config.engine.response_cache,
+         serial_ms_per_request=[{"arm": a, "ms": ms} for a, ms in turns],
+         off_mean_ms=float(np.mean(off)), on_mean_ms=float(np.mean(on)),
+         on_minus_off_ms=float(np.mean(on) - np.mean(off)),
+         hook_calls_per_request=per_req, noop_ns_per_call=ns,
+         noop_us_per_request_upper=sum(
+             per_req.get(k, 0) * ns.get(k, ns["span"]) for k in per_req)
+         / 1e3,
+         note="host clock; off: no request context (every hook a no-op, "
+              "as in the serving phases), on: one RequestContext a "
+              "request; request_context and charge_cost_to take the "
+              "span's cost a call in the upper estimate",
+         device=kind, nvidia_smi=smi)
+
+
+# -- the response cache and the delta tail (cache_path, delta_path) -----------
+
+
+class ContextEngine:
+    """Forwards search() to the engine under a fresh request context per
+    call and keeps the calling thread's last (payload, responses) and
+    (context, admit time, done time); counts the searches done."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.last = threading.local()
+        self.done = 0
+        self._lock = threading.Lock()
+
+    def search(self, payload):
+        from sbeacon_tpu_torch.telemetry import RequestContext, request_context
+
+        ctx = RequestContext(route="g_variants")
+        t0 = time.perf_counter()
+        with request_context(ctx):
+            responses = self.engine.search(payload)
+        self.last.call = (payload, responses)
+        self.last.extra = (ctx, t0, time.perf_counter())
+        with self._lock:
+            self.done += 1
+        return responses
+
+
+def run_ctx_jobs(rec, env, jobs, threads):
+    """``run_jobs`` through a ContextEngine: ([(envelope, ms, payload,
+    responses, context, admit, done)], wall s)."""
+    def one(job):
+        return serve(rec, env, *job) + rec.last.extra
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as pool:
+        out = list(pool.map(one, jobs))
+    return out, time.perf_counter() - t0
+
+
+def same_answer(a, b):
+    """Two (envelope, ms, payload, responses, ...) records answer alike:
+    equal envelopes, and equal responses once those that hold nothing
+    (no match, no count) are left out. An entry cached before a delta
+    whose region it does not overlap keeps answering without that
+    delta's response, which can only be such an empty one (the JAX
+    engine's scoped invalidation does the same)."""
+    def held(rec):
+        return [dataclasses.asdict(r) for r in rec[3]
+                if r.exists or r.variants or r.call_count
+                or r.all_alleles_count]
+
+    return (held(a) == held(b)
+            and json.dumps(a[0], sort_keys=True)
+            == json.dumps(b[0], sort_keys=True))
+
+
+def squeeze_into(shard, lo, hi):
+    """``shard`` with its positions mapped monotonically into [lo, hi]
+    (record ends moved with them): a delta over one bracketed region."""
+    pos = shard.cols["pos"].astype(np.int64)
+    span = max(1, int(pos.max() - pos.min()))
+    new = lo + (pos - pos.min()) * (hi - lo) // span
+    cols = dict(shard.cols)
+    cols["rec_end"] = (shard.cols["rec_end"].astype(np.int64) - pos
+                       + new).astype(np.int32)
+    cols["pos"] = new.astype(np.int32)
+    return dataclasses.replace(shard, cols=cols, meta=dict(shard.meta))
+
+
+def body_bracket(body):
+    """(chrom, lo, hi): the envelope of a body's start and end brackets,
+    1-based."""
+    rp = body["query"]["requestParameters"]
+    start, end = rp["start"], rp["end"]
+    lo = min(start[0], end[0]) + 1
+    hi = max(start[-1], end[-1]) + 1
+    return rp["referenceName"], lo, hi
+
+
+def delta_expected(shard_of, env, body, payload, responses):
+    """The host matcher's answer for the targets one request saw: a
+    response per (dataset, label) of ``responses`` from the shard that
+    label names (``shard_of``), and their envelope."""
+    from sbeacon_tpu_torch.api.requests import parse_request
+    from sbeacon_tpu_torch.api.variants import VariantAggregation
+    from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
+
+    spec = payload_spec(payload)
+    resps = []
+    for r in responses:
+        s = shard_of[(r.dataset_id, r.vcf_location)]
+        resps.append(materialize_response(
+            s, host_match_rows(s, spec), payload,
+            chrom_label=s.meta["chrom_native"][payload.reference_name],
+            dataset_id=r.dataset_id, vcf_location=r.vcf_location))
+    req = parse_request("POST", None, body)
+    agg = VariantAggregation(req.assembly_id or "")
+    agg.add(resps, granularity=req.granularity,
+            check_all=req.include_resultset_responses in ("HIT", "ALL"))
+    doc = env.by_granularity(
+        req.granularity, exists=agg.exists, count=len(agg.variants),
+        results=agg.results[req.skip : req.skip + req.limit],
+        set_type="genomicVariant", skip=req.skip, limit=req.limit,
+    )
+    return resps, doc
+
+
+def bracket_monolith(shards, payload, dataset_id, vcf):
+    """``materialize_response`` over ``host_match_rows`` on
+    ``merge_shards`` of the rows of ``shards`` inside the payload's
+    start bracket on its chromosome (the only rows the matcher reads,
+    so the answer is the whole merge's)."""
+    from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
+    from sbeacon_tpu_torch.index.columnar import merge_shards
+    from sbeacon_tpu_torch.testing import subset_shard
+    from sbeacon_tpu_torch.utils.chrom import chromosome_code
+
+    spec = payload_spec(payload)
+    code = chromosome_code(spec.chrom)
+    subs = []
+    for s in shards:
+        lo, hi = int(s.chrom_offsets[code]), int(s.chrom_offsets[code + 1])
+        pos = s.cols["pos"][lo:hi]
+        a = lo + int(np.searchsorted(pos, spec.start_min, side="left"))
+        b = lo + int(np.searchsorted(pos, spec.start_max, side="right"))
+        subs.append(subset_shard(s, np.arange(a, b), dataset_id=dataset_id))
+    merged = merge_shards(subs)
+    return materialize_response(
+        merged, host_match_rows(merged, spec), payload,
+        chrom_label=shards[0].meta["chrom_native"][spec.chrom],
+        dataset_id=dataset_id, vcf_location=vcf)
+
+
+def monolith_agrees(mono, responses, granularity):
+    """The split responses of one dataset add up to the monolith's:
+    exists, and for count and record granularity the matched variants
+    (as a multiset), the call count and the allele count."""
+    if any(r.exists for r in responses) != mono.exists:
+        return False
+    if granularity == "boolean":
+        return True
+    return (sorted(v for r in responses for v in r.variants)
+            == sorted(mono.variants)
+            and sum(r.call_count for r in responses) == mono.call_count
+            and sum(r.all_alleles_count for r in responses)
+            == mono.all_alleles_count)
+
+
+def delta_label_epoch(label):
+    base, sep, epoch = label.rpartition("#d")
+    return (base, int(epoch)) if sep else (label, None)
+
+
+def check_delta_served(base_of, shard_of, published, env, jobs, served):
+    """(mismatches, requests checked against the monolith, hits): every
+    response of every request of the delta path against the host
+    matcher on the shard its label names, and the envelope; the delta
+    epochs a request saw against read-your-writes (every publish that
+    ended before it was admitted, none that began after it was done);
+    and each dataset's responses against the monolith: merge_shards of
+    its base and the deltas the request saw, inside the bracket."""
+    mismatches = hits = 0
+    for (_datasets, body, _s), rec in zip(jobs, served):
+        doc, _ms, payload, responses, _ctx, t_admit, t_done = rec
+        want_resps, want_doc = delta_expected(shard_of, env, body, payload,
+                                              responses)
+        ok = ([dataclasses.asdict(r) for r in responses]
+              == [dataclasses.asdict(r) for r in want_resps]
+              and json.dumps(doc, sort_keys=True)
+              == json.dumps(want_doc, sort_keys=True))
+        seen = {}
+        for r in responses:
+            vcf, epoch = delta_label_epoch(r.vcf_location)
+            if epoch is not None:
+                seen.setdefault((r.dataset_id, vcf), set()).add(epoch)
+        for (key, epoch), (t0, t1) in published.items():
+            got = epoch in seen.get(key, set())
+            if (t1 < t_admit and not got) or (t0 > t_done and got):
+                ok = False
+        for (ds, vcf), base in base_of.items():
+            mine = [r for r in responses if r.dataset_id == ds]
+            shards = [base] + [shard_of[(ds, r.vcf_location)] for r in mine
+                               if r.vcf_location != vcf]
+            mono = bracket_monolith(shards, payload, ds, vcf)
+            ok &= monolith_agrees(mono, mine, payload.requested_granularity)
+        mismatches += not ok
+        hits += any(r.exists for r in want_resps)
+    return mismatches, hits
+
+
+def delta_aimed_bodies(shard, deltas, rng, n, window_cap, p_delta=0.4):
+    """The fused_path mix over ``shard``, ``p_delta`` of it re-aimed at
+    rows of the delta shards: SNV points with the row's ref and alt,
+    and any-base or typed brackets of 2-60 kb starting at the row."""
+    bodies = request_bodies(shard, rng, n, window_cap, p_other=0.05)
+    for k in range(n):
+        if rng.random() >= p_delta:
+            continue
+        d = rng.choice(deltas)
+        i = rng.randrange(d.n_rows)
+        p = int(d.cols["pos"][i])
+        ref = d.row_ref(i)
+        rp = {"assemblyId": "GRCh38", "referenceName": d.row_chrom(i)}
+        if rng.random() < 0.4:
+            rp.update(start=[p - 1], end=[p + len(ref) + 5],
+                      referenceBases=ref, alternateBases=d.row_alt(i))
+        else:
+            w = rng.choice([2_000, 20_000, 60_000])
+            rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000])
+            if rng.random() < 0.5:
+                rp["variantType"] = rng.choice(["DEL", "INS", "DUP", "CNV"])
+            else:
+                rp["alternateBases"] = "N"
+        bodies[k]["query"]["requestParameters"] = rp
+    return bodies
+
+
+def legacy_shard_keys(shards):
+    """The earlier key build (a stack per shard, then one
+    concatenation), kept to time beside ``distinct.shard_keys`` and to
+    hold its bytes equal."""
+    parts = []
+    for s in shards:
+        n = s.n_rows
+        codes = (np.searchsorted(s.chrom_offsets, np.arange(n), side="right")
+                 - 1).astype(np.int32)
+        parts.append(np.stack([
+            codes, s.cols["pos"].astype(np.int32),
+            s.cols["ref_hash"].astype(np.uint32).view(np.int32),
+            s.cols["alt_hash"].astype(np.uint32).view(np.int32),
+            s.cols["ref_len"].astype(np.int32),
+            s.cols["alt_len"].astype(np.int32)], axis=1))
+    return np.concatenate(parts) if parts else np.zeros((0, 6), np.int32)
+
+
+def compare_l0(device):
+    """bisect_query vs its twin on L0 composites of 1, 4 and 16 keys (16,
+    64 and 512 padded shards, ``testing.l0_tail_keys``), windows of
+    256-4096 lanes, record caps below the matches, queries on pad rows,
+    on 0xDEADBEEF-filled outputs; returns (max_abs_err, report rows)."""
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.testing import l0_tail_keys, l0_tail_specs
+
+    worst, report = 0, []
+    for n_keys, per_key in ((1, 12), (4, 14), (16, 20)):
+        keys = l0_tail_keys(n_keys, per_key, seed=n_keys, max_records=200)
+        index = tk.CompositeL0DeviceIndex(
+            [tk.L0DeviceIndex(s, device) for s in keys])
+        check(index.n_shards_padded == {1: 16, 4: 64, 16: 512}[n_keys],
+              "the L0 composite's padded shards")
+        for W, R in ((256, 1), (256, 60), (512, 16), (1024, 1024),
+                     (2048, 100), (4096, 300), (4096, 4096)):
+            err, rep = compare_bisect(
+                index, None, None, f"l0_{n_keys}keys", R,
+                [l0_tail_specs(index, keys, seed=W + R + n_keys)], W=W)
+            for r in rep:
+                r["padded_shards"] = index.n_shards_padded
+            worst, report = max(worst, err), report + rep
+    return worst, report
+
+
+def time_l0(index, sets, record_cap):
+    """Timing fields of the L0 launch (bisect_query on the delta path's
+    composite at its own window) over query sets: ``ms`` with the L2
+    flushed before each launch, ``warm_ms`` one set back to back; the
+    twin's ms and the bound of the bytes a launch needs."""
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import timing
+
+    W = min(2048, index.window_hint)
+    args = (index.columns, index.alt_prefix, index.offsets)
+    kw = dict(window_cap=W, record_cap=record_cap, n_iters=index.n_iters,
+              family="fused_l0")
+    fn = lambda q: tk.bisect_query(*args, q, **kw)
+    ms = timing.cold_device_ms(fn, sets, index.device)
+    warm_ms = timing.device_ms(fn, sets[:1], reps=16)
+    twin = lambda q: tk.query_batch_reference(
+        *args, q, window_cap=W, record_cap=record_cap, n_iters=index.n_iters)
+    plain_ms = float(np.mean([timing.device_ms(twin, [q], reps=1)
+                              for q in sets[:2]]))
+    bounds = []
+    for q in sets:
+        full, _seq = tk.bisect_query(*args, q, window_cap=W, record_cap=W,
+                                     n_iters=index.n_iters, family="fused_l0")
+        bounds.append(bisect_bound(index, q, full, W, min(record_cap, W)))
+    by = "bytes" if all(x[1] == "bytes" for x in bounds) else "operations"
+    return {"ms": ms, "warm_ms": warm_ms, "plain_ms": plain_ms,
+            "bound_ms": float(np.mean([x[0] for x in bounds])),
+            "bound_by": by, "bytes": float(np.mean([x[2] for x in bounds])),
+            "window": W, "queries": int(sets[0].shape[0]),
+            "padded_shards": index.n_shards_padded,
+            "padded_rows": index.n_padded}
+
+
+def run_cache_path(ref, shard, env, args, device, kind, smi):
+    """The cache_path phase (5a) over ``shard``, ``ref`` the cache-off
+    engine of phase 4; returns the scatter_match launches of its first
+    run."""
+    from collections import Counter
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
+    from sbeacon_tpu_torch.engine import VariantEngine, shard_regions
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.response_cache import response_cache_scope
+    from sbeacon_tpu_torch.testing import synthetic_shard
+
+    window_cap = ref.config.engine.window_cap
+    rng = random.Random(args.seed + 30)
+    bodies = request_bodies(shard, rng, CACHE_BODIES, window_cap)
+    jobs = [b for b in bodies for _ in range(CACHE_REPEATS)]
+    rng.shuffle(jobs)
+    datasets = [{"id": shard.meta["dataset_id"]}]
+    key = lambda b: json.dumps(b, sort_keys=True)
+    want, _wall = run_main_path(ref, env, [shard], bodies, args.threads)
+    _hits, bad = check_served([shard], env, bodies, want)
+    check(bad == 0, f"{bad} uncached answers differ from the host matcher")
+    want_of = {key(b): w for b, w in zip(bodies, want)}
+    t0 = time.perf_counter()
+    engine = VariantEngine(BeaconConfig(engine=EngineConfig()), device=device)
+    try:
+        engine.add_index(shard)
+        t_index = time.perf_counter() - t0
+        cfg = engine.config.engine
+        check(cfg.response_cache, "the JAX default config caches responses")
+        rec = ContextEngine(engine)
+        telemetry.reset_launch_counts()
+        served, wall = run_ctx_jobs(
+            rec, env, [(datasets, b, None) for b in jobs], args.threads)
+        launches = telemetry.launch_count(sk.KERNEL)
+        stats = engine.cache_stats()
+        outcomes = Counter(r[4].cost.cache for r in served)
+        bad = sum(not same_answer(r, want_of[key(b)])
+                  for b, r in zip(jobs, served))
+        lat = [r[1] for r in served]
+        check(bad == 0, f"{bad} cached-engine answers differ from the "
+              "uncached engine's")
+        check(stats["hits"] + stats["misses"] == len(jobs),
+              "one cache lookup a request")
+        check(stats["misses"] >= len(bodies) and stats["hits"] > 0,
+              "every body missed once and repeats hit")
+        check(0 < launches < stats["misses"] + 1,
+              "the misses launched scatter_match, the hits nothing")
+        first = {"requests": len(jobs), "bodies": len(bodies),
+                 "hits": stats["hits"], "misses": stats["misses"],
+                 "negative_hits": stats["negative_hits"],
+                 "outcomes": dict(outcomes), "mismatches": bad,
+                 "scatter_match_launches": launches,
+                 "launches_per_request": launches / len(jobs),
+                 "wall_s": wall, "requests_per_s": len(jobs) / wall,
+                 "latency_ms": {"p50": percentile(lat, 0.5),
+                                "p99": percentile(lat, 0.99)}}
+
+        # one delta over one bracketed region (a body's bracket of at
+        # least 20 kb), published to both engines
+        chrom, lo, hi = next(
+            body_bracket(b) for b in bodies
+            if len(b["query"]["requestParameters"]["start"]) == 2
+            and body_bracket(b)[2] - body_bracket(b)[1] >= 20_000)
+        gen = synthetic_shard(DELTA_REGION_ROWS, seed=args.seed + 31,
+                              dataset_id=shard.meta["dataset_id"],
+                              chroms=[chrom])
+        delta = squeeze_into(gen, lo, hi)
+        (_c, d_lo, d_hi), = shard_regions(delta)
+        entries0 = stats["entries"]
+        t0 = time.perf_counter()
+        engine.add_delta(delta)
+        t_pub = time.perf_counter() - t0
+        ref.add_delta(dataclasses.replace(delta, meta=dict(delta.meta)))
+        evicted = entries0 - engine.cache_stats()["entries"]
+        label = f"{shard.meta['vcf_location']}#d1"
+        vcf = shard.meta["vcf_location"]
+        base_of = {(shard.meta["dataset_id"], vcf): shard}
+        shard_of = {(shard.meta["dataset_id"], vcf): shard,
+                    (shard.meta["dataset_id"], label): delta}
+        ref_rec = ContextEngine(ref)
+        want2, _w = run_ctx_jobs(ref_rec, env,
+                                 [(datasets, b, None) for b in bodies],
+                                 args.threads)
+        bad_ref, _h = check_delta_served(
+            base_of, shard_of, {}, env,
+            [(datasets, b, None) for b in bodies], want2)
+        check(bad_ref == 0, f"{bad_ref} uncached answers after the publish "
+              "differ from the host matcher and the monolith")
+        telemetry.reset_launch_counts()
+        served2, wall2 = run_ctx_jobs(
+            rec, env, [(datasets, b, None) for b in bodies], args.threads)
+        launches2 = telemetry.launch_count(sk.KERNEL)
+        # the bodies whose cache scope the publish's scope overlaps
+        overlap = [sc[1] == chrom and sc[2][0] <= d_hi and d_lo <= sc[2][1]
+                   for sc in (response_cache_scope(r[2]) for r in served2)]
+        outcomes2 = [r[4].cost.cache for r in served2]
+        bad2 = sum(not same_answer(r, w) for r, w in zip(served2, want2))
+        check(bad2 == 0, f"{bad2} answers after the publish differ from "
+              "the uncached engine's")
+        check(all(o == "miss" for o, ov in zip(outcomes2, overlap) if ov),
+              "every body overlapping the delta missed")
+        check(all(o != "miss" for o, ov in zip(outcomes2, overlap)
+                  if not ov), "every other body hit")
+        shows = [any(r.vcf_location == label and r.exists for r in s[3])
+                 for s, ov in zip(served2, overlap) if ov]
+        check(any(shows), "an overlapping body shows the delta's rows")
+        lat2 = [r[1] for r in served2]
+        emit("cache_path", config="EngineConfig() (JAX defaults, response "
+             "cache on)", shard_rows=shard.n_rows, add_index_s=t_index,
+             threads=args.threads, first=first,
+             publish={"rows": delta.n_rows, "chrom": chrom,
+                      "region": [d_lo, d_hi], "add_delta_s": t_pub,
+                      "scoped_evictions": evicted,
+                      "overlapping_bodies": sum(overlap),
+                      "bodies_showing_delta_rows": sum(shows)},
+             replay={"requests": len(bodies),
+                     "outcomes": dict(Counter(outcomes2)),
+                     "mismatches": bad2,
+                     "scatter_match_launches": launches2,
+                     "launches_per_request": launches2 / len(bodies),
+                     "wall_s": wall2,
+                     "requests_per_s": len(bodies) / wall2,
+                     "latency_ms": {"p50": percentile(lat2, 0.5),
+                                    "p99": percentile(lat2, 0.99)}},
+             cache=engine.cache_stats(), device=kind, nvidia_smi=smi)
+    finally:
+        engine.close()
+    return launches
+
+
+def run_delta_path(bases, env, args, device, kind, smi):
+    """The warmup and delta_path phases (9c, 9d) over the fused path's
+    corpus ``bases``; returns the L0 launch's fields for the kernels
+    line (its launches on the path, its error against the twin at the
+    path's own shapes and its timing, phase 9e)."""
+    from collections import Counter
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
+    from sbeacon_tpu_torch.engine import VariantEngine
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.testing import synthetic_shard
+
+    rng = random.Random(args.seed + 40)
+    seeds = iter(range(args.seed + 1000, args.seed + 100_000))
+
+    def make_delta(base):
+        n = rng.randint(*DELTA_ROWS)
+        return synthetic_shard(n, seed=next(seeds),
+                               dataset_id=base.meta["dataset_id"])
+
+    engine = VariantEngine(BeaconConfig(engine=EngineConfig(
+        microbatch_wait_ms=MICROBATCH_WAIT_MS)), device=device)
+    try:
+        t0 = time.perf_counter()
+        for s in bases:
+            engine.add_index(s)
+        check(engine.warm_fused() is not None, "the fused stack is built")
+        t_index = time.perf_counter() - t0
+        base_of = {(s.meta["dataset_id"], s.meta["vcf_location"]): s
+                   for s in bases}
+        shard_of = dict(base_of)
+        # publishes made before the traffic: ended before any admission
+        published = {}
+        t0 = time.perf_counter()
+        for _j in range(DELTA_SHARDS):
+            for s in bases:
+                d = make_delta(s)
+                key = (s.meta["dataset_id"], s.meta["vcf_location"])
+                epoch = engine.add_delta(d)
+                shard_of[(key[0], f"{key[1]}#d{epoch}")] = d
+                published[(key, epoch)] = (0.0, 0.0)
+        t_deltas = time.perf_counter() - t0
+        status = engine.l0_status()
+        check(status["built"] and status["shards"] == DELTA_SHARDS
+              * len(bases), "every key's tail rides the L0 index")
+        padded = engine._l0_state[0].n_shards_padded
+
+        # 9c. warmup: every kernel built, each family launched once a
+        # loaded index
+        telemetry.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_warm = engine.warmup()
+        t_warm = time.perf_counter() - t0
+        warm_recs = telemetry.recent_launches()
+        check(n_warm == len(bases) + 2, "warmup launched scatter_match per "
+              "shard and bisect_query on the fused stack and the L0 index")
+        check(all(r.get("warmup") for r in warm_recs),
+              "warmup's launches are marked as warmup")
+        emit("warmup", engine="delta_path's", seconds=t_warm,
+             launches=n_warm,
+             by_kernel=dict(Counter(r["kernel"] for r in warm_recs)),
+             by_family=telemetry.launches_by_family(),
+             note="the JAX engine compiles its shape ladder here; the "
+                  "kernels compile no shapes, so one launch a family and "
+                  "index loads each", device=kind, nvidia_smi=smi)
+
+        # 9d. the traffic, with a writer publishing DELTA_WRITES more
+        # deltas once a quarter of the requests are done
+        window_cap = engine.config.engine.window_cap
+        deltas = [s for k, s in shard_of.items() if "#d" in k[1]]
+        bodies = delta_aimed_bodies(bases[0], deltas, rng,
+                                    args.fused_requests, window_cap, P_DELTA)
+        datasets = [{"id": s.meta["dataset_id"]} for s in bases]
+        jobs = [(datasets, b, None) for b in bodies]
+        rec = ContextEngine(engine)
+        writes = []
+        errors = []
+
+        def writer():
+            try:
+                while rec.done < len(jobs) // 4:
+                    time.sleep(0.005)
+                for i in range(DELTA_WRITES):
+                    s = bases[i % len(bases)]
+                    key = (s.meta["dataset_id"], s.meta["vcf_location"])
+                    d = make_delta(s)
+                    t0 = time.perf_counter()
+                    epoch = engine.add_delta(d)
+                    t1 = time.perf_counter()
+                    shard_of[(key[0], f"{key[1]}#d{epoch}")] = d
+                    published[(key, epoch)] = (t0, t1)
+                    writes.append(t1 - t0)
+                    time.sleep(0.05)
+            except BaseException as e:  # raised below, on the main thread
+                errors.append(e)
+
+        telemetry.reset_launch_counts()
+        w = threading.Thread(target=writer, name="delta-writer")
+        w.start()
+        served, wall = run_ctx_jobs(rec, env, jobs, args.threads)
+        w.join()
+        if errors:
+            raise errors[0]
+        recs = [r for r in telemetry.recent_launches()
+                if not r.get("warmup")]
+        l0_recs = [r for r in recs if r.get("family") == "fused_l0"]
+        l0_launches = len(l0_recs)
+        fused_launches = sum(r.get("family") == "fused" for r in recs)
+        j1 = telemetry.launch_count(sk.KERNEL)
+        host_walked = sum(r[4].cost.delta_shards for r in served)
+        mismatches, n_hit = check_delta_served(base_of, shard_of, published,
+                                               env, jobs, served)
+        check(len(writes) == DELTA_WRITES, "the writer published every delta")
+        check(mismatches == 0, f"{mismatches} delta-path responses differ "
+              "from the host matcher, read-your-writes or the monolith")
+        check(l0_launches > 0, "the delta tail rode bisect_query (fused_l0)")
+        check(fused_launches > 0,
+              "the base shards rode bisect_query on the fused stack")
+        lat = [r[1] for r in served]
+        status = engine.l0_status()
+        cache = engine.cache_stats()
+        emit("delta_path", config="microbatch_wait_ms 2, the response cache "
+             "on (default)", requests=len(jobs), threads=args.threads,
+             datasets=len(bases), hits=n_hit, mismatches=mismatches,
+             delta_shards_before=DELTA_SHARDS * len(bases),
+             delta_rows=list(DELTA_ROWS), writes_during_run=len(writes),
+             add_delta_ms={"p50": percentile(writes, 0.5) * 1e3,
+                           "max": max(writes) * 1e3},
+             aimed_at_deltas=P_DELTA, l0_padded_shards=padded,
+             fused_l0_launches=l0_launches,
+             fused_l0_launches_per_request=l0_launches / len(jobs),
+             fused_l0_queries_per_launch={
+                 "min": min(r["specs"] for r in l0_recs),
+                 "p50": percentile([r["specs"] for r in l0_recs], 0.5),
+                 "max": max(r["specs"] for r in l0_recs)},
+             fused_launches=fused_launches, scatter_match_launches=j1,
+             host_walked_tail_shards=host_walked,
+             cache_outcomes=dict(Counter(r[4].cost.cache for r in served)),
+             l0_rebuilds_per_key={k: v["builds"]
+                                  for k, v in status["keys"].items()},
+             l0_builds=status["builds"], l0_block_reuses=status[
+                 "blockReuses"],
+             cache={k: cache[k] for k in ("hits", "misses",
+                                          "scoped_invalidations")},
+             setup={"add_index_s": t_index, "deltas_s": t_deltas},
+             check="each response vs the host matcher on its shard, the "
+                   "envelope, read-your-writes on the epochs seen, and each "
+                   "dataset vs merge_shards of its base and the deltas "
+                   "seen, inside the bracket",
+             wall_s=wall, requests_per_s=len(jobs) / wall,
+             latency_ms={"p50": percentile(lat, 0.5),
+                         "p99": percentile(lat, 0.99)},
+             stage_ms=engine.stage_timing(), device=kind, nvidia_smi=smi)
+
+        # 9e. the L0 launch at the path's median batch, on its composite,
+        # specs of the path's delta-aimed bodies over random covered
+        # shards: each set against the twin (every output word, the
+        # overflow and match counts too), then timed
+        findex, sid_of = engine._l0_state[0], engine._l0_state[1]
+        record_cap = engine.config.engine.record_cap
+        b = percentile([r["specs"] for r in l0_recs], 0.5)
+        sids = sorted(sid_of.values())
+        specs = [payload_spec(r[2]) for r in served]
+        batches = [([rng.choice(specs) for _ in range(b)],
+                    [rng.choice(sids) for _ in range(b)]) for _ in range(16)]
+        err, rep = compare_bisect(findex, None, None, "delta_path_l0",
+                                  record_cap, batches)
+        emit("kernel_vs_twin", kernel=tk.KERNEL,
+             form="l0 (delta_path's composite and median batch)",
+             tolerance=0, max_abs_err=err, cases=len(rep),
+             all_equal=all(r["equal"] for r in rep),
+             padded_shards=findex.n_shards_padded,
+             padded_rows=findex.n_padded, report=rep)
+        sets = [bisect_inputs(findex, sp, ss) for sp, ss in batches]
+        t = time_l0(findex, sets, record_cap)
+        emit("timing", kernel=tk.KERNEL, form="l0 (fused_l0)",
+             library_ms=None, delta_path_launches=l0_launches,
+             delta_path_kernel_ms=l0_launches * t["ms"],
+             delta_path_busy_share=l0_launches * t["ms"] / (wall * 1e3),
+             **t, bound_share=t["bound_ms"] / t["ms"],
+             library_note="no single PyTorch call computes this function",
+             device=kind, nvidia_smi=smi)
+        return {"launches": l0_launches, "path_max_abs_err": err, **t}
+    finally:
+        engine.close()
+
+
 def time_distinct(keys, device):
     """(kernel ms, warm ms, twin ms, library ms, bound ms, bound_by) of
     one distinct count over the device tensor ``keys``. The kernel ms
@@ -2128,6 +2909,100 @@ class TierFront:
             out = out + self.engine.search(
                 dataclasses.replace(payload, dataset_ids=rest))
         return sorted(out, key=lambda r: (r.dataset_id, r.vcf_location))
+
+
+def run_tier_delta_leg(engine, tier, bases, env, args, kind, smi):
+    """Phase 25a: the pod tier's delta leg. ``l0_min_shards`` deltas are
+    published to each of ``bases`` behind a tier whose stack holds
+    their base rows (the base fingerprint does not move, so the stack
+    stays current); a burst of the fused mix, most of it aimed at the
+    delta rows, is served through the tier: its base rows ride
+    mesh_fused, its tail the engine's L0 index (bisect_query,
+    ``fused_l0``). Every response is held against the host matcher on
+    the shard its label names, and every request must answer every
+    shard, base and delta, that holds its chromosome. The tier refuses
+    some shapes (planes, too few shards); those take the engine's own
+    paths, and each is counted."""
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.parallel import mesh as tm
+    from sbeacon_tpu_torch.testing import synthetic_shard
+
+    rng = random.Random(args.seed + 27)
+    shard_of = {(s.meta["dataset_id"], s.meta["vcf_location"]): s
+                for s in bases}
+    deltas = []
+    for _j in range(engine.config.engine.l0_min_shards):
+        for s in bases:
+            d = synthetic_shard(rng.randint(*DELTA_ROWS),
+                                seed=args.seed + 3000 + len(deltas),
+                                dataset_id=s.meta["dataset_id"])
+            epoch = engine.add_delta(d)
+            shard_of[(s.meta["dataset_id"],
+                      f"{s.meta['vcf_location']}#d{epoch}")] = d
+            deltas.append(d)
+    status = engine.l0_status()
+    check(status["built"] and status["shards"] == len(deltas),
+          "mesh_fused_path: every delta rides the L0 index")
+    bodies = delta_aimed_bodies(bases[0], deltas, rng, TIER_DELTA_REQUESTS,
+                                2048, p_delta=0.6)
+    datasets = [{"id": s.meta["dataset_id"]} for s in bases]
+    jobs = [(datasets, b, None) for b in bodies]
+    st0 = tier.stats()
+    telemetry.reset_launch_counts()
+    served, wall = run_ctx_jobs(ContextEngine(TierFront(engine, tier)), env,
+                                jobs, args.threads)
+    fams = telemetry.launches_by_family()
+    n_mesh = telemetry.launch_count(tm.FUSED_KERNEL)
+    st = tier.stats()
+    dispatches = st["dispatches"] - st0["dispatches"]
+    refusals = {k: v - st0["refusals"].get(k, 0)
+                for k, v in st["refusals"].items()
+                if v != st0["refusals"].get(k, 0)}
+    # tail shards the tier answered: on its L0 launch, and in all
+    tail_l0 = sum(r[4].notes.get("mesh_tail_l0", 0) for r in served)
+    tail = sum(r[4].notes.get("mesh_delta_tail", 0) for r in served)
+    mismatches = hits = 0
+    for (_d, body, _s), rec in zip(jobs, served):
+        doc, _ms, payload, responses = rec[:4]
+        want_resps, want_doc = delta_expected(shard_of, env, body, payload,
+                                              responses)
+        labels = {(r.dataset_id, r.vcf_location) for r in responses}
+        want_labels = {k for k, sh in shard_of.items()
+                       if payload.reference_name
+                       in sh.meta.get("chrom_native", {})}
+        ok = (labels == want_labels and len(labels) == len(responses)
+              and [dataclasses.asdict(r) for r in responses]
+              == [dataclasses.asdict(r) for r in want_resps]
+              and json.dumps(doc, sort_keys=True)
+              == json.dumps(want_doc, sort_keys=True))
+        mismatches += not ok
+        hits += any(r.exists for r in want_resps)
+    check(mismatches == 0, f"{mismatches} responses of the tier's delta leg "
+          "differ from the host matcher or miss a shard")
+    check(dispatches + sum(refusals.values()) == len(jobs),
+          "every request of the delta leg was served by the tier or "
+          "refused with a counted reason")
+    check(n_mesh > 0 and tail_l0 > 0 and fams.get("fused_l0", 0) > 0,
+          "the tier's delta leg launched mesh_fused for the base rows and "
+          "bisect_query (fused_l0) for the tail")
+    lat = [r[1] for r in served]
+    emit("mesh_fused_delta_leg", engine="mesh_fused_path's",
+         response_cache=engine.config.engine.response_cache,
+         requests=len(jobs), threads=args.threads, hits=hits,
+         mismatches=mismatches, deltas_published=len(deltas),
+         delta_rows=list(DELTA_ROWS), aimed_at_deltas=0.6,
+         tier_dispatches=dispatches, tier_refusals=refusals,
+         tier_tail_shards=tail, tier_tail_shards_on_l0=tail_l0,
+         mesh_fused_launches=n_mesh,
+         launches_by_family=fams,
+         l0_padded_shards=engine._l0_state[0].n_shards_padded,
+         check="each response vs the host matcher on the shard its label "
+               "names, the envelope, and every base and delta shard that "
+               "holds the chromosome answered",
+         wall_s=wall, requests_per_s=len(jobs) / wall,
+         latency_ms={"p50": percentile(lat, 0.5),
+                     "p99": percentile(lat, 0.99)},
+         device=kind, nvidia_smi=smi)
 
 
 def fused_entry_inputs(mfi, specs, sids, layout, masks=None, counts=None):
@@ -2513,7 +3388,7 @@ def run(args, device) -> int:
     # defaults (window_cap 2048, record_cap 1024, micro-batcher on, fused
     # dispatch on), the leader holding a batch open 2 ms for followers
     engine = VariantEngine(
-        BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+        BeaconConfig(engine=EngineConfig(**SERVING_PHASE_CONFIG)),
         device=device,
     )
     engine.add_index(shard)
@@ -2574,7 +3449,9 @@ def run(args, device) -> int:
         # the phase's query mix, for the device time probe of phase 18
         main_specs = [payload_spec(p) for _d, _ms, p, _r in served]
         window_cap = engine.config.engine.window_cap
-        emit("main_path", requests=len(bodies), threads=args.threads,
+        emit("main_path",
+             response_cache=engine.config.engine.response_cache,
+             requests=len(bodies), threads=args.threads,
              hits=n_hit, mismatches=mismatches,
              scatter_match_launches=launches,
              launches_per_request=launches / len(bodies),
@@ -2588,6 +3465,10 @@ def run(args, device) -> int:
              latency_ms={"p50": percentile(lat, 0.5),
                          "p99": percentile(lat, 0.99)},
              stage_ms=stages, device=kind, nvidia_smi=smi)
+
+        # 4a. what the serving hooks cost a request (host clock), on the
+        # main path's first 128 payloads served one at a time
+        hooks_cost(engine, [p for _d, _ms, p, _r in served][:128], kind, smi)
 
         # 5. scatter_match timing at the 2e7-row shape, every tier: a full
         # batch (NSLOTS slots), and the main path's own launch shape (its
@@ -2626,6 +3507,16 @@ def run(args, device) -> int:
              main_path_busy_share=busy_ms / (wall * 1e3),
              library_note="no single PyTorch call computes this function",
              tiers=timings, device=kind, nvidia_smi=smi)
+
+        # 5a. cache_path: the main shard behind an engine of the JAX
+        # default config (the response cache on), CACHE_BODIES bodies of
+        # the main mix each sent CACHE_REPEATS times, shuffled, on many
+        # threads; then one delta of about DELTA_REGION_ROWS rows over one
+        # bracketed region and the bodies once more. The cache-off engine
+        # above is the uncached answer (the delta published there too),
+        # held against the host matcher
+        cache_launches = run_cache_path(engine, shard, env, args, device,
+                                        kind, smi)
     finally:
         engine.close()
 
@@ -2641,7 +3532,7 @@ def run(args, device) -> int:
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
     engine = VariantEngine(
-        BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+        BeaconConfig(engine=EngineConfig(**SERVING_PHASE_CONFIG)),
         device=device,
     )
     try:
@@ -2720,7 +3611,9 @@ def run(args, device) -> int:
               "bisect_query launches below the request count (requests "
               "for different datasets coalesced)")
         check(fused_searches > 0, "requests rode the fused stack")
-        emit("fused_path", requests=len(bodies), threads=args.threads,
+        emit("fused_path",
+             response_cache=engine.config.engine.response_cache,
+             requests=len(bodies), threads=args.threads,
              datasets=len(served_shards), hits=n_hit, mismatches=mismatches,
              bisect_query_launches=bisect_launches,
              scatter_match_launches=scatter_in_fused,
@@ -2767,11 +3660,21 @@ def run(args, device) -> int:
     finally:
         engine.close()
 
+    # 9a. bisect_query vs its twin on L0 composites (the delta tail's
+    # index: segment tables of 16-512 padded shards, read from global
+    # memory), 9c-9e. warmup, the delta path and the L0 launch's timing
+    l0_err, rep_l0 = compare_l0(device)
+    emit("kernel_vs_twin", kernel=tk.KERNEL, form="l0", tolerance=0,
+         max_abs_err=l0_err, cases=len(rep_l0),
+         all_equal=all(r["equal"] for r in rep_l0), report=rep_l0)
+    del engine, findex, served_shards
+    torch.cuda.empty_cache()
+    l0 = run_delta_path([shard] + cohorts, env, args, device, kind, smi)
+    l0["max_abs_err"] = max(l0_err, l0["path_max_abs_err"])
+
     # 10. datasets A (the main shard with a 2504-sample gt plane) and B
     # (all four planes, genotype-derived counts) behind an engine with
     # device planes on (the default), and the fused stack of both
-    del engine, findex, served_shards
-    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     shard_a = attach_planes(shard, args.samples, args.seed + 20, device,
                             counts=False, dataset_id="g1kA")
@@ -2782,7 +3685,7 @@ def run(args, device) -> int:
         dataset_id="cohortB")
     t_gen = time.perf_counter() - t0
     engine = VariantEngine(
-        BeaconConfig(engine=EngineConfig(microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+        BeaconConfig(engine=EngineConfig(**SERVING_PHASE_CONFIG)),
         device=device,
     )
     try:
@@ -2901,7 +3804,9 @@ def run(args, device) -> int:
         check(all(p is not None for _d, _v, (_s, _i, p)
                   in engine.indexes_for([])), "the planes stayed on the card")
         n = len(jobs)
-        emit("selected_path", requests=n, threads=args.threads, hits=n_hit,
+        emit("selected_path",
+             response_cache=engine.config.engine.response_cache,
+             requests=n, threads=args.threads, hits=n_hit,
              mismatches=mismatches,
              classes={c: classes.count(c) for c in sorted(set(classes))},
              selected_requests=sum(s is not None for _d, _b, s in jobs),
@@ -2994,6 +3899,7 @@ def run(args, device) -> int:
     plan = dc.bucket_plan(
         keys.shape[0], torch.cuda.get_device_properties(device)
         .multi_processor_count)
+    value_keys_n = int(keys.shape[0])
     emit("distinct_setup", shards={s.meta["dataset_id"]: s.n_rows
                                    for s in all_shards},
          keys=int(keys.shape[0]), key_bytes=keys.numel() * 4,
@@ -3034,6 +3940,41 @@ def run(args, device) -> int:
                     "h2d_s": rec["upload_ms"] / 1e3,
                     "launch_to_result_ms": rec["count_ms"]},
          device=kind, nvidia_smi=smi)
+
+    # 17a. the same count over the two-entry mesh [card, card]: one
+    # partition_keys block and one launch per entry, summed on the
+    # first; shard_keys timed beside the earlier per-shard key build
+    # (equal bytes)
+    t0 = time.perf_counter()
+    legacy = legacy_shard_keys(all_shards)
+    t_legacy = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fresh = dc.shard_keys(all_shards)
+    t_fresh = time.perf_counter() - t0
+    check(legacy.tobytes() == fresh.tobytes(),
+          "shard_keys gives the bytes of the earlier key build")
+    del legacy, fresh
+    dmesh = tm.make_mesh(devices=[device, device])
+    telemetry.reset_launch_counts()
+    t0 = time.perf_counter()
+    dmesh_value = dc.distinct_count_device(all_shards, mesh=dmesh)
+    dmesh_s = time.perf_counter() - t0
+    dmesh_launches = telemetry.launch_count(dc.KERNEL)
+    mrec = [r for r in telemetry.recent_launches() if r["kernel"] == dc.KERNEL]
+    check(dmesh_launches == 2, "one distinct_count launch per mesh entry")
+    check(dmesh_value == host,
+          f"mesh count {dmesh_value} != host oracle {host}")
+    emit("distinct_path", mesh=[str(d) for d in dmesh.devices],
+         keys=value_keys_n, value=dmesh_value, parity=dmesh_value == host,
+         device_s=dmesh_s, distinct_count_launches=dmesh_launches,
+         block_rows=[r["rows"] for r in mrec],
+         breakdown={"shard_keys_s": mrec[0]["keys_ms"] / 1e3,
+                    "partition_and_h2d_s": mrec[0]["upload_ms"] / 1e3,
+                    "launch_to_result_ms": mrec[0]["count_ms"]},
+         shard_keys_s={"this": t_fresh, "prs_4_11": t_legacy},
+         device=kind, nvidia_smi=smi)
+    distinct_mesh = {"entries": dmesh.size, "launches": dmesh_launches,
+                     "device_s": dmesh_s, "value": dmesh_value}
 
     # 18. timing: distinct_count at the full key set (cold, warm, twin,
     # torch.unique), then the device time probes (J9) on the main-path
@@ -3252,8 +4193,7 @@ def run(args, device) -> int:
     tm.mesh_devices = lambda dev: [torch.device(dev)] * 2
     try:
         engine = VariantEngine(
-            BeaconConfig(engine=EngineConfig(
-                microbatch_wait_ms=MICROBATCH_WAIT_MS)),
+            BeaconConfig(engine=EngineConfig(**SERVING_PHASE_CONFIG)),
             device=device,
         )
         try:
@@ -3284,7 +4224,9 @@ def run(args, device) -> int:
                   "from the host matcher")
             check(mq_searches > 0 and mq_counts[tm.QUERY_KERNEL] > 0,
                   "the mesh path launched stacked_query")
-            emit("mesh_path", requests=len(bodies), threads=args.threads,
+            emit("mesh_path",
+                 response_cache=engine.config.engine.response_cache,
+                 requests=len(bodies), threads=args.threads,
                  datasets=len(mesh_shards), mesh=[str(d) for d in
                                                   mesh_q.devices],
                  hits=n_hit, mismatches=mismatches, launches=mq_counts,
@@ -3307,7 +4249,7 @@ def run(args, device) -> int:
         # the stack takes twice its per-device bytes there)
         engine = VariantEngine(
             BeaconConfig(engine=EngineConfig(
-                microbatch_wait_ms=MICROBATCH_WAIT_MS,
+                **SERVING_PHASE_CONFIG,
                 plane_hbm_budget_gb=MESH_PLANE_BUDGET_GB)),
             device=device,
         )
@@ -3340,7 +4282,9 @@ def run(args, device) -> int:
             check(ms_selected > 0 and ms_counts[tm.SELECTED_KERNEL] > 0,
                   "the selected mix launched stacked_selected")
             n = len(jobs)
-            emit("mesh_selected_path", requests=n, threads=args.threads,
+            emit("mesh_selected_path",
+                 response_cache=engine.config.engine.response_cache,
+                 requests=n, threads=args.threads,
                  hits=n_hit, mismatches=mismatches,
                  classes={c: classes.count(c) for c in sorted(set(classes))},
                  launches=ms_counts,
@@ -3596,8 +4540,8 @@ def run(args, device) -> int:
              args.selected_requests, 2048)[0]),
     ):
         engine = VariantEngine(
-            BeaconConfig(engine=EngineConfig(
-                microbatch_wait_ms=MICROBATCH_WAIT_MS, **over)),
+            BeaconConfig(engine=EngineConfig(**SERVING_PHASE_CONFIG,
+                                             **over)),
             device=device,
         )
         tier = MeshDispatchTier(engine, devices=fdevs, layout=layout)
@@ -3638,7 +4582,9 @@ def run(args, device) -> int:
             check(layout == tm.LAYOUT_OWNER or counts25[tg.KERNEL] > 0,
                   f"{name}: the combined layout launched ring_gather")
             n = len(jobs)
-            emit(name, requests=n, threads=args.threads, hits=n_hit,
+            emit(name,
+                 response_cache=engine.config.engine.response_cache,
+                 requests=n, threads=args.threads, hits=n_hit,
                  mismatches=mismatches, mesh=[str(d) for d in fdevs],
                  layout=layout, tier=st,
                  launches=counts25,
@@ -3661,6 +4607,10 @@ def run(args, device) -> int:
                 order=[s_.meta["dataset_id"] for s_ in served_shards],
                 shards={s_.meta["dataset_id"]: s_ for s_ in served_shards})
             tier_index[name] = tier._state[0]
+            if layout == tm.LAYOUT_OWNER:
+                # 25a. the tier's delta leg, after the path's own traffic
+                run_tier_delta_leg(engine, tier, served_shards, env, args,
+                                   kind, smi)
         finally:
             tier.close()
             engine.close()
@@ -3802,6 +4752,9 @@ def run(args, device) -> int:
         "bound_by": mid["bound_by"],
         "library_ms": None,
         "batch": {"queries": mid["queries"], "kind": mid["kind"]},
+        "l0": {k: l0[k] for k in (
+            "launches", "max_abs_err", "ms", "warm_ms", "plain_ms",
+            "bound_ms", "bound_by", "queries", "window", "padded_shards")},
     }, {
         "name": sk.SELECTED_KERNEL,
         "route": "cuda",
@@ -3842,6 +4795,7 @@ def run(args, device) -> int:
         "bound_by": dby,
         "library_ms": dlib,
         "case": {"keys": value_keys},
+        "mesh": distinct_mesh,
     }, {
         "name": tm.QUERY_KERNEL,
         "route": "cuda",

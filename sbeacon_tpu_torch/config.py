@@ -4,10 +4,9 @@ Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
 ``/g_variants`` path reads. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
 multi-dataset dispatch on up to 64e6 stacked rows, device genotype
-planes on under an 11 GB budget, the dataset-sharded mesh leg on),
-except for the response cache, which this package has not ported yet:
-``response_cache`` defaults to off here, and ``VariantEngine`` raises
-``NotImplementedError`` when a caller turns it on.
+planes on under an 11 GB budget, the dataset-sharded mesh leg on, the
+response cache on with scoped invalidation, the L0 delta-tail index
+past 4 shards or 4096 rows).
 """
 
 from __future__ import annotations
@@ -57,6 +56,18 @@ class EngineConfig:
       mesh_slice / mesh_owner_outputs are the tier's ``layout`` argument
       here, and the tier stacks the planes whenever every shard has
       them and they fit (no mesh_planes switch).
+    response_cache*: the LRU in front of ``VariantEngine.search`` keyed on
+      (per-dataset base fingerprint, normalized query, response
+      shaping); negative results cache too. size <= 0 or
+      ``response_cache`` off disables it; ttl_s 0 means no expiry.
+    scoped_invalidation: a publish evicts only the cached entries whose
+      dataset set AND coordinate bracket overlap the new rows; off
+      restores the wholesale clear on every publish.
+    l0_min_shards / l0_min_rows: past EITHER threshold (a key's standing
+      delta tail in shards, or its total tail rows) the tail stacks
+      into the L0 index (``ops.kernel.L0DeviceIndex``), served by ONE
+      bisection-query launch across keys; 0 disables that trigger, both
+      0 disable the L0 tier (every tail shard is matched on the host).
     """
 
     window_cap: int = 2048
@@ -71,8 +82,12 @@ class EngineConfig:
     plane_hbm_budget_gb: float = 11.0
     use_mesh: bool = True
     mesh_min_shards: int = 2
-    # not ported yet: VariantEngine refuses it when on
-    response_cache: bool = False
+    response_cache: bool = True
+    response_cache_size: int = 4096
+    response_cache_ttl_s: float = 300.0
+    scoped_invalidation: bool = True
+    l0_min_shards: int = 4
+    l0_min_rows: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,6 +3,7 @@ from .columnar import (
     VariantIndexShard,
     build_index,
     fnv1a32,
+    merge_shards,
     shard_from_reference,
     stack_shard_columns,
 )
@@ -12,6 +13,7 @@ __all__ = [
     "VariantIndexShard",
     "build_index",
     "fnv1a32",
+    "merge_shards",
     "shard_from_reference",
     "stack_shard_columns",
 ]

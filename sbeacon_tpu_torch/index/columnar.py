@@ -2,8 +2,9 @@
 
 Counterpart of ``sbeacon_tpu/index/columnar.py``, trimmed to what the
 query path reads: ``FLAG``, the allele hashes and prefixes,
-``VariantIndexShard``, ``build_index`` and ``stack_shard_columns`` (the
-fused multi-dataset stack). Rows are sorted by
+``VariantIndexShard``, ``build_index``, ``stack_shard_columns`` (the
+fused multi-dataset stack) and ``merge_shards`` (the fold of a delta
+tail into its base). Rows are sorted by
 (chrom_code, pos); every variable-length predicate of the matcher is
 pre-computed into fixed-width columns (allele hash + length, symbolic
 flag bits, ``ref_repeat_k``, AC per alt, AN per record), and host-only
@@ -14,8 +15,8 @@ with the same numpy fields, e.g. the JAX package's shard) into this
 package's ``VariantIndexShard`` without importing its module, so both
 packages can be fed one index.
 
-The native genotype-plane builder, the native text build, save/load
-and merge belong to the ingest slice and are not ported.
+The native genotype-plane builder, the native text build and
+save/load belong to the ingest slice and are not ported.
 """
 
 from __future__ import annotations
@@ -419,6 +420,184 @@ def stack_shard_columns(
         ]
     ).astype(np.int32)
     return cols, chrom_offsets, base
+
+
+def merge_shards(shards: list[VariantIndexShard]) -> VariantIndexShard:
+    """Merge per-VCF shards into one globally sorted shard (vectorised).
+
+    Counterpart of the JAX package's ``merge_shards``, line for line:
+    rows ordered by (chromosome code, pos), then shard, then original
+    row, so each record's alt rows stay adjacent; records renumbered;
+    variant-type vocabularies unioned; genotype planes (and their
+    overflow side tables) kept when every shard has them over the same
+    sample universe, else dropped. The fold of a delta tail into its
+    base (``VariantEngine.add_index`` with ``meta['delta_epoch']``)
+    and the tests' monolith oracles use it.
+    """
+    if len(shards) == 1:
+        return shards[0]
+
+    # per-shard chrom codes, concatenated
+    codes_parts, shard_ord_parts = [], []
+    for s_ord, s in enumerate(shards):
+        codes_parts.append(
+            (
+                np.searchsorted(
+                    s.chrom_offsets, np.arange(s.n_rows), side="right"
+                )
+                - 1
+            ).astype(np.int32)
+        )
+        shard_ord_parts.append(np.full(s.n_rows, s_ord, dtype=np.int32))
+    codes_all = np.concatenate(codes_parts)
+    shard_all = np.concatenate(shard_ord_parts)
+    pos_all = np.concatenate([s.cols["pos"] for s in shards])
+    row_all = np.concatenate(
+        [np.arange(s.n_rows, dtype=np.int64) for s in shards]
+    )
+    # stable order by (code, pos), shard then original row as tiebreakers —
+    # keeps each record's alt rows adjacent (lexsort: last key is primary)
+    order = np.lexsort((row_all, shard_all, pos_all, codes_all))
+
+    n = len(order)
+    out_cols = {}
+    for name in DEVICE_COLUMNS:
+        out_cols[name] = np.concatenate([s.cols[name] for s in shards])[order]
+    out_prefix = np.concatenate([s.cols["alt_prefix"] for s in shards])[order]
+
+    # rec_id renumber: records stay contiguous after the stable sort, so a
+    # change-flag cumsum yields nondecreasing ids
+    old_rec = np.concatenate([s.cols["rec_id"] for s in shards])[order]
+    old_shard = shard_all[order]
+    if n:
+        change = np.ones(n, dtype=np.int64)
+        change[1:] = (old_rec[1:] != old_rec[:-1]) | (
+            old_shard[1:] != old_shard[:-1]
+        )
+        out_cols["rec_id"] = (np.cumsum(change) - 1).astype(np.int32)
+        n_records = int(change.sum())
+    else:
+        n_records = 0
+
+    # vt vocab union + per-shard remap
+    vt_vocab: list[str] = ["N/A"]
+    vt_idx = {"N/A": 0}
+    vt_parts = []
+    for s in shards:
+        lut = np.zeros(len(s.meta["vt_vocab"]), dtype=np.int16)
+        for j, vt in enumerate(s.meta["vt_vocab"]):
+            if vt not in vt_idx:
+                vt_idx[vt] = len(vt_vocab)
+                vt_vocab.append(vt)
+            lut[j] = vt_idx[vt]
+        vt_parts.append(lut[s.vt_codes])
+    vt_codes = np.concatenate(vt_parts)[order]
+
+    same_samples = all(
+        s.meta["sample_names"] == shards[0].meta["sample_names"] for s in shards
+    )
+    planes: dict[str, np.ndarray | None] = {}
+    for plane in ("gt_bits", "gt_bits2", "tok_bits1", "tok_bits2"):
+        planes[plane] = None
+        if same_samples and all(
+            getattr(s, plane) is not None for s in shards
+        ):
+            planes[plane] = np.concatenate(
+                [getattr(s, plane) for s in shards]
+            )[order]
+    # overflow side-tables: remap old per-shard rows to merged positions
+    inv_order = np.empty(n, dtype=np.int64)
+    inv_order[order] = np.arange(n)
+    row_base = np.cumsum([0] + [s.n_rows for s in shards[:-1]])
+    for plane in ("gt_overflow", "tok_overflow"):
+        planes[plane] = None
+        if same_samples and all(
+            getattr(s, plane) is not None for s in shards
+        ):
+            parts = []
+            for base, s in zip(row_base, shards):
+                arr = getattr(s, plane)
+                if len(arr):
+                    remapped = arr.copy()
+                    remapped[:, 0] = inv_order[arr[:, 0] + base]
+                    parts.append(remapped)
+            planes[plane] = (
+                np.concatenate(parts)
+                if parts
+                else np.zeros((0, 3), dtype=np.int64)
+            )
+
+    # blobs: offset each shard's row ids into the concatenated blob space
+    ref_blob_cat = np.concatenate([s.ref_blob for s in shards])
+    alt_blob_cat = np.concatenate([s.alt_blob for s in shards])
+
+    def _cat_offsets(get_off):
+        parts = []
+        base = 0
+        for s in shards:
+            off = get_off(s).astype(np.int64)
+            parts.append(off[:-1] + base)
+            base += int(off[-1])
+        ends = []
+        base = 0
+        for s in shards:
+            off = get_off(s).astype(np.int64)
+            ends.append(off[1:] + base)
+            base += int(off[-1])
+        return np.concatenate(parts), np.concatenate(ends)
+
+    ref_starts, ref_ends = _cat_offsets(lambda s: s.ref_off)
+    alt_starts, alt_ends = _cat_offsets(lambda s: s.alt_off)
+
+    def _regather(blob, starts, ends, order):
+        off2 = np.zeros(n + 1, dtype=np.int64)
+        lens = (ends - starts)[order]
+        np.cumsum(lens, out=off2[1:])
+        total = int(off2[-1])
+        idx = np.repeat(starts[order] - off2[:-1], lens) + np.arange(
+            total, dtype=np.int64
+        )
+        return blob[idx] if total else np.zeros(0, np.uint8), off2.astype(
+            np.uint32
+        )
+
+    ref_blob, ref_off = _regather(ref_blob_cat, ref_starts, ref_ends, order)
+    alt_blob, alt_off = _regather(alt_blob_cat, alt_starts, alt_ends, order)
+
+    chrom_offsets = np.zeros(N_CHROM_CODES + 1, dtype=np.int32)
+    sorted_codes = codes_all[order]
+    for c in range(N_CHROM_CODES + 1):
+        chrom_offsets[c] = np.searchsorted(sorted_codes, c, side="left")
+
+    chrom_native: dict[str, str] = {}
+    for s in shards:
+        for canon, native in s.meta.get("chrom_native", {}).items():
+            chrom_native.setdefault(canon, native)
+
+    meta = dict(shards[0].meta)
+    meta.update(
+        n_rows=n,
+        n_records=n_records,
+        vt_vocab=vt_vocab,
+        variant_count=n,
+        call_count=int(sum(s.meta["call_count"] for s in shards)),
+        dropped_records=int(
+            sum(s.meta.get("dropped_records", 0) for s in shards)
+        ),
+        chrom_native=chrom_native,
+        merged_from=[s.meta.get("vcf_location", "") for s in shards],
+    )
+    return VariantIndexShard(
+        meta=meta,
+        cols={**out_cols, "alt_prefix": out_prefix},
+        chrom_offsets=chrom_offsets,
+        ref_blob=ref_blob,
+        ref_off=ref_off,
+        alt_blob=alt_blob,
+        alt_off=alt_off,
+        vt_codes=vt_codes,
+        **planes,
+    )
 
 
 def _fill_gt_planes(

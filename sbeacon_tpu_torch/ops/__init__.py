@@ -3,7 +3,8 @@
 Counterpart of ``sbeacon_tpu/ops/__init__.py``. A single shard's serving
 index is a ``ScatterDeviceIndex`` (the scatter match kernel); the fused
 stack of all warm shards is a ``FusedDeviceIndex`` (the bisection query
-kernel), and so is its k=1 form ``DeviceIndex``. Every index lives on
+kernel), and so are its k=1 form ``DeviceIndex`` and the delta tail's
+``L0DeviceIndex`` / ``CompositeL0DeviceIndex``. Every index lives on
 an explicit device; the entry points run on the GPU unless the caller
 asks for the CPU.
 """
@@ -13,13 +14,16 @@ from __future__ import annotations
 import torch
 
 from .kernel import (
+    CompositeL0DeviceIndex,
     DeviceIndex,
     FusedDeviceIndex,
+    L0DeviceIndex,
     QueryResults,
     QuerySpec,
     encode_queries,
     run_queries,
 )
+from .kernel import _BisectIndex
 from .scatter_kernel import ScatterDeviceIndex, run_queries_scattered
 
 
@@ -51,7 +55,8 @@ def run_queries_auto(
 ) -> QueryResults:
     """Run a query batch on the index's kernel and read the results
     back — one call site for the engine and the micro-batcher: the
-    bisection kernel for a ``FusedDeviceIndex`` / ``DeviceIndex``, the
+    bisection kernel for a ``FusedDeviceIndex`` / ``DeviceIndex`` / L0
+    index, the
     scatter match kernel for a ``ScatterDeviceIndex``, and the
     owner-sliced fused query for a mesh-sharded fused index
     (``parallel.mesh.MeshFusedIndex``, duck-typed on its
@@ -70,7 +75,7 @@ def run_queries_auto(
         )
     if sample_masks is not None:
         raise ValueError("sample_masks only ride the mesh plane program")
-    if isinstance(index, (FusedDeviceIndex, DeviceIndex)):
+    if isinstance(index, _BisectIndex):
         return run_queries(
             index, queries, window_cap=window_cap, record_cap=record_cap
         )
@@ -82,8 +87,10 @@ def run_queries_auto(
 
 
 __all__ = [
+    "CompositeL0DeviceIndex",
     "DeviceIndex",
     "FusedDeviceIndex",
+    "L0DeviceIndex",
     "QueryResults",
     "QuerySpec",
     "ScatterDeviceIndex",

@@ -4,11 +4,13 @@ Counterpart of ``sbeacon_tpu/ops/kernel.py``: ``QuerySpec``,
 ``encode_queries``, the ``MODE_*`` / ``VT_*`` codes, ``_PAD_FILLS``,
 ``QueryResults``, the padding helpers (``pad_columns``,
 ``pad_shard_columns``, ``padded_rows``, ``window_hint_for``,
-``bisect_iters``), ``DeviceIndex``,
-``FusedDeviceIndex`` and ``run_queries``. The XLA program ``_bisect`` /
-``_query_one`` / ``_query_batch`` is replaced by the hand-written CUDA
-kernel ``csrc/bisect_query.cu``; it answers every multi-dataset query
-against the fused stack of all warm shards in one launch.
+``bisect_iters``), ``DeviceIndex``, ``FusedDeviceIndex``, the delta
+tail's ``L0DeviceIndex`` and ``CompositeL0DeviceIndex``, and
+``run_queries``. The XLA program ``_bisect`` / ``_query_one`` /
+``_query_batch`` is replaced by the hand-written CUDA kernel
+``csrc/bisect_query.cu``; it answers every multi-dataset query against
+the fused stack of all warm shards in one launch, and every delta-tail
+target the L0 index covers in one launch across keys.
 
 ``bisect_query`` is the kernel's wrapper: on a CUDA tensor it launches
 the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
@@ -22,9 +24,8 @@ The index columns live on an explicit device as int32 tensors: the 11
 ``DEVICE_COLUMNS`` stacked into one ``[11, n_pad]`` tensor and
 ``alt_prefix`` as an ``[n_pad, 4]`` int32 bit pattern (torch has little
 uint32 support; XOR, AND and ``== 0`` are the same on the bit pattern).
-The JAX package's L0 delta-tail indexes (``L0DeviceIndex``,
-``CompositeL0DeviceIndex``) ride the same kernel there and are not
-ported yet.
+Each launch record names its index's ``flight_family``: ``fused`` for
+the fused stack, ``fused_l0`` for the L0 indexes.
 """
 
 from __future__ import annotations
@@ -271,6 +272,10 @@ class _BisectIndex:
     package's index does (views, no copies)."""
 
     PAD_UNIT = 8192
+    #: launch-record family (the JAX flight recorder's program family)
+    flight_family = "fused"
+    #: the batch carries per-query shard ids (a stacked index)
+    stacked = False
 
     def _place(self, cols, chrom_offsets, n, n_pad, device):
         self.device = torch.device(device)
@@ -338,6 +343,8 @@ class FusedDeviceIndex(_BisectIndex):
     single-dataset traffic).
     """
 
+    stacked = True
+
     def __init__(
         self,
         shards: list[VariantIndexShard],
@@ -350,6 +357,128 @@ class FusedDeviceIndex(_BisectIndex):
         self.n_shards = len(shards)
         self.shard_base = base  # int64[k+1]
         self._place(cols, chrom_offsets, n, n_pad, device)
+
+    def to_local_rows(self, rows: np.ndarray, sid: int) -> np.ndarray:
+        """Stacked row ids (already -1-filtered) -> shard-local ids."""
+        return rows.astype(np.int64) - int(self.shard_base[sid])
+
+
+class L0DeviceIndex(FusedDeviceIndex):
+    """The delta-tail index (the LSM ``memtable -> L0`` tier), stacked
+    over one key's standing delta shards.
+
+    :class:`FusedDeviceIndex`'s layout, with the ``[k, 27]`` segment
+    table padded up to a shard-count tier of ``SHARD_TIERS`` with
+    all-zero rows (every segment empty, so a pad shard can never match)
+    and ``window_hint`` the least power of two from 256 up that holds the
+    widest tail shard: a tail shard's candidate range never exceeds its
+    row count. JAX pads so that successive tail builds reuse one
+    compiled program; the kernel compiles no shapes, and the pad is kept
+    so that the segment tables (``chrom_offsets_host``) and the shard
+    ids equal the JAX package's. Launches report the ``fused_l0``
+    family."""
+
+    flight_family = "fused_l0"
+
+    #: pad-to tiers for the segment table's shard axis
+    SHARD_TIERS = (8, 16, 32, 64, 128, 256, 512)
+
+    def __init__(
+        self,
+        shards: list[VariantIndexShard],
+        device,
+        pad_unit: int | None = None,
+    ):
+        cols, chrom_offsets, base = stack_shard_columns(shards)
+        n = int(base[-1])
+        n_pad = padded_rows(n, pad_unit or self.PAD_UNIT)
+        k = len(shards)
+        k_pad = next((t for t in self.SHARD_TIERS if k <= t), k)
+        co = np.asarray(chrom_offsets, dtype=np.int32)
+        if k_pad != k:
+            co = np.concatenate(
+                [co, np.zeros((k_pad - k, co.shape[1]), np.int32)]
+            )
+        self.n_shards = k
+        self.n_shards_padded = k_pad
+        self.shard_base = base  # int64[k+1]
+        self._place(cols, co, n, n_pad, device)
+        #: host copy of the padded segment table: the composite shifts
+        #: and restacks it without reading the device
+        self.chrom_offsets_host = co
+        widest = max((s.n_rows for s in shards), default=1)
+        hint = 256
+        while hint < widest:
+            hint *= 2
+        self.window_hint = hint
+
+
+class CompositeL0DeviceIndex(_BisectIndex):
+    """Per-key L0 blocks assembled into ONE serving index.
+
+    Each covered (dataset, vcf) key keeps a standing
+    :class:`L0DeviceIndex` block, so a delta publish to key A restacks
+    only key A's block; this class joins the blocks for the single
+    launch: their device columns concatenate on the device (no host
+    restack of untouched keys), each block's padded segment table
+    shifts by the block's row offset and stacks along the shard axis (a
+    pad shard's all-zero row shifts to ``[off, off)``: still empty), and
+    composite shard ids index the stacked table. ``block_sid_offsets``
+    gives each block's first composite shard id; ``to_local_rows`` maps
+    stacked rows back as the fused index does. ``window_hint`` is the
+    widest block's."""
+
+    flight_family = "fused_l0"
+    stacked = True
+
+    def __init__(self, blocks: list[L0DeviceIndex]):
+        if not blocks:
+            raise ValueError("CompositeL0DeviceIndex needs >= 1 block")
+        dev = blocks[0].device
+        co_parts: list[np.ndarray] = []
+        base_parts: list[np.ndarray] = []
+        #: composite sid of each block's shard 0 (block order preserved)
+        self.block_sid_offsets: list[int] = []
+        row_off = 0
+        sid_off = 0
+        for b in blocks:
+            if b.device != dev:
+                raise ValueError("L0 blocks on different devices")
+            self.block_sid_offsets.append(sid_off)
+            co = b.chrom_offsets_host
+            co_parts.append((co.astype(np.int64) + row_off).astype(np.int32))
+            sb = np.asarray(b.shard_base, dtype=np.int64)
+            # pad shards (sid past the block's real count) clamp to the
+            # block's end base: never routed, but index-aligned with the
+            # stacked table
+            clamp = np.minimum(np.arange(b.n_shards_padded), b.n_shards)
+            base_parts.append(sb[clamp] + row_off)
+            row_off += b.n_padded
+            sid_off += b.n_shards_padded
+        self.device = dev
+        if len(blocks) == 1:
+            self.columns = blocks[0].columns
+            self.alt_prefix = blocks[0].alt_prefix
+        else:
+            self.columns = torch.cat([b.columns for b in blocks], dim=1)
+            self.alt_prefix = torch.cat([b.alt_prefix for b in blocks])
+        offs = np.ascontiguousarray(np.concatenate(co_parts), np.int32)
+        self.chrom_offsets = torch.from_numpy(offs).to(dev)
+        self.arrays = {
+            name: self.columns[i] for i, name in enumerate(COLUMNS)
+        }
+        self.arrays["alt_prefix"] = self.alt_prefix
+        self.arrays["chrom_offsets"] = self.chrom_offsets
+        self.blocks = list(blocks)
+        self.n_rows = sum(b.n_rows for b in blocks)
+        self.n_padded = row_off
+        self.n_iters = bisect_iters(row_off)
+        self.n_shards = sum(b.n_shards for b in blocks)
+        self.n_shards_padded = sid_off
+        self.shard_base = np.concatenate(
+            base_parts + [np.asarray([row_off], dtype=np.int64)]
+        )
+        self.window_hint = max(b.window_hint for b in blocks)
 
     def to_local_rows(self, rows: np.ndarray, sid: int) -> np.ndarray:
         """Stacked row ids (already -1-filtered) -> shard-local ids."""
@@ -601,9 +730,11 @@ def bisect_query(
     window_cap: int,
     record_cap: int,
     n_iters: int,
+    family: str = "fused",
 ):
     """The bisection query kernel: (out, seq) for one batch, ``out``
-    laid out as ``query_batch_reference`` returns it.
+    laid out as ``query_batch_reference`` returns it. ``family`` names
+    the launch record's program family (``fused`` or ``fused_l0``).
 
     CUDA tensors launch ``csrc/bisect_query.cu`` on the current stream
     (asynchronously) and record the launch, ``seq`` being its launch
@@ -668,7 +799,7 @@ def bisect_query(
         raise RuntimeError(f"bisect_query launch failed: CUDA error {rc}")
     seq = record_device_launch(
         KERNEL,
-        family="fused",
+        family=family,
         specs=b,
         window=W,
         record_cap=R,
@@ -684,10 +815,10 @@ def run_queries(
     window_cap: int = 2048,
     record_cap: int = 1024,
 ) -> QueryResults:
-    """Execute a query batch against a ``DeviceIndex`` or a stacked
-    ``FusedDeviceIndex`` (fused batches arrive encoded with their
-    ``shard`` ids) with ONE ``bisect_query`` launch, and read the
-    results back.
+    """Execute a query batch against a ``DeviceIndex``, a stacked
+    ``FusedDeviceIndex`` or an L0 index (stacked batches arrive encoded
+    with their ``shard`` ids) with ONE ``bisect_query`` launch, recorded
+    under the index's ``flight_family``, and read the results back.
 
     ``window_cap`` clamps to the index's ``window_hint`` first: the
     clamp decides the window width W, hence ``overflow`` and the width
@@ -698,10 +829,11 @@ def run_queries(
     so the batch launches at its own size with the same outputs.
     """
     enc = encode_queries(queries) if isinstance(queries, list) else queries
-    fused = isinstance(dindex, FusedDeviceIndex)
     window_cap = min(window_cap, dindex.window_hint)
     dev = dindex.device
-    qpack = torch.from_numpy(pack_queries(enc, fused=fused)).to(dev)
+    qpack = torch.from_numpy(
+        pack_queries(enc, fused=dindex.stacked)
+    ).to(dev)
     out, seq = bisect_query(
         dindex.columns,
         dindex.alt_prefix,
@@ -710,6 +842,7 @@ def run_queries(
         window_cap=window_cap,
         record_cap=record_cap,
         n_iters=dindex.n_iters,
+        family=dindex.flight_family,
     )
     t_fetch = time.perf_counter()
     host = out.cpu().numpy()

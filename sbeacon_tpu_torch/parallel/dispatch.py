@@ -9,17 +9,25 @@ costs ONE mesh launch through the engine's micro-batcher
 record-granularity hit rows, and for plane-reading shapes the per-query
 sample-mask reduction too.
 
+The delta tail of a served key (the shards ``VariantEngine.add_delta``
+published since the stack was built; the base fingerprint, and so the
+stack, stays warm) rides beside the mesh launch: the engine's L0 index
+answers its covered targets in one launch (``engine.l0_pre_rows``, which
+also charges the host-walked ones), and the rest are matched on the
+host, as in the JAX package. ``resolve`` and ``search`` note their
+``mesh`` plan stage and the request annotations, ``search`` checks the
+request deadline, and a launch without the batcher hits the
+``kernel.launch`` fault point.
+
 Deliberate differences from the JAX package:
 
 - a failed build, upload or launch raises on the request (a background
   build's failure is raised by the requests that consult the tier until
   the index set changes), where the JAX tier logs it and the caller
-  falls back to the thread scatter; so there is no fallback counter;
-- no fault points, deadlines, plan stages, request annotations, cost
-  attribution or journal events (their modules are not ported);
-- no delta tail: this package publishes no delta shards, so every key
-  ``indexes_for`` names is in the stack, and ``search`` raises if one is
-  not.
+  falls back to the thread scatter; so there is no fallback counter and
+  no ``mesh.dispatch`` fault site;
+- no journal events and no plane-ledger headroom in the ``planes``
+  refusal (the ledger's surface comes with the HTTP plane).
 """
 
 from __future__ import annotations
@@ -31,6 +39,10 @@ import weakref
 import numpy as np
 import torch
 
+from ..harness.faults import fault_point
+from ..plan import plan_stage
+from ..resilience import current_deadline
+from ..telemetry import annotate
 from . import mesh as _mesh
 
 
@@ -289,7 +301,9 @@ class MeshDispatchTier:
             built = self._state is not None
         state = self._ready()
         if state is None:
-            self._note_refusal("stale" if built else "unbuilt")
+            reason = "stale" if built else "unbuilt"
+            self._note_refusal(reason)
+            plan_stage("mesh", decision="refused", reason=reason)
             return set()
         index = state[0]
         if self.engine._wants_planes(payload):
@@ -300,22 +314,29 @@ class MeshDispatchTier:
             if not (index.has_planes
                     and self.engine._device_ref_ok(payload, payload)):
                 self._note_refusal("planes")
+                plan_stage("mesh", decision="refused", reason="planes",
+                           has_planes=bool(index.has_planes))
                 return set()
         keys_by_ds = state[3]
         covered = {ds for ds in dataset_ids if ds in keys_by_ds}
         n_targets = sum(len(keys_by_ds[ds]) for ds in covered)
         if n_targets < self.min_shards:
             self._note_refusal("min_shards")
+            plan_stage("mesh", decision="refused", reason="min_shards",
+                       targets=n_targets, min_shards=self.min_shards)
             return set()
         return covered
 
     def search(self, payload, dataset_ids) -> list:
         """Answer ``dataset_ids`` (a :meth:`resolve` result) with one mesh
-        launch. Raises on any failure."""
+        launch for the stacked base shards, then their delta tail: the
+        base responses in sorted key order, the tail's after them.
+        Raises on any failure."""
         from ..engine import host_match_rows, materialize_response
         from ..ops.kernel import QuerySpec, encode_queries
         from ..ops.plane_kernel import sample_mask_words
 
+        current_deadline().check("mesh.dispatch")
         with self._lock:
             state = self._state
         if state is None:
@@ -334,14 +355,6 @@ class MeshDispatchTier:
             variant_min_length=payload.variant_min_length,
             variant_max_length=payload.variant_max_length,
         )
-        tail = [(ds, vcf) for ds, vcf, _t
-                in self.engine.indexes_for(sorted(dataset_ids))
-                if (ds, vcf) not in sid_of]
-        if tail:
-            raise RuntimeError(
-                f"{tail} are served but not in the mesh stack: this "
-                "package has no delta tail, so a publish raced the tier"
-            )
         targets = []
         for ds in sorted(dataset_ids):
             for key in keys_by_ds.get(ds, ()):
@@ -351,7 +364,19 @@ class MeshDispatchTier:
                 if native is None:
                     continue  # no matching chromosome in this VCF
                 targets.append((key, shard, native, sid_of[key]))
-        if not targets:
+        # the delta tail: shards published since the stack was built (the
+        # base fingerprint did not move, so the stack is not stale)
+        delta_targets = []
+        for ds, vcf, (shard, _di, pl) in self.engine.indexes_for(
+                sorted(dataset_ids)):
+            if (ds, vcf) in sid_of:
+                continue  # base rows: the mesh launch serves them
+            native = shard.meta.get("chrom_native", {}).get(
+                payload.reference_name)
+            if native is None:
+                continue
+            delta_targets.append(((ds, vcf), shard, native, pl))
+        if not targets and not delta_targets:
             return []
         eng = self.engine.config.engine
         specs = [spec_base] * len(targets)
@@ -376,21 +401,24 @@ class MeshDispatchTier:
                     mask_counts[i] = index.has_count_planes
                 else:
                     masks[i] = 0xFFFFFFFF
+        responses = []
+        gathered = 0
         batcher = self.engine.batcher
-        if batcher is not None:
+        if not targets:
+            res = None
+        elif batcher is not None:
             res = batcher.submit_many(
                 index, specs, shard_ids=sids, window_cap=eng.window_cap,
                 record_cap=eng.record_cap, sample_masks=masks,
                 mask_counts=mask_counts,
             )
         else:
+            fault_point("kernel.launch")
             res = index.run_mesh_queries(
                 encode_queries(specs, shard_ids=sids),
                 window_cap=eng.window_cap, record_cap=eng.record_cap,
                 sample_masks=masks, mask_counts=mask_counts,
             )
-        responses = []
-        gathered = 0
         for i, (key, shard, native, _sid) in enumerate(targets):
             fused = None
             if res.overflow[i] or res.n_matched[i] > eng.record_cap:
@@ -429,9 +457,41 @@ class MeshDispatchTier:
                 plane_index=planes_of.get(key) if plane_q else None,
                 fused=fused,
             ))
+        # the tail: the engine's L0 index first (one launch for every
+        # covered target; it charges the host-walked ones), the rest on
+        # the host
+        l0_rows = (
+            self.engine.l0_pre_rows(
+                [(key, shard) for key, shard, _n, _p in delta_targets],
+                spec_base, payload,
+            )
+            if delta_targets else {}
+        )
+        l0_covered = sum(1 for v in l0_rows.values() if v is not None)
+        for key, shard, native, pl in delta_targets:
+            rows = l0_rows.get(key)
+            if rows is None:
+                rows = host_match_rows(
+                    shard, spec_base,
+                    ref_wildcard=payload.selected_samples_only,
+                )
+            responses.append(materialize_response(
+                shard, rows, payload, chrom_label=native, dataset_id=key[0],
+                vcf_location=key[1],
+                selected_idx=(
+                    self.engine._selected_idx(shard, payload, key[0])
+                    if payload.selected_samples_only else None
+                ),
+                plane_index=pl if plane_q else None,
+            ))
         with self._lock:
             self._dispatches += 1
             self._gather_rows += gathered
+        annotate(mesh_shards=len(targets), mesh_delta_tail=len(delta_targets),
+                 mesh_tail_l0=l0_covered, mesh_planes=plane_q)
+        plan_stage("mesh", decision="served", shards=len(targets),
+                   delta_tail=len(delta_targets), tail_l0=l0_covered,
+                   planes=plane_q)
         return responses
 
     def stats(self) -> dict:

@@ -19,12 +19,17 @@ position with equal lengths and a double FNV collision.
 ``ingest.pipeline.distinct_variant_count`` byte-verifies duplicate
 groups and is the oracle the tests hold this count against.
 
-On one card the keys go up unpadded, at their own size: a CUDA kernel
-compiles no shapes, so JAX's pow2 block padding (which lets it reuse one
-compiled program) would only move padding. ``partition_keys`` is ported
-byte for byte all the same, for a count over several cards; the kernel
-skips its ``_PAD`` rows, so a padded block counts the same. JAX's
-``mesh=`` argument has no counterpart yet.
+Without a mesh the keys go up to one device unpadded, at their own
+size: a CUDA kernel compiles no shapes, so JAX's pow2 block padding
+(which lets it reuse one compiled program) would only move padding.
+Over a mesh (``mesh=``, a ``parallel.mesh.Mesh``; its entries may list
+one card more than once), ``partition_keys`` splits the keys into one
+block per entry, byte for byte the JAX package's layout (equal keys in
+one block; the kernel skips the ``_PAD`` rows), each entry's block is
+counted by one kernel launch on its device, and the partial counts are
+summed on the first entry (``parallel.mesh._psum``, JAX's ``psum``).
+``shard_keys`` fills one preallocated key matrix column by column; its
+bytes, order included, are the JAX package's.
 
 ``distinct_count`` is the kernel's wrapper: on a CUDA tensor it launches
 the kernel (or raises), on a CPU tensor it runs the plain-PyTorch twin
@@ -79,30 +84,33 @@ def __getattr__(name: str):
 
 
 def shard_keys(shards: list[VariantIndexShard]) -> np.ndarray:
-    """[n, 6] int32 key matrix over all rows of all shards (the same key
-    the host exact counter groups by)."""
-    parts = []
+    """[n, 6] int32 key matrix over all rows of all shards, in shard and
+    row order (the same key the host exact counter groups by): chrom
+    code, pos, the ref and alt FNV hashes as bit patterns, ref and alt
+    lengths. Byte for byte the JAX package's, filled column by column
+    into one allocation (no per-shard stacks and no concatenation); a
+    row's chrom code is the last segment of ``chrom_offsets`` that
+    starts at or before it."""
+    n_total = sum(s.n_rows for s in shards)
+    out = np.empty((n_total, 6), np.int32)
+    lo = 0
     for s in shards:
         n = s.n_rows
-        codes = (
-            np.searchsorted(s.chrom_offsets, np.arange(n), side="right") - 1
-        ).astype(np.int32)
-        parts.append(
-            np.stack(
-                [
-                    codes,
-                    s.cols["pos"].astype(np.int32),
-                    s.cols["ref_hash"].astype(np.uint32).view(np.int32),
-                    s.cols["alt_hash"].astype(np.uint32).view(np.int32),
-                    s.cols["ref_len"].astype(np.int32),
-                    s.cols["alt_len"].astype(np.int32),
-                ],
-                axis=1,
-            )
+        hi = lo + n
+        off = np.asarray(s.chrom_offsets, dtype=np.int64)
+        bounds = np.clip(np.concatenate(([0], off, [n])), 0, n)
+        out[lo:hi, 0] = np.repeat(
+            np.arange(-1, len(off), dtype=np.int32), np.diff(bounds)
         )
-    if not parts:
-        return np.zeros((0, 6), np.int32)
-    return np.concatenate(parts)
+        out[lo:hi, 1] = s.cols["pos"]
+        out[lo:hi, 2] = s.cols["ref_hash"].astype(np.uint32, copy=False).view(
+            np.int32)
+        out[lo:hi, 3] = s.cols["alt_hash"].astype(np.uint32, copy=False).view(
+            np.int32)
+        out[lo:hi, 4] = s.cols["ref_len"]
+        out[lo:hi, 5] = s.cols["alt_len"]
+        lo = hi
+    return out
 
 
 def partition_keys(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -270,30 +278,44 @@ def distinct_count(keys: torch.Tensor, *, log2_buckets: int | None = None,
     return out[0], seq
 
 
-def distinct_count_device(shards: list[VariantIndexShard], *, device=None) -> int:
+def distinct_count_device(shards: list[VariantIndexShard], *, mesh=None,
+                          device=None) -> int:
     """Distinct (contig, pos, ref, alt) across shards, counted on the
-    card (default) or, with ``device="cpu"``, by the twin on the CPU.
+    card (default) or, with ``device="cpu"``, by the twin on the CPU; or,
+    with ``mesh`` (a ``parallel.mesh.Mesh``), over its entries: one
+    ``partition_keys`` block and one kernel launch per entry, the
+    partial counts summed on the first entry (``device`` is then not
+    read).
 
-    The keys are built on the host, copied to the device unpadded, and
-    counted by one kernel launch. The launch record carries the stage
-    times: ``keys_ms`` (host keys), ``upload_ms`` (host to device) and
-    ``count_ms`` (launch to result on the host)."""
-    dev = resolve_device(device)
+    The keys are built on the host and copied to the device(s). The
+    launch records carry the stage times: ``keys_ms`` (host keys),
+    ``upload_ms`` (host to device, with the mesh's partition) and
+    ``count_ms`` (first launch to the result on the host)."""
     t0 = time.perf_counter()
     keys = shard_keys(shards)
     if len(keys) == 0:
         return 0
     t1 = time.perf_counter()
-    keys_dev = torch.from_numpy(keys).to(dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    from .mesh import _device_key, _psum
+
+    if mesh is None:
+        dev = resolve_device(device)
+        parts = [torch.from_numpy(keys).to(dev)]
+    else:
+        blocks = partition_keys(keys, mesh.size)
+        parts = [torch.from_numpy(b).to(d)
+                 for b, d in zip(blocks, mesh.devices)]
+    for d in {_device_key(p.device): p.device for p in parts}.values():
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
     t2 = time.perf_counter()
-    count, seq = distinct_count(keys_dev)
-    total = int(count)
-    note_device_stage(
-        seq,
+    counts, seqs = zip(*(distinct_count(p) for p in parts))
+    total = int(counts[0]) if mesh is None else int(_psum(list(counts)))
+    stages = dict(
         keys_ms=(t1 - t0) * 1e3,
         upload_ms=(t2 - t1) * 1e3,
         count_ms=(time.perf_counter() - t2) * 1e3,
     )
+    for seq in seqs:
+        note_device_stage(seq, entries=len(parts), **stages)
     return total

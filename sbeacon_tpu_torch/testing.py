@@ -469,3 +469,60 @@ def window_edge_specs(shards, seed: int):
                                    end_max=1 << 30, **rng.choice(modes)))
             sids.append(sid)
     return specs, sids
+
+
+def l0_tail_keys(n_keys: int, shards_per_key: int, seed: int = 41,
+                 max_records: int = 500) -> list:
+    """Delta tails for the L0 index: ``n_keys`` lists of
+    ``shards_per_key`` small shards on chromosome 3 (records of 1, 12
+    and 40 rows at dense positions, 1 to ``max_records`` records a
+    shard), each key's shards interleaved in position like a stream of
+    publishes."""
+    from .index.columnar import build_index
+
+    rng = random.Random(seed)
+    keys = []
+    for k in range(n_keys):
+        shards = []
+        for d in range(shards_per_key):
+            n = rng.randint(1, max_records)
+            sizes = [rng.choice([1, 1, 12, 40]) for _ in range(n)]
+            shards.append(build_index(
+                _edge_records(rng, sizes, "3", 1000 + 5 * d + 3 * k),
+                dataset_id=f"k{k}", vcf_location=f"k{k}.vcf"))
+        keys.append(shards)
+    return keys
+
+
+def l0_tail_specs(composite, keys, seed: int, n_per_block: int = 12):
+    """(specs, shard ids) over a ``CompositeL0DeviceIndex`` of
+    ``l0_tail_keys``: windows of 1 to 5000 rows on the real shards of
+    every block (its first and last shard among them), in any-base,
+    exact, INS and length-bounded modes, and a query on a pad row of
+    each block that has one (an empty segment: nothing matches)."""
+    from .ops.kernel import QuerySpec
+
+    rng = random.Random(seed)
+    modes = [dict(alternate_bases="N"), dict(alternate_bases="A"),
+             dict(variant_type="INS"),
+             dict(alternate_bases="N", variant_max_length=2)]
+    specs, sids = [], []
+    for off, shards, block in zip(composite.block_sid_offsets, keys,
+                                  composite.blocks):
+        picks = [0, len(shards) - 1] + [
+            rng.randrange(len(shards)) for _ in range(n_per_block - 2)]
+        for j in picks:
+            pos = shards[j].cols["pos"]
+            n = rng.choice([1, 40, 255, 256, 257, 1000, 2048, 2500, 5000])
+            a = rng.randrange(0, max(1, len(pos) - n))
+            b = min(a + n - 1, len(pos) - 1)
+            specs.append(QuerySpec(chrom="3", start_min=int(pos[a]),
+                                   start_max=int(pos[b]), end_min=1,
+                                   end_max=1 << 30, **rng.choice(modes)))
+            sids.append(off + j)
+        if block.n_shards_padded > block.n_shards:
+            specs.append(QuerySpec(chrom="3", start_min=1, start_max=1 << 29,
+                                   end_min=1, end_max=1 << 30,
+                                   alternate_bases="N"))
+            sids.append(off + block.n_shards_padded - 1)
+    return specs, sids

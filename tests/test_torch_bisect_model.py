@@ -370,8 +370,11 @@ def test_model_in_run_queries_equals_jax(monkeypatch, seed):
         [jk.QuerySpec(c, a, b, 1, 1 << 30, **kw) for (c, a, b), kw in specs],
         shard_ids=sids), window_cap=2048, record_cap=1024)
 
+    # the wrapper's family keyword names its launch record: the model
+    # records nothing
     monkeypatch.setattr(tk, "bisect_query",
-                        lambda *a, **kw: (j3_model(*a, **kw), None))
+                        lambda *a, family="fused", **kw: (j3_model(*a, **kw),
+                                                          None))
     got = tk.run_queries(tf, tk.encode_queries(
         [tk.QuerySpec(c, a, b, 1, 1 << 30, **kw) for (c, a, b), kw in specs],
         shard_ids=sids), window_cap=2048, record_cap=1024)

@@ -37,6 +37,8 @@ from sbeacon_tpu_torch.parallel import distinct as dc
 from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.testing import (
     distinct_key_cases,
+    l0_tail_keys,
+    l0_tail_specs,
     random_records,
     subset_shard,
     synthetic_shard,
@@ -389,6 +391,100 @@ def test_bisect_kernel_window_edges(edge_stacks, n_shards, W, R,
     agg = want[:, :tk.N_AGG]
     assert int(agg[:, 5].sum()) > 0
     assert int((agg[:, 4] > R).sum()) > 0 or R == W
+
+
+#: (keys, shards a key): composites of 1, 4 and 16 keys at 16, 64 and
+#: 512 padded shards
+L0_SHAPES = ((1, 12), (4, 14), (16, 20))
+
+
+@pytest.fixture(scope="module")
+def l0_composites(cuda_device):
+    out = {}
+    for n_keys, per_key in L0_SHAPES:
+        keys = l0_tail_keys(n_keys, per_key, seed=n_keys, max_records=200)
+        blocks = [tk.L0DeviceIndex(s, cuda_device) for s in keys]
+        out[n_keys] = (tk.CompositeL0DeviceIndex(blocks), keys)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W,R", [(256, 1), (256, 60), (512, 16),
+                                 (1024, 1024), (2048, 100), (4096, 4096),
+                                 (4096, 300)])
+@pytest.mark.parametrize("n_keys", [k for k, _ in L0_SHAPES])
+def test_bisect_kernel_on_l0_composites(l0_composites, n_keys, W, R,
+                                        monkeypatch):
+    """The L0 launch: composites of 1, 4 and 16 keys (16, 64 and 512
+    padded shards, the segment table read from global memory), windows
+    of 256-4096 lanes (clusters of one to eight blocks), record_cap
+    below the matches, queries on pad rows, on 0xDEADBEEF-filled
+    outputs: equal to the twin, and recorded under ``fused_l0``."""
+    index, keys = l0_composites[n_keys]
+    assert index.n_shards_padded == {1: 16, 4: 64, 16: 512}[n_keys]
+    specs, sids = l0_tail_specs(index, keys, seed=W + R + n_keys)
+    q = torch.from_numpy(tk.pack_queries(
+        encode_queries(specs, shard_ids=sids), fused=True)).to(index.device)
+    kw = dict(window_cap=W, record_cap=R, n_iters=index.n_iters)
+    with monkeypatch.context() as mp:
+        _deadbeef_empty(mp)
+        out, seq = tk.bisect_query(index.columns, index.alt_prefix,
+                                   index.offsets, q, family="fused_l0", **kw)
+        torch.cuda.synchronize()
+    assert telemetry.recent_launches()[-1]["family"] == "fused_l0"
+    assert seq is not None
+    want = tk.query_batch_reference(index.columns, index.alt_prefix,
+                                    index.offsets, q, **kw)
+    assert torch.equal(out, want)
+    agg = want[:, :tk.N_AGG]
+    assert int(agg[:, 4].sum()) > 0
+    assert int((agg[:, 4] > R).sum()) > 0 or R >= W
+
+
+@pytest.mark.cuda
+def test_l0_run_queries_on_card_equals_cpu(l0_composites):
+    """run_queries on the composite: the launch at the index's
+    window_hint, on the card and on CPU copies of the same blocks."""
+    index, keys = l0_composites[4]
+    cpu = tk.CompositeL0DeviceIndex(
+        [tk.L0DeviceIndex(s, torch.device("cpu")) for s in keys])
+    specs, sids = l0_tail_specs(index, keys, seed=5)
+    enc = encode_queries(specs, shard_ids=sids)
+    got = tk.run_queries(index, enc, window_cap=2048, record_cap=1024)
+    want = tk.run_queries(cpu, enc, window_cap=2048, record_cap=1024)
+    for field in ("exists", "call_count", "n_variants", "all_alleles_count",
+                  "n_matched", "overflow", "rows"):
+        np.testing.assert_array_equal(getattr(got, field), getattr(want, field))
+
+
+@pytest.mark.cuda
+def test_engine_serves_the_delta_tail_through_l0(cuda_device):
+    """An engine on the card: a deep tail rides one fused_l0 launch a
+    request, its answers equal to a CPU engine's."""
+    keys = l0_tail_keys(2, 6, seed=9, max_records=80)
+    base = synthetic_shard(3000, seed=9, dataset_id="k0", chroms=["3"])
+    engines = [VariantEngine(BeaconConfig(engine=EngineConfig(
+        l0_min_shards=3, response_cache=False)), device=d)
+        for d in (cuda_device, "cpu")]
+    try:
+        for eng in engines:
+            eng.add_index(base)
+            for shards in keys:
+                for s in shards:
+                    s.meta.pop("delta_epoch", None)
+                    eng.add_delta(s)
+        telemetry.reset_launch_counts()
+        doc = dict(dataset_ids=[], reference_name="3", start_min=1,
+                   start_max=1 << 29, end_min=1, end_max=1 << 30,
+                   alternate_bases="N", requested_granularity="record",
+                   include_datasets="HIT")
+        got = engines[0].search(VariantQueryPayload(**doc))
+        want = engines[1].search(VariantQueryPayload(**doc))
+        assert [r.__dict__ for r in got] == [r.__dict__ for r in want]
+        assert telemetry.launches_by_family().get("fused_l0") == 1
+    finally:
+        for eng in engines:
+            eng.close()
 
 
 N_SAMPLES = 40

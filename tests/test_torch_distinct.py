@@ -28,6 +28,7 @@ from sbeacon_tpu_torch import telemetry
 from sbeacon_tpu_torch.index import shard_from_reference
 from sbeacon_tpu_torch.ingest.pipeline import distinct_variant_count as t_host_count
 from sbeacon_tpu_torch.parallel import distinct as td
+from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.testing import distinct_key_cases, subset_shard
 
 PAD = np.iinfo(np.int32).max
@@ -169,6 +170,23 @@ def test_device_count_matches_jax(name, n_dev):
         assert got == _jax_host(name)
     if name == "overlap":  # the row subsets add no key
         assert got == td.distinct_count_device(t[:1], device="cpu")
+
+
+@pytest.mark.parametrize("n_dev", [1, 4, 8])
+@pytest.mark.parametrize("name", CORPORA)
+def test_mesh_count_matches_jax(name, n_dev):
+    """``distinct_count_device(mesh=)`` over a CPU mesh of ``n_dev``
+    entries (one partition_keys block and one twin count per entry,
+    summed on the first) equals JAX's on a mesh of as many devices and
+    the host oracle."""
+    j, t = _corpus(name)
+    want = jd.distinct_count_device(j, mesh=make_mesh(n_dev)) if j else 0
+    mesh = tm.make_mesh(devices=[torch.device("cpu")] * n_dev)
+    got = td.distinct_count_device(t, mesh=mesh)
+    assert isinstance(got, int)
+    assert got == want
+    if name != "highbit":
+        assert got == _jax_host(name)
 
 
 @pytest.mark.parametrize("max_range_bytes", [None, 48 * 5000])

@@ -763,7 +763,7 @@ def _fresh_engine(shards, **cfg):
 _WIDE = dict(dataset_ids=[], reference_name="1", start_min=1,
              start_max=25_000, end_min=0, end_max=10**9,
              alternate_bases="N", requested_granularity="count",
-             include_datasets="HIT")
+             include_datasets="HIT", no_response_cache=True)
 
 
 def test_background_build_then_fused(shards):

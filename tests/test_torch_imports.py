@@ -3,8 +3,8 @@
 The port imports neither JAX nor anything of the JAX package (checked
 in a fresh interpreter, since this test process has JAX loaded), its
 entry points run on the GPU unless the caller passes ``device="cpu"``,
-the unported engine option is refused, and the kernel wrappers never
-catch around a launch.
+no engine option is refused, and the kernel wrappers never catch around
+a launch.
 """
 
 import ast
@@ -62,8 +62,15 @@ def test_port_imports_no_jax_and_no_reference_package():
     )
     assert out.returncode == 0, out.stderr
     names, leaked = json.loads(out.stdout.strip().splitlines()[-1])
-    assert len(names) >= 21  # every module of the slices was imported
-    assert {"sbeacon_tpu_torch.ops.plane_kernel",
+    assert len(names) >= 27  # every module of the slices was imported
+    assert {"sbeacon_tpu_torch.harness.faults",
+            "sbeacon_tpu_torch.resilience",
+            "sbeacon_tpu_torch.plan",
+            "sbeacon_tpu_torch.response_cache",
+            "sbeacon_tpu_torch.utils.trace",
+            "sbeacon_tpu_torch.telemetry",
+            "sbeacon_tpu_torch.serving",
+            "sbeacon_tpu_torch.ops.plane_kernel",
             "sbeacon_tpu_torch.ops.gather_kernel",
             "sbeacon_tpu_torch.parallel.dispatch",
             "sbeacon_tpu_torch.ops.scatter_kernel",
@@ -117,14 +124,21 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
 
 @pytest.mark.parametrize("option", ["use_mesh", "response_cache"])
 def test_unported_options_are_refused(option):
-    """Only the response cache is still unported: ``use_mesh`` builds an
-    engine (on by default, as in the JAX package)."""
-    cfg = BeaconConfig(engine=EngineConfig(**{option: True}))
-    if option == "use_mesh":
-        VariantEngine(cfg, device="cpu").close()
-        return
-    with pytest.raises(NotImplementedError, match=option):
-        VariantEngine(cfg, device="cpu")
+    """No engine option is refused any more: ``use_mesh`` and the
+    response cache build an engine (both on by default, as in the JAX
+    package), and the refusal list is gone."""
+    import sbeacon_tpu_torch.engine as t_engine
+
+    assert not hasattr(t_engine, "_UNPORTED")
+    assert getattr(EngineConfig(), option) is True
+    eng = VariantEngine(
+        BeaconConfig(engine=EngineConfig(**{option: True})), device="cpu"
+    )
+    try:
+        if option == "response_cache":
+            assert eng.cache_stats()["entries"] == 0
+    finally:
+        eng.close()
 
 
 def test_device_planes_option_builds_and_serves():
@@ -167,7 +181,10 @@ def test_device_planes_option_builds_and_serves():
      tm.sharded_selected_query, VariantEngine._mesh_search,
      tm.mesh_fused, tm.MeshFusedIndex.run_mesh_queries,
      tm.MeshPendingResults.fetch, tg.ring_step, tg.ring_gather,
-     tg.gather_partials, tg.gather_partials_many, MeshDispatchTier.search],
+     tg.gather_partials, tg.gather_partials_many, MeshDispatchTier.search,
+     VariantEngine.l0_pre_rows, VariantEngine._l0_pre_rows,
+     VariantEngine._l0_warm, VariantEngine.warmup, VariantEngine._warmup,
+     tk.L0DeviceIndex.__init__, tk.CompositeL0DeviceIndex.__init__],
 )
 def test_kernel_path_never_catches(fn):
     """The kernel path has no try/except: a CUDA tensor launches the

@@ -279,13 +279,22 @@ def test_failed_build_raises_and_releases(setup, monkeypatch):
 
 
 def test_search_refuses_keys_outside_the_stack(setup):
-    teng, tier, *_ = setup(2)
+    """A served key the stack does not hold (published after the build)
+    is not refused any more: the tier answers it on its tail leg, after
+    the stacked keys, as the JAX tier does."""
+    teng, tier, jeng, jtier, _jref = setup(2)
     tier.warmup()
-    teng.add_index(shard_from_reference(j_build_index(
+    assert jtier._ready(wait=True) is not None
+    late = j_build_index(
         j_random_records(random.Random(9), chrom="1", n=30, n_samples=2),
-        dataset_id="d0", vcf_location="v0b", sample_names=["S0", "S1"])))
-    with pytest.raises(RuntimeError, match="not in the mesh stack"):
-        tier.search(VariantQueryPayload(**_doc()), set(DS))
+        dataset_id="d0", vcf_location="v0b", sample_names=["S0", "S1"])
+    teng.add_index(shard_from_reference(late))
+    jeng.add_index(late)
+    got = tier.search(VariantQueryPayload(**_doc()), set(DS))
+    want = jtier.search(JPayload(**_doc()), set(DS))
+    asd = lambda rs: [dataclasses.asdict(r) for r in rs]
+    assert asd(got) == asd(want)
+    assert [r.vcf_location for r in got][-1] == "v0b"
 
 
 def test_config_knobs_default_as_jax(setup):

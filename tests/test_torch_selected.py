@@ -407,6 +407,7 @@ def test_one_scatter_selected_launch_per_request(monkeypatch):
             start_max=p + 150, end_min=1, end_max=1 << 30,
             alternate_bases="N", requested_granularity="record",
             include_datasets="HIT", include_samples=True,
+            no_response_cache=True,
         )
         if k % 2:
             doc.update(sample_names={"dsA": [NAMES[0], NAMES[4], NAMES[37]]},
