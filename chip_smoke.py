@@ -5,7 +5,7 @@
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--seed 0] [--parent DIR]
+                          [--http-requests 512] [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
@@ -105,6 +105,33 @@ non-zero, without the final line):
 14. timing (scatter_selected, plane_stats): at the batch and row-set
     sizes phase 13 launched, with the L2 flushed before each launch (and
     back to back), beside the bound and the twin's time;
+14a. http_path: a data root written with the port's own ``save_index``
+    (the main shard, no planes, and dataset B, all four planes,
+    uncompressed) and ``MetadataStore.upsert`` (a dataset document
+    each, one cohort, and for B one individual, biosample, run and
+    analysis per sample: sex alternating, a disease of eight HP terms
+    whose edges to one parent term are in the ontology store), served
+    by ``BeaconApp`` (engine under the JAX default config, the cache
+    on; the runner's pending cap at 256) after ``load_all`` and
+    ``warmup``, over HTTP on 127.0.0.1: 512 requests from 64 keep-alive
+    clients (30% ``/datasets/{main}/g_variants`` in the main mix, 25%
+    ``/g_variants`` in the fused mix over both datasets, 15% filtered
+    ``/g_variants`` selecting B's samples by sex or HP term, 10%
+    ``/individuals/{id}/g_variants``, 5% ``/g_variants/{id}`` and
+    ``/g_variants/{id}/individuals`` on B's rows, 15% entity routes).
+    Every variant body against the host matcher's envelope for the
+    payload the engine received (recorded by job id; its datasets and
+    sample set against the generated truth), every entity body's count
+    and ids against the generated truth, every body's bytes against
+    the in-process ``app.handle``; any non-200 fails. J1, J3, J2 and
+    J4 must all launch; launch counts zeroed just before the traffic
+    and read just after;
+14b. server_entry: ``python3 -m sbeacon_tpu_torch.api.server
+    --data-root`` the same root as a child process: its serving line,
+    ``/health``, ``/ready`` (2 shards), ``/info`` and one
+    ``/datasets/{main}/g_variants`` body equal to phase 14a's, then
+    SIGINT, which must end it within 30 s. The root is removed
+    whatever happens;
 15. distinct setup: the keys of every shard built so far (A, the three
     cohorts, B) and of three seeded row subsets of A (40-70% of its rows
     each: the same sites submitted again), about 7e7 keys on the card;
@@ -208,8 +235,10 @@ import dataclasses
 import json
 import os
 import random
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -3299,6 +3328,558 @@ def compare_ring_steps(shape, device, seed, misaligned=False):
     return equal, err
 
 
+# -- the HTTP surface (phases 14a and 14b) --------------------------------------
+
+HTTP_REQUESTS = 512
+HTTP_RUNNER_MAX_PENDING = 256
+#: eight HP terms, each an is-a child of HP_PARENT in the ontology store
+HP_TERMS = ("HP:0001250", "HP:0001631", "HP:0000717", "HP:0001263",
+            "HP:0000252", "HP:0002664", "HP:0001627", "HP:0004322")
+HP_PARENT = "HP:0000118"
+SEX_TERMS = ("NCIT:C16576", "NCIT:C20197")
+#: the request mix of http_path: (class, share)
+HTTP_MIX = (("main", 0.30), ("fused", 0.25), ("filtered", 0.15),
+            ("scoped", 0.10), ("by_id", 0.05), ("entity", 0.15))
+VARIANT_CLASSES = ("main", "fused", "filtered", "scoped", "by_id")
+
+
+def dataset_doc(shard):
+    """The dataset document ``/submit`` stores for one shard's VCF."""
+    ds, vcf = shard.meta["dataset_id"], shard.meta["vcf_location"]
+    return {"id": ds, "name": ds, "description": "chip smoke dataset",
+            "_assemblyId": "GRCh38", "_vcfLocations": [vcf],
+            "_vcfGroups": [[vcf]], "_vcfGroupsExplicit": False,
+            "_vcfChromosomeMap": []}
+
+
+def write_data_root(root, main_shard, b_shard, seed):
+    """A data root as ``/submit`` leaves it, written with the port's own
+    ``save_index`` and ``MetadataStore.upsert``: both shards uncompressed,
+    a dataset document each, one cohort, and for dataset B one
+    individual, biosample, run and analysis per sample (the analysis
+    naming the sample, sex alternating, a disease drawn from HP_TERMS,
+    whose edges to HP_PARENT go into the ontology store). Returns
+    ({individual id: (sample, sex, disease)}, seconds to save the
+    shards, seconds for the metadata)."""
+    from sbeacon_tpu_torch.index.columnar import save_index
+    from sbeacon_tpu_torch.metadata import MetadataStore, OntologyStore
+
+    t0 = time.perf_counter()
+    for s in (main_shard, b_shard):
+        ds = s.meta["dataset_id"]
+        save_index(s, os.path.join(root, "variant-index", ds, f"{ds}.npz"),
+                   compress=False)
+    t_save = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rng = random.Random(seed)
+    ds_b, cohort = b_shard.meta["dataset_id"], "cohortB-members"
+    people = {
+        f"I{k}": (name, SEX_TERMS[k % 2], rng.choice(HP_TERMS))
+        for k, name in enumerate(b_shard.meta["sample_names"])
+    }
+    onto = OntologyStore(os.path.join(root, "ontology.sqlite"))
+    onto.register_edges([(t, HP_PARENT) for t in HP_TERMS])
+    store = MetadataStore(os.path.join(root, "metadata.sqlite"),
+                          ontology=onto)
+    store.upsert("datasets", [dataset_doc(s) for s in (main_shard, b_shard)])
+    store.upsert("cohorts", [{"id": cohort, "name": "members of B"}])
+    own = {"_datasetId": ds_b, "_cohortId": cohort}
+    docs = {"individuals": [], "biosamples": [], "runs": [], "analyses": []}
+    for ind, (name, sex, disease) in people.items():
+        k = ind[1:]
+        docs["individuals"].append(
+            {"id": ind, "sex": {"id": sex, "label": sex},
+             "diseases": [{"diseaseCode": {"id": disease,
+                                           "label": disease}}], **own})
+        docs["biosamples"].append(
+            {"id": f"BS{k}", "individualId": ind,
+             "biosampleStatus": {"id": "EFO:0009654", "label": "reference"},
+             **own})
+        docs["runs"].append({"id": f"R{k}", "biosampleId": f"BS{k}",
+                             "individualId": ind, **own})
+        docs["analyses"].append(
+            {"id": f"A{k}", "runId": f"R{k}", "biosampleId": f"BS{k}",
+             "individualId": ind, "vcfSampleId": name, **own})
+    for kind, kind_docs in docs.items():
+        store.upsert(kind, kind_docs)
+    store.rebuild_indexes()
+    store.close()
+    onto.close()
+    return people, t_save, time.perf_counter() - t0
+
+
+def filter_truth(people, term):
+    """The individual ids a one-term filter selects."""
+    return {ind for ind, (_s, sex, disease) in people.items()
+            if term in (sex, disease) or term == HP_PARENT}
+
+
+def b_request(shard, rng, window_cap):
+    """A Beacon body over dataset B in the selected path's mix (points,
+    brackets, N-wildcard refs, about 4x window_cap rows wide,
+    boolean/count)."""
+    r = rng.random()
+    i = rng.randrange(shard.n_rows)
+    p = int(shard.cols["pos"][i])
+    rp = {"assemblyId": "GRCh38", "referenceName": shard.row_chrom(i)}
+    gran = "record"
+    if r < 0.2:
+        w = int(4 * window_cap * GENOME_BP / shard.n_rows)
+        rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w],
+                  alternateBases="N")
+    elif r < 0.35:
+        w = rng.choice([2_000, 20_000])
+        rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000],
+                  referenceBases=rng.choice(["N", "AN", "NA", "NC"]),
+                  alternateBases="N")
+    elif r < 0.65:
+        while not (len(shard.row_ref(i)) == 1
+                   and shard.row_alt(i) in "ACGT"):
+            i = rng.randrange(shard.n_rows)
+        p = int(shard.cols["pos"][i])
+        rp.update(referenceName=shard.row_chrom(i), start=[p - 1],
+                  end=[p + 6], referenceBases=shard.row_ref(i),
+                  alternateBases=shard.row_alt(i))
+    else:
+        w = rng.choice([2_000, 20_000, 60_000])
+        rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000],
+                  alternateBases=rng.choice(["N", "A", "C", "G", "T"]))
+        gran = rng.choice(["boolean", "count", "record"])
+    return {"meta": {"apiVersion": "2.0"},
+            "query": {"requestedGranularity": gran,
+                      "includeResultsetResponses": "HIT",
+                      "requestParameters": rp}}
+
+
+def http_requests(main_shard, b_shard, people, rng, n, window_cap):
+    """``n`` requests in HTTP_MIX: each a dict of its class, method,
+    path, body, and what the smoke generated for it (the datasets and
+    sample set its search must get, or an entity route's count and
+    ids)."""
+    from sbeacon_tpu_torch.api.variants import encode_internal_id
+
+    main_ds = main_shard.meta["dataset_id"]
+    b_ds = b_shard.meta["dataset_id"]
+    both_ds = sorted({main_ds, b_ds})
+    names = b_shard.meta["sample_names"]
+    inds = sorted(people)
+    filters = list(SEX_TERMS) + list(HP_TERMS[:3]) + [HP_PARENT]
+    out = []
+    for k in range(n):
+        x, cls = rng.random(), HTTP_MIX[-1][0]
+        for c, share in HTTP_MIX:
+            if x < share:
+                cls = c
+                break
+            x -= share
+        req = {"cls": cls, "method": "POST", "body": None}
+        if cls == "main":
+            req.update(path=f"/datasets/{main_ds}/g_variants",
+                       body=request_bodies(main_shard, rng, 1,
+                                           window_cap)[0],
+                       datasets=[main_ds], samples=None)
+        elif cls == "fused":
+            req.update(path="/g_variants",
+                       body=request_bodies(main_shard, rng, 1, window_cap,
+                                           p_other=0.05)[0],
+                       datasets=both_ds, samples=None)
+        elif cls == "filtered":
+            term = rng.choice(filters)
+            body = b_request(b_shard, rng, window_cap)
+            # the individuals' terms, through the analyses they own
+            body["query"]["filters"] = [{"id": term, "scope": "individuals"}]
+            req.update(path="/g_variants", body=body, datasets=[b_ds],
+                       samples={people[i][0]
+                                for i in filter_truth(people, term)})
+        elif cls == "scoped":
+            ind = rng.choice(inds)
+            req.update(path=f"/individuals/{ind}/g_variants",
+                       body=b_request(b_shard, rng, window_cap),
+                       datasets=[b_ds], samples={people[ind][0]})
+        elif cls == "by_id":
+            i = rng.randrange(b_shard.n_rows)
+            while not (len(b_shard.row_ref(i)) == 1
+                       and len(b_shard.row_alt(i)) == 1
+                       and b_shard.row_alt(i) in "ACGT"
+                       and (b_shard.gt_bits[i] != 0).any()):
+                i = rng.randrange(b_shard.n_rows)  # an SNV with carriers
+            vid = encode_internal_id(
+                "GRCh38", b_shard.row_chrom(i), int(b_shard.cols["pos"][i]),
+                b_shard.row_ref(i), b_shard.row_alt(i))
+            sub = rng.choice(["", "/individuals"])
+            req.update(method="GET",
+                       path=f"/g_variants/{vid}{sub}"
+                            "?requestedGranularity=record",
+                       datasets=both_ds, samples=None, row=i, sub=sub)
+        else:
+            kind = k % 5
+            if kind == 0:
+                term = rng.choice(filters)
+                gran = rng.choice(["boolean", "count", "record"])
+                skip, limit = rng.choice([(0, 10), (5, 20), (100, 50)])
+                want = sorted(filter_truth(people, term))
+                req.update(path="/individuals", body={"query": {
+                    "requestedGranularity": gran,
+                    "filters": [{"id": term}],
+                    "pagination": {"skip": skip, "limit": limit}}},
+                    count=len(want), ids=want[skip:skip + limit],
+                    gran=gran)
+            elif kind == 1:
+                ind = rng.choice(inds)
+                req.update(method="GET",
+                           path=f"/individuals/{ind}"
+                                "?requestedGranularity=record",
+                           count=1, ids=[ind], gran="record")
+            elif kind == 2:
+                j = rng.randrange(len(names))
+                req.update(method="GET",
+                           path=f"/biosamples/BS{j}/runs"
+                                "?requestedGranularity=record",
+                           count=1, ids=[f"R{j}"], gran="record")
+            elif kind == 3:
+                req.update(method="GET",
+                           path=f"/datasets/{b_ds}/individuals"
+                                "?requestedGranularity=record&skip=2500"
+                                "&limit=10",
+                           count=len(inds), ids=inds[2500:2510],
+                           gran="record")
+            else:
+                # every CURIE the documents carry: sexes, diseases and
+                # the biosamples' status
+                used = (set(SEX_TERMS) | {"EFO:0009654"}
+                        | {d for _s, _x, d in people.values()})
+                req.update(method="GET", path="/filtering_terms",
+                           count=len(used), ids=sorted(used),
+                           gran="terms")
+        out.append(req)
+    return out
+
+
+class HttpClient:
+    """One keep-alive connection; ``send`` returns (status, body, ms)."""
+
+    def __init__(self, port):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port,
+                                               timeout=600)
+
+    def send(self, method, path, body=None, trace=None):
+        t0 = time.perf_counter()
+        headers = {"Content-Type": "application/json"}
+        if trace:
+            headers["X-Beacon-Trace"] = trace
+        self.conn.request(method, path,
+                          body=None if body is None else json.dumps(body),
+                          headers=headers)
+        r = self.conn.getresponse()
+        data = r.read()
+        return r.status, json.loads(data), (time.perf_counter() - t0) * 1e3
+
+    def close(self):
+        self.conn.close()
+
+
+def unmasked(doc):
+    """``doc`` without the per-request meta fields (trace id, elapsed
+    time), which nothing but the app can predict."""
+    doc = json.loads(json.dumps(doc))
+    for key in ("traceId", "elapsedTimeMs"):
+        doc.get("meta", {}).pop(key, None)
+    return doc
+
+
+def check_http_answer(req, doc, payload, shards, env, people):
+    """(ok, what) for one answer: a variant route's body against the
+    host matcher's envelope for the payload the engine received, that
+    payload's datasets and sample set against what the smoke generated;
+    an entity route's count and ids."""
+    cls = req["cls"]
+    if cls == "entity":
+        if req["gran"] == "terms":
+            got = {t["id"] for t in doc["response"]["filteringTerms"]}
+            return got == set(req["ids"]), "filtering terms"
+        summary = doc["responseSummary"]
+        if req["gran"] == "boolean":
+            return summary["exists"] == (req["count"] > 0), "exists"
+        if summary["numTotalResults"] != req["count"]:
+            return False, "count"
+        if req["gran"] == "record":
+            ids = [r["id"] for r in doc["response"]["resultSets"][0]
+                   ["results"]]
+            return ids == req["ids"], "ids"
+        return True, ""
+    if payload is None:
+        return False, "no payload reached the engine"
+    if sorted(payload.dataset_ids) != sorted(req["datasets"]):
+        return False, "datasets"
+    if req["samples"] is None:
+        if payload.selected_samples_only:
+            return False, "selected samples without a filter"
+    else:
+        got = {s for v in payload.sample_names.values() for s in v}
+        if not payload.selected_samples_only or got != req["samples"]:
+            return False, "sample set"
+    mine = [s for s in shards if s.meta["dataset_id"] in payload.dataset_ids]
+    if cls == "by_id":
+        body = {"query": {"requestedGranularity": "record",
+                          "includeResultsetResponses": "ALL",
+                          "requestParameters": {"assemblyId": "GRCh38"}}}
+        resps, want = expected_envelope(mine, env, body, payload)
+        if req["sub"]:
+            carriers = {s for r in resps for s in r.sample_names}
+            want_ids = sorted(i for i, v in people.items()
+                              if v[0] in carriers)
+            ids = sorted(r["id"] for r in doc["response"]["resultSets"][0]
+                         ["results"])
+            # one page (limit 100) of the carriers
+            page_ok = (ids == want_ids if len(want_ids) <= 100
+                       else len(ids) == 100 and set(ids) <= set(want_ids))
+            return (doc["responseSummary"]["numTotalResults"]
+                    == len(want_ids) and page_ok and want_ids), "carriers"
+        return unmasked(doc) == want, "envelope"
+    _resps, want = expected_envelope(mine, env, req["body"], payload)
+    return unmasked(doc) == want, "envelope"
+
+
+def run_http_path(main_shard, b_shard, root, args, device, kind, smi,
+                  kernel_ms):
+    """Phase 14a: write the data root, serve it through BeaconApp over
+    HTTP and check every answer. ``kernel_ms`` maps each kernel to its
+    per-launch time from the timing phases (the card-busy estimate)."""
+    import torch
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.server import start_background
+    from sbeacon_tpu_torch.config import BeaconConfig, StorageConfig
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    people, t_save, t_meta = write_data_root(root, main_shard, b_shard,
+                                             args.seed + 30)
+    from pathlib import Path
+
+    from sbeacon_tpu_torch.config import ResilienceConfig
+
+    # the engine under the JAX default config; the runner's pending cap
+    # raised from 64 to the admission cap (256): a job frees its slot
+    # only after persisting its answer, which trails the answer itself,
+    # so 64 keep-alive clients overrun 64 slots and draw 429s
+    app = BeaconApp(
+        BeaconConfig(storage=StorageConfig(root=Path(root)),
+                     resilience=ResilienceConfig(
+                         runner_max_pending=HTTP_RUNNER_MAX_PENDING)),
+        device=device)
+    server = None
+    try:
+        t0 = time.perf_counter()
+        n_loaded = app.ingest.load_all()
+        t_load = time.perf_counter() - t0
+        telemetry.reset_launch_counts()
+        t0 = time.perf_counter()
+        n_warm = app.engine.warmup()
+        torch.cuda.synchronize()
+        t_warm = time.perf_counter() - t0
+        warm_launches = {k: telemetry.launch_count(k) for k in
+                         (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL,
+                          pk.KERNEL)}
+        check(n_loaded == 2, "the data root's two shards loaded")
+        emit("http_setup", root_shards=n_loaded, save_s=t_save,
+             runner_max_pending=app.query_runner.max_pending,
+             metadata_s=t_meta, load_all_s=t_load, warmup_s=t_warm,
+             warmup_launches=n_warm, warmup_by_kernel=warm_launches,
+             individuals=len(people),
+             device_memory_gb=torch.cuda.memory_allocated() / 1e9,
+             response_cache=app.config.engine.response_cache)
+
+        # what the engine receives, by job id, and each request's job
+        received, submitted, job_notes = {}, {}, {}
+        search, submit = app.engine.search, app.query_runner.submit
+
+        def recording_search(payload):
+            received[payload.query_id] = payload
+            return search(payload)
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            ctx = telemetry.current_context()
+            submitted[ctx.trace_id] = (qid, payload)
+            note = ctx.notes.get("query_job", "executed")
+            job_notes[note] = job_notes.get(note, 0) + 1
+            return qid, status
+
+        app.engine.search = recording_search
+        app.query_runner.submit = recording_submit
+        served = [s for _d, _v, (s, _i, _p) in app.engine.indexes_for([])]
+        env = app.env
+        reqs = http_requests(main_shard, b_shard, people,
+                             random.Random(args.seed + 31),
+                             args.http_requests,
+                             app.config.engine.window_cap)
+        server, _t = start_background(app, "127.0.0.1", 0)
+        port = server.server_address[1]
+        cache0 = app.engine.cache_stats()
+        telemetry.reset_launch_counts()
+        answers = [None] * len(reqs)
+
+        def client(worker):
+            c = HttpClient(port)
+            try:
+                for i in range(worker, len(reqs), args.threads):
+                    r = reqs[i]
+                    answers[i] = c.send(r["method"], r["path"], r["body"],
+                                        trace=f"smoke-{i}")
+            finally:
+                c.close()
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=args.threads) as pool:
+            list(pool.map(client, range(args.threads)))
+        wall = time.perf_counter() - t0
+        launches = {k: telemetry.launch_count(k) for k in
+                    (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL)}
+        cache1 = app.engine.cache_stats()
+        runner = app.query_runner.metrics()
+        runner_wait = app.query_runner.queue_wait_summary()
+        traffic_jobs = dict(job_notes)  # before the in-process re-run
+
+        bad_status = [(r["path"], a[0]) for r, a in zip(reqs, answers)
+                      if a[0] != 200]
+        check(not bad_status, f"non-200 answers: {bad_status[:5]}")
+        mismatches, why = 0, {}
+        for i, (r, (_st, doc, _ms)) in enumerate(zip(reqs, answers)):
+            payload = None
+            if r["cls"] in VARIANT_CLASSES:
+                qid, sent = submitted.get(f"smoke-{i}", (None, None))
+                got = received.get(qid)
+                if got is not None and got == dataclasses.replace(
+                        sent, query_id=qid):
+                    payload = got
+            ok, what = check_http_answer(r, doc, payload, served, env,
+                                         people)
+            if not ok:
+                mismatches += 1
+                why[what] = why.get(what, 0) + 1
+        # the bytes of every answer equal the in-process handle's
+        inproc = 0
+        for i, (r, (_st, doc, _ms)) in enumerate(zip(reqs, answers)):
+            path, _, qs = r["path"].partition("?")
+            params = dict(p.split("=", 1) for p in qs.split("&") if p)
+            st, again = app.handle(r["method"], path, params,
+                                   json.loads(json.dumps(r["body"])),
+                                   headers={"X-Beacon-Trace": f"again-{i}"})
+            if st != 200 or json.dumps(unmasked(again)) != json.dumps(
+                    unmasked(doc)):
+                inproc += 1
+        check(mismatches == 0, f"{mismatches} HTTP answers differ from the "
+              f"host matcher or the generated truth: {why}")
+        check(inproc == 0, f"{inproc} HTTP bodies differ from app.handle's")
+        for k in (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL):
+            check(launches[k] > 0, f"the HTTP path launched {k}")
+        lat: dict = {}
+        for r, (_st, _doc, ms) in zip(reqs, answers):
+            lat.setdefault(r["cls"], []).append(ms)
+        n = len(reqs)
+        busy = sum(launches[k] * kernel_ms[k] for k in launches)
+        emit("http_path", requests=n, threads=args.threads,
+             classes={c: len(v) for c, v in sorted(lat.items())},
+             mismatches=mismatches, inprocess_mismatches=inproc,
+             non_200=len(bad_status), wall_s=wall, requests_per_s=n / wall,
+             latency_ms={c: {"p50": percentile(v, 0.5),
+                             "p99": percentile(v, 0.99)}
+                         for c, v in sorted(lat.items())},
+             launches=launches,
+             launches_per_request={k: v / n for k, v in launches.items()},
+             runner=runner, runner_submits=traffic_jobs,
+             response_cache={k: cache1[k] - cache0.get(k, 0)
+                             for k in ("hits", "misses") if k in cache1},
+             card_busy_ms_est=busy, card_busy_share_est=busy / (wall * 1e3),
+             busy_note="launches x each kernel's per-launch ms from phases "
+                       "5, 9 and 14",
+             runner_queue_wait_ms=runner_wait,
+             stage_ms=app.engine.stage_timing(), device=kind,
+             nvidia_smi=smi)
+        main_i = next(i for i, r in enumerate(reqs) if r["cls"] == "main")
+        return {"launches": launches, "main_request": reqs[main_i],
+                "main_answer": answers[main_i][1]}
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        app.close()
+        app.engine.close()
+        app.store.close()
+        app.ontology.close()
+
+
+def run_server_entry(root, http, device, kind, smi):
+    """Phase 14b: ``python3 -m sbeacon_tpu_torch.api.server`` over the
+    same data root as a child process: its serving line, the probes,
+    /info, one answer equal to http_path's, and SIGINT ending it."""
+    import queue
+    import signal
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "sbeacon_tpu_torch.api.server",
+           "--data-root", root, "--host", "127.0.0.1", "--port", str(port)]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in child.stdout],
+                     daemon=True).start()
+    try:
+        serving, log = None, []
+        while serving is None:
+            line = lines.get(timeout=300)
+            log.append(line.rstrip())
+            if line.startswith("beacon serving on"):
+                serving = line.strip()
+        t_serving = time.perf_counter() - t0
+        c = HttpClient(port)
+        try:
+            st_h, health, _ = c.send("GET", "/health")
+            t_first = time.perf_counter() - t0
+            st_r, ready, _ = c.send("GET", "/ready")
+            st_i, info, _ = c.send("GET", "/info")
+            r = http["main_request"]
+            st_v, doc, ms = c.send(r["method"], r["path"], r["body"])
+        finally:
+            c.close()
+        check((st_h, st_r, st_i, st_v) == (200, 200, 200, 200),
+              f"server_entry statuses {(st_h, st_r, st_i, st_v)}")
+        check(health.get("ok") is True and ready.get("shards") == 2,
+              f"server_entry probes: {health} {ready}")
+        same = json.dumps(unmasked(doc)) == json.dumps(
+            unmasked(http["main_answer"]))
+        check(same, "server_entry's answer equals http_path's")
+        t_sig = time.perf_counter()
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=30)
+        t_exit = time.perf_counter() - t_sig
+        check(rc == 0, f"the server exited with {rc} on SIGINT")
+        emit("server_entry", serving_line=serving, seconds_to_serving=t_serving,
+             seconds_to_first_answer=t_first, answer_ms=ms, equal=same,
+             ready=ready, exit_code=rc, exit_s=t_exit,
+             log=[x for x in log if not x.startswith("beacon serving")][-5:],
+             device=kind, nvidia_smi=smi)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
@@ -3310,6 +3891,7 @@ def main(argv=None) -> int:
     ap.add_argument("--samples", type=int, default=2504)
     ap.add_argument("--plane-rows", type=int, default=2_000_000)
     ap.add_argument("--selected-requests", type=int, default=256)
+    ap.add_argument("--http-requests", type=int, default=HTTP_REQUESTS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit): its "
@@ -3884,6 +4466,27 @@ def run(args, device) -> int:
     del engine, findex
     j2 = max(stimings, key=lambda t: t["selected_path_launches"])
     j4 = max(ptimings, key=lambda t: t["selected_path_launches"])
+
+    # 14a-14b. the HTTP surface: a data root of the main shard (no
+    # planes) and dataset B, served by BeaconApp over HTTP, then by the
+    # server entry as a child process; the root goes whatever happens
+    j1_top = max(timings, key=lambda t: (t["main_path_launches"], -t["C"]))
+    j3_mid = next(t for t in btimings
+                  if t["queries"] == percentile(batch_sizes, 0.5)
+                  and t["kind"] == "bracket")
+    kernel_ms = {sk.KERNEL: j1_top["main_path_shape"]["ms"],
+                 tk.KERNEL: j3_mid["ms_flushed"],
+                 sk.SELECTED_KERNEL: j2["ms"], pk.KERNEL: j4["ms"]}
+    torch.cuda.empty_cache()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    http_root = tempfile.mkdtemp(prefix="http-root-", dir=BUILD_DIR)
+    try:
+        http = run_http_path(shard, shard_b, http_root, args, device, kind,
+                             smi, kernel_ms)
+        torch.cuda.empty_cache()
+        run_server_entry(http_root, http, device, kind, smi)
+    finally:
+        shutil.rmtree(http_root, ignore_errors=True)
 
     # 15. the distinct path's keys: every shard built so far (A, the three
     # cohorts, B) and RESUBMITTED seeded row subsets of A, the same
@@ -4718,13 +5321,11 @@ def run(args, device) -> int:
     profiled_kernels()
 
     # the main path's most-launched tier stands for the scatter kernel;
-    # the median fused batch of brackets for the bisection kernel; the
-    # selected path's most-launched shape for the two plane kernels
-    top = max(timings, key=lambda t: (t["main_path_launches"], -t["C"]))
+    # the median fused batch of brackets for the bisection kernel (both
+    # picked before phase 14a); the selected path's most-launched shape
+    # for the two plane kernels
+    top, mid = j1_top, j3_mid
     top64 = top["main_path_shape"]
-    mid = next(t for t in btimings
-               if t["queries"] == percentile(batch_sizes, 0.5)
-               and t["kind"] == "bracket")
     print(json.dumps({"kernels": [{
         "name": sk.KERNEL,
         "route": "cuda",
@@ -4732,6 +5333,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/scatter_kernel.py:217",
         "launches": launches,
         "max_abs_err": max_err,
+        "http_path_launches": http["launches"][sk.KERNEL],
         "ms": top64["ms"],
         "plain_ms": top64["plain_ms"],
         "bound_ms": top64["bound_ms"],
@@ -4746,6 +5348,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/kernel.py:502",
         "launches": bisect_launches,
         "max_abs_err": bisect_err,
+        "http_path_launches": http["launches"][tk.KERNEL],
         "ms": mid["ms_flushed"],
         "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"],
@@ -4762,6 +5365,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/scatter_kernel.py:454",
         "launches": counts[sk.SELECTED_KERNEL],
         "max_abs_err": sel_err,
+        "http_path_launches": http["launches"][sk.SELECTED_KERNEL],
         "ms": j2["ms"],
         "plain_ms": j2["plain_ms"],
         "bound_ms": j2["bound_ms"],
@@ -4776,6 +5380,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/ops/plane_kernel.py:164",
         "launches": counts[pk.KERNEL],
         "max_abs_err": ps_err,
+        "http_path_launches": http["launches"][pk.KERNEL],
         "ms": j4["ms"],
         "plain_ms": j4["plain_ms"],
         "bound_ms": j4["bound_ms"],

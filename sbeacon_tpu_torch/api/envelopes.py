@@ -7,10 +7,7 @@ get_boolean_response/get_counts_response/get_result_sets_response,
 api_response.py:13-46 bad_request, entries.py:1-24 get_variant_entry).
 Envelope shape is the GA4GH Beacon v2 framework response model.
 
-Counterpart of ``sbeacon_tpu/api/envelopes.py``; the per-entity model
-schema table it points record responses at is the JAX package's
-``api/model_schemas.py``, of which only the entity names and the URL
-form are needed here.
+Counterpart of ``sbeacon_tpu/api/envelopes.py``, copied whole.
 """
 
 from __future__ import annotations
@@ -18,30 +15,6 @@ from __future__ import annotations
 from ..config import BeaconInfo
 
 SCHEMA = "https://json-schema.org/draft/2020-12/schema"
-
-#: the entities with a served default model schema
-ENTITY_SCHEMAS = (
-    "dataset",
-    "cohort",
-    "individual",
-    "biosample",
-    "run",
-    "analysis",
-    "genomicVariant",
-)
-PATH_TO_ENTITY = {
-    "datasets": "dataset",
-    "cohorts": "cohort",
-    "individuals": "individual",
-    "biosamples": "biosample",
-    "runs": "run",
-    "analyses": "analysis",
-    "g_variants": "genomicVariant",
-}
-
-
-def schema_url(base_uri: str, entity: str) -> str:
-    return f"{base_uri.rstrip('/')}/schemas/{entity}"
 
 
 class Envelopes:
@@ -98,10 +71,16 @@ class Envelopes:
 
     def _entity_schemas(self, set_type: str) -> list | None:
         """returnedSchemas entries pointing at the served per-entity
-        default model schema, so record responses reference resolvable
-        documents."""
-        # setType values mix singular/plural; the path table is the
-        # single normalisation source
+        default model schema (api/model_schemas.py), so record responses
+        reference resolvable documents."""
+        from .model_schemas import (
+            ENTITY_SCHEMAS,
+            PATH_TO_ENTITY,
+            schema_url,
+        )
+
+        # setType values mix singular/plural (app._SET_TYPE); the path
+        # table is the single normalisation source
         entity = PATH_TO_ENTITY.get(set_type, set_type)
         if entity not in ENTITY_SCHEMAS:
             return None
@@ -179,6 +158,32 @@ class Envelopes:
             skip=skip,
             limit=limit,
         )
+
+    def filtering_terms(
+        self, terms: list[dict], *, skip: int = 0, limit: int = 100
+    ) -> dict:
+        return {
+            "$schema": SCHEMA,
+            "info": {},
+            "meta": self._meta(
+                granularity="record",
+                pagination={"skip": skip, "limit": limit},
+                schemas=[],
+            ),
+            "response": {"filteringTerms": terms},
+        }
+
+    def error(self, status: int, message: str) -> dict:
+        return {
+            "$schema": SCHEMA,
+            "error": {"errorCode": status, "errorMessage": str(message)},
+            "meta": {
+                "apiVersion": self.info.api_version,
+                "beaconId": self.info.beacon_id,
+                "receivedRequestSummary": {},
+                "returnedSchemas": [],
+            },
+        }
 
 
 def variant_entry(

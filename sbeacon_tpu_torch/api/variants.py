@@ -1,22 +1,87 @@
 """Variant query orchestration for the API layer.
 
-Counterpart of ``sbeacon_tpu/api/variants.py``, trimmed to the
-cross-dataset aggregation (``VariantAggregation``) and
-``run_variant_search``: the Beacon aggregation loop over an engine's
-per-(dataset, vcf) responses. Dataset resolution through the metadata
-store, the async query runner and the explain plane are not ported yet:
-the caller passes the resolved dataset list, and the search always runs
-directly on the engine.
+Counterpart of ``sbeacon_tpu/api/variants.py:22-87, 135-248``: dataset
+resolution through the metadata store (``resolve_datasets``: a filter
+switches the search into selected-samples mode), the variant id codec
+(``encode_internal_id`` / ``decode_internal_id``), the cross-dataset
+aggregation (``VariantAggregation``) and ``run_variant_search``, which
+runs the search through the async query runner when one is given (its
+job table coalesces identical queries and caches their results) or
+directly on the engine. The explain branch of the JAX function comes
+with the policy and observability modules.
 """
 
 from __future__ import annotations
 
 import base64
 
+from ..metadata.filters import entity_search_conditions
 from ..payloads import VariantQueryPayload
 from ..utils.chrom import normalize_chromosome
 from .envelopes import variant_entry
 from .requests import BeaconRequest, RequestError
+
+
+def resolve_datasets(
+    store,
+    ontology,
+    assembly_id: str | None,
+    filters: list[dict],
+    *,
+    dataset_ids: list[str] | None = None,
+):
+    """(dataset_docs, samples_by_dataset) for a variant query.
+
+    With filters the analyses are joined to their datasets and
+    ``_vcfsampleid`` is aggregated per dataset, which switches the
+    search into selected-samples mode; without filters it is a plain
+    assembly scan.
+    """
+    if assembly_id is None:
+        raise RequestError("assemblyId must be specified")
+    samples_by_dataset: dict[str, list[str]] = {}
+    if filters:
+        conditions, params = entity_search_conditions(
+            filters, "analyses", "analyses", ontology=ontology, id_modifier="A.id"
+        )
+        rows = store.query(
+            f"SELECT A._datasetid, A._vcfsampleid FROM analyses A "
+            f"{conditions}",
+            params,
+        )
+        for ds, sample in rows:
+            samples_by_dataset.setdefault(ds, [])
+            if sample:
+                samples_by_dataset[ds].append(sample)
+        ids = sorted(samples_by_dataset)
+        if dataset_ids:
+            allowed = set(dataset_ids)
+            ids = [i for i in ids if i in allowed]
+        if not ids:
+            return [], {}
+        datasets = store.datasets_for_assembly(assembly_id, dataset_ids=ids)
+    else:
+        datasets = store.datasets_for_assembly(
+            assembly_id, dataset_ids=dataset_ids
+        )
+    return datasets, samples_by_dataset
+
+
+def encode_internal_id(
+    assembly_id: str, chrom: str, pos: str | int, ref: str, alt: str
+) -> str:
+    internal = f"{assembly_id}\t{chrom}\t{pos}\t{ref}\t{alt}"
+    return base64.b64encode(internal.encode()).decode()
+
+
+def decode_internal_id(variant_id: str) -> tuple[str, str, int, str, str]:
+    """(assembly, chrom, pos0, ref, alt); pos0 already 0-based."""
+    try:
+        decoded = base64.b64decode(variant_id.encode()).decode()
+        assembly, chrom, pos, ref, alt = decoded.split("\t")
+        return assembly, chrom, int(pos) - 1, ref, alt
+    except Exception:
+        raise RequestError(f"malformed variant id {variant_id!r}") from None
 
 
 class VariantAggregation:
@@ -82,9 +147,14 @@ def run_variant_search(
     variant_type: str | None = None,
     samples_by_dataset: dict[str, list[str]] | None = None,
     include_resultset_responses: str | None = None,
+    runner=None,
 ) -> VariantAggregation:
-    """Dispatch one search over the resolved datasets and aggregate
-    (a direct engine call)."""
+    """Dispatch one search over the resolved datasets and aggregate.
+
+    With ``runner`` (an ``AsyncQueryRunner``) the search goes through the
+    query job table: concurrent identical queries coalesce onto one
+    execution and completed results are served from the TTL'd cache.
+    Without it, a direct engine call."""
     reference_name = (
         reference_name if reference_name is not None else req.reference_name
     )
@@ -131,7 +201,34 @@ def run_variant_search(
         sample_names=samples_by_dataset if selected else {},
         selected_samples_only=selected,
     )
-    responses = engine.search(payload)
+    if runner is not None:
+        from ..query_jobs import JobStatus
+        from ..resilience import current_deadline
+
+        query_id, _ = runner.submit(
+            payload, fingerprint=engine.index_fingerprint()
+        )
+        responses = runner.result(
+            query_id, wait_s=engine.config.engine.request_timeout_s
+        )
+        if responses is None:
+            # the result wait is deadline-clamped: distinguish "the
+            # request ran out of time" (504, retryable with a longer
+            # deadline) from "the engine exceeded request_timeout_s"
+            current_deadline().check("variant query")
+            if runner.poll(query_id) is JobStatus.RUNNING:
+                # still executing past request_timeout_s: a second
+                # identical search would double device load exactly when
+                # the engine is slowest — report the timeout instead
+                raise TimeoutError(
+                    f"variant query {query_id} timed out after "
+                    f"{engine.config.engine.request_timeout_s}s"
+                )
+            # job abandoned (its search failed): run directly so the
+            # real error surfaces to this caller
+            responses = engine.search(payload)
+    else:
+        responses = engine.search(payload)
     agg = VariantAggregation(req.assembly_id or "")
     agg.add(
         responses,

@@ -3,7 +3,9 @@ from .columnar import (
     VariantIndexShard,
     build_index,
     fnv1a32,
+    load_index,
     merge_shards,
+    save_index,
     shard_from_reference,
     stack_shard_columns,
 )
@@ -13,7 +15,9 @@ __all__ = [
     "VariantIndexShard",
     "build_index",
     "fnv1a32",
+    "load_index",
     "merge_shards",
+    "save_index",
     "shard_from_reference",
     "stack_shard_columns",
 ]

@@ -15,14 +15,20 @@ with the same numpy fields, e.g. the JAX package's shard) into this
 package's ``VariantIndexShard`` without importing its module, so both
 packages can be fed one index.
 
-The native genotype-plane builder, the native text build and
-save/load belong to the ingest slice and are not ported.
+``save_index`` / ``load_index`` (``columnar.py:557-618`` there) read
+and write the same ``.npz`` plus ``.meta.json`` sidecar as the JAX
+package, compressed or not, planes included, so the port serves a data
+root the JAX pipeline wrote. The native genotype-plane builder and the
+native text build belong to the ingest slice and are not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import json
+import os
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -680,3 +686,66 @@ def _gt_matrix(genotypes: list[str], gt_words: int):
         (int(s), int(ntok[s])) for s in np.nonzero(ntok > 2)[0]
     ]
     return M, ntok, tok1, tok2, tok_over
+
+
+# -- persistence ----------------------------------------------------------------
+
+
+def _shard_arrays(shard: VariantIndexShard) -> dict:
+    arrays = {f"col_{k}": v for k, v in shard.cols.items()}
+    arrays["chrom_offsets"] = shard.chrom_offsets
+    arrays["ref_blob"] = shard.ref_blob
+    arrays["ref_off"] = shard.ref_off
+    arrays["alt_blob"] = shard.alt_blob
+    arrays["alt_off"] = shard.alt_off
+    arrays["vt_codes"] = shard.vt_codes
+    for plane in _SHARD_PLANES:
+        arr = getattr(shard, plane)
+        if arr is not None:
+            arrays[plane] = arr
+    return arrays
+
+
+def _shard_from(data, meta: dict) -> VariantIndexShard:
+    cols = {k[4:]: data[k] for k in data.files if k.startswith("col_")}
+    return VariantIndexShard(
+        meta=meta,
+        cols=cols,
+        chrom_offsets=data["chrom_offsets"],
+        ref_blob=data["ref_blob"],
+        ref_off=data["ref_off"],
+        alt_blob=data["alt_blob"],
+        alt_off=data["alt_off"],
+        vt_codes=data["vt_codes"],
+        **{
+            plane: (data[plane] if plane in data.files else None)
+            for plane in _SHARD_PLANES
+        },
+    )
+
+
+def save_index(
+    shard: VariantIndexShard, path: str | Path, *, compress: bool = True
+) -> None:
+    """Persist a shard as one npz + json meta sidecar.
+
+    Writes are atomic (tmp + rename), so a crash mid-save never leaves a
+    truncated shard for ``load_index`` to trip on; a leftover
+    ``*.tmp.npz`` is skipped by ``IngestService.load_all``.
+    ``compress=False`` skips the zlib pass."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    arrays = _shard_arrays(shard)
+    tmp = path.with_name(path.name + ".tmp.npz")
+    (np.savez_compressed if compress else np.savez)(tmp, **arrays)
+    os.replace(tmp, path if path.suffix == ".npz" else str(path) + ".npz")
+    meta_tmp = Path(str(path) + ".meta.json.tmp")
+    meta_tmp.write_text(json.dumps(shard.meta))
+    os.replace(meta_tmp, str(path) + ".meta.json")
+
+
+def load_index(path: str | Path) -> VariantIndexShard:
+    path = Path(path)
+    data = np.load(path if path.suffix == ".npz" else str(path) + ".npz")
+    meta = json.loads(Path(str(path) + ".meta.json").read_text())
+    return _shard_from(data, meta)

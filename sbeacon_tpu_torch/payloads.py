@@ -1,13 +1,16 @@
 """Typed query/response contracts.
 
 Counterpart of ``sbeacon_tpu/payloads.py``, trimmed to the variant
-search payload and its per-(dataset, vcf) response. Field names, order
+search payload and its per-(dataset, vcf) response (with the response's
+JSON form, in which the query job table stores it). Field names, order
 and defaults are the JAX package's, so ``dataclasses.asdict`` of a
 response compares equal across the two packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
 
 
@@ -70,3 +73,10 @@ class VariantSearchResponse:
     variants: list[str] = field(default_factory=list)
     sample_indices: list[int] = field(default_factory=list)
     sample_names: list[str] = field(default_factory=list)
+
+    def dumps(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @staticmethod
+    def loads(s: str) -> "VariantSearchResponse":
+        return VariantSearchResponse(**json.loads(s))

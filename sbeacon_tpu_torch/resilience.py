@@ -7,9 +7,11 @@ Counterpart of ``sbeacon_tpu/resilience.py:37-165``: the error taxonomy
 deadline enters at the caller and propagates ambiently (thread-local)
 into every blocking wait of the micro-batcher, which raises
 ``DeadlineExceeded`` when the request's own deadline lapsed and
-``BatchTimeout`` when only the batch timeout did. The admission
-controller and the circuit breaker of the JAX module are not ported
-yet.
+``BatchTimeout`` when only the batch timeout did. The admission gate
+(``AdmissionController``, ``register_admission_metrics``,
+``resilience.py:166-285`` there) bounds the requests in flight at the
+HTTP layer and the query runner's pool. The circuit breaker of the JAX
+module belongs to the fleet plane and is not ported yet.
 
 Stdlib only and importable from any layer.
 """
@@ -19,6 +21,8 @@ from __future__ import annotations
 import threading
 import time
 from contextlib import contextmanager
+
+from .telemetry import publish_event
 
 
 # -- typed failures -----------------------------------------------------------
@@ -148,3 +152,116 @@ def deadline_scope(deadline: Deadline):
         yield deadline
     finally:
         _ambient.deadline = prev
+
+
+# -- admission control --------------------------------------------------------
+
+
+class AdmissionController:
+    """Bounded in-flight gate: at most ``max_in_flight`` admitted
+    requests at once, the rest fast-fail with 429 + Retry-After, so
+    saturation answers in microseconds instead of queueing every excess
+    request into the HTTP server's accept backlog."""
+
+    #: minimum seconds between admission-shed flight-recorder events —
+    #: a 429 flood is ONE incident, not thousands of journal entries
+    SHED_EVENT_INTERVAL_S = 1.0
+
+    def __init__(
+        self, max_in_flight: int = 64, *, retry_after_s: float = 1.0
+    ):
+        if max_in_flight < 1:
+            raise ValueError("max_in_flight must be >= 1")
+        self.max_in_flight = max_in_flight
+        self.retry_after_s = retry_after_s
+        self._lock = threading.Lock()
+        self._in_flight = 0
+        self._admitted = 0
+        self._shed = 0
+        self._last_shed_event = 0.0
+
+    def try_acquire(self) -> bool:
+        """Take one slot if available (False = shed, counted); callers
+        that release from another thread (e.g. a worker pool) pair this
+        with :meth:`release` instead of the ``admit`` scope."""
+        with self._lock:
+            if self._in_flight >= self.max_in_flight:
+                self._shed += 1
+                now = time.monotonic()
+                fire = (
+                    now - self._last_shed_event
+                    >= self.SHED_EVENT_INTERVAL_S
+                )
+                if fire:
+                    self._last_shed_event = now
+                shed, in_flight = self._shed, self._in_flight
+            else:
+                self._in_flight += 1
+                self._admitted += 1
+                return True
+        if fire:  # journal write outside the hot-path lock
+            publish_event(
+                "admission.shed",
+                shed=shed,
+                in_flight=in_flight,
+                max_in_flight=self.max_in_flight,
+            )
+        return False
+
+    def release(self) -> None:
+        with self._lock:
+            self._in_flight -= 1
+
+    @contextmanager
+    def admit(self):
+        if not self.try_acquire():
+            raise Overloaded(
+                f"server at capacity ({self.max_in_flight} in flight)",
+                retry_after_s=self.retry_after_s,
+            )
+        try:
+            yield
+        finally:
+            self.release()
+
+    def metrics(self) -> dict:
+        with self._lock:
+            return {
+                "max_in_flight": self.max_in_flight,
+                "in_flight": self._in_flight,
+                "admitted": self._admitted,
+                "shed": self._shed,
+            }
+
+
+def register_admission_metrics(registry, supplier) -> None:
+    """Register the server admission gate's typed instruments.
+
+    ``supplier`` is a zero-arg callable returning the CURRENT
+    AdmissionController — the app may swap its controller at runtime
+    (tests do), so instruments must read through the owner, not bind
+    one instance."""
+
+    def field(name):
+        return lambda: supplier().metrics()[name]
+
+    registry.gauge(
+        "admission.max_in_flight",
+        "configured in-flight request cap",
+        fn=field("max_in_flight"),
+    )
+    registry.gauge(
+        "admission.in_flight",
+        "requests currently admitted",
+        fn=field("in_flight"),
+    )
+    registry.counter(
+        "admission.admitted",
+        "requests admitted since start",
+        fn=field("admitted"),
+    )
+    registry.counter(
+        "admission.shed",
+        "requests shed with 429 at the admission gate",
+        fn=field("shed"),
+    )

@@ -16,7 +16,8 @@ serving path calls:
 - the per-request ``CostVector``, ``charge_cost`` and
   ``charge_cost_to`` (``:509-634``);
 - ``RequestContext``, ``request_context``, ``current_context`` and
-  ``annotate`` (``:636-764``);
+  ``annotate`` (``:636-764``), and ``sanitize_trace_id`` for an inbound
+  ``X-Beacon-Trace`` header (``:647-654``);
 - the bounded event journal, ``publish_event`` and its reader
   ``EventJournal.events`` (``:825-1003``, without the env configuration
   and the paginated read).
@@ -498,6 +499,19 @@ def charge_cost_to(ctx, **fields) -> None:
 def new_trace_id() -> str:
     """64-bit hex trace id (the Dapper convention's width)."""
     return uuid.uuid4().hex[:16]
+
+
+#: acceptable inbound trace ids — anything else is replaced with a
+#: fresh id, since the value is re-emitted into log lines and headers
+#: (no CRLF or unbounded junk pass-through)
+_TRACE_ID_RE = re.compile(r"^[A-Za-z0-9_.\-]{1,64}$")
+
+
+def sanitize_trace_id(raw: str | None) -> str | None:
+    """``raw`` if it is a well-formed trace id, else None."""
+    if raw and _TRACE_ID_RE.match(raw):
+        return raw
+    return None
 
 
 def new_span_id() -> str:

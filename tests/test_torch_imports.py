@@ -78,6 +78,17 @@ def test_port_imports_no_jax_and_no_reference_package():
             "sbeacon_tpu_torch.parallel.distinct",
             "sbeacon_tpu_torch.parallel.mesh",
             "sbeacon_tpu_torch.ingest.pipeline",
+            "sbeacon_tpu_torch.ingest.service",
+            "sbeacon_tpu_torch.index.columnar",
+            "sbeacon_tpu_torch.metadata.entities",
+            "sbeacon_tpu_torch.metadata.filters",
+            "sbeacon_tpu_torch.metadata.ontology",
+            "sbeacon_tpu_torch.metadata.store",
+            "sbeacon_tpu_torch.query_jobs",
+            "sbeacon_tpu_torch.api.app",
+            "sbeacon_tpu_torch.api.framework",
+            "sbeacon_tpu_torch.api.model_schemas",
+            "sbeacon_tpu_torch.api.server",
             "sbeacon_tpu_torch.engine"} <= set(names)
     assert leaked == []
 
@@ -120,6 +131,26 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(no_gpu):
     finally:
         eng.close()
     assert t_ops.make_device_index(shard, "cpu").tiles.device.type == "cpu"
+
+
+def test_beacon_app_and_server_need_a_gpu_unless_cpu_is_asked(no_gpu,
+                                                              tmp_path):
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.server import main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BeaconApp()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--data-root", str(tmp_path / "root")])
+    app = BeaconApp(device="cpu")
+    try:
+        assert app.engine.device.type == "cpu"
+        status, body = app.handle("GET", "/info")
+        assert status == 200 and body["response"]["id"] == "org.tpu.beacon"
+        assert app.handle("GET", "/ready")[1]["shards"] == 0
+    finally:
+        app.close()
+        app.engine.close()
 
 
 @pytest.mark.parametrize("option", ["use_mesh", "response_cache"])
