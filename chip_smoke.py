@@ -112,8 +112,10 @@ non-zero, without the final line):
     analysis per sample: sex alternating, a disease of eight HP terms
     whose edges to one parent term are in the ontology store), served
     by ``BeaconApp`` (engine under the JAX default config, the cache
-    on; the runner's pending cap at 256) after ``load_all`` and
-    ``warmup``, over HTTP on 127.0.0.1: 512 requests from 64 keep-alive
+    on; the runner's pending cap at 256; shaping and the canary off, as
+    the port served this phase before the policy plane: the SLO, cost
+    and plan folds run) after ``load_all`` and ``warmup``, over HTTP on
+    127.0.0.1: 512 requests from 64 keep-alive
     clients (30% ``/datasets/{main}/g_variants`` in the main mix, 25%
     ``/g_variants`` in the fused mix over both datasets, 15% filtered
     ``/g_variants`` selecting B's samples by sex or HP term, 10%
@@ -126,12 +128,47 @@ non-zero, without the final line):
     the in-process ``app.handle``; any non-200 fails. J1, J3, J2 and
     J4 must all launch; launch counts zeroed just before the traffic
     and read just after;
+14c. http_policy_path: the JAX default config over HTTP — a second
+    ``BeaconApp`` on 14a's root and engine (``engine=``: nothing
+    reloads; the job table starts empty) with shaping, SLOs, costs,
+    plans, the slow-query log and the canary on, the config changed
+    only in the tenant weights (gold=4, free=1), explain with a worker
+    token, a 2 s canary interval and the runner's pending cap of 14a:
+    512 requests in 14a's mix (another seed) from 64 keep-alive
+    clients, 50% ``X-Beacon-Tenant: gold``, 40% ``free``, 10% none;
+    20% of the variant requests at record granularity (the bulk lane),
+    5% with ``?explain=1`` and the worker token; one more client
+    polling every 0.5 s ``/slo``, ``/ops/costs``, ``/ops/plans``,
+    ``/ops/events?since=``, ``/debug/status``, ``/device/status``, both
+    ``/metrics`` dialects and ``/_trace?trace_id=`` (tracing on).
+    Gates: (a) every 200 variant and entity body against 14a's oracle
+    (``meta.executionPlan`` removed; each explain document names the
+    leg that served); (b) no 500, every non-200 a 429/503/504 error
+    envelope, as many by layer as the shaper's, admission's, runner's
+    and batcher's shed, expiry and timeout counters moved (a shed the
+    brownout ladder decided is a result, not a failure); (c)
+    ``/ops/costs`` requests per tenant equal those sent, every variant
+    shape carrying cost and every tenant device us; (d) ``/slo`` totals
+    per route equal those sent; (e) at least 3 canary rounds (then it
+    stops), 0 mismatches and 0 failures, its route in neither ``/slo``
+    nor ``/ops/costs``; (f) ``/device/status``
+    families equal the wrappers' launch counts (scatter = J1, fused +
+    fused_l0 = J3, plane = J2 + J4); (g) every exposition read parses
+    (TYPE before samples, monotone buckets, ``+Inf`` = ``_count``,
+    exemplars only on OpenMetrics buckets, ``# EOF`` there), and a
+    traced ``/health``'s exemplar resolves through ``/_trace``. Then
+    the policy plane's host cost, off the traffic on a fresh app:
+    each fold of ``handle`` timed alone, and 128 requests one at a
+    time through ``handle`` and ``_route`` in turns;
 14b. server_entry: ``python3 -m sbeacon_tpu_torch.api.server
-    --data-root`` the same root as a child process: its serving line,
-    ``/health``, ``/ready`` (2 shards), ``/info`` and one
-    ``/datasets/{main}/g_variants`` body equal to phase 14a's, then
-    SIGINT, which must end it within 30 s. The root is removed
-    whatever happens;
+    --data-root`` the same root as a child process with
+    ``SBEACON_PROFILE`` and ``SBEACON_TRACE=1``: its serving line
+    (within 28 s of the start), ``/health``, ``/ready`` (2 shards),
+    ``/info`` and one ``/datasets/{main}/g_variants`` body equal to
+    phase 14a's, then SIGINT, which must end it within 60 s; the
+    child's trace report, and its exported ``torch.profiler`` trace
+    holding a ``scatter_match`` kernel inside a ``kernel.launch``
+    range. The root is removed whatever happens;
 15. distinct setup: the keys of every shard built so far (A, the three
     cohorts, B) and of three seeded row subsets of A (40-70% of its rows
     each: the same sites submitted again), about 7e7 keys on the card;
@@ -235,6 +272,7 @@ import dataclasses
 import json
 import os
 import random
+import re
 import shutil
 import subprocess
 import sys
@@ -3556,7 +3594,8 @@ def http_requests(main_shard, b_shard, people, rng, n, window_cap):
 
 
 class HttpClient:
-    """One keep-alive connection; ``send`` returns (status, body, ms)."""
+    """One keep-alive connection; ``send`` returns (status, body, ms),
+    the body parsed from JSON unless ``raw`` (text)."""
 
     def __init__(self, port):
         import http.client
@@ -3564,17 +3603,19 @@ class HttpClient:
         self.conn = http.client.HTTPConnection("127.0.0.1", port,
                                                timeout=600)
 
-    def send(self, method, path, body=None, trace=None):
+    def send(self, method, path, body=None, trace=None, headers=None,
+             raw=False):
         t0 = time.perf_counter()
-        headers = {"Content-Type": "application/json"}
+        hdrs = {"Content-Type": "application/json", **(headers or {})}
         if trace:
-            headers["X-Beacon-Trace"] = trace
+            hdrs["X-Beacon-Trace"] = trace
         self.conn.request(method, path,
                           body=None if body is None else json.dumps(body),
-                          headers=headers)
+                          headers=hdrs)
         r = self.conn.getresponse()
         data = r.read()
-        return r.status, json.loads(data), (time.perf_counter() - t0) * 1e3
+        doc = data.decode() if raw else json.loads(data)
+        return r.status, doc, (time.perf_counter() - t0) * 1e3
 
     def close(self):
         self.conn.close()
@@ -3646,7 +3687,10 @@ def run_http_path(main_shard, b_shard, root, args, device, kind, smi,
                   kernel_ms):
     """Phase 14a: write the data root, serve it through BeaconApp over
     HTTP and check every answer. ``kernel_ms`` maps each kernel to its
-    per-launch time from the timing phases (the card-busy estimate)."""
+    per-launch time from the timing phases (the card-busy estimate).
+    The app is closed on return; its engine stays open for
+    http_policy_path (``engine`` in the returned dict), and is closed
+    here only when the phase fails."""
     import torch
 
     from sbeacon_tpu_torch import telemetry
@@ -3661,18 +3705,28 @@ def run_http_path(main_shard, b_shard, root, args, device, kind, smi,
                                              args.seed + 30)
     from pathlib import Path
 
-    from sbeacon_tpu_torch.config import ResilienceConfig
+    from sbeacon_tpu_torch.config import (
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+    )
 
     # the engine under the JAX default config; the runner's pending cap
     # raised from 64 to the admission cap (256): a job frees its slot
     # only after persisting its answer, which trails the answer itself,
-    # so 64 keep-alive clients overrun 64 slots and draw 429s
+    # so 64 keep-alive clients overrun 64 slots and draw 429s. Shaping
+    # and the canary stay off, as the port served this phase before the
+    # policy plane (http_policy_path runs the whole default config)
     app = BeaconApp(
         BeaconConfig(storage=StorageConfig(root=Path(root)),
                      resilience=ResilienceConfig(
-                         runner_max_pending=HTTP_RUNNER_MAX_PENDING)),
+                         runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+                     shaping=ShapingConfig(enabled=False),
+                     observability=ObservabilityConfig(
+                         canary_enabled=False)),
         device=device)
     server = None
+    ok = False
     try:
         t0 = time.perf_counter()
         n_loaded = app.ingest.load_all()
@@ -3800,29 +3854,814 @@ def run_http_path(main_shard, b_shard, root, args, device, kind, smi,
                        "5, 9 and 14",
              runner_queue_wait_ms=runner_wait,
              stage_ms=app.engine.stage_timing(), device=kind,
+             shaping=app.config.shaping.enabled,
+             canary=app.config.observability.canary_enabled,
+             config_note="JAX default config but ShapingConfig(enabled="
+                         "False) and canary_enabled=False (what the port "
+                         "served here before the policy plane; the SLO, "
+                         "cost and plan folds run), runner_max_pending 256",
              nvidia_smi=smi)
         main_i = next(i for i, r in enumerate(reqs) if r["cls"] == "main")
+        # the engine serves http_policy_path next: no recording there
+        del app.engine.search
+        ok = True
         return {"launches": launches, "main_request": reqs[main_i],
-                "main_answer": answers[main_i][1]}
+                "main_answer": answers[main_i][1], "engine": app.engine,
+                "people": people, "requests_per_s": n / wall}
     finally:
         if server is not None:
             server.shutdown()
             server.server_close()
         app.close()
-        app.engine.close()
+        if not ok:
+            app.engine.close()
         app.store.close()
         app.ontology.close()
 
 
+# -- the policy plane over HTTP (http_policy_path) ----------------------------
+
+#: http_policy_path's tenants (X-Beacon-Tenant; None sends no header:
+#: the anon bucket) and their shares of the requests
+POLICY_TENANTS = (("gold", 0.5), ("free", 0.4), (None, 0.1))
+POLICY_WEIGHTS = "gold=4,free=1"
+#: shares of the variant requests sent at record granularity (the bulk
+#: lane) and with ?explain=1
+POLICY_RECORD_SHARE = 0.2
+POLICY_EXPLAIN_SHARE = 0.05
+POLICY_WORKER_TOKEN = "chip-smoke-worker-token"
+POLICY_CANARY_INTERVAL_S = 2.0
+POLICY_CANARY_ROUNDS = 3
+POLICY_POLL_S = 0.5
+#: requests a turn of the policy plane's host-cost measurement
+POLICY_COST_REQUESTS = 128
+
+_SAMPLE_RE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*?\})? (\S+)'
+    r'(?: # \{trace_id="((?:[^"\\]|\\.)*)"\} (\S+) (\S+))?$')
+_LABEL_RE = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+
+
+def check_exposition(text, openmetrics):
+    """(problems, {exemplar trace id: labels}) of one ``/metrics`` text:
+    every sample parses and follows its family's TYPE line, histogram
+    buckets are monotone in their order with ``+Inf`` equal to
+    ``_count``; exemplars only on OpenMetrics ``_bucket`` lines, counter
+    samples ``_total`` there, and ``# EOF`` last there and only there."""
+    problems, exemplars = [], {}
+    lines = text.rstrip("\n").split("\n")
+    if openmetrics:
+        if lines[-1] != "# EOF":
+            problems.append("OpenMetrics text does not end in # EOF")
+        lines = lines[:-1]
+    if "# EOF" in lines:
+        problems.append("# EOF inside the text")
+    types = {}
+    buckets, infs, counts = {}, {}, {}
+    for ln in lines:
+        if ln.startswith("# HELP "):
+            if len(ln.split(" ", 3)) < 4:
+                problems.append(f"bare HELP line {ln[:100]!r}")
+            continue
+        if ln.startswith("# TYPE "):
+            _h, _t, name, kind = ln.split(" ", 3)
+            types[name] = kind
+            continue
+        m = _SAMPLE_RE.match(ln)
+        if m is None:
+            problems.append(f"unparsed line {ln[:100]!r}")
+            continue
+        name, labels, value, trace = m.group(1), m.group(2), m.group(3), \
+            m.group(4)
+        try:
+            float(value)
+        except ValueError:
+            problems.append(f"bad value {ln[:100]!r}")
+        fam, part = name, ""
+        if fam not in types:
+            for sfx in ("_bucket", "_sum", "_count", "_total"):
+                if name.endswith(sfx) and name[:-len(sfx)] in types:
+                    fam, part = name[:-len(sfx)], sfx
+                    break
+        if fam not in types:
+            problems.append(f"sample before its TYPE: {name}")
+            continue
+        kind = types[fam]
+        if kind == "counter" and openmetrics != (part == "_total"):
+            problems.append(f"counter sample name {name} in "
+                            f"{'OpenMetrics' if openmetrics else 'classic'}")
+        if trace is not None:
+            if not openmetrics:
+                problems.append(f"exemplar in the classic text: {name}")
+            elif part != "_bucket":
+                problems.append(f"exemplar off a bucket line: {name}")
+            exemplars[trace] = labels
+        if kind == "histogram":
+            lab = dict(_LABEL_RE.findall(labels or ""))
+            le = lab.pop("le", None)
+            key = (fam, tuple(sorted(lab.items())))
+            if part == "_bucket":
+                buckets.setdefault(key, []).append(float(value))
+                if le == "+Inf":
+                    infs[key] = float(value)
+            elif part == "_count":
+                counts[key] = float(value)
+    for key, vals in buckets.items():
+        if any(b < a for a, b in zip(vals, vals[1:])):
+            problems.append(f"buckets not monotone: {key}")
+        if infs.get(key) != counts.get(key):
+            problems.append(f"+Inf {infs.get(key)} != _count "
+                            f"{counts.get(key)}: {key}")
+    return problems, exemplars
+
+
+def policy_requests(reqs, rng):
+    """http_path's requests dressed for http_policy_path: a tenant each
+    (POLICY_TENANTS), POLICY_RECORD_SHARE of the variant requests at
+    record granularity, POLICY_EXPLAIN_SHARE with ?explain=1 and the
+    worker token."""
+    out = []
+    for r in reqs:
+        r = dict(r, body=json.loads(json.dumps(r["body"])))
+        x, tenant = rng.random(), None
+        for t, share in POLICY_TENANTS:
+            if x < share:
+                tenant = t
+                break
+            x -= share
+        headers = {"X-Beacon-Tenant": tenant} if tenant else {}
+        r.update(tenant=tenant or "anon", explain=False)
+        if r["cls"] in VARIANT_CLASSES:
+            if rng.random() < POLICY_RECORD_SHARE and r["body"] is not None:
+                r["body"]["query"]["requestedGranularity"] = "record"
+            if rng.random() < POLICY_EXPLAIN_SHARE:
+                sep = "&" if "?" in r["path"] else "?"
+                r["path"] += f"{sep}explain=1"
+                headers["Authorization"] = f"Bearer {POLICY_WORKER_TOKEN}"
+                r["explain"] = True
+        r["headers"] = headers
+        out.append(r)
+    return out
+
+
+def explain_leg(doc):
+    """(ok, leg) of an explained answer's ``meta.executionPlan``: the
+    admission, cache and split stages are there, and the split names a
+    leg (its decision and the legs with a count); a launch through the
+    micro-batcher adds the batch stage's index class."""
+    plan = doc.get("meta", {}).get("executionPlan") or {}
+    stages = plan.get("stages") or []
+    names = [s["stage"] for s in stages]
+    split = next((s for s in stages if s["stage"] == "split"), None)
+    if split is None or "admission" not in names or "cache" not in names:
+        return False, plan.get("shape")
+    legs = sorted(k for k, v in (split.get("detail") or {}).items() if v)
+    batch = [s.get("decision") for s in stages if s["stage"] == "batch"]
+    return bool(legs), f"{split.get('decision')}:{'+'.join(legs)}" + (
+        f"@{batch[0]}" if batch else "")
+
+
+def run_http_policy_path(http, main_shard, b_shard, root, args, device,
+                         kind, smi, kernel_ms):
+    """Phase 14c: the JAX default config over HTTP — a second BeaconApp
+    on http_path's data root and engine (``engine=``: nothing reloads;
+    the job table starts empty) with shaping, SLOs, costs, plans, the
+    slow-query log and the canary on; the config changes are the tenant
+    weights, explain with a worker token, a 2 s canary interval and the
+    runner's pending cap of http_path. 512 requests in http_path's mix
+    from 64 keep-alive clients under three tenants (record granularity
+    and explain on shares of the variant requests), one more client
+    polling every diagnostic route. Gates (a)-(g): see the module
+    docstring."""
+    import torch
+
+    from sbeacon_tpu_torch import canary as canary_mod
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.server import start_background
+    from sbeacon_tpu_torch.config import (
+        AuthConfig,
+        BeaconConfig,
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+        StorageConfig,
+    )
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.utils.trace import tracer
+    from pathlib import Path
+
+    engine, people = http["engine"], http["people"]
+    # a fresh job table: http_path's answers must not serve this phase
+    for name in ("query-jobs.sqlite", "query-jobs.sqlite-wal",
+                 "query-jobs.sqlite-shm"):
+        p = os.path.join(root, name)
+        if os.path.exists(p):
+            os.remove(p)
+    config = BeaconConfig(
+        storage=StorageConfig(root=Path(root)),
+        resilience=ResilienceConfig(
+            runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+        auth=AuthConfig(worker_token=POLICY_WORKER_TOKEN),
+        shaping=ShapingConfig(tenant_weights=POLICY_WEIGHTS),
+        observability=ObservabilityConfig(
+            explain_enabled=True,
+            canary_interval_s=POLICY_CANARY_INTERVAL_S))
+    # the canary's request contexts, by trace id: the launches its
+    # probes lead are counted apart (a probe that joins a batch another
+    # request leads rides that launch; the module reads RequestContext
+    # at call time)
+    canary_traces = set()
+
+    class CanaryContext(telemetry.RequestContext):
+        __slots__ = ()
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            canary_traces.add(self.trace_id)
+
+    canary_mod.RequestContext = CanaryContext
+    recorder = telemetry.flight_recorder
+    fam0 = recorder.launches_by_family()
+    telemetry.reset_launch_counts()
+    app = BeaconApp(config, engine=engine)
+    server = None
+    stop = threading.Event()
+    rounds = []  # (seconds, summary) of each canary round
+    run_once = app.canary.run_once
+
+    def timed_round():
+        t0 = time.perf_counter()
+        summary = run_once()
+        rounds.append((time.perf_counter() - t0, summary))
+        return summary
+
+    app.canary.run_once = timed_round
+    tracer.reset()
+    tracer.enable()
+    try:
+        received, submitted, by_trace = {}, {}, {}
+        search, submit = engine.search, app.query_runner.submit
+
+        def recording_search(payload):
+            received[payload.query_id] = payload
+            ctx = telemetry.current_context()
+            if ctx is not None and ctx.explain:
+                by_trace[ctx.trace_id] = payload
+            return search(payload)
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            submitted[telemetry.current_context().trace_id] = (qid, payload)
+            return qid, status
+
+        engine.search = recording_search
+        app.query_runner.submit = recording_submit
+        served = [s for _d, _v, (s, _i, _p) in engine.indexes_for([])]
+        env = app.env
+        base = http_requests(main_shard, b_shard, people,
+                             random.Random(args.seed + 41),
+                             args.http_requests, config.engine.window_cap)
+        reqs = policy_requests(base, random.Random(args.seed + 42))
+        server, _t = start_background(app, "127.0.0.1", 0)
+        port = server.server_address[1]
+
+        # (g) first, while the ladder is at level 0: a traced probe's
+        # exemplar resolves through /_trace
+        c = HttpClient(port)
+        try:
+            st_h, _doc, _ = c.send("GET", "/health", trace="policy-exemplar")
+            st_m, om, _ = c.send("GET", "/metrics?format=openmetrics",
+                                 raw=True)
+            st_t, tr, _ = c.send("GET", "/_trace?trace_id=policy-exemplar")
+        finally:
+            c.close()
+        om_problems, om_ex = check_exposition(om, True)
+        exemplar_ok = (st_h == st_m == st_t == 200
+                       and "policy-exemplar" in om_ex
+                       and 'route="health"' in om_ex["policy-exemplar"]
+                       and bool(tr.get("traces"))
+                       and all(t["traceId"] == "policy-exemplar"
+                               for t in tr["traces"]))
+        check(exemplar_ok, "the traced /health's exemplar resolves "
+              f"through /_trace ({st_h}, {st_m}, {st_t}, "
+              f"{om_ex.get('policy-exemplar')})")
+
+        polls, poll_bad, brownout, breaches = [], [], [], set()
+        expo_problems, events, trace_hits = [], [], [0, 0]
+        poll_paths = ("/slo", "/ops/costs", "/ops/plans", "/debug/status",
+                      "/device/status", "/metrics?format=prometheus",
+                      "/metrics?format=openmetrics")
+
+        def poller():
+            pc = HttpClient(port)
+            since = telemetry.journal.last_seq()  # this phase's events
+            try:
+                while not stop.is_set():
+                    t0 = time.perf_counter()
+                    for path in poll_paths + (f"/ops/events?since={since}",):
+                        raw = path.startswith("/metrics")
+                        st, doc, ms = pc.send("GET", path, raw=raw)
+                        polls.append((path.split("?")[0], st, ms))
+                        if st != 200:
+                            poll_bad.append((path, st))
+                            continue
+                        if raw:
+                            probs, _ex = check_exposition(
+                                doc, path.endswith("openmetrics"))
+                            expo_problems.extend(probs)
+                        elif path == "/debug/status":
+                            brownout.append(
+                                doc["queues"]["shaping"]["brownoutLevel"])
+                        elif path == "/slo":
+                            breaches.update(r for r, d in doc["routes"]
+                                            .items() if d["breached"])
+                        elif path.startswith("/ops/events"):
+                            events.extend(doc["events"])
+                            since = doc["nextSince"]
+                    done = [i for i, a in enumerate(answers) if a]
+                    if done:
+                        # /_trace stays behind the admission gate: under
+                        # a brownout it may be shed (counted, reported)
+                        tid = f"policy-{done[-1]}"
+                        st, doc, ms = pc.send("GET", f"/_trace?trace_id={tid}")
+                        polls.append(("/_trace", st, ms))
+                        trace_hits[0] += 1
+                        if st == 200 and doc.get("traces"):
+                            trace_hits[1] += 1
+                    stop.wait(max(0.0, POLICY_POLL_S
+                                  - (time.perf_counter() - t0)))
+            finally:
+                pc.close()
+
+        answers = [None] * len(reqs)
+
+        def client(worker):
+            cl = HttpClient(port)
+            try:
+                for i in range(worker, len(reqs), args.threads):
+                    r = reqs[i]
+                    answers[i] = cl.send(r["method"], r["path"], r["body"],
+                                         trace=f"policy-{i}",
+                                         headers=r["headers"])
+            finally:
+                cl.close()
+
+        adm0, run0 = app.admission.metrics(), app.query_runner.metrics()
+        sh0 = app.shaping.queue.totals()
+        occ0 = engine.batcher.occupancy() if engine.batcher else {}
+        poll_t = threading.Thread(target=poller, daemon=True)
+        t0 = time.perf_counter()
+        poll_t.start()
+        with ThreadPoolExecutor(max_workers=args.threads) as pool:
+            list(pool.map(client, range(args.threads)))
+        wall = time.perf_counter() - t0
+        # (e) at least POLICY_CANARY_ROUNDS rounds, then the canary
+        # stops: the launch counts below see no launch after the reads
+        t_wait = time.perf_counter()
+        while (len(rounds) < POLICY_CANARY_ROUNDS
+               and time.perf_counter() - t_wait < 30):
+            time.sleep(0.1)
+        app.canary.close()
+        stop.set()
+        poll_t.join(30)
+        torch.cuda.synchronize()
+        launches = {k: telemetry.launch_count(k) for k in
+                    (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL)}
+        canary_launches = {}
+        for rec in telemetry.recent_launches():
+            if rec.get("traceId") in canary_traces:
+                canary_launches[rec["kernel"]] = (
+                    canary_launches.get(rec["kernel"], 0) + 1)
+        fam1 = recorder.launches_by_family()
+        c = HttpClient(port)
+        try:
+            reads = {p: c.send("GET", p)[:2] for p in
+                     ("/device/status", "/ops/costs", "/slo",
+                      "/debug/status", "/ops/plans")}
+        finally:
+            c.close()
+        for p, (st, _d) in reads.items():
+            check(st == 200, f"{p} answered {st}")
+        dev, costs = reads["/device/status"][1], reads["/ops/costs"][1]
+        slo, dbg = reads["/slo"][1], reads["/debug/status"][1]
+        plans = reads["/ops/plans"][1]
+        adm1, run1 = app.admission.metrics(), app.query_runner.metrics()
+        sh1 = app.shaping.queue.totals()
+        occ1 = engine.batcher.occupancy() if engine.batcher else {}
+
+        # (a) every 200 variant and entity body against the oracle, the
+        # explain document stripped (and naming the leg that served)
+        mismatches, why, legs, explained = 0, {}, {}, 0
+        for i, (r, (st, doc, _ms)) in enumerate(zip(reqs, answers)):
+            if st != 200:
+                continue
+            payload = None
+            if r["cls"] in VARIANT_CLASSES:
+                if r["explain"]:
+                    payload = by_trace.get(f"policy-{i}")
+                else:
+                    qid, sent = submitted.get(f"policy-{i}", (None, None))
+                    got = received.get(qid)
+                    if got is not None and got == dataclasses.replace(
+                            sent, query_id=qid):
+                        payload = got
+            if r["explain"]:
+                explained += 1
+                ok, leg = explain_leg(doc)
+                legs[leg] = legs.get(leg, 0) + 1
+                if not ok:
+                    mismatches += 1
+                    why["explain"] = why.get("explain", 0) + 1
+                doc = json.loads(json.dumps(doc))
+                doc.get("meta", {}).pop("executionPlan", None)
+            elif "executionPlan" in doc.get("meta", {}):
+                mismatches += 1
+                why["unasked plan"] = why.get("unasked plan", 0) + 1
+            ok, what = check_http_answer(r, doc, payload, served, env,
+                                         people)
+            if not ok:
+                mismatches += 1
+                why[what] = why.get(what, 0) + 1
+        check(mismatches == 0, f"{mismatches} policy-path answers differ "
+              f"from the host matcher or the generated truth: {why}")
+
+        # (b) no 500; every non-200 a 429/503/504 error envelope, as many
+        # as the layers' shed, timeout and expiry counters moved
+        non200 = {}
+        for r, (st, doc, _ms) in zip(reqs, answers):
+            if st == 200:
+                continue
+            err = doc.get("error", {}) if isinstance(doc, dict) else {}
+            check(st in (429, 503, 504) and err.get("errorCode") == st,
+                  f"non-200 {st} without its error envelope: {doc}")
+            msg = err.get("errorMessage", "")
+            layer = ("runner" if "query runner" in msg
+                     else "shaper" if ("lane" in msg or "brownout" in msg
+                                       or "fair queue" in msg
+                                       or "queue full" in msg)
+                     else "admission" if "server at capacity" in msg
+                     else "batcher" if "kernel launch" in msg
+                     else "other")
+            lane = "bulk" if _lane_of(r) == "bulk" else "interactive"
+            key = f"{st}:{layer}:{lane}:{msg.split(' (')[0][:60]}"
+            non200[key] = non200.get(key, 0) + 1
+        counted = {
+            "shaper": sh1["shed"] - sh0["shed"],
+            "admission": adm1["shed"] - adm0["shed"],
+            "runner": run1["shed"] - run0["shed"],
+            "batcher": (occ1.get("expired", 0) - occ0.get("expired", 0)
+                        + occ1.get("timeouts", 0)
+                        - occ0.get("timeouts", 0)),
+        }
+        by_layer = {}
+        for key, n in non200.items():
+            layer = key.split(":")[1]
+            by_layer[layer] = by_layer.get(layer, 0) + n
+        check(all(by_layer.get(k, 0) == v for k, v in counted.items())
+              and set(by_layer) <= set(counted),
+              f"non-200 answers by layer {by_layer} != the counters "
+              f"{counted}")
+
+        # (c) the cost table: a fold per tracked request a tenant sent
+        # (the traced /health is a probe: not folded). A request without
+        # X-Beacon-Tenant but with the worker token (explain) buckets by
+        # the credential's hash, as the shaper classifies it
+        sent_by_tenant = {}
+        for r in reqs:
+            t = app.shaping.tenant_of(r["headers"])
+            sent_by_tenant[t] = sent_by_tenant.get(t, 0) + 1
+        got_tenants = {t: d["requests"] for t, d in costs["tenants"].items()}
+        check(got_tenants == sent_by_tenant, f"/ops/costs requests by "
+              f"tenant {got_tenants} != sent {sent_by_tenant}")
+        variant_shapes = {k: v for k, v in costs["shapes"].items()
+                          if "g_variants" in k}
+        check(variant_shapes and all(
+            v["meanUnits"] > 0 for v in variant_shapes.values())
+            and all(costs["tenants"][t].get("device_us", 0) > 0
+                    for t in sent_by_tenant),
+            "every variant shape carries cost units and every tenant "
+            f"device us: {costs['tenants']}")
+
+        # (d) /slo's totals per route equal what was sent
+        sent_by_route = {}
+        for r in reqs:
+            label = app._route_label(r["path"].split("?")[0])
+            sent_by_route[label] = sent_by_route.get(label, 0) + 1
+        got_routes = {r: d["availability"]["windows"]["5m"]["total"]
+                      for r, d in slo["routes"].items()}
+        check(got_routes == sent_by_route, f"/slo totals {got_routes} != "
+              f"sent {sent_by_route}")
+
+        # (e) the canary: rounds on the card, every probe right, and its
+        # route in neither costs nor SLO
+        cstat = dbg["canary"]
+        check(len(rounds) >= POLICY_CANARY_ROUNDS and cstat["runs"]
+              >= POLICY_CANARY_ROUNDS, f"{len(rounds)} canary rounds")
+        check(cstat["mismatches"] == 0 and cstat["failures"] == 0
+              and cstat["probes"] > 0,
+              f"canary: {cstat['mismatches']} mismatches, "
+              f"{cstat['failures']} failures of {cstat['probes']}")
+        check("canary" not in slo["routes"]
+              and not any(k.startswith("canary") for k in costs["shapes"]),
+              "the canary route stays out of /slo and /ops/costs")
+
+        # (f) the flight recorder's families agree with the wrappers'
+        # counts: scatter = J1, fused + fused_l0 = J3, plane = J2 + J4
+        fam = {k: fam1.get(k, 0) - fam0.get(k, 0)
+               for k in set(fam0) | set(fam1)}
+        want_fam = {"scatter": launches[sk.KERNEL],
+                    "fused": launches[tk.KERNEL],
+                    "plane": launches[sk.SELECTED_KERNEL]
+                    + launches[pk.KERNEL]}
+        got_fam = {"scatter": fam.get("scatter", 0),
+                   "fused": fam.get("fused", 0) + fam.get("fused_l0", 0),
+                   "plane": fam.get("plane", 0)}
+        check(got_fam == want_fam and sum(
+            v for k, v in fam.items()
+            if k not in ("scatter", "fused", "fused_l0", "plane")) == 0,
+            f"/device/status families {fam} != launch counts {want_fam}")
+        check(dev["total"] == sum(fam1.values()),
+              "/device/status total equals the recorder's families")
+        for k in (sk.KERNEL, tk.KERNEL):
+            check(launches[k] > 0, f"the policy path launched {k}")
+
+        # (g) the expositions the poller read parse, and so does one last
+        # scrape of each dialect
+        c = HttpClient(port)
+        try:
+            for fmt in ("prometheus", "openmetrics"):
+                st, text, _ = c.send("GET", f"/metrics?format={fmt}",
+                                     raw=True)
+                probs, ex = check_exposition(text, fmt == "openmetrics")
+                expo_problems.extend(probs)
+                check(st == 200 and (fmt == "openmetrics") == bool(ex),
+                      f"/metrics?format={fmt}: {st}, {len(ex)} exemplars")
+        finally:
+            c.close()
+        check(not expo_problems and not om_problems,
+              f"exposition problems: {(om_problems + expo_problems)[:5]}")
+        check(not poll_bad or all(p.startswith("/_trace")
+                                  for p, _s in poll_bad),
+              f"diagnostic polls answered non-200: {poll_bad[:5]}")
+
+        lat, by_tenant, by_lane = {}, {}, {}
+        for r, (st, _doc, ms) in zip(reqs, answers):
+            lat.setdefault(r["cls"], []).append(ms)
+            by_tenant.setdefault(r["tenant"], []).append(ms)
+            by_lane.setdefault(_lane_of(r), []).append(ms)
+
+        def pq(d):
+            return {k: {"n": len(v), "p50": percentile(v, 0.5),
+                        "p99": percentile(v, 0.99)}
+                    for k, v in sorted(d.items())}
+
+        n = len(reqs)
+        busy = sum(launches[k] * kernel_ms[k] for k in launches)
+        probe_ms = [sec * 1e3 / max(1, s["probes"]) for sec, s in rounds]
+        poll_ms = {}
+        for path, _st, ms in polls:
+            poll_ms.setdefault(path, []).append(ms)
+        kinds = {}
+        for e in events:
+            kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+        cost = policy_host_cost(config, engine, base)
+        emit("http_policy_path", requests=n, threads=args.threads,
+             wall_s=wall, requests_per_s=n / wall,
+             http_path_requests_per_s=http["requests_per_s"],
+             tenants=sent_by_tenant,
+             explained=explained, explain_legs=legs,
+             mismatches=mismatches, non_200=non200, shed_counters=counted,
+             latency_ms=pq(lat), latency_ms_by_tenant=pq(by_tenant),
+             latency_ms_by_lane=pq(by_lane),
+             shaper=dbg["queues"]["shaping"],
+             shaper_queue_wait_ms={
+                 lane: {"n": h["count"], "mean": h["sum"] / h["count"]}
+                 for lane, h in app.telemetry.render_json()["shaping"]
+                 .get("queue_wait_ms", {}).items() if h["count"]},
+             brownout_levels=brownout,
+             brownout_max=max(brownout, default=0),
+             slo_breaches_seen=sorted(breaches),
+             slo_breached_at_end=dbg["diagnosis"]["breachedSlos"],
+             slow_queries=app.slow_log.count(),
+             canary={"rounds": len(rounds), "runs": cstat["runs"],
+                     "probes": cstat["probes"],
+                     "mismatches": cstat["mismatches"],
+                     "failures": cstat["failures"],
+                     "probe_ms": {"p50": percentile(probe_ms, 0.5),
+                                  "max": max(probe_ms, default=0.0)},
+                     "launches": canary_launches},
+             launches=launches,
+             launches_per_request={k: v / n for k, v in launches.items()},
+             launches_without_canary={
+                 k: v - canary_launches.get(k, 0)
+                 for k, v in launches.items()},
+             device_families=fam,
+             costs={"tenants": costs["tenants"],
+                    "attributionRatio": costs["attributionRatio"],
+                    "costliestShape": costs["costliestShape"]},
+             plans={"observations": plans["observations"],
+                    "drifts": len(plans["drifts"])},
+             events=kinds, polls=len(polls),
+             poll_ms={k: percentile(v, 0.5) for k, v in poll_ms.items()},
+             trace_polls=trace_hits, exemplar_resolved=exemplar_ok,
+             card_busy_ms_est=busy, card_busy_share_est=busy / (wall * 1e3),
+             busy_note="launches x each kernel's per-launch ms from phases "
+                       "5, 9 and 14",
+             host_cost=cost,
+             config_note="JAX default config; changed: tenant_weights "
+                         f"{POLICY_WEIGHTS}, explain_enabled with a worker "
+                         f"token, canary_interval_s {POLICY_CANARY_INTERVAL_S},"
+                         f" runner_max_pending {HTTP_RUNNER_MAX_PENDING}",
+             device=kind, nvidia_smi=smi)
+        return {"policy_launches": launches,
+                "canary_launches": canary_launches}
+    finally:
+        stop.set()
+        tracer.disable()
+        tracer.reset()
+        canary_mod.RequestContext = telemetry.RequestContext
+        if "search" in engine.__dict__:
+            del engine.search
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        app.close()
+        app.store.close()
+        app.ontology.close()
+
+
+def _lane_of(req):
+    """The lane the shaper gives a smoke request (record granularity in
+    the body or the query string: bulk)."""
+    from sbeacon_tpu_torch.shaping import classify_lane
+
+    path, _, qs = req["path"].partition("?")
+    params = dict(p.split("=", 1) for p in qs.split("&") if p)
+    return classify_lane(path.strip("/"), params, req["body"])
+
+
+def policy_host_cost(config, engine, base):
+    """What the policy plane costs a request on the host, off the
+    traffic, on a fresh app of ``config`` over ``engine`` (canary off,
+    the brownout ladder at level 0): (1) each fold of ``handle`` and
+    each shaping step of ``_handle`` timed with ``timeit`` on a
+    finished request's context (ns a call); (2) POLICY_COST_REQUESTS
+    main-class bodies served one at a time through ``app.handle`` and
+    straight through ``app._route`` (the routing alone: no context,
+    shaping or fold) in turns route, handle, handle, route, after a
+    warm pass (the job table answers the repeats in both arms)."""
+    from sbeacon_tpu_torch.api import BeaconApp
+
+    app = BeaconApp(dataclasses.replace(
+        config, observability=dataclasses.replace(
+            config.observability, canary_enabled=False)), engine=engine)
+    try:
+        return _policy_host_cost(app, base)
+    finally:
+        app.close()
+        app.store.close()
+        app.ontology.close()
+
+
+def _policy_host_cost(app, base):
+    import timeit
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.accounting import cost_units, query_shape
+    from sbeacon_tpu_torch.plan import plan_note, plan_stage
+    from sbeacon_tpu_torch.resilience import Deadline, deadline_scope
+    from sbeacon_tpu_torch.shaping import requested_granularity
+
+    mains = [r for r in base if r["cls"] == "main"][:POLICY_COST_REQUESTS]
+    route = app._route_label(mains[0]["path"])
+    ctx = telemetry.RequestContext(route=route)
+    payload = None
+    with telemetry.request_context(ctx):
+        st, payload = app._route("POST", mains[0]["path"], {},
+                                 json.loads(json.dumps(mains[0]["body"])))
+        plan_stage("admission", decision="interactive", tenant="gold")
+    ctx.notes = {"tenant": "gold", "lane": "interactive",
+                 "granularity": "count"}
+    snap = ctx.cost.snapshot()
+    headers = {"X-Beacon-Tenant": "gold"}
+    body = mains[0]["body"]
+    n = 20_000
+
+    def admit():
+        with app.shaping.admit("gold", "interactive", "g_variants:count"):
+            pass
+
+    each = {
+        "empty_call": lambda: None,
+        "latency_observe": lambda: app._req_latency.observe(
+            5.0, label_value=route, exemplar=ctx.trace_id),
+        "slo_record": lambda: app.slo.record(route, 200, 5.0,
+                                             tenant="gold"),
+        "response_bytes": lambda: len(json.dumps(payload, default=str)),
+        "cost_record": lambda: app.accounting.record(
+            "gold", "interactive", query_shape(route, "count"), snap),
+        "plan_observe": lambda: app.plans.observe(
+            query_shape(route, "count"), ctx.plan,
+            units=cost_units(snap), trace_id=ctx.trace_id),
+        "plan_note": lambda: plan_note(ctx),
+        "slow_log": lambda: app.slow_log.maybe_record(
+            trace_id=ctx.trace_id, route=route, status=200,
+            elapsed_ms=5.0, notes=ctx.notes),
+        "classify": lambda: (app.shaping.tenant_of(headers),
+                             app.shaping.lane_of("datasets", {}, body),
+                             requested_granularity({}, body)),
+        "shaping_admit": admit,
+    }
+    ns = {k: timeit.timeit(f, number=n) / n * 1e9 for k, f in each.items()}
+    folds_us = sum(v - ns["empty_call"] for k, v in ns.items()
+                   if k != "empty_call") / 1e3
+
+    def serial(arm):
+        t0 = time.perf_counter()
+        for r in mains:
+            b = json.loads(json.dumps(r["body"]))
+            if arm == "handle":
+                app.handle("POST", r["path"], {}, b, headers=headers)
+            else:
+                with deadline_scope(Deadline.after(60.0)):
+                    app._route("POST", r["path"], {}, b)
+        return (time.perf_counter() - t0) * 1e3 / len(mains)
+
+    serial("route")  # warm: the job table holds every answer after it
+    turns = [(arm, serial(arm))
+             for arm in ("route", "handle", "handle", "route")]
+    route_ms = [ms for a, ms in turns if a == "route"]
+    handle_ms = [ms for a, ms in turns if a == "handle"]
+    return {"requests": len(mains), "fold_ns_per_call": ns,
+            "folds_us_per_request": folds_us,
+            "serial_ms_per_request": [{"arm": a, "ms": ms}
+                                      for a, ms in turns],
+            "handle_minus_route_us": (float(np.mean(handle_ms))
+                                      - float(np.mean(route_ms))) * 1e3,
+            "note": "host clock, off the traffic; fold_ns_per_call by "
+                    "timeit on one finished request's context; the "
+                    "serial arms after the traffic, the ladder at its "
+                    "level then (a shed answers from the shaper)"}
+
+
+#: the serving line came 23.0 s after the start without the profiler
+#: and the tracer (PERF.md §5); with them armed it may come at most 5 s
+#: later
+SERVING_LINE_S = 23.0 + 5.0
+
+
+def launch_region_kernels(trace_path, prefix="scatter_match",
+                          region="kernel.launch"):
+    """(kernels, inside) of a ``torch.profiler`` Chrome trace: the CUDA
+    kernel events whose name starts with ``prefix``, and those of them
+    inside a ``region`` range — their launch call (matched by
+    correlation id) inside the CPU ``record_function`` range on its
+    thread, or the kernel inside the range's GPU projection."""
+    with open(trace_path) as f:
+        doc = json.load(f)
+    evs = [e for e in (doc["traceEvents"] if isinstance(doc, dict) else doc)
+           if e.get("ph") == "X"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and kernel_name(e.get("name", "")).startswith(prefix)]
+    cpu = [e for e in evs if e.get("cat") == "user_annotation"
+           and e.get("name", "").endswith(region)]
+    gpu = [e for e in evs if e.get("cat") == "gpu_user_annotation"
+           and e.get("name", "").endswith(region)]
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+
+    def within(r, e):
+        return r["ts"] <= e["ts"] <= r["ts"] + r.get("dur", 0)
+
+    inside = 0
+    for k in kernels:
+        call = calls.get(k.get("args", {}).get("correlation"))
+        if (call is not None and any(
+                r.get("pid") == call.get("pid") and r.get("tid")
+                == call.get("tid") and within(r, call) for r in cpu)) or any(
+                within(r, k) for r in gpu):
+            inside += 1
+    return len(kernels), inside
+
+
 def run_server_entry(root, http, device, kind, smi):
     """Phase 14b: ``python3 -m sbeacon_tpu_torch.api.server`` over the
-    same data root as a child process: its serving line, the probes,
-    /info, one answer equal to http_path's, and SIGINT ending it."""
+    same data root as a child process, with ``SBEACON_PROFILE`` and
+    ``SBEACON_TRACE=1``: its serving line (within SERVING_LINE_S), the
+    probes, /info, one answer equal to http_path's, and SIGINT ending
+    it; then the child's trace report, and the ``torch.profiler`` trace
+    it exported, which must hold a ``scatter_match`` kernel inside a
+    ``kernel.launch`` range."""
     import queue
     import signal
     import socket
 
     here = os.path.dirname(os.path.abspath(__file__))
+    prof_dir = tempfile.mkdtemp(prefix="server-profile-", dir=BUILD_DIR)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
@@ -3830,7 +4669,8 @@ def run_server_entry(root, http, device, kind, smi):
            "--data-root", root, "--host", "127.0.0.1", "--port", str(port)]
     if device.type != "cuda":
         cmd += ["--device", str(device)]
-    env = dict(os.environ, PYTHONUNBUFFERED="1",
+    env = dict(os.environ, PYTHONUNBUFFERED="1", SBEACON_PROFILE=prof_dir,
+               SBEACON_TRACE="1",
                PYTHONPATH=os.pathsep.join(
                    [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     t0 = time.perf_counter()
@@ -3866,18 +4706,39 @@ def run_server_entry(root, http, device, kind, smi):
         check(same, "server_entry's answer equals http_path's")
         t_sig = time.perf_counter()
         child.send_signal(signal.SIGINT)
-        rc = child.wait(timeout=30)
+        rc = child.wait(timeout=60)
         t_exit = time.perf_counter() - t_sig
         check(rc == 0, f"the server exited with {rc} on SIGINT")
+        time.sleep(0.2)  # the reader thread drains the last lines
+        while not lines.empty():
+            log.append(lines.get().rstrip())
+        report = any("== sbeacon trace report ==" in x for x in log)
+        check(report, "the server printed its trace report at exit")
+        check(t_serving <= SERVING_LINE_S, f"the serving line came "
+              f"{t_serving:.1f} s after the start (> {SERVING_LINE_S} s)")
+        traces = [os.path.join(prof_dir, n) for n in os.listdir(prof_dir)
+                  if n.endswith(".json")]
+        check(len(traces) == 1, f"the server exported {len(traces)} "
+              "profiler traces")
+        n_kernels, n_inside = launch_region_kernels(traces[0])
+        check(n_inside > 0, f"the profiler trace holds {n_kernels} "
+              f"scatter_match kernels, {n_inside} inside a kernel.launch "
+              "range")
         emit("server_entry", serving_line=serving, seconds_to_serving=t_serving,
              seconds_to_first_answer=t_first, answer_ms=ms, equal=same,
              ready=ready, exit_code=rc, exit_s=t_exit,
-             log=[x for x in log if not x.startswith("beacon serving")][-5:],
+             profile={"trace_bytes": os.path.getsize(traces[0]),
+                      "scatter_match_kernels": n_kernels,
+                      "inside_kernel_launch": n_inside},
+             trace_report=report,
+             log=[x for x in log if not x.startswith("beacon serving")
+                  and "==" not in x][-5:],
              device=kind, nvidia_smi=smi)
     finally:
         if child.poll() is None:
             child.kill()
             child.wait()
+        shutil.rmtree(prof_dir, ignore_errors=True)
 
 
 def main(argv=None) -> int:
@@ -3915,6 +4776,8 @@ def main(argv=None) -> int:
 
 def run(args, device) -> int:
     """Every phase, on ``device``."""
+    import logging
+
     import torch
 
     from sbeacon_tpu_torch import telemetry
@@ -3934,6 +4797,11 @@ def run(args, device) -> int:
     from sbeacon_tpu_torch.testing import random_records, synthetic_shard
 
     rng = random.Random(args.seed)
+    # the HTTP phases' slow-query records stay in the log's ring (and
+    # their counts in the phase lines), not on stderr
+    slow = logging.getLogger("sbeacon.slowquery")
+    slow.addHandler(logging.NullHandler())
+    slow.propagate = False
 
     # 1. environment
     smi = nvidia_smi_line()
@@ -3942,10 +4810,13 @@ def run(args, device) -> int:
          count=torch.cuda.device_count(), torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    # 2. build every kernel, one nvcc per source, all at once
+    # 2. build every kernel, one nvcc per source, all at once (a warmup:
+    # the flight recorder's compile tracker takes these loads as
+    # expected)
     t0 = time.perf_counter()
-    _build.build_all()
-    libs = {name: _build.load(name)._name for name in _build.SIGNATURES}
+    with telemetry.device_warmup_phase():
+        _build.build_all()
+        libs = {name: _build.load(name)._name for name in _build.SIGNATURES}
     emit("build", kernels=sorted(libs), seconds=time.perf_counter() - t0,
          flags=" ".join(_build.NVCC_FLAGS), libraries=libs,
          nvcc_seconds={n: _build.build_log.get(n, {}).get("seconds")
@@ -4483,6 +5354,12 @@ def run(args, device) -> int:
     try:
         http = run_http_path(shard, shard_b, http_root, args, device, kind,
                              smi, kernel_ms)
+        try:
+            http.update(run_http_policy_path(http, shard, shard_b,
+                                             http_root, args, device, kind,
+                                             smi, kernel_ms))
+        finally:
+            http.pop("engine").close()
         torch.cuda.empty_cache()
         run_server_entry(http_root, http, device, kind, smi)
     finally:
@@ -5334,6 +6211,9 @@ def run(args, device) -> int:
         "launches": launches,
         "max_abs_err": max_err,
         "http_path_launches": http["launches"][sk.KERNEL],
+        "http_policy_path_launches": http["policy_launches"][sk.KERNEL],
+        "http_policy_path_canary_launches": http["canary_launches"].get(
+            sk.KERNEL, 0),
         "ms": top64["ms"],
         "plain_ms": top64["plain_ms"],
         "bound_ms": top64["bound_ms"],
@@ -5349,6 +6229,9 @@ def run(args, device) -> int:
         "launches": bisect_launches,
         "max_abs_err": bisect_err,
         "http_path_launches": http["launches"][tk.KERNEL],
+        "http_policy_path_launches": http["policy_launches"][tk.KERNEL],
+        "http_policy_path_canary_launches": http["canary_launches"].get(
+            tk.KERNEL, 0),
         "ms": mid["ms_flushed"],
         "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"],
@@ -5366,6 +6249,9 @@ def run(args, device) -> int:
         "launches": counts[sk.SELECTED_KERNEL],
         "max_abs_err": sel_err,
         "http_path_launches": http["launches"][sk.SELECTED_KERNEL],
+        "http_policy_path_launches": http["policy_launches"][sk.SELECTED_KERNEL],
+        "http_policy_path_canary_launches": http["canary_launches"].get(
+            sk.SELECTED_KERNEL, 0),
         "ms": j2["ms"],
         "plain_ms": j2["plain_ms"],
         "bound_ms": j2["bound_ms"],
@@ -5381,6 +6267,9 @@ def run(args, device) -> int:
         "launches": counts[pk.KERNEL],
         "max_abs_err": ps_err,
         "http_path_launches": http["launches"][pk.KERNEL],
+        "http_policy_path_launches": http["policy_launches"][pk.KERNEL],
+        "http_policy_path_canary_launches": http["canary_launches"].get(
+            pk.KERNEL, 0),
         "ms": j4["ms"],
         "plain_ms": j4["plain_ms"],
         "bound_ms": j4["bound_ms"],

@@ -1,8 +1,8 @@
-"""The Beacon v2 application: one router over the read surface.
+"""The Beacon v2 application: one router over the read surface and the
+policy and observability plane behind it.
 
-Counterpart of ``sbeacon_tpu/api/app.py`` (``:94-398, 521-767, 768-800,
-1159-1172, 1207-1616``), trimmed to the Beacon routes and the pieces of
-the policy plane every request goes through:
+Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet plane and
+ingest:
 
     /  /info  /configuration  /map  /entry_types  /filtering_terms
     /schemas  /schemas/{entity}
@@ -12,34 +12,60 @@ the policy plane every request goes through:
     /{entity}/{id}/{sub}             (cross-entity joins + scoped g_variants)
     /g_variants  /g_variants/{id}  /g_variants/{id}/{biosamples,individuals}
     /health  /ready  /metrics        (probes: no auth, admission, deadline)
+    /slo  /ops/events  /ops/costs  /ops/plans  /debug/status
+    /device/status                   (diagnostic probes, the same bypass)
+    /_trace                          (span trees; 404 unless tracing is on)
 
-with the submit auth gate, the ``X-Beacon-Deadline`` header, the
-admission gate, the trace id of ``X-Beacon-Trace`` and the error mapping
-to 400/429/503/504/500. ``/submit`` answers 501 until the ingest slice
-is ported (the auth gate still runs first). Traffic shaping, cost
-accounting, SLOs, execution plans and explain, the canary, the
-slow-query log, Prometheus exposition and the diagnostic routes
-(``/_trace``, ``/slo``, ``/ops/*``, ``/debug/status``,
-``/device/status``, ``/fleet/*``) are not ported: those paths answer
-the router's 404.
+Every request runs under a request context (the trace id of
+``X-Beacon-Trace`` or a fresh one) and, past the submit auth gate and
+the ``?explain=1`` gate (``BEACON_EXPLAIN_ENABLED`` and the worker
+token), is classified by tenant and priority lane and admitted through
+the shaper's weighted fair queue ahead of the global admission gate,
+under its ``X-Beacon-Deadline``. Its outcome folds into the SLO engine,
+the cost table and the plan store (probe and diagnostic routes
+excluded, all three from ``slo.PROBE_ROUTE_LABELS``), the slow-query
+log, and, when explained, ``meta.executionPlan``. The canary prober
+runs in the background (``canary_interval_s``). Errors map to
+400/429/503/504/500. ``/submit`` answers 501 until the ingest slice is
+ported (the auth gate still runs first), and ``/fleet/*`` answers 404
+until the fleet plane is (its sections of ``/debug/status`` render as
+the JAX app renders them for an engine without breakers or routes).
 
-Every handler returns ``(status_code, body_dict)``; transport (the HTTP
+Every handler returns ``(status_code, body_dict)`` — or, for a
+Prometheus ``/metrics`` scrape, ``(200, text)``; transport (the HTTP
 server, tests) is external.
 """
 
 from __future__ import annotations
 
 import hmac
+import json
+import logging
 import math
 import time
 from pathlib import Path
 
+from .. import telemetry as telemetry_mod
+from ..accounting import (
+    CostAccounting,
+    cost_units,
+    disabled_snapshot,
+    query_shape,
+)
+from ..canary import CanaryProber
 from ..config import BeaconConfig, StorageConfig
 from ..engine import VariantEngine
 from ..harness import faults
 from ..ingest.service import IngestService, VcfLocationError
 from ..metadata import MetadataStore, OntologyStore
 from ..metadata.filters import FilterError
+from ..plan import (
+    PlanStore,
+    plan_document,
+    plan_note,
+    plan_stage,
+    register_plan_metrics,
+)
 from ..query_jobs import AsyncQueryRunner, QueryJobTable
 from ..resilience import (
     NO_DEADLINE,
@@ -49,13 +75,26 @@ from ..resilience import (
     deadline_scope,
     register_admission_metrics,
 )
+from ..shaping import TrafficShaper, requested_granularity
+from ..slo import (
+    DIAGNOSTIC_ROUTE_LABELS,
+    PROBE_BYPASS_PATHS,
+    PROBE_HEAD_LABELS,
+    SloEngine,
+)
 from ..telemetry import (
     MetricsRegistry,
     RequestContext,
+    SlowQueryLog,
+    annotate,
+    current_context,
+    journal,
+    profiler,
+    register_device_metrics,
     request_context,
     sanitize_trace_id,
 )
-from ..utils.trace import span
+from ..utils.trace import span, tracer
 from .envelopes import Envelopes
 from .framework import (
     configuration_response,
@@ -96,13 +135,25 @@ _CROSS_ENTITY: dict[tuple[str, str], tuple[str, str]] = {
     ("runs", "analyses"): ("analyses", "runid"),
 }
 
-#: the probes: GET only, served before auth, admission and deadlines
-PROBE_PATHS = frozenset({"health", "ready", "metrics"})
+#: the probes and diagnostic surfaces: GET only, served before auth,
+#: admission and deadlines — derived from slo.PROBE_ROUTE_LABELS, the
+#: source the SLO budget exclusion and the latency labels share
+PROBE_PATHS = PROBE_BYPASS_PATHS
+
+#: the fleet plane's diagnostic paths: probe labels here, 404 until the
+#: fleet plane is ported
+_FLEET_HEAD = "fleet"
 
 
 def strip_private(doc: dict) -> dict:
     """Drop '_'-prefixed internal fields."""
     return {k: v for k, v in doc.items() if not k.startswith("_")}
+
+
+def _wants_explain(query_params: dict | None) -> bool:
+    """``?explain=1`` (or true/yes/on) — the inline plan request."""
+    raw = str((query_params or {}).get("explain") or "").lower()
+    return raw in ("1", "true", "yes", "on")
 
 
 def _header(headers: dict | None, name: str) -> str | None:
@@ -216,10 +267,98 @@ class BeaconApp:
         self.admission = AdmissionController(
             res.max_in_flight, retry_after_s=res.shed_retry_after_s
         )
+
+        # traffic shaping: tenant-weighted fair queueing + priority
+        # lanes in FRONT of the global gate (a queued request holds no
+        # admission slot), with the brownout ladder fed by the SLO
+        # engine's breach signal below. The hedge kill switch is
+        # process-wide.
+        def _hedge_control(enabled: bool) -> None:
+            from ..parallel.dispatch import set_hedging_enabled
+
+            set_hedging_enabled(enabled)
+
+        # cost accounting: every tracked request's CostVector folds into
+        # the per-(tenant, lane, query-shape) table served at
+        # /ops/costs; tenant cardinality reuses shaping's cap. Built
+        # BEFORE the shaper so the cost-aware DRR seam can charge
+        # measured shape costs.
+        obs = self.config.observability
+        if obs.cost_accounting:
+            self.accounting = CostAccounting(
+                window_s=obs.cost_window_s,
+                max_tenants=self.config.shaping.max_tenants,
+            )
+        else:
+            self.accounting = None
+        self.shaping = TrafficShaper.from_config(
+            self.config,
+            hedge_control=_hedge_control,
+            cost_charge_fn=(
+                self.accounting.drr_charge
+                if self.accounting is not None
+                else None
+            ),
+        )
         # readiness flag: constructed apps are servable; a deployment
         # may clear it during reload/drain so load balancers back off
         self.ready = True
         self.telemetry = MetricsRegistry()
+        self.slow_log = SlowQueryLog(
+            threshold_ms=obs.slow_query_ms, path=obs.slow_query_log
+        )
+        # SLO engine: per-route availability + latency objectives as
+        # 5m/1h burn rates over every request outcome; the brownout
+        # ladder subscribes to its breach signal
+        self.slo = SloEngine.from_config(
+            obs, max_tenants=self.config.shaping.max_tenants
+        )
+        self.slo.add_breach_listener(self.shaping.on_slo_signal)
+        # execution plans: sampled per-request plan documents by
+        # (query-shape, plan-shape), served at /ops/plans; the drift
+        # sentinel's window is the canary interval (the prober's round
+        # loop rolls it)
+        self.plans = PlanStore(
+            sample_n=obs.plan_sample_n,
+            drift_windows=obs.plan_drift_windows,
+            window_s=obs.canary_interval_s,
+        )
+        # known-answer canary prober: expected-answer probes derived
+        # from the serving snapshot under the synthetic 'canary' route
+        # (budget- and cost-excluded). The thread waits one full
+        # interval before its first round.
+        self.canary = CanaryProber(
+            self.engine,
+            interval_s=obs.canary_interval_s,
+            enabled=obs.canary_enabled,
+            latency_ms=obs.canary_latency_ms,
+            plan_store=self.plans,
+        )
+        self.canary.start()
+        # the process journal and device flight recorder were built from
+        # env defaults at import; the config tier re-applies here. The
+        # recorder is resolved through the module at call time, so a
+        # test that swaps telemetry.flight_recorder swaps this view too.
+        journal.configure(
+            keep=obs.event_journal_size, enabled=obs.event_journal
+        )
+        telemetry_mod.flight_recorder.configure(
+            ring_size=obs.device_ring_size,
+            compile_tracking=obs.compile_tracking,
+        )
+        if obs.profile_dir:
+            # config-armed profiling; the profiler is process-global
+            # (one capture per process), so a second app cannot
+            # redirect an already-armed capture
+            if not profiler.directory:
+                profiler.directory = obs.profile_dir
+            elif profiler.directory != obs.profile_dir:
+                logging.getLogger(__name__).warning(
+                    "profiling already armed for %s; ignoring "
+                    "profile_dir=%s (one capture per process)",
+                    profiler.directory,
+                    obs.profile_dir,
+                )
         self._register_metrics()
         # mutating-route auth: explicit verifier > config token > open
         if auth_verifier is not None:
@@ -232,43 +371,83 @@ class BeaconApp:
             self.auth_verifier = None
 
     def close(self) -> None:
-        """Release app-owned resources: the async runner's worker pool
-        and the job table. The engine is NOT closed here."""
+        """Release app-owned resources: the async runner's worker pool,
+        the job table, the canary thread and the shaper. The engine is
+        NOT closed here."""
         self.query_runner.close()
         self.query_jobs.close()
+        self.canary.close()
+        self.shaping.close()
         self.ingest.close()
 
+    # -- telemetry wiring ---------------------------------------------------
+
     def _register_metrics(self) -> None:
-        """Wire the app's, the admission gate's, the runner's and the
-        engine's instruments into this app's registry. Suppliers read
-        through ``self`` so a component swapped at runtime (tests replace
-        ``app.admission``) stays observable."""
+        """Wire every producer's instruments into this app's registry.
+        Suppliers read through ``self`` so a component swapped at
+        runtime (tests replace ``app.admission``) stays observable."""
         reg = self.telemetry
+        # exemplars link each latency bucket to the trace id of its
+        # latest request, so a slow bucket resolves at /_trace
         self._req_latency = reg.histogram(
             "request.latency_ms",
             "end-to-end request latency per route",
             label="route",
+            exemplars=True,
             # entity heads x sub-routes top the default 64-value guard
             max_label_values=128,
         )
+        reg.counter(
+            "request.slow_queries",
+            "requests recorded by the slow-query log",
+            fn=lambda: self.slow_log.count(),
+        )
+        self.slo.register_metrics(reg)
+        if self.accounting is not None:
+            self.accounting.register_metrics(reg)
+        else:
+            # catalogue stability: the cost.* series exist (zeros) even
+            # with accounting off
+            CostAccounting().register_metrics(reg)
+        reg.counter(
+            "events.published",
+            "control-plane events published to the event journal",
+            fn=journal.published,
+        )
+        register_device_metrics(reg)
+        self.canary.register_metrics(reg)
+        register_plan_metrics(reg, self.plans)
         register_admission_metrics(reg, lambda: self.admission)
+        self.shaping.register_metrics(reg)
         self.query_runner.register_metrics(reg)
         engine_reg = getattr(self.engine, "register_metrics", None)
         if engine_reg is not None:
             engine_reg(reg)
 
+    #: heads of the two-segment diagnostic surfaces (``ops``, ``debug``,
+    #: ``device``, ``fleet``) — derived from the one probe-route source
+    _DIAG_HEADS = frozenset(
+        label.split(".", 1)[0] for label in DIAGNOSTIC_ROUTE_LABELS
+    )
+
     #: bounded route-label set for the latency histogram — unknown
-    #: paths collapse to "other" so a URL scanner cannot mint series
-    _ROUTE_HEADS = ENTITY_PATHS | {
-        "info",
-        "configuration",
-        "map",
-        "entry_types",
-        "filtering_terms",
-        "schemas",
-        "submit",
-        "g_variants",
-    } | PROBE_PATHS
+    #: paths collapse to "other" so a URL scanner cannot mint series;
+    #: probe heads derive from slo.PROBE_ROUTE_LABELS
+    _ROUTE_HEADS = (
+        ENTITY_PATHS
+        | {
+            "info",
+            "configuration",
+            "map",
+            "entry_types",
+            "filtering_terms",
+            "schemas",
+            "submit",
+            "g_variants",
+        }
+        | _DIAG_HEADS
+        | PROBE_HEAD_LABELS
+    )
 
     def _route_label(self, path: str) -> str:
         parts = [p for p in path.strip("/").split("/") if p]
@@ -279,6 +458,13 @@ class BeaconApp:
             return "other"
         if len(parts) == 1:
             return head
+        if head in self._DIAG_HEADS:
+            # only the KNOWN two-segment diagnostic paths get named
+            # labels: /ops/<anything-else> collapses like any unknown
+            label = f"{head}.{parts[1]}"
+            return (
+                label if label in DIAGNOSTIC_ROUTE_LABELS else "other"
+            )
         sub = parts[-1]
         if sub in ("filtering_terms", "g_variants", "biosamples",
                    "individuals", "runs", "analyses"):
@@ -294,11 +480,13 @@ class BeaconApp:
         query_params: dict | None = None,
         body: dict | None = None,
         headers: dict | None = None,
-    ) -> tuple[int, dict]:
+    ) -> tuple[int, dict | str]:
         """One request end to end, under a request context whose trace id
         is minted here (or honored from an inbound ``X-Beacon-Trace``
         header) and returns in the envelope's ``meta`` beside the
-        elapsed time."""
+        elapsed time; then the outcome folds into the latency histogram
+        (with the trace id as exemplar), the SLO engine, the cost table,
+        the plan store and the slow-query log."""
         t0 = time.perf_counter()
         route = self._route_label(path)
         ctx = RequestContext(
@@ -310,27 +498,119 @@ class BeaconApp:
                 method, path, query_params, body, headers
             )
         elapsed_ms = (time.perf_counter() - t0) * 1e3
-        self._req_latency.observe(elapsed_ms, label_value=route)
+        # the exemplar is passed explicitly: this runs OUTSIDE the
+        # request_context scope, so the ambient lookup would miss
+        self._req_latency.observe(
+            elapsed_ms, label_value=route, exemplar=ctx.trace_id
+        )
+        tenant = ctx.notes.get("tenant")
+        self.slo.record(route, status, elapsed_ms, tenant=tenant)
+        # cost accounting: fold this request's CostVector into the
+        # (tenant, lane, shape) table; probe/diagnostic routes are
+        # excluded exactly like SLO budgets. Response bytes are
+        # measured here, the one place the final payload exists.
+        if self.accounting is not None and self.slo.tracked(route):
+            cost = ctx.cost
+            if isinstance(payload, dict):
+                try:
+                    cost.add(
+                        response_bytes=len(
+                            json.dumps(payload, default=str)
+                        )
+                    )
+                except (TypeError, ValueError):
+                    pass
+            # seal BEFORE snapshotting: a late charge (a launch finishing
+            # after this request 504ed) lands in the unattributed
+            # residue, on exactly one side of the fold
+            cost.seal()
+            self.accounting.record(
+                tenant or "anon",
+                ctx.notes.get("lane") or "interactive",
+                query_shape(route, ctx.notes.get("granularity")),
+                cost.snapshot(),
+            )
+        # execution-plan fold: tracked requests' stage trails aggregate
+        # by (query-shape, plan-shape); the canary folds its own probes
+        if self.slo.tracked(route):
+            self.plans.observe(
+                query_shape(route, ctx.notes.get("granularity")),
+                ctx.plan,
+                units=cost_units(ctx.cost.snapshot()),
+                trace_id=ctx.trace_id,
+            )
+        notes = ctx.notes
+        if ctx.cost.nonzero():
+            # a slow record carries its cost decomposition
+            notes = {**notes, "cost": ctx.cost.as_dict()}
+        if ctx.plan:
+            # ... and the plan fingerprint + any refusal reasons
+            notes = {**notes, "plan": plan_note(ctx)}
+        self.slow_log.maybe_record(
+            trace_id=ctx.trace_id,
+            route=route,
+            status=status,
+            elapsed_ms=elapsed_ms,
+            notes=notes,
+        )
         if isinstance(payload, dict):
             meta = payload.get("meta")
             if isinstance(meta, dict):
                 meta["traceId"] = ctx.trace_id
                 meta["elapsedTimeMs"] = round(elapsed_ms, 2)
+                if ctx.explain:
+                    # ?explain=1 (gated in _handle): the bounded plan
+                    # document rides the envelope — never cached, since
+                    # explain forces no_response_cache
+                    meta["executionPlan"] = plan_document(ctx)
         return status, payload
 
     def _handle(
         self, method, path, query_params, body, headers
-    ) -> tuple[int, dict]:
+    ) -> tuple[int, dict | str]:
         try:
             with span("api.handle", path=path, method=method):
                 head = path.strip("/")
                 if method.upper() == "GET" and head in PROBE_PATHS:
-                    return self._probe(head)
+                    # probes AND the self-diagnosis surfaces bypass
+                    # auth, admission and deadlines: answering while the
+                    # server sheds is their whole job
+                    return self._probe(head, query_params, headers)
                 denied = self._check_auth(method.upper(), path, headers)
                 if denied is not None:
                     return denied
+                if _wants_explain(query_params):
+                    denied = self._check_explain(headers)
+                    if denied is not None:
+                        return denied
+                    ctx = current_context()
+                    if ctx is not None:
+                        # armed only after the gate: an unauthorized
+                        # ?explain=1 never records, never bypasses a
+                        # cache, never changes the answer
+                        ctx.explain = True
                 deadline = self._request_deadline(head, headers)
-                with deadline_scope(deadline), self.admission.admit():
+                # traffic shaping: classify tenant and priority lane,
+                # then admit through the weighted fair queue BEFORE the
+                # global gate — a queued request holds no admission
+                # slot, and the deadline scope bounds the queue wait
+                tenant = self.shaping.tenant_of(headers)
+                lane = self.shaping.lane_of(head, query_params, body)
+                granularity = requested_granularity(query_params, body)
+                annotate(tenant=tenant, lane=lane)
+                plan_stage("admission", decision=lane, tenant=tenant)
+                if granularity:
+                    annotate(granularity=granularity)
+                # the query-shape key the accounting fold uses, so the
+                # cost-aware DRR charges admission with this shape's
+                # measured cost
+                ctx = current_context()
+                shape = query_shape(
+                    ctx.route if ctx is not None else head, granularity
+                )
+                with deadline_scope(deadline), self.shaping.admit(
+                    tenant, lane, shape
+                ), self.admission.admit():
                     return self._route(
                         method.upper(), path, query_params, body
                     )
@@ -376,7 +656,12 @@ class BeaconApp:
             return NO_DEADLINE
         return Deadline.after(self.config.resilience.default_deadline_s)
 
-    def _probe(self, head: str) -> tuple[int, dict]:
+    def _probe(
+        self,
+        head: str,
+        query_params: dict | None = None,
+        headers: dict | None = None,
+    ) -> tuple[int, dict | str]:
         info = self.config.info
         if head == "health":
             # liveness: cheap, no store/engine access
@@ -389,7 +674,249 @@ class BeaconApp:
                 "shards": len(getattr(self.engine, "_indexes", {})),
                 "inFlight": self.admission.metrics()["in_flight"],
             }
+        if head == "slo":
+            # per-route objectives + burn rates; ?tenant=<id> scopes the
+            # document to one tenant's burn rings
+            want_tenant = (query_params or {}).get("tenant")
+            return 200, self.slo.snapshot(tenant=want_tenant or None)
+        if head == "ops/events":
+            return self._ops_events(query_params)
+        if head == "ops/costs":
+            # top tenants by cost unit, per-shape mean/p99, attribution
+            if self.accounting is None:
+                return 200, disabled_snapshot()
+            return 200, self.accounting.snapshot()
+        if head == "ops/plans":
+            # per (query-shape, plan-shape) counts, cost-unit means,
+            # exemplar trace ids and the drift sentinel's flips
+            return 200, self.plans.snapshot()
+        if head == "debug/status":
+            return 200, self._debug_status()
+        if head == "device/status":
+            return 200, self._device_status()
+        if head.split("/", 1)[0] == _FLEET_HEAD:
+            return 404, self.env.error(
+                404,
+                f"unknown path /{head}: the fleet plane is not served "
+                "by this package yet",
+            )
+        # /metrics: content negotiation — ?format=openmetrics or an
+        # ``Accept: application/openmetrics-text`` gets the OpenMetrics
+        # dialect WITH exemplars; ?format=prometheus or ``Accept:
+        # text/plain`` the classic text format (no exemplars);
+        # everything else the nested JSON
+        fmt = (query_params or {}).get("format", "")
+        accept = _header(headers, "accept") or ""
+        if fmt == "openmetrics" or "application/openmetrics-text" in accept:
+            return 200, self.telemetry.render_prometheus(openmetrics=True)
+        if fmt == "prometheus" or "text/plain" in accept:
+            return 200, self.telemetry.render_prometheus()
         return 200, self._metrics()
+
+    def _ops_events(self, query_params: dict | None) -> tuple[int, dict]:
+        """The event journal, filtered: ``?since=<seq>`` returns only
+        newer events — the OLDEST ``limit`` of them, with a
+        ``nextSince`` cursor to pass back as ``since``; ``?kind=`` filters
+        by kind prefix (comma-separated list accepted)."""
+        qp = query_params or {}
+        try:
+            since = int(qp.get("since") or 0)
+            limit = int(qp.get("limit") or 256)
+        except (TypeError, ValueError):
+            return 400, self.env.error(
+                400, "since/limit must be integers"
+            )
+        events, next_since = journal.events_page(
+            since=since, kind=str(qp.get("kind") or ""), limit=limit
+        )
+        return 200, {
+            "events": events,
+            "nextSince": next_since,
+            "lastSeq": journal.last_seq(),
+            "published": journal.published(),
+            "enabled": journal.enabled,
+        }
+
+    def _digest_extras(self) -> dict:
+        """The app-tier digest fields (the JAX package's fleet digest
+        carries them; here they are the same rollup for a caller):
+        SLO breaches, slow-query count, top cost tenants, canary."""
+        canary = self.canary.counters()
+        extras = {
+            "sloBreached": self.slo.breached_routes(),
+            "slowQueries": self.slow_log.count(),
+            "canary": {
+                "mismatches": canary["mismatches"],
+                "failures": canary["failures"],
+            },
+        }
+        if self.accounting is not None:
+            extras["topCostTenants"] = self.accounting.snapshot(
+                top_n=3
+            )["topTenants"]
+        else:
+            extras["topCostTenants"] = []
+        return extras
+
+    def _debug_status(self) -> dict:
+        """The self-diagnosis rollup: SLO state, queue depths, the stage
+        decomposition, costs, the canary, the device plane and plans,
+        composed into one document whose ``diagnosis`` names what eats
+        the latency budget. Local state only — safe to serve while
+        saturated. Breakers and routing are the fleet plane's: empty
+        for this engine, as the JAX app renders them for an engine
+        without them."""
+        engine = self.engine
+        local = getattr(engine, "local", None) or engine
+        breaker = getattr(engine, "breaker", None)
+        breakers = breaker.metrics() if breaker is not None else {}
+        routing: dict = {}
+        router = getattr(engine, "router", None)
+        if router is not None:
+            age = engine.route_table_age_s()
+            routing = {
+                "datasets": len(router.table()),
+                "replicas": router.replica_count(),
+                "tableAgeS": None if age is None else round(age, 1),
+                "unavailableDatasets": engine.unavailable_datasets(),
+                "workers": engine.worker_stats(),
+            }
+        batcher = getattr(local, "_batcher", None)
+        occ = batcher.occupancy() if batcher is not None else {}
+        queues = {
+            "admission": self.admission.metrics(),
+            "shaping": self.shaping.debug(),
+            "runner": self.query_runner.metrics(),
+            "batcher": {
+                k: occ[k] for k in ("launcher", "fetcher") if k in occ
+            },
+        }
+        # stage decomposition: runner admission wait first, then the
+        # batcher/engine stages
+        stages: dict = {
+            "admission_wait_ms": self.query_runner.queue_wait_summary()
+        }
+        st = getattr(local, "stage_timing", None)
+        if st is not None:
+            stages.update(st())
+        ingest: dict = {}
+        delta_stats = getattr(local, "delta_stats", None)
+        if delta_stats is not None:
+            ingest["deltaTails"] = delta_stats()
+        l0_status = getattr(local, "l0_status", None)
+        if l0_status is not None:
+            ingest["l0"] = l0_status()
+        compactor = getattr(self.ingest, "compactor", None)
+        if compactor is not None:
+            ingest["compactor"] = compactor.metrics()
+        slo = self.slo.snapshot()
+        breached = sorted(
+            r for r, doc in slo["routes"].items() if doc["breached"]
+        )
+        stage_p99 = {
+            name: q.get("p99", 0.0)
+            for name, q in stages.items()
+            if isinstance(q, dict) and q
+        }
+        slowest_stage = (
+            max(stage_p99, key=stage_p99.get)
+            if any(stage_p99.values())
+            else None
+        )
+        workers = routing.get("workers") or {}
+        rtts = {
+            u: w["medianRttMs"]
+            for u, w in workers.items()
+            if w.get("medianRttMs") is not None
+        }
+        costs = (
+            self.accounting.debug()
+            if self.accounting is not None
+            else {"enabled": False}
+        )
+        # a canary mismatch means the data plane is silently wrong
+        canary = self.canary.status()
+        recorder = telemetry_mod.flight_recorder
+        device = {
+            "launches": recorder.launch_summary(),
+            "padWaste": recorder.pad_waste_by_family(),
+            "midRequestCompiles": recorder.mid_request_compiles(),
+        }
+        last_compile = recorder.last_mid_request_compile()
+        plans = self.plans.counters()
+        return {
+            "ready": bool(self.ready),
+            "beaconId": self.config.info.beacon_id,
+            "slo": slo,
+            "breakers": breakers,
+            "routing": routing,
+            "queues": queues,
+            "ingest": ingest,
+            "stages": stages,
+            "costs": costs,
+            "canary": canary,
+            "device": device,
+            "plans": plans,
+            "events": {
+                "lastSeq": journal.last_seq(),
+                "published": journal.published(),
+            },
+            "diagnosis": {
+                "breachedSlos": breached,
+                "openBreakers": sorted(
+                    u
+                    for u, d in breakers.items()
+                    if d.get("state") != "closed"
+                ),
+                "slowestStage": slowest_stage,
+                "slowestWorker": (
+                    max(rtts, key=rtts.get) if rtts else None
+                ),
+                "costliestTenant": costs.get("costliestTenant"),
+                "costliestShape": costs.get("costliestShape"),
+                "canaryMismatches": list(canary.get("mismatched", [])),
+                "worstPadWaste": recorder.worst_pad_waste(),
+                "midRequestCompiles": device["midRequestCompiles"],
+                "lastMidRequestCompile": (
+                    last_compile["key"] if last_compile else None
+                ),
+                "planDrift": self.plans.drifted_shapes(),
+            },
+        }
+
+    def _device_status(self) -> dict:
+        """The device flight recorder's read surface: the launch ring
+        and counters (padding waste by family and tier, fetched bytes),
+        the compile tracker, the plane ledger, and the fused stack's
+        state. Every piece is a lock-free snapshot (the recorder's own
+        short lock, a try-lock on the engine's ledger), so this answers
+        during a stack rebuild."""
+        engine = self.engine
+        local = getattr(engine, "local", None) or engine
+        doc = telemetry_mod.flight_recorder.snapshot()
+        ledger = getattr(local, "plane_ledger", None)
+        doc["hbm"] = (
+            ledger()
+            if callable(ledger)
+            else {
+                "residentBytes": 0,
+                "reservedBytes": 0,
+                "reservedTokens": 0,
+                "budgetBytes": 0,
+                "headroomBytes": 0,
+                "stale": False,
+            }
+        )
+        stacks: dict = {}
+        fused = getattr(local, "fused_stack_status", None)
+        if callable(fused):
+            stacks["fused"] = fused()
+        tier = getattr(engine, "mesh_tier", None)
+        if tier is not None:
+            stacks["meshTier"] = tier.stats()
+        doc["stacks"] = stacks
+        doc["time"] = time.time()
+        return doc
 
     def _metrics(self) -> dict:
         """The typed-instrument registry as nested JSON, plus the armed
@@ -399,6 +926,35 @@ class BeaconApp:
         if injector is not None:
             out["faults"] = injector.stats()
         return out
+
+    def _check_explain(self, headers) -> tuple[int, dict] | None:
+        """404/401/403 envelope for an unauthorized ``?explain=1``,
+        else None (explain may proceed).
+
+        The plan document names internal topology, so it rides the
+        worker-token trust boundary: disabled entirely unless
+        ``BEACON_EXPLAIN_ENABLED`` (a 404, indistinguishable from the
+        feature not existing), then no credential -> 401, wrong
+        credential -> 403. Empty worker token = open."""
+        if not self.config.observability.explain_enabled:
+            return 404, self.env.error(
+                404, "explain disabled (set BEACON_EXPLAIN_ENABLED)"
+            )
+        token = self.config.auth.worker_token
+        if not token:
+            return None
+        got = _authorization_header(headers or {})
+        if not got:
+            return 401, self.env.error(
+                401, "missing Authorization header"
+            )
+        if not hmac.compare_digest(
+            got.encode(), f"Bearer {token}".encode()
+        ):
+            return 403, self.env.error(
+                403, "explain requires the worker token"
+            )
+        return None
 
     def _check_auth(self, method, path, headers) -> tuple[int, dict] | None:
         """401/403 envelope for unauthorized mutating requests, else None.
@@ -443,6 +999,19 @@ class BeaconApp:
                 404, f"unknown schema /{'/'.join(parts[1:])}"
             )
         if len(parts) == 1:
+            if head == "_trace":
+                # debug-only profiling surface; 404s unless tracing is on
+                if not tracer.is_enabled:
+                    return 404, self.env.error(404, "tracing disabled")
+                # recent span trees + the aggregate report + the
+                # slow-query ring; ?trace_id= filters the trees to one
+                # request
+                want = (query_params or {}).get("trace_id")
+                return 200, {
+                    "report": tracer.report(),
+                    "traces": tracer.recent_trees(trace_id=want),
+                    "slowQueries": self.slow_log.recent(),
+                }
             if head == "configuration":
                 return 200, configuration_response(info)
             if head == "map":

@@ -1,8 +1,9 @@
 """Threaded stdlib HTTP transport for BeaconApp, and the server entry.
 
 Counterpart of ``sbeacon_tpu/api/server.py``: one ThreadingHTTPServer
-(URL + query string + JSON body in, JSON out, CORS header kept, the
-``Retry-After`` header of a shed request), and
+(URL + query string + JSON body in, JSON out — or a Prometheus text
+scrape verbatim, with the OpenMetrics content type for that dialect —
+CORS header kept, the ``Retry-After`` header of a shed request), and
 ``python -m sbeacon_tpu_torch.api.server --data-root DIR``, which loads
 every persisted shard of the data root, warms the kernels and serves the
 Beacon read routes on the GPU (``--device cpu`` for the plain-PyTorch
@@ -19,6 +20,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from .app import BeaconApp
+
+#: content types of the two text expositions ``/metrics`` serves
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4"
+OPENMETRICS_CONTENT_TYPE = (
+    "application/openmetrics-text; version=1.0.0; charset=utf-8"
+)
 
 
 def _make_handler(app: BeaconApp):
@@ -51,9 +58,20 @@ def _make_handler(app: BeaconApp):
             self._send(status, payload)
 
         def _send(self, status: int, payload):
-            data = json.dumps(payload).encode()
+            if isinstance(payload, str):
+                # text payloads (the exposition from /metrics) go out
+                # verbatim; the OpenMetrics dialect ends in "# EOF"
+                data = payload.encode()
+                content_type = (
+                    OPENMETRICS_CONTENT_TYPE
+                    if payload.endswith("# EOF\n")
+                    else PROMETHEUS_CONTENT_TYPE
+                )
+            else:
+                data = json.dumps(payload).encode()
+                content_type = "application/json"
             self.send_response(status)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", content_type)
             self.send_header("Access-Control-Allow-Origin", "*")
             retry_after = (
                 payload.get("retryAfterSeconds")

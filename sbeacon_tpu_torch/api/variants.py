@@ -1,22 +1,24 @@
 """Variant query orchestration for the API layer.
 
-Counterpart of ``sbeacon_tpu/api/variants.py:22-87, 135-248``: dataset
+Counterpart of ``sbeacon_tpu/api/variants.py``: dataset
 resolution through the metadata store (``resolve_datasets``: a filter
 switches the search into selected-samples mode), the variant id codec
 (``encode_internal_id`` / ``decode_internal_id``), the cross-dataset
 aggregation (``VariantAggregation``) and ``run_variant_search``, which
 runs the search through the async query runner when one is given (its
 job table coalesces identical queries and caches their results) or
-directly on the engine. The explain branch of the JAX function comes
-with the policy and observability modules.
+directly on the engine; an explained request (``?explain=1``) runs
+live on the engine, past both caches.
 """
 
 from __future__ import annotations
 
 import base64
+import dataclasses
 
 from ..metadata.filters import entity_search_conditions
 from ..payloads import VariantQueryPayload
+from ..plan import explain_active
 from ..utils.chrom import normalize_chromosome
 from .envelopes import variant_entry
 from .requests import BeaconRequest, RequestError
@@ -201,6 +203,13 @@ def run_variant_search(
         sample_names=samples_by_dataset if selected else {},
         selected_samples_only=selected,
     )
+    if explain_active():
+        # an explained request must describe a LIVE execution of
+        # exactly this query: never served from (or written to) the
+        # response cache, and never coalesced onto a query job whose
+        # plan belongs to some earlier request
+        payload = dataclasses.replace(payload, no_response_cache=True)
+        runner = None
     if runner is not None:
         from ..query_jobs import JobStatus
         from ..resilience import current_deadline

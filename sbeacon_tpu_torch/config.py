@@ -1,10 +1,14 @@
 """Typed configuration for the port's query path and its HTTP surface.
 
 Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
-Beacon read routes read: the beacon's identity (``BeaconInfo``), the
-storage layout (``StorageConfig``), the engine, the resilience envelope
-(deadlines, admission, the query runner's pool), ``AuthConfig`` and
-``BeaconConfig.from_env`` for the env vars of those fields. The JAX
+Beacon read routes and the policy plane behind them read: the beacon's
+identity (``BeaconInfo``), the storage layout (``StorageConfig``), the
+engine, the resilience envelope (deadlines, admission, the query
+runner's pool), ``AuthConfig``, traffic shaping (``ShapingConfig``,
+``config.py:382-440`` there), the observability plane
+(``ObservabilityConfig``, ``:443-552``, without the fleet digest and
+migration knobs of the fleet plane) and ``BeaconConfig.from_env`` for
+the env vars of those fields (``:760-830``). The JAX
 package's persistent compile cache has no counterpart: the kernels build
 once into ``build/kernels/``. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
@@ -183,12 +187,119 @@ class ResilienceConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapingConfig:
+    """Traffic shaping and brownout (shaping.py): weighted fair queueing
+    across tenants, priority lanes, adaptive Retry-After, and an
+    SLO-driven brownout ladder.
+
+    enabled: the whole layer on/off (off: the global admission gate
+      alone).
+    tenant_header: header carrying an explicit tenant id; requests
+      without it bucket by Authorization hash, else ``anon``.
+    tenant_weights: ``tenant=weight`` comma list for the DRR drain
+      ratio (``gold=4,free=1``); unlisted tenants get
+      ``default_weight``.
+    tenant_max_in_flight / tenant_queue_depth: per-tenant running cap
+      and per-tenant per-lane queue bound; a full queue sheds 429 with
+      the adaptive Retry-After.
+    max_queue_wait_s: a queued request not granted within this bound
+      sheds (its request deadline may cut earlier -> 504).
+    bulk_starvation_ms: a bulk waiter older than this is served ahead
+      of the interactive lane (one per dispatch pass).
+    retry_after_floor_s / retry_after_ceil_s: clamp on the adaptive
+      Retry-After (p90 of the shed lane's measured queue wait).
+    max_tenants: distinct tenant states (and metric label values)
+      tracked before new ids share the ``overflow`` bucket.
+    brownout*: the ladder — sustained SLO breach steps up
+      (hedge off -> bulk pause -> AIMD cap squeeze -> global shed)
+      after ``up_hold_s``; sustained recovery steps down after
+      ``down_hold_s``, restoring squeezed caps by ``ai_step`` per tick.
+    cost_drr: the fair queue charges a grant the measured mean cost of
+      its query shape (accounting.py) instead of a flat 1; off by
+      default.
+    """
+
+    enabled: bool = True
+    tenant_header: str = "X-Beacon-Tenant"
+    tenant_weights: str = ""
+    default_weight: float = 1.0
+    tenant_max_in_flight: int = 64
+    tenant_queue_depth: int = 128
+    max_queue_wait_s: float = 10.0
+    bulk_starvation_ms: float = 500.0
+    retry_after_floor_s: float = 1.0
+    retry_after_ceil_s: float = 60.0
+    max_tenants: int = 64
+    brownout: bool = True
+    brownout_up_hold_s: float = 3.0
+    brownout_down_hold_s: float = 15.0
+    brownout_md_factor: float = 0.5
+    brownout_ai_step: float = 0.25
+    brownout_min_scale: float = 0.125
+    cost_drr: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ObservabilityConfig:
+    """The observability plane's knobs. Tracing itself stays env-gated
+    (``SBEACON_TRACE=1``, utils/trace.py).
+
+    slow_query_ms: any request slower than this emits one structured
+      JSON line to the ``sbeacon.slowquery`` logger and the in-memory
+      ring served at ``/_trace``; 0 records every request, negative
+      disables. slow_query_log: a file the lines also append to.
+    profile_dir: arms ``torch.profiler`` capture of the kernel launch
+      regions into this directory (``SBEACON_PROFILE``).
+    slo_*: the SLO engine (slo.py, ``/slo``): the default availability
+      and latency objectives, per-route overrides
+      (``route:field=value[:...]`` comma list) and the burn factor that,
+      sustained on both windows, marks a route breached.
+    event_journal / event_journal_size: the control-plane event journal
+      (``/ops/events``).
+    cost_accounting / cost_window_s: the per-(tenant, lane, shape) cost
+      table (accounting.py, ``/ops/costs``) and the window of its
+      per-shape mean.
+    canary_enabled / canary_interval_s / canary_latency_ms: the
+      known-answer canary prober (canary.py); interval <= 0 arms no
+      thread (``run_once()`` still works).
+    device_ring_size / compile_tracking: the device flight recorder's
+      launch ring and its kernel build tracker (``/device/status``).
+    explain_enabled: serve ``?explain=1`` (worker-token gated when one
+      is set); plan_sample_n / plan_drift_windows: the sampled plan
+      store and its drift sentinel (plan.py, ``/ops/plans``).
+    """
+
+    slow_query_ms: float = 1000.0
+    slow_query_log: str = ""
+    profile_dir: str = ""
+    slo_availability_target: float = 0.999
+    slo_latency_ms: float = 250.0
+    slo_latency_target: float = 0.99
+    slo_routes: str = ""
+    slo_alert_burn_rate: float = 14.4
+    event_journal: bool = True
+    event_journal_size: int = 1024
+    cost_accounting: bool = True
+    cost_window_s: float = 300.0
+    canary_enabled: bool = True
+    canary_interval_s: float = 30.0
+    canary_latency_ms: float = 1000.0
+    device_ring_size: int = 256
+    compile_tracking: bool = True
+    explain_enabled: bool = False
+    plan_sample_n: int = 16
+    plan_drift_windows: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
 class AuthConfig:
     """``submit_token`` set: POST/PATCH ``/submit`` needs
-    ``Authorization: Bearer <token>``; empty is open. (The JAX package's
-    ``worker_token`` comes with the fleet plane.)"""
+    ``Authorization: Bearer <token>``; empty is open. ``worker_token``
+    guards ``?explain=1`` the same way (and, in the JAX package, the
+    worker plane)."""
 
     submit_token: str = ""
+    worker_token: str = ""
 
 
 #: env var -> (ResilienceConfig field, type)
@@ -220,6 +331,50 @@ _ENGINE_ENV = {
 }
 
 
+#: env var -> (ObservabilityConfig field, type)
+_OBSERVABILITY_ENV = {
+    "SBEACON_SLOW_QUERY_MS": ("slow_query_ms", float),
+    "SBEACON_SLOW_QUERY_LOG": ("slow_query_log", str),
+    "SBEACON_PROFILE": ("profile_dir", str),
+    "BEACON_SLO_AVAILABILITY": ("slo_availability_target", float),
+    "BEACON_SLO_LATENCY_MS": ("slo_latency_ms", float),
+    "BEACON_SLO_LATENCY_TARGET": ("slo_latency_target", float),
+    "BEACON_SLO_ROUTES": ("slo_routes", str),
+    "BEACON_SLO_ALERT_BURN": ("slo_alert_burn_rate", float),
+    "BEACON_EVENT_JOURNAL_SIZE": ("event_journal_size", int),
+    "BEACON_CANARY_INTERVAL_S": ("canary_interval_s", float),
+    "BEACON_CANARY_LATENCY_MS": ("canary_latency_ms", float),
+    "BEACON_DEVICE_RING_SIZE": ("device_ring_size", int),
+    "BEACON_PLAN_SAMPLE_N": ("plan_sample_n", int),
+    "BEACON_PLAN_DRIFT_WINDOWS": ("plan_drift_windows", int),
+    "BEACON_EVENT_JOURNAL_ENABLED": ("event_journal", bool),
+    "BEACON_CANARY_ENABLED": ("canary_enabled", bool),
+    "BEACON_COMPILE_TRACKING": ("compile_tracking", bool),
+    "BEACON_EXPLAIN_ENABLED": ("explain_enabled", bool),
+    "BEACON_COST_ACCOUNTING": ("cost_accounting", bool),
+    "BEACON_COST_WINDOW_S": ("cost_window_s", float),
+}
+
+#: env var -> (ShapingConfig field, type)
+_SHAPING_ENV = {
+    "BEACON_TENANT_HEADER": ("tenant_header", str),
+    "BEACON_TENANT_WEIGHTS": ("tenant_weights", str),
+    "BEACON_TENANT_DEFAULT_WEIGHT": ("default_weight", float),
+    "BEACON_TENANT_MAX_IN_FLIGHT": ("tenant_max_in_flight", int),
+    "BEACON_TENANT_QUEUE_DEPTH": ("tenant_queue_depth", int),
+    "BEACON_MAX_QUEUE_WAIT_S": ("max_queue_wait_s", float),
+    "BEACON_BULK_STARVATION_MS": ("bulk_starvation_ms", float),
+    "BEACON_RETRY_AFTER_FLOOR_S": ("retry_after_floor_s", float),
+    "BEACON_RETRY_AFTER_CEIL_S": ("retry_after_ceil_s", float),
+    "BEACON_MAX_TENANTS": ("max_tenants", int),
+    "BEACON_BROWNOUT_UP_S": ("brownout_up_hold_s", float),
+    "BEACON_BROWNOUT_DOWN_S": ("brownout_down_hold_s", float),
+    "BEACON_SHAPING": ("enabled", bool),
+    "BEACON_BROWNOUT": ("brownout", bool),
+    "BEACON_COST_DRR": ("cost_drr", bool),
+}
+
+
 def _env_overrides(env, table: dict) -> dict:
     out = {}
     for var, (field, conv) in table.items():
@@ -239,6 +394,12 @@ class BeaconConfig:
     auth: AuthConfig = dataclasses.field(default_factory=AuthConfig)
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig
+    )
+    observability: ObservabilityConfig = dataclasses.field(
+        default_factory=ObservabilityConfig
+    )
+    shaping: ShapingConfig = dataclasses.field(
+        default_factory=ShapingConfig
     )
 
     @staticmethod
@@ -260,8 +421,15 @@ class BeaconConfig:
             info=info,
             storage=storage,
             engine=EngineConfig(**_env_overrides(env, _ENGINE_ENV)),
-            auth=AuthConfig(submit_token=env.get("BEACON_SUBMIT_TOKEN", "")),
+            auth=AuthConfig(
+                submit_token=env.get("BEACON_SUBMIT_TOKEN", ""),
+                worker_token=env.get("BEACON_WORKER_TOKEN", ""),
+            ),
             resilience=ResilienceConfig(
                 **_env_overrides(env, _RESILIENCE_ENV)
             ),
+            observability=ObservabilityConfig(
+                **_env_overrides(env, _OBSERVABILITY_ENV)
+            ),
+            shaping=ShapingConfig(**_env_overrides(env, _SHAPING_ENV)),
         )

@@ -66,6 +66,10 @@ delta shards walked on the host), ``plan_stage`` entries (``cache``,
 ``split``), the ``engine.search`` span, and ``register_metrics``.
 ``warmup`` builds every kernel and launches each kernel family once
 against each loaded index (the JAX engine compiles its shape ladder).
+The diagnostic reads of the policy plane are lock-free, as in the JAX
+engine: ``canary_brackets`` (the canary's known-hit and known-miss
+sources), ``plane_ledger`` (the plane budget, for ``/device/status``)
+and ``fused_stack_status``.
 """
 
 from __future__ import annotations
@@ -623,6 +627,17 @@ class VariantEngine:
         # device bytes of plane uploads in flight, by reservation token:
         # the budget gate counts them with the resident planes
         self._plane_reserved: dict = {}
+        # last computed plane-ledger snapshot: /device/status reads it
+        # when the publish lock is busy (a status probe must answer
+        # while a publish holds the lock)
+        self._plane_ledger_cache: dict = {
+            "residentBytes": 0,
+            "reservedBytes": 0,
+            "reservedTokens": 0,
+        }
+        # wall time the current fused stack was published (its age on
+        # the /device/status stacks surface)
+        self._fused_built_at: float | None = None
         if eng.microbatch:
             from .serving import MicroBatcher
 
@@ -932,6 +947,61 @@ class VariantEngine:
             self._plane_reserved[token] = int(nbytes)
             return True
 
+    def plane_ledger(self) -> dict:
+        """The device plane-budget ledger as a LOCK-FREE snapshot (the
+        ``/device/status`` surface): resident per-dataset plane bytes,
+        standing reservations (uploads in flight, the pod tier's stacked
+        planes) with their token count, and the budget headroom. The
+        publish lock is only TRIED — when a publish holds it, the last
+        computed snapshot serves with ``stale: true``."""
+        budget = self.config.engine.plane_hbm_budget_gb * 1e9
+        got = self._lock.acquire(blocking=False)
+        if got:
+            try:
+                self._plane_ledger_cache = {
+                    "residentBytes": int(
+                        sum(
+                            p.nbytes_hbm()
+                            for _s, _d, p in self._indexes.values()
+                            if p is not None
+                        )
+                    ),
+                    "reservedBytes": int(
+                        sum(self._plane_reserved.values())
+                    ),
+                    "reservedTokens": len(self._plane_reserved),
+                }
+            finally:
+                self._lock.release()
+        out = dict(self._plane_ledger_cache)
+        out["budgetBytes"] = int(budget)
+        out["headroomBytes"] = int(
+            budget - out["residentBytes"] - out["reservedBytes"]
+        )
+        out["stale"] = not got
+        return out
+
+    def fused_stack_status(self) -> dict:
+        """The fused cross-shard stack's state, lock-free (reference
+        reads only — never the publish lock a rebuild may hold):
+        built/dirty flags, base fingerprint, age, and the stacked
+        shape."""
+        state = self._fused_state
+        built_at = self._fused_built_at
+        doc: dict = {
+            "built": state is not None,
+            "dirty": bool(self._fused_dirty),
+            "fingerprint": self._base_fingerprint,
+        }
+        if state is not None:
+            findex = state[0]
+            doc["shards"] = findex.n_shards
+            doc["rows"] = findex.n_rows
+            doc["paddedRows"] = findex.n_padded
+        if built_at is not None:
+            doc["ageS"] = round(time.time() - built_at, 1)
+        return doc
+
     def shard_snapshot(self) -> list:
         """Sorted ``[((dataset_id, vcf_location), shard), ...]`` of the
         base shards under the publish lock: the dispatch tier builds its
@@ -1006,6 +1076,95 @@ class VariantEngine:
         for ds, vcf, triple in self._serve_list:
             if not dataset_ids or ds in dataset_ids:
                 yield ds, vcf, triple
+
+    @staticmethod
+    def _delta_epoch_of(vcf_label: str) -> int:
+        """-1 for a base serve-list label, else the ``#d<epoch>``."""
+        _base, sep, epoch = vcf_label.rpartition("#d")
+        if not sep:
+            return -1
+        try:
+            return int(epoch)
+        except ValueError:
+            return -1
+
+    def canary_brackets(self) -> dict[str, dict]:
+        """Per-dataset known-answer probe source (canary.py): one
+        representative row per dataset — canonical chromosome, exact
+        start position and alt allele — whose presence the serving
+        snapshot guarantees (the known-HIT bracket), plus the
+        dataset's coordinate ceiling on that chromosome across every
+        serving shard, so a bracket strictly beyond it is a known
+        MISS. Rows come from the NEWEST serving shard that has a
+        plain-allele row (delta tail first, base last): a probe
+        derived from the freshest publish is exactly the staleness
+        canary — a replica whose delta tail was lost or corrupted
+        fails it. Lock-free over the copy-on-write serve list, like
+        every diagnostic read. A delta entry's triple carries its shard
+        like a base entry's."""
+        serve = self._serve_list
+        by_ds: dict[str, list[tuple[int, object, str]]] = {}
+        ceilings: dict[tuple[str, str], int] = {}
+        for ds, vcf, (shard, _di, _pl) in serve:
+            by_ds.setdefault(ds, []).append(
+                (self._delta_epoch_of(vcf), shard, vcf)
+            )
+            for chrom, _lo, hi in shard_regions(shard):
+                key = (ds, chrom)
+                ceilings[key] = max(ceilings.get(key, 0), hi)
+        out: dict[str, dict] = {}
+        for ds, shards in by_ds.items():
+            # a PLAIN-allele row is REQUIRED for the hit probe: an
+            # exact alternate_bases compare serves identically on every
+            # dispatch path, while symbolic alts (<CN2>, <DEL>) only
+            # match via variant_type queries — a symbolic hit probe
+            # would be a permanent false canary.mismatch alarm. Walk
+            # shards NEWEST first (deepest delta epoch down to base):
+            # the freshest publish with a plain row anchors the probe,
+            # so a symbolic-only delta does not silently drop the
+            # coverage an older shard can still provide. A dataset
+            # with no plain row in ANY shard gets the miss probe only.
+            row = None
+            chrom = None
+            hit_shard = None
+            source = None
+            for _epoch, shard, vcf in sorted(
+                shards, key=lambda t: t[0], reverse=True
+            ):
+                for rchrom, _lo, _hi in shard_regions(shard):
+                    code = chromosome_code(rchrom)
+                    lo = int(shard.chrom_offsets[code])
+                    hi = int(shard.chrom_offsets[code + 1])
+                    flags = np.asarray(shard.cols["flags"][lo:hi])
+                    plain = np.nonzero((flags & FLAG.SYMBOLIC) == 0)[0]
+                    if plain.size:
+                        row = lo + int(plain[0])
+                        chrom = rchrom
+                        hit_shard = shard
+                        source = vcf
+                        break
+                if row is not None:
+                    break
+            if chrom is None:
+                # no plain row anywhere: anchor the miss bracket on
+                # the newest shard's first populated region instead
+                _e, shard, vcf = max(shards, key=lambda t: t[0])
+                regions = shard_regions(shard)
+                if not regions:
+                    continue
+                chrom = regions[0][0]
+                source = vcf
+            bracket = {
+                "chrom": chrom,
+                "maxEnd": ceilings[(ds, chrom)],
+                "source": source,
+            }
+            if row is not None:
+                alt = hit_shard.row_alt(row)
+                bracket["pos"] = int(hit_shard.cols["pos"][row])
+                bracket["alt"] = alt if alt else "N"
+            out[ds] = bracket
+        return out
 
     def stage_timing(self) -> dict:
         """The batcher's stage quantiles (when it serves) plus host
@@ -1721,6 +1880,7 @@ class VariantEngine:
                 return None
             self._fused_state = state
             self._fused_error = None
+            self._fused_built_at = time.time()
         return state
 
     def _fused_multi_rows(self, targets, spec_base, payload):

@@ -12,12 +12,12 @@ from ``(plan.seed, site, rule index)`` over a per-rule hit counter, so
 for a given call sequence the same plan activates the same faults every
 run.
 
-The port calls one site: ``kernel.launch`` — device kernel dispatch
+The port calls three sites: ``kernel.launch`` — device kernel dispatch
 (``serving.py`` micro-batch execute, and the engine's direct launches
-when the micro-batcher is off). The JAX package's other sites
-(``worker.http``, ``sqlite.commit``, ``admission.queue``,
-``mesh.dispatch``, ``compaction.fold``, ``migration:*``) belong to
-modules this package has not ported.
+when the micro-batcher is off), ``sqlite.commit`` (the query job table)
+and ``admission.queue`` (the shaper's fair queue). The JAX package's
+other sites (``worker.http``, ``mesh.dispatch``, ``compaction.fold``,
+``migration:*``) belong to modules this package has not ported.
 
 Fault kinds: ``error`` raises :class:`FaultError`; ``latency`` sleeps
 ``ms``; ``hang`` sleeps ``ms`` too but defaults much longer — a hang is

@@ -1,7 +1,10 @@
 """Ontology term-closure store.
 
 Counterpart of ``sbeacon_tpu/metadata/ontology.py``, copied whole so the
-port reads and writes the same ``ontology.sqlite``.
+port reads and writes the same ``ontology.sqlite``, with one repair: the
+store's single connection is used under a lock (the JAX store relies on
+the GIL, and concurrent requests filtering by ontology terms raise
+sqlite's InterfaceError there).
 
 Re-homes the reference's three DynamoDB ontology tables (reference:
 dynamodb.tf Ontologies/Anscestors/Descendants; models in shared_resources/
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import json
 import sqlite3
+import threading
 from collections import defaultdict
 from pathlib import Path
 from typing import Callable, Iterable
@@ -35,9 +39,13 @@ class OntologyStore:
     def __init__(self, path: str | Path = ":memory:"):
         if path != ":memory:":
             Path(path).parent.mkdir(parents=True, exist_ok=True)
-        # served from HTTP worker threads; sqlite objects are guarded by
-        # the GIL for our single-statement usage
+        # served from HTTP worker threads: one connection, every use of
+        # it (statement and fetch) under the lock — two threads stepping
+        # one sqlite connection at once raise InterfaceError ("bad
+        # parameter or other API misuse"), which 64 HTTP clients
+        # filtering by ontology terms hit
         self.conn = sqlite3.connect(str(path), check_same_thread=False)
+        self._lock = threading.RLock()
         self.conn.executescript(
             """
             CREATE TABLE IF NOT EXISTS ontologies (
@@ -57,25 +65,26 @@ class OntologyStore:
     # -- ontology metadata (reference Ontologies table) ---------------------
 
     def put_ontology(self, prefix: str, data: dict) -> None:
-        self.conn.execute(
-            "INSERT OR REPLACE INTO ontologies VALUES (?, ?)",
-            (prefix, json.dumps(data)),
-        )
-        self.conn.commit()
+        with self._lock:
+            self.conn.execute(
+                "INSERT OR REPLACE INTO ontologies VALUES (?, ?)",
+                (prefix, json.dumps(data)),
+            )
+            self.conn.commit()
 
     def get_ontology(self, prefix: str) -> dict | None:
-        row = self.conn.execute(
-            "SELECT data FROM ontologies WHERE prefix = ?", (prefix,)
-        ).fetchone()
+        with self._lock:
+            row = self.conn.execute(
+                "SELECT data FROM ontologies WHERE prefix = ?", (prefix,)
+            ).fetchone()
         return json.loads(row[0]) if row else None
 
     def list_ontologies(self) -> list[dict]:
-        return [
-            json.loads(r[0])
-            for r in self.conn.execute(
+        with self._lock:
+            rows = self.conn.execute(
                 "SELECT data FROM ontologies ORDER BY prefix"
-            )
-        ]
+            ).fetchall()
+        return [json.loads(r[0]) for r in rows]
 
     # -- closure ------------------------------------------------------------
 
@@ -119,25 +128,27 @@ class OntologyStore:
         for t, ancs in anc.items():
             for a in ancs:
                 desc[a].add(t)
-        cur = self.conn.cursor()
-        for t, ancs in anc.items():
-            ancs |= self.get_ancestors(t) or set()
-            cur.execute(
-                "INSERT OR REPLACE INTO ancestors VALUES (?, ?)",
-                (t, json.dumps(sorted(ancs))),
-            )
-        for t, descs in desc.items():
-            descs |= self.get_descendants(t) or set()
-            cur.execute(
-                "INSERT OR REPLACE INTO descendants VALUES (?, ?)",
-                (t, json.dumps(sorted(descs))),
-            )
-        self.conn.commit()
+        with self._lock:
+            cur = self.conn.cursor()
+            for t, ancs in anc.items():
+                ancs |= self.get_ancestors(t) or set()
+                cur.execute(
+                    "INSERT OR REPLACE INTO ancestors VALUES (?, ?)",
+                    (t, json.dumps(sorted(ancs))),
+                )
+            for t, descs in desc.items():
+                descs |= self.get_descendants(t) or set()
+                cur.execute(
+                    "INSERT OR REPLACE INTO descendants VALUES (?, ?)",
+                    (t, json.dumps(sorted(descs))),
+                )
+            self.conn.commit()
 
     def _get(self, table: str, term: str) -> set[str] | None:
-        row = self.conn.execute(
-            f"SELECT terms FROM {table} WHERE term = ?", (term,)
-        ).fetchone()
+        with self._lock:
+            row = self.conn.execute(
+                f"SELECT terms FROM {table} WHERE term = ?", (term,)
+            ).fetchone()
         return set(json.loads(row[0])) if row else None
 
     def get_ancestors(self, term: str) -> set[str] | None:
@@ -193,4 +204,5 @@ class OntologyStore:
         return families[-1]  # low
 
     def close(self) -> None:
-        self.conn.close()
+        with self._lock:
+            self.conn.close()

@@ -5,7 +5,10 @@ Each source under ``sbeacon_tpu_torch/csrc/`` compiles with ``nvcc`` for
 checkout, named by a hash of the source, the shared headers
 (``csrc/*.cuh``) and the flags so an edited source or header rebuilds.
 The build happens at first use, never at import: the CPU tests import
-every module. A missing ``nvcc`` or a failed compile raises.
+every module. A missing ``nvcc`` or a failed compile raises. A library's
+first load in the process (its build included) is what compiles on the
+card, so ``load`` reports it to the device flight recorder's compile
+tracker (``telemetry.flight_recorder.record_build``), one key a kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+
+from .. import telemetry
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -161,13 +166,22 @@ def load(name: str) -> ctypes.CDLL:
     declared (built on first use)."""
     with _lock:
         lib = _libs.get(name)
-        if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, (argtypes, restype) in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = restype
-            _libs[name] = lib
-        return lib
+        if lib is not None:
+            return lib
+        t0 = time.perf_counter()
+        built_before = name in build_log  # by build_all, off this load
+        lib = ctypes.CDLL(str(build(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
+        _libs[name] = lib
+        ms = (time.perf_counter() - t0) * 1e3
+        if built_before:
+            ms += build_log[name]["seconds"] * 1e3
+    telemetry.flight_recorder.record_build(
+        name, ms, warmup=telemetry.in_warmup_phase()
+    )
+    return lib
 
 
 def build_all() -> dict[str, Path]:

@@ -731,10 +731,13 @@ def bisect_query(
     record_cap: int,
     n_iters: int,
     family: str = "fused",
+    pad: tuple[int, int] | None = None,
 ):
     """The bisection query kernel: (out, seq) for one batch, ``out``
     laid out as ``query_batch_reference`` returns it. ``family`` names
-    the launch record's program family (``fused`` or ``fused_l0``).
+    the launch record's program family (``fused`` or ``fused_l0``);
+    ``pad`` = (real, padded) shards of a segment table padded to a
+    shard tier (the L0 index), for the flight recorder's pad counters.
 
     CUDA tensors launch ``csrc/bisect_query.cu`` on the current stream
     (asynchronously) and record the launch, ``seq`` being its launch
@@ -797,10 +800,12 @@ def bisect_query(
         )
     if rc != 0:
         raise RuntimeError(f"bisect_query launch failed: CUDA error {rc}")
+    pads = {} if pad is None else {"pad_real": pad[0], "pad_slots": pad[1]}
     seq = record_device_launch(
         KERNEL,
         family=family,
         specs=b,
+        **pads,
         window=W,
         record_cap=R,
         launch_ms=(time.perf_counter() - t0) * 1e3,
@@ -843,6 +848,9 @@ def run_queries(
         record_cap=record_cap,
         n_iters=dindex.n_iters,
         family=dindex.flight_family,
+        # an L0 segment table pads its shard axis to a tier
+        **({"pad": (dindex.n_shards, dindex.n_shards_padded)}
+           if hasattr(dindex, "n_shards_padded") else {}),
     )
     t_fetch = time.perf_counter()
     host = out.cpu().numpy()

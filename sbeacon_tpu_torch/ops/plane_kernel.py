@@ -312,6 +312,7 @@ def plane_stats(
     planes = 4 if with_counts else 1
     return counts, or_words, record_device_launch(
         KERNEL,
+        family="plane",
         rows=r,
         words=w,
         with_counts=bool(with_counts),

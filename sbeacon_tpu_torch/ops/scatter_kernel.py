@@ -469,6 +469,7 @@ def scatter_match(
         raise RuntimeError(f"scatter_match launch failed: CUDA error {rc}")
     seq = record_device_launch(
         KERNEL,
+        family="scatter",
         slots=b,
         C=C,
         cap=CAP,
@@ -837,6 +838,7 @@ def scatter_selected(
         raise RuntimeError(f"scatter_selected launch failed: CUDA error {rc}")
     seq = record_device_launch(
         SELECTED_KERNEL,
+        family="plane",
         slots=b,
         C=C,
         cap=CAP,

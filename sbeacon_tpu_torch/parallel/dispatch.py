@@ -1,7 +1,10 @@
 """The pod dispatch tier: one launch over the mesh-sharded fused index.
 
 Counterpart of ``MeshDispatchTier`` of ``sbeacon_tpu/parallel/dispatch.py``
-(the rest of that module, the fleet plane, is not ported yet). The
+and of its hedging kill switch ``set_hedging_enabled`` (``:97-110``
+there), the flag the brownout ladder's first rung flips; nothing in this
+package reads it until hedged scans come with the fleet plane (the rest
+of that module, not ported yet). The
 engine's shards stack into a ``parallel.mesh.MeshFusedIndex`` sharded
 over the engine's mesh, and a query whose datasets all live on the mesh
 costs ONE mesh launch through the engine's micro-batcher
@@ -27,7 +30,7 @@ Deliberate differences from the JAX package:
   falls back to the thread scatter; so there is no fallback counter and
   no ``mesh.dispatch`` fault site;
 - no journal events and no plane-ledger headroom in the ``planes``
-  refusal (the ledger's surface comes with the HTTP plane).
+  refusal.
 """
 
 from __future__ import annotations
@@ -44,6 +47,19 @@ from ..plan import plan_stage
 from ..resilience import current_deadline
 from ..telemetry import annotate
 from . import mesh as _mesh
+
+# -- hedging kill switch ------------------------------------------------------
+
+#: process-wide hedge enable flag: the brownout ladder's FIRST rung
+#: (shaping.BrownoutLadder via set_hedging_enabled). Process-global like
+#: the fault injector; read by the fleet plane's hedged scans.
+_hedging_enabled = True
+
+
+def set_hedging_enabled(enabled: bool) -> None:
+    """Flip the process-wide hedging kill switch (brownout rung 1)."""
+    global _hedging_enabled
+    _hedging_enabled = bool(enabled)
 
 
 class MeshDispatchTier:

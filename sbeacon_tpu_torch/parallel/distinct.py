@@ -271,6 +271,7 @@ def distinct_count(keys: torch.Tensor, *, log2_buckets: int | None = None,
         raise RuntimeError(f"distinct_count launch failed: CUDA error {rc}")
     seq = record_device_launch(
         KERNEL,
+        family="distinct",
         rows=n,
         buckets=1 << log2,
         launch_ms=(time.perf_counter() - t0) * 1e3,

@@ -1011,6 +1011,7 @@ def mesh_fused(
               else "mesh_sliced")
     seq = record_device_launch(
         FUSED_KERNEL, family=family, device=str(dev), slots=s, layout=layout,
+        sliced=layout != LAYOUT_REPLICATED,
         window=W, record_cap=R, words=w, with_counts=bool(has_counts),
         launch_ms=(time.perf_counter() - t0) * 1e3,
     )

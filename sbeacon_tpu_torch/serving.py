@@ -21,7 +21,10 @@ combined with the batch timeout, and its expiry raises
 and launches nothing for a batch whose entries all expired; a backlog
 larger than one batch pops interactive entries before bulk ones (the
 lane is the request context's ``lane`` note); the launch hits the
-``kernel.launch`` fault point; each request is charged its queue wait
+``kernel.launch`` fault point and runs inside the
+``sbeacon.kernel.launch`` profile region (``telemetry.profile_region``:
+a ``torch.profiler`` range when ``SBEACON_PROFILE`` is set); each
+request is charged its queue wait
 and its share of the launch's time (``telemetry.charge_cost_to``), and
 notes its ``batch`` plan stage.
 
@@ -61,6 +64,7 @@ from .telemetry import (
     charge_cost_to,
     current_context,
     percentiles,
+    profile_region,
     request_context,
 )
 from .utils.trace import span
@@ -736,7 +740,9 @@ class MicroBatcher:
         # so the launch's spans carry its trace id
         lead_ctx = next((p.ctx for p in batch if p.ctx is not None), None)
         try:
-            with request_context(lead_ctx), span("serving.microbatch") as sp:
+            with request_context(lead_ctx), span(
+                "serving.microbatch"
+            ) as sp, profile_region("sbeacon.kernel.launch"):
                 # chaos site: a raised fault takes the launch-failure
                 # path (every waiter gets the error)
                 fault_point("kernel.launch")

@@ -1,24 +1,30 @@
 """Flag-gated hierarchical tracing.
 
-Counterpart of ``sbeacon_tpu/utils/trace.py``, trimmed to the slice:
-``Span``, ``Tracer``, the process-global ``tracer``, ``span`` and
-``graft_launch_span``. The ``/_trace`` route's per-trace index, the
-decorator form and the ``SBEACON_TRACE`` environment switch come with
-the HTTP surface.
+Counterpart of ``sbeacon_tpu/utils/trace.py``, all of it: ``Span``
+(with ``to_dict``), ``Tracer`` (with ``wrap``, the decorator form, at
+``:228`` there, and ``recent_trees(trace_id=)`` at ``:251``, which backs
+the ``/_trace`` route), the process-global ``tracer``, ``span``,
+``graft_launch_span`` and the ``SBEACON_TRACE`` switch with its exit
+report (``:117``, ``:298``).
 
 One process-global :class:`Tracer` holds a thread-local span stack.
-``span("name")`` is a context manager; nested spans record
-parent-child structure. When disabled (the default) ``span`` returns a
-no-op singleton — no allocation, no clock read. Enable via
-``tracer.enable()`` or the thread-scoped ``enabled(True)`` override.
+``span("name")`` is a context manager (``tracer.wrap(name)`` the
+decorator form); nested spans record parent-child structure. When
+disabled (the default) ``span`` returns a no-op singleton — no
+allocation, no clock read. Enable via ``SBEACON_TRACE=1``,
+``tracer.enable()``, or the thread-scoped ``enabled(True)`` override.
 Finished spans aggregate into per-name statistics (count / total / min
-/ max) and retain the most recent N complete span trees; ``report()``
-renders both. Spans opened under a request context
-(``telemetry.RequestContext``) carry its trace id.
+/ max) and retain the most recent N complete span trees, indexed by
+trace id; ``report()`` renders both, and a process enabled via
+``SBEACON_TRACE=1`` prints the report to stderr at exit. Spans opened
+under a request context (``telemetry.RequestContext``) carry its trace
+id.
 """
 
 from __future__ import annotations
 
+import functools
+import os
 import threading
 import time
 from contextlib import contextmanager
@@ -55,6 +61,17 @@ class Span:
         yield self
         for c in self.children:
             yield from c.flatten()
+
+    def to_dict(self) -> dict:
+        """JSON-ready form for the /_trace debug endpoint."""
+        return {
+            "name": self.name,
+            "traceId": self.trace_id,
+            "spanId": self.span_id,
+            "elapsedMs": round(1e3 * self.elapsed, 3),
+            "meta": dict(self.meta),
+            "children": [c.to_dict() for c in self.children],
+        }
 
 
 class _NullSpan:
@@ -95,7 +112,9 @@ class _ActiveSpan:
 
 
 class Tracer:
-    def __init__(self, enabled: bool = False, keep_trees: int = 32):
+    def __init__(self, enabled: bool | None = None, keep_trees: int = 32):
+        if enabled is None:
+            enabled = os.environ.get("SBEACON_TRACE", "") not in ("", "0")
         self._enabled = enabled
         self._keep_trees = keep_trees
         self._local = threading.local()
@@ -103,6 +122,11 @@ class Tracer:
         # name -> [count, total, min, max]
         self.stats: dict[str, list[float]] = {}
         self.trees: list[Span] = []
+        # trace_id -> [root Span, ...] over the SAME retained trees:
+        # /_trace?trace_id= resolves in O(trees-for-id) instead of
+        # re-serialising and filtering the whole ring per lookup
+        # (exemplar-to-trace resolution is a per-dashboard-click path)
+        self._by_trace: dict[str, list[Span]] = {}
 
     # -- gating -------------------------------------------------------------
 
@@ -185,7 +209,36 @@ class Tracer:
                 st[3] = max(st[3], el)
             if was_root:  # a completed root tree
                 self.trees.append(sp)
-                del self.trees[: -self._keep_trees]
+                if sp.trace_id:
+                    self._by_trace.setdefault(sp.trace_id, []).append(sp)
+                if len(self.trees) > self._keep_trees:
+                    evicted = self.trees[: -self._keep_trees]
+                    del self.trees[: -self._keep_trees]
+                    for old in evicted:
+                        bucket = self._by_trace.get(old.trace_id)
+                        if bucket is None:
+                            continue
+                        try:
+                            bucket.remove(old)
+                        except ValueError:
+                            pass
+                        if not bucket:
+                            del self._by_trace[old.trace_id]
+
+    def wrap(self, name: str | None = None):
+        """Decorator form: ``@tracer.wrap("kernel.run")``."""
+
+        def deco(fn):
+            label = name or fn.__qualname__
+
+            @functools.wraps(fn)
+            def inner(*a, **kw):
+                with self.span(label):
+                    return fn(*a, **kw)
+
+            return inner
+
+        return deco
 
     # -- reporting ----------------------------------------------------------
 
@@ -193,6 +246,20 @@ class Tracer:
         with self._lock:
             self.stats.clear()
             self.trees.clear()
+            self._by_trace.clear()
+
+    def recent_trees(self, trace_id: str | None = None) -> list[dict]:
+        """The retained complete span trees as JSON-ready dicts (the
+        /_trace payload), newest last; ``trace_id`` filters to one
+        distributed request's spans via the maintained per-trace index
+        — O(matching trees), not a serialise-and-scan of the whole
+        ring (the exemplar-click resolution path)."""
+        with self._lock:
+            if trace_id is not None:
+                trees = list(self._by_trace.get(trace_id, ()))
+            else:
+                trees = list(self.trees)
+        return [t.to_dict() for t in trees]
 
     def report(self) -> str:
         """Aggregate table + the most recent span tree."""
@@ -225,6 +292,20 @@ class Tracer:
 
 #: process-global tracer — modules do ``from ..utils.trace import tracer``
 tracer = Tracer()
+
+if tracer.is_enabled:
+    # enabled-by-env processes print the aggregate report at exit, so
+    # SBEACON_TRACE=1 always yields output even without the /_trace route
+    import atexit
+    import sys
+
+    atexit.register(
+        lambda: print(
+            "\n== sbeacon trace report ==\n" + tracer.report(),
+            file=sys.stderr,
+        )
+    )
+
 
 def span(name: str, **meta):
     return tracer.span(name, **meta)

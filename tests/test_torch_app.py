@@ -34,7 +34,11 @@ from sbeacon_tpu.genomics.vcf import write_vcf
 from sbeacon_tpu.testing import random_records
 from sbeacon_tpu_torch.api import BeaconApp
 from sbeacon_tpu_torch.api.server import start_background
-from sbeacon_tpu_torch.config import AuthConfig, ResilienceConfig
+from sbeacon_tpu_torch.config import (
+    AuthConfig,
+    ResilienceConfig,
+    ShapingConfig,
+)
 from sbeacon_tpu_torch.harness import faults
 from sbeacon_tpu_torch.parallel import mesh as tm
 from torch_app_corpus import (
@@ -432,11 +436,16 @@ def _variant_post(port, path, body, headers=None):
 
 def test_admission_sheds_429_with_retry_after(pair):
     """max_in_flight=1 and one request held inside the engine: the next
-    request is shed with 429 and a Retry-After header equal to the
-    envelope's retryAfterSeconds; the probes still answer."""
+    request is shed by the global admission gate with 429 and a
+    Retry-After header equal to the envelope's retryAfterSeconds; the
+    probes still answer. Shaping is off: with it on (the default) the
+    fair queue, whose running cap is the same max_in_flight, would queue
+    the request ahead of the gate (its sheds are held in
+    tests/test_torch_app_policy.py)."""
     papp = open_port(pair.p.config.storage.root,
                      resilience=ResilienceConfig(max_in_flight=1,
-                                                 shed_retry_after_s=0.25))
+                                                 shed_retry_after_s=0.25),
+                     shaping=ShapingConfig(enabled=False))
     entered, release = threading.Event(), threading.Event()
     search = papp.engine.search
 

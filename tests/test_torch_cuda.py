@@ -1573,3 +1573,117 @@ def test_tier_on_card_equals_cpu(cuda_device):
             tier.close()
             eng.close()
     assert answers[0] == answers[1]
+
+
+# -- the policy plane's device seams ---------------------------------------------
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh device flight recorder in place of the process one."""
+    rec = telemetry.DeviceFlightRecorder(4096)
+    monkeypatch.setattr(telemetry, "flight_recorder", rec)
+    return rec
+
+
+def _policy_engine(device):
+    eng = VariantEngine(BeaconConfig(engine=EngineConfig(use_mesh=False)),
+                        device=device)
+    eng.add_index(synthetic_shard(20_000, n_samples=70, seed=3,
+                                  dataset_id="p", with_gt_planes=True))
+    eng.add_index(synthetic_shard(20_000, seed=4, dataset_id="w"))
+    return eng
+
+
+@pytest.mark.cuda
+def test_recorder_families_equal_kernel_launches(cuda_device, recorder):
+    """The flight recorder's families count what the wrappers launch:
+    scatter = scatter_match, fused = bisect_query, plane =
+    scatter_selected + plane_stats (http_policy_path's gate (f))."""
+    eng = _policy_engine(cuda_device)
+    try:
+        telemetry.reset_launch_counts()
+        assert eng.warmup() > 0
+        fam = recorder.launches_by_family()
+        assert fam.get("scatter", 0) == telemetry.launch_count(sk.KERNEL) > 0
+        assert fam.get("fused", 0) + fam.get("fused_l0", 0) == (
+            telemetry.launch_count(tk.KERNEL)) > 0
+        assert fam.get("plane", 0) == (
+            telemetry.launch_count(sk.SELECTED_KERNEL)
+            + telemetry.launch_count(pk.KERNEL)) > 0
+        snap = recorder.snapshot()
+        assert snap["total"] == sum(fam.values())
+        assert all(r["warmup"] for r in snap["ring"]["entries"])
+        # the scatter kernel's chunk padding reaches the pad counters
+        assert snap["padWaste"]["byFamily"]["scatter"] > 0
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_canary_round_launches_on_the_card(cuda_device):
+    """A canary round's probes launch the scatter match kernel (past the
+    response cache) and every verdict holds."""
+    from sbeacon_tpu_torch.canary import CanaryProber
+
+    eng = _policy_engine(cuda_device)
+    try:
+        prober = CanaryProber(eng, interval_s=0)
+        telemetry.reset_launch_counts()
+        got = prober.run_once()
+        assert got["registered"] == 4 and got["probes"] == 8
+        assert got["mismatches"] == got["failures"] == 0
+        assert telemetry.launch_count(sk.KERNEL) == 8
+        again = prober.run_once()
+        assert again["mismatches"] == 0
+        assert telemetry.launch_count(sk.KERNEL) == 16  # no cache hit
+    finally:
+        eng.close()
+
+
+@pytest.mark.cuda
+def test_first_library_load_is_a_compile(cuda_device, recorder, monkeypatch):
+    from sbeacon_tpu_torch.ops import _build
+
+    monkeypatch.setattr(_build, "_libs", {})
+    with telemetry.device_warmup_phase():
+        _build.load(sk.KERNEL)
+    _build.load(pk.KERNEL)
+    comp = recorder.compile_snapshot()
+    assert [e["key"] for e in comp["entries"]] == [sk.KERNEL, pk.KERNEL]
+    assert comp["warmupShapes"] == [sk.KERNEL]
+    assert comp["midRequestCompiles"] == 1
+    assert all(e["durationMs"] > 0 for e in comp["entries"])
+
+
+@pytest.mark.cuda
+def test_profile_region_holds_the_kernel(index, tmp_path):
+    """A kernel launched on another thread inside ``profile_region``
+    shows in the exported trace inside that region (server_entry's
+    gate)."""
+    import json
+    import threading
+
+    prof = telemetry._Profiler(str(tmp_path))
+    ids, q8 = (torch.from_numpy(x).to(index.device)
+               for x in _main_path_slots(index, 6, 100, False, seed=4))
+
+    def launch():
+        with prof.region("sbeacon.kernel.launch"):
+            sk.scatter_match(index.tiles, ids, q8, T=index.tile, CAP=128,
+                             C=2)
+            torch.cuda.synchronize()
+
+    t = threading.Thread(target=launch)
+    t.start()
+    t.join()
+    time.sleep(0.05)
+    path = prof.stop()
+    with open(path) as f:
+        evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    kernels = [e for e in evs if e.get("cat") == "kernel"
+               and "scatter_match_kernel" in e["name"]]
+    regions = [e for e in evs
+               if e.get("cat") in ("user_annotation", "gpu_user_annotation")
+               and e["name"] == "sbeacon.kernel.launch"]
+    assert kernels and regions

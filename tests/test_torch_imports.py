@@ -89,6 +89,12 @@ def test_port_imports_no_jax_and_no_reference_package():
             "sbeacon_tpu_torch.api.framework",
             "sbeacon_tpu_torch.api.model_schemas",
             "sbeacon_tpu_torch.api.server",
+            "sbeacon_tpu_torch.api.variants",
+            "sbeacon_tpu_torch.config",
+            "sbeacon_tpu_torch.slo",
+            "sbeacon_tpu_torch.shaping",
+            "sbeacon_tpu_torch.accounting",
+            "sbeacon_tpu_torch.canary",
             "sbeacon_tpu_torch.engine"} <= set(names)
     assert leaked == []
 

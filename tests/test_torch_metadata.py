@@ -308,3 +308,55 @@ def test_count_fast_path_matches_generic_in_both():
         onto.close()
     assert counts[0] == counts[1]
     assert sum(c > 0 for c in counts[1]) >= 10
+
+
+def test_ontology_store_serves_concurrent_readers_and_a_writer(tmp_path):
+    """One sqlite connection, many threads: concurrent term expansions
+    (the filter compiler's reads) beside edge registrations answer
+    every read, with no InterfaceError, under a 1 us switch interval."""
+    import sys
+
+    onto = pmeta.OntologyStore(tmp_path / "ontology.sqlite")
+    onto.register_edges([(f"HP:{i:04d}", "HP:9999") for i in range(40)])
+    errors, done = [], []
+    stop = threading.Event()
+
+    def reader(k):
+        try:
+            while not stop.is_set():
+                got = onto.expand_filter_term("HP:9999")
+                assert {"HP:9999", "HP:0000"} <= got
+                assert onto.term_ancestors(f"HP:{k % 40:04d}") >= {
+                    "HP:9999"}
+            done.append(k)
+        except Exception as e:  # reported below, with its type
+            errors.append(e)
+
+    def writer():
+        try:
+            for i in range(40, 120):
+                onto.register_edges([(f"HP:{i:04d}", "HP:9999")])
+        except Exception as e:
+            errors.append(e)
+        finally:
+            stop.set()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=reader, args=(k,))
+                   for k in range(16)] + [threading.Thread(target=writer)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not any(t.is_alive() for t in threads)
+        assert not errors, errors[:3]
+        assert len(done) == 16
+        # every registration landed
+        assert onto.term_descendants("HP:9999") == (
+            {f"HP:{i:04d}" for i in range(120)} | {"HP:9999"})
+    finally:
+        sys.setswitchinterval(old)
+        stop.set()
+        onto.close()
