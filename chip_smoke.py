@@ -5,7 +5,8 @@
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--http-requests 512] [--seed 0] [--parent DIR]
+                          [--http-requests 512] [--ingest-records 200000]
+                          [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
 non-zero, without the final line):
@@ -169,6 +170,26 @@ non-zero, without the final line):
     child's trace report, and its exported ``torch.profiler`` trace
     holding a ``scatter_match`` kernel inside a ``kernel.launch``
     range. The root is removed whatever happens;
+14d. ingest_path: the native library built from the checkout's sources
+    (g++; the zlib shim where the host has no ``zlib.h``), a
+    1000-Genomes-shaped chr22 VCF of ``--ingest-records`` records x
+    2504 phased samples (``testing.write_cohort_vcf``: the site mix of
+    ``random_records``) with its ``.tbi``, and its reference index (one
+    native text build of the whole file); a ``BeaconApp`` under the JAX
+    default ``IngestConfig`` (the compactor every 2 s), POST ``/submit``
+    over HTTP with the dataset, a cohort and 2504 individuals (with
+    their biosamples, runs and analyses) while 64 keep-alive clients
+    query the slices as they publish (half aimed at published rows, 10%
+    at record granularity, 10% selected samples by sex): every answer
+    during the submit against the monolith of the slices whose epochs
+    it could see (read-your-writes), every answer after it against the
+    host matcher over the whole file, the served and persisted base
+    equal to the reference, ``ingest.native_fallbacks`` 0, J3
+    ``fused_l0``, J1, J2 and J4 launched; ``build_index_from_text``
+    against ``parse_record`` + ``build_index`` on the two smallest
+    slices; a second VCF submitted over ``http://`` (the remote leg of
+    ``native_slice_text``); the server entry restarted over the root,
+    answering a hit as before. The root is removed whatever happens;
 15. distinct setup: the keys of every shard built so far (A, the three
     cohorts, B) and of three seeded row subsets of A (40-70% of its rows
     each: the same sites submitted again), about 7e7 keys on the card;
@@ -4741,6 +4762,770 @@ def run_server_entry(root, http, device, kind, smi):
         shutil.rmtree(prof_dir, ignore_errors=True)
 
 
+# -- ingest over HTTP (ingest_path) -------------------------------------------
+
+#: records of the ingest phase's chr22-shaped VCF (1000 Genomes phase 3
+#: chr22 holds about 1.07e6; PERF.md section 4 says why this is cut)
+INGEST_RECORDS = 200_000
+#: the one knob of the JAX default IngestConfig the phase changes: the
+#: compactor's sweep, short enough that timed folds fall inside the submit
+INGEST_COMPACT_INTERVAL_S = 2.0
+#: requests each phase of the traffic may send at most (during the
+#: submit; after it, all of these are sent)
+INGEST_DURING_CAP = 6000
+INGEST_AFTER_REQUESTS = 512
+#: shares of the traffic: aimed at rows of published slices; at record
+#: granularity; with selected samples (a sex filter on individuals)
+INGEST_P_PUBLISHED = 0.5
+INGEST_P_RECORD = 0.1
+INGEST_P_SELECTED = 0.1
+#: records of the second, remote submission (served by range_server)
+REMOTE_RECORDS = 2_000
+INGEST_DS, REMOTE_DS = "chr22", "remote21"
+
+
+def ingest_submission(dataset_id, vcf, names):
+    """The ``/submit`` body of the ingest phase: the dataset, one cohort,
+    an individual per sample (sex alternating), and its biosample, run
+    and the analysis naming its VCF sample (the chain a filter on
+    individuals resolves to samples through)."""
+    own = len(names)
+    return {
+        "datasetId": dataset_id, "assemblyId": "GRCh38",
+        "vcfLocations": [str(vcf)],
+        "dataset": {"name": dataset_id,
+                    "description": "1000-Genomes-shaped chr22 cohort"},
+        "cohortId": f"{dataset_id}-cohort",
+        "cohort": {"name": f"members of {dataset_id}"},
+        "individuals": [{"id": f"{dataset_id}-I{k}",
+                         "sex": {"id": SEX_TERMS[k % 2], "label": "-"}}
+                        for k in range(own)],
+        "biosamples": [{"id": f"{dataset_id}-B{k}",
+                        "individualId": f"{dataset_id}-I{k}"}
+                       for k in range(own)],
+        "runs": [{"id": f"{dataset_id}-R{k}",
+                  "biosampleId": f"{dataset_id}-B{k}",
+                  "individualId": f"{dataset_id}-I{k}"}
+                 for k in range(own)],
+        "analyses": [{"id": f"{dataset_id}-A{k}",
+                      "runId": f"{dataset_id}-R{k}",
+                      "biosampleId": f"{dataset_id}-B{k}",
+                      "individualId": f"{dataset_id}-I{k}",
+                      "vcfSampleId": name} for k, name in enumerate(names)],
+        "index": True,
+    }
+
+
+def ingest_body(rng, shard, window_cap, selected):
+    """A Beacon body aimed at a random row of ``shard``: an SNV point
+    with its ref and alt (40%), a 2-60 kb bracket, any-base or typed
+    (50%; for selected samples also N-wildcard refs), or a bracket of
+    about 4x window_cap rows at the shard's own density (10%: the host
+    path). Positions stay inside the shard's chromosome."""
+    i = rng.randrange(shard.n_rows)
+    p = int(shard.cols["pos"][i])
+    rp = {"assemblyId": "GRCh38", "referenceName": shard.row_chrom(i)}
+    r = rng.random()
+    if r < 0.4:
+        for _ in range(64):  # an SNV row, if the shard has one near
+            if len(shard.row_ref(i)) == 1 and shard.row_alt(i) in "ACGT":
+                break
+            i = rng.randrange(shard.n_rows)
+        p = int(shard.cols["pos"][i])
+        rp.update(start=[p - 1], end=[p + len(shard.row_ref(i)) + 5],
+                  referenceBases=shard.row_ref(i),
+                  alternateBases=shard.row_alt(i))
+    elif r < 0.9:
+        w = rng.choice([2_000, 20_000, 60_000])
+        rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w + 10_000])
+        if selected and rng.random() < 0.3:
+            rp.update(referenceBases=rng.choice(["N", "AN", "NA", "NC"]),
+                      alternateBases="N")
+        elif rng.random() < 0.4:
+            rp["variantType"] = rng.choice(["DEL", "INS", "DUP", "CNV"])
+        else:
+            rp["alternateBases"] = rng.choice(["N", "A", "C", "G", "T"])
+    else:
+        pos = shard.cols["pos"]
+        span = max(1, int(pos[-1]) - int(pos[0]))
+        w = int(4 * window_cap * span / shard.n_rows)
+        rp.update(start=[p - 1, p - 1 + w], end=[p - 1, p + w],
+                  alternateBases="N")
+    return {"meta": {"apiVersion": "2.0"},
+            "query": {"requestedGranularity": "boolean",
+                      "includeResultsetResponses": "HIT",
+                      "requestParameters": rp}}
+
+
+def ingest_request(rng, shard, window_cap, names):
+    """One ``/g_variants`` request aimed at a row of ``shard``
+    (``ingest_body``): INGEST_P_SELECTED of them with selected samples
+    (a sex filter on individuals, at record granularity),
+    INGEST_P_RECORD at record granularity, the rest boolean or count.
+    Returns the request dict (the sample set a selected request must
+    get, or None)."""
+    x = rng.random()
+    selected = x < INGEST_P_SELECTED
+    body = ingest_body(rng, shard, window_cap, selected)
+    q = body["query"]
+    if selected:
+        k = rng.randrange(2)
+        q["filters"] = [{"id": SEX_TERMS[k], "scope": "individuals"}]
+        # a filter selects samples at record granularity (at boolean
+        # and count it only narrows the datasets)
+        q["requestedGranularity"] = "record"
+        return {"body": body, "samples": set(names[k::2])}
+    q["requestedGranularity"] = (
+        "record" if x < INGEST_P_SELECTED + INGEST_P_RECORD
+        else rng.choice(["boolean", "count"]))
+    return {"body": body, "samples": None}
+
+
+def ingest_monolith(shards, payload, dataset_id, vcf):
+    """The host matcher's one response over the rows of ``shards``
+    inside the payload's start bracket (merged): ``bracket_monolith``
+    with the selected samples' N-wildcard ref compare and sample
+    indices when the payload selects samples."""
+    from sbeacon_tpu_torch.engine import host_match_rows, materialize_response
+    from sbeacon_tpu_torch.index.columnar import merge_shards
+    from sbeacon_tpu_torch.utils.chrom import chromosome_code
+
+    spec = payload_spec(payload)
+    code = chromosome_code(spec.chrom)
+    subs = []
+    for s in shards:
+        lo, hi = int(s.chrom_offsets[code]), int(s.chrom_offsets[code + 1])
+        pos = s.cols["pos"][lo:hi]
+        a = lo + int(np.searchsorted(pos, spec.start_min, side="left"))
+        b = lo + int(np.searchsorted(pos, spec.start_max, side="right"))
+        rows = np.arange(a, b)
+        sub = with_plane_rows(s, rows, dataset_id)
+        over = {}
+        for k in ("gt_overflow", "tok_overflow"):
+            full = getattr(s, k)
+            keep = full[(full[:, 0] >= a) & (full[:, 0] < b)]
+            over[k] = np.column_stack([keep[:, 0] - a, keep[:, 1:]]).astype(
+                full.dtype) if len(keep) else full[:0]
+        subs.append(dataclasses.replace(sub, **over))
+    merged = merge_shards(subs)
+    selected = payload.selected_samples_only
+    idx = None
+    if selected:
+        at = {s: k for k, s in enumerate(merged.meta["sample_names"])}
+        idx = [at[s] for s in payload.sample_names.get(dataset_id, [])
+               if s in at]
+    return materialize_response(
+        merged, host_match_rows(merged, spec, ref_wildcard=selected),
+        payload, chrom_label=shards[0].meta["chrom_native"][spec.chrom],
+        dataset_id=dataset_id, vcf_location=vcf, selected_idx=idx)
+
+
+def envelope_of(env, body, responses):
+    """The envelope the app builds from ``responses`` for ``body``."""
+    from sbeacon_tpu_torch.api.requests import parse_request
+    from sbeacon_tpu_torch.api.variants import VariantAggregation
+
+    req = parse_request("POST", None, body)
+    agg = VariantAggregation(req.assembly_id or "")
+    agg.add(responses, granularity=req.granularity,
+            check_all=req.include_resultset_responses in ("HIT", "ALL"))
+    return env.by_granularity(
+        req.granularity, exists=agg.exists, count=len(agg.variants),
+        results=agg.results[req.skip : req.skip + req.limit],
+        set_type="genomicVariant", skip=req.skip, limit=req.limit)
+
+
+def check_ingest_answer(rec, executed, published, env, vcf):
+    """(ok, what) for one request answered while the VCF streamed: the
+    payload the engine received and its sample set, the HTTP body
+    against the envelope of the responses the engine gave, and those
+    responses against the monolith of the slices whose epochs could be
+    visible: every publish that ended before the request was sent
+    (read-your-writes), at most those that began before it returned."""
+    run = executed.get(rec["trace"])
+    if run is None:
+        return False, "no payload reached the engine"
+    payload, responses = run
+    targets = payload.dataset_ids or sorted(payload.sample_names)
+    if targets != [INGEST_DS]:
+        return False, "datasets"
+    if rec["samples"] is not None:
+        got = {s for v in payload.sample_names.values() for s in v}
+        if not payload.selected_samples_only or got != rec["samples"]:
+            return False, "sample set"
+    elif payload.selected_samples_only:
+        return False, "selected samples without a filter"
+    if unmasked(rec["doc"]) != envelope_of(env, rec["body"], responses):
+        return False, "envelope"
+    # a publish that returned before the request was sent is visible,
+    # with every lower epoch (epochs are assigned in the publish's
+    # critical section, in order); one that began after it returned
+    # is not
+    lo = max((e for e, _s, _t0, t1 in published if t1 < rec["t0"]),
+             default=0)
+    hi = sum(1 for _e, _s, t0, _t1 in published if t0 < rec["t1"])
+    shards = [s for _e, s, _t0, _t1 in sorted(published,
+                                               key=lambda p: p[0])]
+    gran = payload.requested_granularity
+    for e in range(max(lo, 1), hi + 1):
+        mono = ingest_monolith(shards[:e], payload, INGEST_DS, str(vcf))
+        if monolith_agrees(mono, responses, gran) and (
+                not payload.selected_samples_only
+                or set(mono.sample_names)
+                == {s for r in responses for s in r.sample_names}):
+            return True, ""
+    if lo == 0 and not any(r.exists for r in responses):
+        return True, ""  # nothing published yet, nothing found
+    return False, f"monolith (epochs {lo}-{hi})"
+
+
+def serve_child(root, device, request):
+    """The server entry over ``root`` as a child process: (seconds to
+    its serving line, the answer to ``request``, /ready, exit code on
+    SIGINT)."""
+    import queue
+    import signal
+    import socket
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "sbeacon_tpu_torch.api.server",
+           "--data-root", root, "--host", "127.0.0.1", "--port", str(port)]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONUNBUFFERED="1",
+               PYTHONPATH=os.pathsep.join(
+                   [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    t0 = time.perf_counter()
+    child = subprocess.Popen(cmd, cwd=here, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in child.stdout],
+                     daemon=True).start()
+    try:
+        while not lines.get(timeout=300).startswith("beacon serving on"):
+            pass
+        t_serving = time.perf_counter() - t0
+        c = HttpClient(port)
+        try:
+            st_r, ready, _ = c.send("GET", "/ready")
+            st, doc, _ms = c.send("POST", "/g_variants", request["body"])
+        finally:
+            c.close()
+        child.send_signal(signal.SIGINT)
+        rc = child.wait(timeout=60)
+        return t_serving, (st, doc), (st_r, ready), rc
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+
+
+#: the shard arrays ``shards_equal`` compares besides the columns
+SHARD_ARRAYS = ("chrom_offsets", "ref_blob", "ref_off", "alt_blob", "alt_off",
+                "vt_codes", "gt_bits", "gt_bits2", "tok_bits1", "tok_bits2",
+                "gt_overflow", "tok_overflow")
+
+
+def shards_equal(a, b, *, meta=True):
+    """Two index shards equal byte for byte: every column and array (and
+    the meta, unless ``meta`` is false)."""
+    return (a.n_rows == b.n_rows and (not meta or a.meta == b.meta)
+            and sorted(a.cols) == sorted(b.cols)
+            and all(np.array_equal(a.cols[k], b.cols[k])
+                    and a.cols[k].dtype == b.cols[k].dtype for k in a.cols)
+            and all(np.array_equal(getattr(a, k), getattr(b, k))
+                    for k in SHARD_ARRAYS))
+
+
+def reference_slice(path, vstart, vend, dataset_id, vcf_location, names):
+    """One slice of a VCF as the reference builds it: the pure-Python
+    BGZF reader's lines through ``parse_record`` and ``build_index``
+    (no native decode, no native tokenizer)."""
+    from sbeacon_tpu_torch.genomics.bgzf import BgzfReader
+    from sbeacon_tpu_torch.genomics.vcf import parse_record
+    from sbeacon_tpu_torch.index.columnar import build_index
+
+    recs = [r for r in (parse_record(line) for _o, line in
+                        BgzfReader(str(path)).iter_lines(vstart, vend))
+            if r is not None]
+    return build_index(recs, dataset_id=dataset_id,
+                       vcf_location=vcf_location, sample_names=names)
+
+
+def reference_slices(path, vcf_location, dataset_id, names, slices,
+                     beside=None):
+    """``reference_slice`` of each slice on a pool of spawned processes
+    (one per core, at most 8); yields ``(slice, shard, beside(slice))``
+    in slice order, ``beside`` running in this process meanwhile."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(8, os.cpu_count() or 1, len(slices)))
+    with ProcessPoolExecutor(
+            max_workers=workers,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        futures = [pool.submit(reference_slice, str(path), vs, ve,
+                               dataset_id, vcf_location, list(names))
+                   for vs, ve in slices]
+        for (vs, ve), fut in zip(slices, futures):
+            other = beside(vs, ve) if beside is not None else None
+            yield (vs, ve), fut.result(), other
+
+
+def run_ingest_path(args, device, kind, smi, kernel_ms):
+    """Phase 14d: a 1000-Genomes-shaped chr22 VCF submitted over HTTP
+    to a ``BeaconApp`` under the JAX default ``IngestConfig`` (streamed
+    deltas, the compactor every INGEST_COMPACT_INTERVAL_S), served to
+    64 keep-alive clients while it streams and after it folds; the
+    native text build of every slice against ``parse_record`` +
+    ``build_index`` (``reference_slices``), a remote submission over
+    ``http://``, and the server entry restarted over the root. ``kernel_ms`` maps each kernel to its
+    per-launch time from the timing phases (the card-busy estimate)."""
+    import torch
+
+    from sbeacon_tpu_torch import native, telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.server import start_background
+    from sbeacon_tpu_torch.config import (
+        BeaconConfig,
+        IngestConfig,
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+        StorageConfig,
+    )
+    from sbeacon_tpu_torch.genomics.tabix import ensure_index
+    from sbeacon_tpu_torch.index.columnar import (
+        build_index_from_text,
+        load_index,
+        merge_shards,
+    )
+    from sbeacon_tpu_torch.ingest import pipeline as ipl
+    from sbeacon_tpu_torch.ingest.planner import plan_slices
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.testing import range_server, write_cohort_vcf
+
+    from pathlib import Path
+
+    # the native library: built from the checkout's sources (by the
+    # first index build of an earlier phase when there was one)
+    loaded_before = native._lib is not None
+    t0 = time.perf_counter()
+    check(native.available(), "the native library built and loaded")
+    t_native = time.perf_counter() - t0
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()[:1]
+    emit("ingest_native", library=str(native.build()),
+         loaded_before_phase=loaded_before, load_s=t_native,
+         gxx=gxx, zlib_h=os.path.exists("/usr/include/zlib.h"),
+         zlib_link=native._zlib_link(),
+         prefer_native_io=native.prefer_native_io(), device=kind,
+         nvidia_smi=smi)
+
+    root = tempfile.mkdtemp(prefix="ingest-root-", dir=BUILD_DIR)
+    app = server = None
+    slice_text = ipl.native_slice_text
+    try:
+        vdir = Path(root) / "vcfs"
+        vdir.mkdir()
+        vcf = vdir / "chr22.vcf.gz"
+        t0 = time.perf_counter()
+        info = write_cohort_vcf(vcf, args.ingest_records,
+                                n_samples=args.samples, seed=args.seed + 40)
+        t_write = time.perf_counter() - t0
+        names = info["sample_names"]
+        config = BeaconConfig(
+            storage=StorageConfig(root=Path(root) / "data"),
+            resilience=ResilienceConfig(
+                runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+            shaping=ShapingConfig(enabled=False),
+            observability=ObservabilityConfig(canary_enabled=False),
+            ingest=IngestConfig(
+                compact_interval_s=INGEST_COMPACT_INTERVAL_S))
+        plan = plan_slices(ensure_index(vcf), config.ingest)
+        # the reference: parse_record + build_index of every planned
+        # slice on a process pool, merged; the native text build of each
+        # slice is held against it byte for byte meanwhile
+        t0 = time.perf_counter()
+        parts, slice_rows = [], []
+
+        def native_slice(vs, ve):
+            fast = build_index_from_text(
+                native.inflate_range(str(vcf), vs, ve),
+                dataset_id=INGEST_DS, vcf_location=str(vcf),
+                sample_names=names)
+            slice_rows.append(fast.n_rows)
+            return fast
+
+        for (vs, ve), slow, fast in reference_slices(
+                vcf, str(vcf), INGEST_DS, names, plan.slices, native_slice):
+            check(shards_equal(slow, fast), "build_index_from_text differs "
+                  f"from parse_record + build_index on slice {(vs, ve)}")
+            parts.append(slow)
+        ref = merge_shards(parts)
+        del parts
+        t_ref = time.perf_counter() - t0
+        distinct = ipl.distinct_variant_count([ref])
+        emit("ingest_setup", records=info["records"],
+             samples=len(names), rows=ref.n_rows,
+             text_bytes=info["text_bytes"],
+             compressed_bytes=info["compressed_bytes"], write_s=t_write,
+             reference_build_s=t_ref, slices_planned=len(plan.slices),
+             slices_checked=len(slice_rows), slice_rows=slice_rows,
+             distinct_variants=distinct, ingest_config=dataclasses.asdict(
+                 config.ingest), device=kind, nvidia_smi=smi)
+
+        app = BeaconApp(config, device=device)
+        eng = app.engine
+        published, bases, l1s = [], [], []
+        lock = threading.Lock()
+        add_delta, add_index = eng.add_delta, eng.add_index
+        replace = eng.replace_delta_range
+
+        def rec_add_delta(shard):
+            t_a = time.perf_counter()
+            epoch = add_delta(shard)
+            with lock:
+                published.append((epoch, shard, t_a, time.perf_counter()))
+            return epoch
+
+        def rec_add_index(shard):
+            t_a = time.perf_counter()
+            add_index(shard)
+            with lock:
+                bases.append((shard.meta.get("delta_epoch"), shard.n_rows,
+                              t_a, time.perf_counter()))
+
+        def rec_replace(key, epochs, shard):
+            ok = replace(key, epochs, shard)
+            with lock:
+                l1s.append((list(epochs), ok))
+            return ok
+
+        eng.add_delta, eng.add_index = rec_add_delta, rec_add_index
+        eng.replace_delta_range = rec_replace
+        # what the engine receives and answers, by the request's trace id
+        executed, by_job = {}, {}
+        search, submit = eng.search, app.query_runner.submit
+
+        def recording_search(payload):
+            responses = search(payload)
+            by_job[payload.query_id] = (payload, responses)
+            return responses
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            executed[telemetry.current_context().trace_id] = qid
+            return qid, status
+
+        eng.search = recording_search
+        app.query_runner.submit = recording_submit
+        native_calls = {"local": 0, "remote": 0}
+
+        def counting_slice_text(path, vstart, vend):
+            # a decode that raises (and falls back) does not count
+            text = slice_text(path, vstart, vend)
+            native_calls["remote" if str(path).startswith("http")
+                         else "local"] += 1
+            return text
+
+        ipl.native_slice_text = counting_slice_text
+        server, _t = start_background(app, "127.0.0.1", 0)
+        port = server.server_address[1]
+        env = app.env
+        fallbacks0 = ipl.NATIVE_FALLBACKS.count()
+        submit_done = threading.Event()
+        answers = []
+        after_left = [INGEST_AFTER_REQUESTS]
+        window_cap = config.engine.window_cap
+
+        def client(worker):
+            rng = random.Random(args.seed * 7919 + worker)
+            c = HttpClient(port)
+            n = 0
+            try:
+                while True:
+                    after = submit_done.is_set()
+                    with lock:
+                        if not published and not after:
+                            # the submit's metadata (datasets, terms)
+                            # lands before its first slice publishes
+                            after = None
+                        elif after:
+                            if after_left[0] <= 0:
+                                return
+                            after_left[0] -= 1
+                        elif len(answers) >= INGEST_DURING_CAP:
+                            after = None
+                        shards = [s for _e, s, _a, _b in published]
+                    if after is None:
+                        time.sleep(0.05)
+                        continue
+                    aim = (rng.choice(shards) if shards and rng.random()
+                           < INGEST_P_PUBLISHED else ref)
+                    req = ingest_request(rng, aim, window_cap, names)
+                    trace = f"ingest-{worker}-{n}"
+                    n += 1
+                    t_a = time.perf_counter()
+                    st, doc, ms = c.send("POST", "/g_variants", req["body"],
+                                         trace=trace)
+                    req.update(trace=trace, status=st, doc=doc, ms=ms,
+                               t0=t_a, t1=time.perf_counter(),
+                               after=after)
+                    with lock:
+                        answers.append(req)
+            finally:
+                c.close()
+
+        telemetry.reset_launch_counts()
+        sub = ingest_submission(INGEST_DS, vcf, names)
+        t_submit = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=args.threads) as pool:
+            futures = [pool.submit(client, w) for w in range(args.threads)]
+            c = HttpClient(port)
+            try:
+                st_sub, sub_doc, sub_ms = c.send("POST", "/submit", sub)
+            finally:
+                c.close()
+            t_done = time.perf_counter()
+            submit_done.set()
+            for f in futures:
+                f.result()
+        t_end = time.perf_counter()
+        launches = {k: telemetry.launch_count(k) for k in
+                    (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL)}
+        families = telemetry.launches_by_family()
+        ingest_s = t_done - t_submit
+        check(st_sub == 200, f"/submit answered {st_sub}: {sub_doc}")
+        want_doc = {
+            "completed": ["Verified VCF locations", "Added dataset metadata",
+                          "Added cohorts", "Added individuals",
+                          "Added biosamples", "Added runs",
+                          "Added analyses", "Rebuilt indexes"],
+            "pending": [f"Summarised 1 VCF(s): {distinct} distinct "
+                        f"variants, {ref.meta['call_count']} calls, "
+                        f"{len(names)} samples"]}
+        check(sub_doc == want_doc, f"/submit's answer {sub_doc} is not the "
+              f"JAX form {want_doc}")
+        compactor = app.ingest.compactor.metrics()
+        check(compactor["runs"] >= 1, "no compactor fold fell inside the "
+              "submit")
+        check(ipl.NATIVE_FALLBACKS.count() == fallbacks0,
+              "ingest.native_fallbacks ticked")
+        check(native_calls["local"] >= len(plan.slices),
+              f"{native_calls['local']} native slice decodes for "
+              f"{len(plan.slices)} slices")
+        # the served base is the reference, byte for byte
+        base, _d, _p = eng._indexes[(INGEST_DS, str(vcf))]
+        check(shards_equal(base, ref, meta=False), "the served base "
+              "differs from parse_record + build_index of the whole file")
+        on_disk = load_index(app.ingest.pipeline.shard_path(
+            INGEST_DS, str(vcf)))
+        check(on_disk.n_rows == ref.n_rows, "the persisted base holds "
+              f"{on_disk.n_rows} of {ref.n_rows} rows")
+        check(not eng.delta_stats(), f"a delta tail stands after the "
+              f"submit: {eng.delta_stats()}")
+
+        # every answer: during the submit against the epochs it could
+        # see, after it against the host matcher over the whole file
+        for r in answers:
+            qid = executed.get(r["trace"])
+            executed_run = by_job.get(qid)
+            if executed_run is not None:
+                r["run"] = executed_run
+        bad_status = [r["status"] for r in answers if r["status"] != 200]
+        check(not bad_status, f"non-200 answers: {bad_status[:5]}")
+        t0 = time.perf_counter()
+        during = [r for r in answers if not r["after"]]
+        after = [r for r in answers if r["after"]]
+        why: dict = {}
+        runs = {r["trace"]: r["run"] for r in answers if "run" in r}
+        for r in during:
+            ok, what = check_ingest_answer(r, runs, published, env, vcf)
+            if not ok:
+                why[what] = why.get(what, 0) + 1
+        mism_during = sum(why.values())
+        why_after: dict = {}
+        for r in after:
+            run = runs.get(r["trace"])
+            ok, what = False, "no payload reached the engine"
+            if run is not None:
+                payload = run[0]
+                want_samples = r["samples"] or set()
+                got = {s for v in payload.sample_names.values() for s in v}
+                if got != want_samples:
+                    what = "sample set"
+                else:
+                    _resps, want = expected_envelope([ref], env, r["body"],
+                                                     payload)
+                    ok, what = unmasked(r["doc"]) == want, "envelope"
+            if not ok:
+                why_after[what] = why_after.get(what, 0) + 1
+        mism_after = sum(why_after.values())
+        t_check = time.perf_counter() - t0
+        check(mism_during == 0, f"{mism_during} answers during the ingest "
+              f"differ: {why}")
+        check(mism_after == 0, f"{mism_after} answers after the fold "
+              f"differ: {why_after}")
+        check(len(after) == INGEST_AFTER_REQUESTS, "the clients sent "
+              f"{len(after)} requests after the submit")
+        for fam in ("fused_l0",):
+            check(families.get(fam, 0) > 0, f"the ingest path launched no "
+                  f"{fam} (J3's L0 form): {families}")
+        for k in (sk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL):
+            check(launches[k] > 0, f"the ingest path launched {k}")
+        torch.cuda.synchronize()
+        mem_after_fold = torch.cuda.memory_allocated()
+
+
+        lat_d = [r["ms"] for r in during]
+        lat_a = [r["ms"] for r in after]
+        wall_d = max([r["t1"] for r in during], default=t_done) - t_submit
+        wall_a = t_end - min([r["t0"] for r in after], default=t_done)
+        busy = sum(launches[k] * kernel_ms[k] for k in launches)
+        first_visible = (min(t1 for _e, _s, _t0, t1 in published)
+                         - t_submit) if published else None
+        tiers = compactor.get("tier_folds", {})
+        emit("ingest_path", records=info["records"], samples=len(names),
+             ingest_s=ingest_s, records_per_s=info["records"] / ingest_s,
+             compressed_mb_per_s=info["compressed_bytes"] / ingest_s / 1e6,
+             text_mb_per_s=info["text_bytes"] / ingest_s / 1e6,
+             submit_answer=sub_doc, slices_planned=len(plan.slices),
+             deltas_published=len(published),
+             l0_rebuilds=eng.l0_status().get("builds"),
+             folds={"l1": tiers.get("l1", 0), "base": tiers.get("base", 0),
+                    "inline_base": sum(1 for e, _n, _a, _b in bases
+                                       if e is not None)
+                    - tiers.get("base", 0),
+                    "l1_swaps": len(l1s)},
+             gc_bytes=compactor.get("gc_bytes", 0),
+             write_amplification=compactor.get("write_amplification"),
+             base_publishes=[(e, n) for e, n, _a, _b in bases],
+             first_visible_s=first_visible,
+             native={"available": native.available(),
+                     "fallbacks": ipl.NATIVE_FALLBACKS.count() - fallbacks0,
+                     "slice_decodes": dict(native_calls)},
+             during={"requests": len(during), "mismatches": mism_during,
+                     "requests_per_s": len(during) / max(wall_d, 1e-9),
+                     "p50_ms": percentile(lat_d, 0.5) if lat_d else None,
+                     "p99_ms": percentile(lat_d, 0.99) if lat_d else None,
+                     "hits": sum(1 for r in during if unmasked(r["doc"])
+                                 ["responseSummary"]["exists"])},
+             after={"requests": len(after), "mismatches": mism_after,
+                    "requests_per_s": len(after) / max(wall_a, 1e-9),
+                    "p50_ms": percentile(lat_a, 0.5) if lat_a else None,
+                    "p99_ms": percentile(lat_a, 0.99) if lat_a else None},
+             launches=launches, families=families,
+             card_busy_ms_est=busy,
+             card_busy_share_est=busy / ((t_end - t_submit) * 1e3),
+             busy_note="launches x each kernel's per-launch ms from phases "
+                       "5, 9 and 14",
+             device_memory_after_fold_gb=mem_after_fold / 1e9,
+             check_s=t_check,
+             compactor=compactor, device=kind, nvidia_smi=smi)
+
+        # a second submission: a small VCF over http:// (the remote leg
+        # of native_slice_text)
+        rdir = Path(root) / "remote"
+        rdir.mkdir()
+        rvcf = rdir / "chr21.vcf.gz"
+        rinfo = write_cohort_vcf(rvcf, REMOTE_RECORDS, n_samples=len(names),
+                                 seed=args.seed + 41, chrom="21",
+                                 span=(10_000_000, 46_000_000))
+        with range_server(rdir) as base_url:
+            url = f"{base_url}/{rvcf.name}"
+            remote0 = native_calls["remote"]
+            c = HttpClient(port)
+            try:
+                st_r, rdoc, r_ms = c.send("POST", "/submit", {
+                    "datasetId": REMOTE_DS, "assemblyId": "GRCh38",
+                    "vcfLocations": [url],
+                    "dataset": {"name": REMOTE_DS}})
+            finally:
+                c.close()
+        check(st_r == 200, f"the remote submit answered {st_r}: {rdoc}")
+        remote_calls = native_calls["remote"] - remote0
+        check(remote_calls > 0, "the remote submission never decoded "
+              "through native_slice_text's remote leg")
+        check(ipl.NATIVE_FALLBACKS.count() == fallbacks0,
+              "ingest.native_fallbacks ticked on the remote submission")
+        rref = merge_shards([slow for _vs, slow, _f in reference_slices(
+            rvcf, url, REMOTE_DS, rinfo["sample_names"],
+            plan_slices(ensure_index(rvcf), config.ingest).slices)])
+        rng = random.Random(args.seed + 42)
+        r_mism = 0
+        c = HttpClient(port)
+        try:
+            for _ in range(32):
+                body = ingest_body(rng, rref, window_cap, False)
+                body["query"]["requestedGranularity"] = rng.choice(
+                    ["boolean", "count", "record"])
+                st, doc, _ms = c.send("POST",
+                                      f"/datasets/{REMOTE_DS}/g_variants",
+                                      body, trace=f"remote-{_}")
+                run = by_job.get(executed.get(f"remote-{_}"))
+                if st != 200 or run is None:
+                    r_mism += 1
+                    continue
+                _resps, want = expected_envelope([rref], env, body, run[0])
+                r_mism += unmasked(doc) != want
+        finally:
+            c.close()
+        check(r_mism == 0, f"{r_mism} answers over the remote dataset "
+              "differ from the host matcher")
+        emit("ingest_remote", records=rinfo["records"],
+             compressed_bytes=rinfo["compressed_bytes"], submit_ms=r_ms,
+             answer=rdoc, remote_slice_decodes=remote_calls,
+             native_fallbacks=ipl.NATIVE_FALLBACKS.count() - fallbacks0,
+             requests=32, mismatches=r_mism, device=kind, nvidia_smi=smi)
+
+        # the server entry over the root: load_all pins both bases, and
+        # a hit answers as it did before the restart
+        probe = next(r for r in after if r["samples"] is None
+                     and unmasked(r["doc"])["responseSummary"]["exists"])
+        c = HttpClient(port)
+        try:
+            _st, before, _ms = c.send("POST", "/g_variants", probe["body"])
+        finally:
+            c.close()
+        server.shutdown()
+        server.server_close()
+        server = None
+        ipl.native_slice_text = slice_text
+        app.close()
+        eng.close()
+        app.store.close()
+        app.ontology.close()
+        app = None
+        torch.cuda.empty_cache()
+        t_serving, (st, doc), (st_ready, ready), rc = serve_child(
+            root + "/data", device, probe)
+        same = st == 200 and unmasked(doc) == unmasked(before)
+        check(st_ready == 200 and ready.get("shards") == 2,
+              f"the restarted server holds {ready}")
+        check(same, "the restarted server's answer differs")
+        check(rc == 0, f"the restarted server exited with {rc}")
+        emit("ingest_restart", seconds_to_serving=t_serving, ready=ready,
+             equal=same, exit_code=rc, device=kind, nvidia_smi=smi)
+        return {"launches": launches, "families": families}
+    finally:
+        ipl.native_slice_text = slice_text
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if app is not None:
+            app.close()
+            app.engine.close()
+            app.store.close()
+            app.ontology.close()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=20_000_000)
@@ -4753,6 +5538,7 @@ def main(argv=None) -> int:
     ap.add_argument("--plane-rows", type=int, default=2_000_000)
     ap.add_argument("--selected-requests", type=int, default=256)
     ap.add_argument("--http-requests", type=int, default=HTTP_REQUESTS)
+    ap.add_argument("--ingest-records", type=int, default=INGEST_RECORDS)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit): its "
@@ -5364,6 +6150,11 @@ def run(args, device) -> int:
         run_server_entry(http_root, http, device, kind, smi)
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
+
+    # 14d. ingest over HTTP: a chr22-shaped VCF submitted to the port
+    torch.cuda.empty_cache()
+    run_ingest_path(args, device, kind, smi, kernel_ms)
+    torch.cuda.empty_cache()
 
     # 15. the distinct path's keys: every shard built so far (A, the three
     # cohorts, B) and RESUBMITTED seeded row subsets of A, the same

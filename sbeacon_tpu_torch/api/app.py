@@ -1,8 +1,7 @@
 """The Beacon v2 application: one router over the read surface and the
 policy and observability plane behind it.
 
-Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet plane and
-ingest:
+Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet plane:
 
     /  /info  /configuration  /map  /entry_types  /filtering_terms
     /schemas  /schemas/{entity}
@@ -15,6 +14,7 @@ ingest:
     /slo  /ops/events  /ops/costs  /ops/plans  /debug/status
     /device/status                   (diagnostic probes, the same bypass)
     /_trace                          (span trees; 404 unless tracing is on)
+    /submit                          (POST new / PATCH update: ingest)
 
 Every request runs under a request context (the trace id of
 ``X-Beacon-Trace`` or a fresh one) and, past the submit auth gate and
@@ -26,10 +26,14 @@ the cost table and the plan store (probe and diagnostic routes
 excluded, all three from ``slo.PROBE_ROUTE_LABELS``), the slow-query
 log, and, when explained, ``meta.executionPlan``. The canary prober
 runs in the background (``canary_interval_s``). Errors map to
-400/429/503/504/500. ``/submit`` answers 501 until the ingest slice is
-ported (the auth gate still runs first), and ``/fleet/*`` answers 404
-until the fleet plane is (its sections of ``/debug/status`` render as
-the JAX app renders them for an engine without breakers or routes).
+400/429/503/504/500. POST/PATCH ``/submit`` (behind the submit auth
+gate) validates the submission, verifies its VCFs, writes its metadata
+and runs the summarisation pipeline inline (``api/submit.py``): its
+slices serve as deltas while it runs, and the ingest service's delta
+compactor folds them off the request path. ``/fleet/*`` answers 404
+until the fleet plane is ported (its sections of ``/debug/status``
+render as the JAX app renders them for an engine without breakers or
+routes).
 
 Every handler returns ``(status_code, body_dict)`` — or, for a
 Prometheus ``/metrics`` scrape, ``(200, text)``; transport (the HTTP
@@ -56,7 +60,12 @@ from ..canary import CanaryProber
 from ..config import BeaconConfig, StorageConfig
 from ..engine import VariantEngine
 from ..harness import faults
-from ..ingest.service import IngestService, VcfLocationError
+from ..ingest.pipeline import register_ingest_metrics
+from ..ingest.service import (
+    IngestService,
+    VcfLocationError,
+    register_compaction_metrics,
+)
 from ..metadata import MetadataStore, OntologyStore
 from ..metadata.filters import FilterError
 from ..plan import (
@@ -103,6 +112,7 @@ from .framework import (
     map_response,
 )
 from .requests import BeaconRequest, RequestError, parse_request
+from .submit import submit_dataset
 from .variants import decode_internal_id, resolve_datasets, run_variant_search
 
 ENTITY_PATHS = {
@@ -249,7 +259,9 @@ class BeaconApp:
                 "engine cannot host index shards (no add_index): pass a "
                 "VariantEngine or an explicit ingest= service"
             )
-        self.ingest = ingest or IngestService(self.config, engine=self.engine)
+        self.ingest = ingest or IngestService(
+            self.config, engine=self.engine, store=self.store
+        )
         self.env = Envelopes(self.config.info)
         # async query job table: coalesces concurrent identical queries,
         # caches results for the query TTL, spills oversized response
@@ -300,6 +312,11 @@ class BeaconApp:
                 else None
             ),
         )
+        # the background compactor runs off any request context: book
+        # its fold cost under the 'system' tenant via the explicit hook
+        compactor = getattr(self.ingest, "compactor", None)
+        if compactor is not None and self.accounting is not None:
+            compactor.accounting = self.accounting
         # readiness flag: constructed apps are servable; a deployment
         # may clear it during reload/drain so load balancers back off
         self.ready = True
@@ -372,8 +389,8 @@ class BeaconApp:
 
     def close(self) -> None:
         """Release app-owned resources: the async runner's worker pool,
-        the job table, the canary thread and the shaper. The engine is
-        NOT closed here."""
+        the job table, the canary thread, the shaper and the ingest
+        service's compactor thread. The engine is NOT closed here."""
         self.query_runner.close()
         self.query_jobs.close()
         self.canary.close()
@@ -423,6 +440,12 @@ class BeaconApp:
         engine_reg = getattr(self.engine, "register_metrics", None)
         if engine_reg is not None:
             engine_reg(reg)
+        # compaction + slice-disk series (ingest-while-serving plane)
+        register_ingest_metrics(reg)
+        register_compaction_metrics(
+            reg,
+            lambda: getattr(self.ingest, "compaction_metrics", dict)(),
+        )
 
     #: heads of the two-segment diagnostic surfaces (``ops``, ``debug``,
     #: ``device``, ``fleet``) — derived from the one probe-route source
@@ -1031,12 +1054,10 @@ class BeaconApp:
                     return 400, self.env.error(
                         400, "submit accepts POST (new) or PATCH (update)"
                     )
-                return 501, self.env.error(
-                    501,
-                    "submit is not served by this package yet: ingest "
-                    "(the VCF readers and the summarisation pipeline) "
-                    "is not ported",
+                summary = submit_dataset(
+                    self, body or {}, update=(method == "PATCH")
                 )
+                return 200, summary
 
         req = parse_request(method, query_params, body)
 

@@ -140,7 +140,8 @@ def _is_number(v) -> bool:
 def _schema_errors(schema: dict, value, path: tuple):
     """Yield (path, message) for every violation of ``schema`` by
     ``value``, keyword by keyword in schema order (Draft 7 semantics
-    for the keywords QUERY_BODY_SCHEMA uses; jsonschema's messages)."""
+    for the keywords QUERY_BODY_SCHEMA and the submit schemas use;
+    jsonschema 4.x's messages)."""
     for kw, arg in schema.items():
         if kw == "type":
             if not _TYPES[arg](value):
@@ -156,6 +157,25 @@ def _schema_errors(schema: dict, value, path: tuple):
         elif kw == "maxItems":
             if isinstance(value, list) and len(value) > arg:
                 yield path, f"{value!r} is too long"
+        elif kw == "minLength":
+            if isinstance(value, str) and len(value) < arg:
+                short = "should be non-empty" if arg == 1 else "is too short"
+                yield path, f"{value!r} {short}"
+        elif kw == "additionalProperties":
+            if arg is not False:
+                raise ValueError(
+                    "only additionalProperties: false is supported"
+                )
+            if isinstance(value, dict):
+                known = schema.get("properties", {})
+                extras = sorted((k for k in value if k not in known), key=str)
+                if extras:
+                    verb = "was" if len(extras) == 1 else "were"
+                    names = ", ".join(repr(k) for k in extras)
+                    yield path, (
+                        "Additional properties are not allowed "
+                        f"({names} {verb} unexpected)"
+                    )
         elif kw == "pattern":
             if isinstance(value, str) and not re.search(arg, value):
                 yield path, f"{value!r} does not match {arg!r}"

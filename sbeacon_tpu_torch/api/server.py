@@ -6,8 +6,8 @@ scrape verbatim, with the OpenMetrics content type for that dialect —
 CORS header kept, the ``Retry-After`` header of a shed request), and
 ``python -m sbeacon_tpu_torch.api.server --data-root DIR``, which loads
 every persisted shard of the data root, warms the kernels and serves the
-Beacon read routes on the GPU (``--device cpu`` for the plain-PyTorch
-twins). The JAX package's ``--worker`` fan-out belongs to the fleet
+Beacon routes, ``/submit`` included, on the GPU (``--device cpu`` for the
+plain-PyTorch twins). The JAX package's ``--worker`` fan-out belongs to the fleet
 plane and is refused here.
 """
 

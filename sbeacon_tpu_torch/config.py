@@ -7,8 +7,10 @@ engine, the resilience envelope (deadlines, admission, the query
 runner's pool), ``AuthConfig``, traffic shaping (``ShapingConfig``,
 ``config.py:382-440`` there), the observability plane
 (``ObservabilityConfig``, ``:443-552``, without the fleet digest and
-migration knobs of the fleet plane) and ``BeaconConfig.from_env`` for
-the env vars of those fields (``:760-830``). The JAX
+migration knobs of the fleet plane), ingest (``IngestConfig``) and the
+ontology resolvers (``ResolverConfig``, ``:215-297``; remote slice-scan
+workers are refused until the fleet plane) and ``BeaconConfig.from_env``
+for the env vars of those fields (``:679-830``). The JAX
 package's persistent compile cache has no counterpart: the kernels build
 once into ``build/kernels/``. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
@@ -158,6 +160,96 @@ class EngineConfig:
     l0_min_rows: int = 4096
     max_response_inline_bytes: int = 300 * 1024
     request_timeout_s: float = 600.0
+
+
+@dataclasses.dataclass(frozen=True)
+class IngestConfig:
+    """Slice-planning cost model (reference: summariseVcf constants
+    :21-25 and the ABS_MAX_DATA_SPLIT / VCF_S3_OUTPUT_SIZE_LIMIT terraform
+    ceilings, main.tf:16-17). The planner minimises total_time x cost over
+    slice size — here 'dispatch' is a thread-pool task instead of an SNS
+    message + lambda cold start, so the constants default far cheaper, but
+    the optimiser itself is the same math."""
+
+    min_task_time: float = 0.005  # MIN_SS_TIME (s)
+    scan_rate: float = 200_000_000  # SS_RATE (compressed B/s, host parse)
+    dispatch_cost: float = 0.0005  # SNS_TIME equivalent (s/task)
+    max_concurrency: int = 64  # MAX_CONCURRENCY
+    workers: int = 8  # parallel slice workers
+    max_range_bytes: int = 750 * 1024 * 1024  # ABS_MAX_DATA_SPLIT
+    # also materialise reference-layout binary region files per VCF
+    # (vcf-summaries/ portable exchange format, index/portable.py)
+    export_portable: bool = True
+    # remote slice-scan workers (the reference's <=1000-lambda
+    # summariseSlice fan-out); refused until the fleet plane brings the
+    # remote scan pool, so only the empty default (scan on this host's
+    # thread pool) is accepted
+    scan_worker_urls: tuple[str, ...] = ()
+    # ingest-while-serving (delta shards + background compaction):
+    # stream_deltas publishes each completed slice of a FIRST-TIME
+    # summarisation to the engine immediately as a queryable delta
+    # shard (read-your-writes before the merge barrier); the base
+    # publish is deferred to the compactor so the fused/mesh stacks and
+    # the response cache are not demolished per submit. delta_max_shards
+    # is the per-(dataset, vcf) delta-tail depth that kicks an early
+    # compaction; compact_interval_s is the background compactor's
+    # cadence (<=0 disables the thread — folds then only run on the
+    # depth trigger or an explicit run_once()).
+    stream_deltas: bool = True
+    delta_max_shards: int = 8
+    compact_interval_s: float = 30.0
+    # size-tiered compaction: >0 arms the tiered fold
+    # policy — raw delta tails fold into intermediate L1 artifacts
+    # (persisted, epoch-ranged, adoptable after a crash) and the full
+    # base merge only runs once the accumulated L1 bytes reach this
+    # ratio of the base's bytes, so per-fold write amplification stops
+    # scaling with base size. <=0 selects the legacy policy: every
+    # fold is a full base merge. Tiered is the default (under
+    # sustained multi-key ingest it folds L1 per trigger and merges the
+    # base only at the ratio, so GC stays bounded); set
+    # BEACON_COMPACT_BASE_RATIO=0 to get the merge-every-fold behaviour.
+    compact_base_ratio: float = 0.35
+    # superseded base/L1 artifacts are parked in a per-key .retired/
+    # dir at each base merge and the newest N generations are kept;
+    # older ones are GC'd (ingest.gc_bytes counts the reclaim). GC
+    # only ever touches .retired/ — a serving artifact can never be
+    # deleted.
+    artifact_retain: int = 2
+    # defer the end-of-summarisation BASE publish to the compactor
+    # cadence as well (continuous-ingest mode): submits then never pay
+    # a fingerprint bump / stack rebuild inline — the standing deltas
+    # serve until the next fold. Off (default) keeps the base publish
+    # at the end of each summarisation (identical post-submit state to
+    # the pre-delta write path; slices still stream mid-scan).
+    defer_base_publish: bool = False
+
+    def __post_init__(self):
+        if self.scan_worker_urls:
+            raise ValueError(
+                "scan_worker_urls is not supported yet: remote slice "
+                "scans come with the fleet plane (ROADMAP Queue 1 item 6)"
+            )
+
+
+# canonical external-service endpoints (reference indexer:40-42); the
+# resolver clients in metadata/resolvers.py import these — single source
+DEFAULT_OLS_URL = "https://www.ebi.ac.uk/ols/api/ontologies"
+DEFAULT_ONTOSERVER_URL = (
+    "https://r4.ontoserver.csiro.au/fhir/ValueSet/$expand"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ResolverConfig:
+    """External ontology resolution (the indexer's OLS/Ontoserver calls,
+    reference indexer/lambda_function.py:40-42). Off by default: an
+    air-gapped deployment must not stall submissions on network timeouts;
+    closures can also be loaded offline via OntologyStore."""
+
+    enabled: bool = False
+    ols_url: str = DEFAULT_OLS_URL
+    ontoserver_url: str = DEFAULT_ONTOSERVER_URL
+    workers: int = 8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -355,6 +447,17 @@ _OBSERVABILITY_ENV = {
     "BEACON_COST_WINDOW_S": ("cost_window_s", float),
 }
 
+#: env var -> (IngestConfig field, type)
+_INGEST_ENV = {
+    "BEACON_INGEST_WORKERS": ("workers", int),
+    "BEACON_STREAM_DELTAS": ("stream_deltas", bool),
+    "BEACON_DELTA_MAX_SHARDS": ("delta_max_shards", int),
+    "BEACON_COMPACT_INTERVAL_S": ("compact_interval_s", float),
+    "BEACON_COMPACT_BASE_RATIO": ("compact_base_ratio", float),
+    "BEACON_ARTIFACT_RETAIN": ("artifact_retain", int),
+    "BEACON_DEFER_BASE_PUBLISH": ("defer_base_publish", bool),
+}
+
 #: env var -> (ShapingConfig field, type)
 _SHAPING_ENV = {
     "BEACON_TENANT_HEADER": ("tenant_header", str),
@@ -401,6 +504,10 @@ class BeaconConfig:
     shaping: ShapingConfig = dataclasses.field(
         default_factory=ShapingConfig
     )
+    ingest: IngestConfig = dataclasses.field(default_factory=IngestConfig)
+    resolvers: ResolverConfig = dataclasses.field(
+        default_factory=ResolverConfig
+    )
 
     @staticmethod
     def from_env(root: str | os.PathLike | None = None) -> "BeaconConfig":
@@ -417,6 +524,13 @@ class BeaconConfig:
         storage = StorageConfig(
             root=Path(root or env.get("BEACON_DATA_ROOT", "./beacon_data"))
         )
+        ingest_over = _env_overrides(env, _INGEST_ENV)
+        if "BEACON_SCAN_WORKERS" in env:
+            ingest_over["scan_worker_urls"] = tuple(
+                u.strip()
+                for u in env["BEACON_SCAN_WORKERS"].split(",")
+                if u.strip()
+            )
         return BeaconConfig(
             info=info,
             storage=storage,
@@ -432,4 +546,14 @@ class BeaconConfig:
                 **_env_overrides(env, _OBSERVABILITY_ENV)
             ),
             shaping=ShapingConfig(**_env_overrides(env, _SHAPING_ENV)),
+            ingest=IngestConfig(**ingest_over),
+            resolvers=ResolverConfig(
+                enabled=env.get("BEACON_RESOLVE_ONTOLOGIES", "").lower()
+                in ("1", "true", "yes", "on"),
+                ols_url=env.get("BEACON_OLS_URL", DEFAULT_OLS_URL),
+                ontoserver_url=env.get(
+                    "BEACON_ONTOSERVER_URL", DEFAULT_ONTOSERVER_URL
+                ),
+                workers=int(env.get("BEACON_RESOLVER_WORKERS", "8")),
+            ),
         )

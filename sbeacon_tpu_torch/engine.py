@@ -1253,6 +1253,12 @@ class VariantEngine:
         self._rebuild_l0()
         return epoch
 
+    def has_index(self, dataset_id: str, vcf_location: str) -> bool:
+        """Whether a BASE shard is published for the key (the streaming
+        ingest gate: re-summarising an already-served VCF must not
+        stream its slices as deltas — they would duplicate base rows)."""
+        return (dataset_id, vcf_location) in self._indexes
+
     def delta_depth(self, dataset_id: str, vcf_location: str) -> int:
         """Delta shards standing for the key (the compaction trigger)."""
         return len(self._deltas.get((dataset_id, vcf_location), ()))
@@ -1782,6 +1788,19 @@ class VariantEngine:
 
 
     # -- fused multi-dataset stack -----------------------------------------
+
+    def rebuild_stacks(self) -> None:
+        """Rebuild the fused and mesh serving stacks inline (JAX
+        ``engine.py:1794``): the delta compactor calls this right after
+        a fold so the first post-fold query finds them warm. A failed
+        build is logged here; the request path raises it again."""
+        for build in (self.warm_fused, self.warm_mesh):
+            try:
+                build()
+            except Exception:
+                logging.getLogger(__name__).exception(
+                    "post-compaction %s failed", build.__name__
+                )
 
     def warm_fused(self) -> FusedDeviceIndex | None:
         """Build the fused stack now, on the caller's thread (the JAX

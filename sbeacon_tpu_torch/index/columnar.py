@@ -18,8 +18,12 @@ packages can be fed one index.
 ``save_index`` / ``load_index`` (``columnar.py:557-618`` there) read
 and write the same ``.npz`` plus ``.meta.json`` sidecar as the JAX
 package, compressed or not, planes included, so the port serves a data
-root the JAX pipeline wrote. The native genotype-plane builder and the
-native text build belong to the ingest slice and are not ported.
+root the JAX pipeline wrote. The ingest slice adds the native
+genotype-plane branch of ``_fill_gt_planes`` (``:456-480`` there), the
+wire form of a shard (``dumps_index``, ``loads_index``,
+``save_index_blob``) and ``build_index_from_text`` (``:940``), the
+native tokenizer's text build, bit-identical to ``parse_record`` +
+``build_index``.
 """
 
 from __future__ import annotations
@@ -619,16 +623,54 @@ def _fill_gt_planes(
     gt_overflow: list,
     tok_overflow: list,
 ) -> None:
-    """Resolve the genotype planes for all rows (vectorised per record).
+    """Resolve the genotype planes for all rows — native single pass when
+    the C++ library is available, vectorised Python otherwise.
 
     Genotype columns are normalised to exactly n_samples entries (extra
-    entries dropped, missing padded empty)."""
+    entries dropped, missing padded empty) identically on both paths, so
+    index contents never depend on whether the native library is built.
+    """
+    from .. import native
+
     if not any(rec.genotypes for rec in used_records):
         return  # all-zero planes; skip the whole pass
 
     def norm_gts(rec) -> list[str]:
         gts = list(rec.genotypes[:n_samples]) if rec.genotypes else []
         return gts + [""] * (n_samples - len(gts))
+
+    if native.available():
+        parts: list[bytes] = []
+        offs = np.zeros(len(used_records) * n_samples + 1, dtype=np.uint64)
+        k = 0
+        total = 0
+        for rec in used_records:
+            for gt in norm_gts(rec):
+                b = gt.encode()
+                parts.append(b)
+                total += len(b)
+                k += 1
+                offs[k] = total
+        try:
+            g1, g2, t1, t2, g_over, t_over = native.gt_planes(
+                b"".join(parts),
+                offs,
+                len(used_records),
+                n_samples,
+                row_rec,
+                row_allele,
+                gt_words,
+            )
+        except native.NativeUnavailable:
+            pass
+        else:
+            gt_bits[:] = g1
+            gt_bits2[:] = g2
+            tok_bits1[:] = t1
+            tok_bits2[:] = t2
+            gt_overflow.extend(map(tuple, g_over.tolist()))
+            tok_overflow.extend(map(tuple, t_over.tolist()))
+            return
 
     calls_cache: dict[int, tuple] = {}
     for i in range(len(row_rec)):
@@ -638,7 +680,7 @@ def _fill_gt_planes(
             continue
         if rid not in calls_cache:
             calls_cache[rid] = _gt_matrix(norm_gts(rec), gt_words)
-        M, _ntok, tok1, tok2, tok_over = calls_cache[rid]
+        M, ntok, tok1, tok2, tok_over = calls_cache[rid]
         allele = int(row_allele[i])
         copies = (M == allele).sum(axis=1).astype(np.int32)
         gt_bits[i] = _pack_bits(copies >= 1, gt_words)
@@ -749,3 +791,401 @@ def load_index(path: str | Path) -> VariantIndexShard:
     data = np.load(path if path.suffix == ".npz" else str(path) + ".npz")
     meta = json.loads(Path(str(path) + ".meta.json").read_text())
     return _shard_from(data, meta)
+
+
+def dumps_index(shard: VariantIndexShard) -> bytes:
+    """One self-contained npz blob (meta embedded) — the wire form slice
+    shards travel in from scan workers to the coordinator (the role S3
+    partial-result keys play for the reference's summariseSlice)."""
+    import io as _io
+
+    arrays = _shard_arrays(shard)
+    arrays["meta_json"] = np.frombuffer(
+        json.dumps(shard.meta).encode(), dtype=np.uint8
+    )
+    buf = _io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()
+
+
+def loads_index(blob: bytes) -> VariantIndexShard:
+    import io as _io
+
+    data = np.load(_io.BytesIO(blob), allow_pickle=False)
+    meta = json.loads(bytes(data["meta_json"]))
+    return _shard_from(data, meta)
+
+
+def save_index_blob(blob: bytes, path: str | Path) -> dict:
+    """Persist a ``dumps_index`` blob as a standard on-disk shard (npz +
+    meta sidecar) WITHOUT re-encoding the arrays, returning the embedded
+    meta. np.load is lazy, so only the tiny meta_json entry is inflated —
+    the coordinator never pays decompress+recompress for slice shards it
+    merely relays from scan workers to disk."""
+    import io as _io
+    import os
+
+    data = np.load(_io.BytesIO(blob), allow_pickle=False)
+    meta = json.loads(bytes(data["meta_json"]))
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(path.name + ".tmp.npz")
+    tmp.write_bytes(blob)
+    os.replace(tmp, path if path.suffix == ".npz" else str(path) + ".npz")
+    meta_tmp = Path(str(path) + ".meta.json.tmp")
+    meta_tmp.write_text(json.dumps(meta))
+    os.replace(meta_tmp, str(path) + ".meta.json")
+    return meta
+
+
+def _span_contents(text_np: np.ndarray, off: np.ndarray, length: np.ndarray):
+    """(unique_bytes_list, inverse) content-deduplicating span arrays.
+
+    Spans are (offset, length) into ``text_np``; rows are grouped by
+    length and uniqued as fixed-width byte matrices (fully vectorised),
+    so downstream per-allele work (hashing, flag classification) runs
+    once per UNIQUE string instead of once per row. Lengths never
+    collide across groups, so ids are globally unique by content."""
+    n = len(off)
+    inverse = np.zeros(n, dtype=np.int64)
+    uniq: list[bytes] = []
+    off = off.astype(np.int64)
+    for L in np.unique(length):
+        li = int(L)
+        idx = np.flatnonzero(length == L)
+        if li == 0:
+            inverse[idx] = len(uniq)
+            uniq.append(b"")
+            continue
+        if li <= 64:
+            mat = text_np[off[idx][:, None] + np.arange(li)]
+            u, inv = np.unique(mat, axis=0, return_inverse=True)
+            base = len(uniq)
+            raw = u.tobytes()
+            uniq.extend(
+                raw[k * li : (k + 1) * li] for k in range(len(u))
+            )
+            inverse[idx] = base + inv.ravel()
+        else:  # rare long alleles
+            seen: dict[bytes, int] = {}
+            for i in idx:
+                b = bytes(text_np[off[i] : off[i] + li])
+                j = seen.get(b)
+                if j is None:
+                    j = seen[b] = len(uniq)
+                    uniq.append(b)
+                inverse[i] = j
+    return uniq, inverse
+
+
+def _first_appearance_ids(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(ids, order): dense ids by order of first appearance, plus the
+    original values' first-appearance ordering (np.unique sorts by value;
+    this restores encounter order, matching the python loop)."""
+    u, first, inv = np.unique(arr, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(u), dtype=np.int64)
+    rank[order] = np.arange(len(u))
+    return rank[inv], u[order]
+
+
+def build_index_from_text(
+    text: bytes,
+    *,
+    dataset_id: str = "",
+    vcf_location: str = "",
+    sample_names: list[str] | None = None,
+) -> VariantIndexShard:
+    """Columnar index straight from VCF body text via the native
+    tokenizer — one C pass for record/field extraction plus vectorised
+    numpy assembly, replacing the per-line ``parse_record`` + per-row
+    python loop of :func:`build_index`. Produces BIT-IDENTICAL shards
+    (parity-fuzzed in tests/test_tokenize_build.py); callers fall back
+    to the python path when the native library is unavailable or the
+    input uses a shape the fast path refuses (e.g. AC= arity mismatch).
+    """
+    from .. import native
+    from ..utils.chrom import normalize_chromosome
+
+    sample_names = sample_names or []
+    n_samples = len(sample_names)
+    gt_words = (n_samples + 31) // 32 if n_samples else 0
+
+    # fused single-pass tokenizer+planes when available (r4 ingest hot
+    # path: one scan instead of tokenize + gt_planes re-parse); the
+    # unfused pair stays as fallback and as the parity cross-check
+    fused = True
+    try:
+        tk = native.tokenize_planes(text, n_samples, gt_words)
+    except native.NativeUnavailable:
+        fused = False
+        tk = native.tokenize(text, n_samples)
+    n_rec = int(tk["n_rec"])
+    text_np = np.frombuffer(text or b"\0", dtype=np.uint8)
+
+    if n_rec == 0:
+        return build_index(
+            [],
+            dataset_id=dataset_id,
+            vcf_location=vcf_location,
+            sample_names=sample_names,
+        )
+
+    # -- chromosome codes + native-spelling map (record level) -------------
+    chrom_uniq, chrom_uid = _span_contents(
+        text_np, tk["chrom_off"], tk["chrom_len"]
+    )
+    uid_code = np.asarray(
+        [chromosome_code(b.decode()) for b in chrom_uniq], dtype=np.int32
+    )
+    rec_code = uid_code[chrom_uid]
+    kept_rec = rec_code != 0
+    chrom_native: dict[str, str] = {}
+    _ids, uid_first_order = _first_appearance_ids(chrom_uid)
+    for uid in uid_first_order:
+        s = chrom_uniq[int(uid)]
+        if uid_code[int(uid)] != 0:
+            chrom_native.setdefault(normalize_chromosome(s.decode()), s.decode())
+
+    # -- effective AC/AN (record level) ------------------------------------
+    alt_start = tk["alt_start"].astype(np.int64)
+    n_alts_per_rec = np.diff(alt_start)
+    ac_start = tk["ac_start"].astype(np.int64)
+    ac_len = np.diff(ac_start)
+    has_ac = tk["has_ac"].astype(bool)
+    if (has_ac & kept_rec & (ac_len != n_alts_per_rec)).any():
+        # INFO AC arity disagrees with ALT arity: the python path would
+        # fault on row materialisation — refuse so the caller falls back
+        raise ValueError("AC= arity mismatch; fast path refused")
+    eff_an_rec = np.where(
+        tk["has_an"].astype(bool), tk["an"], tk["tok_total"]
+    ).astype(np.int64)
+
+    # -- row explosion (one row per alt of each kept record) ---------------
+    rec_of_alt = np.repeat(np.arange(n_rec, dtype=np.int64), n_alts_per_rec)
+    alt_ord = np.arange(len(rec_of_alt), dtype=np.int64) - np.repeat(
+        alt_start[:-1], n_alts_per_rec
+    )
+    keep_row = kept_rec[rec_of_alt]
+    rec_of_alt = rec_of_alt[keep_row]
+    alt_ord_row = alt_ord[keep_row]
+    flat_alt_idx = np.flatnonzero(keep_row)
+    n = len(rec_of_alt)
+
+    order = np.lexsort(
+        (alt_ord_row, rec_of_alt, tk["pos"][rec_of_alt], rec_code[rec_of_alt])
+    )
+    rec_row = rec_of_alt[order]
+    alt_ord_row = alt_ord_row[order]
+    flat_alt_idx = flat_alt_idx[order]
+    code_row = rec_code[rec_row]
+    pos_row = tk["pos"][rec_row]
+
+    rec_id_row, _ = _first_appearance_ids(rec_row)
+
+    # -- per-row AC (INFO value or genotype tally) -------------------------
+    ac_idx = np.clip(ac_start[rec_row] + alt_ord_row, 0,
+                     max(len(tk["ac"]) - 1, 0))
+    ac_info = tk["ac"][ac_idx] if len(tk["ac"]) else np.zeros(n, np.int64)
+    ac_rows = np.where(
+        has_ac[rec_row], ac_info, tk["ac_gt"][flat_alt_idx]
+    ).astype(np.int64)
+
+    # -- allele contents (unique-deduplicated) -----------------------------
+    ref_uniq, ref_uid_rec = _span_contents(
+        text_np, tk["ref_off"], tk["ref_len"]
+    )
+    ref_uid = ref_uid_rec[rec_row]
+    alt_uniq, alt_uid_flat = _span_contents(
+        text_np, tk["alt_off"], tk["alt_len"]
+    )
+    alt_uid = alt_uid_flat[flat_alt_idx]
+
+    ref_hash_u = np.asarray(
+        [fnv1a32(b.upper()) for b in ref_uniq], dtype=np.int32
+    )
+    alt_hash_u = np.asarray(
+        [fnv1a32(b.upper()) for b in alt_uniq], dtype=np.int32
+    )
+    alt_strs = [b.decode() for b in alt_uniq]
+    alt_flags_u = np.asarray([_alt_flags(s) for s in alt_strs], np.int32)
+    alt_prefix_u = np.stack(
+        [pack_prefix16(b) for b in alt_uniq]
+    ).astype(np.uint32)
+    ref_strs = [b.decode() for b in ref_uniq]
+    pair_key = ref_uid * (len(alt_uniq) + 1) + alt_uid
+    pair_ids, pair_vals = _first_appearance_ids(pair_key)
+    repeat_u = np.asarray(
+        [
+            _ref_repeat_k(
+                ref_strs[int(k) // (len(alt_uniq) + 1)],
+                alt_strs[int(k) % (len(alt_uniq) + 1)],
+            )
+            for k in pair_vals
+        ],
+        dtype=np.int32,
+    )
+
+    # -- VT vocab (first appearance over sorted rows; off>0 = present) -----
+    # vectorised: rows map to an effective uid (0 = absent -> "N/A",
+    # else content uid + 1); codes assign per UNIQUE uid in row
+    # first-appearance order, deduplicating by STRING so a literal
+    # "VT=N/A" shares index 0 exactly like the python path's dict
+    vt_present = tk["vt_off"] > 0
+    vt_uniq, vt_uid_rec = _span_contents(text_np, tk["vt_off"], tk["vt_len"])
+    eff_rec = np.where(vt_present, vt_uid_rec + 1, 0)
+    row_eff = eff_rec[rec_row]
+    _ids, eff_first_order = _first_appearance_ids(
+        np.concatenate([np.zeros(1, np.int64), row_eff])  # "N/A" is code 0
+    )
+    vt_vocab = ["N/A"]
+    vt_index = {"N/A": 0}
+    eff_to_code = np.zeros(len(vt_uniq) + 1, dtype=np.int16)
+    for v in eff_first_order:
+        s = "N/A" if v == 0 else vt_uniq[int(v) - 1].decode()
+        c = vt_index.get(s)
+        if c is None:
+            c = vt_index[s] = len(vt_vocab)
+            vt_vocab.append(s)
+        eff_to_code[int(v)] = c
+    vt_codes = eff_to_code[row_eff]
+
+    # -- columns -----------------------------------------------------------
+    ref_len_row = tk["ref_len"][rec_row].astype(np.int64)
+    alt_len_row = tk["alt_len"][flat_alt_idx].astype(np.int64)
+    cols = {
+        "pos": pos_row.astype(np.int32),
+        "rec_end": (pos_row + ref_len_row - 1).astype(np.int32),
+        "ref_len": ref_len_row.astype(np.int32),
+        "alt_len": alt_len_row.astype(np.int32),
+        "ref_hash": ref_hash_u[ref_uid],
+        "alt_hash": alt_hash_u[alt_uid],
+        "ref_repeat_k": repeat_u[pair_ids],
+        "flags": (
+            alt_flags_u[alt_uid]
+            | np.where(has_ac[rec_row], FLAG.AC_INFO, 0)
+            | np.where(tk["has_an"][rec_row].astype(bool), FLAG.AN_INFO, 0)
+        ).astype(np.int32),
+        "ac": ac_rows.astype(np.int32),
+        "an": eff_an_rec[rec_row].astype(np.int32),
+        "rec_id": rec_id_row.astype(np.int32),
+    }
+    alt_prefix = alt_prefix_u[alt_uid]
+
+    chrom_offsets = np.zeros(N_CHROM_CODES + 1, dtype=np.int32)
+    for c in range(N_CHROM_CODES + 1):
+        chrom_offsets[c] = np.searchsorted(code_row, c, side="left")
+
+    # -- blobs (ragged vectorised gather) ----------------------------------
+    def ragged(offs: np.ndarray, lens: np.ndarray):
+        total = int(lens.sum())
+        out_off = np.zeros(n + 1, dtype=np.uint32)
+        np.cumsum(lens, out=out_off[1:] if n else None)
+        if total == 0:
+            return np.zeros(0, np.uint8), out_off
+        starts = np.repeat(offs.astype(np.int64), lens)
+        intra = np.arange(total, dtype=np.int64) - np.repeat(
+            out_off[:-1].astype(np.int64), lens
+        )
+        return text_np[starts + intra].copy(), out_off
+
+    ref_blob, ref_off = ragged(tk["ref_off"][rec_row].astype(np.int64),
+                               ref_len_row)
+    alt_blob, alt_off = ragged(tk["alt_off"][flat_alt_idx].astype(np.int64),
+                               alt_len_row)
+
+    # -- genotype planes -----------------------------------------------
+    gt_bits = gt_bits2 = tok_bits1 = tok_bits2 = None
+    gt_over = tok_over = None
+    if gt_words and fused:
+        # planes came out of the same native pass in TEXT order; one
+        # gather reorders them to final row order, and the overflow
+        # triples remap through the same permutation
+        gt_bits = tk["g1"][flat_alt_idx]
+        gt_bits2 = tk["g2"][flat_alt_idx]
+        tok_bits1 = tk["t1"][rec_row]
+        tok_bits2 = tk["t2"][rec_row]
+        inv = np.full(int(tk["n_alt"]), -1, np.int64)
+        inv[flat_alt_idx] = np.arange(n, dtype=np.int64)
+        g_o = tk["gt_over"]
+        if len(g_o):
+            rows_m = inv[g_o[:, 0]]
+            keep = rows_m >= 0
+            gt_over = np.stack(
+                [rows_m[keep], g_o[keep, 1], g_o[keep, 2]], axis=1
+            )
+        else:
+            gt_over = np.zeros((0, 3), np.int64)
+        t_o = tk["tok_over"]
+        trip = []
+        if len(t_o):
+            # replicate each (rec, sample, ntok) onto that record's rows
+            order2 = np.argsort(rec_row, kind="stable")
+            sorted_rec = rec_row[order2]
+            for r, smp, ntok in t_o.tolist():
+                lo = int(np.searchsorted(sorted_rec, r, side="left"))
+                hi = int(np.searchsorted(sorted_rec, r, side="right"))
+                for row in order2[lo:hi].tolist():
+                    trip.append((row, smp, ntok))
+        tok_over = (
+            np.asarray(trip, np.int64).reshape(-1, 3)
+            if trip
+            else np.zeros((0, 3), np.int64)
+        )
+    elif gt_words:
+        gt_over = np.zeros((0, 3), np.int64)
+        tok_over = np.zeros((0, 3), np.int64)
+        if n and len(tk["gt_blob"]):
+            # bind the returned planes directly (gt_planes allocates
+            # them); the zeros allocation below is only for the
+            # no-genotype case
+            (
+                gt_bits, gt_bits2, tok_bits1, tok_bits2, g_o, t_o
+            ) = native.gt_planes(
+                tk["gt_blob"],
+                tk["gt_off"],
+                n_rec,
+                n_samples,
+                rec_row.astype(np.int32),
+                (alt_ord_row + 1).astype(np.int32),
+                gt_words,
+            )
+            gt_over = g_o.reshape(-1, 3)
+            tok_over = t_o.reshape(-1, 3)
+        else:
+            gt_bits = np.zeros((n, gt_words), np.uint32)
+            gt_bits2 = np.zeros_like(gt_bits)
+            tok_bits1 = np.zeros_like(gt_bits)
+            tok_bits2 = np.zeros_like(gt_bits)
+
+    kept_ids = np.unique(rec_row)
+    meta = {
+        "dataset_id": dataset_id,
+        "vcf_location": vcf_location,
+        "sample_names": sample_names,
+        "vt_vocab": vt_vocab,
+        "n_rows": n,
+        "n_records": int(len(kept_ids)),
+        "dropped_records": int((~kept_rec).sum()),
+        "variant_count": n,
+        "call_count": int(eff_an_rec[kept_ids].sum()),
+        "sample_count": n_samples,
+        "chrom_native": chrom_native,
+        "format_version": 1,
+    }
+    return VariantIndexShard(
+        meta=meta,
+        cols={**cols, "alt_prefix": alt_prefix},
+        chrom_offsets=chrom_offsets,
+        ref_blob=ref_blob,
+        ref_off=ref_off,
+        alt_blob=alt_blob,
+        alt_off=alt_off,
+        vt_codes=vt_codes,
+        gt_bits=gt_bits,
+        gt_bits2=gt_bits2,
+        tok_bits1=tok_bits1,
+        tok_bits2=tok_bits2,
+        gt_overflow=gt_over,
+        tok_overflow=tok_over,
+    )

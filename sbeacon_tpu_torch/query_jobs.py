@@ -1,7 +1,9 @@
 """Async variant-query job table: the VariantQuery state machine re-homed.
 
 Counterpart of ``sbeacon_tpu/query_jobs.py``, copied whole: ``JobStatus``,
-``hash_query``, ``QueryJobTable`` and ``AsyncQueryRunner``.
+``hash_query``, ``QueryJobTable`` and ``AsyncQueryRunner``; the purge
+sweep unpacks the in-memory handoff's three fields (the JAX copy's
+unpacks two and raises).
 
 The reference tracks each distributed variant query in two DynamoDB tables
 (reference: dynamodb.tf:100-149): ``VariantQueries`` — one row per query
@@ -626,9 +628,12 @@ class AsyncQueryRunner:
                 self.table.purge_expired()
                 self.table.checkpoint()
                 with self._lock:
+                    # entries are (responses, expiry, unavailable): the
+                    # JAX copy unpacks two and its sweep thread dies on
+                    # the first purge, so the handoffs never expire
                     dead = [
                         q
-                        for q, (_, exp) in self._results.items()
+                        for q, (_, exp, _u) in self._results.items()
                         if exp <= now
                     ]
                     for q in dead:

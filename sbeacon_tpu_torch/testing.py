@@ -5,7 +5,9 @@ Counterpart of ``sbeacon_tpu/testing.py``, trimmed to ``random_records``
 SNPs, indels, multi-alt records, symbolic alleles, records with and
 without INFO AC/AN, genotype columns) and ``synthetic_shard`` (a
 vectorised, 1000-Genomes-shaped ``VariantIndexShard`` at any scale),
-plus the port's own ``subset_shard`` (a row subset of a shard, standing
+``make_test_vcf`` (a bgzipped VCF of those records) and ``range_server``
+(a directory served over HTTP with Range support: the object store of
+the remote ingest leg), plus the port's own ``subset_shard`` (a row subset of a shard, standing
 for a re-submitted VCF), ``distinct_key_cases`` (crafted key sets for
 the distinct count) and ``window_edge_shards`` / ``window_edge_specs``
 (window edges of the bisection query).
@@ -13,10 +15,13 @@ the distinct count) and ``window_edge_shards`` / ``window_edge_specs``
 
 from __future__ import annotations
 
+import functools
 import itertools
 import random
 
-from .genomics.vcf import VcfRecord
+from pathlib import Path
+
+from .genomics.vcf import VcfRecord, write_vcf
 
 BASES = "ACGT"
 
@@ -93,6 +98,250 @@ def random_records(
             rec.an = rec.effective_an()
         records.append(rec)
     return records
+
+
+def make_test_vcf(
+    path: str | Path,
+    seed: int = 0,
+    chroms: tuple[str, ...] = ("1",),
+    n_per_chrom: int = 500,
+    n_samples: int = 8,
+    **kw,
+) -> list[VcfRecord]:
+    """Write a synthetic bgzipped VCF; returns its records."""
+    rng = random.Random(seed)
+    records: list[VcfRecord] = []
+    for chrom in chroms:
+        records.extend(
+            random_records(rng, chrom=chrom, n=n_per_chrom, n_samples=n_samples, **kw)
+        )
+    write_vcf(path, records, sample_names=[f"S{i:04d}" for i in range(n_samples)])
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Range-supporting HTTP object server (tests + demos of the object-store
+# data plane; stdlib http.server does not honour Range)
+# ---------------------------------------------------------------------------
+
+
+def range_server(directory: str | Path, *, require_token: str = ""):
+    """Context manager serving ``directory`` over HTTP with Range support.
+
+    Yields the base URL. Emulates the object-store role (ranged GETs per
+    reference downloader.h); ``require_token`` additionally demands an
+    ``Authorization`` header equal to it (for exercising the s3://
+    BEACON_S3_TOKEN path).
+    """
+    import contextlib
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    root = Path(directory)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            if require_token and (
+                self.headers.get("Authorization", "") != require_token
+            ):
+                self.send_response(403)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            target = (root / self.path.lstrip("/")).resolve()
+            if not str(target).startswith(str(root.resolve())) or (
+                not target.is_file()
+            ):
+                self.send_response(404)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+                return
+            data = target.read_bytes()
+            rng = self.headers.get("Range")
+            if rng and rng.startswith("bytes="):
+                spec = rng[len("bytes="):]
+                start_s, _, end_s = spec.partition("-")
+                start = int(start_s) if start_s else 0
+                end = int(end_s) + 1 if end_s else len(data)
+                end = min(end, len(data))
+                if start >= len(data):
+                    self.send_response(416)
+                    self.send_header("Content-Length", "0")
+                    self.end_headers()
+                    return
+                body = data[start:end]
+                self.send_response(206)
+                self.send_header(
+                    "Content-Range", f"bytes {start}-{end - 1}/{len(data)}"
+                )
+            else:
+                body = data
+                self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Accept-Ranges", "bytes")
+            self.end_headers()
+            self.wfile.write(body)
+
+    @contextlib.contextmanager
+    def _cm():
+        server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        t = threading.Thread(target=server.serve_forever, daemon=True)
+        t.start()
+        try:
+            yield f"http://127.0.0.1:{server.server_address[1]}"
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    return _cm()
+
+
+# ---------------------------------------------------------------------------
+# Vectorised large-scale synthetic index (1000-Genomes-shaped corpora)
+# ---------------------------------------------------------------------------
+
+
+#: chr22's span of called sites in 1000 Genomes phase 3 (GRCh38)
+CHR22_SPAN = (10_510_000, 50_800_000)
+
+
+@functools.cache
+def _gt_words():
+    """uint32 words of the 4 GT bytes ``\\t<a>|<b>`` for the 9 pairs of
+    haplotype bands (2: first alt, 1: second alt, 0: REF)."""
+    import numpy as np
+
+    digit = {0: b"0", 2: b"1", 1: b"2"}
+    return np.frombuffer(
+        b"".join(b"\t" + digit[x] + b"|" + digit[y]
+                 for x in range(3) for y in range(3)),
+        dtype=np.uint32)
+
+
+def _cohort_chunk(chrom, positions, n_samples, seed, k):
+    """The body text of one chunk of ``write_cohort_vcf``'s records, in
+    ``random_records``' site mix (its default shares)."""
+    import numpy as np
+
+    p_multiallelic, p_symbolic, p_no_acan, p_indel = 0.15, 0.08, 0.2, 0.2
+    rng = random.Random(seed * 1_000_003 + k)
+    nrng = np.random.default_rng([seed, k])
+    m = len(positions)
+    refs, alts = [], []
+    for _ in range(m):
+        ref = (_random_seq(rng, 1, 1) if rng.random() > p_indel
+               else _random_seq(rng, 1, 6))
+        row = []
+        for _a in range(2 if rng.random() < p_multiallelic else 1):
+            r = rng.random()
+            if r < p_symbolic:
+                row.append(rng.choice(SYMBOLIC_ALTS))
+            elif r < p_symbolic + 0.1 and len(ref) <= 3:
+                row.append(ref * rng.randint(2, 3))
+            else:
+                alt = _random_seq(rng, 1, 6)
+                while alt == ref:
+                    alt = _random_seq(rng, 1, 6)
+                row.append(alt)
+        refs.append(ref)
+        alts.append(row)
+    # phased haplotypes: each alt at a frequency drawn log-uniformly in
+    # [1e-3, 0.5], the second alt of a multi-allelic site carved out
+    # after the first. Per haplotype, band = (u < t1) + (u < t2) is 2
+    # for the first alt, 1 for the second, 0 for REF; a sample's two
+    # bands index the 4 GT bytes of ``_GT_WORDS``
+    freq = 10.0 ** nrng.uniform(-3.0, np.log10(0.5), size=(m, 2))
+    two = np.array([len(a) == 2 for a in alts])
+    c1 = freq[:, 0]
+    c2 = np.where(two, c1 + freq[:, 1] * (1 - c1), c1)
+    t1 = np.minimum(c1 * 65536, 65535).astype(np.uint16)[:, None]
+    t2 = np.minimum(c2 * 65536, 65535).astype(np.uint16)[:, None]
+    u = nrng.integers(0, 1 << 16, size=(m, 2 * n_samples), dtype=np.uint16)
+    band = (u < t1).view(np.uint8) + (u < t2).view(np.uint8)
+    gt = _gt_words()[band[:, 0::2] * 3 + band[:, 1::2]]
+    ac1 = np.count_nonzero(band == 2, axis=1)
+    ac2 = np.count_nonzero(band == 1, axis=1)
+    lines = []
+    for i in range(m):
+        info = []
+        if rng.random() >= p_no_acan:
+            ac = [int(ac1[i])] + ([int(ac2[i])] if two[i] else [])
+            info.append("AC=" + ",".join(map(str, ac)))
+            info.append(f"AN={2 * n_samples}")
+        vt = rng.choice(["SNP", "INDEL", "SV", "N/A"])
+        if vt != "N/A":
+            info.append(f"VT={vt}")
+        lines.append(
+            f"{chrom}\t{positions[i]}\t.\t{refs[i]}\t{','.join(alts[i])}"
+            f"\t.\tPASS\t{';'.join(info) or '.'}\tGT".encode()
+            + gt[i].tobytes() + b"\n"
+        )
+    return b"".join(lines)
+
+
+def write_cohort_vcf(
+    path: str | Path,
+    n_records: int,
+    *,
+    n_samples: int = 2504,
+    seed: int = 0,
+    chrom: str = "22",
+    span: tuple[int, int] = CHR22_SPAN,
+    chunk: int = 4096,
+    workers: int = 8,
+) -> dict:
+    """Write a 1000-Genomes-shaped bgzipped VCF with its ``.tbi``: one
+    chromosome (chr22's span by default), ``n_samples`` phased diploid
+    GT columns, and ``random_records``' site mix (SNVs, indels,
+    multi-allelic and symbolic alts, INFO AC/AN on 80% of records, a
+    random VT), at scales ``write_vcf`` cannot reach. The text is
+    ``write_vcf``'s layout; chunks of ``chunk`` records are built with
+    numpy and compressed by the native BGZF codec on ``workers``
+    threads, and the index comes from ``tabix.ensure_index``. Returns
+    the sample names and the byte counts."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+
+    from . import native
+    from .genomics.tabix import ensure_index
+    from .genomics.vcf import VCF_HEADER_LINES
+
+    names = [f"HG{i:05d}" for i in range(n_samples)]
+    header = "\n".join(
+        VCF_HEADER_LINES
+        + [f"##contig=<ID={chrom}>",
+           "\t".join(["#CHROM", "POS", "ID", "REF", "ALT", "QUAL",
+                      "FILTER", "INFO", "FORMAT"] + names)]
+    ) + "\n"
+    lo, hi = span
+    gap = max(1, (hi - lo) // max(1, n_records))
+    steps = np.random.default_rng([seed, 1 << 20]).integers(
+        1, 2 * gap, size=n_records)
+    positions = (lo + np.cumsum(steps)).tolist()
+    # each compress_bgzf output ends with the 28-byte BGZF end-of-file
+    # block: the chunks are written without it, and the file ends with one
+    eof = native.compress_bgzf(b"x")[-28:]
+
+    def part(k):
+        text = _cohort_chunk(chrom, positions[k * chunk:(k + 1) * chunk],
+                             n_samples, seed, k)
+        return len(text), native.compress_bgzf(text)[: -len(eof)]
+
+    n_chunks = (n_records + chunk - 1) // chunk
+    raw = len(header)
+    path = Path(path)
+    with open(path, "wb") as f, ThreadPoolExecutor(workers) as pool:
+        f.write(native.compress_bgzf(header.encode())[: -len(eof)])
+        for n, blob in pool.map(part, range(n_chunks)):
+            raw += n
+            f.write(blob)
+        f.write(eof)
+    ensure_index(path)
+    return {"sample_names": names, "records": n_records,
+            "text_bytes": raw, "compressed_bytes": path.stat().st_size}
 
 
 def synthetic_shard(

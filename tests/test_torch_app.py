@@ -12,8 +12,9 @@ strings with key order kept, after masking ``meta.traceId``,
 ``/info``. Tolerance 0.
 
 Beside those: the deadline header's 400s, a 429 with ``Retry-After``
-while one request holds the only admission slot, ``/submit`` answering
-501 behind the auth gate, a failing kernel launch answering 500, and the
+while one request holds the only admission slot, the auth gate in front
+of ``/submit`` and the authorised submit's answer (equal to the JAX
+package's), a failing kernel launch answering 500, and the
 mesh leg behind the app (the twin of
 tests/test_mesh_serving.py::test_beacon_app_serves_through_mesh).
 """
@@ -413,15 +414,6 @@ def test_trace_header_honoured(pair):
     assert isinstance(body["meta"]["elapsedTimeMs"], float)
 
 
-def test_submit_answers_501(pair):
-    status, body = pair.p.handle("POST", "/submit", body={"datasetId": "x"})
-    assert status == 501
-    assert body["error"]["errorCode"] == 501
-    assert "not ported" in body["error"]["errorMessage"]
-    assert pair.p.handle("PATCH", "/submit", body={"datasetId": "x"})[0] == 501
-    pair.both("GET", "/submit")  # the method check: 400 in both
-
-
 def _variant_post(port, path, body, headers=None):
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
     try:
@@ -573,7 +565,9 @@ def test_http_roundtrip_equals_handle(pair):
 
 def test_submit_auth_token(tmp_path, pair):
     """A configured submit token: the port's 401 and 403 bodies equal
-    the JAX package's; with the token the port answers 501."""
+    the JAX package's; with the token the port's answer (a 400: the VCF
+    does not exist) equals the JAX package's, in process and over
+    HTTP."""
     sub = submission("dsA", "cA", "/nonexistent.vcf.gz",
                      lambda i: SEX_TERMS[i % 2])
     root = copy_root(pair.j.config.storage.root, tmp_path / "port")
@@ -588,17 +582,22 @@ def test_submit_auth_token(tmp_path, pair):
         status, _ = both(japp, papp, "POST", "/submit", body=sub,
                          headers={"Authorization": "Bearer wrong"})
         assert status == 403
-        status, _ = papp.handle("POST", "/submit", body=sub,
-                                headers={"authorization": "Bearer hunter2"})
-        assert status == 501
+        status, body = both(japp, papp, "POST", "/submit", body=sub,
+                            headers={"authorization": "Bearer hunter2"})
+        assert status == 400
+        assert "Could not find file" in body["error"]["errorMessage"]
         assert both(japp, papp, "GET", "/datasets")[0] == 200
         # over HTTP: header casing of a real transport, and a 401 PATCH
         server, _ = start_background(papp)
         try:
             port = server.server_address[1]
-            status, _, _ = _variant_post(
+            status, _, got = _variant_post(
                 port, "/submit", sub, {"authorization": "Bearer hunter2"})
-            assert status == 501
+            jstatus, want = japp.handle(
+                "POST", "/submit", body=sub,
+                headers={"authorization": "Bearer hunter2"})
+            assert status == jstatus == 400
+            assert dumped(got, "/submit") == dumped(want, "/submit")
             conn = http.client.HTTPConnection("127.0.0.1", port)
             conn.request("PATCH", "/submit", body=json.dumps(sub),
                          headers={"Content-Type": "application/json"})
@@ -636,11 +635,14 @@ def test_custom_auth_verifier(tmp_path, pair):
                                      "Authorization": "Bearer whatever"})
         assert status == 403
         assert "not admin" in body["error"]["errorMessage"]
-        status, _ = papp.handle("POST", "/submit", body={"datasetId": "x"},
-                                headers={"X-User": "admin",
-                                         "Authorization": "Bearer whatever"})
-        assert status == 501
-        assert len(seen) == 5
+        status, body = both(japp, papp, "POST", "/submit",
+                            body={"datasetId": "x"},
+                            headers={"X-User": "admin",
+                                     "Authorization": "Bearer whatever"})
+        assert status == 400
+        assert "'assemblyId' is a required property" in \
+            body["error"]["errorMessage"]
+        assert len(seen) == 6
     finally:
         japp.close()
         papp.close()

@@ -143,10 +143,9 @@ def _keys(doc, depth=2):
 
 
 #: parts of JAX's /debug/status this package does not have: the
-#: compactor (the ingest slice), the batcher's fetch stage and fetcher
-#: pool (the kernels read their results back inside the launch)
-NOT_PORTED = (("ingest", "compactor"), ("stages", "fetch_ms"),
-              ("queues", "batcher", "fetcher"))
+#: batcher's fetch stage and fetcher pool (the kernels read their
+#: results back inside the launch)
+NOT_PORTED = (("stages", "fetch_ms"), ("queues", "batcher", "fetcher"))
 
 
 def test_traffic_bodies_and_folds(apps):

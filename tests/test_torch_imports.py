@@ -49,6 +49,7 @@ def test_port_imports_no_jax_and_no_reference_package():
             if k == "jax" or k.startswith("jax.") or k == "jaxlib"
             or k.startswith("jaxlib.")
             or k == "sbeacon_tpu" or k.startswith("sbeacon_tpu.")
+            or k == "jsonschema" or k.startswith("jsonschema.")
         )
         print(json.dumps([names, leaked]))
         """
@@ -95,13 +96,27 @@ def test_port_imports_no_jax_and_no_reference_package():
             "sbeacon_tpu_torch.shaping",
             "sbeacon_tpu_torch.accounting",
             "sbeacon_tpu_torch.canary",
-            "sbeacon_tpu_torch.engine"} <= set(names)
+            "sbeacon_tpu_torch.engine",
+            "sbeacon_tpu_torch.api.submit",
+            "sbeacon_tpu_torch.io.sources",
+            "sbeacon_tpu_torch.io.sigv4",
+            "sbeacon_tpu_torch.genomics.bgzf",
+            "sbeacon_tpu_torch.genomics.tabix",
+            "sbeacon_tpu_torch.genomics.vcf",
+            "sbeacon_tpu_torch.native",
+            "sbeacon_tpu_torch.index.portable",
+            "sbeacon_tpu_torch.ingest.planner",
+            "sbeacon_tpu_torch.ingest.ledger",
+            "sbeacon_tpu_torch.metadata.resolvers",
+            "sbeacon_tpu_torch.metadata.udfs"} <= set(names)
     assert leaked == []
 
 
 def test_port_sources_name_no_reference_import():
-    """No module of the port imports ``sbeacon_tpu`` or ``jax``, even
-    lazily inside a function."""
+    """No module of the port imports ``sbeacon_tpu``, ``jax`` or
+    ``jsonschema`` (absent on the GPU host), even lazily inside a
+    function, and none reads a path of the JAX package (the native
+    sources are copies under ``sbeacon_tpu_torch/native/src/``)."""
     for path in (REPO / "sbeacon_tpu_torch").rglob("*.py"):
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
@@ -111,10 +126,15 @@ def test_port_sources_name_no_reference_import():
                 roots = [(node.module or "").split(".")[0]]
             else:
                 continue
-            assert not {"jax", "jaxlib", "sbeacon_tpu"} & set(roots), (
-                path,
-                node.lineno,
-            )
+            assert not {"jax", "jaxlib", "sbeacon_tpu", "jsonschema"} & set(
+                roots
+            ), (path, node.lineno)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert node.value != "sbeacon_tpu" and (
+                    "sbeacon_tpu/" not in node.value
+                    or "``sbeacon_tpu/" in node.value
+                ), (path, node.lineno)
 
 
 @pytest.fixture

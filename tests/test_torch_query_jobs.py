@@ -251,6 +251,38 @@ def test_runner_answers_equal_and_cache(engines):
         pr.close()
 
 
+def test_purge_sweep_expires_in_memory_handoffs(engines):
+    """The periodic sweep drops expired in-memory answers. The handoff
+    holds (responses, expiry, unavailable): the JAX runner's sweep
+    unpacks two fields, raises in its thread and never purges."""
+    _jeng, peng = engines
+    ran = {}
+    for mod in (pq, jq):
+        runner = mod.AsyncQueryRunner(Counting(peng), mod.QueryJobTable())
+        try:
+            pl = VariantQueryPayload(dataset_ids=["ds1"], reference_name="22")
+            qid, _ = runner.submit(pl, fingerprint="f")
+            runner.result(qid, wait_s=5)
+            assert qid in runner._results
+            with runner._lock:
+                runner._results = {q: (r, 0.0, u) for q, (r, _e, u)
+                                   in runner._results.items()}
+            runner._last_purge = 0.0
+            errors = []
+            hook = threading.excepthook
+            threading.excepthook = lambda a: errors.append(a.exc_type)
+            try:
+                runner._maybe_purge()
+                runner._sweeper.join(10)
+            finally:
+                threading.excepthook = hook
+            ran[mod.__name__] = (qid in runner._results, errors)
+        finally:
+            runner.close()
+    assert ran["sbeacon_tpu_torch.query_jobs"] == (False, [])
+    assert ran["sbeacon_tpu.query_jobs"] == (True, [ValueError])
+
+
 def test_runner_coalesces_concurrent_identical(engines):
     _jeng, peng = engines
     pc = Counting(peng, delay=0.1)
