@@ -170,6 +170,36 @@ non-zero, without the final line):
     child's trace report, and its exported ``torch.profiler`` trace
     holding a ``scatter_match`` kernel inside a ``kernel.launch``
     range. The root is removed whatever happens;
+14e. fleet_path: the fleet query plane on the one card. Worker W1
+    (``python -m sbeacon_tpu_torch.parallel.dispatch`` over its own
+    data root) serves the main shard and cohorts 1 and 2, worker W2
+    cohort 2 (the same files: a replica), cohort 3 and dataset B; the
+    coordinator is the server entry with ``--worker`` for each over a
+    root holding only the metadata of the five datasets and B's
+    individuals (shaping and the canary off, the runner's pending cap
+    of 14a, a 5 s breaker reset, a fixed 0.5 s hedge delay (a dead
+    primary fails over before a hedge races it), a seeded 25 ms
+    ``worker.http`` latency
+    on W1's calls that makes power of two choices prefer W2 for cohort
+    2). 512 requests in 14a's mix over the five datasets (every second
+    main request on a cohort's own route) from 64 keep-alive clients:
+    every body byte-equal to ``app.handle`` of an in-process app over
+    one engine holding all five datasets, every fourth also against
+    the host matcher; 0 non-200; J1, J2, J3 and J4 launched in the
+    workers (their ``/device/launches`` before and after). Then 96
+    fresh requests over cohort 2, cohort 3, B and the main shard from
+    16 clients, W2 killed (SIGKILL) after 160 cheap cohort 3 point
+    queries (they make W2's recent RTTs the faster ones) and 16 cohort 2
+    requests sent the moment it dies: every answer 200,
+    whole ones equal to the reference, partial ones naming exactly
+    cohort 3 or B in ``meta.unavailableDatasets``; failovers and partial
+    responses counted, ``/fleet/status`` naming W2 unreachable. W2
+    restarts on its port; the seconds until a cohort 3 request comes
+    back whole. Last, the tier leg: the reference engine as a
+    ``DistributedEngine``'s local engine, its ``mesh_tier`` a
+    ``MeshDispatchTier`` over ``[card, card]`` in the sliced layout
+    (J6, then P1), 64 requests equal to the engine's own answers. Every
+    child is killed on the way out; a worker's traceback fails the run;
 14d. ingest_path: the native library built from the checkout's sources
     (g++; the zlib shim where the host has no ``zlib.h``), a
     1000-Genomes-shaped chr22 VCF of ``--ingest-records`` records x
@@ -3411,20 +3441,23 @@ def dataset_doc(shard):
             "_vcfChromosomeMap": []}
 
 
-def write_data_root(root, main_shard, b_shard, seed):
+def write_data_root(root, main_shard, b_shard, seed, *, others=(),
+                    save=True):
     """A data root as ``/submit`` leaves it, written with the port's own
     ``save_index`` and ``MetadataStore.upsert``: both shards uncompressed,
     a dataset document each, one cohort, and for dataset B one
     individual, biosample, run and analysis per sample (the analysis
     naming the sample, sex alternating, a disease drawn from HP_TERMS,
-    whose edges to HP_PARENT go into the ontology store). Returns
-    ({individual id: (sample, sex, disease)}, seconds to save the
-    shards, seconds for the metadata)."""
+    whose edges to HP_PARENT go into the ontology store). ``others``
+    adds a dataset document each; ``save=False`` writes the metadata
+    alone (a fleet coordinator's root). Returns ({individual id:
+    (sample, sex, disease)}, seconds to save the shards, seconds for the
+    metadata)."""
     from sbeacon_tpu_torch.index.columnar import save_index
     from sbeacon_tpu_torch.metadata import MetadataStore, OntologyStore
 
     t0 = time.perf_counter()
-    for s in (main_shard, b_shard):
+    for s in (main_shard, b_shard) if save else ():
         ds = s.meta["dataset_id"]
         save_index(s, os.path.join(root, "variant-index", ds, f"{ds}.npz"),
                    compress=False)
@@ -3440,7 +3473,8 @@ def write_data_root(root, main_shard, b_shard, seed):
     onto.register_edges([(t, HP_PARENT) for t in HP_TERMS])
     store = MetadataStore(os.path.join(root, "metadata.sqlite"),
                           ontology=onto)
-    store.upsert("datasets", [dataset_doc(s) for s in (main_shard, b_shard)])
+    store.upsert("datasets", [dataset_doc(s) for s in
+                              (main_shard, b_shard, *others)])
     store.upsert("cohorts", [{"id": cohort, "name": "members of B"}])
     own = {"_datasetId": ds_b, "_cohortId": cohort}
     docs = {"individuals": [], "biosamples": [], "runs": [], "analyses": []}
@@ -4760,6 +4794,620 @@ def run_server_entry(root, http, device, kind, smi):
             child.kill()
             child.wait()
         shutil.rmtree(prof_dir, ignore_errors=True)
+
+
+# -- the fleet query plane (fleet_path) ---------------------------------------
+
+#: requests of fleet_path's failover run (fresh bodies: none of them can
+#: be answered from the coordinator's job table): cheap cohort3 point
+#: queries before the kill (they fill the second worker's RTT record
+#: with fast calls), cohort2 requests the moment it dies, then a mix
+FLEET_WARM_REQUESTS = 160
+FLEET_BURST_REQUESTS = 16
+FLEET_FAILOVER_REQUESTS = 96
+#: clients of the failover run
+FLEET_FAILOVER_THREADS = 16
+#: requests of the tier leg (the coordinator's own pod tier)
+FLEET_TIER_REQUESTS = 64
+#: the coordinator's breaker reset window: a killed worker's route is
+#: probed again this long after it opened (the JAX default is 30 s)
+FLEET_BREAKER_RESET_S = 5.0
+#: how long the healed second worker may take to answer a request whole
+FLEET_HEAL_LIMIT_S = 60.0
+#: latency the coordinator's seeded ``worker.http`` fault adds to every
+#: call to the first worker: power of two choices then prefers the
+#: second worker for cohort2, so killing it sends cohort2 through the
+#: failover leg (as tests/test_replica_routing.py steers the pick)
+FLEET_STEER_MS = 25.0
+#: the coordinator's fixed replica-hedge delay: a dead primary's leg
+#: fails (its retries take about 0.15 s) before a hedge would race it,
+#: so it shows as a failover; the adaptive default (the p95 of recent
+#: RTTs) hedges it away instead
+FLEET_HEDGE_DELAY_S = 0.5
+
+
+def fleet_requests(main_shard, cohorts, b_shard, people, rng, n,
+                   window_cap):
+    """http_path's mix over the fleet's five datasets: every second
+    ``main`` request goes to one cohort's own route (``cohort``), and the
+    ``fused`` and ``by_id`` requests search every dataset."""
+    reqs = http_requests(main_shard, b_shard, people, rng, n, window_cap)
+    every = sorted(s.meta["dataset_id"]
+                   for s in [main_shard, *cohorts, b_shard])
+    for k, r in enumerate(reqs):
+        if r["cls"] in ("fused", "by_id"):
+            r["datasets"] = every
+        elif r["cls"] == "main" and k % 2:
+            c = cohorts[k % len(cohorts)]
+            ds = c.meta["dataset_id"]
+            r.update(cls="cohort", path=f"/datasets/{ds}/g_variants",
+                     body=request_bodies(c, rng, 1, window_cap)[0],
+                     datasets=[ds])
+    return reqs
+
+
+def point_bodies(shard, rng, n):
+    """``n`` boolean queries at single-base SNVs of ``shard``: each a
+    window of one position, the cheapest request a worker answers."""
+    out = []
+    while len(out) < n:
+        i = rng.randrange(shard.n_rows)
+        ref, alt = shard.row_ref(i), shard.row_alt(i)
+        if len(ref) != 1 or alt not in ("A", "C", "G", "T"):
+            continue
+        p = int(shard.cols["pos"][i])
+        out.append({"meta": {"apiVersion": "2.0"}, "query": {
+            "requestedGranularity": "boolean",
+            "requestParameters": {
+                "assemblyId": "GRCh38", "referenceName": shard.row_chrom(i),
+                "start": [p - 1], "end": [p], "referenceBases": ref,
+                "alternateBases": alt}}})
+    return out
+
+
+def fleet_child(args, env, log_path):
+    """A child process of ``args``, its stdout lines on a queue, each
+    with the host clock it arrived at (its stderr in ``log_path``);
+    returns (process, queue, start time)."""
+    import queue
+
+    err = open(log_path, "w")
+    t0 = time.perf_counter()
+    child = subprocess.Popen(args, cwd=os.path.dirname(
+        os.path.abspath(__file__)), env=env, stdout=subprocess.PIPE,
+        stderr=err, text=True)
+    err.close()
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put((time.perf_counter(), x))
+                                     for x in child.stdout],
+                     daemon=True).start()
+    return child, lines, t0
+
+
+def wait_serving(child, lines, t0, prefix, log_path, limit=300):
+    """(seconds from the child's start to its serving line, the line)."""
+    while True:
+        try:
+            t, line = lines.get(timeout=limit)
+        except Exception:
+            raise RuntimeError(f"no serving line within {limit} s: "
+                               + open(log_path).read()[-2000:])
+        if line.startswith(prefix):
+            return t - t0, line.strip()
+        if child.poll() is not None:
+            raise RuntimeError("the child exited before serving: "
+                               + open(log_path).read()[-2000:])
+
+
+def get_json(port, path):
+    c = HttpClient(port)
+    try:
+        status, doc, _ms = c.send("GET", path)
+    finally:
+        c.close()
+    return status, doc
+
+
+def worker_launches(port):
+    status, doc = get_json(port, "/device/launches")
+    check(status == 200, f"worker /device/launches answered {status}")
+    return doc["launches"]
+
+
+def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
+                   kind, smi):
+    """Phase 14e: two worker processes (``python -m
+    sbeacon_tpu_torch.parallel.dispatch``) and the server entry with
+    ``--worker`` for each as a coordinator: steady traffic byte-equal to
+    one in-process app over one engine holding every dataset, a second
+    worker killed mid-run and restarted, then the coordinator's own pod
+    tier. Every child is killed on the way out."""
+    import signal
+    import socket
+    from pathlib import Path
+
+    import torch
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.config import (
+        BeaconConfig,
+        EngineConfig,
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+        StorageConfig,
+    )
+    from sbeacon_tpu_torch.engine import VariantEngine
+    from sbeacon_tpu_torch.index.columnar import save_index
+    from sbeacon_tpu_torch.ops import gather_kernel as tg
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import plane_kernel as pk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.parallel import mesh as tm
+    from sbeacon_tpu_torch.parallel.dispatch import (
+        DistributedEngine,
+        MeshDispatchTier,
+    )
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = tempfile.mkdtemp(prefix="fleet-", dir=BUILD_DIR)
+    roots = {k: os.path.join(base, k) for k in ("w1", "w2", "coord", "ref")}
+    c1, c2, c3 = cohorts[:3]
+    on_w1 = [main_shard, c1, c2]
+    on_w2 = [c2, c3, b_shard]
+    ids = lambda shards: sorted(s.meta["dataset_id"] for s in shards)
+    w2_only = set(ids(on_w2)) - set(ids(on_w1))
+    children: dict = {}
+    ref = None
+    ok = False
+    try:
+        # the data roots: the workers' shard files (the main shard and B
+        # linked from the HTTP root, cohort2 saved once and linked into
+        # both: the same bytes, so the same fingerprint: a replica), the
+        # coordinator's metadata of all five datasets, and its copy for
+        # the reference app
+        t0 = time.perf_counter()
+        saved = {}
+        for s in (c1, c2, c3):
+            ds = s.meta["dataset_id"]
+            path = os.path.join(base, "saved", ds, f"{ds}.npz")
+            save_index(s, path, compress=False)
+            saved[ds] = path
+        for s in (main_shard, b_shard):
+            ds = s.meta["dataset_id"]
+            saved[ds] = os.path.join(http_root, "variant-index", ds,
+                                     f"{ds}.npz")
+        for w, shards in (("w1", on_w1), ("w2", on_w2)):
+            for s in shards:
+                ds = s.meta["dataset_id"]
+                dst = os.path.join(roots[w], "variant-index", ds,
+                                   f"{ds}.npz")
+                os.makedirs(os.path.dirname(dst), exist_ok=True)
+                os.link(saved[ds], dst)
+                os.link(saved[ds] + ".meta.json", dst + ".meta.json")
+        os.makedirs(roots["coord"])
+        people, _t, _m = write_data_root(roots["coord"], main_shard,
+                                         b_shard, args.seed + 30,
+                                         others=cohorts, save=False)
+        os.makedirs(roots["ref"])
+        for name in ("metadata.sqlite", "ontology.sqlite"):
+            shutil.copy(os.path.join(roots["coord"], name),
+                        os.path.join(roots["ref"], name))
+        t_roots = time.perf_counter() - t0
+
+        # the children: both workers and the coordinator start at once
+        ports = {}
+        for k in ("w1", "w2", "coord"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                ports[k] = sock.getsockname()[1]
+        env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+            [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        dev_args = ([] if device.type == "cuda"
+                    else ["--device", str(device)])
+        urls = {w: f"http://127.0.0.1:{ports[w]}" for w in ("w1", "w2")}
+
+        def worker_cmd(w):
+            return [sys.executable, "-m",
+                    "sbeacon_tpu_torch.parallel.dispatch",
+                    "--data-root", roots[w], "--host", "127.0.0.1",
+                    "--port", str(ports[w])] + dev_args
+
+        steer = {"seed": args.seed, "rules": [
+            {"site": "worker.http", "kind": "latency",
+             "ms": FLEET_STEER_MS, "match": urls["w1"]}]}
+        coord_env = dict(
+            env, BEACON_SHAPING="0", BEACON_CANARY_ENABLED="0",
+            BEACON_RUNNER_MAX_PENDING=str(HTTP_RUNNER_MAX_PENDING),
+            BEACON_BREAKER_RESET_S=str(FLEET_BREAKER_RESET_S),
+            BEACON_FLEET_DIGEST_INTERVAL_S="1",
+            BEACON_HEDGE_DELAY_S=str(FLEET_HEDGE_DELAY_S),
+            BEACON_FAULT_PLAN=json.dumps(steer))
+        logs = {k: os.path.join(base, f"{k}.stderr") for k in
+                ("w1", "w2", "coord", "w2b")}
+        for w in ("w1", "w2"):
+            children[w] = fleet_child(worker_cmd(w), env, logs[w])
+        children["coord"] = fleet_child(
+            [sys.executable, "-m", "sbeacon_tpu_torch.api.server",
+             "--data-root", roots["coord"], "--host", "127.0.0.1",
+             "--port", str(ports["coord"]), "--worker", urls["w1"],
+             "--worker", urls["w2"]] + dev_args,
+            coord_env, logs["coord"])
+
+        # meanwhile the reference: one engine holding all five datasets
+        # behind an app over a copy of the coordinator's metadata
+        t_ref = time.perf_counter()
+        ref_engine = VariantEngine(BeaconConfig(engine=EngineConfig()),
+                                   device=device)
+        for s in [main_shard, *cohorts, b_shard]:
+            ref_engine.add_index(s)
+        ref_engine.warm_fused()
+        ref = BeaconApp(
+            BeaconConfig(storage=StorageConfig(root=Path(roots["ref"])),
+                resilience=ResilienceConfig(
+                    runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+                shaping=ShapingConfig(enabled=False),
+                observability=ObservabilityConfig(canary_enabled=False)),
+            engine=ref_engine)
+        t_ref = time.perf_counter() - t_ref
+        serving = {}
+        for k, prefix in (("w1", "worker serving"), ("w2", "worker serving"),
+                          ("coord", "beacon serving")):
+            serving[k] = wait_serving(*children[k], prefix, logs[k])
+
+        # what the reference engine receives, by job id, for the host
+        # matcher's check of a sample of the answers
+        received, submitted = {}, {}
+        search, submit = ref_engine.search, ref.query_runner.submit
+
+        def recording_search(payload):
+            received[payload.query_id] = payload
+            return search(payload)
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            submitted[telemetry.current_context().trace_id] = (qid, payload)
+            return qid, status
+
+        ref_engine.search = recording_search
+        ref.query_runner.submit = recording_submit
+        served = [s for _d, _v, (s, _i, _p) in ref_engine.indexes_for([])]
+
+        def reference(r, trace):
+            path, _, qs = r["path"].partition("?")
+            params = dict(p.split("=", 1) for p in qs.split("&") if p)
+            return ref.handle(r["method"], path, params,
+                              json.loads(json.dumps(r["body"])),
+                              headers={"X-Beacon-Trace": trace})
+
+        def drive(reqs, threads, tag):
+            answers = [None] * len(reqs)
+
+            def client(worker):
+                c = HttpClient(ports["coord"])
+                try:
+                    for i in range(worker, len(reqs), threads):
+                        r = reqs[i]
+                        answers[i] = c.send(r["method"], r["path"],
+                                            r["body"], trace=f"{tag}-{i}")
+                finally:
+                    c.close()
+
+            t = time.perf_counter()
+            with ThreadPoolExecutor(max_workers=threads) as pool:
+                list(pool.map(client, range(threads)))
+            return answers, time.perf_counter() - t
+
+        # 1. steady state
+        reqs = fleet_requests(main_shard, cohorts, b_shard, people,
+                              random.Random(args.seed + 40),
+                              args.http_requests,
+                              ref.config.engine.window_cap)
+        before = {w: worker_launches(ports[w]) for w in ("w1", "w2")}
+        answers, wall = drive(reqs, args.threads, "fleet")
+        after = {w: worker_launches(ports[w]) for w in ("w1", "w2")}
+        launches = {w: {k: after[w].get(k, 0) - before[w].get(k, 0)
+                        for k in after[w]} for w in after}
+        non_200: dict = {}
+        mismatches, checked, why = 0, 0, {}
+        for i, (r, (st, doc, _ms)) in enumerate(zip(reqs, answers)):
+            if st != 200:
+                non_200[st] = non_200.get(st, 0) + 1
+                continue
+            rst, want = reference(r, f"ref-{i}")
+            if rst != 200 or json.dumps(unmasked(doc)) != json.dumps(
+                    unmasked(want)):
+                mismatches += 1
+                why["reference"] = why.get("reference", 0) + 1
+                continue
+            if i % 4 == 0:
+                # every fourth answer against the host matcher, through
+                # the payload the reference engine received
+                payload = None
+                if r["cls"] != "entity":
+                    qid, sent = submitted.get(f"ref-{i}", (None, None))
+                    got = received.get(qid)
+                    if got is not None and got == dataclasses.replace(
+                            sent, query_id=qid):
+                        payload = got
+                good, what = check_http_answer(r, doc, payload, served,
+                                               ref.env, people)
+                checked += 1
+                if not good:
+                    mismatches += 1
+                    why[what] = why.get(what, 0) + 1
+        check(not non_200, f"fleet steady state: non-200 answers {non_200}")
+        check(mismatches == 0, f"fleet steady state: {mismatches} answers "
+              f"differ from the single engine's or the host matcher: {why}")
+        lat: dict = {}
+        for r, (_st, _doc, ms) in zip(reqs, answers):
+            lat.setdefault(r["cls"], []).append(ms)
+        fleet_kernels = {}
+        for w in ("w1", "w2"):
+            for k, v in launches[w].items():
+                fleet_kernels[k] = fleet_kernels.get(k, 0) + v
+        for k in (sk.KERNEL, tk.KERNEL, sk.SELECTED_KERNEL, pk.KERNEL):
+            check(fleet_kernels.get(k, 0) > 0,
+                  f"the workers launched {k} in the steady state")
+        steady = {
+            "requests": len(reqs), "threads": args.threads,
+            "classes": {c: len(v) for c, v in sorted(lat.items())},
+            "mismatches": mismatches, "host_checked": checked,
+            "non_200": non_200, "wall_s": wall,
+            "requests_per_s": len(reqs) / wall,
+            "latency_ms": {c: {"p50": percentile(v, 0.5),
+                               "p99": percentile(v, 0.99)}
+                           for c, v in sorted(lat.items())},
+            "worker_launches": launches,
+        }
+        emit("fleet_steady", **steady)
+
+        # 2. failover: the second worker killed mid-run, then restarted
+        rng = random.Random(args.seed + 41)
+
+        def route(c, body):
+            ds = c.meta["dataset_id"]
+            return {"cls": "cohort", "method": "POST",
+                    "path": f"/datasets/{ds}/g_variants", "body": body,
+                    "datasets": [ds]}
+
+        warm = [route(c3, b) for b in point_bodies(c3, rng,
+                                                   FLEET_WARM_REQUESTS)]
+        burst = [route(c2, b) for b in request_bodies(
+            c2, rng, FLEET_BURST_REQUESTS, 2048)]
+        mixed = []
+        for k in range(FLEET_FAILOVER_REQUESTS):
+            c = [c2, c3, b_shard, main_shard][k % 4]
+            mixed.append(route(c, b_request(c, rng, 2048) if c is b_shard
+                               else request_bodies(c, rng, 1, 2048)[0]))
+        w_answers, w_wall = drive(warm, FLEET_FAILOVER_THREADS, "warm")
+        st, dbg = get_json(ports["coord"], "/debug/status")
+        rtt_before_kill = {w: dbg["routing"]["workers"].get(
+            urls[w], {}).get("medianRttMs") for w in ("w1", "w2")}
+        children["w2"][0].send_signal(signal.SIGKILL)
+        t_kill = [time.perf_counter()]
+        b_answers, b_wall = drive(burst, FLEET_FAILOVER_THREADS, "burst")
+        m_answers, m_wall = drive(mixed, FLEET_FAILOVER_THREADS, "mixed")
+        f_reqs = warm + burst + mixed
+        f_answers = w_answers + b_answers + m_answers
+        f_wall = w_wall + b_wall + m_wall
+        f_non_200, f_mism, partial, whole_w2 = {}, 0, 0, 0
+        for i, (r, (st, doc, _ms)) in enumerate(zip(f_reqs, f_answers)):
+            if st != 200:
+                f_non_200[st] = f_non_200.get(st, 0) + 1
+                continue
+            unavailable = doc.get("meta", {}).get("unavailableDatasets")
+            if unavailable is not None:
+                # a partial answer names exactly the datasets only the
+                # dead worker held, and carries nothing of them
+                want_u = sorted(set(r["datasets"]) & w2_only)
+                good = (unavailable == want_u and want_u
+                        and doc["responseSummary"]["exists"] is False
+                        and any("partial" in w for w in
+                                doc["meta"].get("warnings", [])))
+                partial += 1
+            else:
+                rst, want = reference(r, f"ref-failover-{i}")
+                good = rst == 200 and json.dumps(unmasked(doc)) == \
+                    json.dumps(unmasked(want))
+                if set(r["datasets"]) & w2_only:
+                    whole_w2 += 1
+            if not good:
+                f_mism += 1
+        check(not f_non_200, f"fleet failover: non-200 answers {f_non_200}")
+        check(f_mism == 0, f"fleet failover: {f_mism} wrong answers")
+        check(partial > 0, "fleet failover: the dead worker's datasets "
+              "were answered partially")
+        st, metrics = get_json(ports["coord"], "/metrics")
+        dispatch = metrics.get("dispatch", {})
+        check(dispatch.get("failovers", 0) > 0,
+              "fleet failover: cohort2 failed over to the first worker "
+              f"(median RTT ms before the kill: {rtt_before_kill})")
+        check(dispatch.get("partial_responses", 0) > 0,
+              "fleet failover: partial responses counted")
+        unreachable = []
+        t_end = time.perf_counter() + 15
+        while time.perf_counter() < t_end:
+            st, fleet_doc = get_json(ports["coord"], "/fleet/status")
+            unreachable = fleet_doc["diagnosis"]["unreachableWorkers"]
+            if urls["w2"] in unreachable:
+                break
+            time.sleep(0.5)
+        check(unreachable == [urls["w2"]],
+              f"/fleet/status names the killed worker: {unreachable}")
+        # the restart, at the same port, and the heal: a cohort3 request
+        # until one comes back whole and equal to the reference
+        children["w2"][0].wait()
+        t_restart = time.perf_counter()
+        children["w2b"] = fleet_child(worker_cmd("w2"), env, logs["w2b"])
+        s_w2b, _line = wait_serving(*children["w2b"], "worker serving",
+                                    logs["w2b"])
+        t_served = time.perf_counter()
+        # a cohort3 request never answered whole (a partial answer is
+        # not cached, so the same body is sent until it heals)
+        ds3 = c3.meta["dataset_id"]
+        heal = {"cls": "cohort", "method": "POST", "datasets": [ds3],
+                "path": f"/datasets/{ds3}/g_variants",
+                "body": request_bodies(c3, rng, 1, 2048)[0]}
+        t_whole, probes = None, 0
+        while time.perf_counter() - t_served < FLEET_HEAL_LIMIT_S:
+            st, doc = None, None
+            c = HttpClient(ports["coord"])
+            try:
+                st, doc, _ms = c.send(heal["method"], heal["path"],
+                                      heal["body"])
+            finally:
+                c.close()
+            probes += 1
+            if st == 200 and "unavailableDatasets" not in doc.get("meta",
+                                                                  {}):
+                rst, want = reference(heal, "ref-heal")
+                check(json.dumps(unmasked(doc)) == json.dumps(
+                    unmasked(want)), "the healed answer equals the "
+                    "reference")
+                t_whole = time.perf_counter()
+                break
+            time.sleep(0.25)
+        check(t_whole is not None, "a cohort3 request came back whole "
+              f"within {FLEET_HEAL_LIMIT_S} s of the restart")
+        st, metrics = get_json(ports["coord"], "/metrics")
+        st, dbg = get_json(ports["coord"], "/debug/status")
+        st, events = get_json(ports["coord"],
+                              "/ops/events?kind=breaker&limit=1000")
+        transport = metrics.get("transport", {})
+        breaker_events: dict = {}
+        for e in events["events"]:
+            breaker_events[e["kind"]] = breaker_events.get(e["kind"], 0) + 1
+        failover = {
+            "requests": len(f_reqs), "threads": FLEET_FAILOVER_THREADS,
+            "warm_burst_mixed": [len(warm), len(burst), len(mixed)],
+            "median_rtt_ms_before_kill": rtt_before_kill,
+            "non_200": f_non_200,
+            "mismatches": f_mism, "partial_answers": partial,
+            "whole_answers_touching_w2": whole_w2, "wall_s": f_wall,
+            "failovers": metrics.get("dispatch", {}).get("failovers", 0),
+            "partial_responses": metrics.get("dispatch", {}).get(
+                "partial_responses", 0),
+            "short_circuits": metrics.get("dispatch", {}).get(
+                "short_circuits", 0),
+            "hedges": transport.get("hedges", 0),
+            "rediscoveries": metrics.get("routing", {}).get(
+                "rediscoveries", 0),
+            "breaker_transitions": breaker_events,
+            "breakers": dbg.get("breakers", {}),
+            "restart_to_serving_s": s_w2b,
+            "kill_to_restart_s": t_restart - t_kill[0],
+            "heal_s_after_serving": t_whole - t_served,
+            "heal_s_after_kill": t_whole - t_kill[0],
+            "heal_probes": probes,
+            "kill_to_burst_end_s": b_wall,
+            "breaker_reset_s": FLEET_BREAKER_RESET_S,
+            "w1_steer_ms": FLEET_STEER_MS,
+            "hedge_delay_s": FLEET_HEDGE_DELAY_S,
+        }
+        conns = {"opened": transport.get("conn", {}).get("opened", 0),
+                 "reused": transport.get("conn", {}).get("reused", 0),
+                 "retried": transport.get("conn", {}).get("retried", 0)}
+        coord_stats = {"dispatch": metrics.get("dispatch", {}),
+                       "routing": metrics.get("routing", {}),
+                       "fleet": metrics.get("fleet", {})}
+
+        # the children end here: SIGINT, then the logs
+        for k in ("w1", "w2b", "coord"):
+            child = children[k][0]
+            if child.poll() is None:
+                child.send_signal(signal.SIGINT)
+        for k in ("w1", "w2b", "coord"):
+            try:
+                children[k][0].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                children[k][0].kill()
+        tracebacks = {k: "Traceback" in open(logs[k]).read()
+                      for k in ("w1", "w2", "w2b")}
+        coord_tb = "Traceback" in open(logs["coord"]).read()
+        check(not any(tracebacks.values()), "a worker printed a traceback: "
+              + "; ".join(open(logs[k]).read()[-1500:]
+                          for k, v in tracebacks.items() if v))
+
+        # 3. the tier leg: the reference engine as a coordinator's local
+        # engine, its tier a MeshDispatchTier over [card, card] in the
+        # sliced layout (J6, then P1's ring)
+        torch.cuda.empty_cache()
+        del ref_engine.search
+        dist = DistributedEngine([], local=ref_engine)
+        try:
+            dist.mesh_tier.close()
+            dist.mesh_tier = MeshDispatchTier(
+                ref_engine, devices=[device, device],
+                layout=tm.LAYOUT_SLICED)
+            t0 = time.perf_counter()
+            check(dist.mesh_tier.warmup() > 0, "fleet tier leg: the tier "
+                  "built")
+            t_tier_build = time.perf_counter() - t0
+            jobs = [b for b in request_bodies(
+                main_shard, random.Random(args.seed + 42),
+                FLEET_TIER_REQUESTS, 2048, p_other=0.05)]
+            every = [{"id": s.meta["dataset_id"]}
+                     for s in [main_shard, *cohorts]]
+            rec = RecordingEngine(dist)
+            payloads = []
+            for body in jobs:
+                _doc, _ms, payload, _r = serve(rec, ref.env, every, body)
+                payloads.append(payload)
+            telemetry.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = [dist.search(dataclasses.replace(
+                p, no_response_cache=True)) for p in payloads]
+            t_tier = time.perf_counter() - t0
+            tier_counts = {k: telemetry.launch_count(k)
+                           for k in (tm.FUSED_KERNEL, tg.KERNEL)}
+            tier_mism = sum(
+                [r.dumps() for r in g] != [r.dumps() for r in sorted(
+                    ref_engine.search(dataclasses.replace(
+                        p, no_response_cache=True)),
+                    key=lambda r: (r.dataset_id, r.vcf_location))]
+                for g, p in zip(got, payloads))
+            tier_stats = dist.mesh_tier.stats()
+        finally:
+            dist.close()
+        check(tier_mism == 0, f"fleet tier leg: {tier_mism} answers differ "
+              "from the single engine's")
+        check(tier_counts[tm.FUSED_KERNEL] > 0 and tier_counts[tg.KERNEL] > 0,
+              f"fleet tier leg launched J6 and P1: {tier_counts}")
+        emit("fleet_path", workers={"w1": ids(on_w1), "w2": ids(on_w2)},
+             coordinator_root="metadata only (5 datasets, "
+                              f"{len(people)} individuals)",
+             steady=steady, failover=failover, transport=conns,
+             coordinator=coord_stats,
+             seconds_to_serving={k: v[0] for k, v in serving.items()},
+             serving_lines={k: v[1] for k, v in serving.items()},
+             reference_setup_s=t_ref, roots_s=t_roots,
+             coordinator_traceback=coord_tb,
+             tier={"requests": len(payloads), "mismatches": tier_mism,
+                   "launches": tier_counts, "build_s": t_tier_build,
+                   "wall_s": t_tier, "stats": tier_stats,
+                   "mesh": [str(device), str(device)],
+                   "layout": "sliced"},
+             wall_s=time.perf_counter() - t_phase,
+             device_memory_gb=torch.cuda.memory_allocated() / 1e9,
+             device=kind, nvidia_smi=smi)
+        ok = True
+        return {"worker_launches": fleet_kernels, "tier_launches": tier_counts}
+    finally:
+        for child, _lines, _t0 in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        if ref is not None:
+            ref.close()
+            ref.engine.close()
+            ref.store.close()
+            ref.ontology.close()
+        shutil.rmtree(base, ignore_errors=True)
+        if not ok:
+            torch.cuda.empty_cache()
 
 
 # -- ingest over HTTP (ingest_path) -------------------------------------------
@@ -6148,6 +6796,10 @@ def run(args, device) -> int:
             http.pop("engine").close()
         torch.cuda.empty_cache()
         run_server_entry(http_root, http, device, kind, smi)
+        # 14e. the fleet: two worker processes and a coordinator
+        torch.cuda.empty_cache()
+        fleet = run_fleet_path(http_root, shard, cohorts, shard_b, args,
+                               device, kind, smi)
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
 
@@ -7005,6 +7657,7 @@ def run(args, device) -> int:
         "http_policy_path_launches": http["policy_launches"][sk.KERNEL],
         "http_policy_path_canary_launches": http["canary_launches"].get(
             sk.KERNEL, 0),
+        "fleet_path_launches": fleet["worker_launches"].get(sk.KERNEL, 0),
         "ms": top64["ms"],
         "plain_ms": top64["plain_ms"],
         "bound_ms": top64["bound_ms"],
@@ -7023,6 +7676,7 @@ def run(args, device) -> int:
         "http_policy_path_launches": http["policy_launches"][tk.KERNEL],
         "http_policy_path_canary_launches": http["canary_launches"].get(
             tk.KERNEL, 0),
+        "fleet_path_launches": fleet["worker_launches"].get(tk.KERNEL, 0),
         "ms": mid["ms_flushed"],
         "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"],
@@ -7043,6 +7697,7 @@ def run(args, device) -> int:
         "http_policy_path_launches": http["policy_launches"][sk.SELECTED_KERNEL],
         "http_policy_path_canary_launches": http["canary_launches"].get(
             sk.SELECTED_KERNEL, 0),
+        "fleet_path_launches": fleet["worker_launches"].get(sk.SELECTED_KERNEL, 0),
         "ms": j2["ms"],
         "plain_ms": j2["plain_ms"],
         "bound_ms": j2["bound_ms"],
@@ -7061,6 +7716,7 @@ def run(args, device) -> int:
         "http_policy_path_launches": http["policy_launches"][pk.KERNEL],
         "http_policy_path_canary_launches": http["canary_launches"].get(
             pk.KERNEL, 0),
+        "fleet_path_launches": fleet["worker_launches"].get(pk.KERNEL, 0),
         "ms": j4["ms"],
         "plain_ms": j4["plain_ms"],
         "bound_ms": j4["bound_ms"],
@@ -7114,6 +7770,7 @@ def run(args, device) -> int:
         "replaces": "sbeacon_tpu/parallel/mesh.py:1401",
         "launches": sum(r["counts"][tm.FUSED_KERNEL]
                         for r in fused_runs.values()),
+        "fleet_path_launches": fleet["tier_launches"][tm.FUSED_KERNEL],
         "max_abs_err": err_f,
         "ms": j6["ms"],
         "plain_ms": j6["plain_ms"],
@@ -7127,6 +7784,7 @@ def run(args, device) -> int:
         "source": "sbeacon_tpu_torch/csrc/ring_gather.cu",
         "replaces": "sbeacon_tpu/ops/gather_kernel.py:70",
         "launches": sum(r["counts"][tg.KERNEL] for r in fused_runs.values()),
+        "fleet_path_launches": fleet["tier_launches"][tg.KERNEL],
         "max_abs_err": err_r,
         "ms": p1["ms"],
         "plain_ms": p1["plain_ms"],

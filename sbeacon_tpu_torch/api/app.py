@@ -1,7 +1,8 @@
 """The Beacon v2 application: one router over the read surface and the
 policy and observability plane behind it.
 
-Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet plane:
+Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet's
+migration routes:
 
     /  /info  /configuration  /map  /entry_types  /filtering_terms
     /schemas  /schemas/{entity}
@@ -12,7 +13,7 @@ Counterpart of ``sbeacon_tpu/api/app.py`` without the fleet plane:
     /g_variants  /g_variants/{id}  /g_variants/{id}/{biosamples,individuals}
     /health  /ready  /metrics        (probes: no auth, admission, deadline)
     /slo  /ops/events  /ops/costs  /ops/plans  /debug/status
-    /device/status                   (diagnostic probes, the same bypass)
+    /device/status  /fleet/status    (diagnostic probes, the same bypass)
     /_trace                          (span trees; 404 unless tracing is on)
     /submit                          (POST new / PATCH update: ingest)
 
@@ -30,10 +31,17 @@ runs in the background (``canary_interval_s``). Errors map to
 gate) validates the submission, verifies its VCFs, writes its metadata
 and runs the summarisation pipeline inline (``api/submit.py``): its
 slices serve as deltas while it runs, and the ingest service's delta
-compactor folds them off the request path. ``/fleet/*`` answers 404
-until the fleet plane is ported (its sections of ``/debug/status``
-render as the JAX app renders them for an engine without breakers or
-routes).
+compactor folds them off the request path.
+
+The engine may be a fleet coordinator (``parallel.dispatch.
+DistributedEngine``): ingestion then goes to its local engine
+(``engine.local``), a search that found no reachable replica for some
+datasets answers with them named in ``meta.unavailableDatasets`` and a
+warning, ``/ready`` lists ``degradedDatasets``, ``/fleet/status``
+serves the coordinator's digest poll of every worker, and
+``/debug/status`` fills its breakers, routing and workers sections.
+``/fleet/migrations`` and ``/fleet/migrate`` answer 404 until the
+fleet's migration plane is ported.
 
 Every handler returns ``(status_code, body_dict)`` — or, for a
 Prometheus ``/metrics`` scrape, ``(200, text)``; transport (the HTTP
@@ -68,6 +76,8 @@ from ..ingest.service import (
 )
 from ..metadata import MetadataStore, OntologyStore
 from ..metadata.filters import FilterError
+from ..parallel.dispatch import ops_digest, register_dispatch_metrics
+from ..parallel.transport import register_transport_metrics
 from ..plan import (
     PlanStore,
     plan_document,
@@ -83,6 +93,7 @@ from ..resilience import (
     ResilienceError,
     deadline_scope,
     register_admission_metrics,
+    register_breaker_metrics,
 )
 from ..shaping import TrafficShaper, requested_granularity
 from ..slo import (
@@ -150,9 +161,6 @@ _CROSS_ENTITY: dict[tuple[str, str], tuple[str, str]] = {
 #: source the SLO budget exclusion and the latency labels share
 PROBE_PATHS = PROBE_BYPASS_PATHS
 
-#: the fleet plane's diagnostic paths: probe labels here, 404 until the
-#: fleet plane is ported
-_FLEET_HEAD = "fleet"
 
 
 def strip_private(doc: dict) -> dict:
@@ -207,7 +215,9 @@ class BeaconApp:
     Without ``engine=`` the app builds a ``VariantEngine`` on ``device``
     (the GPU by default, raising where there is none; ``device="cpu"``
     for the plain-PyTorch twins). The engine may be caller-owned and is
-    not closed by :meth:`close`.
+    not closed by :meth:`close`; a fleet coordinator
+    (``DistributedEngine`` with ``local=VariantEngine(...)``) ingests
+    into its local engine.
     """
 
     def __init__(
@@ -253,14 +263,18 @@ class BeaconApp:
             store.ontology = self.ontology
         self.store = store
         self.engine = engine or VariantEngine(self.config, device=device)
-        if ingest is None and not hasattr(self.engine, "add_index"):
+        # ingestion always targets an engine that can host shards: a
+        # fleet coordinator exposes its local engine as .local
+        ingest_engine = getattr(self.engine, "local", None) or self.engine
+        if ingest is None and not hasattr(ingest_engine, "add_index"):
             # fail at wiring time, not on the first load
             raise ValueError(
                 "engine cannot host index shards (no add_index): pass a "
-                "VariantEngine or an explicit ingest= service"
+                "VariantEngine, a DistributedEngine with "
+                "local=VariantEngine(...), or an explicit ingest= service"
             )
         self.ingest = ingest or IngestService(
-            self.config, engine=self.engine, store=self.store
+            self.config, engine=ingest_engine, store=self.store
         )
         self.env = Envelopes(self.config.info)
         # async query job table: coalesces concurrent identical queries,
@@ -440,6 +454,20 @@ class BeaconApp:
         engine_reg = getattr(self.engine, "register_metrics", None)
         if engine_reg is not None:
             engine_reg(reg)
+        if "breaker.state" not in reg.names():
+            # single-host engines have no worker routes; the series
+            # still exist (empty) so the catalogue is deployment-stable
+            register_breaker_metrics(
+                reg, lambda: getattr(self.engine, "breaker", None)
+            )
+        if "transport.conn.opened" not in reg.names():
+            # the same catalogue stability for the data-plane transport
+            # and fan-out series (zeros on a single-host engine)
+            register_transport_metrics(reg)
+            register_dispatch_metrics(
+                reg,
+                lambda: getattr(self.engine, "dispatch_stats", dict)(),
+            )
         # compaction + slice-disk series (ingest-while-serving plane)
         register_ingest_metrics(reg)
         register_compaction_metrics(
@@ -586,6 +614,17 @@ class BeaconApp:
                     # document rides the envelope — never cached, since
                     # explain forces no_response_cache
                     meta["executionPlan"] = plan_document(ctx)
+                unavailable = ctx.notes.get("unavailable_datasets")
+                if unavailable:
+                    # partial results (DistributedEngine.search): every
+                    # replica of these datasets was unreachable, so the
+                    # response covers the datasets that answered
+                    meta["unavailableDatasets"] = list(unavailable)
+                    meta.setdefault("warnings", []).append(
+                        "no reachable replica for dataset(s): "
+                        + ", ".join(unavailable)
+                        + "; results are partial"
+                    )
         return status, payload
 
     def _handle(
@@ -690,13 +729,21 @@ class BeaconApp:
             # liveness: cheap, no store/engine access
             return 200, {"ok": True, "beaconId": info.beacon_id}
         if head == "ready":
-            # readiness: local state only
-            return (200 if self.ready else 503), {
+            # readiness: local state only — never a worker round-trip
+            local = getattr(self.engine, "local", None) or self.engine
+            body = {
                 "ready": bool(self.ready),
                 "beaconId": info.beacon_id,
-                "shards": len(getattr(self.engine, "_indexes", {})),
+                "shards": len(getattr(local, "_indexes", {})),
                 "inFlight": self.admission.metrics()["in_flight"],
             }
+            # degraded datasets (every replica's circuit open) are
+            # reported but do NOT flip readiness: the server still
+            # serves everything else, with partial-results envelopes
+            degraded = getattr(self.engine, "unavailable_datasets", None)
+            if degraded is not None:
+                body["degradedDatasets"] = degraded()
+            return (200 if self.ready else 503), body
         if head == "slo":
             # per-route objectives + burn rates; ?tenant=<id> scopes the
             # document to one tenant's burn rings
@@ -713,16 +760,16 @@ class BeaconApp:
             # per (query-shape, plan-shape) counts, cost-unit means,
             # exemplar trace ids and the drift sentinel's flips
             return 200, self.plans.snapshot()
+        if head == "fleet/status":
+            # every worker's /ops/digest collected at a bounded cadence
+            # and the coordinator's own digest, with a fleet diagnosis
+            return 200, self._fleet_status()
         if head == "debug/status":
             return 200, self._debug_status()
         if head == "device/status":
             return 200, self._device_status()
-        if head.split("/", 1)[0] == _FLEET_HEAD:
-            return 404, self.env.error(
-                404,
-                f"unknown path /{head}: the fleet plane is not served "
-                "by this package yet",
-            )
+        if head == "fleet/migrations":
+            return self._fleet_not_ported(head)
         # /metrics: content negotiation — ?format=openmetrics or an
         # ``Accept: application/openmetrics-text`` gets the OpenMetrics
         # dialect WITH exemplars; ?format=prometheus or ``Accept:
@@ -761,9 +808,9 @@ class BeaconApp:
         }
 
     def _digest_extras(self) -> dict:
-        """The app-tier digest fields (the JAX package's fleet digest
-        carries them; here they are the same rollup for a caller):
-        SLO breaches, slow-query count, top cost tenants, canary."""
+        """The coordinator's app-tier digest fields (a worker's digest
+        carries engine fields only): SLO breaches, slow-query count,
+        top cost tenants, canary rollup."""
         canary = self.canary.counters()
         extras = {
             "sloBreached": self.slo.breached_routes(),
@@ -781,14 +828,49 @@ class BeaconApp:
             extras["topCostTenants"] = []
         return extras
 
+    def _fleet_not_ported(self, head: str) -> tuple[int, dict]:
+        """``/fleet/migrations`` and ``/fleet/migrate``: 404 until the
+        fleet's migration plane is ported."""
+        return 404, self.env.error(
+            404,
+            f"unknown path /{head}: the fleet's migration plane is not "
+            "served by this package yet",
+        )
+
+    def _fleet_status(self) -> dict:
+        """The ``/fleet/status`` document: the coordinator's per-worker
+        digest rollup and diagnosis, always with its own digest as
+        ``local`` — a single-host deployment serves the same schema
+        with an empty worker map."""
+        local_engine = getattr(self.engine, "local", None) or self.engine
+        local = ops_digest(local_engine, extras=self._digest_extras())
+        fleet = getattr(self.engine, "fleet", None)
+        if fleet is None:
+            doc = {
+                "intervalS": self.config.observability.fleet_digest_interval_s,
+                "polls": 0,
+                "lastPollAgeS": None,
+                "workers": {},
+                "diagnosis": {
+                    "stalestReplica": None,
+                    "hottestWorker": None,
+                    "divergentDatasets": {},
+                    "unreachableWorkers": [],
+                    "worstCompilingReplica": None,
+                },
+            }
+        else:
+            doc = fleet.snapshot()
+        doc["local"] = local
+        return doc
+
     def _debug_status(self) -> dict:
         """The self-diagnosis rollup: SLO state, queue depths, the stage
         decomposition, costs, the canary, the device plane and plans,
         composed into one document whose ``diagnosis`` names what eats
         the latency budget. Local state only — safe to serve while
-        saturated. Breakers and routing are the fleet plane's: empty
-        for this engine, as the JAX app renders them for an engine
-        without them."""
+        saturated. Breakers, routing and workers are a fleet
+        coordinator's: empty for a single-host engine."""
         engine = self.engine
         local = getattr(engine, "local", None) or engine
         breaker = getattr(engine, "breaker", None)
@@ -942,9 +1024,13 @@ class BeaconApp:
         return doc
 
     def _metrics(self) -> dict:
-        """The typed-instrument registry as nested JSON, plus the armed
-        fault plan."""
+        """The typed-instrument registry as nested JSON, plus the two
+        surfaces kept in their non-dotted shapes: a fleet coordinator's
+        per-worker breaker states and the armed fault plan."""
         out = self.telemetry.render_json()
+        breaker = getattr(self.engine, "breaker", None)
+        if breaker is not None:
+            out["breaker"] = breaker.metrics()
         injector = faults.installed()
         if injector is not None:
             out["faults"] = injector.stats()
@@ -1004,6 +1090,8 @@ class BeaconApp:
 
         if not parts or parts == ["info"]:
             return 200, info_response(info)
+        if parts == ["fleet", "migrate"]:
+            return self._fleet_not_ported("fleet/migrate")
         head = parts[0]
         if head == "schemas":
             from .model_schemas import ENTITY_SCHEMAS, schema_url

@@ -7,8 +7,11 @@ CORS header kept, the ``Retry-After`` header of a shed request), and
 ``python -m sbeacon_tpu_torch.api.server --data-root DIR``, which loads
 every persisted shard of the data root, warms the kernels and serves the
 Beacon routes, ``/submit`` included, on the GPU (``--device cpu`` for the
-plain-PyTorch twins). The JAX package's ``--worker`` fan-out belongs to the fleet
-plane and is refused here.
+plain-PyTorch twins). With ``--worker URL`` (repeatable) the server is a
+fleet coordinator: its local engine hosts the data root's shards and
+takes ``/submit``, and every variant search fans out over the workers
+(``python -m sbeacon_tpu_torch.parallel.dispatch``) through
+``parallel.dispatch.DistributedEngine``.
 """
 
 from __future__ import annotations
@@ -153,6 +156,7 @@ def main(argv: list[str] | None = None) -> None:
     import argparse
 
     from ..config import BeaconConfig
+    from ..engine import VariantEngine
     from ..harness.faults import install_from_env
 
     p = argparse.ArgumentParser(description="Beacon v2 server (PyTorch/CUDA)")
@@ -173,20 +177,29 @@ def main(argv: list[str] | None = None) -> None:
         action="append",
         default=[],
         metavar="URL",
-        help="not served by this package: the fan-out over remote "
-        "workers comes with the fleet plane",
+        help="remote worker base URL (repeatable); variant searches fan "
+        "out across the workers and the local shards",
     )
     args = p.parse_args(argv)
-    if args.worker:
-        p.error(
-            "--worker is not supported yet: the fan-out over remote "
-            "workers comes with the fleet plane (ROADMAP Queue 1 item 6)"
-        )
 
     config = BeaconConfig.from_env(args.data_root)
     # seeded fault injection against a real server: BEACON_FAULT_PLAN
     install_from_env()
-    app = BeaconApp(config, device=args.device)
+    local = VariantEngine(config, device=args.device)
+    engine = local
+    if args.worker:
+        from ..parallel.dispatch import DistributedEngine
+
+        # the local engine hosts this machine's shards; BeaconApp wires
+        # ingestion to it (engine.local) while searches fan out
+        engine = DistributedEngine(args.worker, local=local, config=config)
+    try:
+        app = BeaconApp(config, engine=engine)
+    except BaseException:
+        if engine is not local:
+            engine.close()
+        local.close()
+        raise
     try:
         n = app.ingest.load_all()
         # build every kernel and warm every dispatchable shape, so no
@@ -196,8 +209,8 @@ def main(argv: list[str] | None = None) -> None:
         server = make_server(app, args.host, args.port)
         print(
             f"beacon serving on {args.host}:{args.port} "
-            f"({n} index shards loaded, device {app.engine.device}, "
-            f"{n_warm} kernel programs warmed)",
+            f"({n} index shards loaded, device {local.device}, "
+            f"{len(args.worker)} workers, {n_warm} kernel programs warmed)",
             flush=True,
         )
         _serve_forever(server, app)
@@ -205,7 +218,9 @@ def main(argv: list[str] | None = None) -> None:
         pass
     finally:
         app.close()
-        app.engine.close()
+        if engine is not local:
+            engine.close()
+        local.close()
 
 
 if __name__ == "__main__":  # pragma: no cover

@@ -11,8 +11,9 @@ serving snapshot (re-synced whenever the index fingerprint changes) and
 exercises each probe across query shapes (boolean, count) and dispatch
 paths: ``engine`` (``engine.search``: whatever serves — on the card the
 scatter match kernel for one dataset, with ``no_response_cache=True``),
-``local`` and ``replica:<url>`` when the engine has those halves (the
-fleet plane's; this package's engine has neither).
+``local`` and ``replica:<url>`` when the engine has those halves (a
+fleet coordinator, ``parallel.dispatch.DistributedEngine``: its local
+engine, and ``call_replica`` on each replica of the probe's dataset).
 
 Each probe asserts **correctness** (``exists`` matches the expectation),
 **freshness** (the hit probe targets the newest published row) and

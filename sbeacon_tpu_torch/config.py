@@ -4,13 +4,16 @@ Counterpart of ``sbeacon_tpu/config.py``, trimmed to the fields the
 Beacon read routes and the policy plane behind them read: the beacon's
 identity (``BeaconInfo``), the storage layout (``StorageConfig``), the
 engine, the resilience envelope (deadlines, admission, the query
-runner's pool), ``AuthConfig``, traffic shaping (``ShapingConfig``,
-``config.py:382-440`` there), the observability plane
-(``ObservabilityConfig``, ``:443-552``, without the fleet digest and
-migration knobs of the fleet plane), ingest (``IngestConfig``) and the
-ontology resolvers (``ResolverConfig``, ``:215-297``; remote slice-scan
-workers are refused until the fleet plane) and ``BeaconConfig.from_env``
-for the env vars of those fields (``:679-830``). The JAX
+runner's pool, the per-worker circuit breakers, failover and partial
+results), the coordinator->worker transport (``TransportConfig``,
+``config.py:345-378`` there), ``AuthConfig``, traffic shaping
+(``ShapingConfig``, ``:382-440``), the observability plane
+(``ObservabilityConfig``, ``:443-552``, with the fleet digest interval
+but without the migration knobs of the fleet's migration plane), ingest
+(``IngestConfig``) and the ontology resolvers (``ResolverConfig``,
+``:215-297``; remote slice-scan workers are refused until the fleet's
+ingest plane) and ``BeaconConfig.from_env`` for the env vars of those
+fields (``:679-830``). The JAX
 package's persistent compile cache has no counterpart: the kernels build
 once into ``build/kernels/``. Defaults stay those of the JAX package
 (``window_cap`` 2048, ``record_cap`` 1024, the micro-batcher on, fused
@@ -118,8 +121,9 @@ class EngineConfig:
       they fit plane_hbm_budget_gb beside the resident ones.
     mesh_min_shards: the smallest per-query target count worth the pod
       dispatch tier (parallel.dispatch.MeshDispatchTier; below it,
-      per-shard dispatch is already one launch). The JAX package's
-      mesh_dispatch is read by its fleet plane, not ported yet; its
+      per-shard dispatch is already one launch). mesh_dispatch: a
+      fleet coordinator (``parallel.dispatch.DistributedEngine``) with a
+      local engine consults that tier per query. The JAX package's
       mesh_slice / mesh_owner_outputs are the tier's ``layout`` argument
       here, and the tier stacks the planes whenever every shard has
       them and they fit (no mesh_planes switch).
@@ -151,6 +155,7 @@ class EngineConfig:
     device_planes: bool = True
     plane_hbm_budget_gb: float = 11.0
     use_mesh: bool = True
+    mesh_dispatch: bool = True
     mesh_min_shards: int = 2
     response_cache: bool = True
     response_cache_size: int = 4096
@@ -267,6 +272,16 @@ class ResilienceConfig:
     runner_workers / runner_max_pending: the async query runner's
       bounded pool and its shed threshold; runner_bulk_share is the
       share of the pending slots the bulk lane may hold.
+    breaker_failure_threshold / breaker_reset_s /
+      breaker_half_open_probes: the per-worker circuit breaker of a
+      fleet coordinator: consecutive failures that open a route, how
+      long it stays open, and the probe calls a half-open route admits.
+    failover_retries: extra replicas a failed worker leg may re-route
+      to before its datasets fall to the partial-results path.
+    partial_results: when no replica of a dataset is reachable, answer
+      with the datasets that responded and name the rest in the
+      envelope (``meta.unavailableDatasets`` and a warning) instead of
+      failing the whole request.
     """
 
     default_deadline_s: float = 60.0
@@ -276,6 +291,40 @@ class ResilienceConfig:
     runner_workers: int = 8
     runner_max_pending: int = 64
     runner_bulk_share: float = 0.5
+    breaker_failure_threshold: int = 5
+    breaker_reset_s: float = 30.0
+    breaker_half_open_probes: int = 1
+    failover_retries: int = 2
+    partial_results: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportConfig:
+    """Coordinator->worker data-plane knobs (parallel/transport.py).
+
+    pool_size: keep-alive connections kept per worker host. Not a
+      concurrency cap: a burst beyond it opens extra connections that
+      are closed, not pooled, on return.
+    idle_ttl_s: pooled connections idle longer than this are closed on
+      next touch (workers reap their side slightly later).
+    gzip_min_bytes: request bodies at or over this size are
+      gzip-compressed on the wire (0 disables).
+    hedge_delay_s: if a /search primary has not answered within this
+      delay, the same call races on a second replica and the first
+      answer wins. >0 fixed; 0 adaptive (the p95 of recent RTTs, once
+      enough samples exist); <0 off.
+    bool_short_circuit: boolean-granularity fan-outs return as soon as
+      any worker reports a hit, abandoning the rest of the scatter.
+    replica_hedge: hedge slow /search primaries with a second replica
+      of the same datasets; single-replica fleets never hedge.
+    """
+
+    pool_size: int = 4
+    idle_ttl_s: float = 60.0
+    gzip_min_bytes: int = 32 * 1024
+    hedge_delay_s: float = 0.0
+    bool_short_circuit: bool = True
+    replica_hedge: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -354,6 +403,9 @@ class ObservabilityConfig:
     canary_enabled / canary_interval_s / canary_latency_ms: the
       known-answer canary prober (canary.py); interval <= 0 arms no
       thread (``run_once()`` still works).
+    fleet_digest_interval_s: how often a fleet coordinator's
+      ``/fleet/status`` re-polls every worker's ``/ops/digest`` (lazily,
+      when read).
     device_ring_size / compile_tracking: the device flight recorder's
       launch ring and its kernel build tracker (``/device/status``).
     explain_enabled: serve ``?explain=1`` (worker-token gated when one
@@ -373,6 +425,7 @@ class ObservabilityConfig:
     event_journal_size: int = 1024
     cost_accounting: bool = True
     cost_window_s: float = 300.0
+    fleet_digest_interval_s: float = 10.0
     canary_enabled: bool = True
     canary_interval_s: float = 30.0
     canary_latency_ms: float = 1000.0
@@ -403,6 +456,21 @@ _RESILIENCE_ENV = {
     "BEACON_RUNNER_WORKERS": ("runner_workers", int),
     "BEACON_RUNNER_MAX_PENDING": ("runner_max_pending", int),
     "BEACON_RUNNER_BULK_SHARE": ("runner_bulk_share", float),
+    "BEACON_BREAKER_THRESHOLD": ("breaker_failure_threshold", int),
+    "BEACON_BREAKER_RESET_S": ("breaker_reset_s", float),
+    "BEACON_BREAKER_PROBES": ("breaker_half_open_probes", int),
+    "BEACON_FAILOVER_RETRIES": ("failover_retries", int),
+    "BEACON_PARTIAL_RESULTS": ("partial_results", bool),
+}
+
+#: env var -> (TransportConfig field, type)
+_TRANSPORT_ENV = {
+    "BEACON_POOL_SIZE": ("pool_size", int),
+    "BEACON_POOL_IDLE_S": ("idle_ttl_s", float),
+    "BEACON_GZIP_MIN_BYTES": ("gzip_min_bytes", int),
+    "BEACON_HEDGE_DELAY_S": ("hedge_delay_s", float),
+    "BEACON_BOOL_SHORT_CIRCUIT": ("bool_short_circuit", bool),
+    "BEACON_REPLICA_HEDGE": ("replica_hedge", bool),
 }
 
 #: env var -> (EngineConfig field, type); bool fields read ENV_OFF
@@ -410,6 +478,7 @@ _ENGINE_ENV = {
     "BEACON_WINDOW_CAP": ("window_cap", int),
     "BEACON_RECORD_CAP": ("record_cap", int),
     "BEACON_USE_MESH": ("use_mesh", bool),
+    "BEACON_MESH_DISPATCH": ("mesh_dispatch", bool),
     "BEACON_MESH_MIN_SHARDS": ("mesh_min_shards", int),
     "BEACON_PLANE_HBM_BUDGET_GB": ("plane_hbm_budget_gb", float),
     "BEACON_FUSED_DISPATCH": ("fused_dispatch", bool),
@@ -434,6 +503,7 @@ _OBSERVABILITY_ENV = {
     "BEACON_SLO_ROUTES": ("slo_routes", str),
     "BEACON_SLO_ALERT_BURN": ("slo_alert_burn_rate", float),
     "BEACON_EVENT_JOURNAL_SIZE": ("event_journal_size", int),
+    "BEACON_FLEET_DIGEST_INTERVAL_S": ("fleet_digest_interval_s", float),
     "BEACON_CANARY_INTERVAL_S": ("canary_interval_s", float),
     "BEACON_CANARY_LATENCY_MS": ("canary_latency_ms", float),
     "BEACON_DEVICE_RING_SIZE": ("device_ring_size", int),
@@ -498,6 +568,9 @@ class BeaconConfig:
     resilience: ResilienceConfig = dataclasses.field(
         default_factory=ResilienceConfig
     )
+    transport: TransportConfig = dataclasses.field(
+        default_factory=TransportConfig
+    )
     observability: ObservabilityConfig = dataclasses.field(
         default_factory=ObservabilityConfig
     )
@@ -542,6 +615,7 @@ class BeaconConfig:
             resilience=ResilienceConfig(
                 **_env_overrides(env, _RESILIENCE_ENV)
             ),
+            transport=TransportConfig(**_env_overrides(env, _TRANSPORT_ENV)),
             observability=ObservabilityConfig(
                 **_env_overrides(env, _OBSERVABILITY_ENV)
             ),

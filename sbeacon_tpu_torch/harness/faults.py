@@ -12,13 +12,16 @@ from ``(plan.seed, site, rule index)`` over a per-rule hit counter, so
 for a given call sequence the same plan activates the same faults every
 run.
 
-The port calls four sites: ``kernel.launch`` — device kernel dispatch
+The port calls six sites: ``kernel.launch`` — device kernel dispatch
 (``serving.py`` micro-batch execute, and the engine's direct launches
 when the micro-batcher is off), ``sqlite.commit`` (the query job table),
-``admission.queue`` (the shaper's fair queue) and ``compaction.fold``
-(the delta compactor's merge and publish seams). The JAX package's
-other sites (``worker.http``, ``mesh.dispatch``, ``migration:*``) belong
-to the fleet plane, which this package has not ported.
+``admission.queue`` (the shaper's fair queue), ``compaction.fold``
+(the delta compactor's merge and publish seams), ``worker.http`` (each
+fleet coordinator->worker ``/search`` attempt, its detail the worker
+url) and ``mesh.dispatch`` (the pod tier's launch,
+``parallel.dispatch.MeshDispatchTier.search``). The JAX package's
+``migration:*`` sites belong to the fleet's migration plane, which
+this package has not ported.
 
 Fault kinds: ``error`` raises :class:`FaultError`; ``latency`` sleeps
 ``ms``; ``hang`` sleeps ``ms`` too but defaults much longer — a hang is

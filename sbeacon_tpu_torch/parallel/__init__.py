@@ -1,8 +1,9 @@
 """Cross-shard computations of the port: the distinct count, the
-dataset-sharded mesh stack, the mesh-sharded fused index and its pod
-dispatch tier."""
+dataset-sharded mesh stack, the mesh-sharded fused index, its pod
+dispatch tier and the fleet query plane (``dispatch``, also the worker
+entry ``python -m sbeacon_tpu_torch.parallel.dispatch``, so it is
+imported on first use, not here)."""
 
-from .dispatch import MeshDispatchTier
 from .mesh import (
     Mesh,
     MeshFusedIndex,
@@ -25,3 +26,11 @@ __all__ = [
     "mesh_devices",
     "mesh_fused",
 ]
+
+
+def __getattr__(name):
+    if name == "MeshDispatchTier":
+        from .dispatch import MeshDispatchTier
+
+        return MeshDispatchTier
+    raise AttributeError(name)

@@ -1,65 +1,818 @@
-"""The pod dispatch tier: one launch over the mesh-sharded fused index.
+"""The fleet query plane: worker hosts, the coordinator, and the pod tier.
 
-Counterpart of ``MeshDispatchTier`` of ``sbeacon_tpu/parallel/dispatch.py``
-and of its hedging kill switch ``set_hedging_enabled`` (``:97-110``
-there), the flag the brownout ladder's first rung flips; nothing in this
-package reads it until hedged scans come with the fleet plane (the rest
-of that module, not ported yet). The
-engine's shards stack into a ``parallel.mesh.MeshFusedIndex`` sharded
-over the engine's mesh, and a query whose datasets all live on the mesh
-costs ONE mesh launch through the engine's micro-batcher
-(``submit_many``): the boolean OR, the count and allele sums and the
-record-granularity hit rows, and for plane-reading shapes the per-query
-sample-mask reduction too.
+Counterpart of ``sbeacon_tpu/parallel/dispatch.py`` without its ingest
+and migration legs (``ScanWorkerPool``, the worker's ``/scan`` and
+``/migrate/*``, ``:973-1322`` and ``:229-425`` there) and without
+``init_multihost``. Each worker host owns a set of dataset index shards
+behind a :class:`WorkerServer` (``python -m
+sbeacon_tpu_torch.parallel.dispatch``, serving on the card); the
+coordinator's :class:`DistributedEngine` routes a
+``VariantQueryPayload`` to the workers owning its datasets (a
+thread-pool scatter over the pooled keep-alive transport of
+``transport.py``), retries transient failures, and merges the
+per-(dataset, vcf) responses, presenting the ``VariantEngine`` interface
+so the API layer and the query runner compose unchanged. Datasets served
+by several workers keep their full replica list (:class:`ReplicaRouter`):
+power-of-two-choices routing over recent RTTs, failover to the next
+replica on worker errors or open circuits, replica-hedged searches for
+slow primaries (the brownout ladder's first rung turns them off through
+:func:`set_hedging_enabled`), partial results when every copy of a
+dataset is down, and a background rediscovery loop that heals routes.
+:class:`FleetView` collects every worker's ``/ops/digest`` for the app's
+``/fleet/status``. The wire form of every exchange is the JAX package's,
+so either package's coordinator drives the other's workers.
 
-The delta tail of a served key (the shards ``VariantEngine.add_delta``
-published since the stack was built; the base fingerprint, and so the
-stack, stays warm) rides beside the mesh launch: the engine's L0 index
-answers its covered targets in one launch (``engine.l0_pre_rows``, which
-also charges the host-walked ones), and the rest are matched on the
-host, as in the JAX package. ``resolve`` and ``search`` note their
-``mesh`` plan stage and the request annotations, ``search`` checks the
-request deadline, and a launch without the batcher hits the
-``kernel.launch`` fault point.
+The pod dispatch tier (:class:`MeshDispatchTier`): the engine's shards
+stack into a ``parallel.mesh.MeshFusedIndex`` sharded over the engine's
+mesh, and a query whose datasets all live on the mesh costs ONE mesh
+launch through the engine's micro-batcher (``submit_many``): the boolean
+OR, the count and allele sums and the record-granularity hit rows, and
+for plane-reading shapes the per-query sample-mask reduction too. A
+coordinator with a local engine consults it per query. The delta tail of
+a served key (the shards ``VariantEngine.add_delta`` published since the
+stack was built; the base fingerprint, and so the stack, stays warm)
+rides beside the mesh launch: the engine's L0 index answers its covered
+targets in one launch (``engine.l0_pre_rows``, which also charges the
+host-walked ones), and the rest are matched on the host, as in the JAX
+package. ``resolve`` and ``search`` note their ``mesh`` plan stage and
+the request annotations, ``search`` checks the request deadline and
+hits the ``mesh.dispatch`` fault point, and a launch without the
+batcher hits the ``kernel.launch`` fault point.
 
 Deliberate differences from the JAX package:
 
-- a failed build, upload or launch raises on the request (a background
-  build's failure is raised by the requests that consult the tier until
-  the index set changes), where the JAX tier logs it and the caller
-  falls back to the thread scatter; so there is no fallback counter and
-  no ``mesh.dispatch`` fault site;
-- no journal events and no plane-ledger headroom in the ``planes``
-  refusal.
+- a failure on the coordinator's side raises on the request: a failed
+  tier build, upload or launch (a background build's failure is raised
+  by the requests that consult the tier until the index set changes),
+  and an error of the coordinator's local engine, even where a boolean
+  hit elsewhere would have decided the answer. The JAX coordinator logs
+  a tier failure and scatters the same datasets again
+  (``mesh.fallbacks``), and lets a boolean hit outvote a local error.
+  So there is no fallback counter. A WORKER's failure (an error answer,
+  a refused connection, a timeout, an open circuit) keeps the JAX
+  semantics: failover to another replica, then partial results;
+- the worker answers ``/scan`` and ``/migrate/*`` with 501 until the
+  fleet's ingest and migration legs are ported, and its entry has no
+  ``--open-scan``; it takes ``--device`` (the card by default) and
+  serves ``/device/launches`` (its kernel launch counts) inside the
+  token boundary;
+- the tier has no journal events and no plane-ledger headroom in its
+  ``planes`` refusal.
 """
 
 from __future__ import annotations
 
+import collections
+import concurrent.futures as futures_mod
+import dataclasses
+import gzip
+import hmac
+import json
+import logging
+import random
 import threading
 import time
+import urllib.error
 import weakref
+from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
+from .. import telemetry as telemetry_mod
 from ..harness.faults import fault_point
+from ..payloads import VariantQueryPayload, VariantSearchResponse
 from ..plan import plan_stage
-from ..resilience import current_deadline
-from ..telemetry import annotate
+from ..resilience import (
+    CLOSED,
+    OPEN,
+    CircuitBreaker,
+    CircuitOpen,
+    DeadlineExceeded,
+    current_deadline,
+    register_breaker_metrics,
+)
+from ..telemetry import (
+    TRACE_HEADER,
+    RequestContext,
+    annotate,
+    charge_cost,
+    current_context,
+    new_span_id,
+    publish_event,
+    request_context,
+    sanitize_trace_id,
+)
+from ..utils.trace import Span, span
 from . import mesh as _mesh
+from .transport import (
+    PooledTransport,
+    note_hedge,
+    register_transport_metrics,
+)
+
+log = logging.getLogger(__name__)
 
 # -- hedging kill switch ------------------------------------------------------
 
 #: process-wide hedge enable flag: the brownout ladder's FIRST rung
-#: (shaping.BrownoutLadder via set_hedging_enabled). Process-global like
-#: the fault injector; read by the fleet plane's hedged scans.
+#: (shaping.BrownoutLadder via set_hedging_enabled) — under a sustained
+#: SLO breach the cheapest load to shed is the duplicate calls hedging
+#: adds, before any request is refused. Process-global like the fault
+#: injector: the replica routers live below the app layer.
 _hedging_enabled = True
 
 
 def set_hedging_enabled(enabled: bool) -> None:
-    """Flip the process-wide hedging kill switch (brownout rung 1)."""
+    """Flip the process-wide hedging kill switch (brownout rung 1): it
+    overrides every replica router's hedge delay; in-flight hedges are
+    unaffected."""
     global _hedging_enabled
     _hedging_enabled = bool(enabled)
+
+
+def hedging_enabled() -> bool:
+    return _hedging_enabled
+
+
+# -- worker side --------------------------------------------------------------
+
+#: the worker's answer to the ingest and migration routes of the JAX
+#: worker, which this package does not serve yet
+_NOT_PORTED = (
+    "not served by this worker: the fleet's slice scans and shard "
+    "migration are not ported yet (ROADMAP Queue 1 item 6b)"
+)
+
+
+def _make_handler(engine, token: str = "", reload_fn=None):
+    class Handler(BaseHTTPRequestHandler):
+        # keep-alive: the coordinator's pooled transport holds a few
+        # persistent connections per worker instead of a TCP handshake
+        # (and a server thread spawn) per call
+        protocol_version = "HTTP/1.1"
+        # reap idle keep-alive connections a little after the
+        # coordinator's pool TTL would have evicted them anyway
+        timeout = 120.0
+
+        def log_message(self, *a):  # quiet
+            pass
+
+        def _read_body(self) -> bytes:
+            """The full request body, gunzipped when the coordinator
+            compressed it (transport.py gzip_min_bytes)."""
+            n = int(self.headers.get("Content-Length") or 0)
+            raw = self.rfile.read(n) if n else b""
+            if self.headers.get("Content-Encoding", "").lower() == "gzip":
+                raw = gzip.decompress(raw)
+            return raw
+
+        def _send(self, status: int, payload):
+            body = json.dumps(payload).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _authorized(self) -> bool:
+            # shared-token gate on the worker boundary; /health stays
+            # open for liveness probes
+            if not token:
+                return True
+            got = self.headers.get("Authorization", "")
+            # bytes compare: compare_digest raises TypeError on non-ASCII
+            # str, which would kill the request with no response
+            return hmac.compare_digest(
+                got.encode(), f"Bearer {token}".encode()
+            )
+
+        def do_GET(self):
+            if self.path == "/health":
+                self._send(200, {"ok": True})
+            elif not self._authorized():
+                self._send(401, {"error": "unauthorized"})
+            elif self.path == "/ops/digest":
+                # the fleet digest: behind the SAME token boundary as
+                # /search (it names datasets and fingerprints)
+                self._send(200, ops_digest(engine))
+            elif self.path == "/device/launches":
+                # this process's kernel launches by kernel (warmup's
+                # included): the card-side evidence a fleet drive reads
+                # before and after its traffic
+                self._send(
+                    200, {"launches": telemetry_mod.launch_counts()}
+                )
+            elif self.path == "/datasets":
+                # per-dataset fingerprints let the coordinator group
+                # only IDENTICAL shard copies as replicas
+                ds_fps = getattr(engine, "dataset_fingerprints", None)
+                self._send(
+                    200,
+                    {
+                        "datasets": engine.datasets(),
+                        "fingerprint": engine.index_fingerprint(),
+                        "dataset_fingerprints": (
+                            ds_fps() if ds_fps is not None else {}
+                        ),
+                    },
+                )
+            else:
+                self._send(404, {"error": "not found"})
+
+        def do_POST(self):
+            # the body is read BEFORE any early return: with HTTP/1.1
+            # keep-alive, unread body bytes would bleed into the next
+            # request's parse on this connection
+            try:
+                raw = self._read_body()
+            except Exception:
+                self._send(400, {"error": "bad request body"})
+                return
+            if not self._authorized():
+                self._send(401, {"error": "unauthorized"})
+                return
+            if self.path == "/reload":
+                # re-pin shards from storage without a process restart
+                if reload_fn is None:
+                    self._send(404, {"error": "reload not wired"})
+                    return
+                try:
+                    n = reload_fn()
+                    self._send(200, {"ok": True, "shards": int(n)})
+                except Exception as e:
+                    log.exception("worker reload failed")
+                    self._send(500, {"error": f"{type(e).__name__}: {e}"})
+                return
+            if self.path == "/scan" or self.path.startswith("/migrate/"):
+                self._send(501, {"error": _NOT_PORTED})
+                return
+            if self.path != "/search":
+                self._send(404, {"error": "not found"})
+                return
+            try:
+                t_recv = time.perf_counter()
+                # from_doc drops unknown keys: this worker keeps
+                # answering a coordinator one payload field ahead of it
+                payload = VariantQueryPayload.from_doc(json.loads(raw))
+                # adopt the coordinator's trace id so worker-side spans
+                # parent into the same distributed trace
+                ctx = RequestContext(
+                    trace_id=sanitize_trace_id(
+                        self.headers.get(TRACE_HEADER)
+                    ),
+                    route="worker.search",
+                )
+                with request_context(ctx), span(
+                    "worker.search",
+                    datasets=len(payload.dataset_ids or []),
+                ):
+                    t_eng = time.perf_counter()
+                    responses = engine.search(payload)
+                    engine_s = time.perf_counter() - t_eng
+                t_ser = time.perf_counter()
+                docs = [dataclasses.asdict(r) for r in responses]
+                serialize_s = time.perf_counter() - t_ser
+                # the span summary the coordinator grafts as child spans
+                # of its worker call: ``queueMs`` is the micro-batch wait
+                # the engine annotated, ``cache`` the response-cache
+                # outcome, ``rows`` the matched rows shipped back
+                notes = ctx.notes
+                try:
+                    queue_ms = float(notes.get("batch_ms") or 0.0)
+                except (TypeError, ValueError):
+                    queue_ms = 0.0
+                # the batch wait happened INSIDE engine.search: engine
+                # time is reported exclusive of it
+                engine_excl_ms = max(engine_s * 1e3 - queue_ms, 0.0)
+                self._send(
+                    200,
+                    {
+                        "responses": docs,
+                        "meta": {
+                            "spanId": new_span_id(),
+                            "queueMs": round(queue_ms, 3),
+                            "engineMs": round(engine_excl_ms, 3),
+                            "serializeMs": round(serialize_s * 1e3, 3),
+                            "totalMs": round(
+                                (time.perf_counter() - t_recv) * 1e3, 3
+                            ),
+                            "rows": sum(len(r.variants) for r in responses),
+                            "cache": notes.get("response_cache", ""),
+                            "datasets": len(payload.dataset_ids or []),
+                        },
+                    },
+                )
+            except Exception as e:  # worker errors travel to coordinator
+                log.exception("worker search failed")
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+    return Handler
+
+
+class _WorkerHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that tracks live client connections so
+    shutdown can sever them. A killed worker process takes every
+    socket with it; ``server_close`` alone only closes the LISTENER,
+    leaving keep-alive handler threads answering on pooled coordinator
+    connections — a zombie that would mask the dead-worker failover
+    paths the replica layer exists for."""
+
+    daemon_threads = True
+    # a burst of coordinator connects must not overflow socketserver's
+    # default backlog of 5
+    request_queue_size = 128
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._conn_lock = threading.Lock()
+        self._conns: set = set()
+
+    def process_request(self, request, client_address):
+        with self._conn_lock:
+            self._conns.add(request)
+        super().process_request(request, client_address)
+
+    def shutdown_request(self, request):
+        with self._conn_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def handle_error(self, request, client_address):
+        # a handler mid-write when close_all_connections severed its
+        # socket raises BrokenPipe/ConnectionReset — that IS the
+        # faithful kill, not an error worth a stderr traceback
+        import sys
+
+        exc = sys.exc_info()[1]
+        if isinstance(exc, (BrokenPipeError, ConnectionResetError)):
+            return
+        super().handle_error(request, client_address)
+
+    def close_all_connections(self) -> None:
+        import socket as socket_mod
+
+        with self._conn_lock:
+            conns, self._conns = list(self._conns), set()
+        for sock in conns:
+            try:
+                sock.shutdown(socket_mod.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
+
+
+class WorkerServer:
+    """One worker host's engine behind HTTP."""
+
+    def __init__(
+        self,
+        engine,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        *,
+        token: str = "",
+        reload_fn=None,
+    ):
+        self.engine = engine
+        self.server = _WorkerHTTPServer(
+            (host, port), _make_handler(engine, token, reload_fn)
+        )
+        self.thread: threading.Thread | None = None
+
+    @property
+    def address(self) -> str:
+        h, p = self.server.server_address[:2]
+        return f"http://{h}:{p}"
+
+    def start_background(self) -> "WorkerServer":
+        self.thread = threading.Thread(
+            target=self.server.serve_forever, daemon=True,
+            name="worker-server",
+        )
+        self.thread.start()
+        return self
+
+    def shutdown(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+        # faithful kill: live keep-alive connections die with the
+        # server, like the process death they stand in for
+        self.server.close_all_connections()
+        if self.thread is not None:
+            self.thread.join()
+
+
+#: datasets/fingerprints listed per digest before truncation — the
+#: digest must stay a bounded control-plane message, never a data dump
+DIGEST_DATASET_CAP = 128
+
+
+def ops_digest(engine, extras: dict | None = None) -> dict:
+    """The bounded worker-health digest served at ``/ops/digest``:
+    per-dataset identity (the divergence signal), delta-tail depth/rows
+    (the freshness-lag signal), delta publishes, open breakers and the
+    device recorder's health fields. Every field reads lock-free engine
+    snapshots. ``extras`` lets an embedded coordinator add its app-tier
+    signals (SLO breaches, slow-query count, top cost tenants)."""
+    base_fp = getattr(engine, "base_fingerprint", None)
+    ds_fps_fn = getattr(engine, "dataset_fingerprints", None)
+    delta_stats = getattr(engine, "delta_stats", None)
+    delta_metrics = getattr(engine, "delta_metrics", None)
+    datasets = engine.datasets()
+    ds_fps = dict(
+        sorted((ds_fps_fn() if ds_fps_fn is not None else {}).items())[
+            :DIGEST_DATASET_CAP
+        ]
+    )
+    breakers: list[str] = []
+    breaker = getattr(engine, "breaker", None)
+    if breaker is not None:
+        breakers = sorted(
+            u
+            for u, d in breaker.metrics().items()
+            if d.get("state") != "closed"
+        )
+    doc = {
+        "time": time.time(),
+        "datasets": datasets[:DIGEST_DATASET_CAP],
+        "datasetsTotal": len(datasets),
+        "baseFingerprint": (
+            base_fp() if base_fp is not None else engine.index_fingerprint()
+        ),
+        "datasetFingerprints": ds_fps,
+        "deltaTails": delta_stats() if delta_stats is not None else {},
+        "deltaPublishes": (
+            delta_metrics().get("publishes", 0)
+            if delta_metrics is not None
+            else 0
+        ),
+        "openBreakers": breakers,
+        # device-health fields (module attr, not a from-import: the
+        # recorder is process-global and tests swap it)
+        "midRequestCompiles": (
+            telemetry_mod.flight_recorder.mid_request_compiles()
+        ),
+        "worstPadWaste": telemetry_mod.flight_recorder.worst_pad_waste(),
+    }
+    if extras:
+        doc.update(extras)
+    return doc
+
+
+# -- coordinator side ---------------------------------------------------------
+
+
+def register_dispatch_metrics(registry, supplier) -> None:
+    """The coordinator fan-out's own series. ``supplier`` returns the
+    current :meth:`DistributedEngine.dispatch_stats` dict (empty on
+    single-host engines — the app's fallback registration keeps the
+    catalogue deployment-stable, like the breaker series). The JAX
+    package's ``mesh.fallbacks`` and ``migration.*`` series have no
+    producer here (the tier raises instead of falling back; migration
+    is not ported)."""
+
+    def field(name):
+        return lambda: supplier().get(name, 0)
+
+    registry.counter(
+        "dispatch.short_circuits",
+        "boolean fan-outs answered before the full worker drain",
+        fn=field("short_circuits"),
+    )
+    registry.counter(
+        "dispatch.failovers",
+        "worker search legs re-routed to another replica after a failure",
+        fn=field("failovers"),
+    )
+    registry.counter(
+        "dispatch.partial_responses",
+        "searches answered partially with some datasets unavailable",
+        fn=field("partial_responses"),
+    )
+    registry.gauge(
+        "routing.replicas",
+        "replica routes in the table (sum of copies across datasets)",
+        fn=field("replicas"),
+    )
+    registry.counter(
+        "routing.rediscoveries",
+        "background route-rediscovery passes run to heal dead routes",
+        fn=field("rediscoveries"),
+    )
+    registry.counter(
+        "mesh.dispatches",
+        "k-shard queries answered by the pod-local single-launch tier",
+        fn=field("mesh_dispatches"),
+    )
+    registry.counter(
+        "mesh.gather_rows",
+        "hit rows gathered on-device by the mesh tier's row gather",
+        fn=field("mesh_gather_rows"),
+    )
+    registry.counter(
+        "mesh.refusals",
+        "queries the mesh tier declined, by reason (planes = "
+        "plane-reading shape the stack cannot serve, stale = publish "
+        "outran the stack, min_shards = too few local targets, "
+        "unbuilt = no stack yet)",
+        label="reason",
+        fn=lambda: supplier().get("mesh_refusals", {}) or {},
+    )
+    registry.counter(
+        "fleet.digest_polls",
+        "worker /ops/digest collection passes run by the fleet view",
+        fn=field("fleet_polls"),
+    )
+    registry.gauge(
+        "fleet.workers_reachable",
+        "workers whose latest digest poll answered",
+        fn=field("fleet_reachable"),
+    )
+    registry.gauge(
+        "fleet.divergent_datasets",
+        "datasets whose replicas advertise divergent fingerprints",
+        fn=field("fleet_divergent"),
+    )
+
+
+def _graft_worker_spans(wsp, url: str, meta, rtt_s: float) -> None:
+    """Adopt one worker leg's span summary (the ``meta`` block of a
+    ``/search`` answer) as child spans of the coordinator's
+    ``dispatch.worker_call`` span. Network time is DERIVED (RTT minus
+    the worker-reported total, split evenly around the remote span: the
+    coordinator cannot observe the clock skew) and the worker's
+    queue/engine/serialize stages lay out sequentially inside it. No-op
+    when tracing is off (``wsp`` is the null span) or the worker sent
+    no summary."""
+    sp = getattr(wsp, "span", None)
+    if sp is None or not isinstance(meta, dict):
+        return
+    try:
+        total_ms = float(meta.get("totalMs") or 0.0)
+    except (TypeError, ValueError):
+        return
+    rtt_ms = rtt_s * 1e3
+    net_ms = max(rtt_ms - total_ms, 0.0)
+    wsp.note(
+        networkMs=round(net_ms, 3),
+        workerMs=round(total_ms, 3),
+        rows=meta.get("rows", 0),
+        cache=meta.get("cache", ""),
+    )
+    now = time.perf_counter()
+    w_start = now - rtt_s + net_ms / 2e3
+    remote = Span(
+        name="worker.remote",
+        t_start=w_start,
+        t_end=w_start + total_ms / 1e3,
+        meta={
+            "url": url,
+            "rows": meta.get("rows", 0),
+            "cache": meta.get("cache", ""),
+            "datasets": meta.get("datasets", 0),
+        },
+        trace_id=sp.trace_id,
+        span_id=str(meta.get("spanId") or new_span_id()),
+    )
+    t = w_start
+    for name, key in (
+        ("worker.queue", "queueMs"),
+        ("worker.engine", "engineMs"),
+        ("worker.serialize", "serializeMs"),
+    ):
+        try:
+            ms = float(meta.get(key) or 0.0)
+        except (TypeError, ValueError):
+            ms = 0.0
+        if ms <= 0.0:
+            continue
+        remote.children.append(
+            Span(
+                name=name,
+                t_start=t,
+                t_end=t + ms / 1e3,
+                trace_id=sp.trace_id,
+                span_id=new_span_id(),
+            )
+        )
+        t += ms / 1e3
+    sp.children.append(remote)
+
+
+def _fingerprint_freshness(fp: str) -> int:
+    """Total indexed rows encoded in a per-dataset fingerprint (the
+    ``vcf|variant_count|call_count|n_rows`` base parts and the
+    ``vcf#d<epoch>|rows`` standing delta-tail parts, joined by ``&``) —
+    the 'newer copy' heuristic for divergent replicas: re-ingestion only
+    grows a dataset's row count. Only the exact 4-field base / 2-field
+    epoch-tagged delta shapes parse; anything else sorts oldest (an
+    ENGINE-WIDE fallback string must lose to real per-dataset identity,
+    not out-freshen it by summing rows across unrelated datasets)."""
+    total = 0
+    for part in fp.split("&"):
+        fields = part.split("|")
+        # delta-tail parts count toward freshness, so a deeper-tail copy
+        # out-freshens its base twin
+        if len(fields) == 2 and "#d" in fields[0]:
+            pass
+        elif len(fields) != 4:
+            return -1
+        try:
+            total += int(fields[-1])
+        except ValueError:
+            return -1
+    return total
+
+
+def _fingerprint_parts(
+    fp: str,
+) -> tuple[frozenset, frozenset] | None:
+    """(base parts, delta-tail parts) of a per-dataset fingerprint, or
+    None when any part fails the grammar (engine-wide strings never
+    enter the tail-superset relation)."""
+    bases, deltas = set(), set()
+    for part in fp.split("&"):
+        fields = part.split("|")
+        if len(fields) == 2 and "#d" in fields[0]:
+            deltas.add(part)
+        elif len(fields) == 4:
+            bases.add(part)
+        else:
+            return None
+    return frozenset(bases), frozenset(deltas)
+
+
+class ReplicaRouter:
+    """Replica selection for the search fan-out.
+
+    The discovery pass publishes a ``dataset -> (replica urls)`` table
+    here (only fingerprint-compatible copies are grouped); ``pick``
+    chooses among the live replicas by power-of-two-choices over the
+    recent per-worker RTT record: sample two, take the faster, skip
+    breaker-open routes. One slow or dead host then stops attracting
+    traffic without any health-check protocol. The sampling draws from
+    ``rng`` (a seeded ``random.Random`` by default, so routing spread is
+    reproducible).
+    """
+
+    #: recent round-trips kept per replica for the p2c comparison and
+    #: the adaptive hedge delay
+    RTT_WINDOW = 128
+    #: adaptive hedging needs this many completed calls before the p95
+    #: means anything; until then no hedge fires
+    HEDGE_MIN_SAMPLES = 8
+    #: adaptive hedge delay never drops below this (a sub-ms p95 would
+    #: hedge every call and double fleet load for nothing)
+    HEDGE_FLOOR_S = 0.05
+
+    def __init__(self, breaker: CircuitBreaker, *,
+                 rng: random.Random | None = None):
+        self.breaker = breaker
+        self._rng = rng or random.Random(0xBEAC0)
+        self._lock = threading.Lock()
+        self._table: dict[str, tuple[str, ...]] = {}
+        self._rtts: dict[str, collections.deque] = {}
+        # (dataset, url) pairs routed OUT: publish() filters them inside
+        # its own critical section, so a concurrent rediscovery
+        # republish can never resurrect a retired route
+        self._retired: set[tuple[str, str]] = set()
+
+    # -- table --------------------------------------------------------------
+
+    def publish(self, table: dict[str, tuple[str, ...]]) -> None:
+        new = {ds: tuple(urls) for ds, urls in table.items()}
+        with self._lock:
+            if self._retired:
+                new = {
+                    ds: tuple(
+                        u for u in urls if (ds, u) not in self._retired
+                    )
+                    for ds, urls in new.items()
+                }
+            changed = new != self._table
+            self._table = new
+        if changed:
+            # only actual topology changes are events (the rediscovery
+            # loop republishes every pass)
+            publish_event(
+                "routing.table_publish",
+                datasets=len(new),
+                replicas=sum(len(u) for u in new.values()),
+            )
+
+    def table(self) -> dict[str, tuple[str, ...]]:
+        with self._lock:
+            return dict(self._table)
+
+    def replicas(self, dataset: str) -> tuple[str, ...]:
+        with self._lock:
+            return self._table.get(dataset, ())
+
+    def replica_count(self) -> int:
+        with self._lock:
+            return sum(len(urls) for urls in self._table.values())
+
+    def retire(self, dataset: str, url: str) -> None:
+        """Route ``url`` out of ``dataset``'s replica set ATOMICALLY:
+        the pin lands and the url leaves the live table inside ONE
+        critical section. Retired pairs survive republish."""
+        with self._lock:
+            self._retired.add((dataset, url))
+            urls = self._table.get(dataset)
+            if urls and url in urls:
+                self._table[dataset] = tuple(
+                    u for u in urls if u != url
+                )
+        publish_event("routing.route_retired", dataset=dataset, url=url)
+
+    def unretire(self, dataset: str, url: str) -> None:
+        """Lift a retire pin: the next publish may route the pair again
+        if a worker advertises it."""
+        with self._lock:
+            self._retired.discard((dataset, url))
+
+    def retired(self) -> set[tuple[str, str]]:
+        with self._lock:
+            return set(self._retired)
+
+    # -- RTT record ---------------------------------------------------------
+
+    def note_rtt(self, url: str, seconds: float) -> None:
+        with self._lock:
+            ring = self._rtts.get(url)
+            if ring is None:
+                ring = self._rtts[url] = collections.deque(
+                    maxlen=self.RTT_WINDOW
+                )
+            ring.append(seconds)
+
+    def _rtt(self, url: str) -> float | None:
+        """Median recent RTT, or None for an unmeasured replica (treated
+        as fast, so fresh replicas get explored instead of starved)."""
+        with self._lock:
+            ring = self._rtts.get(url)
+            if not ring:
+                return None
+            s = sorted(ring)
+        return s[len(s) // 2]
+
+    def median_rtt_ms(self, url: str) -> float | None:
+        """Public median-RTT view (``/debug/status`` worker rollup)."""
+        rtt = self._rtt(url)
+        return None if rtt is None else round(rtt * 1e3, 2)
+
+    def hedge_delay(self, hedge_delay_s: float | None) -> float | None:
+        """Seconds to wait before racing a second replica: >0 fixed, 0
+        adaptive (p95 of recent RTTs once enough samples exist), <0 or
+        None off. The brownout kill switch (``hedging_enabled``)
+        overrides all."""
+        d = hedge_delay_s
+        if d is None or d < 0 or not hedging_enabled():
+            return None
+        if d > 0:
+            return d
+        with self._lock:
+            all_rtts = [v for ring in self._rtts.values() for v in ring]
+        if len(all_rtts) < self.HEDGE_MIN_SAMPLES:
+            return None
+        all_rtts.sort()
+        return max(
+            all_rtts[int(0.95 * (len(all_rtts) - 1))], self.HEDGE_FLOOR_S
+        )
+
+    # -- selection ----------------------------------------------------------
+
+    def live(self, url: str) -> bool:
+        """Pure observation — never consumes a half-open probe (the
+        call-site ``allow`` gate does that once per attempted call)."""
+        return self.breaker.state(url) != OPEN
+
+    def pick(self, dataset: str, *, avoid=()) -> str | None:
+        """The replica to route ``dataset`` to, or None when every copy
+        is in ``avoid`` (failover exhausted the replica set)."""
+        cands = [u for u in self.replicas(dataset) if u not in avoid]
+        if not cands:
+            return None
+        # breaker-open routes are skipped while an alternative exists;
+        # with every copy open, route anyway — the call-site gate
+        # raises CircuitOpen cheaply and keeps the half-open probing
+        live = [u for u in cands if self.live(u)] or cands
+        if len(live) == 1:
+            return live[0]
+        a, b = self._rng.sample(live, 2)
+        ra = self._rtt(a) or 0.0
+        rb = self._rtt(b) or 0.0
+        return a if ra <= rb else b
+
+
+class WorkerError(RuntimeError):
+    """A worker leg failed: an error answer, a transport failure, or
+    every retry spent."""
 
 
 class MeshDispatchTier:
@@ -352,11 +1105,12 @@ class MeshDispatchTier:
         from ..ops.kernel import QuerySpec, encode_queries
         from ..ops.plane_kernel import sample_mask_words
 
+        fault_point("mesh.dispatch")
         current_deadline().check("mesh.dispatch")
         with self._lock:
             state = self._state
         if state is None:
-            raise RuntimeError("mesh tier state gone")
+            raise WorkerError("mesh tier state gone")
         index, sid_of, shard_of, keys_by_ds, _fp, planes_of = state
         plane_q = self.engine._wants_planes(payload)
         spec_base = QuerySpec(
@@ -530,3 +1284,1310 @@ class MeshDispatchTier:
             else None
         )
         return out
+
+
+class FleetView:
+    """The coordinator's collected view of every worker's
+    ``/ops/digest``, served at ``/fleet/status``. Digests are polled
+    lazily at a bounded cadence — a ``snapshot()`` older than
+    ``interval_s`` refreshes inline, so an unqueried fleet pays nothing
+    and a dashboard polling every second still only touches workers
+    once per interval. Polls ride the engine's authenticated transport,
+    inside the worker-token boundary.
+
+    The fleet-level ``diagnosis`` names the **stalest replica** (most
+    fingerprint-losing dataset copies by the freshness heuristic, else
+    the deepest standing delta tail), the **hottest worker** (highest
+    median RTT from the router's own measurements), the **divergent
+    datasets** (replicas advertising different copies), and the
+    unreachable workers.
+    """
+
+    #: per-digest GET budget: a digest is a small control message and
+    #: must never inherit the minutes-long search timeout
+    DIGEST_TIMEOUT_S = 5.0
+
+    def __init__(self, engine, *, interval_s: float = 10.0,
+                 clock=time.monotonic):
+        self.engine = engine
+        self.interval_s = max(0.5, float(interval_s))
+        self._clock = clock
+        self._lock = threading.Lock()
+        # single-flight refresh: concurrent stale snapshot() calls must
+        # not each run a full worker sweep (non-blocking acquire — the
+        # loser serves the cached view the winner is refreshing)
+        self._poll_lock = threading.Lock()
+        # url -> {"digest": dict|None, "error": str|None, "tMono": t}
+        self._digests: dict[str, dict] = {}
+        self._polls = 0
+        self._last_poll: float | None = None
+
+    def _poll_one(self, url: str) -> tuple[str, dict, bool]:
+        t = self._clock()
+        try:
+            status, doc = self.engine._get_auth(
+                f"{url}/ops/digest",
+                min(self.DIGEST_TIMEOUT_S, self.engine.timeout_s),
+            )
+        except Exception as e:
+            return (
+                url,
+                {
+                    "digest": None,
+                    "error": f"{type(e).__name__}: {e}",
+                    "tMono": t,
+                },
+                False,
+            )
+        if status == 200 and isinstance(doc, dict):
+            return url, {"digest": doc, "error": None, "tMono": t}, True
+        return (
+            url,
+            {"digest": None, "error": f"http {status}", "tMono": t},
+            False,
+        )
+
+    def poll(self) -> int:
+        """One collection pass over every configured worker; returns
+        how many answered. Workers are swept CONCURRENTLY so the pass is
+        bounded by one digest timeout, not N of them. Failures are
+        recorded per worker (an unreachable worker is a fleet-status
+        finding, not an error)."""
+        urls = list(self.engine.worker_urls)
+        ok = 0
+        if urls:
+            with ThreadPoolExecutor(
+                min(8, len(urls)), thread_name_prefix="fleet-digest"
+            ) as pool:
+                results = list(pool.map(self._poll_one, urls))
+            with self._lock:
+                for url, entry, answered in results:
+                    self._digests[url] = entry
+                    ok += int(answered)
+        with self._lock:
+            self._polls += 1
+            self._last_poll = self._clock()
+            for u in list(self._digests):
+                if u not in urls:  # decommissioned mid-flight
+                    del self._digests[u]
+        return ok
+
+    def _divergence(self, rows: dict) -> tuple[dict, dict]:
+        """({dataset: {url: fp}} for divergent datasets,
+        {url: stale-copy count}) over the cached digests."""
+        by_ds: dict[str, dict[str, str]] = {}
+        for url, e in rows.items():
+            d = e.get("digest")
+            if not d:
+                continue
+            for ds, fp in (d.get("datasetFingerprints") or {}).items():
+                by_ds.setdefault(ds, {})[url] = fp
+        divergent: dict[str, dict[str, str]] = {}
+        stale_counts: dict[str, int] = {}
+        for ds, fps in sorted(by_ds.items()):
+            if len(set(fps.values())) <= 1:
+                continue
+            divergent[ds] = dict(sorted(fps.items()))
+            win = max(
+                fps.values(),
+                key=lambda fp: (_fingerprint_freshness(fp), fp),
+            )
+            for url, fp in fps.items():
+                if fp != win:
+                    stale_counts[url] = stale_counts.get(url, 0) + 1
+        return divergent, stale_counts
+
+    def stats(self) -> dict:
+        """The ``fleet.*`` metric values — cached state only, a
+        /metrics scrape never triggers worker network IO."""
+        with self._lock:
+            rows = {u: dict(e) for u, e in self._digests.items()}
+            polls = self._polls
+        divergent, _stale = self._divergence(rows)
+        return {
+            "polls": polls,
+            "reachable": sum(
+                1 for e in rows.values() if e.get("digest") is not None
+            ),
+            "divergent": len(divergent),
+        }
+
+    def snapshot(self) -> dict:
+        """The ``/fleet/status`` document (refreshes inline when the
+        cached digests are older than ``interval_s``). Its schema is
+        the JAX package's; ``migrations`` stays empty and
+        ``stuckMigration`` None until the migration plane is ported."""
+        with self._lock:
+            last = self._last_poll
+        if last is None or self._clock() - last >= self.interval_s:
+            if self._poll_lock.acquire(blocking=False):
+                try:
+                    self.poll()
+                except Exception:  # a broken poll must not 500 status
+                    log.exception("fleet digest poll failed")
+                finally:
+                    self._poll_lock.release()
+        with self._lock:
+            rows = {u: dict(e) for u, e in self._digests.items()}
+            polls = self._polls
+            last = self._last_poll
+        now = self._clock()
+        divergent, stale_counts = self._divergence(rows)
+        workers: dict[str, dict] = {}
+        tail_rows: dict[str, int] = {}
+        for url in sorted(rows):
+            e = rows[url]
+            d = e.get("digest")
+            w: dict = {
+                "reachable": d is not None,
+                "ageS": round(now - e["tMono"], 1),
+                "medianRttMs": self.engine.router.median_rtt_ms(url),
+                "staleDatasets": stale_counts.get(url, 0),
+            }
+            if d is not None:
+                w["digest"] = d
+                w["deltaTailRows"] = sum(
+                    int(t.get("rows", 0))
+                    for t in (d.get("deltaTails") or {}).values()
+                )
+                tail_rows[url] = w["deltaTailRows"]
+            else:
+                w["error"] = e.get("error")
+            workers[url] = w
+        # stalest replica: fingerprint-divergence losers first, else the
+        # deepest standing delta tail
+        stalest = None
+        if stale_counts:
+            stalest = max(
+                sorted(stale_counts), key=lambda u: stale_counts[u]
+            )
+        elif any(tail_rows.values()):
+            stalest = max(sorted(tail_rows), key=lambda u: tail_rows[u])
+        rtts = {
+            u: w["medianRttMs"]
+            for u, w in workers.items()
+            if w.get("medianRttMs") is not None
+        }
+        # the replica whose kernels built mid-request most often
+        compiles = {
+            u: int((w.get("digest") or {}).get("midRequestCompiles", 0))
+            for u, w in workers.items()
+        }
+        worst_compiling = None
+        if any(compiles.values()):
+            worst_compiling = max(
+                sorted(compiles), key=lambda u: compiles[u]
+            )
+        return {
+            "intervalS": self.interval_s,
+            "polls": polls,
+            "lastPollAgeS": (
+                None if last is None else round(now - last, 1)
+            ),
+            "workers": workers,
+            "migrations": [],
+            "diagnosis": {
+                "stalestReplica": stalest,
+                "hottestWorker": (
+                    max(sorted(rtts), key=lambda u: rtts[u])
+                    if rtts
+                    else None
+                ),
+                "divergentDatasets": divergent,
+                "unreachableWorkers": sorted(
+                    u for u, w in workers.items() if not w["reachable"]
+                ),
+                "stuckMigration": None,
+                "worstCompilingReplica": worst_compiling,
+            },
+        }
+
+
+class DistributedEngine:
+    """Coordinator: the ``VariantEngine`` interface over remote workers
+    (and an optional local engine for locally resident shards).
+
+    Dataset routing is discovered from each worker's ``/datasets`` and
+    refreshed on demand. A dataset served by several workers keeps its
+    FULL replica list (fingerprint-checked): a :class:`ReplicaRouter`
+    picks among live replicas by power-of-two-choices over recent RTTs,
+    ``search`` fails over to the next replica when a worker errors or
+    its circuit is open, and slow primaries are hedged by a second
+    replica after the hedge delay. When no replica of a dataset is
+    reachable the search degrades to partial results
+    (``resilience.partial_results``), and a background rediscovery loop
+    heals routes. A failure on the coordinator's own side (its local
+    engine, its mesh tier) raises on the request.
+    """
+
+    #: background rediscovery cadence once a route failure armed the
+    #: healing loop (it exits when every configured worker answers)
+    REDISCOVERY_INTERVAL_S = 2.0
+
+    def __init__(
+        self,
+        worker_urls: list[str],
+        *,
+        local=None,
+        config=None,
+        timeout_s: float = 600.0,
+        retries: int = 2,
+        max_threads: int = 64,
+        post=None,
+        get=None,
+        token: str = "",
+        breaker: CircuitBreaker | None = None,
+        transport: PooledTransport | None = None,
+    ):
+        from ..config import BeaconConfig
+
+        # full VariantEngine interface: the API layer reads engine.config
+        self.config = config or (
+            local.config if local is not None else BeaconConfig()
+        )
+        self.worker_urls = list(worker_urls)
+        self.local = local
+        self.timeout_s = timeout_s
+        self.retries = retries
+        self.max_threads = max_threads
+        tcfg = self.config.transport
+        self.transport_config = tcfg
+        # default data plane: the pooled keep-alive transport (one
+        # instance per engine — connections die with close()); injected
+        # post/get callables take precedence
+        self._owns_transport = False
+        if (post is None or get is None) and transport is None:
+            transport = PooledTransport.from_config(tcfg)
+            self._owns_transport = True
+        self.transport = transport
+        self._post = post if post is not None else transport.post_json
+        self._get = get if get is not None else transport.get_json
+        # a bytes-capable transport receives the payload's serialized
+        # JSON verbatim (no dict round-trip on the hot path)
+        self._post_bytes_ok = bool(
+            getattr(self._post, "accepts_bytes", False)
+        )
+        self._short_circuits = 0
+        self._sc_lock = threading.Lock()
+        # does the (possibly injected) transport accept a 4th headers
+        # arg? Decided once here, not per call
+        import inspect
+
+        try:
+            params = inspect.signature(self._post).parameters
+            self._post_takes_headers = len(params) >= 4 or any(
+                p.kind == inspect.Parameter.VAR_POSITIONAL
+                or p.kind == inspect.Parameter.VAR_KEYWORD
+                for p in params.values()
+            )
+        except (TypeError, ValueError):  # builtins/C callables
+            self._post_takes_headers = True
+        self._token = token or self.config.auth.worker_token
+        # per-worker circuit breaker: consecutive /search failures open
+        # the route, calls fast-fail instead of eating the full timeout
+        # each, and a half-open probe readmits the worker
+        res = self.config.resilience
+        self.breaker = breaker or CircuitBreaker(
+            failure_threshold=res.breaker_failure_threshold,
+            reset_timeout_s=res.breaker_reset_s,
+            half_open_probes=res.breaker_half_open_probes,
+        )
+        self._routes_lock = threading.Lock()
+        self._discovered = False  # a discovery pass has published
+        self._fingerprints: dict[str, str] = {}
+        # per-worker last-known /datasets contribution + who answered
+        # the most recent pass (the rediscovery loop's healed signal)
+        self._last_seen: dict[str, list[tuple[str, str]]] = {}
+        self._reachable: set[str] = set()
+        self._retention_warned: set[str] = set()
+        # monotonic stamp of the last completed discovery pass
+        self._last_publish_mono: float | None = None
+        # every /search routing decision goes through router.pick —
+        # never by indexing a routes dict
+        self.router = ReplicaRouter(self.breaker)
+        self._failovers = 0
+        self._partials = 0
+        self._rediscoveries = 0
+        self._closed = threading.Event()
+        self._rediscover_thread: threading.Thread | None = None
+        self._hedge_exec: ThreadPoolExecutor | None = None
+        # persistent scatter pool (no per-search thread churn)
+        self._pool = ThreadPoolExecutor(
+            max_workers=max_threads, thread_name_prefix="dispatch"
+        )
+        # the pod tier, consulted per query for the local datasets;
+        # cheap to construct (its stack builds on first use or warmup).
+        # Built over an engine that can stack its shards
+        self.mesh_tier: MeshDispatchTier | None = None
+        if (local is not None and self.config.engine.mesh_dispatch
+                and hasattr(local, "index_snapshot")):
+            self.mesh_tier = MeshDispatchTier(
+                local, min_shards=self.config.engine.mesh_min_shards
+            )
+        # the /fleet/status digest view: polled only when read
+        self.fleet = FleetView(
+            self,
+            interval_s=self.config.observability.fleet_digest_interval_s,
+        )
+        # per-worker in-flight /search legs (guarded by _sc_lock)
+        self._inflight: dict[str, int] = {}
+
+    # headers are passed only when there is something to carry (a
+    # configured token, an ambient trace id) AND the transport's
+    # signature accepts them; a token with a 3-arg transport still
+    # passes headers (a loud TypeError beats unauthenticated calls)
+    def _post_auth(self, url: str, doc, timeout_s: float):
+        headers: dict = {}
+        if self._token:
+            headers["Authorization"] = f"Bearer {self._token}"
+        ctx = current_context()
+        if ctx is not None and self._post_takes_headers:
+            # every coordinator->worker hop carries the request's trace
+            # id so worker-side spans share it
+            headers[TRACE_HEADER] = ctx.trace_id
+        if headers:
+            return self._post(url, doc, timeout_s, headers)
+        return self._post(url, doc, timeout_s)
+
+    def _get_auth(self, url: str, timeout_s: float):
+        if self._token:
+            return self._get(
+                url, timeout_s, {"Authorization": f"Bearer {self._token}"}
+            )
+        return self._get(url, timeout_s)
+
+    def warmup(self) -> int:
+        """Build and launch the local engine's kernels and the tier's
+        (remote workers warm their own at their server start); returns
+        the launch count."""
+        warm = getattr(self.local, "warmup", None)
+        n = warm() if warm else 0
+        if self.mesh_tier is not None:
+            n += self.mesh_tier.warmup()
+        return n
+
+    def register_metrics(self, registry) -> None:
+        """Coordinator telemetry: per-worker breaker series, the data
+        plane's transport series and the fan-out counters, plus the
+        local engine's instruments when one is wired."""
+        register_breaker_metrics(registry, lambda: self.breaker)
+        register_transport_metrics(registry)
+        register_dispatch_metrics(registry, self.dispatch_stats)
+        reg = getattr(self.local, "register_metrics", None)
+        if reg is not None:
+            reg(registry)
+
+    @property
+    def short_circuits(self) -> int:
+        """Boolean fan-outs answered before the full worker drain."""
+        with self._sc_lock:
+            return self._short_circuits
+
+    def dispatch_stats(self) -> dict:
+        """The fan-out counters behind the ``dispatch.*`` /
+        ``routing.*`` / ``mesh.*`` / ``fleet.*`` series."""
+        mesh = (
+            self.mesh_tier.stats() if self.mesh_tier is not None else {}
+        )
+        fleet = self.fleet.stats()
+        with self._sc_lock:
+            return {
+                "short_circuits": self._short_circuits,
+                "failovers": self._failovers,
+                "partial_responses": self._partials,
+                "rediscoveries": self._rediscoveries,
+                "replicas": self.router.replica_count(),
+                "mesh_dispatches": mesh.get("dispatches", 0),
+                "mesh_gather_rows": mesh.get("gather_rows", 0),
+                "mesh_refusals": mesh.get("refusals", {}),
+                "fleet_polls": fleet.get("polls", 0),
+                "fleet_reachable": fleet.get("reachable", 0),
+                "fleet_divergent": fleet.get("divergent", 0),
+            }
+
+    def route_table_age_s(self) -> float | None:
+        """Seconds since the last completed discovery pass published the
+        replica table (None before the first)."""
+        with self._routes_lock:
+            t = self._last_publish_mono
+        return None if t is None else time.monotonic() - t
+
+    def worker_stats(self) -> dict[str, dict]:
+        """Per-worker health rollup for ``/debug/status``: breaker
+        state, recent median RTT, and whether the latest discovery pass
+        reached it. Local state only — never a worker call."""
+        with self._routes_lock:
+            reachable = set(self._reachable)
+        return {
+            url: {
+                "state": self.breaker.state(url),
+                "medianRttMs": self.router.median_rtt_ms(url),
+                "reachable": url in reachable,
+            }
+            for url in self.worker_urls
+        }
+
+    def unavailable_datasets(self) -> list[str]:
+        """Datasets in the route table with no live replica (every
+        copy's circuit open) — served as partial results until the
+        rediscovery loop heals a route. Local state only, so ``/ready``
+        reports it without a worker round-trip."""
+        return sorted(
+            ds
+            for ds, urls in self.router.table().items()
+            if urls and not any(self.router.live(u) for u in urls)
+        )
+
+    def close(self) -> None:
+        """Release the scatter/hedge pools, stop the rediscovery loop,
+        close the tier and drop the pooled worker connections. The
+        local engine is the caller's and stays open."""
+        self._closed.set()
+        if self.mesh_tier is not None:
+            self.mesh_tier.close()
+        self._pool.shutdown(wait=False, cancel_futures=True)
+        # under _sc_lock, paired with _hedge_pool's closed check: a
+        # hedge executor created concurrently with close() must not
+        # escape shutdown
+        with self._sc_lock:
+            hedge, self._hedge_exec = self._hedge_exec, None
+        if hedge is not None:
+            hedge.shutdown(wait=False, cancel_futures=True)
+        if self._owns_transport and self.transport is not None:
+            self.transport.close()
+
+    def __enter__(self) -> "DistributedEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # -- discovery ----------------------------------------------------------
+
+    @staticmethod
+    def _group_replicas(ds: str, entries: list[tuple[str, str]]) -> tuple:
+        """The replica urls for one dataset, grouped by per-dataset
+        fingerprint: identical shard copies are interchangeable, and so
+        are **tail-superset** copies (same base artifacts, delta tails
+        forming a subset chain — a replica mid-rolling-ingest is a
+        FRESHER copy, not a divergence loser). On a real mismatch the
+        newest copy wins (row-count freshness) and the stale workers are
+        excluded from this dataset's routes: failover to a divergent
+        copy would silently change the answer mid-request."""
+        by_fp: dict[str, list[str]] = {}
+        for url, fp in entries:
+            by_fp.setdefault(fp, []).append(url)
+        if len(by_fp) == 1:
+            return tuple(next(iter(by_fp.values())))
+        parts = {fp: _fingerprint_parts(fp) for fp in by_fp}
+        if all(p is not None for p in parts.values()):
+            bases = {p[0] for p in parts.values()}
+            tails = sorted((p[1] for p in parts.values()), key=len)
+            chain = all(a <= b for a, b in zip(tails, tails[1:]))
+            if len(bases) == 1 and chain:
+                # every copy is routable; deepest tail first so the
+                # primary view (routes()[ds] = urls[0]) is the freshest
+                ordered = sorted(
+                    by_fp,
+                    key=lambda fp: (_fingerprint_freshness(fp), fp),
+                    reverse=True,
+                )
+                publish_event(
+                    "routing.tail_superset",
+                    dataset=ds,
+                    copies=len(by_fp),
+                    replicas=sum(len(u) for u in by_fp.values()),
+                )
+                return tuple(
+                    u for fp in ordered for u in sorted(by_fp[fp])
+                )
+        win = max(by_fp, key=lambda fp: (_fingerprint_freshness(fp), fp))
+        losers = sorted(
+            u for fp, urls in by_fp.items() if fp != win for u in urls
+        )
+        log.warning(
+            "dataset %s: divergent index copies across workers — routing "
+            "to the newest copy on %s, excluding stale %s (re-ingest or "
+            "POST /reload the excluded workers)",
+            ds,
+            sorted(by_fp[win]),
+            losers,
+        )
+        return tuple(by_fp[win])
+
+    def _discover(self) -> dict[str, tuple[str, ...]]:
+        found: dict[str, list[tuple[str, str]]] = {}  # url -> [(ds, fp)]
+        fps: dict[str, str] = {}
+        with self._routes_lock:
+            urls = list(self.worker_urls)
+        for url in urls:
+            try:
+                status, doc = self._get_auth(f"{url}/datasets", self.timeout_s)
+            except urllib.error.HTTPError as e:
+                if e.code in (401, 403):
+                    # an auth failure must not masquerade as a network
+                    # problem
+                    log.error(
+                        "worker %s rejected coordinator credentials "
+                        "(http %s): check BEACON_WORKER_TOKEN / --token",
+                        url,
+                        e.code,
+                    )
+                else:
+                    log.warning("worker %s unreachable: %s", url, e)
+                continue
+            except Exception as e:
+                log.warning("worker %s unreachable: %s", url, e)
+                continue
+            if status in (401, 403):
+                log.error(
+                    "worker %s rejected coordinator credentials (http %s): "
+                    "check BEACON_WORKER_TOKEN / --token",
+                    url,
+                    status,
+                )
+                continue
+            if status != 200:
+                continue
+            fps[url] = doc.get("fingerprint", "")
+            # answering discovery REVIVES an open/half-open route, but
+            # must NOT touch a CLOSED circuit's failure count: /datasets
+            # answering says nothing about /search health
+            if self.breaker.state(url) != CLOSED:
+                self.breaker.record_success(url)
+            ds_fps = doc.get("dataset_fingerprints") or {}
+            found[url] = [
+                (ds, str(ds_fps.get(ds, fps[url])))
+                for ds in doc.get("datasets", [])
+            ]
+        with self._routes_lock:
+            # per-worker retention: a worker that ANSWERED owns its
+            # route contribution outright; a worker that did NOT answer
+            # keeps its last-known-good contribution, so its datasets
+            # keep degrading to MARKED partial results
+            merged: dict[str, list[tuple[str, str]]] = {}
+            for url in self.worker_urls:
+                per = found.get(url)
+                if per is None:
+                    per = self._last_seen.get(url, [])
+                    # warn ONCE per outage, not once per pass
+                    if per and url not in self._retention_warned:
+                        self._retention_warned.add(url)
+                        log.warning(
+                            "worker %s unreachable during discovery; "
+                            "keeping its last-known-good routes "
+                            "(%d dataset(s), may be stale) until it "
+                            "answers",
+                            url,
+                            len(per),
+                        )
+                else:
+                    self._retention_warned.discard(url)
+                for ds, fp in per:
+                    merged.setdefault(ds, []).append((url, fp))
+            table = {
+                ds: self._group_replicas(ds, entries)
+                for ds, entries in merged.items()
+            }
+            self._discovered = True
+            self._last_seen.update(found)
+            self._reachable = set(found)
+            # last-known fingerprints are kept for unreachable workers
+            # too: the aggregate index identity (cache keys) must not
+            # flap with reachability
+            self._fingerprints.update(fps)
+            self._last_publish_mono = time.monotonic()
+            self.router.publish(table)
+        # the router's view: publish() filters retired pairs
+        return self.router.table()
+
+    def replica_table(
+        self, refresh: bool = False
+    ) -> dict[str, tuple[str, ...]]:
+        """dataset -> replica urls, discovering on first use."""
+        with self._routes_lock:
+            discovered = self._discovered
+        if not discovered or refresh:
+            return self._discover()
+        return self.router.table()
+
+    def routes(self, refresh: bool = False) -> dict[str, str]:
+        """dataset -> primary worker url (a view of the replica table;
+        routing decisions go through the router)."""
+        return {
+            ds: urls[0]
+            for ds, urls in self.replica_table(refresh).items()
+            if urls
+        }
+
+    # -- fleet membership ---------------------------------------------------
+
+    def add_worker(self, url: str) -> bool:
+        """Admit ``url`` to the fleet and run a discovery pass so its
+        datasets enter the routing table. False when already a member."""
+        with self._routes_lock:
+            if url in self.worker_urls:
+                return False
+            self.worker_urls.append(url)
+        self._discover()
+        return True
+
+    def remove_worker(self, url: str) -> bool:
+        """Drop ``url`` from the fleet and republish routes without its
+        contribution (its last-known-good retention included)."""
+        with self._routes_lock:
+            if url not in self.worker_urls:
+                return False
+            self.worker_urls.remove(url)
+            self._last_seen.pop(url, None)
+            self._fingerprints.pop(url, None)
+            self._reachable.discard(url)
+            self._retention_warned.discard(url)
+        self._discover()
+        return True
+
+    def inflight(self, url: str) -> int:
+        """In-flight /search legs against ``url`` right now."""
+        with self._sc_lock:
+            return self._inflight.get(url, 0)
+
+    # -- background rediscovery --------------------------------------------
+
+    def _nudge_rediscovery(self) -> None:
+        """Arm the healing loop (a worker failure or an open breaker saw
+        a dead route): one daemon thread re-runs discovery until every
+        configured worker answers again. Idempotent while a loop runs."""
+        if self._closed.is_set():
+            return
+        with self._routes_lock:
+            t = self._rediscover_thread
+            if t is not None and t.is_alive():
+                return
+            t = threading.Thread(
+                target=self._rediscover_loop,
+                daemon=True,
+                name="dispatch-rediscovery",
+            )
+            self._rediscover_thread = t
+        t.start()
+
+    def _rediscover_loop(self) -> None:
+        delay = self.REDISCOVERY_INTERVAL_S
+        while not self._closed.wait(delay):
+            # a permanently gone worker must not spin full-rate
+            # discovery forever: back off toward a slow steady probe
+            delay = min(delay * 2, max(30.0, self.REDISCOVERY_INTERVAL_S))
+            try:
+                self._discover()
+            except Exception:
+                log.exception("route rediscovery pass failed")
+            with self._sc_lock:
+                self._rediscoveries += 1
+            with self._routes_lock:
+                # healed = every configured worker ANSWERED the latest
+                # pass (not merely has a retained fingerprint)
+                reachable = len(self._reachable)
+                healed = all(
+                    url in self._reachable for url in self.worker_urls
+                )
+            publish_event(
+                "routing.rediscovery",
+                healed=healed,
+                reachable=reachable,
+                workers=len(self.worker_urls),
+            )
+            if healed:
+                return
+
+    def datasets(self) -> list[str]:
+        out = set(self.routes())
+        if self.local is not None:
+            out |= set(self.local.datasets())
+        return sorted(out)
+
+    def index_fingerprint(self) -> str:
+        self.routes()
+        with self._routes_lock:
+            parts = [
+                f"{url}={fp}"
+                for url, fp in sorted(self._fingerprints.items())
+            ]
+        if self.local is not None:
+            parts.append(f"local={self.local.index_fingerprint()}")
+        return "&&".join(parts)
+
+    # -- query path ---------------------------------------------------------
+
+    def _call_worker(self, url: str, payload: VariantQueryPayload,
+                     deadline=None, ctx=None):
+        # the request context rides in explicitly like the deadline
+        # (pool thread: the submitting request's thread-locals are not
+        # visible) and is re-installed so the trace header and outcome
+        # notes work from here down
+        with request_context(ctx if ctx is not None else current_context()):
+            return self._call_worker_traced(url, payload, deadline)
+
+    def call_replica(
+        self, url: str, payload: VariantQueryPayload
+    ) -> list[VariantSearchResponse]:
+        """One direct ``/search`` against a SPECIFIC replica — no
+        failover, no hedging, no routing: the canary prober's
+        per-replica probe. Probe RTTs do NOT feed the router's rings
+        (sub-millisecond probes would drag the adaptive hedge delay to
+        probe scale on an idle fleet)."""
+        return self._call_worker_traced(url, payload, note_rtt=False)
+
+    def _call_worker_traced(self, url: str, payload: VariantQueryPayload,
+                            deadline=None, *, note_rtt: bool = True):
+        # in-flight leg accounting brackets the WHOLE leg (retries
+        # included)
+        with self._sc_lock:
+            self._inflight[url] = self._inflight.get(url, 0) + 1
+        try:
+            return self._call_worker_leg(
+                url, payload, deadline, note_rtt=note_rtt
+            )
+        finally:
+            with self._sc_lock:
+                n = self._inflight.get(url, 0) - 1
+                if n <= 0:
+                    self._inflight.pop(url, None)
+                else:
+                    self._inflight[url] = n
+
+    def _call_worker_leg(self, url: str, payload: VariantQueryPayload,
+                         deadline=None, *, note_rtt: bool = True):
+        if not self.breaker.allow(url):
+            # fast-fail: the route failed repeatedly and its reset
+            # window hasn't lapsed. An open route also arms the
+            # rediscovery loop (the worker may have restarted)
+            annotate(breaker="open")
+            plan_stage(
+                "worker",
+                decision="fast_fail",
+                reason="breaker_open",
+                worker=url,
+            )
+            self._nudge_rediscovery()
+            raise CircuitOpen(f"worker {url}: circuit open")
+        # serialize ONCE: the pooled transport ships these bytes
+        # verbatim; injected dict-contract transports still get a dict
+        doc = (
+            payload.dumps().encode()
+            if self._post_bytes_ok
+            else json.loads(payload.dumps())
+        )
+        # the request deadline is passed EXPLICITLY by search(): this
+        # runs on a pool thread
+        if deadline is None:
+            deadline = current_deadline()
+        last = None
+        # one span per worker leg: on success the worker's span summary
+        # grafts in as child spans
+        with span("dispatch.worker_call", url=url) as wsp:
+            for attempt in range(self.retries + 1):
+                timeout_s = deadline.clamp(self.timeout_s)
+                if timeout_s is not None and timeout_s <= 0:
+                    deadline.check(f"worker {url} call")
+                t0 = time.perf_counter()
+                try:
+                    fault_point("worker.http", url)
+                    status, out = self._post_auth(
+                        f"{url}/search", doc, timeout_s
+                    )
+                except Exception as e:
+                    last = WorkerError(f"{url}: {e}")
+                else:
+                    if status == 200:
+                        # successful RTTs feed the router's p2c
+                        # comparison, the adaptive hedge delay and the
+                        # request's cost vector
+                        rtt_s = time.perf_counter() - t0
+                        if note_rtt:
+                            self.router.note_rtt(url, rtt_s)
+                        charge_cost(worker_rtt_ms=rtt_s * 1e3)
+                        self.breaker.record_success(url)
+                        _graft_worker_spans(
+                            wsp, url, out.get("meta"), rtt_s
+                        )
+                        return [
+                            VariantSearchResponse(**r)
+                            for r in out.get("responses", [])
+                        ]
+                    last = WorkerError(
+                        f"{url}: http {status}: {out.get('error')}"
+                    )
+                if attempt < self.retries:  # no dead sleep after final try
+                    time.sleep(min(0.05 * (attempt + 1), 1.0))
+        if deadline.expired():
+            # the REQUEST ran out of time, not the worker out of
+            # health: a deadline-clamped timeout must not count against
+            # the route
+            raise DeadlineExceeded(
+                f"worker {url}: request deadline expired"
+            ) from last
+        self.breaker.record_failure(url)
+        self._nudge_rediscovery()
+        raise last
+
+    # -- replica hedging + failover ----------------------------------------
+
+    def _hedge_pool(self) -> ThreadPoolExecutor:
+        with self._sc_lock:
+            if self._hedge_exec is None:
+                if self._closed.is_set():
+                    # a leg draining through close() must not create an
+                    # executor nothing will ever shut down
+                    raise WorkerError("engine closed")
+                # every multi-replica leg's PRIMARY rides this pool when
+                # hedging is armed, so it must never cap fan-out below
+                # the scatter pool
+                self._hedge_exec = ThreadPoolExecutor(
+                    max_workers=max(8, 2 * self.max_threads),
+                    thread_name_prefix="dispatch-hedge",
+                )
+            return self._hedge_exec
+
+    def _hedge_candidate(
+        self, ds_list: list[str], avoid: set[str]
+    ) -> str | None:
+        """A live replica (other than ``avoid``) serving EVERY dataset
+        in the group, fastest first, or None (single-replica fleets
+        never hedge)."""
+        common: set[str] | None = None
+        for ds in ds_list:
+            urls = set(self.router.replicas(ds))
+            common = urls if common is None else common & urls
+        cands = sorted((common or set()) - avoid)
+        live = [u for u in cands if self.router.live(u)]
+        if not live:
+            return None
+        return min(live, key=lambda u: self.router._rtt(u) or 0.0)
+
+    def _call_replicas(
+        self, url: str, payload: VariantQueryPayload, deadline, tried: set
+    ) -> list[VariantSearchResponse]:
+        """One replica-hedged /search leg: the primary runs on the hedge
+        pool; if it has not answered within the hedge delay, the same
+        sub-query races on a second replica and the first success wins.
+        /search is an idempotent read, so the loser's duplicate only
+        costs its CPU. The hedge only fires once the primary actually
+        STARTED. A hedge target that also failed is added to ``tried``
+        so failover does not re-try it."""
+        delay = None
+        if self.transport_config.replica_hedge:
+            delay = self.router.hedge_delay(
+                self.transport_config.hedge_delay_s
+            )
+        other = (
+            self._hedge_candidate(payload.dataset_ids or [], {url} | tried)
+            if delay is not None
+            else None
+        )
+        if delay is None or other is None:
+            return self._call_worker_traced(url, payload, deadline)
+        pool = self._hedge_pool()
+        ctx = current_context()
+        started = threading.Event()
+
+        def primary():
+            started.set()
+            return self._call_worker(url, payload, deadline, ctx)
+
+        futs = {pool.submit(primary): url}
+        done, _pending = futures_mod.wait(futs, timeout=delay)
+        if not done and started.is_set():
+            note_hedge()  # process-wide transport.hedges counter
+            annotate(replica_hedge=True)
+            plan_stage(
+                "worker", decision="hedged", primary=url, hedge=other
+            )
+            publish_event("dispatch.hedge", primary=url, hedge=other)
+            futs[
+                pool.submit(self._call_worker, other, payload, deadline, ctx)
+            ] = other
+        pending = set(futs)
+        last: Exception | None = None
+        while pending:
+            done, pending = futures_mod.wait(
+                pending, return_when=futures_mod.FIRST_COMPLETED
+            )
+            for f in done:
+                u = futs[f]
+                try:
+                    out = f.result()
+                except Exception as e:
+                    last = e
+                    if u != url:
+                        tried.add(u)
+                    continue
+                if u != url:  # the hedge answered first
+                    publish_event(
+                        "dispatch.hedge_won", winner=u, primary=url
+                    )
+                return out
+        raise last
+
+    def _search_group(
+        self, url, ds_list, payload: VariantQueryPayload, deadline, ctx
+    ):
+        # like _call_worker: the request context rides in explicitly
+        with request_context(ctx if ctx is not None else current_context()):
+            return self._search_group_traced(url, ds_list, payload, deadline)
+
+    def _search_group_traced(
+        self, url: str, ds_list: list[str], payload, deadline
+    ) -> tuple[list[VariantSearchResponse], list[str], Exception | None]:
+        """One scatter leg with automatic failover: the group's primary
+        is tried first (hedged); on a worker error or open circuit each
+        dataset re-routes to its next untried replica — never the same
+        copy twice — until ``resilience.failover_retries`` extra
+        replicas have been spent or the replica set is exhausted.
+        Returns ``(responses, failed_datasets, first_error)``; only a
+        deadline expiry raises (no time left to fail over)."""
+        max_extra = self.config.resilience.failover_retries
+        responses: list[VariantSearchResponse] = []
+        failed: list[str] = []
+        first_err: Exception | None = None
+        work = [(url, list(ds_list), {url})]
+        while work:
+            u, dss, tried = work.pop()
+            sub = dataclasses.replace(payload, dataset_ids=dss)
+            try:
+                responses.extend(
+                    self._call_replicas(u, sub, deadline, tried)
+                )
+                continue
+            except DeadlineExceeded:
+                raise  # the request is out of time — no failover
+            except (WorkerError, CircuitOpen) as e:
+                if first_err is None:
+                    first_err = e
+            if len(tried) > max_extra:
+                # primary + max_extra replicas all failed: give these
+                # datasets up to the partial-results path
+                failed.extend(dss)
+                continue
+            regroup: dict[str, list[str]] = {}
+            for ds in dss:
+                nxt = self.router.pick(ds, avoid=tried)
+                if nxt is None:
+                    failed.append(ds)
+                else:
+                    regroup.setdefault(nxt, []).append(ds)
+            for nu, nds in sorted(regroup.items()):
+                with self._sc_lock:
+                    self._failovers += 1
+                annotate(failover=True)
+                plan_stage(
+                    "worker",
+                    decision="failover",
+                    failed=u,
+                    to=nu,
+                    datasets=len(nds),
+                )
+                publish_event(
+                    "dispatch.failover",
+                    failed=u,
+                    to=nu,
+                    datasets=len(nds),
+                )
+                work.append((nu, nds, tried | {nu}))
+        return responses, failed, first_err
+
+    @staticmethod
+    def _drain(futures, deadline) -> None:
+        """Wait for every worker future to settle (deadline-bounded),
+        discarding its outcome: a coordinator-side failure is about to
+        raise, and no pool task may be left stranded behind it."""
+        pending = set(futures)
+        while pending:
+            done, pending = futures_mod.wait(
+                pending,
+                timeout=deadline.remaining(),
+                return_when=futures_mod.ALL_COMPLETED,
+            )
+            if not done:  # deadline expired: leave them on the pool
+                return
+
+    def search(
+        self, payload: VariantQueryPayload
+    ) -> list[VariantSearchResponse]:
+        with span("dispatch.search") as sp:
+            current_deadline().check("dispatch.search")
+            table = self.replica_table()
+            wanted = payload.dataset_ids or self.datasets()
+            local_ds = (
+                set(self.local.datasets()) if self.local is not None else set()
+            )
+            if any(ds not in local_ds and ds not in table for ds in wanted):
+                # an explicitly requested dataset may have been ingested
+                # after the last discovery: refresh once before treating
+                # it as unknown
+                table = self.replica_table(refresh=True)
+            # the pod tier's consult for the local datasets; it raises
+            # on a failed build (a coordinator-side failure)
+            tier = self.mesh_tier
+            mesh_ds: set = set()
+            if tier is not None:
+                mesh_ds = tier.resolve(
+                    [ds for ds in wanted if ds in local_ds], payload
+                )
+            by_worker: dict[str, list[str]] = {}
+            local_wanted: list[str] = []
+            for ds in wanted:
+                if ds in mesh_ds:
+                    continue
+                if ds in local_ds:
+                    local_wanted.append(ds)
+                elif ds in table:
+                    # p2c primary pick; failover inside the group leg
+                    # walks the remaining replicas
+                    primary = self.router.pick(ds)
+                    if primary is not None:
+                        by_worker.setdefault(primary, []).append(ds)
+                # still-unknown datasets are skipped, like unmatched
+                # chromosomes
+
+            tasks = sorted(by_worker.items())
+            # a boolean-granularity fan-out with no resultset detail
+            # requested is a logical OR: the first hit anywhere decides
+            # the answer, so the rest of the scatter is abandoned
+            short_circuit_ok = (
+                payload.requested_granularity == "boolean"
+                and payload.include_datasets == "NONE"
+                and self.transport_config.bool_short_circuit
+            )
+            short_circuited = False
+            responses: list[VariantSearchResponse] = []
+            unavailable: list[str] = []
+            group_err: Exception | None = None
+            deadline = current_deadline()
+            ctx = current_context()
+            futures = {
+                self._pool.submit(
+                    self._search_group, url, ds_list, payload,
+                    deadline, ctx,
+                ): url
+                for url, ds_list in tasks
+            }
+            # which tier is serving this query (the slow-query log's
+            # dispatch attribution)
+            if mesh_ds:
+                tier_label = (
+                    "mesh" if not (tasks or local_wanted) else "mixed"
+                )
+                annotate(dispatch_tier=tier_label)
+                plan_stage(
+                    "tier",
+                    decision=tier_label,
+                    mesh_datasets=len(mesh_ds),
+                    worker_groups=len(tasks),
+                )
+            elif tasks:
+                annotate(dispatch_tier="http")
+                plan_stage(
+                    "tier", decision="http", worker_groups=len(tasks)
+                )
+            elif local_wanted:
+                annotate(dispatch_tier="local")
+                plan_stage("tier", decision="local")
+            # the coordinator's own legs run on this thread while the
+            # workers answer: the tier's one launch, then the local
+            # engine. Either one's failure raises once every worker
+            # future has settled
+            try:
+                if mesh_ds:
+                    responses.extend(tier.search(payload, mesh_ds))
+                if local_wanted:
+                    responses.extend(
+                        self.local.search(
+                            dataclasses.replace(
+                                payload, dataset_ids=local_wanted
+                            )
+                        )
+                    )
+            except BaseException:
+                self._drain(futures, deadline)
+                raise
+            first_err: BaseException | None = None
+            pending = set(futures)
+            # hit_seen is order-independent: once ANY leg of a boolean
+            # OR reports a hit, the aggregate answer is decided — a
+            # worker's error cannot change it
+            hit_seen = short_circuit_ok and any(
+                r.exists for r in responses
+            )
+            if not hit_seen:
+                # fan-in consumes futures AS COMPLETED (a hit can
+                # short-circuit) but settles every one before raising.
+                # The drain is deadline-bounded: on expiry the caller
+                # gets DeadlineExceeded now
+                while pending:
+                    done, pending = futures_mod.wait(
+                        pending,
+                        timeout=deadline.remaining(),
+                        return_when=futures_mod.FIRST_COMPLETED,
+                    )
+                    if not done:  # deadline expired mid-drain
+                        if first_err is None:
+                            first_err = DeadlineExceeded(
+                                "worker fan-in: deadline exceeded"
+                            )
+                        break
+                    for f in done:
+                        try:
+                            out, failed, gerr = f.result()
+                        except (
+                            Exception,
+                            futures_mod.CancelledError,
+                        ) as e:
+                            # CancelledError (close() mid-search) is a
+                            # BaseException: it must not abort the drain
+                            if first_err is None:
+                                first_err = e
+                        else:
+                            responses.extend(out)
+                            if failed:
+                                # this group exhausted its replicas for
+                                # these datasets: partial results, not
+                                # an immediate failure
+                                unavailable.extend(failed)
+                                if group_err is None:
+                                    group_err = gerr
+                            if short_circuit_ok and any(
+                                r.exists for r in out
+                            ):
+                                hit_seen = True
+                    if hit_seen:
+                        break
+            if hit_seen:
+                if pending:
+                    # abandon the rest of the scatter: queued futures
+                    # are cancelled, in-flight ones finish on the pool
+                    # and are ignored. The counter only ticks when a
+                    # drain was actually cut short
+                    for f in pending:
+                        f.cancel()
+                    short_circuited = True
+                    with self._sc_lock:
+                        self._short_circuits += 1
+                    annotate(short_circuit=True)
+            elif first_err is not None:
+                # a deadline expiry or a cancelled drain is a real
+                # failure — partial results only cover unreachable
+                # replicas
+                raise first_err
+            elif unavailable:
+                unavailable = sorted(set(unavailable))
+                self._nudge_rediscovery()
+                if not self.config.resilience.partial_results:
+                    raise group_err or WorkerError(
+                        "no reachable replica for dataset(s): "
+                        + ", ".join(unavailable)
+                    )
+                # graceful degradation: answer with the datasets that
+                # responded and name the unreachable ones — the API
+                # layer stamps meta.unavailableDatasets and a warning
+                with self._sc_lock:
+                    self._partials += 1
+                annotate(unavailable_datasets=tuple(unavailable))
+                plan_stage(
+                    "fallback",
+                    decision="partial",
+                    reason="no_replica",
+                    datasets=len(unavailable),
+                )
+                publish_event(
+                    "dispatch.partial", datasets=list(unavailable)
+                )
+                log.warning(
+                    "partial results: no reachable replica for %s (%s)",
+                    unavailable,
+                    group_err,
+                )
+            responses.sort(key=lambda r: (r.dataset_id, r.vcf_location))
+            sp.note(
+                workers=len(tasks),
+                responses=len(responses),
+                short_circuit=short_circuited,
+                unavailable=len(unavailable),
+            )
+        return responses
+
+
+def main(argv: list[str] | None = None) -> None:
+    """``python -m sbeacon_tpu_torch.parallel.dispatch`` — one worker
+    host: load the data root's index shards on ``--device`` (the card by
+    default), build and warm every kernel, and serve the worker
+    protocol."""
+    import argparse
+
+    from ..config import BeaconConfig
+    from ..engine import VariantEngine
+    from ..harness.faults import install_from_env
+    from ..ingest import IngestService
+
+    p = argparse.ArgumentParser(description="beacon query worker host "
+                                            "(PyTorch/CUDA)")
+    # loopback by default: workers serve all genomic data unauthenticated
+    # unless --token/BEACON_WORKER_TOKEN is set, so exposure beyond the
+    # host must be an explicit choice (--host 0.0.0.0 on a private net)
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=5100)
+    p.add_argument(
+        "--data-root",
+        default=None,
+        help="storage root (default: BEACON_DATA_ROOT or ./beacon_data)",
+    )
+    p.add_argument(
+        "--token",
+        default=None,
+        help="shared bearer token required on every route but /health "
+        "(default: BEACON_WORKER_TOKEN env)",
+    )
+    p.add_argument(
+        "--device",
+        default="cuda",
+        help="torch device the engine serves on (default: cuda)",
+    )
+    args = p.parse_args(argv)
+
+    config = BeaconConfig.from_env(args.data_root)
+    # worker-side chaos: BEACON_FAULT_PLAN arms seeded fault injection
+    install_from_env()
+    token = args.token if args.token is not None else config.auth.worker_token
+    engine = VariantEngine(config, device=args.device)
+    service = IngestService(config, engine=engine)
+    try:
+        n = service.load_all()
+        # build every kernel and launch each dispatchable shape once, so
+        # no request pays a first build
+        n_warm = engine.warmup()
+        # bound before the serving line, so the line means "accepting"
+        worker = WorkerServer(
+            engine,
+            host=args.host,
+            port=args.port,
+            token=token,
+            reload_fn=service.load_all,
+        )
+        print(
+            f"worker serving on {args.host}:{args.port} ({n} shards, "
+            f"datasets: {', '.join(engine.datasets()) or 'none'}, "
+            f"device {engine.device}, {n_warm} kernel programs warmed)",
+            flush=True,
+        )
+        try:
+            worker.server.serve_forever()
+        finally:
+            worker.server.server_close()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        service.close()
+        engine.close()
+
+
+if __name__ == "__main__":  # pragma: no cover
+    main()

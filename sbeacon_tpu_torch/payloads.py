@@ -1,10 +1,13 @@
 """Typed query/response contracts.
 
 Counterpart of ``sbeacon_tpu/payloads.py``, trimmed to the variant
-search payload and its per-(dataset, vcf) response (with the response's
-JSON form, in which the query job table stores it). Field names, order
-and defaults are the JAX package's, so ``dataclasses.asdict`` of a
-response compares equal across the two packages.
+search payload (with its wire form, ``payloads.py:58-92`` there: the
+body a fleet coordinator POSTs to a worker's ``/search``) and its
+per-(dataset, vcf) response (with the response's JSON form, in which
+the query job table stores it). Field names, order and defaults are the
+JAX package's, so ``dataclasses.asdict`` of a response compares equal
+across the two packages and either package's worker answers the
+other's coordinator.
 """
 
 from __future__ import annotations
@@ -52,6 +55,32 @@ class VariantQueryPayload:
     def include_details(self) -> bool:
         # reference splitQuery: check_all = include_datasets in (HIT, ALL)
         return self.include_datasets in ("HIT", "ALL")
+
+    def dumps(self) -> str:
+        d = dataclasses.asdict(self)
+        # wire compat: the probe-only flag rides the wire ONLY when set,
+        # so a worker that predates it keeps parsing every other body
+        if not d.get("no_response_cache"):
+            d.pop("no_response_cache", None)
+        return json.dumps(d)
+
+    @staticmethod
+    def from_doc(doc: dict) -> "VariantQueryPayload":
+        """Build from a wire dict, DROPPING unknown keys: a worker keeps
+        answering a coordinator one payload field ahead of it. A
+        non-empty doc with no known field at all is malformed, not
+        newer, and raises."""
+        known = {f.name for f in dataclasses.fields(VariantQueryPayload)}
+        kept = {k: v for k, v in doc.items() if k in known}
+        if doc and not kept:
+            raise ValueError(
+                "payload has no known fields: " + ", ".join(sorted(doc))
+            )
+        return VariantQueryPayload(**kept)
+
+    @staticmethod
+    def loads(s: str) -> "VariantQueryPayload":
+        return VariantQueryPayload.from_doc(json.loads(s))
 
 
 @dataclass

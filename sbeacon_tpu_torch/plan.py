@@ -13,9 +13,11 @@ and reasons this package records), :func:`plan_shape`,
   bounded stage entry to the ambient request's plan
   (``telemetry.RequestContext.plan``): the stage, the decision taken
   and, when a path was refused, why. A no-op off-request, like
-  ``annotate``. The fleet plane's stages (``tier``, ``worker``,
-  ``fallback``) and reasons (``planes_budget``, ``mesh_error``,
-  ``breaker_open``, ``no_replica``) come with it.
+  ``annotate``. The fleet coordinator records ``tier``, ``worker`` and
+  ``fallback`` (reasons ``breaker_open``, ``no_replica``); the JAX
+  package's ``planes_budget`` and ``mesh_error`` have no producer here
+  (the tier's plane budget is checked before its build, and a mesh
+  failure raises instead of falling back).
 - :func:`plan_shape` — the ordered stage/decision fingerprint
   (``admission=interactive>cache=miss>split``): volatile counts and
   details are excluded, so two requests served the same WAY share one
@@ -68,9 +70,12 @@ _DETAIL_STR_CAP = 120
 PLAN_STAGES = frozenset({
     "admission",  # tenant + priority lane classification (api/app.py)
     "cache",      # response-cache outcome + scope (engine.search)
+    "tier",       # fleet dispatch tier chosen: mesh/mixed/http/local
     "mesh",       # mesh-tier consult: served, or refused with reason
     "split",      # per-target split counts across device paths
     "batch",      # microbatch exit: the launch family that served
+    "worker",     # one fleet worker leg: hedge/failover/breaker flags
+    "fallback",   # a worker leg given up: partial results
 })
 
 #: the literal registry of every refusal reason — each names the
@@ -81,6 +86,8 @@ PLAN_REASONS = frozenset({
     "unbuilt",        # mesh stack not built yet (pre-warmup)
     "planes",         # plane-reading shape the mesh stack cannot serve
     "min_shards",     # query spans too few shards to pay the launch
+    "breaker_open",   # worker leg fast-failed on an open circuit
+    "no_replica",     # every replica unreachable: partial results
 })
 
 

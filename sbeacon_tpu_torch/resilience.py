@@ -10,8 +10,10 @@ into every blocking wait of the micro-batcher, which raises
 ``BatchTimeout`` when only the batch timeout did. The admission gate
 (``AdmissionController``, ``register_admission_metrics``,
 ``resilience.py:166-285`` there) bounds the requests in flight at the
-HTTP layer and the query runner's pool. The circuit breaker of the JAX
-module belongs to the fleet plane and is not ported yet.
+HTTP layer and the query runner's pool. The per-key circuit breaker
+(``_Circuit``, ``CircuitBreaker`` with its ``CLOSED``/``OPEN``/
+``HALF_OPEN`` states, and ``register_breaker_metrics``, ``:288-466``)
+gates a fleet coordinator's worker routes.
 
 Stdlib only and importable from any layer.
 """
@@ -264,4 +266,192 @@ def register_admission_metrics(registry, supplier) -> None:
         "admission.shed",
         "requests shed with 429 at the admission gate",
         fn=field("shed"),
+    )
+
+
+# -- circuit breaker ----------------------------------------------------------
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half_open"
+
+
+class _Circuit:
+    __slots__ = ("state", "failures", "opened_at", "probes_left", "opens")
+
+    def __init__(self):
+        self.state = CLOSED
+        self.failures = 0
+        self.opened_at = 0.0
+        self.probes_left = 0
+        self.opens = 0  # lifetime open transitions (observability)
+
+
+class CircuitBreaker:
+    """Per-key consecutive-failure breaker with half-open probing.
+
+    closed --[``failure_threshold`` consecutive failures]--> open
+    open --[``reset_timeout_s`` elapsed]--> half-open
+    half-open: up to ``half_open_probes`` calls pass; one success closes,
+    one failure re-opens (fresh reset window).
+
+    ``allow(key)`` is the call-site gate — it consumes a probe slot in
+    half-open, so call it once per attempted call. Thread-safe; the
+    clock is injectable so tests drive transitions without sleeping.
+    """
+
+    def __init__(
+        self,
+        *,
+        failure_threshold: int = 5,
+        reset_timeout_s: float = 30.0,
+        half_open_probes: int = 1,
+        clock=time.monotonic,
+    ):
+        if failure_threshold < 1:
+            raise ValueError("failure_threshold must be >= 1")
+        self.failure_threshold = failure_threshold
+        self.reset_timeout_s = reset_timeout_s
+        self.half_open_probes = max(1, half_open_probes)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._circuits: dict[str, _Circuit] = {}
+
+    def _get(self, key: str) -> _Circuit:
+        c = self._circuits.get(key)
+        if c is None:
+            c = self._circuits[key] = _Circuit()
+        return c
+
+    def allow(self, key: str) -> bool:
+        half_opened = False
+        try:
+            with self._lock:
+                c = self._get(key)
+                if c.state == CLOSED:
+                    return True
+                now = self._clock()
+                if c.state == OPEN:
+                    if now - c.opened_at < self.reset_timeout_s:
+                        return False
+                    c.state = HALF_OPEN
+                    c.opened_at = now  # stamp half-open entry for the
+                    c.probes_left = self.half_open_probes  # escape below
+                    half_opened = True
+                if c.probes_left > 0:
+                    c.probes_left -= 1
+                    return True
+                # every probe was consumed but no outcome was ever
+                # recorded (probe holder died before the call, deadline
+                # expired between allow() and the attempt,
+                # non-conclusive response): HALF_OPEN must not be a
+                # terminal state — replenish after another reset
+                # window, like a fresh open->half-open lapse
+                if now - c.opened_at >= self.reset_timeout_s:
+                    c.opened_at = now
+                    c.probes_left = self.half_open_probes - 1
+                    return True
+                return False
+        finally:
+            if half_opened:
+                publish_event("breaker.half_open", route=key)
+
+    def record_success(self, key: str) -> None:
+        with self._lock:
+            c = self._get(key)
+            closed = c.state != CLOSED
+            c.state = CLOSED
+            c.failures = 0
+        if closed:
+            publish_event("breaker.close", route=key)
+
+    def record_failure(self, key: str) -> None:
+        opened = False
+        with self._lock:
+            c = self._get(key)
+            c.failures += 1
+            reopen = c.state == HALF_OPEN
+            if reopen or c.failures >= self.failure_threshold:
+                if c.state != OPEN:
+                    c.opens += 1
+                    opened = True
+                c.state = OPEN
+                c.opened_at = self._clock()
+            failures = c.failures
+        if opened:
+            publish_event(
+                "breaker.open", route=key, consecutive_failures=failures
+            )
+
+    def state(self, key: str) -> str:
+        with self._lock:
+            c = self._circuits.get(key)
+            if c is None:
+                return CLOSED
+            # surface the lapsed-open -> half-open transition without
+            # consuming a probe (pure observation)
+            if (
+                c.state == OPEN
+                and self._clock() - c.opened_at >= self.reset_timeout_s
+            ):
+                return HALF_OPEN
+            return c.state
+
+    def metrics(self) -> dict:
+        with self._lock:
+            return {
+                key: {
+                    "state": c.state,
+                    "consecutive_failures": c.failures,
+                    "opens": c.opens,
+                }
+                for key, c in sorted(self._circuits.items())
+            }
+
+
+#: numeric encoding of circuit states for gauge series (Prometheus
+#: cannot carry strings as values): closed=0, open=1, half_open=2
+BREAKER_STATE_CODE = {CLOSED: 0, OPEN: 1, HALF_OPEN: 2}
+
+
+def register_breaker_metrics(registry, supplier) -> None:
+    """Per-route circuit series. ``supplier`` returns the CircuitBreaker
+    (or None when the engine has no worker routes — the series then
+    render empty but the names stay registered, so dashboards never see
+    them flap in and out of existence). ``json_render=False`` keeps the
+    historical ``/metrics`` JSON shape — ``{route: {state, ...}}``,
+    overlaid by the app — while Prometheus gets typed labeled series."""
+
+    def per_route(field, code=None):
+        def collect():
+            b = supplier()
+            if b is None:
+                return {}
+            return {
+                route: (code[v[field]] if code else v[field])
+                for route, v in b.metrics().items()
+            }
+
+        return collect
+
+    registry.gauge(
+        "breaker.state",
+        "circuit state per worker route (0=closed 1=open 2=half_open)",
+        label="route",
+        json_render=False,
+        fn=per_route("state", BREAKER_STATE_CODE),
+    )
+    registry.gauge(
+        "breaker.consecutive_failures",
+        "consecutive failures per worker route",
+        label="route",
+        json_render=False,
+        fn=per_route("consecutive_failures"),
+    )
+    registry.counter(
+        "breaker.opens",
+        "lifetime open transitions per worker route",
+        label="route",
+        json_render=False,
+        fn=per_route("opens"),
     )

@@ -634,6 +634,9 @@ def charge_cost_to(ctx, **fields) -> None:
 
 # -- request context / distributed tracing ------------------------------------
 
+#: the cross-process trace header (coordinator->worker and client->API)
+TRACE_HEADER = "X-Beacon-Trace"
+
 
 def new_trace_id() -> str:
     """64-bit hex trace id (the Dapper convention's width)."""
@@ -1485,6 +1488,12 @@ def note_device_stage(seq, **kw) -> None:
 def launch_count(kernel: str) -> int:
     with _lock:
         return _counts.get(kernel, 0)
+
+
+def launch_counts() -> dict:
+    """{kernel: launches} since the last :func:`reset_launch_counts`."""
+    with _lock:
+        return dict(_counts)
 
 
 def add_total(name: str, n: int = 1) -> None:

@@ -56,6 +56,7 @@ from torch_app_corpus import (
     open_port,
     submission,
 )
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 
 class Pair:

@@ -18,7 +18,9 @@ the same tenant, lane and explain headers, go through both apps'
   counters. Device launches and timings differ by nature: the port's
   CPU twins launch nothing, and a latency depends on the host.
 
-``/fleet/*`` answers 404 in the port until the fleet plane is ported.
+``/fleet/status`` of a single-host app serves JAX's schema (an empty
+worker map and the app's own digest); ``/fleet/migrations`` answers 404
+in the port until the fleet's migration plane is ported.
 """
 
 import copy
@@ -53,6 +55,7 @@ from torch_app_corpus import (
     open_port,
     submission,
 )
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 TOKEN = "policy-token"
 GOOD = {"Authorization": f"Bearer {TOKEN}"}
@@ -301,9 +304,16 @@ def test_diagnostic_routes(apps):
         ps, pb = papp.handle("GET", "/ops/events", params)
         assert ps == js
         assert set(pb) == set(jb)
-    # the fleet plane is not served yet
-    for path in ("/fleet/status", "/fleet/migrations"):
-        assert papp.handle("GET", path)[0] == 404
+    # the fleet status of a single-host app: JAX's schema, key for key
+    js, jb = japp.handle("GET", "/fleet/status")
+    ps, pb = papp.handle("GET", "/fleet/status")
+    assert ps == js == 200
+    assert set(pb) == set(jb) and set(pb["diagnosis"]) == set(
+        jb["diagnosis"])
+    assert set(pb["local"]) == set(jb["local"])
+    assert pb["workers"] == jb["workers"] == {}
+    # the migration plane is not served yet
+    assert papp.handle("GET", "/fleet/migrations")[0] == 404
     assert papp.handle("GET", "/ops/nope")[0] == japp.handle(
         "GET", "/ops/nope")[0]
 

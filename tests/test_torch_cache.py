@@ -37,6 +37,7 @@ from sbeacon_tpu_torch.response_cache import (
     response_cache_scope,
 )
 from sbeacon_tpu_torch.telemetry import MetricsRegistry
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 SAMPLES = ["S0", "S1"]
 

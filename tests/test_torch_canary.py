@@ -32,6 +32,7 @@ from sbeacon_tpu.testing import random_records
 from sbeacon_tpu_torch.config import BeaconConfig, EngineConfig
 from sbeacon_tpu_torch.engine import VariantEngine
 from sbeacon_tpu_torch.index import shard_from_reference
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 SAMPLES = ["S0", "S1"]
 

@@ -43,6 +43,7 @@ from sbeacon_tpu_torch.index import merge_shards, shard_from_reference
 from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.parallel.dispatch import MeshDispatchTier
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 SAMPLES = ["S0", "S1"]
 CPU = torch.device("cpu")

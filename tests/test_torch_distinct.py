@@ -30,6 +30,7 @@ from sbeacon_tpu_torch.ingest.pipeline import distinct_variant_count as t_host_c
 from sbeacon_tpu_torch.parallel import distinct as td
 from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.testing import distinct_key_cases, subset_shard
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 PAD = np.iinfo(np.int32).max
 I32_MIN = np.iinfo(np.int32).min

@@ -36,6 +36,7 @@ from sbeacon_tpu_torch.config import BeaconConfig, BeaconInfo, EngineConfig
 from sbeacon_tpu_torch.engine import VariantEngine
 from sbeacon_tpu_torch.index import build_index, shard_from_reference
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 
 def _records():

@@ -46,6 +46,7 @@ from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import run_queries_auto
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.serving import MicroBatcher
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 INT32_MAX = 2**31 - 1
 _OTHER_TYPES = ["INV", "INS:ME", "DUP:TANDEM:EXTRA_LONG_NAME", "SNP", None]

@@ -30,6 +30,7 @@ from sbeacon_tpu_torch.engine import VariantEngine
 from sbeacon_tpu_torch.index import shard_from_reference
 from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 CPU = torch.device("cpu")
 SAMPLES = ["S0", "S1", "S2"]

@@ -31,6 +31,7 @@ from sbeacon_tpu_torch.index import shard_from_reference
 from sbeacon_tpu_torch.parallel import mesh as tm
 from sbeacon_tpu_torch.parallel.dispatch import MeshDispatchTier
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 CPU = torch.device("cpu")
 DS = ["d0", "d1", "d2", "d3"]

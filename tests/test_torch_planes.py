@@ -35,6 +35,7 @@ from sbeacon_tpu_torch.engine import VariantEngine, materialize_response
 from sbeacon_tpu_torch.index import shard_from_reference
 from sbeacon_tpu_torch.ops import plane_kernel as tpk
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 
 def _shard(seed, n_samples, *, p_no_acan, overflow=True, n=300):

@@ -42,6 +42,7 @@ from sbeacon_tpu_torch.resilience import (
     DeadlineExceeded,
     deadline_scope,
 )
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 PACKAGES = {"jax": (jq, JResponse), "port": (pq, VariantSearchResponse)}
 

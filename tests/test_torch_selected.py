@@ -44,6 +44,7 @@ from sbeacon_tpu_torch.index import shard_from_reference
 from sbeacon_tpu_torch.ops import plane_kernel as tpk
 from sbeacon_tpu_torch.ops import scatter_kernel as tsk
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 N_SAMPLES = 40
 NAMES = [f"S{i}" for i in range(N_SAMPLES)]

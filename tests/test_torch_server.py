@@ -11,7 +11,9 @@ JAX ``/submit`` wrote skips interrupted saves (``*.tmp.npz``) and the
 runs as a child process over a copy of that root: ``/health``,
 ``/ready`` and one ``/g_variants`` answer, the last equal to the JAX
 app's (masked as in tests/torch_app_corpus.py), and SIGINT stops it.
-``--worker`` is refused.
+A fleet worker is refused where no GPU is: the entry builds its engine
+on the card unless asked for the CPU (``--worker`` fan-out itself is held
+in ``tests/test_torch_dispatch.py``).
 """
 
 import json
@@ -149,11 +151,12 @@ def test_from_env_matches_jax(monkeypatch, tmp_path):
             assert getattr(mine, f) == getattr(theirs, f), (section, f)
 
 
-def test_worker_refused(capsys):
-    with pytest.raises(SystemExit) as e:
-        pserver.main(["--worker", "http://127.0.0.1:1", "--device", "cpu"])
-    assert e.value.code == 2
-    assert "fleet plane" in capsys.readouterr().err
+def test_worker_refused(tmp_path):
+    """A coordinator with ``--worker`` and no ``--device`` builds its
+    engine on the card: refused on a host without one, before serving."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pserver.main(["--worker", "http://127.0.0.1:1", "--data-root",
+                      str(tmp_path), "--port", "0"])
 
 
 def _free_port():

@@ -49,6 +49,7 @@ from sbeacon_tpu_torch.resilience import (
     DeadlineExceeded,
     deadline_scope,
 )
+from torch_ingest_corpus import no_thread_leak  # noqa: F401
 
 SAMPLES = ["S0", "S1"]
 CPU = torch.device("cpu")
