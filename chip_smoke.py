@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sbeacon_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--rows 20000000] [--requests 384] [--threads 64]
+    python3 chip_smoke.py [--rows 14000000] [--requests 384] [--threads 64]
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--http-requests 512] [--ingest-records 200000]
+                          [--http-requests 512] [--ingest-records 100000]
                           [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
@@ -18,7 +18,7 @@ non-zero, without the final line):
    the main path's launch shape (1, 6 or 15 queries padded to 64 slots,
    on 0xDEADBEEF-filled outputs), against its plain-PyTorch twin on the
    same inputs on the card (integers: equal outputs, tolerance 0);
-4. main path: a 1000-Genomes-shaped index (2e7 rows across chr1-22, no
+4. main path: a 1000-Genomes-shaped index (1.4e7 rows across chr1-22, no
    genotype planes) behind the port's VariantEngine, answering
    single-dataset Beacon requests from many threads through
    parse_request -> run_variant_search -> Envelopes, each response
@@ -82,8 +82,8 @@ non-zero, without the final line):
     0xDEADBEEF-filled outputs held equal to the twin (overflow and match
     counts too), then timed L2 cold and warm, beside the bound and the
     twin;
-10. selected setup: dataset A is the 2e7-row shard with a 2504-sample gt
-    plane (6.3 GB), dataset B a 2e6-row shard with all four planes
+10. selected setup: dataset A is the 1.4e7-row shard with a 2504-sample
+    gt plane (4.4 GB), dataset B a 2e6-row shard with all four planes
     (2.5 GB; 30% of its records count from genotypes); the plane bits
     come from a seeded generator on the card, copied to the host shard.
     Both behind an engine with device_planes on; their planes must be
@@ -220,6 +220,43 @@ non-zero, without the final line):
     slices; a second VCF submitted over ``http://`` (the remote leg of
     ``native_slice_text``); the server entry restarted over the root,
     answering a hit as before. The root is removed whatever happens;
+14f. migrate_path: live shard migration on the one card. The source S
+    (an in-process ``WorkerServer``) serves cohort 3 (5e6 rows) and six
+    4000-row deltas past the L0 threshold, the target T is the worker
+    entry over an empty data root (its delta compactor off), the
+    coordinator a ``BeaconApp`` over a ``DistributedEngine`` routing
+    only S, a worker token on all three. Three migrations by ``POST
+    /fleet/migrate``, each polled through ``/fleet/migrations``: one
+    whose coordinator controller is closed once S began streaming the
+    base (it ends ``failed``, T keeping the base); its rerun, which
+    resumes (only the tail moves) and meets a seeded
+    ``migration:cutover`` fault (it must end ``rolled_back``, S still
+    routed, T's copy dropped); then a whole one that completes. 64
+    keep-alive clients query cohort 3 before, through and after the
+    last two (60% at delta rows), every answer 200, its responses equal
+    to an unmigrated engine's of the same rows for the same payload and
+    its body their envelope. After the whole migration:
+    S holds no shard of cohort 3, T's manifest equals S's before the
+    move, T launched J1 and J3 ``fused_l0`` (its ``/device/launches``).
+    Each migration phase's seconds, the bytes and MB/s copied, and
+    requests/s and p50/p99 in each traffic window;
+14g. scan_ingest_path (run inside 14d, over its VCF): fleet ingest.
+    Two scan workers (the worker entry with a token over empty roots)
+    and a ``BeaconApp`` whose ``IngestConfig.scan_worker_urls`` names
+    both; 14d's VCF (1e5 records x 2504 samples; chr22 holds 1.07e6)
+    POSTed to ``/submit`` while 64 clients query it: every slice
+    scanned remotely (the pool's scans counted by slice and worker, the
+    host's rescans by slice), J3 ``fused_l0`` launched while the slices
+    publish, the persisted and served base equal to 14d's reference
+    (the native text build of every planned slice, held there to
+    ``parse_record`` + ``build_index``). 256 answers after the submit
+    (no host-path brackets) against the host matcher over it, every
+    eighth also against ``oracle.oracle_search`` over the VCF's records
+    (a process pool parses each query's window). Then a copy of the VCF
+    submitted again with the second worker killed after two of its
+    scans: the base equal again, every slice scanned on the other
+    worker or rescanned on the host. Its root is removed whatever
+    happens;
 15. distinct setup: the keys of every shard built so far (A, the three
     cohorts, B) and of three seeded row subsets of A (40-70% of its rows
     each: the same sites submitted again), about 7e7 keys on the card;
@@ -242,7 +279,7 @@ non-zero, without the final line):
     points, which must agree with phase 5's time within 1.5x) and on
     phase 14's plane-stats row set;
 19. mesh setup: one-card stacks (parallel.mesh.StackedIndex) of the
-    columns of A and the three cohorts (each padded to A's 2e7 rows), of
+    columns of A and the three cohorts (each padded to A's 1.4e7 rows), of
     the gt planes of B and A (A's plane rows past 2^31 words), and of all
     four planes of B and two re-submitted row subsets of it;
 20. kernel vs twin (stacked_query, stacked_selected): B = 1, 16, 64 and
@@ -307,7 +344,10 @@ The serving phases of earlier slices (4, 8, 13, 21, 25) run engines
 with the response cache off, so their numbers stay comparable across
 PRs; each line says so (``response_cache``).
 
-Then one ``{"kernels": [...]}`` line (the nine CUDA kernels; bisect_query
+Then a ``{"phases": [[name, seconds, verdict], ...]}`` line (each
+printed line's phase and the seconds since the line before it; printed
+also, with the failure, when a phase fails), one ``{"kernels": [...]}``
+line (the nine CUDA kernels; bisect_query
 carries its L0 form under ``l0``, distinct_count its mesh run under
 ``mesh``), the
 nvidia-smi line as it prints it, and as the last line ``{"ok": true,
@@ -401,7 +441,33 @@ PARENT_TIMED = ("scatter_match", "bisect_query", "scatter_selected",
                 "mesh_fused")
 
 
+class PhaseLog:
+    """Each emitted line's phase and the seconds since the line before
+    it (the first from the script's start): the compact ``phases`` line
+    printed before the ``kernels`` line, and on a failure."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.rows: list = []
+
+    def note(self, phase: str) -> None:
+        now = time.perf_counter()
+        self.rows.append([phase, round(now - self.t, 1)])
+        self.t = now
+
+    def line(self, failed: str | None = None) -> str:
+        rows = [[p, s, "ok"] for p, s in self.rows]
+        if failed is not None:
+            rows.append(["(next)", round(time.perf_counter() - self.t, 1),
+                         f"failed: {failed}"[:300]])
+        return json.dumps({"phases": rows})
+
+
+PHASES = PhaseLog()
+
+
 def emit(phase: str, **kw) -> None:
+    PHASES.note(phase)
     print(json.dumps({"phase": phase, **kw}, default=str), flush=True)
 
 
@@ -4663,8 +4729,8 @@ def _policy_host_cost(app, base):
 
 
 #: the serving line came 23.0 s after the start without the profiler
-#: and the tracer (PERF.md §5); with them armed it may come at most 5 s
-#: later
+#: and the tracer, over a root whose main shard held 2e7 rows (PERF.md
+#: §5); with them armed it may come at most 5 s later
 SERVING_LINE_S = 23.0 + 5.0
 
 
@@ -5414,7 +5480,7 @@ def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
 
 #: records of the ingest phase's chr22-shaped VCF (1000 Genomes phase 3
 #: chr22 holds about 1.07e6; PERF.md section 4 says why this is cut)
-INGEST_RECORDS = 200_000
+INGEST_RECORDS = 100_000
 #: the one knob of the JAX default IngestConfig the phase changes: the
 #: compactor's sweep, short enough that timed folds fall inside the submit
 INGEST_COMPACT_INTERVAL_S = 2.0
@@ -5464,20 +5530,22 @@ def ingest_submission(dataset_id, vcf, names):
     }
 
 
-def ingest_body(rng, shard, window_cap, selected):
+def ingest_body(rng, shard, window_cap, selected, host_path=True):
     """A Beacon body aimed at a random row of ``shard``: an SNV point
     with its ref and alt (40%), a 2-60 kb bracket, any-base or typed
     (50%; for selected samples also N-wildcard refs), or a bracket of
     about 4x window_cap rows at the shard's own density (10%: the host
-    path). Positions stay inside the shard's chromosome."""
+    path; never when ``host_path`` is false, the other shares then 4/9
+    and 5/9). Positions stay inside the shard's chromosome."""
     i = rng.randrange(shard.n_rows)
     p = int(shard.cols["pos"][i])
     rp = {"assemblyId": "GRCh38", "referenceName": shard.row_chrom(i)}
-    r = rng.random()
+    r = rng.random() * (1.0 if host_path else 0.9)
     if r < 0.4:
-        for _ in range(64):  # an SNV row, if the shard has one near
-            if len(shard.row_ref(i)) == 1 and shard.row_alt(i) in "ACGT":
-                break
+        # an SNV row (about 11% of a chr22-shaped file's rows): a
+        # symbolic alt would be a body the schema refuses with a 400
+        while not (len(shard.row_ref(i)) == 1
+                   and shard.row_alt(i) in "ACGT"):
             i = rng.randrange(shard.n_rows)
         p = int(shard.cols["pos"][i])
         rp.update(start=[p - 1], end=[p + len(shard.row_ref(i)) + 5],
@@ -5723,7 +5791,7 @@ def reference_slices(path, vcf_location, dataset_id, names, slices,
             yield (vs, ve), fut.result(), other
 
 
-def run_ingest_path(args, device, kind, smi, kernel_ms):
+def run_ingest_path(args, device, kind, smi, kernel_ms, then=None):
     """Phase 14d: a 1000-Genomes-shaped chr22 VCF submitted over HTTP
     to a ``BeaconApp`` under the JAX default ``IngestConfig`` (streamed
     deltas, the compactor every INGEST_COMPACT_INTERVAL_S), served to
@@ -5731,7 +5799,10 @@ def run_ingest_path(args, device, kind, smi, kernel_ms):
     native text build of every slice against ``parse_record`` +
     ``build_index`` (``reference_slices``), a remote submission over
     ``http://``, and the server entry restarted over the root. ``kernel_ms`` maps each kernel to its
-    per-launch time from the timing phases (the card-busy estimate)."""
+    per-launch time from the timing phases (the card-busy estimate).
+    ``then(vcf, ref, names)``, when given, runs before the root goes,
+    over the VCF, its reference index and its sample names; its result
+    is returned under ``then``."""
     import torch
 
     from sbeacon_tpu_torch import native, telemetry
@@ -5986,8 +6057,11 @@ def run_ingest_path(args, device, kind, smi, kernel_ms):
             executed_run = by_job.get(qid)
             if executed_run is not None:
                 r["run"] = executed_run
-        bad_status = [r["status"] for r in answers if r["status"] != 200]
-        check(not bad_status, f"non-200 answers: {bad_status[:5]}")
+        bad_status = [(r["status"], r["doc"].get("error") if isinstance(
+                       r["doc"], dict) else r["doc"], r["body"])
+                      for r in answers if r["status"] != 200]
+        check(not bad_status, f"{len(bad_status)} non-200 answers, the "
+              f"first {bad_status[:2]}")
         t0 = time.perf_counter()
         during = [r for r in answers if not r["after"]]
         after = [r for r in answers if r["after"]]
@@ -6160,7 +6234,8 @@ def run_ingest_path(args, device, kind, smi, kernel_ms):
         check(rc == 0, f"the restarted server exited with {rc}")
         emit("ingest_restart", seconds_to_serving=t_serving, ready=ready,
              equal=same, exit_code=rc, device=kind, nvidia_smi=smi)
-        return {"launches": launches, "families": families}
+        return {"launches": launches, "families": families,
+                "then": then(vcf, ref, names) if then else None}
     finally:
         ipl.native_slice_text = slice_text
         if server is not None:
@@ -6174,9 +6249,875 @@ def run_ingest_path(args, device, kind, smi, kernel_ms):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- 14f. migrate_path ---------------------------------------------------------
+
+#: the source's standing delta tail in migrate_path: past the engine's
+#: l0_min_shards, so the tail rides the L0 index on both workers
+MIGRATE_DELTAS = 6
+MIGRATE_DELTA_ROWS = 4000
+#: share of migrate_path's requests aimed at rows of the delta tail
+MIGRATE_P_DELTA = 0.6
+#: requests of the window before the first migration and after the last
+MIGRATE_WINDOW_REQUESTS = 128
+#: distinct bodies the clients send (they wrap around past the last)
+MIGRATE_BODIES = 12288
+#: how often the phase polls /fleet/migrations, and how long one
+#: migration may take
+MIGRATE_POLL_S = 0.02
+MIGRATE_LIMIT_S = 300.0
+MIGRATION_PHASES = ("pending", "copy", "dual_serve", "verify", "cutover")
+
+
+def worker_doc(port, method, path, token, body=None):
+    """One call to a tokened worker route, which must answer 200."""
+    c = HttpClient(port)
+    try:
+        st, doc, _ms = c.send(method, path, body,
+                              headers={"Authorization": f"Bearer {token}"})
+    finally:
+        c.close()
+    check(st == 200, f"worker {method} {path} answered {st}: {doc}")
+    return doc
+
+
+def window_stats(rows):
+    """requests, requests/s and p50/p99 ms of one traffic window's
+    answers ``(i, window, t0, t1, status, doc, ms)``."""
+    if not rows:
+        return {"requests": 0}
+    wall = max(r[3] for r in rows) - min(r[2] for r in rows)
+    lat = [r[6] for r in rows]
+    return {"requests": len(rows), "requests_per_s": len(rows) / max(wall,
+                                                                    1e-9),
+            "p50_ms": percentile(lat, 0.5), "p99_ms": percentile(lat, 0.99)}
+
+
+def watch_migration(port, mig_id):
+    """Poll ``/fleet/migrations`` until migration ``mig_id`` ends:
+    (its last record, the host clock each phase was first seen at)."""
+    c = HttpClient(port)
+    seen: dict = {}
+    t0 = time.perf_counter()
+    try:
+        while True:
+            st, doc, _ms = c.send("GET", "/fleet/migrations")
+            check(st == 200, f"/fleet/migrations answered {st}")
+            (m,) = [x for x in doc["migrations"] if x["id"] == mig_id]
+            seen.setdefault(m["phase"], time.perf_counter())
+            if m["phase"] in ("completed", "rolled_back", "failed"):
+                return m, seen
+            check(time.perf_counter() - t0 < MIGRATE_LIMIT_S,
+                  f"migration {mig_id} still {m['phase']} after "
+                  f"{MIGRATE_LIMIT_S} s")
+            time.sleep(MIGRATE_POLL_S)
+    finally:
+        c.close()
+
+
+def phase_seconds(seen):
+    """Seconds in each migration phase, from the first time the poll saw
+    it to the first time it saw a later one."""
+    order = [p for p in MIGRATION_PHASES if p in seen]
+    ends = sorted(seen.values())
+    out = {}
+    for p in order:
+        later = [t for t in ends if t > seen[p]]
+        out[p] = (min(later) if later else seen[p]) - seen[p]
+    return out
+
+
+def run_migrate_path(cohort, args, device, kind, smi):
+    """Phase 14f: a dataset moves between two workers on the card under
+    traffic. The source S (an in-process ``WorkerServer``) serves
+    ``cohort`` and a tail of MIGRATE_DELTAS deltas past the L0
+    threshold; the target T is the worker entry over an empty data root;
+    the coordinator is a ``BeaconApp`` over a ``DistributedEngine`` that
+    routes only S; a worker token on all three. Three migrations
+    through ``POST /fleet/migrate``: one whose coordinator controller
+    dies once S began streaming the base (copy phase), its rerun (it
+    resumes: only the tail moves) with a seeded ``migration:cutover``
+    fault, which must roll back, and a whole one that completes. 64
+    keep-alive clients query the dataset (MIGRATE_P_DELTA of them aimed
+    at delta rows) before, through and after the last two, every answer
+    against an unmigrated engine of the same rows. Returns T's
+    launches."""
+    import socket
+    from pathlib import Path
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.requests import RequestError, parse_request
+    from sbeacon_tpu_torch.api.server import start_background
+    from sbeacon_tpu_torch.config import (
+        AuthConfig,
+        BeaconConfig,
+        EngineConfig,
+        IngestConfig,
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+        StorageConfig,
+    )
+    from sbeacon_tpu_torch.engine import VariantEngine
+    from sbeacon_tpu_torch.harness import faults
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.parallel.dispatch import (
+        DistributedEngine,
+        WorkerServer,
+    )
+    from sbeacon_tpu_torch.parallel.migration import MigrationController
+    from sbeacon_tpu_torch.testing import synthetic_shard
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    base = tempfile.mkdtemp(prefix="migrate-", dir=BUILD_DIR)
+    ds = cohort.meta["dataset_id"]
+    token = POLICY_WORKER_TOKEN
+    rng = random.Random(args.seed + 60)
+    serving = EngineConfig(**SERVING_PHASE_CONFIG)
+    engines, child, app, ws, server, pool = [], None, None, None, None, None
+    stop = threading.Event()
+    try:
+        t0 = time.perf_counter()
+        deltas = [synthetic_shard(MIGRATE_DELTA_ROWS, seed=args.seed + 6000
+                                  + k, dataset_id=ds)
+                  for k in range(MIGRATE_DELTAS)]
+
+        def loaded_engine():
+            eng = VariantEngine(BeaconConfig(engine=serving), device=device)
+            engines.append(eng)
+            eng.add_index(cohort)
+            for d in deltas:
+                eng.add_delta(d)
+            return eng
+
+        src = loaded_engine()
+        check(src.l0_status()["built"], "the source's tail rides the L0 "
+              "index")
+        ws = WorkerServer(src, token=token).start_background()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            t_port = sock.getsockname()[1]
+        t_url = f"http://127.0.0.1:{t_port}"
+        os.makedirs(os.path.join(base, "target"))
+        # the target's delta compactor off: a fold of the adopted tail
+        # into an L1 shard while the copy and the verify run changes the
+        # target's manifest under the controller (ROADMAP Queue 3)
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   BEACON_RESPONSE_CACHE="0", BEACON_COMPACT_INTERVAL_S="0",
+                   PYTHONPATH=os.pathsep.join(
+                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        log = os.path.join(base, "target.stderr")
+        child = fleet_child(
+            [sys.executable, "-m", "sbeacon_tpu_torch.parallel.dispatch",
+             "--data-root", os.path.join(base, "target"), "--host",
+             "127.0.0.1", "--port", str(t_port), "--token", token]
+            + ([] if device.type == "cuda" else ["--device", str(device)]),
+            env, log)
+
+        # the reference: the same rows, never migrated
+        ref_engine = loaded_engine()
+        # the coordinator: its query runner reads its pending cap from
+        # the engine's config, so the engine and the app share one
+        cfg = BeaconConfig(
+            storage=StorageConfig(root=Path(base) / "coord"),
+            engine=dataclasses.replace(serving, mesh_dispatch=False),
+            auth=AuthConfig(worker_token=token),
+            resilience=ResilienceConfig(
+                runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+            shaping=ShapingConfig(enabled=False),
+            ingest=IngestConfig(compact_interval_s=0),
+            observability=ObservabilityConfig(canary_enabled=False))
+        cfg.storage.ensure()
+        local = VariantEngine(BeaconConfig(engine=serving), device=device)
+        engines.append(local)
+        dist = DistributedEngine([ws.address], local=local, token=token,
+                                 config=cfg)
+        app = BeaconApp(cfg, engine=dist)
+        app.store.upsert("datasets", [dataset_doc(cohort)])
+        # what the coordinator's engine receives and answers, by the
+        # request's trace id: each answer is held against the reference
+        # engine's search of the same payload
+        executed, by_job = {}, {}
+        search, submit = dist.search, app.query_runner.submit
+
+        def recording_search(payload):
+            responses = search(payload)
+            by_job[payload.query_id] = (payload, responses)
+            return responses
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            executed[telemetry.current_context().trace_id] = qid
+            return qid, status
+
+        dist.search = recording_search
+        app.query_runner.submit = recording_submit
+        server, _t = start_background(app, "127.0.0.1", 0)
+        port = server.server_address[1]
+        t_serving, _line = wait_serving(*child, "worker serving", log)
+        t_setup = time.perf_counter() - t0
+        check(dist.replica_table(refresh=True).get(ds) == (ws.address,),
+              "the coordinator routes the dataset to the source alone")
+        man_src = src.migration_manifest(ds)
+        t_before = worker_doc(t_port, "GET", "/device/launches", token)
+
+        window_cap = serving.window_cap
+        # only bodies the request schema takes (a delta row's symbolic
+        # alt is no valid alternateBases); a body is not sent twice
+        # unless the clients outrun MIGRATE_BODIES (the coordinator's
+        # job table would answer a repeat without a worker)
+        bodies = []
+        for b in delta_aimed_bodies(cohort, deltas, rng, MIGRATE_BODIES,
+                                    window_cap, MIGRATE_P_DELTA):
+            try:
+                parse_request("POST", None, b)
+            except RequestError:
+                continue
+            bodies.append(b)
+        path = f"/datasets/{ds}/g_variants"
+        answers: list = []
+        lock = threading.Lock()
+        cursor, window = [0], ["before"]
+
+        def client(w):
+            c = HttpClient(port)
+            try:
+                while not stop.is_set():
+                    with lock:
+                        win = window[0]
+                        n = cursor[0]
+                        cursor[0] += win != "killed"
+                    if win == "killed":
+                        # no traffic while the killed copy runs
+                        time.sleep(0.01)
+                        continue
+                    i = n % len(bodies)
+                    t_a = time.perf_counter()
+                    st, doc, ms = c.send("POST", path, bodies[i],
+                                         trace=f"migrate-{n}")
+                    with lock:
+                        answers.append((i, win, t_a, time.perf_counter(), st,
+                                        doc, ms, f"migrate-{n}"))
+            finally:
+                c.close()
+
+        def wait_answers(n):
+            with lock:
+                goal = len(answers) + n
+            while True:
+                with lock:
+                    if len(answers) >= goal:
+                        return
+                time.sleep(0.01)
+
+        def migrate(tag):
+            with lock:
+                window[0] = tag
+            c = HttpClient(port)
+            try:
+                st, doc, _ms = c.send("POST", "/fleet/migrate", {
+                    "dataset": ds, "source": ws.address, "target": t_url},
+                    headers={"Authorization": f"Bearer {token}"})
+            finally:
+                c.close()
+            check(st == 202, f"/fleet/migrate answered {st}: {doc}")
+            return doc["migrationId"]
+
+        pool = ThreadPoolExecutor(max_workers=args.threads)
+        futures = [pool.submit(client, w) for w in range(args.threads)]
+        wait_answers(MIGRATE_WINDOW_REQUESTS)
+
+        # 1. a run whose controller dies mid-copy: the coordinator's
+        # controller is closed once S began streaming the base, and a
+        # new one takes its place (T keeps what it adopted)
+        streaming = threading.Event()
+        export = src.export_artifact
+
+        def watched_export(dataset_id, vcf, epoch=None):
+            if epoch is None:
+                streaming.set()
+            return export(dataset_id, vcf, epoch=epoch)
+
+        src.export_artifact = watched_export
+        migrate("killed")
+        check(streaming.wait(MIGRATE_LIMIT_S), "the source never streamed "
+              "its base")
+        killed_ctl = dist.migrations
+        killed_ctl.close()
+        dist.migrations = MigrationController(dist)
+        t0 = time.perf_counter()
+        while killed_ctl.status()[-1]["phase"] not in ("failed",
+                                                       "rolled_back",
+                                                       "completed"):
+            check(time.perf_counter() - t0 < MIGRATE_LIMIT_S,
+                  "the killed migration never ended")
+            time.sleep(MIGRATE_POLL_S)
+        src.export_artifact = export
+        killed = killed_ctl.status()[-1]
+        check(killed["phase"] == "failed" and killed["artifactsCopied"] == 1,
+              f"the killed copy did not end failed with the base adopted: "
+              f"{killed}")
+        t_man = worker_doc(t_port, "POST", "/migrate/manifest", token,
+                           {"dataset": ds})
+        check([a["kind"] for a in t_man["artifacts"]] == ["base"],
+              f"T holds {t_man['artifacts']} after the killed copy")
+        check(dist.replica_table().get(ds) == (ws.address,),
+              "the killed copy left the target routed")
+
+        # 2. its rerun resumes (the base is skipped) and dies at the
+        # cut-over seam: rolled back, S serving throughout
+        faults.install({"seed": args.seed, "rules": [
+            {"site": "migration:cutover", "kind": "error", "rate": 1.0}]})
+        try:
+            faulted, faulted_seen = watch_migration(port, migrate("faulted"))
+        finally:
+            faults.uninstall()
+        check(faulted["phase"] == "rolled_back",
+              f"the faulted migration ended {faulted}")
+        check(faulted["artifactsSkipped"] == 1
+              and faulted["artifactsCopied"] == MIGRATE_DELTAS,
+              f"the rerun did not resume from the adopted base: {faulted}")
+        check(dist.replica_table(refresh=True).get(ds) == (ws.address,),
+              "the rolled-back target is still routed")
+        check(worker_doc(t_port, "POST", "/migrate/manifest", token,
+                         {"dataset": ds})["artifacts"] == [],
+              "the rolled-back target kept its copy")
+
+        # 3. the whole migration, under the same traffic
+        done, done_seen = watch_migration(port, migrate("migrate"))
+        check(done["phase"] == "completed", f"the migration ended {done}")
+        with lock:
+            window[0] = "after"
+        wait_answers(MIGRATE_WINDOW_REQUESTS)
+        stop.set()
+        for f in futures:
+            f.result()
+        pool.shutdown()
+        pool = None
+
+        t_after = worker_doc(t_port, "GET", "/device/launches", token)
+        t_launches = {k: v - t_before["launches"].get(k, 0)
+                      for k, v in t_after["launches"].items()}
+        t_families = {k: v - t_before["families"].get(k, 0)
+                      for k, v in t_after["families"].items()}
+        man_tgt = worker_doc(t_port, "POST", "/migrate/manifest", token,
+                             {"dataset": ds})
+        _st, mdoc = get_json(port, "/fleet/migrations")
+        _st, fleet_doc = get_json(port, "/fleet/status")
+
+        # every answer against the unmigrated reference: the responses
+        # the coordinator's engine gave equal the reference engine's for
+        # the same payload, and the body is their envelope
+        from collections import Counter
+
+        non_200 = Counter(r[4] for r in answers if r[4] != 200)
+        env_doc = app.env
+
+        def verdict(r):
+            run = by_job.get(executed.get(r[7]))
+            if run is None:
+                return "no payload reached the engine"
+            payload, responses = run
+            want = ref_engine.search(payload)
+            if [dataclasses.asdict(x) for x in responses] != [
+                    dataclasses.asdict(x) for x in want]:
+                return "responses"
+            if unmasked(r[5]) != envelope_of(env_doc, bodies[r[0]],
+                                             responses):
+                return "envelope"
+            return None
+
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=16) as refpool:
+            verdicts = list(refpool.map(
+                verdict, [r for r in answers if r[4] == 200]))
+        t_check = time.perf_counter() - t0
+        wrong = Counter(v for v in verdicts if v is not None)
+        err = open(log).read()
+
+        def summary(m, seen):
+            secs = phase_seconds(seen)
+            return {**{k: m[k] for k in (
+                "phase", "bytesCopied", "artifactsCopied",
+                "artifactsSkipped", "verifyRounds", "error")},
+                "phase_s": secs,
+                "copy_mb_per_s": (m["bytesCopied"] / 1e6
+                                  / max(secs.get("copy", 0.0), 1e-9))}
+
+        by_window = {w: window_stats([r for r in answers if r[1] == w])
+                     for w in ("before", "faulted", "migrate", "after")}
+        emit("migrate_path", dataset=ds, rows=cohort.n_rows,
+             deltas=MIGRATE_DELTAS, delta_rows=MIGRATE_DELTA_ROWS,
+             requests=len(answers), non_200=dict(non_200),
+             non_200_first=[(r[1], r[4], json.dumps(r[5])[:300])
+                            for r in answers if r[4] != 200][:3],
+             mismatches=sum(wrong.values()), mismatch_kinds=dict(wrong),
+             windows=by_window,
+             killed={k: killed[k] for k in ("phase", "bytesCopied",
+                                            "artifactsCopied", "error")},
+             faulted=summary(faulted, faulted_seen),
+             migrated=summary(done, done_seen),
+             counters=mdoc["counters"],
+             stuck=fleet_doc["diagnosis"]["stuckMigration"],
+             manifest_fingerprints=[a["fingerprint"]
+                                    for a in man_tgt["artifacts"]],
+             target_launches=t_launches, target_families=t_families,
+             target_serving_s=t_serving, setup_s=t_setup, check_s=t_check,
+             seconds=time.perf_counter() - t_phase, device=kind,
+             nvidia_smi=smi)
+        check(not non_200, f"answers not 200: {dict(non_200)}")
+        check(not wrong, f"answers differ from the unmigrated reference: "
+              f"{dict(wrong)}")
+        check(src.migration_manifest(ds)["artifacts"] == []
+              and ds not in src.datasets(), "the source still holds "
+              "the dataset")
+        check(dist.replica_table(refresh=True).get(ds) == (t_url,),
+              "the dataset is not routed to the target alone")
+        check(man_tgt == man_src, "the target's manifest differs from the "
+              "source's before the move")
+        check(t_launches.get(sk.KERNEL, 0) > 0,
+              f"the target launched no {sk.KERNEL}: {t_launches}")
+        check(t_families.get("fused_l0", 0) > 0,
+              f"the target launched no fused_l0: {t_families}")
+        check(done["bytesCopied"] > faulted["bytesCopied"] > 0,
+              "the resumed copy did not move fewer bytes than the whole one")
+        check("Traceback" not in err, f"the target logged: {err[-2000:]}")
+        return {"target_launches": t_launches, "target_families": t_families}
+    finally:
+        stop.set()
+        if pool is not None:
+            pool.shutdown(wait=True)
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if app is not None:
+            app.close()
+            app.store.close()
+            app.ontology.close()
+            app.engine.close()
+        if ws is not None:
+            ws.shutdown()
+        if child is not None:
+            child[0].kill()
+            child[0].wait()
+        for e in engines:
+            e.close()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+# -- 14g. scan_ingest_path -----------------------------------------------------
+
+#: requests after the submit; every SCAN_ORACLE_EVERY-th answer is also
+#: held to the CPU oracle over the VCF's own records
+SCAN_AFTER_REQUESTS = 256
+SCAN_ORACLE_EVERY = 8
+#: requests the clients send at most while the submit streams
+SCAN_DURING_CAP = 4000
+#: remote scans of the second submission after which a worker is killed
+SCAN_KILL_AFTER = 2
+SCAN_DS, SCAN_KILLED_DS = "scan22", "scan22k"
+
+
+def vcf_window_records(reader, index, chrom, lo, hi):
+    """The records of ``chrom`` starting in [lo, hi] (1-based), in file
+    order: the tabix chunks of the region through the pure-Python
+    parser."""
+    from sbeacon_tpu_torch.genomics.vcf import parse_record
+
+    out = {}
+    for ch in index.chunks_for_region(chrom, max(0, lo - 1), hi):
+        for off, line in reader.iter_lines(ch.beg, ch.end):
+            # the chunks hold many lines outside the window: only those
+            # inside it are parsed (a 2504-sample line takes about 1 ms)
+            fields = line.split(b"\t", 2)
+            if (len(fields) < 3 or fields[0].decode() != chrom
+                    or not lo <= int(fields[1]) <= hi):
+                continue
+            rec = parse_record(line)
+            if rec is not None:
+                out[off] = rec
+    return [out[k] for k in sorted(out)]
+
+
+def oracle_response(vcf, payload_doc, names):
+    """``oracle.oracle_search`` of a payload (its dict form) over the
+    VCF's records, as a dict: one job of the oracle's process pool."""
+    from sbeacon_tpu_torch.genomics.bgzf import BgzfReader
+    from sbeacon_tpu_torch.genomics.tabix import ensure_index
+    from sbeacon_tpu_torch.oracle import oracle_search
+    from sbeacon_tpu_torch.payloads import VariantQueryPayload
+
+    payload = VariantQueryPayload(**payload_doc)
+    recs = vcf_window_records(BgzfReader(str(vcf)), ensure_index(vcf),
+                              payload.reference_name, payload.start_min,
+                              payload.start_max)
+    return dataclasses.asdict(oracle_search(
+        recs, first_bp=payload.start_min, last_bp=payload.start_max,
+        end_min=payload.end_min, end_max=payload.end_max,
+        reference_bases=payload.reference_bases,
+        alternate_bases=payload.alternate_bases,
+        variant_type=payload.variant_type,
+        variant_min_length=payload.variant_min_length,
+        variant_max_length=payload.variant_max_length,
+        requested_granularity=payload.requested_granularity,
+        include_details=payload.include_details,
+        include_samples=payload.include_samples, sample_names=names,
+        dataset_id=SCAN_DS, vcf_location=str(vcf)))
+
+
+def run_scan_ingest_path(vcf, ref, names, args, device, kind, smi,
+                         kernel_ms):
+    """Phase 14g: fleet ingest of phase 14d's VCF. Two scan workers (the
+    worker entry with a token, over empty data roots) and a
+    ``BeaconApp`` whose ``IngestConfig`` names both in
+    ``scan_worker_urls``. ``vcf`` is POSTed to ``/submit`` while 64
+    clients query the slices as they publish: every slice must scan
+    remotely, J3's ``fused_l0`` launch while they publish, and the
+    persisted and served base equal ``ref`` (14d's native text build of
+    every slice, which 14d holds to ``parse_record`` + ``build_index``).
+    After it, SCAN_AFTER_REQUESTS answers against the host matcher over
+    ``ref`` and every SCAN_ORACLE_EVERY-th against the CPU oracle over
+    the VCF's records. Then a copy of the VCF is submitted again and one
+    worker killed after SCAN_KILL_AFTER of its scans: the base still
+    equal, every slice scanned on the other worker or rescanned on the
+    host."""
+    import socket
+    from pathlib import Path
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.api import BeaconApp
+    from sbeacon_tpu_torch.api.server import start_background
+    from sbeacon_tpu_torch.config import (
+        AuthConfig,
+        BeaconConfig,
+        IngestConfig,
+        ObservabilityConfig,
+        ResilienceConfig,
+        ShapingConfig,
+        StorageConfig,
+    )
+    from sbeacon_tpu_torch.genomics.tabix import ensure_index
+    from sbeacon_tpu_torch.index.columnar import load_index
+    from sbeacon_tpu_torch.ingest import pipeline as ipl
+    from sbeacon_tpu_torch.ingest.planner import plan_slices
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="scan-root-", dir=BUILD_DIR)
+    token = POLICY_WORKER_TOKEN
+    children: dict = {}
+    app = server = None
+    local_scan = ipl.scan_slice_to_shard
+    try:
+        # the two scan workers start while the VCF is written
+        ports = {}
+        for w in ("w1", "w2"):
+            with socket.socket() as sock:
+                sock.bind(("127.0.0.1", 0))
+                ports[w] = sock.getsockname()[1]
+            os.makedirs(os.path.join(root, w))
+        env = dict(os.environ, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=os.pathsep.join(
+                       [here] + [p for p in [os.environ.get("PYTHONPATH")]
+                                 if p]))
+        logs = {w: os.path.join(root, f"{w}.stderr") for w in ports}
+        for w, port in ports.items():
+            children[w] = fleet_child(
+                [sys.executable, "-m", "sbeacon_tpu_torch.parallel.dispatch",
+                 "--data-root", os.path.join(root, w), "--host", "127.0.0.1",
+                 "--port", str(port), "--token", token]
+                + ([] if device.type == "cuda" else ["--device", str(device)]),
+                env, logs[w])
+        urls = {w: f"http://127.0.0.1:{p}" for w, p in ports.items()}
+        # 14d's reference under this phase's dataset id
+        ref = dataclasses.replace(ref, meta={**ref.meta,
+                                             "dataset_id": SCAN_DS})
+        config = BeaconConfig(
+            storage=StorageConfig(root=Path(root) / "data"),
+            auth=AuthConfig(worker_token=token),
+            resilience=ResilienceConfig(
+                runner_max_pending=HTTP_RUNNER_MAX_PENDING),
+            shaping=ShapingConfig(enabled=False),
+            observability=ObservabilityConfig(canary_enabled=False),
+            ingest=IngestConfig(
+                compact_interval_s=INGEST_COMPACT_INTERVAL_S,
+                scan_worker_urls=(urls["w1"], urls["w2"])))
+        plan = plan_slices(ensure_index(vcf), config.ingest)
+        serving = {w: wait_serving(*children[w], "worker serving", logs[w])[0]
+                   for w in ports}
+
+        app = BeaconApp(config, device=device)
+        eng = app.engine
+        pool = app.ingest.pipeline.scan_pool
+        check(pool is not None and pool.worker_urls == [urls["w1"],
+                                                        urls["w2"]],
+              "the app's pipeline scans on the two workers")
+        # which slices scanned where: remote (by worker) and on the host
+        scans = {"remote": set(), "failed": set(), "local": set(),
+                 "by_worker": {u: 0 for u in urls.values()}}
+        lock = threading.Lock()
+        scan_blob, scan_once = pool.scan_blob, pool._scan_once
+        kill = {"after": None, "done": False}
+
+        def counting_scan_blob(payload):
+            key = (payload.dataset_id, payload.vstart, payload.vend)
+            try:
+                blob = scan_blob(payload)
+            except Exception:
+                with lock:
+                    scans["failed"].add(key)
+                raise
+            with lock:
+                scans["remote"].add(key)
+                n = sum(1 for k in scans["remote"] if k[0] == SCAN_KILLED_DS)
+                go = (kill["after"] is not None and not kill["done"]
+                      and n >= kill["after"])
+                kill["done"] |= go
+            if go:
+                children["w2"][0].kill()
+            return blob
+
+        def counting_scan_once(url, body, headers):
+            status, out = scan_once(url, body, headers)
+            if status == 200:
+                with lock:
+                    scans["by_worker"][url] += 1
+            return status, out
+
+        def counting_local_scan(vcf_path, vstart, vend, **kw):
+            with lock:
+                scans["local"].add((kw.get("dataset_id"), vstart, vend))
+            return local_scan(vcf_path, vstart, vend, **kw)
+
+        pool.scan_blob, pool._scan_once = counting_scan_blob, \
+            counting_scan_once
+        ipl.scan_slice_to_shard = counting_local_scan
+        executed, by_job = {}, {}
+        search, submit = eng.search, app.query_runner.submit
+
+        def recording_search(payload):
+            responses = search(payload)
+            by_job[payload.query_id] = (payload, responses)
+            return responses
+
+        def recording_submit(payload, *, fingerprint=None):
+            qid, status = submit(payload, fingerprint=fingerprint)
+            executed[telemetry.current_context().trace_id] = qid
+            return qid, status
+
+        eng.search = recording_search
+        app.query_runner.submit = recording_submit
+        server, _t = start_background(app, "127.0.0.1", 0)
+        port = server.server_address[1]
+        env_doc = app.env
+        window_cap = config.engine.window_cap
+        submit_done = threading.Event()
+        answers = []
+        after_left = [SCAN_AFTER_REQUESTS]
+
+        def client(worker):
+            rng = random.Random(args.seed * 7907 + worker)
+            c = HttpClient(port)
+            n = 0
+            try:
+                while True:
+                    after = submit_done.is_set()
+                    with lock:
+                        if after:
+                            if after_left[0] <= 0:
+                                return
+                            after_left[0] -= 1
+                        elif len(answers) >= SCAN_DURING_CAP:
+                            after = None
+                    if after is None:
+                        time.sleep(0.05)
+                        continue
+                    # after the submit no host-path bracket: the
+                    # oracle parses each checked query's window of
+                    # 2504-sample lines in Python
+                    body = ingest_body(rng, ref, window_cap, False,
+                                       host_path=not after)
+                    body["query"]["requestedGranularity"] = rng.choice(
+                        ["boolean", "count", "record"])
+                    trace = f"scan-{worker}-{n}"
+                    n += 1
+                    t_a = time.perf_counter()
+                    st, doc, ms = c.send(
+                        "POST", f"/datasets/{SCAN_DS}/g_variants", body,
+                        trace=trace)
+                    with lock:
+                        answers.append({"body": body, "trace": trace,
+                                        "status": st, "doc": doc, "ms": ms,
+                                        "t0": t_a, "t1": time.perf_counter(),
+                                        "after": after})
+            finally:
+                c.close()
+
+        telemetry.reset_launch_counts()
+        t_submit = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=args.threads) as cpool:
+            futures = [cpool.submit(client, w) for w in range(args.threads)]
+            c = HttpClient(port)
+            try:
+                st_sub, sub_doc, _ms = c.send(
+                    "POST", "/submit", ingest_submission(SCAN_DS, vcf,
+                                                         names))
+            finally:
+                c.close()
+            t_done = time.perf_counter()
+            submit_done.set()
+            for f in futures:
+                f.result()
+        t_end = time.perf_counter()
+        launches = {k: telemetry.launch_count(k) for k in (sk.KERNEL,
+                                                           tk.KERNEL)}
+        families = telemetry.launches_by_family()
+        check(st_sub == 200, f"/submit answered {st_sub}: {sub_doc}")
+        slices = {(SCAN_DS, vs, ve) for vs, ve in plan.slices}
+        check(scans["remote"] == slices and not scans["local"]
+              and not scans["failed"],
+              f"{len(scans['remote'])} of {len(slices)} slices scanned "
+              f"remotely, {len(scans['local'])} on the host")
+        base, _d, _p = eng._indexes[(SCAN_DS, str(vcf))]
+        check(shards_equal(base, ref, meta=False), "the served base differs "
+              "from the local summarisation")
+        on_disk = load_index(app.ingest.pipeline.shard_path(SCAN_DS,
+                                                            str(vcf)))
+        check(shards_equal(on_disk, ref, meta=False), "the persisted base "
+              "differs from the local summarisation")
+        check(families.get("fused_l0", 0) > 0, "no fused_l0 launch while "
+              f"the slices published: {families}")
+        bad = [(r["status"], json.dumps(r["doc"])[:300]) for r in answers
+               if r["status"] != 200]
+        check(not bad, f"{len(bad)} non-200 answers, the first {bad[:2]}")
+
+        # after the submit: every answer against the host matcher over
+        # the local build, every SCAN_ORACLE_EVERY-th against the oracle
+        # (on a pool of spawned processes: it parses the records of each
+        # query's window in Python)
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        from sbeacon_tpu_torch.payloads import VariantSearchResponse
+
+        after = [r for r in answers if r["after"]]
+        during = [r for r in answers if not r["after"]]
+        why: dict = {}
+        runs = [by_job.get(executed.get(r["trace"])) for r in after]
+        why["no payload"] = sum(run is None for run in runs)
+        t0 = time.perf_counter()
+        with ProcessPoolExecutor(
+                max_workers=max(1, min(8, os.cpu_count() or 1)),
+                mp_context=multiprocessing.get_context("spawn")) as opool:
+            oracle = {k: opool.submit(oracle_response, str(vcf),
+                                      dataclasses.asdict(run[0]), names)
+                      for k, run in enumerate(runs)
+                      if run is not None and k % SCAN_ORACLE_EVERY == 0}
+            for r, run in zip(after, runs):
+                if run is not None and unmasked(r["doc"]) != expected_envelope(
+                        [ref], env_doc, r["body"], run[0])[1]:
+                    why["host matcher"] = why.get("host matcher", 0) + 1
+            oracle_hits = 0
+            for k, fut in oracle.items():
+                spec = fut.result()
+                oracle_hits += spec["exists"]
+                responses = runs[k][1]
+                if [dataclasses.asdict(x) for x in responses] != [spec] or \
+                        unmasked(after[k]["doc"]) != envelope_of(
+                            env_doc, after[k]["body"],
+                            [VariantSearchResponse(**spec)]):
+                    why["oracle"] = why.get("oracle", 0) + 1
+        oracle_checked = len(oracle)
+        why = {k: v for k, v in why.items() if v}
+        t_check = time.perf_counter() - t0
+        check(len(after) == SCAN_AFTER_REQUESTS, f"{len(after)} answers "
+              "after the submit")
+        check(not why, f"answers after the submit differ: {why}")
+
+        # the submission again (a copy of the file), one worker killed
+        # after SCAN_KILL_AFTER of its remote scans
+        vcf2 = Path(root) / "scan22k.vcf.gz"
+        shutil.copy(vcf, vcf2)
+        shutil.copy(str(vcf) + ".tbi", str(vcf2) + ".tbi")
+        kill["after"] = SCAN_KILL_AFTER
+        t0 = time.perf_counter()
+        c = HttpClient(port)
+        try:
+            st2, doc2, _ms = c.send("POST", "/submit", {
+                "datasetId": SCAN_KILLED_DS, "assemblyId": "GRCh38",
+                "vcfLocations": [str(vcf2)],
+                "dataset": {"name": SCAN_KILLED_DS}})
+        finally:
+            c.close()
+        t_killed = time.perf_counter() - t0
+        check(st2 == 200, f"the second submit answered {st2}: {doc2}")
+        check(kill["done"], "the worker was never killed")
+        slices2 = {(SCAN_KILLED_DS, vs, ve) for vs, ve in plan.slices}
+        remote2 = {k for k in scans["remote"] if k[0] == SCAN_KILLED_DS}
+        local2 = {k for k in scans["local"] if k[0] == SCAN_KILLED_DS}
+        check(remote2 | local2 == slices2, f"slices unaccounted for: "
+              f"{sorted(slices2 - remote2 - local2)}")
+        base2, _d, _p = eng._indexes[(SCAN_KILLED_DS, str(vcf2))]
+        check(shards_equal(base2, ref, meta=False), "the base scanned with "
+              "a worker killed differs from the local summarisation")
+
+        lat_d = [r["ms"] for r in during]
+        lat_a = [r["ms"] for r in after]
+        records = ref.meta["n_records"]
+        emit("scan_ingest_path", records=records, samples=len(names),
+             compressed_bytes=os.path.getsize(vcf), slices=len(plan.slices),
+             workers_serving_s=serving, submit_s=t_done - t_submit,
+             records_per_s=records / (t_done - t_submit),
+             scans_by_worker={w: scans["by_worker"][u]
+                              for w, u in urls.items()},
+             hedges=pool.stats(), launches=launches, families=families,
+             during={"requests": len(during),
+                     "requests_per_s": len(during) / max(
+                         t_done - t_submit, 1e-9),
+                     "p50_ms": percentile(lat_d, 0.5) if lat_d else None,
+                     "p99_ms": percentile(lat_d, 0.99) if lat_d else None},
+             after={"requests": len(after), "mismatches": 0,
+                    "requests_per_s": len(after) / max(t_end - t_done,
+                                                       1e-9),
+                    "p50_ms": percentile(lat_a, 0.5) if lat_a else None,
+                    "p99_ms": percentile(lat_a, 0.99) if lat_a else None,
+                    "oracle_checked": oracle_checked,
+                    "oracle_hits": oracle_hits, "check_s": t_check},
+             killed={"submit_s": t_killed, "remote": len(remote2),
+                     "local": len(local2), "failed": len(
+                         {k for k in scans["failed"]
+                          if k[0] == SCAN_KILLED_DS})},
+             card_busy_ms_est=sum(launches[k] * kernel_ms[k]
+                                  for k in launches),
+             seconds=time.perf_counter() - t_phase, device=kind,
+             nvidia_smi=smi)
+        return {"launches": launches, "families": families}
+    finally:
+        ipl.scan_slice_to_shard = local_scan
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if app is not None:
+            app.close()
+            app.engine.close()
+            app.store.close()
+            app.ontology.close()
+        for proc, _q, _t in children.values():
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--rows", type=int, default=20_000_000)
+    # 1.4e7 keeps A's plane rows past 2^31 words in the mesh stack
+    # (phase 19); PERF.md section 4 gives the cut from 2e7
+    ap.add_argument("--rows", type=int, default=14_000_000)
     ap.add_argument("--requests", type=int, default=384)
     ap.add_argument("--threads", type=int, default=64)
     ap.add_argument("--cohorts", type=int, default=3)
@@ -6205,7 +7146,11 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
         return 2
-    return run(args, torch.device("cuda", 0))
+    try:
+        return run(args, torch.device("cuda", 0))
+    except BaseException as e:
+        print(PHASES.line(failed=f"{type(e).__name__}: {e}"), flush=True)
+        raise
 
 
 def run(args, device) -> int:
@@ -6357,7 +7302,7 @@ def run(args, device) -> int:
         # main path's first 128 payloads served one at a time
         hooks_cost(engine, [p for _d, _ms, p, _r in served][:128], kind, smi)
 
-        # 5. scatter_match timing at the 2e7-row shape, every tier: a full
+        # 5. scatter_match timing at the main shard's shape, every tier: a full
         # batch (NSLOTS slots), and the main path's own launch shape (its
         # mean real queries of the tier, padded to CHUNK_SMALL slots)
         timings = []
@@ -6803,9 +7748,21 @@ def run(args, device) -> int:
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
 
-    # 14d. ingest over HTTP: a chr22-shaped VCF submitted to the port
+    # 14f. live migration of cohort 3 between two workers on the card
     torch.cuda.empty_cache()
-    run_ingest_path(args, device, kind, smi, kernel_ms)
+    migrated = run_migrate_path(cohorts[2], args, device, kind, smi)
+
+    # 14d. ingest over HTTP: a chr22-shaped VCF submitted to the port;
+    # 14g. the same VCF again over two scan workers
+    torch.cuda.empty_cache()
+
+    def scan_ingest(vcf, ref, names):
+        torch.cuda.empty_cache()
+        return run_scan_ingest_path(vcf, ref, names, args, device, kind,
+                                    smi, kernel_ms)
+
+    scanned = run_ingest_path(args, device, kind, smi, kernel_ms,
+                              then=scan_ingest)["then"]
     torch.cuda.empty_cache()
 
     # 15. the distinct path's keys: every shard built so far (A, the three
@@ -7646,6 +8603,7 @@ def run(args, device) -> int:
     # for the two plane kernels
     top, mid = j1_top, j3_mid
     top64 = top["main_path_shape"]
+    print(PHASES.line(), flush=True)
     print(json.dumps({"kernels": [{
         "name": sk.KERNEL,
         "route": "cuda",
@@ -7658,6 +8616,9 @@ def run(args, device) -> int:
         "http_policy_path_canary_launches": http["canary_launches"].get(
             sk.KERNEL, 0),
         "fleet_path_launches": fleet["worker_launches"].get(sk.KERNEL, 0),
+        "migrate_path_target_launches": migrated["target_launches"].get(
+            sk.KERNEL, 0),
+        "scan_ingest_path_launches": scanned["launches"][sk.KERNEL],
         "ms": top64["ms"],
         "plain_ms": top64["plain_ms"],
         "bound_ms": top64["bound_ms"],
@@ -7677,6 +8638,9 @@ def run(args, device) -> int:
         "http_policy_path_canary_launches": http["canary_launches"].get(
             tk.KERNEL, 0),
         "fleet_path_launches": fleet["worker_launches"].get(tk.KERNEL, 0),
+        "migrate_path_target_fused_l0": migrated["target_families"].get(
+            "fused_l0", 0),
+        "scan_ingest_path_fused_l0": scanned["families"].get("fused_l0", 0),
         "ms": mid["ms_flushed"],
         "plain_ms": mid["plain_ms"],
         "bound_ms": mid["bound_ms"],

@@ -39,9 +39,9 @@ DistributedEngine``): ingestion then goes to its local engine
 datasets answers with them named in ``meta.unavailableDatasets`` and a
 warning, ``/ready`` lists ``degradedDatasets``, ``/fleet/status``
 serves the coordinator's digest poll of every worker, and
-``/debug/status`` fills its breakers, routing and workers sections.
-``/fleet/migrations`` and ``/fleet/migrate`` answer 404 until the
-fleet's migration plane is ported.
+``/debug/status`` fills its breakers, routing and workers sections,
+``GET /fleet/migrations`` lists its migrations, and ``POST
+/fleet/migrate`` (behind the worker token) starts one.
 
 Every handler returns ``(status_code, body_dict)`` — or, for a
 Prometheus ``/metrics`` scrape, ``(200, text)``; transport (the HTTP
@@ -769,7 +769,14 @@ class BeaconApp:
         if head == "device/status":
             return 200, self._device_status()
         if head == "fleet/migrations":
-            return self._fleet_not_ported(head)
+            # migration history and in-flight phases: a diagnostic read
+            # (the POST trigger is /fleet/migrate, behind the token)
+            ctl = getattr(self.engine, "migrations", None)
+            return 200, {
+                "migrations": ctl.status() if ctl is not None else [],
+                "counters": ctl.counters() if ctl is not None else {},
+                "stuck": ctl.stuck() if ctl is not None else None,
+            }
         # /metrics: content negotiation — ?format=openmetrics or an
         # ``Accept: application/openmetrics-text`` gets the OpenMetrics
         # dialect WITH exemplars; ?format=prometheus or ``Accept:
@@ -828,14 +835,39 @@ class BeaconApp:
             extras["topCostTenants"] = []
         return extras
 
-    def _fleet_not_ported(self, head: str) -> tuple[int, dict]:
-        """``/fleet/migrations`` and ``/fleet/migrate``: 404 until the
-        fleet's migration plane is ported."""
-        return 404, self.env.error(
-            404,
-            f"unknown path /{head}: the fleet's migration plane is not "
-            "served by this package yet",
-        )
+    def _fleet_migrate(self, body: dict) -> tuple[int, dict]:
+        """``POST /fleet/migrate``: start a live shard migration on the
+        fan-out engine's controller. 202: the protocol runs on a
+        background thread (poll ``GET /fleet/migrations``); 409: refused
+        up front (dataset already migrating, migrations disabled, bad
+        endpoints)."""
+        from ..parallel.migration import MigrationError
+
+        ctl = getattr(self.engine, "migrations", None)
+        if ctl is None:
+            return 400, self.env.error(
+                400,
+                "this deployment has no migration controller "
+                "(single-host engine — nothing to migrate between)",
+            )
+        dataset = str(body.get("dataset") or "")
+        source = str(body.get("source") or "")
+        target = str(body.get("target") or "")
+        if not dataset or not source or not target:
+            return 400, self.env.error(
+                400, "fleet/migrate needs dataset, source and target"
+            )
+        try:
+            m = ctl.start(dataset, source, target)
+        except MigrationError as e:
+            return 409, self.env.error(409, str(e))
+        return 202, {
+            "migrationId": m.id,
+            "dataset": m.dataset,
+            "source": m.source,
+            "target": m.target,
+            "phase": m.phase,
+        }
 
     def _fleet_status(self) -> dict:
         """The ``/fleet/status`` document: the coordinator's per-worker
@@ -1068,9 +1100,29 @@ class BeaconApp:
     def _check_auth(self, method, path, headers) -> tuple[int, dict] | None:
         """401/403 envelope for unauthorized mutating requests, else None.
 
-        Only ``/submit`` POST/PATCH is gated; read routes stay public.
-        No credential presented (no Authorization header) -> 401;
-        credential presented but rejected by the verifier -> 403."""
+        ``/submit`` POST/PATCH is gated by the submit verifier; read
+        routes stay public. No credential presented (no Authorization
+        header) -> 401; credential presented but rejected -> 403.
+        ``POST /fleet/migrate`` rides the WORKER-token boundary instead:
+        it drives ``/migrate/*`` reads and drops across the fleet, the
+        same blast radius as direct worker access (an empty worker token
+        leaves it open, as the worker routes are)."""
+        if path.strip("/") == "fleet/migrate" and method == "POST":
+            token = self.config.auth.worker_token
+            if not token:
+                return None
+            got = _authorization_header(headers or {})
+            if not got:
+                return 401, self.env.error(
+                    401, "missing Authorization header"
+                )
+            if not hmac.compare_digest(
+                got.encode(), f"Bearer {token}".encode()
+            ):
+                return 403, self.env.error(
+                    403, "fleet/migrate requires the worker token"
+                )
+            return None
         if self.auth_verifier is None:
             return None
         if path.strip("/") != "submit" or method not in ("POST", "PATCH"):
@@ -1091,7 +1143,12 @@ class BeaconApp:
         if not parts or parts == ["info"]:
             return 200, info_response(info)
         if parts == ["fleet", "migrate"]:
-            return self._fleet_not_ported("fleet/migrate")
+            # the migrate trigger (worker-token gated in _check_auth)
+            if method != "POST":
+                return 405, self.env.error(
+                    405, "fleet/migrate accepts POST"
+                )
+            return self._fleet_migrate(body or {})
         head = parts[0]
         if head == "schemas":
             from .model_schemas import ENTITY_SCHEMAS, schema_url

@@ -9,10 +9,9 @@ results), the coordinator->worker transport (``TransportConfig``,
 ``config.py:345-378`` there), ``AuthConfig``, traffic shaping
 (``ShapingConfig``, ``:382-440``), the observability plane
 (``ObservabilityConfig``, ``:443-552``, with the fleet digest interval
-but without the migration knobs of the fleet's migration plane), ingest
-(``IngestConfig``) and the ontology resolvers (``ResolverConfig``,
-``:215-297``; remote slice-scan workers are refused until the fleet's
-ingest plane) and ``BeaconConfig.from_env`` for the env vars of those
+and the migration knobs), ingest (``IngestConfig``, with the remote
+slice-scan workers) and the ontology resolvers (``ResolverConfig``,
+``:215-297``) and ``BeaconConfig.from_env`` for the env vars of those
 fields (``:679-830``). The JAX
 package's persistent compile cache has no counterpart: the kernels build
 once into ``build/kernels/``. Defaults stay those of the JAX package
@@ -186,10 +185,11 @@ class IngestConfig:
     # (vcf-summaries/ portable exchange format, index/portable.py)
     export_portable: bool = True
     # remote slice-scan workers (the reference's <=1000-lambda
-    # summariseSlice fan-out); refused until the fleet plane brings the
-    # remote scan pool, so only the empty default (scan on this host's
-    # thread pool) is accepted
+    # summariseSlice fan-out): slice jobs scatter round-robin across
+    # these worker URLs; empty = scan on this host's thread pool
     scan_worker_urls: tuple[str, ...] = ()
+    scan_timeout_s: float = 120.0  # per-slice worker call budget
+    scan_retries: int = 1  # extra workers tried before local fallback
     # ingest-while-serving (delta shards + background compaction):
     # stream_deltas publishes each completed slice of a FIRST-TIME
     # summarisation to the engine immediately as a queryable delta
@@ -227,13 +227,6 @@ class IngestConfig:
     # at the end of each summarisation (identical post-submit state to
     # the pre-delta write path; slices still stream mid-scan).
     defer_base_publish: bool = False
-
-    def __post_init__(self):
-        if self.scan_worker_urls:
-            raise ValueError(
-                "scan_worker_urls is not supported yet: remote slice "
-                "scans come with the fleet plane (ROADMAP Queue 1 item 6)"
-            )
 
 
 # canonical external-service endpoints (reference indexer:40-42); the
@@ -408,6 +401,12 @@ class ObservabilityConfig:
       when read).
     device_ring_size / compile_tracking: the device flight recorder's
       launch ring and its kernel build tracker (``/device/status``).
+    migration_enabled: serve ``POST /fleet/migrate``
+      (``BEACON_MIGRATION_ENABLED``; ``GET /fleet/migrations`` always
+      answers). migration_verify_rounds: consecutive clean canary-verify
+      rounds the target must answer before cut-over (floor 1).
+      migration_copy_timeout_s: the copy phase's wall budget, also the
+      base of the stuck-migration diagnosis.
     explain_enabled: serve ``?explain=1`` (worker-token gated when one
       is set); plan_sample_n / plan_drift_windows: the sampled plan
       store and its drift sentinel (plan.py, ``/ops/plans``).
@@ -431,6 +430,9 @@ class ObservabilityConfig:
     canary_latency_ms: float = 1000.0
     device_ring_size: int = 256
     compile_tracking: bool = True
+    migration_enabled: bool = True
+    migration_verify_rounds: int = 3
+    migration_copy_timeout_s: float = 120.0
     explain_enabled: bool = False
     plan_sample_n: int = 16
     plan_drift_windows: int = 2
@@ -507,11 +509,14 @@ _OBSERVABILITY_ENV = {
     "BEACON_CANARY_INTERVAL_S": ("canary_interval_s", float),
     "BEACON_CANARY_LATENCY_MS": ("canary_latency_ms", float),
     "BEACON_DEVICE_RING_SIZE": ("device_ring_size", int),
+    "BEACON_MIGRATION_VERIFY_ROUNDS": ("migration_verify_rounds", int),
+    "BEACON_MIGRATION_COPY_TIMEOUT_S": ("migration_copy_timeout_s", float),
     "BEACON_PLAN_SAMPLE_N": ("plan_sample_n", int),
     "BEACON_PLAN_DRIFT_WINDOWS": ("plan_drift_windows", int),
     "BEACON_EVENT_JOURNAL_ENABLED": ("event_journal", bool),
     "BEACON_CANARY_ENABLED": ("canary_enabled", bool),
     "BEACON_COMPILE_TRACKING": ("compile_tracking", bool),
+    "BEACON_MIGRATION_ENABLED": ("migration_enabled", bool),
     "BEACON_EXPLAIN_ENABLED": ("explain_enabled", bool),
     "BEACON_COST_ACCOUNTING": ("cost_accounting", bool),
     "BEACON_COST_WINDOW_S": ("cost_window_s", float),

@@ -289,6 +289,144 @@ def shard_regions(shard: VariantIndexShard) -> list[tuple[str, int, int]]:
     return out
 
 
+def _popcount_masked(plane_row: np.ndarray, mask: np.ndarray) -> int:
+    return sum(int(w).bit_count() for w in (plane_row & mask))
+
+
+def materialize_response_loop(
+    shard: VariantIndexShard,
+    rows: np.ndarray,
+    payload: VariantQueryPayload,
+    *,
+    chrom_label: str,
+    dataset_id: str = "",
+    vcf_location: str = "",
+    selected_idx: list[int] | None = None,
+) -> VariantSearchResponse:
+    """Reference implementation of row-id materialisation (a
+    per-record Python loop; ``sbeacon_tpu/engine.py:233`` there): the
+    executable spec of the cumulative-order semantics. Serving uses the
+    vectorised ``materialize_response`` below, which the tests hold
+    against this function.
+
+    ``selected_idx`` activates the selected-samples leaf (reference
+    search_variants_in_samples.py): INFO-sourced AC/AN stay full-cohort
+    (bcftools --samples leaves INFO untouched) while genotype-derived
+    counts, variant listing and sample-hit extraction are restricted to the
+    masked samples; returned sample indices are positions in the *selected*
+    list, as the subset bcftools output would yield.
+    """
+    c = shard.cols
+    rows = np.asarray(rows, dtype=np.int64)
+    granularity = payload.requested_granularity
+    include_details = payload.include_details
+
+    mask = None
+    if selected_idx is not None and shard.gt_bits is not None:
+        mask = sample_mask_words(selected_idx, shard.gt_bits.shape[1])
+    # restricted genotype-derived counting needs the full plane set; a
+    # shard persisted before the count planes existed degrades to the
+    # full-cohort baked counts (sample extraction still restricts)
+    count_planes = mask is not None and shard.has_count_planes
+    sel_set = set(selected_idx or [])
+
+    def _overflow_extra(which: str, row: int) -> int:
+        return sum(
+            v - 2
+            for s, v in shard.overflow_map(which).get(row, ())
+            if s in sel_set
+        )
+
+    exists = False
+    call_count = 0
+    all_alleles = 0
+    variants: list[str] = []
+    sample_indices: set[int] = set()
+
+    # group matched rows by record, in row (=position/scan) order
+    i = 0
+    n = len(rows)
+    while i < n:
+        j = i
+        rid = c["rec_id"][rows[i]]
+        while j < n and c["rec_id"][rows[j]] == rid:
+            j += 1
+        rec_rows = rows[i:j]
+        i = j
+
+        for r in rec_rows:
+            r = int(r)
+            if count_planes and not (c["flags"][r] & FLAG.AC_INFO):
+                rc = (
+                    _popcount_masked(shard.gt_bits[r], mask)
+                    + _popcount_masked(shard.gt_bits2[r], mask)
+                    + _overflow_extra("gt", r)
+                )
+                call_count += rc
+                if rc:
+                    variants.append(shard.variant_string(r, chrom_label))
+            else:
+                call_count += int(c["ac"][r])
+                if c["ac"][r] != 0:
+                    variants.append(shard.variant_string(r, chrom_label))
+
+        if call_count:
+            exists = True
+            if not include_details:
+                break  # before this record's AN is added (reference :231)
+            if (
+                granularity in ("record", "aggregated")
+                and payload.include_samples
+                and shard.gt_bits is not None
+            ):
+                for r in rec_rows:
+                    if mask is None:
+                        sample_indices.update(shard.row_samples(int(r)))
+                    else:
+                        bits = shard.gt_bits[int(r)]
+                        sample_indices.update(
+                            k
+                            for k, si in enumerate(selected_idx)
+                            if bits[si // 32] >> np.uint32(si % 32) & 1
+                        )
+
+        r0 = int(rec_rows[0])
+        if count_planes and not (c["flags"][r0] & FLAG.AN_INFO):
+            all_alleles += (
+                _popcount_masked(shard.tok_bits1[r0], mask)
+                + _popcount_masked(shard.tok_bits2[r0], mask)
+                + _overflow_extra("tok", r0)
+            )
+        else:
+            all_alleles += int(c["an"][r0])
+
+        if granularity == "boolean" and exists:
+            break
+
+    resolved = []
+    if (
+        granularity in ("record", "aggregated")
+        and payload.include_samples
+        and shard.meta.get("sample_names")
+    ):
+        names = shard.meta["sample_names"]
+        if selected_idx is not None:
+            names = [names[si] for si in selected_idx]
+        resolved = [s for k, s in enumerate(names) if k in sample_indices]
+
+    return VariantSearchResponse(
+        dataset_id=dataset_id,
+        vcf_location=vcf_location,
+        exists=exists,
+        all_alleles_count=all_alleles,
+        call_count=call_count,
+        variants=variants,
+        sample_indices=sorted(sample_indices),
+        sample_names=resolved,
+    )
+
+
+
 def _popcounts(words: np.ndarray, mask: np.ndarray | None) -> np.ndarray:
     """Per-row popcount of (words & mask): [k, w] uint32 -> [k] int64."""
     if mask is not None:
@@ -1311,10 +1449,124 @@ class VariantEngine:
         self._rebuild_l0()
         return True
 
+    # -- live shard migration ------------------------------------------------
+
+    def migration_manifest(self, dataset_id: str) -> dict:
+        """The dataset's artifacts for a migration's copy phase, read
+        under the publish lock so base and tail are one consistent cut.
+        Each artifact's identity is the epoch-ranged fingerprint part
+        replica grouping reads (the 4-field base part, the
+        ``vcf#d<epoch>|rows`` tail parts): a crashed copy's re-run diffs
+        manifests by these keys and skips what the target adopted. The
+        canary bracket rides along, so the verify phase probes source
+        and target with the canary's known answers."""
+        with self._lock:
+            artifacts: list[dict] = []
+            for (ds, vcf), (s, _d, _p) in sorted(self._indexes.items()):
+                if ds != dataset_id:
+                    continue
+                artifacts.append(
+                    {
+                        "kind": "base",
+                        "vcf": vcf,
+                        "fingerprint": (
+                            f"{vcf}|{s.meta.get('variant_count')}"
+                            f"|{s.meta.get('call_count')}|{s.n_rows}"
+                        ),
+                        "rows": int(s.n_rows),
+                        "deltaEpoch": int(
+                            s.meta.get("delta_epoch") or 0
+                        ),
+                    }
+                )
+            for (ds, vcf), tail in sorted(self._deltas.items()):
+                if ds != dataset_id:
+                    continue
+                for epoch, s in sorted(tail.items()):
+                    art = {
+                        "kind": "delta",
+                        "vcf": vcf,
+                        "epoch": int(epoch),
+                        "fingerprint": f"{vcf}#d{epoch}|{s.n_rows}",
+                        "rows": int(s.n_rows),
+                    }
+                    l1 = s.meta.get("l1_epochs")
+                    if l1:
+                        art["l1Epochs"] = [int(l1[0]), int(l1[-1])]
+                    artifacts.append(art)
+        doc: dict = {"dataset": dataset_id, "artifacts": artifacts}
+        bracket = self.canary_brackets().get(dataset_id)
+        if bracket:
+            doc["bracket"] = bracket
+        return doc
+
+    def export_artifact(self, dataset_id: str, vcf: str, epoch=None):
+        """One serving artifact for a migration's fetch: the base shard
+        when ``epoch`` is None, else the standing delta at that epoch,
+        or None when it no longer stands (a racing fold retired it; the
+        copier diffs the manifests again). Lock-free over the
+        copy-on-write registries."""
+        key = (dataset_id, vcf)
+        if epoch is None:
+            triple = self._indexes.get(key)
+            return None if triple is None else triple[0]
+        return (self._deltas.get(key) or {}).get(int(epoch))
+
+    def adopt_delta(self, shard: VariantIndexShard, epoch: int) -> bool:
+        """Install a migrated delta shard at its ORIGINAL epoch (where
+        ``add_delta`` assigns the next local one), so the target's tail
+        fingerprint parts equal the source's and dual-serve groups the
+        copies. The cache is invalidated for the delta's regions and the
+        L0 index rebuilt over the tail, so an adopted tail past the
+        threshold is served by J3's ``fused_l0`` launch; a failed L0
+        build raises. Idempotent for a resumed copy: False, nothing
+        changed, when the epoch already stands, a base folded past it,
+        or a standing L1 shard of the tail covers it (the target's
+        compactor folded adopted epochs: adopting one again would serve
+        its rows twice; the JAX engine adopts it)."""
+        epoch = int(epoch)
+        key = (
+            shard.meta.get("dataset_id", ""),
+            shard.meta.get("vcf_location", ""),
+        )
+        regions = shard_regions(shard)
+        with self._lock:
+            base = self._indexes.get(key)
+            baked = (base[0].meta.get("delta_epoch") or 0) if base else 0
+            tail = dict(self._deltas.get(key, {}))
+            folded = any(
+                lo <= epoch <= hi
+                for lo, hi in (s.meta.get("l1_epochs") or (0, 0)
+                               for s in tail.values())
+            )
+            if epoch <= baked or epoch in tail or folded:
+                return False
+            shard.meta["delta_epoch"] = epoch
+            tail[epoch] = shard
+            deltas = dict(self._deltas)
+            deltas[key] = tail
+            self._deltas = deltas
+            if epoch > self._delta_seq.get(key, 0):
+                self._delta_seq[key] = epoch
+            self._l0_touch_key_locked(key)
+            self._rebuild_serving_state_locked()
+            self.delta_publishes += 1
+        self._invalidate_cache(key[0], regions)
+        publish_event(
+            "ingest.delta_adopt",
+            dataset=key[0],
+            vcf=key[1],
+            epoch=epoch,
+            rows=shard.n_rows,
+        )
+        self._rebuild_l0()
+        return True
+
     def drop_dataset(self, dataset_id: str) -> int:
         """Retire every shard (base and standing tail) of one dataset in
-        one publish critical section. Returns the base shards removed
-        (0: the dataset is unknown)."""
+        one publish critical section: a migration's cut-over on the
+        source, and a rollback's cleanup on the target. Returns the base
+        shards removed (0: the dataset is unknown)."""
         with self._lock:
             base_keys = [k for k in self._indexes if k[0] == dataset_id]
             delta_keys = [k for k in self._deltas if k[0] == dataset_id]

@@ -12,16 +12,23 @@ from ``(plan.seed, site, rule index)`` over a per-rule hit counter, so
 for a given call sequence the same plan activates the same faults every
 run.
 
-The port calls six sites: ``kernel.launch`` — device kernel dispatch
-(``serving.py`` micro-batch execute, and the engine's direct launches
-when the micro-batcher is off), ``sqlite.commit`` (the query job table),
-``admission.queue`` (the shaper's fair queue), ``compaction.fold``
-(the delta compactor's merge and publish seams), ``worker.http`` (each
-fleet coordinator->worker ``/search`` attempt, its detail the worker
-url) and ``mesh.dispatch`` (the pod tier's launch,
-``parallel.dispatch.MeshDispatchTier.search``). The JAX package's
-``migration:*`` sites belong to the fleet's migration plane, which
-this package has not ported.
+The port calls the JAX package's ten sites: ``kernel.launch`` — device
+kernel dispatch (``serving.py`` micro-batch execute, and the engine's
+direct launches when the micro-batcher is off), ``sqlite.commit`` (the
+query job table), ``admission.queue`` (the shaper's fair queue),
+``compaction.fold`` (the delta compactor's merge and publish seams),
+``worker.http`` (each fleet coordinator->worker ``/search`` attempt, its
+detail the worker url), ``mesh.dispatch`` (the pod tier's launch,
+``parallel.dispatch.MeshDispatchTier.search``; an ``error`` there fails
+the request, the tier has no fallback), and ``migration:copy`` /
+``migration:dual_serve`` / ``migration:verify`` / ``migration:cutover``
+— the live shard-migration controller's four phase-entry seams
+(``parallel/migration.py MigrationController``), hit once at each
+transition with ``detail`` ``"<dataset>:<source>-><target>"``. An
+``error`` at any of those leaves the source routed and serving: a copy
+crash resumes on the next run (the manifest diff skips adopted
+artifacts), a later one rolls the target back, never a half-routed
+state.
 
 Fault kinds: ``error`` raises :class:`FaultError`; ``latency`` sleeps
 ``ms``; ``hang`` sleeps ``ms`` too but defaults much longer — a hang is

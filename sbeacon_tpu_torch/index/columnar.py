@@ -199,6 +199,48 @@ class VariantIndexShard:
         code = int(np.searchsorted(self.chrom_offsets, i, side="right")) - 1
         return CODE_TO_CHROMOSOME.get(code, "?")
 
+    # the row-at-a-time reads of the materialisation spec
+    # (``engine.materialize_response_loop``)
+
+    def overflow_map(self, which: str) -> dict[int, list[tuple[int, int]]]:
+        """{row: [(sample, exact_value), ...]} for 'gt' or 'tok' overflow
+        entries; cached."""
+        attr = f"_{which}_overflow_map"
+        cached = getattr(self, attr, None)
+        if cached is not None:
+            return cached
+        arr = self.gt_overflow if which == "gt" else self.tok_overflow
+        out: dict[int, list[tuple[int, int]]] = {}
+        if arr is not None:
+            for row, sample, value in arr.tolist():
+                out.setdefault(int(row), []).append((int(sample), int(value)))
+        object.__setattr__(self, attr, out)
+        return out
+
+    def row_vt(self, i: int) -> str:
+        return self.meta["vt_vocab"][self.vt_codes[i]]
+
+    def row_samples(self, i: int) -> list[int]:
+        if self.gt_bits is None:
+            return []
+        out = []
+        for w, word in enumerate(self.gt_bits[i]):
+            word = int(word)
+            while word:
+                b = (word & -word).bit_length() - 1
+                out.append(w * 32 + b)
+                word &= word - 1
+        return out
+
+    def variant_string(self, i: int, chrom_label: str | None = None) -> str:
+        """'{chrom}\\t{pos}\\t{ref}\\t{alt}\\t{vt}': the wire form the
+        route aggregation reads."""
+        chrom = chrom_label if chrom_label is not None else self.row_chrom(i)
+        return (
+            f"{chrom}\t{self.cols['pos'][i]}\t{self.row_ref(i)}"
+            f"\t{self.row_alt(i)}\t{self.row_vt(i)}"
+        )
+
 
 def shard_from_reference(obj) -> VariantIndexShard:
     """This package's ``VariantIndexShard`` over the numpy fields of any

@@ -16,11 +16,15 @@ duplicateVariantSearch (C++); SURVEY.md §3.2) as one orchestrated run:
   the C++ lambda computes per bp-range (duplicateVariantSearch.cpp:31-84),
   without the fan-out because shards are local.
 
-Counterpart of ``sbeacon_tpu/ingest/pipeline.py``, copied whole but for
-the remote slice-scan workers (the scan pool of the fleet plane):
-``IngestConfig`` refuses ``scan_worker_urls`` until that plane is
-ported. The streamed slices publish onto the port engine's
-``add_delta``; the base reaches the card through ``add_index``.
+Counterpart of ``sbeacon_tpu/ingest/pipeline.py``, copied whole. With
+``IngestConfig.scan_worker_urls`` (or a ``scan_pool``) the slice scans
+scatter over the fleet's workers (``parallel.dispatch.ScanWorkerPool``),
+each worker's npz blob saved as it came; a failed remote scan is
+scanned again on this host, the only failover of the path, and a host
+one. The streamed slices publish onto the port engine's ``add_delta``;
+the base reaches the card through ``add_index``; both raise on a device
+failure. ``close`` releases a scan pool the pipeline built (the JAX
+pipeline never closes it).
 The base artifact's save and the base publish take the key's publish
 lock (``publish_lock``), which the compactor's base fold takes too.
 ``parallel.distinct.distinct_count_device`` counts the same keys as
@@ -278,6 +282,7 @@ class SummarisationPipeline:
         ledger: JobLedger | None = None,
         engine=None,
         store=None,
+        scan_pool=None,
     ):
         self.config = config or BeaconConfig()
         self.ledger = ledger or JobLedger(self.config.storage.ledger_db)
@@ -300,6 +305,31 @@ class SummarisationPipeline:
         self.defer_base = bool(
             getattr(self.config.ingest, "defer_base_publish", False)
         )
+        # cross-host slice scatter (the reference's <=1000-lambda
+        # summariseSlice fan-out): slice jobs round-robin over the
+        # configured scan workers; a worker failure falls back to a
+        # local scan, so distribution affects throughput, not results
+        self._owns_scan_pool = False
+        if scan_pool is None and self.config.ingest.scan_worker_urls:
+            from ..parallel.dispatch import ScanWorkerPool
+
+            tcfg = self.config.transport
+            scan_pool = ScanWorkerPool(
+                list(self.config.ingest.scan_worker_urls),
+                token=self.config.auth.worker_token,
+                timeout_s=self.config.ingest.scan_timeout_s,
+                retries=self.config.ingest.scan_retries,
+                hedge_delay_s=tcfg.hedge_delay_s,
+                transport_config=tcfg,
+            )
+            self._owns_scan_pool = True
+        self.scan_pool = scan_pool
+
+    def close(self) -> None:
+        """Release the scan pool this pipeline built from its config (a
+        caller-passed pool stays the caller's)."""
+        if self._owns_scan_pool and self.scan_pool is not None:
+            self.scan_pool.close()
 
     def _vcf_lock(self, vcf: str) -> threading.Lock:
         with self._locks_guard:
@@ -469,6 +499,45 @@ class SummarisationPipeline:
             spath = slice_dir / f"{sl[0]}-{sl[1]}.npz"
             if sl not in pending and spath.exists():
                 return  # finished in a previous run (merged below)
+            if self.scan_pool is not None:
+                from ..index.columnar import save_index_blob
+                from ..payloads import SliceScanPayload
+
+                try:
+                    # the worker's npz blob is persisted verbatim: the
+                    # coordinator relays bytes, it does not decompress
+                    # and recompress each slice
+                    blob = self.scan_pool.scan_blob(
+                        SliceScanPayload(
+                            dataset_id=dataset_id,
+                            vcf_location=str(vcf),
+                            vstart=sl[0],
+                            vend=sl[1],
+                            sample_names=sample_names,
+                        )
+                    )
+                    meta = save_index_blob(blob, spath)
+                    SLICE_DISK.add(spath.stat().st_size)
+                    self.ledger.complete_slice(
+                        str(vcf),
+                        sl,
+                        variant_count=meta["variant_count"],
+                        call_count=meta["call_count"],
+                    )
+                    if stream:
+                        # the blob landed as a file; lift it into the
+                        # delta registry and drop the temp file now
+                        shard = load_index(spath)
+                        publish_delta(sl, shard)
+                        self._unlink_slice(spath)
+                    return
+                except Exception:
+                    log.exception(
+                        "remote slice scan failed for %s %s; "
+                        "scanning locally",
+                        vcf,
+                        sl,
+                    )
             shard = scan_slice_to_shard(
                 vcf,
                 sl[0],
@@ -696,6 +765,14 @@ class SummarisationPipeline:
             call_count=call_count,
             sample_count=sample_count,
         )
+        if self.scan_pool is not None:
+            # shared-storage fleets: tell the scan workers to re-pin the
+            # newly persisted shards so the query fan-out serves them
+            # (best-effort; workers also reload on restart)
+            try:
+                self.scan_pool.reload_workers()
+            except Exception:
+                log.warning("worker reload after ingest failed", exc_info=True)
         return {
             "datasetId": dataset_id,
             "variantCount": distinct,

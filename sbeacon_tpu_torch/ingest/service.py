@@ -712,9 +712,11 @@ class IngestService:
         return {} if self.compactor is None else self.compactor.metrics()
 
     def close(self) -> None:
-        """Stop the background compactor (app teardown)."""
+        """Stop the background compactor and release the pipeline's
+        scan pool (app teardown)."""
         if self.compactor is not None:
             self.compactor.close()
+        self.pipeline.close()
 
     # -- submission-time checks --------------------------------------------
 

@@ -1,8 +1,6 @@
 """The fleet query plane: worker hosts, the coordinator, and the pod tier.
 
-Counterpart of ``sbeacon_tpu/parallel/dispatch.py`` without its ingest
-and migration legs (``ScanWorkerPool``, the worker's ``/scan`` and
-``/migrate/*``, ``:973-1322`` and ``:229-425`` there) and without
+Counterpart of ``sbeacon_tpu/parallel/dispatch.py`` without
 ``init_multihost``. Each worker host owns a set of dataset index shards
 behind a :class:`WorkerServer` (``python -m
 sbeacon_tpu_torch.parallel.dispatch``, serving on the card); the
@@ -19,8 +17,14 @@ slow primaries (the brownout ladder's first rung turns them off through
 :func:`set_hedging_enabled`), partial results when every copy of a
 dataset is down, and a background rediscovery loop that heals routes.
 :class:`FleetView` collects every worker's ``/ops/digest`` for the app's
-``/fleet/status``. The wire form of every exchange is the JAX package's,
-so either package's coordinator drives the other's workers.
+``/fleet/status``. The fleet's ingest leg: :class:`ScanWorkerPool`
+scatters a summarisation's slice scans over the workers' ``/scan``
+(hedged, behind one-strike breakers; a failed remote scan is scanned
+again on the coordinator's host). Its migration leg: the workers'
+``/migrate/{manifest,fetch,adopt,drop}`` artifact exchange, driven by
+``parallel.migration.MigrationController`` (``DistributedEngine.
+migrations``). The wire form of every exchange is the JAX package's, so
+either package's coordinator drives the other's workers.
 
 The pod dispatch tier (:class:`MeshDispatchTier`): the engine's shards
 stack into a ``parallel.mesh.MeshFusedIndex`` sharded over the engine's
@@ -51,17 +55,20 @@ Deliberate differences from the JAX package:
   So there is no fallback counter. A WORKER's failure (an error answer,
   a refused connection, a timeout, an open circuit) keeps the JAX
   semantics: failover to another replica, then partial results;
-- the worker answers ``/scan`` and ``/migrate/*`` with 501 until the
-  fleet's ingest and migration legs are ported, and its entry has no
-  ``--open-scan``; it takes ``--device`` (the card by default) and
-  serves ``/device/launches`` (its kernel launch counts) inside the
-  token boundary;
+- the worker entry takes ``--device`` (the card by default) and the
+  worker serves ``/device/launches`` (its kernel launch counts, by
+  kernel and by family) inside the token boundary. A target worker's
+  device failure while adopting a migrated artifact (``add_index``'s
+  build or upload, ``adopt_delta``'s L0 build) answers
+  ``/migrate/adopt`` with 500, and the controller abandons or rolls the
+  migration back; nothing is served from the host instead;
 - the tier has no journal events and no plane-ledger headroom in its
   ``planes`` refusal.
 """
 
 from __future__ import annotations
 
+import base64
 import collections
 import concurrent.futures as futures_mod
 import dataclasses
@@ -82,7 +89,11 @@ import torch
 
 from .. import telemetry as telemetry_mod
 from ..harness.faults import fault_point
-from ..payloads import VariantQueryPayload, VariantSearchResponse
+from ..payloads import (
+    SliceScanPayload,
+    VariantQueryPayload,
+    VariantSearchResponse,
+)
 from ..plan import plan_stage
 from ..resilience import (
     CLOSED,
@@ -110,6 +121,7 @@ from .transport import (
     PooledTransport,
     note_hedge,
     register_transport_metrics,
+    urllib_post,
 )
 
 log = logging.getLogger(__name__)
@@ -138,15 +150,10 @@ def hedging_enabled() -> bool:
 
 # -- worker side --------------------------------------------------------------
 
-#: the worker's answer to the ingest and migration routes of the JAX
-#: worker, which this package does not serve yet
-_NOT_PORTED = (
-    "not served by this worker: the fleet's slice scans and shard "
-    "migration are not ported yet (ROADMAP Queue 1 item 6b)"
-)
 
-
-def _make_handler(engine, token: str = "", reload_fn=None):
+def _make_handler(
+    engine, token: str = "", open_scan: bool = False, reload_fn=None
+):
     class Handler(BaseHTTPRequestHandler):
         # keep-alive: the coordinator's pooled transport holds a few
         # persistent connections per worker instead of a TCP handshake
@@ -198,11 +205,15 @@ def _make_handler(engine, token: str = "", reload_fn=None):
                 # /search (it names datasets and fingerprints)
                 self._send(200, ops_digest(engine))
             elif self.path == "/device/launches":
-                # this process's kernel launches by kernel (warmup's
-                # included): the card-side evidence a fleet drive reads
-                # before and after its traffic
+                # this process's kernel launches by kernel and by family
+                # (warmup's included): the card-side evidence a fleet
+                # drive reads before and after its traffic
                 self._send(
-                    200, {"launches": telemetry_mod.launch_counts()}
+                    200,
+                    {
+                        "launches": telemetry_mod.launch_counts(),
+                        "families": telemetry_mod.launches_by_family(),
+                    },
                 )
             elif self.path == "/datasets":
                 # per-dataset fingerprints let the coordinator group
@@ -220,6 +231,13 @@ def _make_handler(engine, token: str = "", reload_fn=None):
                 )
             else:
                 self._send(404, {"error": "not found"})
+
+        def _send_bytes(self, status: int, body: bytes):
+            self.send_response(status)
+            self.send_header("Content-Type", "application/octet-stream")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
 
         def do_POST(self):
             # the body is read BEFORE any early return: with HTTP/1.1
@@ -245,8 +263,25 @@ def _make_handler(engine, token: str = "", reload_fn=None):
                     log.exception("worker reload failed")
                     self._send(500, {"error": f"{type(e).__name__}: {e}"})
                 return
-            if self.path == "/scan" or self.path.startswith("/migrate/"):
-                self._send(501, {"error": _NOT_PORTED})
+            if self.path.startswith("/migrate/"):
+                # the migration artifact plane: manifest / fetch / adopt
+                # / drop, inside the SAME token boundary as /search
+                self._do_migrate(raw)
+                return
+            if self.path == "/scan":
+                # /scan range-reads a CLIENT-SUPPLIED location (a local
+                # path or URL): served only behind a worker token, or
+                # when the operator opted in (a private network)
+                if not token and not open_scan:
+                    self._send(
+                        403,
+                        {
+                            "error": "scan requires a worker token "
+                            "(or --open-scan on a private network)"
+                        },
+                    )
+                    return
+                self._do_scan(raw)
                 return
             if self.path != "/search":
                 self._send(404, {"error": "not found"})
@@ -306,6 +341,84 @@ def _make_handler(engine, token: str = "", reload_fn=None):
                 )
             except Exception as e:  # worker errors travel to coordinator
                 log.exception("worker search failed")
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _do_scan(self, raw: bytes):
+            """The ingest slice-scan leaf: range-read, parse and build
+            one slice shard, answered as a raw npz blob. The VCF must be
+            reachable from the worker (a shared path or a URL)."""
+            try:
+                from ..index.columnar import dumps_index
+                from ..ingest.pipeline import scan_slice_to_shard
+
+                p = SliceScanPayload(**json.loads(raw))
+                shard = scan_slice_to_shard(
+                    p.vcf_location,
+                    p.vstart,
+                    p.vend,
+                    dataset_id=p.dataset_id,
+                    sample_names=p.sample_names,
+                )
+                self._send_bytes(200, dumps_index(shard))
+            except Exception as e:
+                log.exception("worker slice scan failed")
+                self._send(500, {"error": f"{type(e).__name__}: {e}"})
+
+        def _do_migrate(self, raw: bytes):
+            """The migration artifact exchange: ``manifest`` lists a
+            dataset's base and standing-delta artifacts by epoch-ranged
+            fingerprint (the resume key), ``fetch`` streams one as a raw
+            npz blob, ``adopt`` installs a received artifact at its
+            ORIGINAL epoch (a base through ``add_index``, onto the
+            card), and ``drop`` retires the dataset after cut-over. A
+            failed adoption (a device build, upload or L0 build) answers
+            500."""
+            from ..index.columnar import dumps_index, loads_index
+
+            op = self.path[len("/migrate/"):]
+            try:
+                doc = json.loads(raw) if raw else {}
+                if not isinstance(doc, dict):
+                    raise ValueError("migrate body must be an object")
+            except Exception:
+                self._send(400, {"error": "bad migrate body"})
+                return
+            ds = str(doc.get("dataset") or "")
+            try:
+                if op == "manifest":
+                    self._send(200, engine.migration_manifest(ds))
+                elif op == "fetch":
+                    shard = engine.export_artifact(
+                        ds, str(doc.get("vcf") or ""),
+                        epoch=doc.get("epoch"),
+                    )
+                    if shard is None:
+                        self._send(404, {"error": "artifact not found"})
+                    else:
+                        self._send_bytes(200, dumps_index(shard))
+                elif op == "adopt":
+                    shard = loads_index(
+                        base64.b64decode(doc.get("blob") or "")
+                    )
+                    if doc.get("kind") == "delta":
+                        adopted = engine.adopt_delta(
+                            shard, int(doc.get("epoch") or 0)
+                        )
+                        self._send(
+                            200, {"ok": True, "adopted": bool(adopted)}
+                        )
+                    else:
+                        engine.add_index(shard)
+                        self._send(200, {"ok": True, "adopted": True})
+                elif op == "drop":
+                    self._send(
+                        200,
+                        {"ok": True, "shards": int(engine.drop_dataset(ds))},
+                    )
+                else:
+                    self._send(404, {"error": "not found"})
+            except Exception as e:
+                log.exception("worker migrate %s failed", op)
                 self._send(500, {"error": f"{type(e).__name__}: {e}"})
 
     return Handler
@@ -376,11 +489,13 @@ class WorkerServer:
         port: int = 0,
         *,
         token: str = "",
+        open_scan: bool = False,
         reload_fn=None,
     ):
         self.engine = engine
         self.server = _WorkerHTTPServer(
-            (host, port), _make_handler(engine, token, reload_fn)
+            (host, port),
+            _make_handler(engine, token, open_scan, reload_fn),
         )
         self.thread: threading.Thread | None = None
 
@@ -472,9 +587,8 @@ def register_dispatch_metrics(registry, supplier) -> None:
     current :meth:`DistributedEngine.dispatch_stats` dict (empty on
     single-host engines — the app's fallback registration keeps the
     catalogue deployment-stable, like the breaker series). The JAX
-    package's ``mesh.fallbacks`` and ``migration.*`` series have no
-    producer here (the tier raises instead of falling back; migration
-    is not ported)."""
+    package's ``mesh.fallbacks`` series has no producer here (the tier
+    raises instead of falling back)."""
 
     def field(name):
         return lambda: supplier().get(name, 0)
@@ -537,6 +651,27 @@ def register_dispatch_metrics(registry, supplier) -> None:
         "fleet.divergent_datasets",
         "datasets whose replicas advertise divergent fingerprints",
         fn=field("fleet_divergent"),
+    )
+    registry.counter(
+        "migration.started",
+        "shard migrations started (copy phase entered)",
+        fn=field("migration_started"),
+    )
+    registry.counter(
+        "migration.completed",
+        "shard migrations completed through cut-over",
+        fn=field("migration_completed"),
+    )
+    registry.counter(
+        "migration.rolled_back",
+        "shard migrations aborted and rolled back (verify mismatch, "
+        "crash mid-protocol)",
+        fn=field("migration_rolled_back"),
+    )
+    registry.counter(
+        "migration.bytes_copied",
+        "artifact bytes streamed source->target by migration copies",
+        fn=field("migration_bytes_copied"),
     )
 
 
@@ -808,6 +943,356 @@ class ReplicaRouter:
         ra = self._rtt(a) or 0.0
         rb = self._rtt(b) or 0.0
         return a if ra <= rb else b
+
+
+class ScanWorkerPool:
+    """Coordinator-side round-robin scatter of ingest slice scans.
+
+    The pipeline hands each planned slice to ``scan_blob``; failures
+    (worker down, auth, scan error) raise WorkerError and the caller
+    falls back to scanning locally — a missing worker degrades
+    throughput, never correctness (reference analogue: a failed
+    summariseSlice lambda's slice stays in the toUpdate set and is
+    re-run). A worker that fails trips its circuit (one-strike breaker:
+    open for ``cooldown_s``, then a half-open probe) so one wedged host
+    cannot stall every slice for a full timeout each (the dead-worker
+    exclusion the query-path scatter already has via discovery refresh).
+
+    Scans are *hedged* (Dean & Barroso, The Tail at Scale): when the
+    primary worker has not answered within the hedge delay — fixed, or
+    adaptive at the p95 of recent scan RTTs — the same slice races on a
+    second worker and the first response wins; the loser is abandoned
+    (slice scans are idempotent reads, so duplicate execution only
+    costs the loser's CPU). One slow host then bounds *its own* calls,
+    not every slice routed to it.
+    """
+
+    #: adaptive hedging needs this many completed scans before the p95
+    #: means anything; until then no hedge fires
+    HEDGE_MIN_SAMPLES = 8
+    #: adaptive hedge delay never drops below this (a sub-ms p95 would
+    #: hedge every call and double cluster load for nothing)
+    HEDGE_FLOOR_S = 0.05
+
+    def __init__(
+        self,
+        worker_urls: list[str],
+        *,
+        token: str = "",
+        timeout_s: float = 120.0,
+        retries: int = 1,
+        cooldown_s: float = 30.0,
+        post_bytes=None,
+        hedge_delay_s: float = 0.0,
+        transport: PooledTransport | None = None,
+        transport_config=None,
+    ):
+        if not worker_urls:
+            raise ValueError("ScanWorkerPool needs at least one worker URL")
+        self.worker_urls = list(worker_urls)
+        self.token = token
+        self.timeout_s = timeout_s
+        self.retries = retries
+        self.cooldown_s = cooldown_s
+        self.hedge_delay_s = hedge_delay_s
+        self._owns_transport = False
+        if post_bytes is None:
+            if transport is None:
+                # built here -> owned here: close() releases the
+                # sockets (a caller-passed transport stays caller-owned)
+                transport = (
+                    PooledTransport.from_config(transport_config)
+                    if transport_config is not None
+                    else PooledTransport()
+                )
+                self._owns_transport = True
+            post_bytes = transport.post_bytes
+        self.transport = transport
+        self._post_bytes = post_bytes
+        self._bytes_ok = bool(getattr(post_bytes, "accepts_bytes", False))
+        self._next = 0
+        # a single failure opens the circuit for cooldown_s (scan
+        # slices have a local fallback, so one strike is the right
+        # threshold), then a half-open probe readmits the worker
+        self.breaker = CircuitBreaker(
+            failure_threshold=1, reset_timeout_s=cooldown_s
+        )
+        self._lock = threading.Lock()
+        self._rtts: collections.deque = collections.deque(maxlen=128)
+        self._hedges = 0
+        self._hedge_wins = 0
+        self._hedge_exec: ThreadPoolExecutor | None = None
+
+    def close(self) -> None:
+        """Release the hedge pool and any owned connection pool."""
+        with self._lock:
+            pool, self._hedge_exec = self._hedge_exec, None
+        if pool is not None:
+            pool.shutdown(wait=False, cancel_futures=True)
+        if self._owns_transport and self.transport is not None:
+            self.transport.close()
+
+    def _pick(self) -> str:
+        with self._lock:
+            for _ in range(len(self.worker_urls)):
+                url = self.worker_urls[self._next % len(self.worker_urls)]
+                self._next += 1
+                if self.breaker.allow(url):
+                    return url
+            # every worker's circuit is open: take the next anyway (it
+            # may have recovered; correctness is covered by local
+            # fallback)
+            url = self.worker_urls[self._next % len(self.worker_urls)]
+            self._next += 1
+            return url
+
+    def _pick_other(self, avoid: str) -> str | None:
+        """A healthy worker other than ``avoid`` (the hedge target), or
+        None when the fleet has no alternative."""
+        with self._lock:
+            for _ in range(len(self.worker_urls)):
+                url = self.worker_urls[self._next % len(self.worker_urls)]
+                self._next += 1
+                if url != avoid and self.breaker.allow(url):
+                    return url
+        return None
+
+    def _mark_dead(self, url: str) -> None:
+        self.breaker.record_failure(url)
+
+    def _auth_headers(self) -> dict | None:
+        return (
+            {"Authorization": f"Bearer {self.token}"} if self.token else None
+        )
+
+    # -- hedging ------------------------------------------------------------
+
+    def _effective_hedge_delay(self) -> float | None:
+        """Seconds to wait before racing a second worker, or None when
+        hedging is off (disabled, single worker, or adaptive mode
+        without enough RTT history yet)."""
+        d = self.hedge_delay_s
+        if (
+            d is None
+            or d < 0
+            or len(self.worker_urls) < 2
+            or not hedging_enabled()
+        ):
+            return None
+        if d > 0:
+            return d
+        with self._lock:
+            if len(self._rtts) < self.HEDGE_MIN_SAMPLES:
+                return None
+            s = sorted(self._rtts)
+        return max(s[int(0.95 * (len(s) - 1))], self.HEDGE_FLOOR_S)
+
+    def _hedge_pool(self) -> ThreadPoolExecutor:
+        with self._lock:
+            if self._hedge_exec is None:
+                # sized for the ingest pipeline's concurrent run_slice
+                # callers plus their hedges: a primary queued behind a
+                # full pool must be rare (and is hedge-gated below)
+                self._hedge_exec = ThreadPoolExecutor(
+                    max_workers=max(8, 2 * len(self.worker_urls)),
+                    thread_name_prefix="scan-hedge",
+                )
+            return self._hedge_exec
+
+    def _note_hedge(self, primary: str, hedge: str) -> None:
+        with self._lock:
+            self._hedges += 1
+        note_hedge()  # process-wide transport.hedges counter
+        publish_event("scan.hedge", primary=primary, hedge=hedge)
+
+    def stats(self) -> dict:
+        with self._lock:
+            return {
+                "hedges": self._hedges,
+                "hedge_wins": self._hedge_wins,
+                "rtt_samples": len(self._rtts),
+            }
+
+    # -- the scan call ------------------------------------------------------
+
+    def _scan_once(self, url: str, body, headers) -> tuple[int, bytes]:
+        """One raw /scan exchange; successful RTTs feed the adaptive
+        hedge delay."""
+        t0 = time.perf_counter()
+        status, out = self._post_bytes(
+            f"{url}/scan", body, self.timeout_s, headers
+        )
+        if status == 200:
+            with self._lock:
+                self._rtts.append(time.perf_counter() - t0)
+        return status, out
+
+    def _settle(
+        self, url: str, status: int, out: bytes, last
+    ) -> tuple[bytes | None, Exception | None]:
+        """Breaker bookkeeping for one answered scan: the blob on 200,
+        else the WorkerError to remember."""
+        if status == 200:
+            self.breaker.record_success(url)
+            return out, last
+        err = WorkerError(f"{url}: http {status}: {out[:200]!r}")
+        if status in (401, 403):
+            self._mark_dead(url)
+        else:
+            # any other HTTP answer proves the worker is ALIVE
+            # (the breaker tracks reachability, not scan success —
+            # scan errors are handled by retry + local fallback);
+            # recording an outcome also releases a half-open probe
+            # so a 500-answering worker is not excluded forever
+            self.breaker.record_success(url)
+        return None, err
+
+    def scan_blob(self, payload: SliceScanPayload) -> bytes:
+        """One slice scan on some worker -> the shard's npz blob
+        (columnar.dumps_index form), undecoded."""
+        # serialize ONCE: a bytes-capable transport ships these bytes
+        # verbatim; legacy injected transports still get the dict
+        body = (
+            payload.dumps().encode()
+            if self._bytes_ok
+            else json.loads(payload.dumps())
+        )
+        headers = self._auth_headers()
+        last: Exception | None = None
+        for _attempt in range(self.retries + 1):
+            url = self._pick()
+            delay = self._effective_hedge_delay()
+            if delay is None:
+                try:
+                    status, out = self._scan_once(url, body, headers)
+                except Exception as e:
+                    last = WorkerError(f"{url}: {e}")
+                    self._mark_dead(url)
+                    continue
+                got, last = self._settle(url, status, out, last)
+                if got is not None:
+                    return got
+                continue
+            got, last = self._scan_hedged(url, body, headers, delay, last)
+            if got is not None:
+                return got
+        raise last
+
+    def _scan_hedged(
+        self, url: str, body, headers, delay: float, last
+    ) -> tuple[bytes | None, Exception | None]:
+        """One hedged attempt: primary on a pool thread; if it has not
+        answered within ``delay``, race a second worker. First response
+        wins; the loser keeps running and is ignored."""
+        pool = self._hedge_pool()
+        started = threading.Event()
+
+        def primary():
+            # stamps actual start: under a saturated pool the submit
+            # may queue, and a queued primary must not trigger a hedge
+            # (the delay would measure queue wait, not the worker, and
+            # the hedge would pile more load onto the same full pool)
+            started.set()
+            return self._scan_once(url, body, headers)
+
+        futs = {pool.submit(primary): url}
+        done, _pending = futures_mod.wait(futs, timeout=delay)
+        if not done and started.is_set():
+            other = self._pick_other(url)
+            if other is not None:
+                self._note_hedge(url, other)
+                futs[
+                    pool.submit(self._scan_once, other, body, headers)
+                ] = other
+        pending = set(futs)
+        while pending:
+            done, pending = futures_mod.wait(
+                pending, return_when=futures_mod.FIRST_COMPLETED
+            )
+            for f in done:
+                u = futs[f]
+                try:
+                    status, out = f.result()
+                except Exception as e:
+                    last = WorkerError(f"{u}: {e}")
+                    self._mark_dead(u)
+                    continue
+                got, last = self._settle(u, status, out, last)
+                if got is not None:
+                    if u != url:  # the hedge beat the primary
+                        with self._lock:
+                            self._hedge_wins += 1
+                        publish_event(
+                            "scan.hedge_won", winner=u, primary=url
+                        )
+                    return got, last
+        return None, last
+
+    def scan(self, payload: SliceScanPayload):
+        """One slice scan on some worker -> VariantIndexShard."""
+        from ..index.columnar import loads_index
+
+        return loads_index(self.scan_blob(payload))
+
+    #: reload is a tiny control message — never let it inherit the
+    #: (possibly minutes-long) slice-scan timeout
+    RELOAD_TIMEOUT_S = 10.0
+
+    def reload_workers(self, *, post=None) -> int:
+        """Best-effort concurrent POST /reload to every worker
+        (shared-storage fleets re-pin freshly ingested shards without a
+        restart); returns how many workers acknowledged. Concurrent with
+        a short timeout so one wedged worker cannot stall ingest
+        completion, and non-200 answers (404 = reload_fn not wired,
+        500 = reload failed) are logged — a fleet silently serving stale
+        shards is exactly the failure this call exists to prevent.
+
+        Outcomes feed the scan breaker: any HTTP answer proves the
+        worker reachable again (revival after a cooldown — e.g. an
+        operator fixed a bad token), except 401/403 which re-confirm
+        the auth failure; a transport error keeps/opens the circuit."""
+        headers = self._auth_headers()
+        if post is None:
+            post = (
+                self.transport.post_json
+                if self.transport is not None
+                else urllib_post
+            )
+
+        def one(url: str) -> bool:
+            try:
+                status, doc = post(
+                    f"{url}/reload", {}, self.RELOAD_TIMEOUT_S, headers
+                )
+            except Exception:
+                log.warning("worker %s reload failed", url, exc_info=True)
+                self._mark_dead(url)
+                return False
+            if status in (401, 403):
+                self._mark_dead(url)
+            else:
+                self.breaker.record_success(url)
+            if status != 200:
+                log.warning(
+                    "worker %s reload answered http %s: %s",
+                    url,
+                    status,
+                    doc,
+                )
+                return False
+            return True
+
+        with ThreadPoolExecutor(min(8, len(self.worker_urls))) as pool:
+            ok = sum(pool.map(one, self.worker_urls))
+        if ok < len(self.worker_urls):
+            log.warning(
+                "only %d/%d workers reloaded; the others serve stale "
+                "shards until their next reload/restart",
+                ok,
+                len(self.worker_urls),
+            )
+        return ok
+
 
 
 class WorkerError(RuntimeError):
@@ -1415,8 +1900,8 @@ class FleetView:
     def snapshot(self) -> dict:
         """The ``/fleet/status`` document (refreshes inline when the
         cached digests are older than ``interval_s``). Its schema is
-        the JAX package's; ``migrations`` stays empty and
-        ``stuckMigration`` None until the migration plane is ported."""
+        the JAX package's: ``migrations`` lists the engine's live and
+        recent migrations, and the diagnosis names a stuck one."""
         with self._lock:
             last = self._last_poll
         if last is None or self._clock() - last >= self.interval_s:
@@ -1478,6 +1963,14 @@ class FleetView:
             worst_compiling = max(
                 sorted(compiles), key=lambda u: compiles[u]
             )
+        # live migrations: phase and ages per migration, and the one
+        # whose phase outlived the controller's stuck bound
+        migrations: list[dict] = []
+        stuck = None
+        ctl = getattr(self.engine, "migrations", None)
+        if ctl is not None:
+            migrations = ctl.status()
+            stuck = ctl.stuck()
         return {
             "intervalS": self.interval_s,
             "polls": polls,
@@ -1485,7 +1978,7 @@ class FleetView:
                 None if last is None else round(now - last, 1)
             ),
             "workers": workers,
-            "migrations": [],
+            "migrations": migrations,
             "diagnosis": {
                 "stalestReplica": stalest,
                 "hottestWorker": (
@@ -1497,7 +1990,7 @@ class FleetView:
                 "unreachableWorkers": sorted(
                     u for u, w in workers.items() if not w["reachable"]
                 ),
-                "stuckMigration": None,
+                "stuckMigration": stuck,
                 "worstCompilingReplica": worst_compiling,
             },
         }
@@ -1629,8 +2122,16 @@ class DistributedEngine:
             self,
             interval_s=self.config.observability.fleet_digest_interval_s,
         )
-        # per-worker in-flight /search legs (guarded by _sc_lock)
+        # per-worker in-flight /search legs (guarded by _sc_lock): a
+        # migration's cut-over drains a retired source to zero before
+        # the source drops the dataset
         self._inflight: dict[str, int] = {}
+        # live shard migration (copy -> dual-serve -> canary-verify ->
+        # cut-over), served at /fleet/migrate; migration.py never
+        # imports this module
+        from .migration import MigrationController
+
+        self.migrations = MigrationController(self)
 
     # headers are passed only when there is something to carry (a
     # configured token, an ambient trace id) AND the transport's
@@ -1685,11 +2186,13 @@ class DistributedEngine:
 
     def dispatch_stats(self) -> dict:
         """The fan-out counters behind the ``dispatch.*`` /
-        ``routing.*`` / ``mesh.*`` / ``fleet.*`` series."""
+        ``routing.*`` / ``mesh.*`` / ``fleet.*`` / ``migration.*``
+        series."""
         mesh = (
             self.mesh_tier.stats() if self.mesh_tier is not None else {}
         )
         fleet = self.fleet.stats()
+        mig = self.migrations.counters()
         with self._sc_lock:
             return {
                 "short_circuits": self._short_circuits,
@@ -1703,6 +2206,10 @@ class DistributedEngine:
                 "fleet_polls": fleet.get("polls", 0),
                 "fleet_reachable": fleet.get("reachable", 0),
                 "fleet_divergent": fleet.get("divergent", 0),
+                "migration_started": mig.get("started", 0),
+                "migration_completed": mig.get("completed", 0),
+                "migration_rolled_back": mig.get("rolled_back", 0),
+                "migration_bytes_copied": mig.get("bytes_copied", 0),
             }
 
     def route_table_age_s(self) -> float | None:
@@ -1739,10 +2246,12 @@ class DistributedEngine:
         )
 
     def close(self) -> None:
-        """Release the scatter/hedge pools, stop the rediscovery loop,
-        close the tier and drop the pooled worker connections. The
-        local engine is the caller's and stays open."""
+        """Stop the migration controller and the rediscovery loop,
+        release the scatter/hedge pools, close the tier and drop the
+        pooled worker connections. The local engine is the caller's and
+        stays open."""
         self._closed.set()
+        self.migrations.close()
         if self.mesh_tier is not None:
             self.mesh_tier.close()
         self._pool.shutdown(wait=False, cancel_futures=True)
@@ -2547,6 +3056,12 @@ def main(argv: list[str] | None = None) -> None:
         "(default: BEACON_WORKER_TOKEN env)",
     )
     p.add_argument(
+        "--open-scan",
+        action="store_true",
+        help="serve /scan without a worker token (it reads any "
+        "client-supplied VCF location; private networks only)",
+    )
+    p.add_argument(
         "--device",
         default="cuda",
         help="torch device the engine serves on (default: cuda)",
@@ -2570,6 +3085,7 @@ def main(argv: list[str] | None = None) -> None:
             host=args.host,
             port=args.port,
             token=token,
+            open_scan=args.open_scan,
             reload_fn=service.load_all,
         )
         print(

@@ -1,10 +1,11 @@
 """Typed query/response contracts.
 
-Counterpart of ``sbeacon_tpu/payloads.py``, trimmed to the variant
-search payload (with its wire form, ``payloads.py:58-92`` there: the
-body a fleet coordinator POSTs to a worker's ``/search``) and its
-per-(dataset, vcf) response (with the response's JSON form, in which
-the query job table stores it). Field names, order and defaults are the
+Counterpart of ``sbeacon_tpu/payloads.py``: the variant search payload
+(with its wire form, ``payloads.py:58-92`` there: the body a fleet
+coordinator POSTs to a worker's ``/search``), its per-(dataset, vcf)
+response (with the response's JSON form, in which the query job table
+stores it) and the ingest slice-scan job a coordinator POSTs to a
+worker's ``/scan`` (``SliceScanPayload``, ``:122-144`` there). Field names, order and defaults are the
 JAX package's, so ``dataclasses.asdict`` of a response compares equal
 across the two packages and either package's worker answers the
 other's coordinator.
@@ -109,3 +110,24 @@ class VariantSearchResponse:
     @staticmethod
     def loads(s: str) -> "VariantSearchResponse":
         return VariantSearchResponse(**json.loads(s))
+
+
+@dataclass
+class SliceScanPayload:
+    """One ingest slice-scan job for a remote worker: the worker
+    range-reads ``[vstart, vend)`` of ``vcf_location`` (a shared path or
+    an object-store URL), builds the slice's index shard, and returns it
+    as one npz blob (``index.columnar.dumps_index``)."""
+
+    dataset_id: str = ""
+    vcf_location: str = ""
+    vstart: int = 0
+    vend: int = 0
+    sample_names: list[str] = field(default_factory=list)
+
+    def dumps(self) -> str:
+        return json.dumps(dataclasses.asdict(self))
+
+    @staticmethod
+    def loads(s: str) -> "SliceScanPayload":
+        return SliceScanPayload(**json.loads(s))

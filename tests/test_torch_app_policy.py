@@ -19,8 +19,8 @@ the same tenant, lane and explain headers, go through both apps'
   CPU twins launch nothing, and a latency depends on the host.
 
 ``/fleet/status`` of a single-host app serves JAX's schema (an empty
-worker map and the app's own digest); ``/fleet/migrations`` answers 404
-in the port until the fleet's migration plane is ported.
+worker map and the app's own digest); ``/fleet/migrations`` and ``POST
+/fleet/migrate`` answer as JAX's app does.
 """
 
 import copy
@@ -312,8 +312,16 @@ def test_diagnostic_routes(apps):
         jb["diagnosis"])
     assert set(pb["local"]) == set(jb["local"])
     assert pb["workers"] == jb["workers"] == {}
-    # the migration plane is not served yet
-    assert papp.handle("GET", "/fleet/migrations")[0] == 404
+    # the migration plane of a single-host app: an empty history, and
+    # a migrate refused (no controller), as in JAX
+    assert papp.handle("GET", "/fleet/migrations") == japp.handle(
+        "GET", "/fleet/migrations")
+    assert papp.handle("GET", "/fleet/migrations")[1]["migrations"] == []
+    for method in ("POST", "GET"):
+        js, jb = japp.handle(method, "/fleet/migrate", None, {})
+        ps, pb = papp.handle(method, "/fleet/migrate", None, {})
+        assert ps == js
+        assert set(pb) == set(jb)
     assert papp.handle("GET", "/ops/nope")[0] == japp.handle(
         "GET", "/ops/nope")[0]
 

@@ -337,9 +337,9 @@ def test_bool_hit_beats_sibling_error_regardless_of_order(fleet):
 
     def post(url, doc, timeout_s, headers=None):
         if "werr" in url:
-            errored.set()
             raise OSError("injected: down")
-        assert errored.wait(30)  # the hit arrives after the error
+        # the hit arrives once the error's leg has settled
+        assert errored.wait(30)
         return 200, _sole_response("dH", True)
 
     def get(url, timeout_s, headers=None):
@@ -348,6 +348,17 @@ def test_bool_hit_beats_sibling_error_regardless_of_order(fleet):
 
     dist = fleet.coordinator(["http://werr:1", "http://whit:1"], retries=0,
                              post=post, get=get)
+    submit = dist._pool.submit
+
+    def submit_leg(fn, *args, **kw):
+        # the error leg's future is done (its waiters told) before
+        # ``errored`` lets the hit go
+        f = submit(fn, *args, **kw)
+        if fn == dist._search_group and "werr" in args[0]:
+            f.add_done_callback(lambda _f: errored.set())
+        return f
+
+    dist._pool.submit = submit_leg
     p = dataclasses.replace(PAYLOAD, dataset_ids=["dE", "dH"],
                             include_datasets="NONE",
                             requested_granularity="boolean")
@@ -424,10 +435,22 @@ def test_worker_token_gates_requests(fleet):
 
 
 def test_scan_and_migrate_refused_until_ported(cluster):
-    w1, *_ = cluster
-    for path in ("/scan", "/migrate/manifest"):
-        status, doc = urllib_post(f"{w1.address}{path}", {}, 5)
-        assert status == 501 and "6b" in doc["error"]
+    """The worker's ``/scan`` and ``/migrate/*`` answer as the JAX
+    worker's: an untokened worker without ``open_scan`` refuses
+    ``/scan`` with 403, and ``/migrate/manifest`` lists the dataset's
+    artifacts (none for an unknown dataset)."""
+    w1, _w2, jw1, _jw2, _single = cluster
+    for body in ({}, {"dataset": "dsA"}, {"dataset": "nope"}):
+        for path in ("/scan", "/migrate/manifest"):
+            got = urllib_post(f"{w1.address}{path}", body, 5)
+            want = urllib_post(f"{jw1.address}{path}", body, 5)
+            assert got == want, path
+    status, doc = urllib_post(f"{w1.address}/scan", {}, 5)
+    assert status == 403 and "token" in doc["error"]
+    status, doc = urllib_post(f"{w1.address}/migrate/manifest",
+                              {"dataset": "dsA"}, 5)
+    assert status == 200 and [a["kind"] for a in doc["artifacts"]] == [
+        "base"]
     # the body was read before the refusal: the connection stays usable
     assert urllib_get(f"{w1.address}/health", 5)[0] == 200
 

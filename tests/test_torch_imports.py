@@ -108,7 +108,16 @@ def test_port_imports_no_jax_and_no_reference_package():
             "sbeacon_tpu_torch.ingest.planner",
             "sbeacon_tpu_torch.ingest.ledger",
             "sbeacon_tpu_torch.metadata.resolvers",
-            "sbeacon_tpu_torch.metadata.udfs"} <= set(names)
+            "sbeacon_tpu_torch.metadata.udfs",
+            "sbeacon_tpu_torch.parallel.migration",
+            "sbeacon_tpu_torch.parallel.transport",
+            "sbeacon_tpu_torch.oracle",
+            "sbeacon_tpu_torch.oracle.cpu_oracle",
+            "sbeacon_tpu_torch.harness.bench_cache",
+            "sbeacon_tpu_torch.harness.genome1k",
+            "sbeacon_tpu_torch.harness.latency",
+            "sbeacon_tpu_torch.harness.scale",
+            "sbeacon_tpu_torch.harness.simulate"} <= set(names)
     assert leaked == []
 
 
@@ -177,6 +186,23 @@ def test_beacon_app_and_server_need_a_gpu_unless_cpu_is_asked(no_gpu,
     finally:
         app.close()
         app.engine.close()
+
+
+def test_fleet_and_harness_entries_need_a_gpu_unless_cpu_is_asked(
+        no_gpu, tmp_path):
+    """The worker entry and the metadata scale harness serve on the card
+    unless asked for the CPU; the migration controller and the scan pool
+    hold no device of their own."""
+    from sbeacon_tpu_torch.harness.scale import run_metadata_scale
+    from sbeacon_tpu_torch.parallel.dispatch import main as worker_main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        worker_main(["--data-root", str(tmp_path / "w")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_metadata_scale(tmp_path / "s", n_datasets=1, individuals_per=2)
+    rep = run_metadata_scale(tmp_path / "c", n_datasets=1,
+                             individuals_per=2, device="cpu")
+    assert rep["populate"]["individuals"] == 2
 
 
 @pytest.mark.parametrize("option", ["use_mesh", "response_cache"])

@@ -606,27 +606,21 @@ def test_shard_wire_form_crosses_packages(tmp_path):
     assert_shards_equal(tc.load_index(tmp_path / "s" / "x.npz"), j)
 
 
-#: the JAX package's knobs of the remote scan pool, which the port
-#: refuses until the fleet plane
-SCAN_POOL_KEYS = ("scan_timeout_s", "scan_retries")
-
-
-def _ingest_fields(cfg, drop=()):
-    d = dataclasses.asdict(cfg)
-    for k in drop:
-        del d[k]
-    return d
-
-
 def test_ingest_config_and_refusal():
+    """The whole ``IngestConfig`` equals JAX's, the remote scan pool's
+    knobs included, and ``scan_worker_urls`` is accepted (it was
+    refused before the fleet's ingest plane was ported)."""
     from sbeacon_tpu.config import BeaconConfig as JB
+    from sbeacon_tpu.config import IngestConfig as JI
 
-    assert _ingest_fields(BeaconConfig().ingest) == _ingest_fields(
-        JB().ingest, SCAN_POOL_KEYS)
+    assert dataclasses.asdict(BeaconConfig().ingest) == \
+        dataclasses.asdict(JB().ingest)
     assert dataclasses.asdict(BeaconConfig().resolvers) == \
         dataclasses.asdict(JB().resolvers)
-    with pytest.raises(ValueError, match="fleet plane"):
-        IngestConfig(scan_worker_urls=("http://w:1",))
+    kw = dict(scan_worker_urls=("http://w:1",), scan_timeout_s=7.0,
+              scan_retries=3)
+    assert dataclasses.asdict(IngestConfig(**kw)) == \
+        dataclasses.asdict(JI(**kw))
 
 
 @pytest.mark.parametrize("env", [
@@ -642,15 +636,18 @@ def test_ingest_env_overrides_equal(monkeypatch, env):
     for k, val in env.items():
         monkeypatch.setenv(k, val)
     a, b = BeaconConfig.from_env(), JB.from_env()
-    assert _ingest_fields(a.ingest) == _ingest_fields(b.ingest,
-                                                      SCAN_POOL_KEYS)
+    assert dataclasses.asdict(a.ingest) == dataclasses.asdict(b.ingest)
     assert dataclasses.asdict(a.resolvers) == dataclasses.asdict(b.resolvers)
 
 
 def test_scan_workers_env_refused(monkeypatch):
-    monkeypatch.setenv("BEACON_SCAN_WORKERS", "http://a:1,http://b:2")
-    with pytest.raises(ValueError, match="fleet plane"):
-        BeaconConfig.from_env()
+    """``BEACON_SCAN_WORKERS`` now names the scan workers, as in JAX."""
+    from sbeacon_tpu.config import BeaconConfig as JB
+
+    monkeypatch.setenv("BEACON_SCAN_WORKERS", "http://a:1, http://b:2")
+    a, b = BeaconConfig.from_env(), JB.from_env()
+    assert a.ingest.scan_worker_urls == ("http://a:1", "http://b:2")
+    assert dataclasses.asdict(a.ingest) == dataclasses.asdict(b.ingest)
 
 
 def test_cpu_engine_tensors_stay_on_the_cpu(tmp_path):
