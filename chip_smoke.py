@@ -5,7 +5,7 @@
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--http-requests 512] [--ingest-records 100000]
+                          [--http-requests 512] [--ingest-records 50000]
                           [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
@@ -221,7 +221,8 @@ non-zero, without the final line):
     ``native_slice_text``); the server entry restarted over the root,
     answering a hit as before. The root is removed whatever happens;
 14f. migrate_path: live shard migration on the one card. The source S
-    (an in-process ``WorkerServer``) serves cohort 3 (5e6 rows) and six
+    (an in-process ``WorkerServer``) serves a 2.5e6-row cohort (cohort
+    3's generator and seed at MIGRATE_ROWS) and six
     4000-row deltas past the L0 threshold, the target T is the worker
     entry over an empty data root (its delta compactor off), the
     coordinator a ``BeaconApp`` over a ``DistributedEngine`` routing
@@ -243,7 +244,7 @@ non-zero, without the final line):
 14g. scan_ingest_path (run inside 14d, over its VCF): fleet ingest.
     Two scan workers (the worker entry with a token over empty roots)
     and a ``BeaconApp`` whose ``IngestConfig.scan_worker_urls`` names
-    both; 14d's VCF (1e5 records x 2504 samples; chr22 holds 1.07e6)
+    both; 14d's VCF (5e4 records x 2504 samples; chr22 holds 1.07e6)
     POSTed to ``/submit`` while 64 clients query it: every slice
     scanned remotely (the pool's scans counted by slice and worker, the
     host's rescans by slice), J3 ``fused_l0`` launched while the slices
@@ -297,6 +298,24 @@ non-zero, without the final line):
     mesh entry's block as phase 21 launched, and 64, L2 cold and warm,
     beside the bound and the twin's time; with counts on phase 19's
     count-plane stack;
+22a. multihost_path: multi-process compute on the one card. Two child
+    processes of this script (``--multihost-child``), each
+    ``init_multihost(..., backend="gloo", devices=[cuda:0])`` (NCCL
+    takes no two ranks on one card), make one two-entry mesh spanning
+    both; each loads the main shard, the cohorts and B as 14a and 14e
+    saved them (B's two row subsets of phase 19 by row id), holds half
+    of the stack of A and the cohorts and of the stack of B and its
+    subsets (four planes), and runs phase 21's ``mesh_path`` batches
+    through ``sharded_query`` and its ``mesh_selected_path`` batches (B's
+    masks on every copy of B) through ``sharded_selected_query``,
+    aggregates only, and ``distinct_count_device(mesh=)`` over every one
+    of those shards. Both ranks' aggregates byte-equal to each other and
+    to the one-process answers over phase 21's and 19's stacks, the
+    count equal to phase 17's host oracle (the subsets add no key); J7
+    query, J7 selected and J8 launched on cuda:0 in each child. A third
+    child initialises an nccl world of one on the card and all-reduces
+    one CUDA tensor. Seconds of each step per child and the all_reduce's
+    mean ms; a failing or late child fails the phase;
 23. mesh-fused setup: MeshFusedIndexes on [card, card] (A and the
     cohorts; A and B with gt planes; B and two row subsets with four
     planes) and a crafted one on three entries with an empty group;
@@ -5030,7 +5049,8 @@ def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
     ok = False
     try:
         # the data roots: the workers' shard files (the main shard and B
-        # linked from the HTTP root, cohort2 saved once and linked into
+        # linked from the HTTP root, the cohorts saved once into its
+        # saved/ (phase 22a loads them there) and cohort2 linked into
         # both: the same bytes, so the same fingerprint: a replica), the
         # coordinator's metadata of all five datasets, and its copy for
         # the reference app
@@ -5038,7 +5058,7 @@ def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
         saved = {}
         for s in (c1, c2, c3):
             ds = s.meta["dataset_id"]
-            path = os.path.join(base, "saved", ds, f"{ds}.npz")
+            path = os.path.join(http_root, "saved", ds, f"{ds}.npz")
             save_index(s, path, compress=False)
             saved[ds] = path
         for s in (main_shard, b_shard):
@@ -5480,7 +5500,7 @@ def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
 
 #: records of the ingest phase's chr22-shaped VCF (1000 Genomes phase 3
 #: chr22 holds about 1.07e6; PERF.md section 4 says why this is cut)
-INGEST_RECORDS = 100_000
+INGEST_RECORDS = 50_000
 #: the one knob of the JAX default IngestConfig the phase changes: the
 #: compactor's sweep, short enough that timed folds fall inside the submit
 INGEST_COMPACT_INTERVAL_S = 2.0
@@ -6251,6 +6271,9 @@ def run_ingest_path(args, device, kind, smi, kernel_ms, then=None):
 
 # -- 14f. migrate_path ---------------------------------------------------------
 
+#: rows of the dataset migrate_path moves (cohort 3's generator at half
+#: its rows; PERF.md section 4 says why this is cut)
+MIGRATE_ROWS = 2_500_000
 #: the source's standing delta tail in migrate_path: past the engine's
 #: l0_min_shards, so the tail rides the L0 index on both workers
 MIGRATE_DELTAS = 6
@@ -7113,6 +7136,323 @@ def run_scan_ingest_path(vcf, ref, names, args, device, kind, smi,
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- multi-process compute (multihost_path) -----------------------------------
+
+#: a multihost child's own time limit, start to exit (it needs about 40 s)
+MULTIHOST_LIMIT_S = 300.0
+#: directories the run leaves under BUILD_DIR; main() removes them
+SCRATCH_DIRS: list = []
+
+
+def keep_shards(paths):
+    """Hard links to saved shards (npz + meta sidecar) in a directory of
+    their own under BUILD_DIR, so they outlive the data roots they were
+    saved in; returns {dataset id: path}."""
+    root = tempfile.mkdtemp(prefix="multihost-", dir=BUILD_DIR)
+    SCRATCH_DIRS.append(root)
+    out = {}
+    for ds, src in paths.items():
+        dst = os.path.join(root, f"{ds}.npz")
+        os.link(src, dst)
+        os.link(src + ".meta.json", dst + ".meta.json")
+        out[ds] = dst
+    return out
+
+
+def multihost_expected(qblocks, qmesh, q_iters, batches, cblk, cmesh, c_iters,
+                       sel_batches):
+    """The one-process answers the multihost children must equal: the
+    query batches through ``sharded_query`` over ``qblocks`` and the
+    selected batches through ``sharded_selected_query`` over ``cblk``
+    (masks for its datasets), aggregates only."""
+    from sbeacon_tpu_torch.parallel import mesh as tm
+
+    q = [tm.sharded_query(qblocks, b, mesh=qmesh, n_iters=q_iters,
+                          aggregates_only=True)[1] for b in batches]
+    sel = [tm.sharded_selected_query(
+        [cblk], b, m[: cblk.n_datasets], mesh=cmesh, n_iters=c_iters,
+        has_counts=True, aggregates_only=True)[1] for b, m in sel_batches]
+    return {"query": q, "selected": sel}
+
+
+def agg_bytes(aggs):
+    """A list of aggregate dicts as one byte string (keys sorted)."""
+    return b"".join(a[k].tobytes() for a in aggs for k in sorted(a))
+
+
+def multihost_child(argv) -> int:
+    """One process of the multihost phase (``chip_smoke.py
+    --multihost-child RANK PORT PLAN OUT``): rank 0 or 1 of a two-process
+    gloo world, one mesh entry each on cuda:0, loading the plan's saved
+    shards and running its batches; rank ``nccl`` is a world of one on
+    the card that all-reduces one CUDA tensor. Writes its report as JSON
+    to OUT."""
+    import pickle
+
+    import torch
+
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.index.columnar import load_index
+    from sbeacon_tpu_torch.parallel import distinct as dc
+    from sbeacon_tpu_torch.parallel import mesh as tm
+    from sbeacon_tpu_torch.parallel.dispatch import (
+        init_multihost,
+        shutdown_multihost,
+    )
+
+    who, port, plan_path, out_path = argv
+    t0 = time.perf_counter()
+    if who == "nccl":
+        card = torch.device("cuda", 0)
+        init_multihost(f"127.0.0.1:{port}", 1, 0)  # the defaults: nccl
+        try:
+            w = tm.world()
+            mesh = tm.make_mesh()
+            x = torch.arange(1, 9, dtype=torch.int64, device=card)
+            t1 = time.perf_counter()
+            got = tm.all_reduce_sum(x)
+            ms = (time.perf_counter() - t1) * 1e3
+            report = {"rank": w.rank, "size": w.size, "backend": w.backend,
+                      "entries": [[str(d) for d in e] for e in w.entries],
+                      "mesh": [str(d) for d in mesh.devices],
+                      "equal": got.tolist() == x.tolist(),
+                      "all_reduce_ms": ms,
+                      "init_s": t1 - t0}
+        finally:
+            shutdown_multihost()
+        with open(out_path, "w") as fh:
+            json.dump(report, fh)
+        return 0
+
+    rank = int(who)
+    with open(plan_path, "rb") as fh:
+        plan = pickle.load(fh)
+    card = torch.device(plan["device"])
+    on_card = card.type == "cuda"
+    init_multihost(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                   devices=[card])
+    try:
+        w = tm.world()
+        mesh = tm.make_mesh()
+        t_init = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        qshards = [load_index(p) for p in plan["query_paths"]]
+        b = load_index(plan["b_path"])
+        again = [with_plane_rows(b, rows, name)
+                 for name, rows in plan["b_again"]]
+        t_load = time.perf_counter() - t0
+        sync = lambda: torch.cuda.synchronize(card) if on_card else None
+        memory_gb = lambda: (torch.cuda.memory_allocated(card) / 1e9
+                             if on_card else 0.0)
+        report = {"rank": w.rank, "size": w.size, "backend": w.backend,
+                  "entries": [[str(d) for d in e] for e in w.entries],
+                  "mesh": [str(d) for d in mesh.devices],
+                  "mesh_ranks": list(mesh.ranks),
+                  "local_entries": mesh.local_entries(),
+                  "init_s": t_init, "load_s": t_load}
+
+        def stacked(shards, with_planes):
+            """(n_iters, this process's blocks, their report) of the
+            stack of ``shards``; the host stack goes once uploaded."""
+            t = time.perf_counter()
+            st = tm.StackedIndex(shards, n_datasets_padded=4,
+                                 with_planes=with_planes)
+            blocks = st.shard_to_mesh(mesh)
+            sync()
+            blk_bytes = sum(
+                x.numel() * 4 for blk in blocks for x in
+                (blk.columns, blk.alt_prefix, blk.offsets,
+                 *(blk.planes or ())))
+            return st.n_iters, blocks, {
+                "datasets": sum(blk.n_datasets for blk in blocks),
+                "bytes": blk_bytes,
+                "upload_s": time.perf_counter() - t,
+                "device_memory_gb": memory_gb()}
+
+        def run_batches(fn, batches):
+            aggs, ms = [], []
+            for batch in batches:
+                t = time.perf_counter()
+                aggs.append(fn(batch))
+                ms.append((time.perf_counter() - t) * 1e3)
+            return aggs, {"batches": len(batches), "seconds": sum(ms) / 1e3,
+                          "batch_ms": {"p50": percentile(ms, 0.5),
+                                       "p99": percentile(ms, 0.99),
+                                       "max": max(ms)}}
+
+        # the count first: then the query shards can go before the
+        # selected stack (the host stacks are the children's peak)
+        telemetry.reset_launch_counts()
+        t = time.perf_counter()
+        distinct = dc.distinct_count_device(qshards + [b] + again, mesh=mesh)
+        report["distinct"] = {"value": distinct,
+                              "seconds": time.perf_counter() - t}
+        q_iters, qblocks, report["query_stack"] = stacked(qshards, False)
+        del qshards
+        qaggs, report["query"] = run_batches(
+            lambda batch: tm.sharded_query(
+                qblocks, batch, mesh=mesh, n_iters=q_iters,
+                aggregates_only=True)[1], plan["query_batches"])
+        del qblocks
+        if on_card:
+            torch.cuda.empty_cache()
+        c_iters, cblocks, report["selected_stack"] = stacked([b] + again,
+                                                             True)
+        del b, again
+        saggs, report["selected"] = run_batches(
+            lambda batch: tm.sharded_selected_query(
+                cblocks, batch[0], batch[1], mesh=mesh, n_iters=c_iters,
+                has_counts=True, aggregates_only=True)[1],
+            plan["selected_batches"])
+        del cblocks
+        n_reduce = tm.total("mesh_all_reduces")
+        report["all_reduce"] = {
+            "calls": n_reduce,
+            "mean_ms": tm.total("mesh_all_reduce_us") / 1e3 / max(n_reduce, 1)}
+        report["launches"] = {k: telemetry.launch_count(k) for k in (
+            tm.QUERY_KERNEL, tm.SELECTED_KERNEL, dc.KERNEL)}
+        report["launch_devices"] = sorted({
+            (r["kernel"], r.get("device", "?"))
+            for r in telemetry.recent_launches()})
+        report["families"] = telemetry.flight_recorder.launches_by_family()
+        report["query_aggs"] = agg_bytes(qaggs).hex()
+        report["selected_aggs"] = agg_bytes(saggs).hex()
+    finally:
+        shutdown_multihost()
+    with open(out_path, "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def run_multihost_path(query_paths, b_path, b_again, query_batches,
+                       sel_batches, expected, host_distinct, device, kind,
+                       smi):
+    """Phase 22a: two child processes of this script, each a rank of a
+    gloo world with one mesh entry on cuda:0 (a two-entry mesh spanning
+    both), holding half of each stack loaded from saved shards (the
+    query stack's ``query_paths``, B's ``b_path``; ``b_again`` are B's
+    row subsets as (dataset id, row ids)): the
+    query batches through ``sharded_query``, the selected batches through
+    ``sharded_selected_query`` (aggregates only) and the distinct count
+    through ``distinct_count_device(mesh=)``. Both ranks' aggregates
+    must be byte-equal to each other and to ``expected`` (the one-process
+    answers) and the count to ``host_distinct``; each child must launch
+    J7 query, J7 selected and J8 on cuda:0. A third child is an nccl
+    world of one on the card that all-reduces one CUDA tensor (on a CPU
+    ``device``, a rehearsal, the ranks' entries are that device and the
+    nccl child is not started). A child that fails or outlives
+    MULTIHOST_LIMIT_S fails the phase; every child is killed on the way
+    out."""
+    import pickle
+    import socket
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="multihost-run-", dir=BUILD_DIR)
+    plan_path = os.path.join(work, "plan.pkl")
+    with open(plan_path, "wb") as fh:
+        pickle.dump({
+            "query_paths": query_paths, "b_path": b_path, "b_again": b_again,
+            "query_batches": query_batches,
+            "selected_batches": sel_batches, "device": str(device)}, fh)
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        [here] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    who = ["0", "1"] + (["nccl"] if device.type == "cuda" else [])
+    outs = {w: os.path.join(work, f"{w}.json") for w in who}
+    logs = {w: os.path.join(work, f"{w}.log") for w in who}
+    children = {}
+    try:
+        for w in who:
+            port = ports[1] if w == "nccl" else ports[0]
+            with open(logs[w], "w") as log:
+                children[w] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--multihost-child", w, str(port), plan_path, outs[w]],
+                    env=env, cwd=here, stdout=log, stderr=subprocess.STDOUT)
+        deadline = time.perf_counter() + MULTIHOST_LIMIT_S
+        for w, child in children.items():
+            try:
+                rc = child.wait(timeout=max(1.0, deadline
+                                            - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                with open(logs[w]) as fh:
+                    tail = fh.read()[-3000:]
+                raise RuntimeError(
+                    f"multihost child {w} "
+                    f"{'outlived its limit' if rc is None else f'exited {rc}'}"
+                    f":\n{tail}")
+        reports = {}
+        for w in who:
+            with open(outs[w]) as fh:
+                reports[w] = json.load(fh)
+    finally:
+        for child in children.values():
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    r0, r1, nc = reports["0"], reports["1"], reports.get("nccl")
+    entry = "cuda:0" if device.type == "cuda" else str(device)
+    want_q = agg_bytes(expected["query"]).hex()
+    want_s = agg_bytes(expected["selected"]).hex()
+    for r, rep in enumerate((r0, r1)):
+        check(rep["size"] == 2 and rep["backend"] == "gloo"
+              and rep["mesh"] == [entry, entry]
+              and rep["mesh_ranks"] == [0, 1]
+              and rep["local_entries"] == [r],
+              f"rank {r}: a two-process mesh, one entry each on cuda:0")
+        check(rep["query_stack"]["datasets"] == 2
+              and rep["selected_stack"]["datasets"] == 2,
+              f"rank {r} holds half of each stack")
+        check(rep["query_aggs"] == want_q, f"rank {r}'s query aggregates "
+              "are byte-equal to the one-process answers")
+        check(rep["selected_aggs"] == want_s, f"rank {r}'s selected "
+              "aggregates are byte-equal to the one-process answers")
+        check(rep["distinct"]["value"] == host_distinct,
+              f"rank {r}'s distinct count {rep['distinct']['value']} != "
+              f"the host oracle {host_distinct}")
+        launches = rep["launches"]
+        check(launches == {"stacked_query": len(query_batches),
+                           "stacked_selected": len(sel_batches),
+                           "distinct_count": 1},
+              f"rank {r} launched J7 query, J7 selected and J8 once a "
+              f"batch: {launches}")
+        check({tuple(x) for x in rep["launch_devices"]} == {
+            ("stacked_query", entry), ("stacked_selected", entry),
+            ("distinct_count", entry)},
+            f"rank {r}'s flight recorder shows its launches on cuda:0")
+        check(rep["all_reduce"]["calls"]
+              == len(query_batches) + len(sel_batches) + 1,
+              f"rank {r}: one all_reduce a batch and one for the count")
+    ranks_equal = (r0["query_aggs"] == r1["query_aggs"]
+                   and r0["selected_aggs"] == r1["selected_aggs"]
+                   and r0["distinct"]["value"] == r1["distinct"]["value"])
+    check(ranks_equal, "both ranks' aggregates and counts are equal")
+    one_process_equal = all(
+        rep["query_aggs"] == want_q and rep["selected_aggs"] == want_s
+        for rep in (r0, r1))
+    check(nc is not None and nc["backend"] == "nccl" and nc["size"] == 1
+          and nc["equal"] and nc["mesh"] == ["cuda:0"],
+          "an nccl world of one all-reduced a CUDA tensor on the card")
+    keep = ("rank", "size", "backend", "entries", "init_s", "load_s",
+            "query_stack", "selected_stack", "query", "selected", "distinct",
+            "all_reduce", "launches", "families")
+    emit("multihost_path",
+         ranks=[{k: rep[k] for k in keep} for rep in (r0, r1)],
+         ranks_equal=ranks_equal, one_process_equal=one_process_equal,
+         distinct=r0["distinct"]["value"], host_oracle=host_distinct,
+         nccl=nc and {k: nc[k] for k in ("size", "backend", "entries",
+                                         "equal", "all_reduce_ms", "init_s")},
+         phase_s=time.perf_counter() - t_phase, device=kind, nvidia_smi=smi)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     # 1.4e7 keeps A's plane rows past 2^31 words in the mesh stack
@@ -7129,6 +7469,10 @@ def main(argv=None) -> int:
     ap.add_argument("--http-requests", type=int, default=HTTP_REQUESTS)
     ap.add_argument("--ingest-records", type=int, default=INGEST_RECORDS)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--multihost-child", nargs=4, default=None,
+                    metavar=("RANK", "PORT", "PLAN", "OUT"),
+                    help="run one process of phase 22a (started by the "
+                         "phase itself)")
     ap.add_argument("--parent", default=None,
                     help="another checkout (e.g. the parent commit): its "
                          "scatter_match, bisect_query, scatter_selected, "
@@ -7142,6 +7486,8 @@ def main(argv=None) -> int:
 
     import torch
 
+    if args.multihost_child:  # its plan names its device
+        return multihost_child(args.multihost_child)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "false); nothing was run", file=sys.stderr)
@@ -7151,6 +7497,9 @@ def main(argv=None) -> int:
     except BaseException as e:
         print(PHASES.line(failed=f"{type(e).__name__}: {e}"), flush=True)
         raise
+    finally:
+        for d in SCRATCH_DIRS:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 def run(args, device) -> int:
@@ -7745,12 +8094,24 @@ def run(args, device) -> int:
         torch.cuda.empty_cache()
         fleet = run_fleet_path(http_root, shard, cohorts, shard_b, args,
                                device, kind, smi)
+        # phase 22a loads the main shard, the cohorts and B as saved here
+        where = [("variant-index", shard), ("variant-index", shard_b)]
+        where += [("saved", c) for c in cohorts]
+        mh_paths = keep_shards({
+            s.meta["dataset_id"]: os.path.join(
+                http_root, sub, s.meta["dataset_id"],
+                f"{s.meta['dataset_id']}.npz")
+            for sub, s in where})
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
 
-    # 14f. live migration of cohort 3 between two workers on the card
+    # 14f. live migration of a 2.5e6-row cohort 3 between two workers on
+    # the card
     torch.cuda.empty_cache()
-    migrated = run_migrate_path(cohorts[2], args, device, kind, smi)
+    migrated = run_migrate_path(
+        synthetic_shard(MIGRATE_ROWS, seed=args.seed + 3,
+                        dataset_id=cohorts[2].meta["dataset_id"]),
+        args, device, kind, smi)
 
     # 14d. ingest over HTTP: a chr22-shaped VCF submitted to the port;
     # 14g. the same VCF again over two scan workers
@@ -7926,12 +8287,13 @@ def run(args, device) -> int:
     t_p = time.perf_counter() - t0
     t0 = time.perf_counter()
     g = np.random.default_rng(args.seed + 19)
-    b_again = [
-        with_plane_rows(shard_b, np.flatnonzero(
-            g.random(shard_b.n_rows) < g.uniform(0.4, 0.7)),
-            f"cohortB_again{k}")
+    b_again_rows = [
+        (f"cohortB_again{k}",
+         np.flatnonzero(g.random(shard_b.n_rows) < g.uniform(0.4, 0.7)))
         for k in range(2)
     ]
+    b_again = [with_plane_rows(shard_b, rows, name)
+               for name, rows in b_again_rows]
     cstack = tm.StackedIndex([shard_b] + b_again, with_planes=True)
     (cblk,) = cstack.shard_to_mesh(one)
     cstack.arrays.clear()
@@ -8252,7 +8614,27 @@ def run(args, device) -> int:
          cases=stimings, mesh_selected_path_kernel_ms_est=busy_s,
          mesh_selected_path_busy_share_est=busy_s / (ms_wall * 1e3),
          device=kind, nvidia_smi=smi)
+
+    # 22a. multihost_path: two processes, one mesh entry each on the
+    # card, joined by gloo; first the one-process answers they must
+    # equal (mesh_path's batches over phase 21's stack of A and the
+    # cohorts, mesh_selected_path's over phase 19's B + subsets stack,
+    # each request's masks for B set on every copy of B)
+    ib = sel_names.index(shard_b.meta["dataset_id"])
+    mh_sel = []
+    for specs, m in sel_sets:
+        masks = np.zeros((4, cstack.plane_words), np.uint32)
+        masks[:3] = m[ib][: cstack.plane_words]
+        mh_sel.append((specs, masks))
+    mh_query = [[q] for q in mq_specs]
+    mh_expect = multihost_expected(qblocks, mesh_q, mq_n_iters, mh_query,
+                                   cblk, one, cstack.n_iters, mh_sel)
     del qblocks, sblocks, cblk
+    torch.cuda.empty_cache()
+    run_multihost_path(
+        [mh_paths[s.meta["dataset_id"]] for s in qshards],
+        mh_paths[shard_b.meta["dataset_id"]], b_again_rows, mh_query, mh_sel,
+        mh_expect, host, device, kind, smi)
     j7q = next(t for t in qtimings if t["block"] == 0 and t["queries"] == 1)
     j7s = next(t for t in stimings if t["block"] == 1)
 

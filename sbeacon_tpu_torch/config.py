@@ -25,6 +25,7 @@ past 4 shards or 4096 rows).
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from pathlib import Path
 
@@ -636,3 +637,9 @@ class BeaconConfig:
                 workers=int(env.get("BEACON_RESOLVER_WORKERS", "8")),
             ),
         )
+
+    def dumps(self) -> str:
+        """The config as indented JSON, the storage root as a string."""
+        d = dataclasses.asdict(self)
+        d["storage"]["root"] = str(d["storage"]["root"])
+        return json.dumps(d, indent=2)

@@ -20,7 +20,9 @@ response per (dataset, vcf) target through these device legs:
   its plane reduction, and materialises through
   ``materialize_response(fused=)``. The mesh lists every visible CUDA
   device (``parallel.mesh.mesh_devices``), so one card keeps serving
-  through the fused stack;
+  through the fused stack; it stays this process's after
+  ``init_multihost`` (a serving engine runs no collective in lockstep
+  with other processes);
 - several datasets otherwise (``fused_dispatch``): ``_search`` ->
   ``_fused_multi_rows`` -> ONE micro-batcher submission against the
   ``FusedDeviceIndex`` stacked over every base shard -> the bisection
@@ -901,6 +903,30 @@ class VariantEngine:
         )
         dindex = make_device_index(shard, self.device)
         planes = self._build_planes(key, shard)
+        self._publish_index(key, shard, dindex, planes)
+
+    _AUTO_PLANES = object()  # sentinel: build planes unless caller chose
+
+    def add_prebuilt_index(
+        self, shard: VariantIndexShard, dindex, planes=_AUTO_PLANES
+    ) -> None:
+        """Publish a shard with an ALREADY-BUILT device index (benchmarks
+        and bulk loaders that build and upload the index out of band), as
+        ``add_index`` publishes it. ``planes`` may be an out-of-band
+        ``PlaneDeviceIndex`` or an explicit None (no plane upload even if
+        the budget allows); omitted means ``add_index``'s plane build."""
+        key = (
+            shard.meta.get("dataset_id", ""),
+            shard.meta.get("vcf_location", ""),
+        )
+        if planes is VariantEngine._AUTO_PLANES:
+            planes = self._build_planes(key, shard)
+        self._publish_index(key, shard, dindex, planes)
+
+    def _publish_index(self, key, shard, dindex, planes) -> None:
+        """Publish a built base shard: the delta-epoch bookkeeping, the L0
+        retirement, the serving views, the plane reservation's turn into
+        residency and the dataset's cache invalidation of ``add_index``."""
         with self._lock:
             # epochs stay monotonic past what a base folded
             baked = shard.meta.get("delta_epoch") or 0

@@ -1,10 +1,10 @@
-"""The fleet query plane: worker hosts, the coordinator, and the pod tier.
+"""The fleet query plane: worker hosts, the coordinator, the pod tier and
+multi-process compute.
 
-Counterpart of ``sbeacon_tpu/parallel/dispatch.py`` without
-``init_multihost``. Each worker host owns a set of dataset index shards
-behind a :class:`WorkerServer` (``python -m
-sbeacon_tpu_torch.parallel.dispatch``, serving on the card); the
-coordinator's :class:`DistributedEngine` routes a
+Counterpart of ``sbeacon_tpu/parallel/dispatch.py``. Each worker host
+owns a set of dataset index shards behind a :class:`WorkerServer`
+(``python -m sbeacon_tpu_torch.parallel.dispatch``, serving on the
+card); the coordinator's :class:`DistributedEngine` routes a
 ``VariantQueryPayload`` to the workers owning its datasets (a
 thread-pool scatter over the pooled keep-alive transport of
 ``transport.py``), retries transient failures, and merges the
@@ -43,8 +43,19 @@ the request annotations, ``search`` checks the request deadline and
 hits the ``mesh.dispatch`` fault point, and a launch without the
 batcher hits the ``kernel.launch`` fault point.
 
+Multi-process compute (:func:`init_multihost`, JAX's
+``jax.distributed.initialize``): every process joins one
+``torch.distributed`` process group and records its local mesh entries
+in ``parallel.mesh``; ``make_mesh()`` then spans every process, and
+the stacked mesh queries of ``parallel.mesh`` and
+``distinct_count_device(mesh=)`` fan in through an ``all_reduce``.
+
 Deliberate differences from the JAX package:
 
+- ``init_multihost`` takes the collectives' ``backend`` (nccl by
+  default) and this process's mesh ``devices`` (every visible card by
+  default); nothing picks another backend or the CPU by itself. The
+  engine's mesh leg and the pod tier stay process-local;
 - a failure on the coordinator's side raises on the request: a failed
   tier build, upload or launch (a background build's failure is raised
   by the requests that consult the tier until the index set changes),
@@ -1555,9 +1566,12 @@ class MeshDispatchTier:
             built = self._state is not None
         state = self._ready()
         if state is None:
-            reason = "stale" if built else "unbuilt"
-            self._note_refusal(reason)
-            plan_stage("mesh", decision="refused", reason=reason)
+            if built:
+                self._note_refusal("stale")
+                plan_stage("mesh", decision="refused", reason="stale")
+            else:
+                self._note_refusal("unbuilt")
+                plan_stage("mesh", decision="refused", reason="unbuilt")
             return set()
         index = state[0]
         if self.engine._wants_planes(payload):
@@ -3023,6 +3037,67 @@ class DistributedEngine:
                 unavailable=len(unavailable),
             )
         return responses
+
+
+# -- multi-process compute ---------------------------------------------------
+
+
+def init_multihost(coordinator_address: str, num_processes: int,
+                   process_id: int, *, backend: str = "nccl",
+                   devices=None) -> None:
+    """Join ``num_processes`` processes into one ``torch.distributed``
+    process group (``tcp://coordinator_address``, this process being rank
+    ``process_id``) for compute that spans them: afterwards
+    ``parallel.mesh.make_mesh()`` returns the mesh over every process's
+    entries, and the mesh entry points fan in across processes.
+
+    ``devices`` are this process's mesh entries (an entry may repeat a
+    device); by default every visible CUDA device, and without one this
+    raises. A CPU world asks for it: ``devices=[torch.device("cpu")] *
+    4, backend="gloo"``. ``backend`` is the collectives' (nccl by
+    default); NCCL refuses two ranks on one card, so that layout needs
+    ``backend="gloo"``, which the caller chooses. Each rank's entries are
+    exchanged (``all_gather_object``) into ``parallel.mesh.world()``."""
+    import torch.distributed as dist
+
+    if _mesh.world() is not None:
+        raise RuntimeError("this process already joined a process group")
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; the port runs on the GPU — "
+                "pass devices=[torch.device('cpu')] and backend='gloo' to "
+                "join a CPU world"
+            )
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("init_multihost: 0 devices selected")
+    if backend == "nccl" and devices[0].type == "cuda":
+        torch.cuda.set_device(devices[0])
+    dist.init_process_group(
+        backend, init_method=f"tcp://{coordinator_address}",
+        world_size=num_processes, rank=process_id,
+    )
+    entries: list = [None] * num_processes
+    dist.all_gather_object(entries, [str(d) for d in devices])
+    _mesh.set_world(_mesh.World(
+        rank=process_id, size=num_processes, backend=backend,
+        entries=tuple(tuple(torch.device(d) for d in e) for e in entries),
+    ))
+
+
+def shutdown_multihost() -> None:
+    """Leave the process group ``init_multihost`` joined (JAX's
+    ``jax.distributed.shutdown``); ``make_mesh()`` is process-local
+    again."""
+    import torch.distributed as dist
+
+    if _mesh.world() is None:
+        return
+    dist.destroy_process_group()
+    _mesh.set_world(None)
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -25,9 +25,12 @@ size: a CUDA kernel compiles no shapes, so JAX's pow2 block padding
 Over a mesh (``mesh=``, a ``parallel.mesh.Mesh``; its entries may list
 one card more than once), ``partition_keys`` splits the keys into one
 block per entry, byte for byte the JAX package's layout (equal keys in
-one block; the kernel skips the ``_PAD`` rows), each entry's block is
-counted by one kernel launch on its device, and the partial counts are
-summed on the first entry (``parallel.mesh._psum``, JAX's ``psum``).
+one block; the kernel skips the ``_PAD`` rows), each of this process's
+entries' blocks is counted by one kernel launch on its device, and the
+partial counts fan in through ``parallel.mesh._psum`` (JAX's ``psum``:
+summed on the first local entry, then, over a mesh that spans
+processes, all-reduced across the world; every process builds every
+key and gets the same count).
 ``shard_keys`` fills one preallocated key matrix column by column; its
 bytes, order included, are the JAX package's.
 
@@ -272,6 +275,7 @@ def distinct_count(keys: torch.Tensor, *, log2_buckets: int | None = None,
     seq = record_device_launch(
         KERNEL,
         family="distinct",
+        device=str(dev),
         rows=n,
         buckets=1 << log2,
         launch_ms=(time.perf_counter() - t0) * 1e3,
@@ -284,9 +288,10 @@ def distinct_count_device(shards: list[VariantIndexShard], *, mesh=None,
     """Distinct (contig, pos, ref, alt) across shards, counted on the
     card (default) or, with ``device="cpu"``, by the twin on the CPU; or,
     with ``mesh`` (a ``parallel.mesh.Mesh``), over its entries: one
-    ``partition_keys`` block and one kernel launch per entry, the
-    partial counts summed on the first entry (``device`` is then not
-    read).
+    ``partition_keys`` block per entry and one kernel launch per local
+    entry, the partial counts through ``parallel.mesh._psum``
+    (``device`` is then not read). Over a mesh that spans processes,
+    every process calls this with the same shards.
 
     The keys are built on the host and copied to the device(s). The
     launch records carry the stage times: ``keys_ms`` (host keys),
@@ -304,14 +309,15 @@ def distinct_count_device(shards: list[VariantIndexShard], *, mesh=None,
         parts = [torch.from_numpy(keys).to(dev)]
     else:
         blocks = partition_keys(keys, mesh.size)
-        parts = [torch.from_numpy(b).to(d)
-                 for b, d in zip(blocks, mesh.devices)]
+        parts = [torch.from_numpy(blocks[g]).to(mesh.devices[g])
+                 for g in mesh.local_entries()]
     for d in {_device_key(p.device): p.device for p in parts}.values():
         if d.type == "cuda":
             torch.cuda.synchronize(d)
     t2 = time.perf_counter()
     counts, seqs = zip(*(distinct_count(p) for p in parts))
-    total = int(counts[0]) if mesh is None else int(_psum(list(counts)))
+    total = (int(counts[0]) if mesh is None
+             else int(_psum(list(counts), mesh)))
     stages = dict(
         keys_ms=(t1 - t0) * 1e3,
         upload_ms=(t2 - t1) * 1e3,

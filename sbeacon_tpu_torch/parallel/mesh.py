@@ -33,23 +33,39 @@ a CUDA tensor (or raises) and runs the twin on a CPU tensor; every CUDA
 launch adds one to its launch count (``stacked_query_launches``,
 ``stacked_selected_launches``, ``mesh_fused_launches``).
 
-The mesh is an ordered tuple of ``torch.device`` s. ``StackedIndex``
-builds the host stack byte for byte as the JAX package does;
-``shard_to_mesh`` gives mesh device g the datasets ``[g * d_local,
-(g + 1) * d_local)``. ``sharded_query`` / ``sharded_selected_query`` make
-one launch per mesh device over its block, and the ``psum`` is the sum
-of the per-device ``[B]`` partials on the first mesh device. Deliberate
-differences from the JAX package: ``plane_bytes_per_device`` counts the
-card's real ``W * 4`` bytes a row (a CUDA tensor has no 128-lane
-padding), the psum is that sum (a collective replaces it with the
-multi-GPU port), the engine's mesh leg raises where JAX falls back to
-thread scatter, and ``MeshFusedIndex`` pads neither its slices nor its
-replicated batch to a tier (see its docstring).
+The mesh is an ordered tuple of ``torch.device`` s, each entry owned by
+one OS process (``Mesh.ranks``). ``StackedIndex`` builds the host stack
+byte for byte as the JAX package does; ``shard_to_mesh`` gives mesh
+entry g the datasets ``[g * d_local, (g + 1) * d_local)``, uploading only
+the entries this process owns. ``sharded_query`` /
+``sharded_selected_query`` make one launch per local entry over its
+block, and the ``psum`` (``_psum``) is the sum of the local entries'
+``[B]`` partials, then, over a mesh that spans processes, one
+``torch.distributed.all_reduce`` across the world.
+
+Multi-process compute (JAX's ``jax.distributed``): after
+``parallel.dispatch.init_multihost`` this module holds the world
+(``world()``: rank, size, backend, every rank's local entries) and
+``make_mesh()`` returns the global mesh, entries rank-major. Every
+process makes the same calls; the cross-dataset aggregates come back
+equal in every process, and the per-dataset leaves, which live on their
+owning processes, are refused (``aggregates_only=True``), as JAX's
+multi-controller contract has it.
+
+Deliberate differences from the JAX package: ``plane_bytes_per_device``
+counts the card's real ``W * 4`` bytes a row (a CUDA tensor has no
+128-lane padding), the engine's mesh leg stays process-local
+(``mesh_devices``: a serving engine cannot run collectives in lockstep
+with other processes) and raises where JAX falls back to thread
+scatter, ``MeshFusedIndex`` refuses a mesh that spans processes (JAX
+asserts single-controller in its owner-sharded fetch) and pads neither
+its slices nor its replicated batch to a tier (see its docstring).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -132,28 +148,91 @@ def __getattr__(name: str):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-class Mesh:
-    """A 1-D mesh: an ordered tuple of devices along one named axis."""
+@dataclasses.dataclass(frozen=True)
+class World:
+    """The process group ``parallel.dispatch.init_multihost`` joined:
+    this process's ``rank``, the world ``size``, the ``backend`` of its
+    collectives and ``entries``, each rank's local mesh entries in rank
+    order."""
 
-    def __init__(self, devices, axis: str = AXIS):
+    rank: int
+    size: int
+    backend: str
+    entries: tuple
+
+
+_world: World | None = None
+#: one collective at a time from this process (JAX's
+#: ``_collective_guard``): request threads never interleave their
+#: all_reduces on the process group; every rank must still make them in
+#: the same order
+_COLLECTIVE_LOCK = threading.Lock()
+
+
+def world() -> World | None:
+    """The process group this process joined, None before
+    ``init_multihost`` (and after ``shutdown_multihost``)."""
+    return _world
+
+
+def set_world(w: World | None) -> None:
+    """Record (or, with None, forget) the process group; called by
+    ``parallel.dispatch.init_multihost`` / ``shutdown_multihost``."""
+    global _world
+    _world = w
+
+
+class Mesh:
+    """A 1-D mesh: an ordered tuple of devices along one named axis, entry
+    g owned by the process of rank ``ranks[g]`` (every entry this
+    process's by default)."""
+
+    def __init__(self, devices, axis: str = AXIS, *, ranks=None):
         self.devices = tuple(torch.device(d) for d in devices)
         self.axis = axis
+        w = world()
+        #: this process's rank
+        self.rank = 0 if w is None else w.rank
+        self.ranks = (tuple(int(r) for r in ranks) if ranks is not None
+                      else (self.rank,) * len(self.devices))
+        if len(self.ranks) != len(self.devices):
+            raise ValueError(f"{len(self.ranks)} ranks for "
+                             f"{len(self.devices)} mesh entries")
 
     @property
     def size(self) -> int:
         return len(self.devices)
 
+    @property
+    def spans_processes(self) -> bool:
+        """Whether another process owns any entry: the fan-in then runs a
+        collective across the world."""
+        return any(r != self.rank for r in self.ranks)
+
+    def local_entries(self) -> list[int]:
+        """The indices of this process's entries, in mesh order."""
+        return [g for g, r in enumerate(self.ranks) if r == self.rank]
+
     def __repr__(self) -> str:
-        return f"Mesh({[str(d) for d in self.devices]}, axis={self.axis!r})"
+        ranks = f", ranks={list(self.ranks)}" if self.spans_processes else ""
+        return (f"Mesh({[str(d) for d in self.devices]}, "
+                f"axis={self.axis!r}{ranks})")
 
 
 def make_mesh(n_devices: int | None = None, axis: str = AXIS, *,
               devices=None) -> Mesh:
-    """1-D device mesh. ``devices`` is an ordered device list; by default
-    every visible CUDA device, and without one this raises as
-    ``ops.resolve_device`` does. ``n_devices`` truncates to a prefix; an
-    empty selection is an error."""
-    if devices is None:
+    """1-D device mesh. ``devices`` is an ordered list of this process's
+    devices; by default, after ``init_multihost``, the global mesh over
+    every rank's entries (rank-major, as ``jax.devices()`` orders them by
+    process), and before it every visible CUDA device (without one this
+    raises as ``ops.resolve_device`` does). ``n_devices`` truncates to a
+    prefix; an empty selection is an error."""
+    ranks = None
+    w = world()
+    if devices is None and w is not None:
+        devices = [d for ents in w.entries for d in ents]
+        ranks = [r for r, ents in enumerate(w.entries) for _ in ents]
+    elif devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; the port runs on the GPU — "
@@ -168,9 +247,10 @@ def make_mesh(n_devices: int | None = None, axis: str = AXIS, *,
                 f"requested {n_devices} devices, only {len(devices)} available"
             )
         devices = devices[:n_devices]
+        ranks = None if ranks is None else ranks[:n_devices]
     if not devices:
         raise ValueError("make_mesh: 0 devices selected")
-    return Mesh(devices, axis)
+    return Mesh(devices, axis, ranks=ranks)
 
 
 def mesh_devices(device) -> list[torch.device]:
@@ -301,9 +381,11 @@ class StackedIndex:
         return -(-n_datasets_padded // n_mesh) * n_pad * W * 4 * n_planes
 
     def shard_to_mesh(self, mesh: Mesh) -> list[StackBlock]:
-        """Upload the stack, mesh device g taking datasets
+        """Upload the stack, mesh entry g taking datasets
         ``[g * d_local, (g + 1) * d_local)``; the planes go up through
-        ``ops.plane_kernel.staged_upload``."""
+        ``ops.plane_kernel.staged_upload``. Only this process's entries
+        are uploaded (``Mesh.local_entries``, all of them on a
+        process-local mesh), a block each in mesh order."""
         n_dev = mesh.size
         if self.n_datasets_padded % n_dev:
             raise ValueError(
@@ -316,7 +398,8 @@ class StackedIndex:
         if self.has_count_planes:
             plane_names += ["plane_gt2", "plane_tok1", "plane_tok2"]
         blocks = []
-        for g, dev in enumerate(mesh.devices):
+        for g in mesh.local_entries():
+            dev = mesh.devices[g]
             sl = slice(g * dl, (g + 1) * dl)
             cols = np.stack([self.arrays[name][sl] for name in COLUMNS],
                             axis=1).astype(np.int32, copy=False)
@@ -693,13 +776,61 @@ def stacked_selected(
 # -- the mesh entry points --------------------------------------------------
 
 
-def _psum(parts: list[torch.Tensor]) -> np.ndarray:
-    """The cross-device fan-in: the sum of the per-device partials on
-    the first mesh device (int32, wrapping), read back."""
-    total = parts[0]
+def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum of ``t`` over the world's processes, on the host: one
+    ``torch.distributed.all_reduce`` under the collective lock, on a host
+    copy of ``t`` with gloo and on a copy on ``t``'s card with nccl.
+    Every process must call it in the same order. Adds one to the
+    ``mesh_all_reduces`` total and the call's microseconds to
+    ``mesh_all_reduce_us``."""
+    import torch.distributed as dist
+
+    w = world()
+    if w is None:
+        raise RuntimeError("no process group: call "
+                           "parallel.dispatch.init_multihost first")
+    buf = t.to("cpu", copy=True) if w.backend == "gloo" else t.clone()
+    t0 = time.perf_counter()
+    with _COLLECTIVE_LOCK:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+    out = buf.cpu()
+    add_total("mesh_all_reduces")
+    add_total("mesh_all_reduce_us", round((time.perf_counter() - t0) * 1e6))
+    return out
+
+
+def _psum(parts: list[torch.Tensor], mesh: Mesh | None = None) -> np.ndarray:
+    """The cross-device fan-in (JAX's ``psum``): the sum of this
+    process's per-entry partials on its first entry, then, over a mesh
+    that spans processes, ``all_reduce_sum`` across the world; read
+    back. The sums run in int64 and int32 partials fold back to int32
+    modulo 2^32, so the result wraps as ``lax.psum``'s does (gloo's own
+    int32 sum would overflow a C++ int)."""
+    total = parts[0].long()
     for p in parts[1:]:
-        total = total + p.to(total.device)
+        total = total + p.to(total.device).long()
+    if mesh is not None and mesh.spans_processes:
+        total = all_reduce_sum(total)
+    if parts[0].dtype == torch.int32:
+        total = _wrap32(total)
     return total.cpu().numpy()
+
+
+def _local_blocks(stacked_arrays, mesh: Mesh, aggregates_only: bool) -> int:
+    """Check that ``stacked_arrays`` are this process's blocks of
+    ``mesh`` and that a mesh spanning processes asks for the aggregates
+    alone; returns the first local dataset's stack position."""
+    if mesh.spans_processes and not aggregates_only:
+        raise ValueError(
+            "the mesh spans processes: per-dataset leaves live on their "
+            "owning processes, so only the aggregates come back "
+            "(aggregates_only=True), as under JAX's multi-controller "
+            "jax.distributed"
+        )
+    local = mesh.local_entries()
+    if len(stacked_arrays) != len(local):
+        raise ValueError("the stack was not sharded over this mesh")
+    return local[0] * stacked_arrays[0].n_datasets
 
 
 def _packed(queries, blocks):
@@ -721,14 +852,15 @@ def sharded_query(
 ):
     """Run a query batch against a mesh-sharded dataset stack
     (``StackedIndex.shard_to_mesh``): one ``stacked_query`` launch per
-    mesh device over its block.
+    local mesh entry over its block, then the fan-in ``_psum``.
 
     Returns (per_dataset, aggregates) as numpy: per_dataset leaves are
     [D, B, ...] (D = padded dataset count), aggregates are [B]-shaped
     cross-dataset sums. ``aggregates_only`` skips reading the
-    per-dataset leaves back."""
-    if len(stacked_arrays) != mesh.size:
-        raise ValueError("the stack was not sharded over this mesh")
+    per-dataset leaves back; over a mesh that spans processes it is
+    required (the leaves live on their owning processes) and every
+    process gets the same aggregates."""
+    _local_blocks(stacked_arrays, mesh, aggregates_only)
     qs = _packed(queries, stacked_arrays)
     outs, parts = [], []
     for blk, q in zip(stacked_arrays, qs):
@@ -738,7 +870,7 @@ def sharded_query(
         )
         outs.append(out)
         parts.append(agg)
-    a = _psum(parts)
+    a = _psum(parts, mesh)
     call_count = a[:, 0]
     aggregates = {
         "call_count": call_count,
@@ -777,7 +909,9 @@ def sharded_selected_query(
     aggregates_only: bool = False,
 ):
     """Selected-samples query batch over mesh-sharded planes: one
-    ``stacked_selected`` launch per mesh device over its block.
+    ``stacked_selected`` launch per local mesh entry over its block,
+    then the fan-in ``_psum`` (``aggregates_only`` as in
+    ``sharded_query``).
 
     ``sample_masks``: uint32 [D, W], dataset d's selected-sample bit
     mask. Returns (per_dataset, aggregates) as numpy: per-dataset
@@ -788,13 +922,11 @@ def sharded_selected_query(
     aggregate counts sum over ALL matched records, which equals
     ``materialize_response`` only for the include_details shapes, as in
     the JAX package."""
-    if len(stacked_arrays) != mesh.size:
-        raise ValueError("the stack was not sharded over this mesh")
+    start = _local_blocks(stacked_arrays, mesh, aggregates_only)
     masks = np.ascontiguousarray(np.asarray(sample_masks, np.uint32)).view(
         np.int32)
     qs = _packed(queries, stacked_arrays)
     outs, parts = [], []
-    start = 0
     for blk, q in zip(stacked_arrays, qs):
         if blk.planes is None:
             raise ValueError("the stack was built without planes")
@@ -811,7 +943,7 @@ def sharded_selected_query(
         )
         outs.append(res)
         parts.append(agg)
-    a = _psum(parts)
+    a = _psum(parts, mesh)
     call_count = a[:, 0]
     aggregates = {
         "call_count": call_count,
@@ -835,6 +967,25 @@ def sharded_selected_query(
         "or_words": or_words,
     }
     return per_ds, aggregates
+
+
+def aggregate_struct(agg: dict) -> dict:
+    """Human-readable summary of the psum aggregates for one query.
+
+    ``n_overflow`` > 0 means at least one dataset's candidate window was
+    truncated at window_cap: the aggregates are then lower bounds and the
+    caller must re-answer those datasets on the host
+    (``engine.host_match_rows``), as the single-device engine's overflow
+    fallback does."""
+    return {
+        "exists": bool(agg["exists"]),
+        "call_count": int(agg["call_count"]),
+        "all_alleles_count": int(agg["all_alleles_count"]),
+        "n_variants": int(agg["n_variants"]),
+        "n_datasets_hit": int(agg["n_datasets_hit"]),
+        "n_overflow": int(agg["n_overflow"]),
+        "exact": int(agg["n_overflow"]) == 0,
+    }
 
 
 # -- the mesh-sharded fused index and its owner-sliced query (J6) -----------
@@ -1176,6 +1327,12 @@ class MeshFusedIndex:
     ):
         if not shards:
             raise ValueError("MeshFusedIndex needs at least one shard")
+        if mesh.spans_processes:
+            raise ValueError(
+                "MeshFusedIndex needs every mesh entry in this process: a "
+                "mesh that spans processes is refused (the JAX package "
+                "asserts a single controller in its owner-sharded fetch)"
+            )
         self.mesh = mesh
         self.axis = axis
         if layout not in (LAYOUT_OWNER, LAYOUT_SLICED, LAYOUT_REPLICATED):

@@ -736,7 +736,6 @@ ANNOTATION_KEYS = frozenset({
     "granularity",
     "lane",
     "mesh_delta_tail",
-    "mesh_fallback",
     "mesh_tail_l0",
     "mesh_planes",
     "mesh_shards",

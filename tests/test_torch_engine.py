@@ -205,6 +205,44 @@ def test_search_selected_samples(shards):
         assert _asdicts(got) == _asdicts(want), doc
 
 
+@pytest.mark.parametrize("explicit_none", [False, True])
+def test_add_prebuilt_index_answers_as_add_index(shards, explicit_none):
+    """An engine fed already-built device indexes (``planes`` omitted:
+    the engine builds them; an explicit None: no plane upload) answers
+    every query kind, selected samples included, as the engine fed by
+    ``add_index`` and the JAX engine do."""
+    from sbeacon_tpu_torch.ops import make_device_index
+
+    jeng, teng = _engines(shards, 2048, 1024, True)
+    pre = VariantEngine(BeaconConfig(), device="cpu")
+    try:
+        for s in shards:
+            ts = shard_from_reference(s)
+            dindex = make_device_index(ts, "cpu")
+            if explicit_none:
+                pre.add_prebuilt_index(ts, dindex, planes=None)
+            else:
+                pre.add_prebuilt_index(ts, dindex)
+            key = (ts.meta["dataset_id"], ts.meta["vcf_location"])
+            shard, got_index, planes = pre._indexes[key]
+            assert shard is ts and got_index is dindex
+            assert (planes is None) == (explicit_none or ts.gt_bits is None)
+        docs = _payloads(shards, seed=31, n=40)
+        docs += [dict(dataset_ids=["dsA", "dsB"], reference_name="5",
+                      start_min=1, start_max=10**6, end_min=0, end_max=10**9,
+                      alternate_bases="N", requested_granularity=gran,
+                      include_datasets="HIT", include_samples=True,
+                      sample_names={"dsA": ["a1", "a3"], "dsB": ["b0"]},
+                      selected_samples_only=True)
+                 for gran in ("count", "record")]
+        for doc in docs:
+            got = _asdicts(pre.search(VariantQueryPayload(**doc)))
+            assert got == _asdicts(teng.search(VariantQueryPayload(**doc)))
+            assert got == _asdicts(jeng.search(JPayload(**doc))), doc
+    finally:
+        pre.close()
+
+
 def test_concurrent_searches_coalesce(shards):
     """Threads submitting together share launches (the micro-batcher
     holds each leader 200 ms) and still get the JAX engine's answers.

@@ -480,3 +480,41 @@ def test_use_mesh_off_keeps_the_fused_leg(engines):
     _same(teng, jeng, _doc())
     assert teng.mesh_searches == 0 and teng.fused_searches == 1
     assert teng._mesh_ready() is None
+
+
+def test_aggregate_struct_matches_jax():
+    """``aggregate_struct`` of each query's aggregates: the same dict, of
+    the same types, as the JAX package's, for hits, misses and windows
+    past window_cap (not exact)."""
+    import jax
+
+    from sbeacon_tpu.ops.kernel import QuerySpec as JQuerySpec
+    from sbeacon_tpu.parallel import mesh as jm
+    from sbeacon_tpu_torch.ops.kernel import QuerySpec
+
+    shards = _shards(n_ds=3, n=150)
+    rows = [("7", 1, 40_000, 1, 1 << 30, dict(alternate_bases="N")),
+            ("7", 1, 1 << 30, 1, 1 << 30, dict(alternate_bases="N")),
+            ("7", 1, 10, 1, 1 << 30, dict()),
+            ("7", 1, 1 << 30, 1, 1 << 30, dict(variant_type="DEL"))]
+    caps = dict(window_cap=64, record_cap=16)
+    jmesh = jm.make_mesh(devices=jax.devices()[:4])
+    jstack = jm.StackedIndex(shards, n_datasets_padded=4)
+    _, jagg = jm.sharded_query(
+        jstack.shard_to_mesh(jmesh), [JQuerySpec(*r[:5], **r[5]) for r in rows],
+        mesh=jmesh, n_iters=jstack.n_iters, aggregates_only=True, **caps)
+    mesh = tm.make_mesh(devices=[CPU] * 2)
+    tstack = tm.StackedIndex([shard_from_reference(s) for s in shards],
+                             n_datasets_padded=4)
+    _, tagg = tm.sharded_query(
+        tstack.shard_to_mesh(mesh), [QuerySpec(*r[:5], **r[5]) for r in rows],
+        mesh=mesh, n_iters=tstack.n_iters, aggregates_only=True, **caps)
+    got = [tm.aggregate_struct({k: v[i] for k, v in tagg.items()})
+           for i in range(len(rows))]
+    want = [jm.aggregate_struct({k: v[i] for k, v in jagg.items()})
+            for i in range(len(rows))]
+    assert got == want
+    assert [{k: type(v) for k, v in d.items()} for d in got] == [
+        {k: type(v) for k, v in d.items()} for d in want]
+    assert {d["exact"] for d in got} == {True, False}
+    assert {d["exists"] for d in got} == {True, False}
