@@ -5,7 +5,7 @@
                           [--cohorts 3] [--cohort-rows 5000000]
                           [--fused-requests 256] [--samples 2504]
                           [--plane-rows 2000000] [--selected-requests 256]
-                          [--http-requests 512] [--ingest-records 50000]
+                          [--http-requests 512] [--ingest-records 40000]
                           [--seed 0] [--parent DIR]
 
 Phases, each printing one JSON line (any failure raises and exits
@@ -82,6 +82,16 @@ non-zero, without the final line):
     0xDEADBEEF-filled outputs held equal to the twin (overflow and match
     counts too), then timed L2 cold and warm, beside the bound and the
     twin;
+9f. fetch_pipeline (fused half; the launch/fetch split): phase 8's mix
+    through the fused engine's batcher replaced by one of
+    ``fetch_pipeline_depth`` 1, then 2, every response against the host
+    matcher, one ``fetch`` stage sample per J3 launch; requests/s, the
+    launch, fetch and exec ms, the fetcher's occupancy. Then, while a
+    spin kernel holds the stream, ``run_queries(async_fetch=True)`` on
+    the fused stack and on 9a's 4-key L0 composite must return before
+    an event recorded after it completes, within half the hold on the
+    host clock, and its ``fetch()`` must equal the synchronous answer
+    byte for byte (no hidden wait for the card in the launch);
 10. selected setup: dataset A is the 1.4e7-row shard with a 2504-sample
     gt plane (4.4 GB), dataset B a 2e6-row shard with all four planes
     (2.5 GB; 30% of its records count from genotypes); the plane bits
@@ -221,7 +231,7 @@ non-zero, without the final line):
     ``native_slice_text``); the server entry restarted over the root,
     answering a hit as before. The root is removed whatever happens;
 14f. migrate_path: live shard migration on the one card. The source S
-    (an in-process ``WorkerServer``) serves a 2.5e6-row cohort (cohort
+    (an in-process ``WorkerServer``) serves a 1.25e6-row cohort (cohort
     3's generator and seed at MIGRATE_ROWS) and six
     4000-row deltas past the L0 threshold, the target T is the worker
     entry over an empty data root (its delta compactor off), the
@@ -244,7 +254,7 @@ non-zero, without the final line):
 14g. scan_ingest_path (run inside 14d, over its VCF): fleet ingest.
     Two scan workers (the worker entry with a token over empty roots)
     and a ``BeaconApp`` whose ``IngestConfig.scan_worker_urls`` names
-    both; 14d's VCF (5e4 records x 2504 samples; chr22 holds 1.07e6)
+    both; 14d's VCF (4e4 records x 2504 samples; chr22 holds 1.07e6)
     POSTed to ``/submit`` while 64 clients query it: every slice
     scanned remotely (the pool's scans counted by slice and worker, the
     host's rescans by slice), J3 ``fused_l0`` launched while the slices
@@ -341,7 +351,14 @@ non-zero, without the final line):
     three forms (with next, last, first out of place) at phase 24's
     and phase 25's blocks beside acc.add_(src) (+ nxt.copy_(src)) or
     torch.add(own, src, out=acc), and a whole two-entry ring_gather
-    beside [p0 + p1, p1 + p0], each beside its bound.
+    beside [p0 + p1, p1 + p0], each beside its bound;
+26a. fetch_pipeline (mesh half): mesh_fused_path's mix through its
+    tier and the engine's batcher at ``fetch_pipeline_depth`` 1, then 2
+    (run in phase 25, before 25a), one ``fetch`` sample per J3 launch
+    or ``run_mesh_queries`` call; then the held-stream check of
+    ``run_mesh_queries(async_fetch=True)`` on phase 25's two tier
+    indexes (owner layout without masks; sliced, so the fan-in and P1
+    stay on the card, with sample masks).
 
 Each timing phase also prints a ``profile`` line: the kernels one call
 of the wrapper ran, from a ``torch.profiler`` trace (scatter_match,
@@ -2409,11 +2426,12 @@ def legacy_shard_keys(shards):
     return np.concatenate(parts) if parts else np.zeros((0, 6), np.int32)
 
 
-def compare_l0(device):
+def compare_l0(device, keep=None):
     """bisect_query vs its twin on L0 composites of 1, 4 and 16 keys (16,
     64 and 512 padded shards, ``testing.l0_tail_keys``), windows of
     256-4096 lanes, record caps below the matches, queries on pad rows,
-    on 0xDEADBEEF-filled outputs; returns (max_abs_err, report rows)."""
+    on 0xDEADBEEF-filled outputs; returns (max_abs_err, report rows). A
+    list passed as ``keep`` receives the 4-key composite and its keys."""
     from sbeacon_tpu_torch.ops import kernel as tk
     from sbeacon_tpu_torch.testing import l0_tail_keys, l0_tail_specs
 
@@ -2424,6 +2442,8 @@ def compare_l0(device):
             [tk.L0DeviceIndex(s, device) for s in keys])
         check(index.n_shards_padded == {1: 16, 4: 64, 16: 512}[n_keys],
               "the L0 composite's padded shards")
+        if keep is not None and n_keys == 4:
+            keep.append((index, keys))
         for W, R in ((256, 1), (256, 60), (512, 16), (1024, 1024),
                      (2048, 100), (4096, 300), (4096, 4096)):
             err, rep = compare_bisect(
@@ -3112,6 +3132,132 @@ class TierFront:
             out = out + self.engine.search(
                 dataclasses.replace(payload, dataset_ids=rest))
         return sorted(out, key=lambda r: (r.dataset_id, r.vcf_location))
+
+
+#: the most of a spin-kernel hold an asynchronous launch may take on the
+#: host (phase fetch_pipeline): a hidden wait for the card (a pageable
+#: upload, a readback, ``.item()``, a host fan-in) would take all of it
+FETCH_HOLD_SHARE = 0.5
+
+
+def same_results(a, b) -> bool:
+    """Two QueryResults byte for byte: every field's dtype, shape and
+    bytes (None where the other is None)."""
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if (x is None) != (y is None):
+            return False
+        if x is not None and (x.dtype != y.dtype or x.shape != y.shape
+                              or x.tobytes() != y.tobytes()):
+            return False
+    return True
+
+
+def held_launch(case, run):
+    """Phase fetch_pipeline's held-stream check of one launch path:
+    ``run(async_fetch=)`` is called synchronously (the answer, and a
+    warm allocator and kernel library), then asynchronously while a
+    spin kernel holds the stream. The call must return before an event
+    recorded right after it completes, within FETCH_HOLD_SHARE of the
+    hold on the host clock, and its ``fetch()`` must equal the
+    synchronous answer byte for byte."""
+    import torch
+
+    from sbeacon_tpu_torch.ops import timing
+
+    want = run(async_fetch=False)
+    hold_ms = timing.warm_and_hold(lambda _x: None, [])
+    torch.cuda._sleep(timing.HOLD_CYCLES)
+    t0 = time.perf_counter()
+    pending = run(async_fetch=True)
+    launch_ms = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.Event()
+    after.record()
+    held = not after.query()
+    t0 = time.perf_counter()
+    got = pending.fetch()
+    fetch_ms = (time.perf_counter() - t0) * 1e3
+    equal = same_results(got, want)
+    check(held, f"fetch_pipeline {case}: the launch returned while the "
+          "held stream had not run it")
+    check(launch_ms < FETCH_HOLD_SHARE * hold_ms,
+          f"fetch_pipeline {case}: the launch took {launch_ms:.2f} ms of "
+          f"the host clock under a {hold_ms:.1f} ms hold")
+    check(equal, f"fetch_pipeline {case}: fetch() equals the synchronous "
+          "answer byte for byte")
+    return {"case": case, "queries": int(len(got.exists)),
+            "launch_ms": launch_ms, "hold_ms": hold_ms,
+            "fetch_ms_after_hold": fetch_ms, "event_pending": held,
+            "equal": equal}
+
+
+def depth_runs(engine, front, env, jobs, shards, threads):
+    """Phase fetch_pipeline's serving half on one path: ``jobs`` through
+    ``front`` with the engine's batcher replaced by one of
+    ``fetch_pipeline_depth`` 1, then 2 (the engine's other settings);
+    every response against the host matcher. Each batched launch (a J3
+    launch or a ``run_mesh_queries`` call) must add one ``fetch``
+    sample to the batcher's stage histogram. Returns the per-depth
+    figures."""
+    from sbeacon_tpu_torch import telemetry
+    from sbeacon_tpu_torch.ops import kernel as tk
+    from sbeacon_tpu_torch.ops import scatter_kernel as sk
+    from sbeacon_tpu_torch.parallel import mesh as tm
+    from sbeacon_tpu_torch.serving import MicroBatcher
+
+    eng = engine.config.engine
+    own = engine._batcher
+    out = {}
+    try:
+        for depth in (1, 2):
+            mb = MicroBatcher(
+                max_batch=eng.microbatch_max,
+                max_wait_ms=eng.microbatch_wait_ms,
+                default_timeout_s=engine.config.resilience.batch_timeout_s,
+                pipeline_depth=depth, timing_window=eng.timing_window)
+            reg = telemetry.MetricsRegistry()
+            mb.register_metrics(reg)
+            engine._batcher = mb
+            try:
+                telemetry.reset_launch_counts()
+                served, wall = run_jobs(front, env, jobs, threads)
+                j3 = telemetry.launch_count(tk.KERNEL)
+                mesh_calls = telemetry.total(tm.MESH_PROGRAM)
+                j1 = telemetry.launch_count(sk.KERNEL)
+                hist = reg.render_json()["batcher"]["stage_ms"]
+                timing = mb.timing_summary()
+                occ = mb.occupancy()
+            finally:
+                mb.close()
+            lat = [ms for _d, ms, _p, _r in served]
+            n_hit, mismatches = check_served(
+                shards, env, [b for _d, b, _s in jobs], served)
+            fetches = hist.get("fetch", {}).get("count", 0)
+            check(mismatches == 0, f"fetch_pipeline depth {depth}: "
+                  f"{mismatches} responses differ from the host matcher")
+            check(j1 == 0, f"fetch_pipeline depth {depth}: no scatter "
+                  "batch rode these runs")
+            check(fetches == j3 + mesh_calls == occ["launches"] > 0,
+                  f"fetch_pipeline depth {depth}: {fetches} fetch samples "
+                  f"for {j3} J3 launches and {mesh_calls} run_mesh_queries "
+                  "calls")
+            out[f"depth_{depth}"] = {
+                "requests": len(jobs), "hits": n_hit,
+                "mismatches": mismatches, "wall_s": wall,
+                "requests_per_s": len(jobs) / wall,
+                "latency_ms": {"p50": percentile(lat, 0.5),
+                               "p99": percentile(lat, 0.99)},
+                "launch_ms": timing["launch_ms"],
+                "fetch_ms": timing["fetch_ms"],
+                "exec_ms": timing["exec_ms"],
+                "fetch_samples": fetches, "bisect_query_launches": j3,
+                "run_mesh_queries_calls": mesh_calls,
+                "batched_calls": occ["launches"],
+                "mean_batch": occ["mean_batch"],
+                "launcher": occ["launcher"], "fetcher": occ["fetcher"]}
+    finally:
+        engine._batcher = own
+    return out
 
 
 def run_tier_delta_leg(engine, tier, bases, env, args, kind, smi):
@@ -5500,7 +5646,7 @@ def run_fleet_path(http_root, main_shard, cohorts, b_shard, args, device,
 
 #: records of the ingest phase's chr22-shaped VCF (1000 Genomes phase 3
 #: chr22 holds about 1.07e6; PERF.md section 4 says why this is cut)
-INGEST_RECORDS = 50_000
+INGEST_RECORDS = 40_000
 #: the one knob of the JAX default IngestConfig the phase changes: the
 #: compactor's sweep, short enough that timed folds fall inside the submit
 INGEST_COMPACT_INTERVAL_S = 2.0
@@ -6271,9 +6417,9 @@ def run_ingest_path(args, device, kind, smi, kernel_ms, then=None):
 
 # -- 14f. migrate_path ---------------------------------------------------------
 
-#: rows of the dataset migrate_path moves (cohort 3's generator at half
-#: its rows; PERF.md section 4 says why this is cut)
-MIGRATE_ROWS = 2_500_000
+#: rows of the dataset migrate_path moves (cohort 3's generator at a
+#: quarter of its rows; PERF.md section 4 says why this is cut)
+MIGRATE_ROWS = 1_250_000
 #: the source's standing delta tail in migrate_path: past the engine's
 #: l0_min_shards, so the tail rides the L0 index on both workers
 MIGRATE_DELTAS = 6
@@ -7641,7 +7787,8 @@ def run(args, device) -> int:
              slots_by_tier={f"C{c}_{'exact' if e else 'any'}": {
                  "real_mean": float(np.mean(v)), "real_max": int(max(v))}
                  for (c, e), v in sorted(real_by_tier.items())},
-             batcher=occ, host_fallbacks=fallbacks, wall_s=wall,
+             batcher=occ, fetch_ms=stages.get("fetch_ms"),
+             host_fallbacks=fallbacks, wall_s=wall,
              requests_per_s=len(bodies) / wall,
              latency_ms={"p50": percentile(lat, 0.5),
                          "p99": percentile(lat, 0.99)},
@@ -7805,6 +7952,7 @@ def run(args, device) -> int:
                  "min": min(batch_sizes), "p50": percentile(batch_sizes, 0.5),
                  "max": max(batch_sizes)},
              batched_calls=occ["launches"] - occ0["launches"],
+             fetch_ms=stages.get("fetch_ms"),
              wall_s=wall, requests_per_s=len(bodies) / wall,
              latency_ms={"p50": percentile(lat, 0.5),
                          "p99": percentile(lat, 0.99)},
@@ -7838,17 +7986,45 @@ def run(args, device) -> int:
              library_note="no single PyTorch call computes this function: "
                           "torch.searchsorted gives only the window bounds",
              batches=btimings, device=kind, nvidia_smi=smi)
+
+        # 9f. fetch_pipeline, fused half: phase 8's mix through the
+        # batcher at fetch_pipeline_depth 1, then 2
+        fetch_fused = depth_runs(
+            engine, engine, env,
+            [([{"id": s_.meta["dataset_id"]} for s_ in served_shards], b,
+              None) for b in bodies],
+            served_shards, args.threads)
     finally:
         engine.close()
 
     # 9a. bisect_query vs its twin on L0 composites (the delta tail's
     # index: segment tables of 16-512 padded shards, read from global
     # memory), 9c-9e. warmup, the delta path and the L0 launch's timing
-    l0_err, rep_l0 = compare_l0(device)
+    l0_keep = []
+    l0_err, rep_l0 = compare_l0(device, keep=l0_keep)
     emit("kernel_vs_twin", kernel=tk.KERNEL, form="l0", tolerance=0,
          max_abs_err=l0_err, cases=len(rep_l0),
          all_equal=all(r["equal"] for r in rep_l0), report=rep_l0)
-    del engine, findex, served_shards
+    # 9f. fetch_pipeline, held stream: J3 on the fused stack (a batch of
+    # phase 8's median size) and on 9a's 4-key L0 composite
+    from sbeacon_tpu_torch.testing import l0_tail_specs
+
+    f_specs, f_sids = fused_specs(served_shards, random.Random(args.seed + 27),
+                                  percentile(batch_sizes, 0.5))
+    l0_index, l0_keys = l0_keep[0]
+    l0_specs, l0_sids = l0_tail_specs(l0_index, l0_keys, seed=27)
+    held = [
+        held_launch("fused", lambda **kw: tk.run_queries(
+            findex, tk.encode_queries(f_specs, shard_ids=f_sids),
+            window_cap=window_cap, record_cap=1024, **kw)),
+        held_launch("fused_l0", lambda **kw: tk.run_queries(
+            l0_index, tk.encode_queries(l0_specs, shard_ids=l0_sids),
+            window_cap=window_cap, record_cap=1024, **kw)),
+    ]
+    emit("fetch_pipeline", path="fused_path", held_stream=held,
+         hold_share_limit=FETCH_HOLD_SHARE, **fetch_fused, device=kind,
+         nvidia_smi=smi)
+    del engine, findex, served_shards, l0_keep, l0_index
     torch.cuda.empty_cache()
     l0 = run_delta_path([shard] + cohorts, env, args, device, kind, smi)
     l0["max_abs_err"] = max(l0_err, l0["path_max_abs_err"])
@@ -8105,7 +8281,7 @@ def run(args, device) -> int:
     finally:
         shutil.rmtree(http_root, ignore_errors=True)
 
-    # 14f. live migration of a 2.5e6-row cohort 3 between two workers on
+    # 14f. live migration of a 1.25e6-row cohort 3 between two workers on
     # the card
     torch.cuda.empty_cache()
     migrated = run_migrate_path(
@@ -8853,7 +9029,9 @@ def run(args, device) -> int:
                  launches_per_request={k: v / n for k, v in counts25.items()},
                  launch_shapes={str(k): v for k, v in sorted(
                      shapes.items(), key=lambda kv: -kv[1])},
-                 batcher=engine.batcher.occupancy(), add_s=t_add,
+                 batcher=engine.batcher.occupancy(),
+                 fetch_ms=engine.batcher.timing_summary()["fetch_ms"],
+                 add_s=t_add,
                  tier_build_s=t_build, wall_s=wall, requests_per_s=n / wall,
                  latency_ms={"p50": percentile(lat, 0.5),
                              "p99": percentile(lat, 0.99)},
@@ -8870,6 +9048,10 @@ def run(args, device) -> int:
                 shards={s_.meta["dataset_id"]: s_ for s_ in served_shards})
             tier_index[name] = tier._state[0]
             if layout == tm.LAYOUT_OWNER:
+                # 26a. fetch_pipeline, mesh half: the path's mix through
+                # the batcher at fetch_pipeline_depth 1, then 2
+                fetch_mesh = depth_runs(engine, front, env, jobs,
+                                        served_shards, args.threads)
                 # 25a. the tier's delta leg, after the path's own traffic
                 run_tier_delta_leg(engine, tier, served_shards, env, args,
                                    kind, smi)
@@ -8973,6 +9155,33 @@ def run(args, device) -> int:
                       "first step out of place; each case carries its own "
                       "library_ms",
          cases=rtimings, ring_of_two=pair, device=kind, nvidia_smi=smi)
+
+    # 26a. fetch_pipeline, held stream: J6 (and P1 in the sliced layout)
+    # through run_mesh_queries on phase 25's tier indexes, without and
+    # with sample masks
+    mrng = random.Random(args.seed + 28)
+    held = []
+    for name, planes in (("mesh_fused_path", False),
+                         ("mesh_fused_selected_path", True)):
+        mfi = tier_index[name]
+        order = fused_runs[name]["order"]
+        m_specs, m_sids = fused_specs(
+            [fused_runs[name]["shards"][d] for d in order], mrng, 16)
+        kw = {}
+        if planes:
+            check(mfi.has_planes, f"{name}: the tier stacked the planes")
+            kw = dict(sample_masks=mask_rows(mrng, len(m_specs),
+                                             mfi.plane_words, args.samples),
+                      mask_counts=np.arange(len(m_specs)) % 2 == 0)
+        held.append(held_launch(
+            f"{name} ({'owner' if mfi.layout == tm.LAYOUT_OWNER else 'sliced'}"
+            f"{', masks' if planes else ''})",
+            lambda mfi=mfi, m_specs=m_specs, m_sids=m_sids, kw=kw, **a:
+            mfi.run_mesh_queries(tk.encode_queries(m_specs, shard_ids=m_sids),
+                                 window_cap=2048, record_cap=1024, **kw, **a)))
+    emit("fetch_pipeline", path="mesh_fused_path", held_stream=held,
+         hold_share_limit=FETCH_HOLD_SHARE, **fetch_mesh, device=kind,
+         nvidia_smi=smi)
     del tier_index
     j6 = max((t for t in ftimings), key=lambda t: t["phase25_launches"])
 

@@ -102,6 +102,10 @@ class EngineConfig:
     record_cap: max matched rows returned per query (host fallback past it).
     microbatch*: the serving micro-batcher (serving.MicroBatcher); with
       wait 0 batches form from requests queuing behind a launch.
+    fetch_pipeline_depth: launched-but-unfetched batches allowed per
+      batcher accumulator (the launch/fetch overlap window): 1 makes
+      launch and fetch serial, 2 lets the launcher encode and launch
+      batch i+1 while the card runs batch i.
     timing_window: entries kept per timing ring.
     fused_dispatch: stack every warm shard into one FusedDeviceIndex so
       a k-dataset query costs one launch and queries for different
@@ -149,6 +153,7 @@ class EngineConfig:
     microbatch: bool = True
     microbatch_max: int = 512
     microbatch_wait_ms: float = 0.0
+    fetch_pipeline_depth: int = 2
     timing_window: int = 65536
     fused_dispatch: bool = True
     fused_max_rows: int = 64_000_000
@@ -492,6 +497,7 @@ _ENGINE_ENV = {
     "BEACON_SCOPED_INVALIDATION": ("scoped_invalidation", bool),
     "BEACON_L0_MIN_SHARDS": ("l0_min_shards", int),
     "BEACON_L0_MIN_ROWS": ("l0_min_rows", int),
+    "BEACON_FETCH_PIPELINE_DEPTH": ("fetch_pipeline_depth", int),
 }
 
 

@@ -20,6 +20,7 @@ from .kernel import (
     L0DeviceIndex,
     QueryResults,
     QuerySpec,
+    ReadyQueryResults,
     encode_queries,
     run_queries,
 )
@@ -50,38 +51,49 @@ def run_queries_auto(
     *,
     window_cap: int = 2048,
     record_cap: int = 1024,
+    async_fetch: bool = False,
     sample_masks=None,
     mask_counts=None,
-) -> QueryResults:
-    """Run a query batch on the index's kernel and read the results
-    back — one call site for the engine and the micro-batcher: the
-    bisection kernel for a ``FusedDeviceIndex`` / ``DeviceIndex`` / L0
-    index, the
-    scatter match kernel for a ``ScatterDeviceIndex``, and the
-    owner-sliced fused query for a mesh-sharded fused index
-    (``parallel.mesh.MeshFusedIndex``, duck-typed on its
-    ``run_mesh_queries`` so ops never imports parallel).
+):
+    """Run a query batch on the index's kernel — one call site for the
+    engine and the micro-batcher: the bisection kernel for a
+    ``FusedDeviceIndex`` / ``DeviceIndex`` / L0 index, the scatter match
+    kernel for a ``ScatterDeviceIndex``, and the owner-sliced fused
+    query for a mesh-sharded fused index (``parallel.mesh.MeshFusedIndex``,
+    duck-typed on its ``run_mesh_queries`` so ops never imports
+    parallel).
+
+    ``async_fetch=True`` returns a handle with ``.fetch() ->
+    QueryResults`` as soon as the launch is enqueued, so the caller can
+    do host work while the card runs it; the scatter kernels read back
+    inside their call and return their results behind the same contract
+    (``ReadyQueryResults``). The default returns the ``QueryResults``.
 
     ``sample_masks`` / ``mask_counts`` arm the mesh tier's plane
     reduction and are only meaningful for a plane-stacked
     MeshFusedIndex: passing them for any other index raises."""
+    if isinstance(index, ScatterDeviceIndex):
+        if sample_masks is not None:
+            raise ValueError("sample_masks only ride the mesh plane program")
+        res = run_queries_scattered(
+            index, queries, window_cap=window_cap, record_cap=record_cap
+        )
+        return ReadyQueryResults(res) if async_fetch else res
     mesh_run = getattr(index, "run_mesh_queries", None)
     if mesh_run is not None:
         kwargs = {}
         if sample_masks is not None:
             kwargs.update(sample_masks=sample_masks, mask_counts=mask_counts)
         return mesh_run(
-            queries, window_cap=window_cap, record_cap=record_cap, **kwargs
+            queries, window_cap=window_cap, record_cap=record_cap,
+            async_fetch=async_fetch, **kwargs
         )
     if sample_masks is not None:
         raise ValueError("sample_masks only ride the mesh plane program")
     if isinstance(index, _BisectIndex):
         return run_queries(
-            index, queries, window_cap=window_cap, record_cap=record_cap
-        )
-    if isinstance(index, ScatterDeviceIndex):
-        return run_queries_scattered(
-            index, queries, window_cap=window_cap, record_cap=record_cap
+            index, queries, window_cap=window_cap, record_cap=record_cap,
+            async_fetch=async_fetch,
         )
     raise TypeError(f"no kernel serves {type(index).__name__} in this package")
 
@@ -93,6 +105,7 @@ __all__ = [
     "L0DeviceIndex",
     "QueryResults",
     "QuerySpec",
+    "ReadyQueryResults",
     "ScatterDeviceIndex",
     "encode_queries",
     "make_device_index",

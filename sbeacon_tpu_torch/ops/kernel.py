@@ -5,8 +5,9 @@ Counterpart of ``sbeacon_tpu/ops/kernel.py``: ``QuerySpec``,
 ``QueryResults``, the padding helpers (``pad_columns``,
 ``pad_shard_columns``, ``padded_rows``, ``window_hint_for``,
 ``bisect_iters``), ``DeviceIndex``, ``FusedDeviceIndex``, the delta
-tail's ``L0DeviceIndex`` and ``CompositeL0DeviceIndex``, and
-``run_queries``. The XLA program ``_bisect`` / ``_query_one`` /
+tail's ``L0DeviceIndex`` and ``CompositeL0DeviceIndex``,
+``run_queries`` and its launch/fetch split (``PendingQueryResults``,
+``ReadyQueryResults``, ``run_queries(async_fetch=True)``). The XLA program ``_bisect`` / ``_query_one`` /
 ``_query_batch`` is replaced by the hand-written CUDA kernel
 ``csrc/bisect_query.cu``; it answers every multi-dataset query against
 the fused stack of all warm shards in one launch, and every delta-tail
@@ -813,17 +814,109 @@ def bisect_query(
     return out, seq
 
 
+def stage_upload(a: np.ndarray, device) -> tuple[torch.Tensor, object]:
+    """``a`` on ``device`` without the host waiting for the card: returns
+    (the tensor, its pinned host staging or None). A CUDA upload copies
+    ``a`` into pinned host memory and enqueues the copy on the current
+    stream (a copy from pageable memory waits for every kernel already
+    queued there); on the CPU the tensor is ``a`` itself."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t, None
+    staged = t.pin_memory()
+    return staged.to(device, non_blocking=True), staged
+
+
+def stage_readback(t: torch.Tensor) -> torch.Tensor:
+    """A host tensor that will hold ``t``: on a CUDA tensor a pinned
+    buffer whose copy is enqueued on the current stream (read it only
+    after an event recorded behind the copy has completed); on the CPU
+    ``t`` itself."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    return host
+
+
+class PendingQueryResults:
+    """An in-flight query batch: the launch is enqueued and its readback
+    into pinned host memory behind it; :meth:`fetch` waits for the
+    readback and unpacks the results (the JAX package's handle, whose
+    ``fetch`` is a ``jax.device_get``). The serving layer's launch and
+    fetch stages run on different threads, so the launch record's
+    ``flight_seq`` travels with the handle: ``fetch`` attaches its
+    wall time and bytes there.
+
+    The handle holds the device output, the pinned readback buffer and
+    the pinned query upload until :meth:`fetch` returns, then drops
+    them. On a CPU index the launch ran its twin synchronously and
+    ``done`` is None."""
+
+    __slots__ = ("_out", "_host", "_staged", "_done", "flight_seq")
+
+    def __init__(self, out, host, staged=None, done=None, flight_seq=None):
+        self._out = out
+        self._host = host
+        self._staged = staged
+        self._done = done
+        self.flight_seq = flight_seq
+
+    def fetch(self) -> QueryResults:
+        t0 = time.perf_counter()
+        if self._done is not None:
+            # a CUDA error of the launch or the copy raises here
+            self._done.synchronize()
+        host = self._host.numpy()
+        note_device_stage(self.flight_seq,
+                          fetch_ms=(time.perf_counter() - t0) * 1e3,
+                          fetch_bytes=host.nbytes)
+        self._out = self._host = self._staged = self._done = None
+        agg = np.ascontiguousarray(host[:, :N_AGG].T)
+        return QueryResults(
+            exists=agg[0] != 0,
+            call_count=agg[1],
+            n_variants=agg[2],
+            all_alleles_count=agg[3],
+            n_matched=agg[4],
+            overflow=agg[5] != 0,
+            rows=np.ascontiguousarray(host[:, N_AGG:]),
+        )
+
+
+class ReadyQueryResults:
+    """Results already read back, behind :class:`PendingQueryResults`'s
+    contract (the scatter kernels, which read back inside their call)."""
+
+    __slots__ = ("_res",)
+
+    def __init__(self, res: QueryResults):
+        self._res = res
+
+    def fetch(self) -> QueryResults:
+        return self._res
+
+
 def run_queries(
     dindex: _BisectIndex,
     queries: list[QuerySpec] | dict[str, np.ndarray],
     *,
     window_cap: int = 2048,
     record_cap: int = 1024,
-) -> QueryResults:
+    async_fetch: bool = False,
+):
     """Execute a query batch against a ``DeviceIndex``, a stacked
     ``FusedDeviceIndex`` or an L0 index (stacked batches arrive encoded
     with their ``shard`` ids) with ONE ``bisect_query`` launch, recorded
-    under the index's ``flight_family``, and read the results back.
+    under the index's ``flight_family``.
+
+    On a CUDA index the call does not wait for the card: the packed
+    queries go up from pinned memory, the kernel and the readback of its
+    output into pinned memory are enqueued on the current stream, and a
+    CUDA event is recorded behind them. ``async_fetch=True`` returns that
+    :class:`PendingQueryResults` at once; the default fetches it and
+    returns the :class:`QueryResults`. On a CPU index the twin runs
+    synchronously behind the same handle.
 
     ``window_cap`` clamps to the index's ``window_hint`` first: the
     clamp decides the window width W, hence ``overflow`` and the width
@@ -836,9 +929,7 @@ def run_queries(
     enc = encode_queries(queries) if isinstance(queries, list) else queries
     window_cap = min(window_cap, dindex.window_hint)
     dev = dindex.device
-    qpack = torch.from_numpy(
-        pack_queries(enc, fused=dindex.stacked)
-    ).to(dev)
+    qpack, staged = stage_upload(pack_queries(enc, fused=dindex.stacked), dev)
     out, seq = bisect_query(
         dindex.columns,
         dindex.alt_prefix,
@@ -852,16 +943,10 @@ def run_queries(
         **({"pad": (dindex.n_shards, dindex.n_shards_padded)}
            if hasattr(dindex, "n_shards_padded") else {}),
     )
-    t_fetch = time.perf_counter()
-    host = out.cpu().numpy()
-    note_device_stage(seq, fetch_ms=(time.perf_counter() - t_fetch) * 1e3)
-    agg = np.ascontiguousarray(host[:, :N_AGG].T)
-    return QueryResults(
-        exists=agg[0] != 0,
-        call_count=agg[1],
-        n_variants=agg[2],
-        all_alleles_count=agg[3],
-        n_matched=agg[4],
-        overflow=agg[5] != 0,
-        rows=np.ascontiguousarray(host[:, N_AGG:]),
-    )
+    host = stage_readback(out)
+    done = None
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+    pending = PendingQueryResults(out, host, (qpack, staged), done, seq)
+    return pending if async_fetch else pending.fetch()

@@ -159,6 +159,22 @@ def hedging_enabled() -> bool:
     return _hedging_enabled
 
 
+def _hedge_due(fut, started: threading.Event, delay: float) -> bool:
+    """Whether a hedge should race the primary ``fut``: it has not
+    answered within ``delay`` of its START (``started`` is set by the
+    primary's first line). A primary not started yet (queued behind a
+    full pool, or its pool thread not yet scheduled) is waited for
+    first: the delay measures the worker, not the queue, and a late
+    start does not forfeit the race. (The JAX package checks once,
+    ``delay`` after the submit, and never hedges a primary that started
+    later.)"""
+    while not started.wait(delay):
+        if fut.done():
+            return False
+    done, _pending = futures_mod.wait([fut], timeout=delay)
+    return not done
+
+
 # -- worker side --------------------------------------------------------------
 
 
@@ -1193,8 +1209,9 @@ class ScanWorkerPool:
         self, url: str, body, headers, delay: float, last
     ) -> tuple[bytes | None, Exception | None]:
         """One hedged attempt: primary on a pool thread; if it has not
-        answered within ``delay``, race a second worker. First response
-        wins; the loser keeps running and is ignored."""
+        answered within ``delay`` of its start (``_hedge_due``), race a
+        second worker. First response wins; the loser keeps running and
+        is ignored."""
         pool = self._hedge_pool()
         started = threading.Event()
 
@@ -1206,9 +1223,9 @@ class ScanWorkerPool:
             started.set()
             return self._scan_once(url, body, headers)
 
-        futs = {pool.submit(primary): url}
-        done, _pending = futures_mod.wait(futs, timeout=delay)
-        if not done and started.is_set():
+        fut = pool.submit(primary)
+        futs = {fut: url}
+        if _hedge_due(fut, started, delay):
             other = self._pick_other(url)
             if other is not None:
                 self._note_hedge(url, other)
@@ -2694,9 +2711,9 @@ class DistributedEngine:
         pool; if it has not answered within the hedge delay, the same
         sub-query races on a second replica and the first success wins.
         /search is an idempotent read, so the loser's duplicate only
-        costs its CPU. The hedge only fires once the primary actually
-        STARTED. A hedge target that also failed is added to ``tried``
-        so failover does not re-try it."""
+        costs its CPU. The hedge delay counts from the primary's start
+        (``_hedge_due``). A hedge target that also failed is added to
+        ``tried`` so failover does not re-try it."""
         delay = None
         if self.transport_config.replica_hedge:
             delay = self.router.hedge_delay(
@@ -2717,9 +2734,9 @@ class DistributedEngine:
             started.set()
             return self._call_worker(url, payload, deadline, ctx)
 
-        futs = {pool.submit(primary): url}
-        done, _pending = futures_mod.wait(futs, timeout=delay)
-        if not done and started.is_set():
+        fut = pool.submit(primary)
+        futs = {fut: url}
+        if _hedge_due(fut, started, delay):
             note_hedge()  # process-wide transport.hedges counter
             annotate(replica_hedge=True)
             plan_stage(

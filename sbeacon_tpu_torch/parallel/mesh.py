@@ -3,7 +3,8 @@
 Counterpart of ``sbeacon_tpu/parallel/mesh.py`` (``make_mesh``,
 ``StackedIndex``, ``plane_budget_verdict``, ``_plane_reduce``,
 ``sharded_query``, ``sharded_selected_query``, ``MeshFusedIndex`` with
-``MeshPendingResults``). Its XLA programs ``_local_query`` and
+``MeshPendingResults``, which ``run_mesh_queries(async_fetch=True)``
+returns undrained). Its XLA programs ``_local_query`` and
 ``_local_selected``, the per-device body of a ``shard_map`` (a grid of
 local dataset x query running ``_query_one``, the sums over the local
 datasets and one ``psum``), and ``_local_fused_query``, the per-device
@@ -21,8 +22,8 @@ hand-written CUDA kernels:
   ``MeshFusedIndex.run_mesh_queries``: ownership, the search over the
   entry's fused block, the ``seg_base`` rebase and the per-query-mask
   plane reduction, written in the owner, sliced-combine or replicated
-  layout. The combine layouts then fan in through ``_psum`` and the ring
-  gather ``ops.gather_kernel`` (P1).
+  layout. The combine layouts then fan in on the first entry
+  (``_fan_in``) and through the ring gather ``ops.gather_kernel`` (P1).
 
 All three answer the bisection kernel's per-query semantics
 (``csrc/bisect_core.cuh``), and the stacked ones fold the cross-dataset
@@ -98,6 +99,8 @@ from ..ops.kernel import (
     pad_shard_columns,
     padded_rows,
     query_batch_reference,
+    stage_readback,
+    stage_upload,
     window_hint_for,
 )
 from ..ops.plane_kernel import or_reduce, popcount32, staged_upload
@@ -799,21 +802,31 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _psum(parts: list[torch.Tensor], mesh: Mesh | None = None) -> np.ndarray:
-    """The cross-device fan-in (JAX's ``psum``): the sum of this
-    process's per-entry partials on its first entry, then, over a mesh
-    that spans processes, ``all_reduce_sum`` across the world; read
-    back. The sums run in int64 and int32 partials fold back to int32
-    modulo 2^32, so the result wraps as ``lax.psum``'s does (gloo's own
-    int32 sum would overflow a C++ int)."""
+def _fan_in(parts: list[torch.Tensor]) -> torch.Tensor:
+    """The sum of this process's per-entry partials, in int64, on the
+    first entry's device: enqueued there, nothing read back."""
     total = parts[0].long()
     for p in parts[1:]:
         total = total + p.to(total.device).long()
+    return total
+
+
+def _fold(total: torch.Tensor, dtype) -> torch.Tensor:
+    """An int64 sum of ``dtype`` partials back to ``dtype``: int32 folds
+    modulo 2^32, so the result wraps as ``lax.psum``'s does."""
+    return _wrap32(total) if dtype == torch.int32 else total
+
+
+def _psum(parts: list[torch.Tensor], mesh: Mesh | None = None) -> np.ndarray:
+    """The cross-device fan-in (JAX's ``psum``), read back: the sum of
+    this process's per-entry partials on its first entry (``_fan_in``),
+    then, over a mesh that spans processes, ``all_reduce_sum`` across
+    the world. The sums run in int64 and int32 partials fold back to
+    int32 after them (gloo's own int32 sum would overflow a C++ int)."""
+    total = _fan_in(parts)
     if mesh is not None and mesh.spans_processes:
         total = all_reduce_sum(total)
-    if parts[0].dtype == torch.int32:
-        total = _wrap32(total)
-    return total.cpu().numpy()
+    return _fold(total, parts[0].dtype).cpu().numpy()
 
 
 def _local_blocks(stacked_arrays, mesh: Mesh, aggregates_only: bool) -> int:
@@ -1169,33 +1182,59 @@ def mesh_fused(
     return out, seq
 
 
-def _to_host(a) -> np.ndarray:
-    return a if isinstance(a, np.ndarray) else a.cpu().numpy()
-
-
 class MeshPendingResults:
     """The results of one mesh launch, read back by :meth:`fetch`.
 
     ``out`` is, under owner-sharded outputs (``owner_layout`` = (n_dev,
     c_slot, counts)), one dict of output tensors per mesh entry, entry g
     holding its ``c_slot`` slots of which the first ``counts[g]`` carry
-    real queries; otherwise one dict of combined outputs (``agg`` as
-    numpy from the fan-in, the gathered blocks as tensors on the first
-    entry). ``positions`` is the sliced layout's slot map (query j's
-    results live at slot ``positions[j]``), applied as the inverse
-    permute; None means the replicated layout (the first ``b`` slots).
-    The port has no asynchronous fetch: ``run_mesh_queries`` calls
-    :meth:`fetch` itself, as ``run_queries`` reads its results back."""
+    real queries; otherwise one dict of combined outputs (the fan-in's
+    ``agg`` and the ring-gathered blocks, on the first entry's device).
+    ``positions`` is the sliced layout's slot map (query j's results
+    live at slot ``positions[j]``), applied as the inverse permute; None
+    means the replicated layout (the first ``b`` slots). ``streams``
+    maps each CUDA device of the launch to the stream it was launched
+    on; ``staged`` holds the launch's uploads (pinned host staging
+    included) until :meth:`fetch` returns.
 
-    __slots__ = ("_out", "_b", "_pos", "_owner", "flight_seq")
+    Nothing is read back until :meth:`fetch`: it enqueues every copy
+    into pinned host memory on the launch's streams, records one CUDA
+    event per card after that card's last copy, waits on them and
+    slices (owner-sharded: only each owner's real rows cross)."""
+
+    __slots__ = ("_out", "_b", "_pos", "_owner", "_streams", "_staged",
+                 "flight_seq")
 
     def __init__(self, out, b: int, positions=None, flight_seq=None,
-                 owner_layout=None):
+                 owner_layout=None, streams=None, staged=None):
         self._out = out
         self._b = b
         self._pos = positions
         self._owner = owner_layout
+        self._streams = streams or {}
+        self._staged = staged
         self.flight_seq = flight_seq
+
+    def _read_back(self, leaves: dict) -> dict:
+        """{key: [numpy array]} of ``leaves`` ({key: [tensor]}): the
+        copies of CUDA tensors enqueued on their launch stream into
+        pinned memory, one event per card recorded after them, waited
+        on; CPU tensors as they are."""
+        hosts = {}
+        for k, ts in leaves.items():
+            hosts[k] = []
+            for t in ts:
+                stream = self._streams.get(t.device)
+                if stream is None:
+                    hosts[k].append(stage_readback(t))
+                    continue
+                with torch.cuda.stream(stream):
+                    hosts[k].append(stage_readback(t))
+        for stream in self._streams.values():
+            done = torch.cuda.Event()
+            done.record(stream)
+            done.synchronize()
+        return {k: [h.numpy() for h in hs] for k, hs in hosts.items()}
 
     def _host_owner_sharded(self):
         """Each owner's real rows, straight off its own outputs: returns
@@ -1203,9 +1242,9 @@ class MeshPendingResults:
         order; ``sel_idx``, query j's row in that compact layout)."""
         n_dev, c_slot, counts = self._owner
         assert len(self._out) == n_dev, "one output set per mesh entry"
-        host = {}
+        leaves = {}
         for k in self._out[0]:
-            parts = []
+            leaves[k] = []
             for g, outs in enumerate(self._out):
                 # each entry holds ONLY its own c_slot slots: a full-size
                 # block here would mean the outputs were combined
@@ -1213,8 +1252,9 @@ class MeshPendingResults:
                     f"owner-sharded output {k!r} holds {outs[k].shape[0]} "
                     f"slots (want {c_slot})"
                 )
-                parts.append(_to_host(outs[k][: int(counts[g])]))
-            host[k] = np.concatenate(parts)
+                leaves[k].append(outs[k][: int(counts[g])])
+        host = {k: np.concatenate(v)
+                for k, v in self._read_back(leaves).items()}
         starts = np.concatenate(([0], np.cumsum(counts)))[:-1]
         pos = np.asarray(self._pos)
         return host, starts[pos // c_slot] + pos % c_slot
@@ -1225,7 +1265,8 @@ class MeshPendingResults:
             out, sel_idx = self._host_owner_sharded()
             sel = lambda a: np.ascontiguousarray(a[sel_idx])
         else:
-            out = {k: _to_host(v) for k, v in self._out.items()}
+            out = {k: v[0] for k, v in self._read_back(
+                {k: [v] for k, v in self._out.items()}).items()}
             if self._pos is None:
                 sel = lambda a: np.ascontiguousarray(a[: self._b])
             else:
@@ -1236,7 +1277,8 @@ class MeshPendingResults:
             fetch_bytes=nbytes,
         )
         add_total("mesh_fetch_bytes", nbytes)
-        self._out = None  # free the device buffers promptly
+        # free the device buffers and the staged uploads promptly
+        self._out = self._staged = None
         agg = out["agg"]
         call_count = sel(agg[:, 0])
         extra = {k: sel(out[k]) for k in ("pc_call", "pc_tok", "or_words")
@@ -1292,8 +1334,10 @@ class MeshFusedIndex:
     every entry, masked by ownership. A one-entry mesh or an empty batch
     always takes the replicated layout. Owner-sharded outputs
     (``LAYOUT_OWNER``) need no combine; otherwise the scalar
-    aggregates fan in through ``_psum`` and the hit rows (with the plane
-    blocks) through the ring gather ``ops.gather_kernel``. Row ids come
+    aggregates fan in on the first entry (``_fan_in``, as ``_psum``
+    sums without its readback) and the hit rows (with the plane blocks)
+    through the ring gather ``ops.gather_kernel``, both left on the card
+    until the pending results are fetched. Row ids come
     back dataset-local. Built ``with_planes=True``, the genotype planes
     stack group-wise with their datasets and plane-reading query shapes
     ride the same launch with per-query sample masks.
@@ -1481,7 +1525,7 @@ class MeshFusedIndex:
         return out, masks, use_counts, pos, counts, c_slot
 
     def launch_inputs(self, enc, layout, *, sample_masks=None,
-                      mask_counts=None):
+                      mask_counts=None, staged=None):
         """The batch laid out for one ``mesh_fused`` launch per entry:
         returns ``(entries, positions, counts, C)``, ``entries`` being per
         mesh entry ``(block, packed slots on its device, the keyword
@@ -1493,7 +1537,10 @@ class MeshFusedIndex:
         plane reduction; ``mask_counts`` ([B] bool, default off) is
         forced off when the stack has no count planes: restricted
         counting must then come from the host path, never a zero
-        plane."""
+        plane. Each upload goes up from pinned memory without the host
+        waiting for the card; a list passed as ``staged`` collects every
+        (tensor, pinned staging) pair, for a caller that holds them
+        until the launch's results are read."""
         b = int(enc["chrom"].shape[0])
         masks = use_counts = None
         if sample_masks is not None:
@@ -1513,8 +1560,14 @@ class MeshFusedIndex:
         for g, blk in enumerate(self.blocks):
             sl = (slice(None) if layout == LAYOUT_REPLICATED
                   else slice(g * C, (g + 1) * C))
-            put = lambda a: torch.from_numpy(np.ascontiguousarray(
-                a[sl]).astype(np.int32, copy=False)).to(blk.device)
+
+            def put(a, dev=blk.device, sl=sl):
+                t, pinned = stage_upload(
+                    np.asarray(a[sl]).astype(np.int32, copy=False), dev)
+                if staged is not None:
+                    staged.append((t, pinned))
+                return t
+
             kw = dict(me=g, d_local=self.d_local, n_dev=self.n_dev, C=C,
                       layout=layout, n_iters=self.n_iters)
             if masks is not None:
@@ -1530,11 +1583,12 @@ class MeshFusedIndex:
         *,
         window_cap: int = 2048,
         record_cap: int = 1024,
+        async_fetch: bool = False,
         sample_masks=None,
         mask_counts=None,
-    ) -> QueryResults:
+    ):
         """One mesh launch (one ``mesh_fused`` launch per entry, then the
-        combine) answering a (shard, query)-pair batch, read back.
+        combine) answering a (shard, query)-pair batch.
 
         ``queries``: a pre-encoded dict (``encode_queries`` with
         ``shard_ids``); a bare list is a loud error, as in the JAX
@@ -1545,7 +1599,14 @@ class MeshFusedIndex:
         ``mask_counts`` ([B] bool) switches a query to genotype-derived
         counting (forced off when the stack has no count planes). The
         layout is the index's, replicated on a one-entry mesh or for an
-        empty batch."""
+        empty batch.
+
+        On CUDA entries the call does not wait for the card: the uploads
+        go up from pinned memory, and the launches and the combine (the
+        fan-in of ``agg`` on the first entry and P1's ring pass) stay
+        enqueued. ``async_fetch=True`` returns the
+        :class:`MeshPendingResults` undrained; the default fetches it
+        and returns the ``QueryResults``."""
         if isinstance(queries, list):
             raise ValueError(
                 "MeshFusedIndex batches must carry explicit shard ids "
@@ -1569,8 +1630,10 @@ class MeshFusedIndex:
         window_cap = min(window_cap, self.window_hint)
         layout = (self.layout if self.n_dev > 1 and b > 0
                   else LAYOUT_REPLICATED)
+        staged = []
         entries, pos, counts, local_b = self.launch_inputs(
-            enc, layout, sample_masks=sample_masks, mask_counts=mask_counts)
+            enc, layout, sample_masks=sample_masks, mask_counts=mask_counts,
+            staged=staged)
         owner_layout = ((self.n_dev, local_b, counts)
                         if layout == LAYOUT_OWNER else None)
         outs, seqs = [], []
@@ -1585,7 +1648,8 @@ class MeshFusedIndex:
             # scalar fan-in: exactly one entry owns each query, so the
             # psum is a select; the hit rows (+1, so padding and
             # non-owners add 0) and the plane blocks ride ONE ring pass
-            combined = {"agg": _psum([o["agg"] for o in outs])}
+            parts = [o["agg"] for o in outs]
+            combined = {"agg": _fold(_fan_in(parts), parts[0].dtype)}
             names = ["rows"] + (["pc_call", "pc_tok", "or_words"]
                                 if with_planes else [])
             (got,) = gather_partials_many(
@@ -1595,8 +1659,15 @@ class MeshFusedIndex:
             outs = combined
         add_total(MESH_PROGRAM)
         add_total("mesh_evaluated_pairs", local_b * self.n_dev)
+        # the streams the readback must follow: each card's, as launched
+        streams = {}
+        for o in (outs if layout == LAYOUT_OWNER else [outs]):
+            for t in o.values():
+                if t.device.type == "cuda" and t.device not in streams:
+                    streams[t.device] = torch.cuda.current_stream(t.device)
         # the fetch's stage timing lands on the first kernel launch's
         # record (None on CPU, which records nothing)
-        return MeshPendingResults(
+        pending = MeshPendingResults(
             outs, b, pos, seqs[0] if seqs else None,
-            owner_layout=owner_layout).fetch()
+            owner_layout=owner_layout, streams=streams, staged=staged)
+        return pending if async_fetch else pending.fetch()

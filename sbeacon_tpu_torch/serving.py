@@ -2,10 +2,17 @@
 
 Counterpart of ``sbeacon_tpu/serving.py`` (``MicroBatcher`` with its
 ``_Accumulator`` / ``_LaunchPool``, ``submit`` / ``submit_many``, the
-launch stage ``_execute``). The JAX package's separate fetch stage
-(``_fetch_batch``, its fetcher pool and the bounded launch/fetch
-pipeline) has no counterpart: every kernel's dispatch reads its results
-back inside the launch, so ``_execute`` hands them out. A submission may
+launch stage ``_execute`` and the fetch stage ``_fetch_batch``). The
+launch stage, on a launcher pool thread, encodes a batch and ends once
+its kernel launch is enqueued (``run_queries_auto(async_fetch=True)``:
+a pending handle whose readback waits on a CUDA event); the fetch stage,
+on a separate fetcher pool, waits for the results and hands each waiter
+its rows, so the launcher encodes the next batch while the card runs
+this one. Each accumulator bounds its launched-but-unfetched batches
+with a semaphore of ``pipeline_depth`` slots (``EngineConfig.
+fetch_pipeline_depth``, 2 by default; 1 makes launch and fetch serial).
+The scatter kernels read back inside their launch and hand the fetch
+stage results that are ready. A submission may
 target shards of a ``FusedDeviceIndex`` (or of the delta tail's L0
 index) or of a mesh-sharded ``MeshFusedIndex`` (``shard_id`` /
 ``shard_ids``): queries for different datasets then share the index's
@@ -22,11 +29,13 @@ and launches nothing for a batch whose entries all expired; a backlog
 larger than one batch pops interactive entries before bulk ones (the
 lane is the request context's ``lane`` note); the launch hits the
 ``kernel.launch`` fault point and runs inside the
-``sbeacon.kernel.launch`` profile region (``telemetry.profile_region``:
-a ``torch.profiler`` range when ``SBEACON_PROFILE`` is set); each
-request is charged its queue wait
-and its share of the launch's time (``telemetry.charge_cost_to``), and
-notes its ``batch`` plan stage.
+``sbeacon.kernel.launch`` profile region, the fetch inside
+``sbeacon.kernel.fetch`` (``telemetry.profile_region``: a
+``torch.profiler`` range when ``SBEACON_PROFILE`` is set); a failed
+launch or fetch hands every waiter of the batch its error and frees the
+batch's pipeline slot; each request is charged its queue wait and its
+share of the launch's time, launch to results (``telemetry.
+charge_cost_to``), and notes its ``batch`` plan stage.
 
 Leader election (no dedicated flusher thread, zero idle cost): the
 first request into an empty accumulator becomes the leader, waits up to
@@ -63,6 +72,7 @@ from .telemetry import (
     annotate,
     charge_cost_to,
     current_context,
+    note_device_stage,
     percentiles,
     profile_region,
     request_context,
@@ -104,10 +114,16 @@ class _Pending:
 class _Accumulator:
     """Per-(device-index, caps) accumulation queue."""
 
-    def __init__(self):
+    def __init__(self, pipeline_depth: int = 1):
         self.lock = threading.Lock()
         self.items: list[_Pending] = []
         self.leader_active = False
+        # launched-but-unfetched batches: the launch stage acquires a
+        # slot before its launch, the fetch stage releases it. Depth 1
+        # makes launch and fetch serial; 2 lets the launcher encode
+        # batch i+1 while the card runs batch i, and arrivals still
+        # queue behind a full pipeline (continuous batching)
+        self.pipeline = threading.BoundedSemaphore(max(1, pipeline_depth))
 
 
 class _LaunchPool:
@@ -187,6 +203,7 @@ class MicroBatcher:
         max_batch: int = 512,
         max_wait_ms: float = 2.0,
         default_timeout_s: float | None = None,
+        pipeline_depth: int = 2,
         timing_window: int = 65536,
     ):
         self.max_batch = max_batch
@@ -194,6 +211,8 @@ class MicroBatcher:
         # upper bound on any submit's wait for its kernel launch;
         # None = unbounded
         self.default_timeout_s = default_timeout_s
+        # launched-but-unfetched batches allowed per accumulator
+        self.pipeline_depth = pipeline_depth
         self._stats_lock = threading.Lock()
         # {submissions_per_launch: n_launches}
         self._batch_hist: dict[int, int] = {}
@@ -207,12 +226,13 @@ class MicroBatcher:
         self._n_expired = 0
         self._n_timeouts = 0
         # per-request decomposition: queue wait (submit -> launch),
-        # exec (launch -> results), and per-launch encode / launch
-        # stages, over bounded rings
+        # exec (launch -> results), and per-launch encode / launch /
+        # fetch stages, over bounded rings
         self._wait_ms: deque = deque(maxlen=timing_window)
         self._exec_ms: deque = deque(maxlen=timing_window)
         self._encode_ms: deque = deque(maxlen=timing_window)
         self._launch_ms: deque = deque(maxlen=timing_window)
+        self._fetch_ms: deque = deque(maxlen=timing_window)
         # the stage histogram (batcher.stage_ms), once register_metrics
         # wired it
         self._stage_hist = None
@@ -224,6 +244,9 @@ class MicroBatcher:
         # launches run on this pool, not on the leader's thread, so the
         # leader's wait for its batch is bounded like a follower's
         self._launcher = _LaunchPool(16, "kernel-launch")
+        # readbacks run here, apart from the launches: while batch i's
+        # results come back, the launcher encodes and launches batch i+1
+        self._fetcher = _LaunchPool(16, "kernel-fetch")
 
     def _accum(self, dindex, caps: tuple) -> _Accumulator:
         with self._lock:
@@ -233,7 +256,7 @@ class MicroBatcher:
                 self._accums[dindex] = by_caps
             acc = by_caps.get(caps)
             if acc is None:
-                acc = by_caps[caps] = _Accumulator()
+                acc = by_caps[caps] = _Accumulator(self.pipeline_depth)
             return acc
 
     def submit(
@@ -461,7 +484,8 @@ class MicroBatcher:
                 )
                 try:
                     done = self._launcher.submit(
-                        self._run_batch, live, dindex, window_cap, record_cap,
+                        self._run_batch, acc, live, dindex, window_cap,
+                        record_cap,
                     )
                 except BaseException as e:
                     # launcher closed mid-shutdown: the popped batch never
@@ -483,7 +507,8 @@ class MicroBatcher:
                     raise self._timeout_error(req_deadline)
                 if me is not None:
                     # the leading request rode the first pop: its result
-                    # is in
+                    # (or error) comes from the fetch stage, which
+                    # submit_many waits for bounded
                     if more:
                         self._handoff_or_release(
                             acc, dindex, window_cap, record_cap
@@ -533,11 +558,11 @@ class MicroBatcher:
             "(wedged device or saturated launcher)"
         )
 
-    def _run_batch(self, batch, dindex, window_cap, record_cap) -> None:
+    def _run_batch(self, acc, batch, dindex, window_cap, record_cap) -> None:
         """Launcher-thread entry: _execute plus a failsafe so no batch
         member is left without a result or an error."""
         try:
-            self._execute(batch, dindex, window_cap, record_cap)
+            self._execute(acc, batch, dindex, window_cap, record_cap)
         except BaseException as e:  # failsafe: deliver the error
             for p in batch:
                 if not p.event.is_set():
@@ -545,27 +570,33 @@ class MicroBatcher:
                     p.event.set()
 
     def close(self) -> None:
-        """Release the launcher pool."""
+        """Release the launcher and fetcher pools."""
         self._launcher.close()
+        self._fetcher.close()
 
     def timing_summary(self) -> dict:
         """Percentiles over the bounded rings: queue_wait_ms (submit ->
         launch), exec_ms (launch -> results), and the per-launch stages
-        encode_ms and launch_ms (window bounds, tier split, the kernel
-        launches, the device run, the readback and the row unpacking)."""
+        encode_ms (host query encoding), launch_ms (the call that
+        enqueues the launch: window bounds and uploads; the scatter
+        kernels' whole run, readback included) and fetch_ms (the wait
+        for the device and the readback, and the row unpacking)."""
         with self._stats_lock:
             return {
                 "queue_wait_ms": percentiles(self._wait_ms),
                 "exec_ms": percentiles(self._exec_ms),
                 "encode_ms": percentiles(self._encode_ms),
                 "launch_ms": percentiles(self._launch_ms),
+                "fetch_ms": percentiles(self._fetch_ms),
             }
 
     def occupancy(self) -> dict:
         """{'submits', 'specs', 'launches', 'mean_batch', 'histogram',
-        'fused_hist', 'expired', 'timeouts', 'launcher'} cumulative since
-        construction; a launch here is one batched ``run_queries_auto``
-        call (which may launch the scatter kernel once per tier split)."""
+        'fused_hist', 'expired', 'timeouts', 'launcher', 'fetcher'}
+        cumulative since construction; a launch here is one batched
+        ``run_queries_auto`` call (which may launch the scatter kernel
+        once per tier split); ``launcher`` / ``fetcher`` are the pools'
+        depth (threads spawned, tasks queued)."""
         with self._stats_lock:
             hist = dict(sorted(self._batch_hist.items()))
             launches = sum(hist.values())
@@ -581,14 +612,15 @@ class MicroBatcher:
                 "timeouts": self._n_timeouts,
             }
         out["launcher"] = self._launcher.depth()
+        out["fetcher"] = self._fetcher.depth()
         return out
 
     def register_metrics(self, registry) -> None:
         """Register this batcher's typed instruments: the occupancy and
-        timing dicts' contents under their dotted names (the JAX
-        package's, less the fetcher pool's, which has no counterpart),
+        timing dicts' contents under the JAX package's dotted names,
         read through one snapshot cached for 0.25 s per render, and the
-        ``batcher.stage_ms`` histogram the launches then observe."""
+        ``batcher.stage_ms`` histogram the launches and fetches then
+        observe."""
         snap_lock = threading.Lock()
         snap = {"t": 0.0, "occ": None, "timing": None}
 
@@ -661,6 +693,12 @@ class MicroBatcher:
             "batcher.launcher.queued", fn=occ("launcher", "queued")
         )
         registry.gauge(
+            "batcher.fetcher.threads", fn=occ("fetcher", "threads")
+        )
+        registry.gauge(
+            "batcher.fetcher.queued", fn=occ("fetcher", "queued")
+        )
+        registry.gauge(
             "batcher.queue_wait_ms",
             "submit -> kernel launch wait quantiles",
             label="quantile",
@@ -680,21 +718,33 @@ class MicroBatcher:
         )
         registry.gauge(
             "batcher.launch_ms",
-            "kernel launch + device run + readback quantiles",
+            "async kernel-dispatch quantiles",
             label="quantile",
             fn=timing("launch_ms"),
         )
+        registry.gauge(
+            "batcher.fetch_ms",
+            "device execute + readback quantiles",
+            label="quantile",
+            fn=timing("fetch_ms"),
+        )
         self._stage_hist = registry.histogram(
             "batcher.stage_ms",
-            "per-stage latency decomposition (batch_wait/encode/launch)",
+            "per-stage latency decomposition "
+            "(batch_wait/encode/launch/device/fetch)",
             label="stage",
         )
 
-    def _execute(self, batch, dindex, window_cap, record_cap):
-        """Launcher thread: flatten the batch's specs (and shard ids),
-        encode, run ONE ``run_queries_auto`` call (which reads its
-        results back before returning) and hand each submission its
-        row-slice; a failed launch hands every submission its error."""
+    def _execute(self, acc, batch, dindex, window_cap, record_cap):
+        """LAUNCH stage (launcher thread): flatten the batch's specs (and
+        shard ids), encode, and enqueue ONE ``run_queries_auto`` launch
+        (``async_fetch=True``), then hand its pending handle to the
+        fetcher pool. Returning means only that the launch is enqueued:
+        :meth:`_fetch_batch` delivers the results. A pipeline slot of the
+        accumulator is taken before the launch and given back by the
+        fetch stage, so at most ``pipeline_depth`` batches are launched
+        and not yet fetched; a failed launch hands every submission its
+        error and gives the slot back."""
         specs: list = []
         offsets: list[int] = []
         for p in batch:
@@ -720,6 +770,7 @@ class MicroBatcher:
                 )
                 for p in batch
             ])
+        acc.pipeline.acquire()
         t_launch = time.perf_counter()
         stage_hist = self._stage_hist
         with self._stats_lock:
@@ -748,37 +799,81 @@ class MicroBatcher:
                 fault_point("kernel.launch")
                 enc = encode_queries(specs, shard_ids=shard_ids)
                 t_enc = time.perf_counter()
-                res = run_queries_auto(
+                pending = run_queries_auto(
                     dindex, enc, window_cap=window_cap, record_cap=record_cap,
-                    **planes,
+                    async_fetch=True, **planes,
                 )
+                t_disp = time.perf_counter()
                 sp.note(batch=len(specs))
         except BaseException as e:
+            acc.pipeline.release()
             for p in batch:
                 p.error = e
                 p.event.set()
             return
-        t_done = time.perf_counter()
-        exec_ms = (t_done - t_launch) * 1e3
         with self._stats_lock:
             self._encode_ms.append((t_enc - t_launch) * 1e3)
-            self._launch_ms.append((t_done - t_enc) * 1e3)
-            for _ in batch:
-                self._exec_ms.append(exec_ms)
+            self._launch_ms.append((t_disp - t_enc) * 1e3)
+        # the launch record gets the host encode stage (the kernel seam
+        # sees encoded arrays only; the handle's fetch adds fetch_ms)
+        note_device_stage(getattr(pending, "flight_seq", None),
+                          encode_ms=(t_enc - t_launch) * 1e3)
         if stage_hist is not None:
             stage_hist.observe((t_enc - t_launch) * 1e3, label_value="encode")
-            stage_hist.observe((t_done - t_enc) * 1e3, label_value="launch")
-        # the launch's time, pro-rated to each submission by its share of
-        # the flattened specs: the shares sum to the launch exactly
-        n_specs = len(specs) or 1
-        for p, off in zip(batch, offsets):
-            sl = slice(off, off + len(p.specs))
-            p.result = QueryResults(**{
-                f.name: None if getattr(res, f.name) is None
-                else getattr(res, f.name)[sl]
-                for f in dataclasses.fields(QueryResults)
-            })
-            charge_cost_to(
-                p.ctx, device_us=exec_ms * 1e3 * len(p.specs) / n_specs
-            )
-            p.event.set()
+            stage_hist.observe((t_disp - t_enc) * 1e3, label_value="launch")
+        try:
+            self._fetcher.submit(self._fetch_batch, acc, batch, offsets,
+                                 pending, t_launch, t_disp)
+        except BaseException as e:
+            # fetcher closed mid-shutdown: the launch has no fetch stage,
+            # so its waiters get the error here
+            acc.pipeline.release()
+            for p in batch:
+                if not p.event.is_set():
+                    p.error = e
+                    p.event.set()
+
+    def _fetch_batch(self, acc, batch, offsets, pending, t_launch,
+                     t_disp) -> None:
+        """FETCH stage (fetcher thread): wait for the batch's results,
+        hand each submission its row-slice, give the pipeline slot back.
+        A failed fetch (a CUDA error shows at the event wait) hands every
+        submission its error."""
+        try:
+            with profile_region("sbeacon.kernel.fetch"):
+                res = pending.fetch()
+            t_done = time.perf_counter()
+            exec_ms = (t_done - t_launch) * 1e3
+            with self._stats_lock:
+                self._fetch_ms.append((t_done - t_disp) * 1e3)
+                for _ in batch:
+                    self._exec_ms.append(exec_ms)
+            stage_hist = self._stage_hist
+            if stage_hist is not None:
+                # device = launch -> results, fetch = its readback tail;
+                # once per launch
+                stage_hist.observe(exec_ms, label_value="device")
+                stage_hist.observe((t_done - t_disp) * 1e3,
+                                   label_value="fetch")
+            # the launch's time, launch to results, pro-rated to each
+            # submission by its share of the flattened specs: the shares
+            # sum to the launch exactly
+            n_specs = sum(len(p.specs) for p in batch) or 1
+            for p, off in zip(batch, offsets):
+                sl = slice(off, off + len(p.specs))
+                p.result = QueryResults(**{
+                    f.name: None if getattr(res, f.name) is None
+                    else getattr(res, f.name)[sl]
+                    for f in dataclasses.fields(QueryResults)
+                })
+                charge_cost_to(
+                    p.ctx, device_us=exec_ms * 1e3 * len(p.specs) / n_specs
+                )
+                p.event.set()
+        except BaseException as e:
+            for p in batch:
+                if not p.event.is_set():
+                    p.error = e
+                    p.event.set()
+        finally:
+            acc.pipeline.release()

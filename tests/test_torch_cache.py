@@ -345,11 +345,11 @@ def test_cache_and_delta_metrics_render_as_jax(twin):
         eng.register_metrics(reg)
         regs.append(reg)
     jr, tr = regs
-    # the port has no fetch stage: its batcher registers no fetcher pool
-    # and no fetch quantiles (ROADMAP Queue 3, deliberate differences)
-    no_fetch = {"batcher.fetcher.threads", "batcher.fetcher.queued",
-                "batcher.fetch_ms"}
-    assert set(tr.names()) == set(jr.names()) - no_fetch
+    # the batcher's fetch stage registers its fetcher pool and fetch
+    # quantiles under JAX's names
+    assert set(tr.names()) == set(jr.names())
+    assert {"batcher.fetcher.threads", "batcher.fetcher.queued",
+            "batcher.fetch_ms"} <= set(tr.names())
     jj, tj = jr.render_json(), tr.render_json()
     assert tj["response_cache"] == jj["response_cache"]
     assert tj["ingest"] == jj["ingest"]

@@ -1,10 +1,10 @@
 """``BeaconConfig.dumps`` of the port held against the JAX package's.
 
 Both write ``dataclasses.asdict`` of the config as indented JSON with the
-storage root as a string. The port's engine section lacks ten knobs of
+storage root as a string. The port's engine section lacks nine knobs of
 the JAX package (``JAX_ONLY_ENGINE``: XLA batch tiers, the TPU switch,
-the fetch stage, the pod tier's layout switches, engine-side ingest
-sizing and the plane upload chunk); with those taken out of the JAX
+the pod tier's layout switches, engine-side ingest sizing and the plane
+upload chunk); with those taken out of the JAX
 document, the two texts are equal once their keys are sorted.
 """
 
@@ -18,7 +18,7 @@ from sbeacon_tpu.config import StorageConfig as JStorageConfig
 from sbeacon_tpu_torch.config import BeaconConfig, StorageConfig
 
 JAX_ONLY_ENGINE = {
-    "batch_size", "fetch_pipeline_depth", "ingest_shard_bytes",
+    "batch_size", "ingest_shard_bytes",
     "ingest_workers", "mesh_axis", "mesh_owner_outputs", "mesh_planes",
     "mesh_slice", "plane_upload_chunk_mb", "use_tpu",
 }

@@ -30,6 +30,7 @@ from sbeacon_tpu_torch.index import build_index
 from sbeacon_tpu_torch.ops import kernel as tk
 from sbeacon_tpu_torch.ops import plane_kernel as pk
 from sbeacon_tpu_torch.ops import scatter_kernel as sk
+from sbeacon_tpu_torch.ops import timing
 from sbeacon_tpu_torch.payloads import VariantQueryPayload
 from sbeacon_tpu_torch.ops.kernel import QuerySpec, encode_queries
 from sbeacon_tpu_torch.ops.query_pack import pack_q8, window_bounds
@@ -1687,3 +1688,74 @@ def test_profile_region_holds_the_kernel(index, tmp_path):
                if e.get("cat") in ("user_annotation", "gpu_user_annotation")
                and e["name"] == "sbeacon.kernel.launch"]
     assert kernels and regions
+
+
+#: the largest share of a spin-kernel hold an asynchronous launch may
+#: take on the host: a hidden wait for the card would take all of it
+HOLD_SHARE = 0.5
+
+
+def _under_hold(call):
+    """``call()`` while a spin kernel holds the current stream: returns
+    (its result, its host ms, whether an event recorded right after it
+    was still pending)."""
+    torch.cuda._sleep(timing.HOLD_CYCLES)
+    t0 = time.perf_counter()
+    pending = call()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.Event()
+    after.record()
+    return pending, ms, not after.query()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["fused", "l0", "mesh_plain_owner",
+                                  "mesh_plain_sliced", "mesh_planes_owner",
+                                  "mesh_planes_sliced"])
+def test_async_launch_returns_under_a_held_stream(case, fused, l0_composites,
+                                                  fused_meshes):
+    """run_queries(async_fetch=True) (J3 on the fused stack and on an L0
+    composite) and run_mesh_queries(async_fetch=True) (J6, with and
+    without sample masks, then the combine) return while a spin kernel
+    still holds the stream: no pageable upload, readback or host fan-in
+    waits for the card. Each fetch equals the synchronous answer byte
+    for byte, and the handle lets go of its buffers."""
+    if case == "fused":
+        index, _cpu, shards = fused
+        specs, sids = _fused_specs(shards, 24, seed=31)
+        run = lambda **kw: tk.run_queries(
+            index, encode_queries(specs, shard_ids=sids), window_cap=2048,
+            record_cap=256, **kw)
+    elif case == "l0":
+        index, keys = l0_composites[4]
+        specs, sids = l0_tail_specs(index, keys, seed=32)
+        run = lambda **kw: tk.run_queries(
+            index, encode_queries(specs, shard_ids=sids), window_cap=2048,
+            record_cap=256, **kw)
+    else:
+        _mesh, kind, layout = case.split("_")
+        mfi, shards = fused_meshes[(kind, 2)]
+        mfi.layout = {"owner": tm.LAYOUT_OWNER,
+                      "sliced": tm.LAYOUT_SLICED}[layout]
+        specs, sids = _fused_specs(shards, 24, seed=33)
+        planes = {}
+        if kind == "planes":
+            planes = dict(sample_masks=_masks(24, mfi.plane_words, seed=34),
+                          mask_counts=np.arange(24) % 2 == 0)
+        run = lambda **kw: mfi.run_mesh_queries(
+            encode_queries(specs, shard_ids=sids), window_cap=2048,
+            record_cap=256, **planes, **kw)
+    want = run()  # also warms the allocators and the kernel library
+    hold_ms = timing.warm_and_hold(lambda _x: None, [])
+    pending, ms, held = _under_hold(lambda: run(async_fetch=True))
+    assert held, "the launch waited for the held stream"
+    assert ms < HOLD_SHARE * hold_ms, (ms, hold_ms)
+    got = pending.fetch()
+    for f in ("exists", "call_count", "n_variants", "all_alleles_count",
+              "n_matched", "overflow", "rows", "pc_call", "pc_tok",
+              "or_words"):
+        a, w = getattr(got, f), getattr(want, f)
+        assert (a is None) == (w is None), f
+        if a is not None:
+            assert a.dtype == w.dtype and np.array_equal(a, w), f
+    assert pending._out is None

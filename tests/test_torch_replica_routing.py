@@ -63,6 +63,15 @@ def _no_leftover_faults():
     faults.uninstall()
 
 
+@pytest.fixture(autouse=True)
+def _hedging_on():
+    """The hedge kill switch is process-wide: these tests start with it
+    on whatever another file's brownout left, and hand it back on."""
+    tdispatch.set_hedging_enabled(True)
+    yield
+    tdispatch.set_hedging_enabled(True)
+
+
 @pytest.fixture()
 def fleet():
     f = Fleet()
@@ -351,15 +360,15 @@ def test_failover_never_retries_the_same_replica(fleet):
 def test_replica_hedge_races_slow_primary(fleet):
     """A primary that has not answered within the hedge delay is raced
     by the other replica, whose answer wins; the primary is held until
-    the hedge has answered."""
-    hedge_answered = threading.Event()
+    the search has returned (held only until the hedge answered, it
+    could finish first: both threads woke at once)."""
+    released = threading.Event()
 
     def post(url, doc, timeout_s, headers=None):
         if "slow" in url:
-            hedge_answered.wait(30)
+            released.wait(30)
             return 200, {"responses": [{"dataset_id": "ds",
                                         "vcf_location": "slow"}]}
-        hedge_answered.set()
         return 200, {"responses": [{"dataset_id": "ds",
                                     "vcf_location": "fast",
                                     "exists": True}]}
@@ -378,6 +387,61 @@ def test_replica_hedge_races_slow_primary(fleet):
         dist.router.note_rtt("http://fast:1", 0.400)
     hedges0 = _STATS.get("hedges")
     got = dist.search(_payload(["ds"]))
+    released.set()
+    assert [(r.dataset_id, r.vcf_location) for r in got] == [("ds", "fast")]
+    assert _STATS.get("hedges") == hedges0 + 1
+
+
+class _LateStart:
+    """A hedge pool whose work starts ``late_s`` after it is submitted:
+    a pool thread the OS or the interpreter lock has not scheduled yet
+    (six test processes share the host's cores)."""
+
+    def __init__(self, pool, late_s):
+        self._pool, self._late_s = pool, late_s
+
+    def submit(self, fn, *args):
+        def late():
+            time.sleep(self._late_s)
+            return fn(*args)
+        return self._pool.submit(late)
+
+
+@resilience
+def test_replica_hedge_races_a_primary_that_started_late(fleet):
+    """A cause of test_replica_hedge_races_slow_primary's failure, made
+    certain: the primary's pool thread starts after the hedge delay has
+    lapsed. The hedge delay counts from the primary's start, so the
+    hedge still races it and wins (checked once, at the delay after the
+    submit, no hedge fired and the slow primary answered)."""
+    released = threading.Event()
+
+    def post(url, doc, timeout_s, headers=None):
+        if "slow" in url:
+            released.wait(5)
+            return 200, {"responses": [{"dataset_id": "ds",
+                                        "vcf_location": "slow"}]}
+        return 200, {"responses": [{"dataset_id": "ds",
+                                    "vcf_location": "fast",
+                                    "exists": True}]}
+
+    def get(url, timeout_s, headers=None):
+        return 200, {"datasets": ["ds"], "fingerprint": "f"}
+
+    dist = fleet.coordinator(
+        ["http://slow:1", "http://fast:1"], retries=0, post=post, get=get,
+        config=BeaconConfig(transport=TransportConfig(
+            hedge_delay_s=0.01, replica_hedge=True)),
+    )
+    dist.replica_table()
+    for _ in range(10):  # steer the p2c pick to the slow primary
+        dist.router.note_rtt("http://slow:1", 0.001)
+        dist.router.note_rtt("http://fast:1", 0.400)
+    pool = dist._hedge_pool()
+    dist._hedge_pool = lambda: _LateStart(pool, 0.1)
+    hedges0 = _STATS.get("hedges")
+    got = dist.search(_payload(["ds"]))
+    released.set()
     assert [(r.dataset_id, r.vcf_location) for r in got] == [("ds", "fast")]
     assert _STATS.get("hedges") == hedges0 + 1
 

@@ -8,8 +8,8 @@ own registries (``telemetry.ANNOTATION_KEYS``, ``plan.PLAN_STAGES`` and
 JAX package's do. The one rule restated here is the metric catalogue's
 two-way parity: DEPLOYMENT.md documents the JAX package's series, so
 every port series must be in it, and the catalogue names the port lacks
-are exactly the deliberate differences (the micro-batcher's fetch stage
-and the tier's fallback counter, which the port does not have). Each
+are exactly the deliberate difference (the tier's fallback counter,
+which the port does not have: its tier raises). Each
 lint's violation case repeats on a temporary port tree.
 """
 
@@ -20,10 +20,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "sbeacon_tpu_torch"
-#: catalogue series of the JAX package only: the port's micro-batcher
-#: has no fetch stage and its pod tier raises instead of falling back
-JAX_ONLY_SERIES = {"batcher.fetch_ms", "batcher.fetcher.queued",
-                   "batcher.fetcher.threads", "mesh.fallbacks"}
+#: catalogue series of the JAX package only: the port's pod tier raises
+#: instead of falling back
+JAX_ONLY_SERIES = {"mesh.fallbacks"}
 
 
 @pytest.fixture(scope="module")
