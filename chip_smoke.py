@@ -4904,15 +4904,17 @@ def launch_region_kernels(trace_path, prefix="scatter_match",
     """(kernels, inside) of a ``torch.profiler`` Chrome trace: the CUDA
     kernel events whose name starts with ``prefix``, and those of them
     inside a ``region`` range — their launch call (matched by
-    correlation id) inside the CPU ``record_function`` range on its
-    thread, or the kernel inside the range's GPU projection."""
+    correlation id) inside the CPU range on its thread (the program's
+    spans are function-scope ranges, ``cpu_op``; a ``record_function``
+    range is a ``user_annotation``), or the kernel inside the range's
+    GPU projection."""
     with open(trace_path) as f:
         doc = json.load(f)
     evs = [e for e in (doc["traceEvents"] if isinstance(doc, dict) else doc)
            if e.get("ph") == "X"]
     kernels = [e for e in evs if e.get("cat") == "kernel"
                and kernel_name(e.get("name", "")).startswith(prefix)]
-    cpu = [e for e in evs if e.get("cat") == "user_annotation"
+    cpu = [e for e in evs if e.get("cat") in ("user_annotation", "cpu_op")
            and e.get("name", "").endswith(region)]
     gpu = [e for e in evs if e.get("cat") == "gpu_user_annotation"
            and e.get("name", "").endswith(region)]

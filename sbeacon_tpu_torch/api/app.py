@@ -540,8 +540,12 @@ class BeaconApp:
         the plan store and the slow-query log."""
         t0 = time.perf_counter()
         route = self._route_label(path)
+        # a transport that minted the request's context already (the
+        # HTTP server's ``http.request`` span) hands its trace id on
+        outer = current_context()
         ctx = RequestContext(
-            trace_id=sanitize_trace_id(_header(headers, "x-beacon-trace")),
+            trace_id=sanitize_trace_id(_header(headers, "x-beacon-trace"))
+            or (outer.trace_id if outer is not None else None),
             route=route,
         )
         with request_context(ctx):

@@ -22,6 +22,12 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from ..telemetry import (
+    RequestContext,
+    request_context,
+    sanitize_trace_id,
+)
+from ..utils.trace import span
 from .app import BeaconApp
 
 #: content types of the two text expositions ``/metrics`` serves
@@ -39,6 +45,19 @@ def _make_handler(app: BeaconApp):
             pass
 
         def _respond(self):
+            """One request, as an ``http.request`` span from the parsed
+            request line and headers to the last byte written. Its trace
+            id (the ``X-Beacon-Trace`` header's, or one minted here) is
+            the one the app serves the request under."""
+            ctx = RequestContext(
+                trace_id=sanitize_trace_id(self.headers.get("X-Beacon-Trace"))
+            )
+            with request_context(ctx), span(
+                "http.request", method=self.command
+            ):
+                self._serve()
+
+        def _serve(self):
             parsed = urlparse(self.path)
             # flatten single-valued query params (API-GW style)
             query = {

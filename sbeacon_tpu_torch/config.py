@@ -388,8 +388,10 @@ class ObservabilityConfig:
       JSON line to the ``sbeacon.slowquery`` logger and the in-memory
       ring served at ``/_trace``; 0 records every request, negative
       disables. slow_query_log: a file the lines also append to.
-    profile_dir: arms ``torch.profiler`` capture of the kernel launch
-      regions into this directory (``SBEACON_PROFILE``).
+    profile_dir: a ``torch.profiler`` capture of the process, from the
+      batcher's first kernel launch, exported into this directory at
+      exit, with the program's spans as ``sbeacon.*`` ranges
+      (``SBEACON_PROFILE``).
     slo_*: the SLO engine (slo.py, ``/slo``): the default availability
       and latency objectives, per-route overrides
       (``route:field=value[:...]`` comma list) and the burn factor that,

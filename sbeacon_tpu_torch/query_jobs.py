@@ -57,7 +57,32 @@ from .telemetry import (
     percentiles,
     request_context,
 )
-from .utils.trace import span
+from .utils.trace import current_span_id, instant, record, span
+
+#: ``runner.queue_wait_ms`` bucket bounds: geometric from 0.5 ms to
+#: 10 s, each bucket under 25% wider than its lower bound, so a median
+#: interpolated within one is off by less than that
+RUNNER_WAIT_BUCKETS_MS = tuple(
+    round(0.5 * 20000 ** (k / 45), 4) for k in range(46)
+)
+
+
+class _TableLock:
+    """The job table's lock; waiting for it is a ``jobs.lock`` span."""
+
+    __slots__ = ("_lock",)
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        with span("jobs.lock"):
+            self._lock.acquire()
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
 
 
 class JobStatus(Enum):
@@ -82,7 +107,8 @@ class QueryJobTable:
     """Sqlite-backed VariantQueries + VariantQueryResponses equivalent.
 
     Thread-safe within a process (one lock around the shared connection,
-    matching ``ingest.ledger``); durable across restarts.
+    matching ``ingest.ledger``); durable across restarts. Each wait for
+    the lock is a ``jobs.lock`` span.
     """
 
     def __init__(
@@ -108,7 +134,7 @@ class QueryJobTable:
         # (WAL growth bounded by one sweep interval of TTL'd cache
         # traffic).
         self._conn.execute("PRAGMA wal_autocheckpoint=0")
-        self._lock = threading.Lock()
+        self._lock = _TableLock()
         self.spill_dir = Path(spill_dir) if spill_dir else None
         if self.spill_dir:
             self.spill_dir.mkdir(parents=True, exist_ok=True)
@@ -445,6 +471,12 @@ class AsyncQueryRunner:
     job; ``poll``/``result`` give the async API surface the reference's
     RUNNING/COMPLETED envelope switch needs
     (route_g_variants.py:199-214 elif status == JobStatus.RUNNING).
+
+    Spans (``utils.trace``): ``runner.submit`` on the caller's thread;
+    on the pool thread, under the submitter's context and with
+    ``runner.submit`` as parent, ``runner.queue_wait`` (submit to the
+    job's start), ``query_jobs.run`` and the ``runner.done`` instant;
+    ``runner.await`` around :meth:`result`'s wait.
     """
 
     #: seconds between opportunistic TTL sweeps piggybacked on submit()
@@ -583,6 +615,7 @@ class AsyncQueryRunner:
         self._wait_hist = registry.histogram(
             "runner.queue_wait_ms",
             "async-runner submit -> execution-start wait",
+            buckets=RUNNER_WAIT_BUCKETS_MS,
         )
 
     def _note_coalesced(self) -> None:
@@ -651,7 +684,15 @@ class AsyncQueryRunner:
     ) -> tuple[str, JobStatus]:
         """``fingerprint`` (e.g. the engine's index fingerprint) is folded
         into the query hash so cached results die with the data they were
-        computed from."""
+        computed from. A ``runner.submit`` span on the caller's thread
+        (the hit checks, the admission gate and the table claim), noting
+        the query id and the status handed back."""
+        with span("runner.submit") as sp:
+            query_id, status = self._submit(payload, fingerprint)
+            sp.note(query_id=query_id, status=status.name)
+        return query_id, status
+
+    def _submit(self, payload, fingerprint):
         self._maybe_purge()
         query_id = hash_query(
             {"payload": dataclasses.asdict(payload), "fp": fingerprint}
@@ -737,83 +778,19 @@ class AsyncQueryRunner:
         # coordinator->worker hop — keep the ingress trace id.
         job_deadline = current_deadline()
         job_ctx = current_context()
-        t_enqueue = time.perf_counter()
+        # the span open here (runner.submit) parents the job's spans on
+        # the pool thread
+        job_parent = current_span_id()
+        t_enqueue = time.monotonic()
 
         def run():
-            self._note_queue_wait(
-                (time.perf_counter() - t_enqueue) * 1e3
-            )
-            with request_context(job_ctx), span(
-                "query_jobs.run", query_id=query_id
-            ):
-                try:
-                    with deadline_scope(job_deadline):
-                        responses = self.engine.search(pl)
-                    # a DEGRADED answer (some datasets had no reachable
-                    # replica — dispatch annotated unavailable_datasets
-                    # on the request context) must not be cached as THE
-                    # answer for the query TTL: it is handed to the
-                    # waiters coalesced onto this job, then the job is
-                    # dropped so later identical queries re-execute
-                    # against the (possibly healed) routes instead of
-                    # replaying a stale empty result
-                    unavailable = tuple(
-                        job_ctx.notes.get("unavailable_datasets") or ()
-                        if job_ctx is not None
-                        else ()
-                    )
-                    partial = bool(unavailable)
-                    ttl = (
-                        self.PARTIAL_HANDOFF_TTL_S
-                        if partial
-                        else self.table.query_ttl_s
-                    )
-                    # the unavailable set rides WITH the cached handoff:
-                    # a coalesced waiter (different request context)
-                    # must get the partial marking too, not a silently
-                    # incomplete answer
-                    with self._lock:
-                        self._results[query_id] = (
-                            responses,
-                            time.time() + ttl,
-                            unavailable,
-                        )
-                    # waiters are served from the in-memory handoff the
-                    # moment the search finishes; the sqlite persistence
-                    # below exists for cross-process/restart consumers
-                    # and must not sit on the request's critical path
-                    # (a WAL checkpoint fsync here was a >1 s soak-tail
-                    # outlier with the kernels fully warm)
-                    done.set()
-                    if partial:
-                        self.table.abandon(query_id, claim)
-                    else:
-                        for resp in responses:
-                            n = self.table.next_response_number(
-                                query_id, claim
-                            )
-                            if n:
-                                self.table.put_response(
-                                    query_id, n, resp, claim
-                                )
-                        self.table.mark_finished(query_id, claim)
-                        self.table.complete(query_id, claim)
-                except Exception:
-                    # never cache a failure as an empty result: drop the
-                    # job so pollers fall back to a direct search (which
-                    # surfaces the real error to the caller)
-                    logging.getLogger(__name__).exception(
-                        "async query %s failed", query_id
-                    )
-                    with self._lock:
-                        self._results.pop(query_id, None)
-                    self.table.abandon(query_id, claim)
-                finally:
-                    done.set()
-                    self._gate.release()
-                    self._release_bulk(bulk_slot)
-                    with self._lock:
-                        self._done.pop(query_id, None)
+            t_start = time.monotonic()
+            self._note_queue_wait((t_start - t_enqueue) * 1e3)
+            with request_context(job_ctx, span_id=job_parent):
+                record("runner.queue_wait", t_enqueue, t_start,
+                       query_id=query_id)
+                self._run(pl, query_id, claim, done, job_ctx,
+                          job_deadline, bulk_slot)
 
         try:
             self._pool.submit(run)
@@ -828,6 +805,84 @@ class AsyncQueryRunner:
             raise
         return query_id, JobStatus.RUNNING
 
+    def _run(self, pl, query_id, claim, done, job_ctx, job_deadline,
+             bulk_slot) -> None:
+        """One job on a pool thread, under its submitter's request
+        context: the search, the in-memory handoff, ``done`` (the
+        ``runner.done`` instant), then the table's persistence."""
+        with span("query_jobs.run", query_id=query_id):
+            try:
+                with deadline_scope(job_deadline):
+                    responses = self.engine.search(pl)
+                # a DEGRADED answer (some datasets had no reachable
+                # replica — dispatch annotated unavailable_datasets
+                # on the request context) must not be cached as THE
+                # answer for the query TTL: it is handed to the
+                # waiters coalesced onto this job, then the job is
+                # dropped so later identical queries re-execute
+                # against the (possibly healed) routes instead of
+                # replaying a stale empty result
+                unavailable = tuple(
+                    job_ctx.notes.get("unavailable_datasets") or ()
+                    if job_ctx is not None
+                    else ()
+                )
+                partial = bool(unavailable)
+                ttl = (
+                    self.PARTIAL_HANDOFF_TTL_S
+                    if partial
+                    else self.table.query_ttl_s
+                )
+                # the unavailable set rides WITH the cached handoff:
+                # a coalesced waiter (different request context)
+                # must get the partial marking too, not a silently
+                # incomplete answer
+                with self._lock:
+                    self._results[query_id] = (
+                        responses,
+                        time.time() + ttl,
+                        unavailable,
+                    )
+                # waiters are served from the in-memory handoff the
+                # moment the search finishes; the sqlite persistence
+                # below exists for cross-process/restart consumers
+                # and must not sit on the request's critical path
+                # (a WAL checkpoint fsync here was a >1 s soak-tail
+                # outlier with the kernels fully warm)
+                instant("runner.done", query_id=query_id)
+                done.set()
+                if partial:
+                    self.table.abandon(query_id, claim)
+                else:
+                    for resp in responses:
+                        n = self.table.next_response_number(
+                            query_id, claim
+                        )
+                        if n:
+                            self.table.put_response(
+                                query_id, n, resp, claim
+                            )
+                    self.table.mark_finished(query_id, claim)
+                    self.table.complete(query_id, claim)
+            except Exception:
+                # never cache a failure as an empty result: drop the
+                # job so pollers fall back to a direct search (which
+                # surfaces the real error to the caller)
+                logging.getLogger(__name__).exception(
+                    "async query %s failed", query_id
+                )
+                with self._lock:
+                    self._results.pop(query_id, None)
+                self.table.abandon(query_id, claim)
+            finally:
+                if not done.is_set():
+                    instant("runner.done", query_id=query_id)
+                done.set()
+                self._gate.release()
+                self._release_bulk(bulk_slot)
+                with self._lock:
+                    self._done.pop(query_id, None)
+
     def poll(self, query_id: str) -> JobStatus:
         return self.table.get_job_status(query_id)
 
@@ -835,22 +890,26 @@ class AsyncQueryRunner:
         self, query_id: str, *, wait_s: float = 0.0
     ) -> list[VariantSearchResponse] | None:
         """Responses if COMPLETED (optionally waiting), else None.
-        The wait is clamped by the caller's ambient request deadline."""
+        The wait is clamped by the caller's ambient request deadline,
+        and is a ``runner.await`` span noting the query id: its end
+        less the job's ``runner.done`` is the wake-up's delay."""
         if wait_s > 0:
             wait_s = current_deadline().clamp(wait_s)
-            with self._lock:
-                ev = self._done.get(query_id)
-                handed_off = query_id in self._results
-            if ev is not None:
-                # in-process job: block on its completion event (no poll)
-                ev.wait(wait_s)
-            elif not handed_off and not self.table.wait(
-                query_id, timeout_s=wait_s
-            ):
-                # no in-memory handoff either; the table never
-                # completed (a PARTIAL job is abandoned there by
-                # design, so the handoff check must come first)
-                return None
+            with span("runner.await", query_id=query_id):
+                with self._lock:
+                    ev = self._done.get(query_id)
+                    handed_off = query_id in self._results
+                if ev is not None:
+                    # in-process job: block on its completion event
+                    # (no poll)
+                    ev.wait(wait_s)
+                elif not handed_off and not self.table.wait(
+                    query_id, timeout_s=wait_s
+                ):
+                    # no in-memory handoff either; the table never
+                    # completed (a PARTIAL job is abandoned there by
+                    # design, so the handoff check must come first)
+                    return None
         # in-memory handoff FIRST: for in-process jobs the results exist
         # the moment the search finishes, before (and regardless of) the
         # background sqlite persistence

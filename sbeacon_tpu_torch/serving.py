@@ -28,14 +28,20 @@ combined with the batch timeout, and its expiry raises
 and launches nothing for a batch whose entries all expired; a backlog
 larger than one batch pops interactive entries before bulk ones (the
 lane is the request context's ``lane`` note); the launch hits the
-``kernel.launch`` fault point and runs inside the
-``sbeacon.kernel.launch`` profile region, the fetch inside
-``sbeacon.kernel.fetch`` (``telemetry.profile_region``: a
-``torch.profiler`` range when ``SBEACON_PROFILE`` is set); a failed
-launch or fetch hands every waiter of the batch its error and frees the
-batch's pipeline slot; each request is charged its queue wait and its
-share of the launch's time, launch to results (``telemetry.
-charge_cost_to``), and notes its ``batch`` plan stage.
+``kernel.launch`` fault point; a failed launch or fetch hands every
+waiter of the batch its error and frees the batch's pipeline slot; each
+request is charged its queue wait and its share of the launch's time,
+launch to results (``telemetry.charge_cost_to``), and notes its
+``batch`` plan stage.
+
+Spans (``utils.trace``): the launch stage is a ``kernel.launch`` span
+and the fetch stage a ``kernel.fetch`` span (``sbeacon.kernel.launch``
+and ``sbeacon.kernel.fetch`` in a ``torch.profiler`` capture), under the
+first submitter's request context; the launch's parent is the span open
+where that submission was made, the fetch's the launch. At the launch
+each submission records a ``batcher.wait`` span, from its submit to the
+launch, under its own trace id. The first launch starts
+``SBEACON_PROFILE``'s process capture (``telemetry.profiler``).
 
 Leader election (no dedicated flusher thread, zero idle cost): the
 first request into an empty accumulator becomes the leader, waits up to
@@ -74,10 +80,10 @@ from .telemetry import (
     current_context,
     note_device_stage,
     percentiles,
-    profile_region,
+    profiler,
     request_context,
 )
-from .utils.trace import span
+from .utils.trace import current_span_id, record, span
 
 
 @dataclass
@@ -109,6 +115,9 @@ class _Pending:
     #: the submitting request's context (cost attribution; None charges
     #: the unattributed residue)
     ctx: object = None
+    #: the span open where the submission was made (the parent of its
+    #: ``batcher.wait`` span and of a launch it leads)
+    span_id: str = ""
 
 
 class _Accumulator:
@@ -331,6 +340,7 @@ class MicroBatcher:
             req_deadline=req_deadline,
             lane=lane,
             ctx=ctx,
+            span_id=current_span_id(),
         )
         with self._stats_lock:
             self._n_submits += 1
@@ -771,6 +781,9 @@ class MicroBatcher:
                 for p in batch
             ])
         acc.pipeline.acquire()
+        if profiler.pending:
+            # SBEACON_PROFILE's capture starts at the first launch
+            profiler.start()
         t_launch = time.perf_counter()
         stage_hist = self._stage_hist
         with self._stats_lock:
@@ -782,18 +795,23 @@ class MicroBatcher:
             )
             for p in batch:
                 self._wait_ms.append((t_launch - p.t_submit) * 1e3)
+        t_mono = time.monotonic()
         for p in batch:
             wait_ms = (t_launch - p.t_submit) * 1e3
             if stage_hist is not None:
                 stage_hist.observe(wait_ms, label_value="batch_wait")
             charge_cost_to(p.ctx, queue_wait_ms=wait_ms)
+            record("batcher.wait", t_mono - wait_ms / 1e3, t_mono,
+                   trace_id=p.ctx.trace_id if p.ctx is not None else "",
+                   parent_id=p.span_id)
         # the first submitter's request context rides the launch thread,
         # so the launch's spans carry its trace id
-        lead_ctx = next((p.ctx for p in batch if p.ctx is not None), None)
+        lead = next((p for p in batch if p.ctx is not None), batch[0])
         try:
-            with request_context(lead_ctx), span(
-                "serving.microbatch"
-            ) as sp, profile_region("sbeacon.kernel.launch"):
+            with request_context(lead.ctx, span_id=lead.span_id), span(
+                "kernel.launch"
+            ) as sp:
+                launch_span = current_span_id()
                 # chaos site: a raised fault takes the launch-failure
                 # path (every waiter gets the error)
                 fault_point("kernel.launch")
@@ -823,7 +841,8 @@ class MicroBatcher:
             stage_hist.observe((t_disp - t_enc) * 1e3, label_value="launch")
         try:
             self._fetcher.submit(self._fetch_batch, acc, batch, offsets,
-                                 pending, t_launch, t_disp)
+                                 pending, t_launch, t_disp, lead.ctx,
+                                 launch_span)
         except BaseException as e:
             # fetcher closed mid-shutdown: the launch has no fetch stage,
             # so its waiters get the error here
@@ -834,13 +853,15 @@ class MicroBatcher:
                     p.event.set()
 
     def _fetch_batch(self, acc, batch, offsets, pending, t_launch,
-                     t_disp) -> None:
+                     t_disp, lead_ctx, launch_span) -> None:
         """FETCH stage (fetcher thread): wait for the batch's results,
         hand each submission its row-slice, give the pipeline slot back.
         A failed fetch (a CUDA error shows at the event wait) hands every
         submission its error."""
         try:
-            with profile_region("sbeacon.kernel.fetch"):
+            with request_context(lead_ctx, span_id=launch_span), span(
+                "kernel.fetch"
+            ):
                 res = pending.fetch()
             t_done = time.perf_counter()
             exec_ms = (t_done - t_launch) * 1e3

@@ -37,11 +37,15 @@ device-launch seam of this package in front of the flight recorder:
   counters count the pads a launch really carries: the scatter match
   kernel's chunk slots and the L0 segment table's ``SHARD_TIERS``
   shards; every other launch pads nothing;
-- ``profile_region`` (``:1496-1564``) on ``torch.profiler``:
-  ``SBEACON_PROFILE=<dir>`` starts one process-wide capture of CPU and
-  CUDA activity (every thread) at the first region, each region runs
-  under ``record_function(name)``, and a Chrome trace is exported into
-  the directory at exit.
+- the process capture (``profiler``, a :class:`_Profiler`) on
+  ``torch.profiler``: ``SBEACON_PROFILE=<dir>`` (or
+  ``ObservabilityConfig.profile_dir``) starts one process-wide capture
+  of CPU and CUDA activity on every thread at the batcher's first
+  kernel launch, and a Chrome trace is
+  exported into the directory at exit. The program marks its regions
+  with ``utils.trace.span``, which records while any ``torch.profiler``
+  capture runs, this one included; the JAX package's ``profile_region``
+  has no counterpart here.
 
 Stdlib only at import (torch is imported only when profiling is armed,
 numpy only for percentiles) and importable from any layer.
@@ -53,10 +57,12 @@ import collections
 import json
 import logging
 import os
+import random
 import re
 import threading
 import time
 import uuid
+from bisect import bisect_left
 from collections import deque
 from contextlib import contextmanager
 
@@ -216,10 +222,9 @@ class Gauge(_Instrument):
 class Histogram(_Instrument):
     """Fixed-bucket latency histogram with per-label-value children.
 
-    ``observe`` is the hot-path entry: one short lock, one linear
-    bucket scan over the fixed boundary tuple (13 compares) — no
-    allocation. Buckets are cumulative at render time, Prometheus
-    semantics.
+    ``observe`` is the hot-path entry: one short lock, one binary
+    search of the fixed boundary tuple — no allocation. Buckets are
+    cumulative at render time, Prometheus semantics.
 
     With ``exemplars=True`` each observation may carry a trace id
     (explicit ``exemplar=`` argument, or the ambient request context's
@@ -263,14 +268,11 @@ class Histogram(_Instrument):
                     [0] * (len(self.buckets) + 1), 0, 0.0
                 ]
             counts, _n, _sum = s
-            le = "+Inf"
-            for i, b in enumerate(self.buckets):
-                if v <= b:
-                    counts[i] += 1
-                    le = f"{b:g}"
-                    break
-            else:
-                counts[-1] += 1
+            # the first bound at or above v; len(buckets) is the
+            # overflow (+Inf) slot
+            i = bisect_left(self.buckets, v)
+            counts[i] += 1
+            le = f"{self.buckets[i]:g}" if i < len(self.buckets) else "+Inf"
             s[1] += 1
             s[2] += v
             if self.exemplars_enabled and exemplar:
@@ -656,8 +658,16 @@ def sanitize_trace_id(raw: str | None) -> str | None:
     return None
 
 
+#: span ids: 64 random bits from a generator of this process's own,
+#: seeded from the OS once (again in a forked child). ``uuid4`` reads
+#: the OS on every call and gives up the GIL to do so: beside one busy
+#: thread a call then waits most of a switch interval to get it back
+_span_ids = random.Random()
+os.register_at_fork(after_in_child=_span_ids.seed)
+
+
 def new_span_id() -> str:
-    return uuid.uuid4().hex[:16]
+    return f"{_span_ids.getrandbits(64):016x}"
 
 
 class RequestContext:
@@ -706,16 +716,28 @@ def current_context() -> RequestContext | None:
     return getattr(_ambient, "ctx", None)
 
 
+def handoff_span_id() -> str:
+    """The span open on the thread that handed this thread its work
+    (``request_context(..., span_id=)``), or ""."""
+    return getattr(_ambient, "span_id", "")
+
+
 @contextmanager
-def request_context(ctx: RequestContext | None):
+def request_context(ctx: RequestContext | None, span_id: str = ""):
     """Install ``ctx`` as this thread's ambient request context
-    (``None`` restores 'no context' — safe to pass through)."""
+    (``None`` restores 'no context' — safe to pass through).
+    ``span_id`` is the span open where the work was handed off
+    (``utils.trace.current_span_id()`` there): the first span this
+    thread opens inside takes it as its parent."""
     prev = getattr(_ambient, "ctx", None)
+    prev_span = getattr(_ambient, "span_id", "")
     _ambient.ctx = ctx
+    _ambient.span_id = span_id
     try:
         yield ctx
     finally:
         _ambient.ctx = prev
+        _ambient.span_id = prev_span
 
 
 #: the literal registry of every outcome-note key producers may
@@ -1521,19 +1543,18 @@ def recent_launches() -> list[dict]:
         return [dict(r) for r in _recent]
 
 
-# -- profiling hooks ----------------------------------------------------------
+# -- the process capture -----------------------------------------------------
 
 
 class _Profiler:
-    """``SBEACON_PROFILE=<dir>`` arms ``torch.profiler`` capture: the
-    first :func:`profile_region` entry starts one process-wide trace of
-    CPU and CUDA activity on every thread (``profile_all_threads`` where
-    this torch has it: the batcher launches from pool threads), and
-    every region runs under ``record_function(name)``, so the kernel
-    launch shows up as a labeled range around its CUDA kernels. At exit
-    (or :meth:`stop`) the trace is exported as Chrome JSON into the
-    directory (``exported`` names the file). Unarmed (the default), a
-    region entry is one attribute check."""
+    """``SBEACON_PROFILE=<dir>`` (or ``ObservabilityConfig.profile_dir``)
+    arms one process-wide ``torch.profiler`` capture of CPU and CUDA
+    activity on every thread (``profile_all_threads`` where this torch
+    has it: the batcher launches from pool threads), started by the
+    batcher's first kernel launch. While it runs, every program span
+    records a ``sbeacon.<name>`` range in it. At exit (or :meth:`stop`)
+    the trace is exported as Chrome JSON into the directory
+    (``exported`` names the file)."""
 
     def __init__(self, directory: str | None = None):
         if directory is None:
@@ -1546,11 +1567,18 @@ class _Profiler:
         #: the exported trace's path, once written
         self.exported: str | None = None
 
-    def _ensure_started(self) -> bool:
+    @property
+    def pending(self) -> bool:
+        """Armed, and not started (nor failed to start) yet."""
+        return bool(self.directory) and not (self._started or self._failed)
+
+    def start(self) -> bool:
+        """Start the capture (once per process); False when unarmed or
+        when this torch cannot profile."""
         with self._lock:
             if self._started:
                 return True
-            if self._failed:
+            if self._failed or not self.directory:
                 return False
             try:
                 import atexit
@@ -1601,22 +1629,5 @@ class _Profiler:
             log.exception("torch profiler export failed")
         return self.exported
 
-    @contextmanager
-    def region(self, name: str):
-        if not self.directory or not self._ensure_started():
-            yield
-            return
-        from torch.profiler import record_function
-
-        with record_function(name):
-            yield
-
 
 profiler = _Profiler()
-
-
-def profile_region(name: str):
-    """``with profile_region("sbeacon.kernel.launch"): ...`` — no-op
-    unless ``SBEACON_PROFILE`` (or ``ObservabilityConfig.profile_dir``)
-    is set."""
-    return profiler.region(name)

@@ -1,36 +1,81 @@
-"""Flag-gated hierarchical tracing.
+"""The program's one span system.
 
-Counterpart of ``sbeacon_tpu/utils/trace.py``, all of it: ``Span``
-(with ``to_dict``), ``Tracer`` (with ``wrap``, the decorator form, at
+Counterpart of ``sbeacon_tpu/utils/trace.py``: ``Span`` (with
+``to_dict``), ``Tracer`` (with ``wrap``, the decorator form, at
 ``:228`` there, and ``recent_trees(trace_id=)`` at ``:251``, which backs
-the ``/_trace`` route), the process-global ``tracer``, ``span``,
-``graft_launch_span`` and the ``SBEACON_TRACE`` switch with its exit
-report (``:117``, ``:298``).
+the ``/_trace`` route), the process-global ``tracer``, ``span`` and the
+``SBEACON_TRACE`` switch with its exit report (``:117``, ``:298``). The
+JAX package's ``graft_launch_span`` has no counterpart: nothing read it.
 
-One process-global :class:`Tracer` holds a thread-local span stack.
-``span("name")`` is a context manager (``tracer.wrap(name)`` the
-decorator form); nested spans record parent-child structure. When
-disabled (the default) ``span`` returns a no-op singleton — no
-allocation, no clock read. Enable via ``SBEACON_TRACE=1``,
-``tracer.enable()``, or the thread-scoped ``enabled(True)`` override.
-Finished spans aggregate into per-name statistics (count / total / min
-/ max) and retain the most recent N complete span trees, indexed by
-trace id; ``report()`` renders both, and a process enabled via
-``SBEACON_TRACE=1`` prints the report to stderr at exit. Spans opened
-under a request context (``telemetry.RequestContext``) carry its trace
-id.
+``span("name")`` is the program's only way to mark a region (a context
+manager; ``tracer.wrap(name)`` the decorator form). It records while
+``SBEACON_TRACE=1``, ``tracer.enable()`` or the thread-scoped
+``tracer.enabled(True)`` is on, and while a ``torch.profiler`` capture
+runs in this process (any capture: ``SBEACON_PROFILE``'s, see
+``telemetry.profiler``, or one a caller starts). Otherwise it returns a
+shared no-op object: a flag check, no clock read, no allocation.
+
+A recorded span:
+
+- sits on the tracer's per-thread span stack and, while the tracer is
+  on, enters its per-name statistics (count / total / min / max) and
+  the most recent complete span trees, indexed by trace id
+  (``report()``, ``/_trace``); a process enabled by ``SBEACON_TRACE=1``
+  prints the report to stderr at exit;
+- carries the trace id of the ambient request context
+  (``telemetry.RequestContext``), a span id of its own, and its
+  parent's: the span open beneath it on this thread, or, for the first
+  span of work handed to a pool thread, the span open where it was
+  handed off (``telemetry.request_context(ctx, span_id=)`` with
+  :func:`current_span_id` taken at the hand-off);
+- while a capture runs, opens a ``sbeacon.<name>`` range in it, on the
+  capture's own clock and on every thread, and at its end appends one
+  :class:`CaptureRecord` to the **capture log**: name, trace id, span
+  id, parent span id, start and end on ``time.monotonic()``, the
+  thread's CPU seconds over the span (``time.thread_time()``), the
+  thread and the span's notes.
+
+The range is a function-scope range (``_RecordFunctionFast``), not the
+user-scope one of ``torch.profiler.record_function``: the profiler
+repeats the innermost user-scope range around each kernel on the
+device's timeline as a ``gpu_user_annotation``, which a reader of the
+device timeline would count as device work.
+
+Spans whose ends the caller took (:func:`record`, :func:`instant`) land
+in the statistics and the capture log alike, with no range; so do the
+collector's pauses while a capture runs (``host.gc``, from a
+``gc.callbacks`` hook installed once at import, noting the generation;
+the log only).
+
+Whether anything records is decided in one place,
+:meth:`Tracer.recording`. The capture log is cleared when a capture
+starts (at the first span or record that sees it running), kept when it
+stops, and read with :func:`capture_records`.
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import os
 import threading
 import time
+from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
-from ..telemetry import current_context, new_span_id
+# torch keeps a process-wide flag of a running capture here
+import torch.autograd.profiler as _profiler_state
+from torch._C._profiler import _RecordFunctionFast
+
+from ..telemetry import current_context, handoff_span_id, new_span_id
+
+#: the prefix of the program's ranges in a ``torch.profiler`` capture
+RANGE_PREFIX = "sbeacon."
+#: the capture log's bound, in records (a traced benchmark window
+#: writes about 1e5)
+CAPTURE_LOG_SIZE = 1 << 20
 
 
 @dataclass(eq=False)  # identity equality: `in`-checks on the span stack
@@ -43,6 +88,7 @@ class Span:
     host that received the id via the ``X-Beacon-Trace`` header —
     shares that request's trace id, so one fan-out query's spans
     correlate across processes. ``span_id`` names this span itself.
+    ``t_start`` and ``t_end`` are on ``time.monotonic()``.
     """
 
     name: str
@@ -74,8 +120,63 @@ class Span:
         }
 
 
+class CaptureRecord(NamedTuple):
+    """One span of the capture log; ``start``/``end`` on
+    ``time.monotonic()`` (equal for an instant)."""
+
+    name: str
+    trace_id: str
+    span_id: str
+    parent_id: str
+    start: float
+    end: float
+    cpu_s: float
+    thread: int
+    notes: dict | None
+
+
+def _flat(notes: dict):
+    """A span's notes as the log keeps them: key, value, key, value."""
+    for kv in notes.items():
+        yield from kv
+
+
+class _Capture:
+    """The capture log and whether the running capture has been seen.
+    A record is one flat tuple, :class:`CaptureRecord`'s first eight
+    fields and then the notes' keys and values: the collector stops
+    tracking a plain tuple of atomic values the first time it sees it,
+    where it would track a dict or a tuple subclass for good and walk
+    the whole log in every collection."""
+
+    def __init__(self):
+        self.live = False
+        self.log: deque = deque(maxlen=CAPTURE_LOG_SIZE)
+        self.lock = threading.Lock()
+
+    def begin(self) -> None:
+        with self.lock:
+            if not self.live:
+                self.log.clear()
+                self.live = True
+
+
+_capture = _Capture()
+
+
+def _capturing() -> bool:
+    """Whether a capture runs; notes a capture's start or end."""
+    if _profiler_state._is_profiler_enabled:
+        if not _capture.live:
+            _capture.begin()
+        return True
+    if _capture.live:
+        _capture.live = False
+    return False
+
+
 class _NullSpan:
-    """No-op context manager handed out while tracing is disabled."""
+    """No-op context manager handed out while nothing records."""
 
     __slots__ = ()
 
@@ -93,17 +194,30 @@ _NULL = _NullSpan()
 
 
 class _ActiveSpan:
-    __slots__ = ("tracer", "span")
+    __slots__ = ("tracer", "span", "parent_id", "cpu0", "range", "keep")
 
-    def __init__(self, tracer: "Tracer", span: Span):
+    def __init__(self, tracer, span, parent_id, cpu0, rng, keep):
         self.tracer = tracer
         self.span = span
+        self.parent_id = parent_id
+        self.cpu0 = cpu0
+        self.range = rng
+        #: into the statistics and trees (the tracer is on here); a
+        #: span recorded for a capture alone goes to the capture log
+        self.keep = keep
 
     def __enter__(self):
         return self
 
     def __exit__(self, *exc):
-        self.tracer._finish(self.span)
+        sp = self.span
+        self.tracer._finish(sp, self.keep)
+        if self.range is not None:
+            self.range.__exit__(None, None, None)
+            _capture.log.append((
+                sp.name, sp.trace_id, sp.span_id, self.parent_id,
+                sp.t_start, sp.t_end, time.thread_time() - self.cpu0,
+                threading.get_ident(), *_flat(sp.meta)))
         return False
 
     def note(self, **kw):
@@ -153,24 +267,57 @@ class Tracer:
         finally:
             self._local.override = prev
 
+    def recording(self) -> bool:
+        """The one gate of :meth:`span`, :meth:`record` and the module's
+        functions: whether what this thread marks now records — while a
+        capture runs, else while this tracer is on for the thread."""
+        return _capturing() or self.is_enabled
+
     # -- span recording -----------------------------------------------------
 
     def span(self, name: str, **meta):
-        if not self.is_enabled:
+        if not self.recording():
             return _NULL
-        sp = Span(name=name, t_start=time.perf_counter(), meta=dict(meta))
+        return self._open(name, meta)
+
+    def _open(self, name: str, meta: dict):
         ctx = current_context()
-        if ctx is not None:
-            sp.trace_id = ctx.trace_id
-        sp.span_id = new_span_id()
         stack = getattr(self._local, "stack", None)
         if stack is None:
             stack = self._local.stack = []
+        parent_id = stack[-1].span_id if stack else handoff_span_id()
+        sp = Span(name=name, t_start=time.monotonic(), meta=meta,
+                  trace_id=ctx.trace_id if ctx is not None else "",
+                  span_id=new_span_id())
         stack.append(sp)
-        return _ActiveSpan(self, sp)
+        rng = None
+        if _capture.live:
+            rng = _RecordFunctionFast(RANGE_PREFIX + name)
+            rng.__enter__()
+        return _ActiveSpan(self, sp, parent_id, time.thread_time(), rng,
+                           self.is_enabled)
 
-    def _finish(self, sp: Span) -> None:
-        sp.t_end = time.perf_counter()
+    def current_span_id(self) -> str:
+        """The innermost span open on this thread, else the hand-off's
+        span (``telemetry.handoff_span_id()``), else ""."""
+        stack = getattr(self._local, "stack", None)
+        if stack:
+            return stack[-1].span_id
+        return handoff_span_id()
+
+    def _stat(self, name: str, el: float) -> None:
+        """Call holding ``self._lock``."""
+        st = self.stats.get(name)
+        if st is None:
+            self.stats[name] = [1, el, el, el]
+        else:
+            st[0] += 1
+            st[1] += el
+            st[2] = min(st[2], el)
+            st[3] = max(st[3], el)
+
+    def _finish(self, sp: Span, keep: bool = True) -> None:
+        sp.t_end = time.monotonic()
         # a span entered on one thread may be exited on another (the
         # batcher's launcher/fetcher pools hand work across threads):
         # the finishing thread then has no span stack at all — record
@@ -197,16 +344,10 @@ class Tracer:
                 was_root = True
         # else: sp was already adopted by a mis-ordered ancestor exit —
         # record stats only, leave the stack alone
+        if not keep:
+            return
         with self._lock:
-            st = self.stats.get(sp.name)
-            el = sp.elapsed
-            if st is None:
-                self.stats[sp.name] = [1, el, el, el]
-            else:
-                st[0] += 1
-                st[1] += el
-                st[2] = min(st[2], el)
-                st[3] = max(st[3], el)
+            self._stat(sp.name, sp.elapsed)
             if was_root:  # a completed root tree
                 self.trees.append(sp)
                 if sp.trace_id:
@@ -224,6 +365,29 @@ class Tracer:
                             pass
                         if not bucket:
                             del self._by_trace[old.trace_id]
+
+    def record(self, name: str, start: float, end: float, *,
+               trace_id: str | None = None, parent_id: str | None = None,
+               cpu_s: float = 0.0, **notes) -> None:
+        """A span whose ends the caller took (``time.monotonic()``):
+        into the statistics while the tracer is on, and into the capture
+        log while a capture runs.
+        The trace id and parent default to the ambient request's and
+        :meth:`current_span_id`."""
+        if not self.recording():
+            return
+        if trace_id is None:
+            ctx = current_context()
+            trace_id = ctx.trace_id if ctx is not None else ""
+        if parent_id is None:
+            parent_id = self.current_span_id()
+        if self.is_enabled:
+            with self._lock:
+                self._stat(name, end - start)
+        if _capture.live:
+            _capture.log.append((
+                name, trace_id, new_span_id(), parent_id, start, end,
+                cpu_s, threading.get_ident(), *_flat(notes)))
 
     def wrap(self, name: str | None = None):
         """Decorator form: ``@tracer.wrap("kernel.run")``."""
@@ -308,28 +472,64 @@ if tracer.is_enabled:
 
 
 def span(name: str, **meta):
+    """``with span("engine.search") as sp: ... sp.note(batch=n)``."""
     return tracer.span(name, **meta)
 
 
-def graft_launch_span(active, *, elapsed_ms: float = 0.0, **meta) -> None:
-    """Adopt one device launch as a ``device.launch`` child span of an
-    open span — the in-process twin of the coordinator's worker-span
-    graft (parallel/dispatch.py ``_graft_worker_spans``): the launch
-    already happened inside ``active``'s scope, so it lays out as the
-    trailing ``elapsed_ms`` of it. No-op while tracing is disabled
-    (``active`` is the null span) — the kernel hot path pays one
-    getattr."""
-    sp = getattr(active, "span", None)
-    if sp is None:
+def record(name: str, start: float, end: float, **kw) -> None:
+    """:meth:`Tracer.record` on the process tracer."""
+    tracer.record(name, start, end, **kw)
+
+
+def instant(name: str, **notes) -> None:
+    """A span of no length, now."""
+    if tracer.recording():
+        t = time.monotonic()
+        tracer.record(name, t, t, **notes)
+
+
+def current_span_id() -> str:
+    """The span to hand off with work for another thread (see
+    :meth:`Tracer.current_span_id`); "" while nothing records."""
+    return tracer.current_span_id()
+
+
+def capture_records(t0: float = float("-inf"),
+                    t1: float = float("inf")) -> list[CaptureRecord]:
+    """The capture log's spans that overlap ``[t0, t1]``
+    (``time.monotonic()``), in the order they ended."""
+    _capturing()
+    with _capture.lock:
+        log = list(_capture.log)
+    return [CaptureRecord(*r[:8], dict(zip(r[8::2], r[9::2])) or None)
+            for r in log if r[5] >= t0 and r[4] <= t1]
+
+
+# -- the collector's pauses ---------------------------------------------------
+
+_gc_start: tuple | None = None
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook: while a capture runs, each collection is a
+    ``host.gc`` record on the thread the collector ran on, noting its
+    generation. It takes no lock (a collection may start while this
+    thread holds any of them), so it reads the capture's state without
+    the gate, which may clear the log under one, and keeps out of the
+    statistics."""
+    global _gc_start
+    if phase == "start":
+        if _profiler_state._is_profiler_enabled and _capture.live:
+            _gc_start = (time.monotonic(), time.thread_time())
         return
-    now = time.perf_counter()
-    sp.children.append(
-        Span(
-            name="device.launch",
-            t_start=now - elapsed_ms / 1e3,
-            t_end=now,
-            meta=dict(meta),
-            trace_id=sp.trace_id,
-            span_id=new_span_id(),
-        )
-    )
+    if _gc_start is None:
+        return
+    t0, c0 = _gc_start
+    _gc_start = None
+    _capture.log.append((
+        "host.gc", "", new_span_id(), "", t0, time.monotonic(),
+        time.thread_time() - c0, threading.get_ident(),
+        "generation", info.get("generation")))
+
+
+gc.callbacks.append(_gc_hook)

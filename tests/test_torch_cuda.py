@@ -1659,18 +1659,24 @@ def test_first_library_load_is_a_compile(cuda_device, recorder, monkeypatch):
 
 @pytest.mark.cuda
 def test_profile_region_holds_the_kernel(index, tmp_path):
-    """A kernel launched on another thread inside ``profile_region``
-    shows in the exported trace inside that region (server_entry's
-    gate)."""
+    """A kernel launched on another thread inside a ``kernel.launch``
+    span, under the process capture (``telemetry._Profiler``, which
+    ``SBEACON_PROFILE`` arms): in the exported trace the launch call
+    lies inside the span's ``sbeacon.kernel.launch`` range on its
+    thread, and the ``scatter_match`` kernel it enqueued runs on the
+    card after that call (server_entry's gate)."""
     import json
     import threading
 
+    from sbeacon_tpu_torch.utils import trace
+
     prof = telemetry._Profiler(str(tmp_path))
+    assert prof.start()
     ids, q8 = (torch.from_numpy(x).to(index.device)
                for x in _main_path_slots(index, 6, 100, False, seed=4))
 
     def launch():
-        with prof.region("sbeacon.kernel.launch"):
+        with trace.span("kernel.launch"):
             sk.scatter_match(index.tiles, ids, q8, T=index.tile, CAP=128,
                              C=2)
             torch.cuda.synchronize()
@@ -1684,10 +1690,25 @@ def test_profile_region_holds_the_kernel(index, tmp_path):
         evs = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
     kernels = [e for e in evs if e.get("cat") == "kernel"
                and "scatter_match_kernel" in e["name"]]
-    regions = [e for e in evs
-               if e.get("cat") in ("user_annotation", "gpu_user_annotation")
-               and e["name"] == "sbeacon.kernel.launch"]
+    regions = [e for e in evs if e["name"] == "sbeacon.kernel.launch"
+               and e.get("cat") in ("cpu_op", "user_annotation")]
+    calls = {e["args"]["correlation"]: e for e in evs
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
     assert kernels and regions
+
+    def holds(r, call):
+        return (r.get("pid"), r.get("tid")) == (
+            call.get("pid"), call.get("tid")) and r["ts"] <= call["ts"] \
+            <= r["ts"] + r.get("dur", 0)
+
+    held = [k for k in kernels
+            if (call := calls.get(k.get("args", {}).get("correlation")))
+            is not None and any(holds(r, call) for r in regions)
+            and k["ts"] >= call["ts"]]
+    assert held, (len(kernels), len(regions))
+    # the program's span is in the capture log too
+    assert "kernel.launch" in {r.name for r in trace.capture_records()}
 
 
 #: the largest share of a spin-kernel hold an asynchronous launch may
